@@ -19,8 +19,13 @@ Phases, each of which raises on failure:
 1. a CUDA card is present; print its name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``tcforge_tpu_torch/csrc`` (one nvcc per
    source, all started together; sm_90a);
-3. each kernel against its plain torch version on the card, at its
-   paths' shapes, tolerance 0 (all of it is integer arithmetic);
+3. each kernel against its plain torch version on the card, tolerance 0
+   (all of it is integer arithmetic): at its paths' shapes, and off the
+   paths at ragged shapes and a band wider than the zoom's unrolled
+   bound; at the paths' shapes each is timed over a rotation of inputs
+   larger than L2, beside its plain version, its bound (bytes or int32
+   operations) and the one PyTorch call that computes the same function
+   where there is one;
 4. each path through the port's CLI on a seeded 48-frame Y4M, with the
    launch counts set to 0 just before and read just after: every kernel
    of the path was launched, and the output equals the same chain built
@@ -28,8 +33,9 @@ Phases, each of which raises on failure:
 5. the small cases whose SHA-256 ``tests/test_torch_cli.py`` pins
    against the JAX CLI, run on the card: same digests;
 6. numbers: steady-state chain frames/s on device-resident batches
-   (CUDA events) for the main path, cfg2 and cfg4; end-to-end CLI
-   frames/s; each kernel's time beside its plain version's.
+   (CUDA events) for the main path, cfg2, cfg4 and denoise3d, beside the
+   host's time to queue the batches and the device's busy share and
+   kernel time by name (torch.profiler); end-to-end CLI frames/s.
 
 It prints one JSON object per result, then the kernels' summary and, as
 its last line, ``{"ok": true, "device": {...}}``.  It imports nothing of
@@ -41,6 +47,7 @@ from __future__ import annotations
 import contextlib
 import hashlib
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -93,6 +100,37 @@ PATH_GOLDEN_SHA256 = {
     "denoise3d": ("deb1783b57ff0b24a9f9bc6ca65027ae"
                   "0a3acedc9b1cd7b7425bbdeafceb4648"),
 }
+
+# the bound (H100 SXM datasheet): device memory at 3.35 TB/s, and
+# int32 instructions at 64 lanes per SM (half the 128 fp32 lanes behind
+# the 67 TFLOP/s fp32 peak) x 132 SMs x 1.98 GHz; the card's L2
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+L2_BYTES = 50 << 20
+# int32 operations per element, the fewest each function needs: a
+# spatial step is the index (add, shift, two clamps for hqdn3d; add and
+# clamps for denoise3d) and the sum; a temporal step adds the carry's
+# shift, round and mask and the emitted byte's
+SCAN_OPS = {"hqdn3d_spatial_scan": 5, "d3_spatial_scan": 4,
+            "hqdn3d_temporal_scan": 12, "d3_temporal_scan": 4}
+# unsharp: 2*sx + 2*sy adds for the blur (the [1,1] cascade) and this
+# many for rounding, shift, sharpening and clamp per pixel
+UNSHARP_OPS = 8
+# TomsMoComp per synthesized pixel: per candidate a pair average (3), an
+# abs difference (2) and a compare-and-select (3); then the +1 bias and
+# the clamp to the bob pair's window
+TMC_OPS_PER_CANDIDATE = 8
+TMC_OPS = 8
+# kernel timing: the host time to queue one call, which the stream
+# sleeps ahead of the timed calls, at the card's clock
+QUEUE_S_PER_CALL = 2e-4
+SLEEP_HZ = 1.98e9
+# phase 3 off the paths: H or W of 1, 2, 31, 33, 127, 129, 719 and 1277;
+# (2, 37, 400) also takes the 16-byte paths at a ragged tile and strip
+RAGGED_SHAPES = ((2, 1, 1), (3, 31, 33), (2, 129, 127), (1, 719, 1277),
+                 (2, 37, 400), (1, 2, 129))
+# the spatial scans' step latency: a 720p luma plane
+STEP_SHAPE = (720, 1280)
 
 KERNELS = {
     "hqdn3d_spatial_scan": ("tcforge_tpu_torch/csrc/hqdn3d_scan.cu",
@@ -200,100 +238,21 @@ def main() -> int:
             if "ptxas info" in line:
                 print("  " + line.strip(), flush=True)
 
-    # 3. kernels vs plain versions at the main path's shapes
+    # 3. kernels vs plain versions at the main path's shapes; the library
+    # calls' float32 is plain fp32 arithmetic, never TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     job = Job(deinterlace=5, zoom_width=1280, zoom_height=720,
               filters=[FilterSpec("hqdn3d", "luma=4.0")])
     hq = Hqdn3dFilter(job, "luma=4.0")
-    ls, lt, cs, ct = hq.luts(dev)
-    rng = np.random.default_rng(7)
-
-    def rand_u8(*shape):
-        return torch.from_numpy(
-            rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
-
-    def timed(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
-
-    def max_err(a, b):
-        check(a.shape == b.shape and a.dtype == b.dtype,
-              f"shape/dtype {tuple(a.shape)} {a.dtype} vs "
-              f"{tuple(b.shape)} {b.dtype}")
-        return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
-
-    stats = {k: {"max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0}
-             for k in KERNELS}
-
-    def record(kernel, case, err, ms, plain_ms, per_batch=1):
-        """``per_batch``: launches of this case in one 16-frame batch of
-        the kernel's path (0: a check off the path, not in the sums)."""
-        emit(phase="kernel", kernel=kernel, case=case, max_abs_err=err,
-             ms=ms, plain_ms=plain_ms)
-        check(err == 0, f"{kernel} {case} differs from its plain version "
-                        f"(max abs err {err})")
-        s = stats[kernel]
-        s["max_abs_err"] = max(s["max_abs_err"], err)
-        s["ms"] += ms * per_batch
-        s["plain_ms"] += plain_ms * per_batch
-
-    # "ms" sums the launches of one 16-frame batch: u and v count twice
-    for plane, (n, h, w), sp, tp, per_batch in (
-            ("y", (16, 720, 1280), ls, lt, 1),
-            ("u/v", (16, 360, 640), cs, ct, 2)):
-        frames = [rand_u8(n, h, w), rand_u8(n, h, w)]
-        vs = []
-        for axis, name in ((-1, "H"), (-2, "V")):
-            src = frames[0] if axis == -1 else hp
-            got = kernels.spatial_scan(src, sp, axis)
-            want = kernels.spatial_scan_ref(src, sp, axis)
-            err = max_err(got, want)
-            ms = timed(lambda: kernels.spatial_scan(src, sp, axis), 20)
-            pms = timed(lambda: kernels.spatial_scan_ref(src, sp, axis), 1)
-            record("hqdn3d_spatial_scan", f"{plane} {name} {(n, h, w)}",
-                   err, ms * per_batch, pms * per_batch)
-            hp = got
-        vs.append(hp)
-        vs.append(kernels.spatial_scan(kernels.spatial_scan(
-            frames[1], sp, -1), sp, -2))
-        # two consecutive batches: the FrameAnt carry crosses them
-        ant0 = frames[0][0].to(torch.int32) << 8
-        o1, a1 = kernels.temporal_scan(vs[0], ant0, tp)
-        o2, a2 = kernels.temporal_scan(vs[1], a1, tp)
-        r1, b1 = kernels.temporal_scan_ref(vs[0], ant0, tp)
-        r2, b2 = kernels.temporal_scan_ref(vs[1], b1, tp)
-        err = max(max_err(o1, r1), max_err(a1, b1), max_err(o2, r2),
-                  max_err(a2, b2))
-        ms = timed(lambda: kernels.temporal_scan(vs[0], ant0, tp), 20)
-        pms = timed(lambda: kernels.temporal_scan_ref(vs[0], ant0, tp), 3)
-        record("hqdn3d_temporal_scan", f"{plane} 2 batches {(n, h, w)}",
-               err, ms * per_batch, pms * per_batch)
-
-    for plane, (h, w), (nh, nw), per_batch in (
-            ("y", (1080, 1920), (720, 1280), 1),
-            ("u/v", (540, 960), (360, 640), 2)):
-        src = rand_u8(16, h, w)
-        for axis, old, new, name in ((-1, w, nw, "H"), (-2, h, nh, "V")):
-            band = zoom._device_band(old, new, "lanczos3", str(dev))
-            got = kernels.zoom_pass(src, band, axis)
-            want = kernels.zoom_pass_ref(src, band, axis)
-            err = max_err(got, want)
-            ms = timed(lambda: kernels.zoom_pass(src, band, axis), 20)
-            pms = timed(lambda: kernels.zoom_pass_ref(src, band, axis), 3)
-            record("zoom_pass", f"{plane} {name} {tuple(src.shape)}->"
-                                f"{tuple(got.shape)}", err, ms * per_batch,
-                   pms * per_batch)
-            src = got
-    del frames, vs, hp
+    bench = KernelBench(torch, dev, kernels)
+    _check_main_kernels(torch, kernels, zoom, hq, bench)
     torch.cuda.empty_cache()
-    _check_slice_kernels(torch, kernels, rand_u8, timed, max_err, record)
+    _check_slice_kernels(torch, kernels, bench)
+    torch.cuda.empty_cache()
+    _check_ragged(torch, kernels, zoom, hq, bench)
+    torch.cuda.empty_cache()
+    _scan_steps(torch, kernels, hq, bench)
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -360,8 +319,7 @@ def main() -> int:
     # 6. steady-state chain frames/s on device-resident batches
     fps = _chain_fps(torch, dev)
     emit(phase="chain", batch=MAIN_BATCH, **fps)
-    for name in ("cfg2", "cfg4"):
-        spec = PATHS[name]
+    for name, spec in PATHS.items():
         fps = _chain_fps(torch, dev, spec["w"], spec["h"], spec["args"][1])
         emit(phase="chain", path=name, batch=MAIN_BATCH, **fps)
 
@@ -374,8 +332,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches[name],
-         "max_abs_err": stats[name]["max_abs_err"],
-         "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"]}
+         **bench.summary(name)}
         for name, (source, replaces) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -425,7 +382,13 @@ def _chain_fps(torch, dev, width: int = MAIN_W, height: int = MAIN_H,
     """Frames/s of VideoChain on batches already on the card: CUDA
     events around ``timed_batches`` distinct batches after ``warmup``
     ones, with every filter's carry kept throughout.  With no
-    ``filters`` it is the main path; else the ``-J`` chain alone."""
+    ``filters`` it is the main path; else the ``-J`` chain alone.
+
+    Beside it, the host's time to queue those batches (taken before the
+    synchronize: near the device time when the host holds the chain
+    back, below it when the device does), and from one more pass over
+    the same batches under torch.profiler, the device's busy share and
+    its kernel time by name."""
     from tcforge_tpu_torch.core.formats import ImageFormat
     from tcforge_tpu_torch.core.frame import FrameBatch
     from tcforge_tpu_torch.core.job import FilterSpec, Job
@@ -465,32 +428,279 @@ def _chain_fps(torch, dev, width: int = MAIN_W, height: int = MAIN_H,
     for fb in batches[warmup:]:
         out, states = chain(fb, states)
     end.record()
+    queue_s = time.perf_counter() - t0
     torch.cuda.synchronize()
-    host_s = time.perf_counter() - t0
     dev_ms = start.elapsed_time(end)
     frames = MAIN_BATCH * timed_batches
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fb in batches[warmup:]:
+            _, states = chain(fb, states)
+        torch.cuda.synchronize()
+    busy = _device_busy(prof, timed_batches)
+    if busy["busy_ms_per_batch"] is not None:
+        # the traced kernels' time over the untraced run's: the profiler
+        # slows the host, not the kernels
+        busy["busy_share"] = busy["busy_ms_per_batch"] / (
+            dev_ms / timed_batches)
     return {"chain_fps": frames / (dev_ms / 1e3),
             "ms_per_batch": dev_ms / timed_batches,
-            "host_s": host_s, "frames": frames,
-            "out_shape": list(out.y.shape)}
+            "queue_ms_per_batch": queue_s * 1e3 / timed_batches,
+            "frames": frames, "out_shape": list(out.y.shape), **busy}
 
 
-def _check_slice_kernels(torch, kernels, rand_u8, timed, max_err, record):
+def _device_busy(prof, batches: int) -> dict:
+    """From a torch.profiler trace, per batch: the window from the
+    first device operation's start to the last one's end, the time in
+    which a kernel, copy or fill ran, and the device time of the eight
+    costliest names and of the rest (None where the trace holds no
+    device work)."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text()).get("traceEvents", [])
+    ops = [e for e in events if e.get("ph") == "X" and e.get("cat") in
+           ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not ops:
+        return {"profiled_ms_per_batch": None, "busy_ms_per_batch": None,
+                "busy_share": None, "kernels_ms_per_batch": None}
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in ops)
+    busy_us, reach = 0.0, spans[0][0]
+    for lo, hi in spans:
+        if hi > reach:
+            busy_us += hi - max(lo, reach)
+            reach = hi
+    window_us = reach - spans[0][0]
+    by_name = {}
+    for e in ops:
+        name = e["name"][:80]
+        by_name[name] = by_name.get(name, 0.0) + float(e["dur"])
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    top = dict(ranked[:8])
+    top["(the rest)"] = sum(v for _, v in ranked[8:])
+    return {"profiled_ms_per_batch": window_us / 1e3 / batches,
+            "busy_ms_per_batch": busy_us / 1e3 / batches,
+            "kernels_ms_per_batch": {k: v / 1e3 / batches
+                                     for k, v in top.items()}}
+
+
+class KernelBench:
+    """Phase 3's bookkeeping: seeded inputs on the card, each kernel held
+    against its plain version (tolerance 0), timed over a rotation of
+    inputs larger than L2, and per kernel the sums over one 16-frame
+    batch of the path that carries it."""
+
+    def __init__(self, torch, dev, kernels):
+        self.torch, self.dev, self.kernels = torch, dev, kernels
+        self.rng = np.random.default_rng(7)
+        self.stats = {k: {"max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0,
+                          "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0,
+                          "library_ms": None} for k in KERNELS}
+
+    def u8(self, *shape):
+        return self.torch.from_numpy(
+            self.rng.integers(0, 256, shape, dtype=np.uint8)).to(self.dev)
+
+    def rotation(self, make):
+        """At least 4 distinct argument tuples from ``make``, more than
+        the card's 50 MB L2 together, so a timed call finds its inputs
+        in device memory as the path's next batch would."""
+        first = make()
+        size = sum(a.numel() * a.element_size() for a in first
+                   if isinstance(a, self.torch.Tensor))
+        return [first] + [make() for _ in range(max(3, L2_BYTES // size))]
+
+    def time(self, fn, inputs, reps):
+        """Device ms per call of ``fn`` over ``reps`` calls that cycle
+        through ``inputs``.  The stream first sleeps long enough for the
+        host to queue every call, so the host's time between launches is
+        not counted (a short kernel would otherwise time its wrapper)."""
+        torch = self.torch
+        for args in inputs[:reps]:
+            fn(*args)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(reps * QUEUE_S_PER_CALL * SLEEP_HZ))
+        start.record()
+        for i in range(reps):
+            fn(*inputs[i % len(inputs)])
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def check(self, kernel, case, got, want):
+        """Max abs err of ``got`` against ``want`` (tensors or tuples of
+        them); emits it and raises unless it is 0."""
+        torch = self.torch
+        if isinstance(got, torch.Tensor):
+            got, want = (got,), (want,)
+        err = 0
+        for a, b in zip(got, want):
+            check(a.shape == b.shape and a.dtype == b.dtype,
+                  f"{kernel} {case}: shape/dtype {tuple(a.shape)} {a.dtype} "
+                  f"vs {tuple(b.shape)} {b.dtype}")
+            if a.numel():
+                err = max(err, int((a.to(torch.int64) - b.to(torch.int64))
+                                   .abs().max()))
+        emit(phase="kernel_check", kernel=kernel, case=case, max_abs_err=err)
+        check(err == 0, f"{kernel} {case} differs from its plain version "
+                        f"(max abs err {err})")
+        s = self.stats[kernel]
+        s["max_abs_err"] = max(s["max_abs_err"], err)
+        return err
+
+    def record(self, kernel, case, per_batch, fn, ref, inputs, nbytes, ops,
+               library=None, reps=20, plain_reps=1):
+        """Check ``fn`` against ``ref`` on the first input and time both,
+        and ``library`` (a call and its own inputs) where one PyTorch call
+        computes the same function.  ``nbytes`` and ``ops``: what one call
+        must move and compute, for its bound.  ``per_batch``: launches of
+        this case in one 16-frame batch of the kernel's path (0: a check
+        off the path, not in the sums)."""
+        err = self.check(kernel, case, fn(*inputs[0]), ref(*inputs[0]))
+        ms = self.time(fn, inputs, reps)
+        plain_ms = self.time(ref, inputs, plain_reps)
+        lib_ms = self.time(*library, 5) if library else None
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / INT32_OPS_PER_S * 1e3
+        emit(phase="kernel", kernel=kernel, case=case, max_abs_err=err,
+             ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+             bound_ms=max(bytes_ms, ops_ms),
+             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+             per_batch=per_batch)
+        s = self.stats[kernel]
+        s["ms"] += ms * per_batch
+        s["plain_ms"] += plain_ms * per_batch
+        s["bytes_ms"] += bytes_ms * per_batch
+        s["ops_ms"] += ops_ms * per_batch
+        s["bound_ms"] += max(bytes_ms, ops_ms) * per_batch
+        if lib_ms is not None and per_batch:
+            s["library_ms"] = (s["library_ms"] or 0.0) + lib_ms * per_batch
+
+    def summary(self, kernel):
+        s = self.stats[kernel]
+        return {"max_abs_err": s["max_abs_err"], "ms": s["ms"],
+                "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+                "bound_by": ("bytes" if s["bytes_ms"] >= s["ops_ms"]
+                             else "operations"),
+                "library_ms": s["library_ms"]}
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _check_main_kernels(torch, kernels, zoom, hq, bench):
+    """Phase 3 for the main path's kernels: the hqdn3d scans at 720p and
+    the zoom passes 1080 -> 720, per plane."""
+    dev = bench.dev
+    ls, lt, cs, ct = hq.luts(dev)
+    # "ms" sums the launches of one 16-frame batch: u and v count twice
+    for plane, (n, h, w), sp, tp, per_batch in (
+            ("y", (16, 720, 1280), ls, lt, 1),
+            ("u/v", (16, 360, 640), cs, ct, 2)):
+        numel = n * h * w
+        lut_bytes = _nbytes(sp)
+        hin = bench.rotation(lambda: (bench.u8(n, h, w), sp, -1))
+        bench.record("hqdn3d_spatial_scan", f"{plane} H {(n, h, w)}",
+                     per_batch, kernels.spatial_scan, kernels.spatial_scan_ref,
+                     hin, numel * 5 + lut_bytes,
+                     numel * SCAN_OPS["hqdn3d_spatial_scan"])
+        vin = [(kernels.spatial_scan(x, sp, -1), sp, -2) for x, _, _ in hin]
+        del hin
+        bench.record("hqdn3d_spatial_scan", f"{plane} V {(n, h, w)}",
+                     per_batch, kernels.spatial_scan, kernels.spatial_scan_ref,
+                     vin, numel * 8 + lut_bytes,
+                     numel * SCAN_OPS["hqdn3d_spatial_scan"])
+        vs = [kernels.spatial_scan(x, sp, -2) for x, _, _ in vin[:2]]
+        del vin
+        # two consecutive batches: the FrameAnt carry crosses them
+        ant0 = (vs[0][0] >> 16) << 8
+        o1, a1 = kernels.temporal_scan(vs[0], ant0, tp)
+        o2, a2 = kernels.temporal_scan(vs[1], a1, tp)
+        r1, b1 = kernels.temporal_scan_ref(vs[0], ant0, tp)
+        r2, b2 = kernels.temporal_scan_ref(vs[1], b1, tp)
+        bench.check("hqdn3d_temporal_scan", f"{plane} 2 batches {(n, h, w)}",
+                    (o1, a1, o2, a2), (r1, b1, r2, b2))
+        del vs, o1, a1, o2, a2, r1, b1, r2, b2
+        tin = bench.rotation(lambda: (
+            bench.u8(n, h, w).to(torch.int32) << 16,
+            bench.u8(h, w).to(torch.int32) << 8, tp))
+        bench.record("hqdn3d_temporal_scan", f"{plane} {(n, h, w)}",
+                     per_batch, kernels.temporal_scan,
+                     kernels.temporal_scan_ref, tin,
+                     numel * 5 + h * w * 8 + _nbytes(tp),
+                     numel * SCAN_OPS["hqdn3d_temporal_scan"], plain_reps=3)
+        del tin
+
+    for plane, (h, w), (nh, nw), per_batch in (
+            ("y", (1080, 1920), (720, 1280), 1),
+            ("u/v", (540, 960), (360, 640), 2)):
+        src_shape = (16, h, w)
+        for axis, old, new, name in ((-1, w, nw, "H"), (-2, h, nh, "V")):
+            band = zoom._device_band(old, new, "lanczos3", str(dev))
+            if axis == -1:
+                ins = bench.rotation(lambda: (bench.u8(*src_shape), band, -1))
+            else:
+                hband = zoom._device_band(w, nw, "lanczos3", str(dev))
+                ins = bench.rotation(lambda: (kernels.zoom_pass(
+                    bench.u8(16, h, w), hband, -1), band, -2))
+            src = ins[0][0]
+            out_shape = list(src.shape)
+            out_shape[axis] = new
+            lines = src.numel() // old
+            outputs = lines * new
+            dense = torch.from_numpy(zoom.contrib_matrix(old, new, "lanczos3")
+                                     ).to(dev, torch.float32)
+            if axis == -1:
+                dense_t = dense.T.contiguous()
+                lib = (lambda x: torch.matmul(x, dense_t),
+                       bench.rotation(lambda: (bench.u8(*src.shape).reshape(
+                           -1, old).to(torch.float32),)))
+            else:
+                lib = (lambda x: torch.matmul(dense, x),
+                       bench.rotation(lambda: (bench.u8(*src.shape).to(
+                           torch.float32),)))
+            bench.record("zoom_pass", f"{plane} {name} {tuple(src.shape)}->"
+                                      f"{tuple(out_shape)}", per_batch,
+                         kernels.zoom_pass, kernels.zoom_pass_ref, ins,
+                         src.numel() + outputs,
+                         int(band.taps.sum()) * lines + 4 * outputs,
+                         library=lib, plain_reps=3)
+            del ins, lib
+
+
+def _check_slice_kernels(torch, kernels, bench):
     """Phase 3 for unsharp, TomsMoComp and the denoise3d scans."""
     from tcforge_tpu_torch.modules.filters.denoise3d import precalc_coefs
+    import torch.nn.functional as F
 
+    dev = bench.dev
     # unsharp: cfg2's luma (7x5, 0.8; chroma amount 0 launches nothing),
-    # and 17x15 where the uint32 sums wrap
+    # and 17x15 where the uint32 sums wrap.  The library call is the
+    # blur's sum alone: conv2d of the replicate-padded float32 plane with
+    # the binomial, exact below 2^24 (7x5: 255 * 2^10).
     for (n, h, w), (mx, my, am), per_batch in (
             ((16, 720, 1280), (7, 5, 0.8), 1),
             ((4, 360, 640), (17, 15, -1.5), 0)):
-        img = rand_u8(n, h, w)
-        args = (img, mx // 2, my // 2, am)
-        err = max_err(kernels.unsharp_plane(*args),
-                      kernels.unsharp_plane_ref(*args))
-        record("unsharp", f"{mx}x{my} {am} {(n, h, w)}", err,
-               timed(lambda: kernels.unsharp_plane(*args), 20),
-               timed(lambda: kernels.unsharp_plane_ref(*args), 3), per_batch)
+        sx, sy = mx // 2, my // 2
+        ins = bench.rotation(lambda: (bench.u8(n, h, w), sx, sy, am))
+        binom = torch.tensor([[math.comb(2 * sy, i) * math.comb(2 * sx, j)
+                               for j in range(2 * sx + 1)]
+                              for i in range(2 * sy + 1)],
+                             dtype=torch.float32, device=dev)[None, None]
+        lib = (lambda x: F.conv2d(x, binom), bench.rotation(lambda: (F.pad(
+            bench.u8(n, 1, h, w).to(torch.float32), (sx, sx, sy, sy),
+            mode="replicate"),))) if per_batch else None
+        numel = n * h * w
+        bench.record("unsharp", f"{mx}x{my} {am} {(n, h, w)}", per_batch,
+                     kernels.unsharp_plane, kernels.unsharp_plane_ref, ins,
+                     2 * numel, numel * (2 * sx + 2 * sy + UNSHARP_OPS),
+                     library=lib, plain_reps=3)
+        del ins, lib
 
     # TomsMoComp: cfg4 (effort 5, topfirst -> parity 0) per plane, the
     # other parity, and effort 15
@@ -498,50 +708,139 @@ def _check_slice_kernels(torch, kernels, rand_u8, timed, max_err, record):
             ((16, 1080, 1920), 5, 0, 1), ((16, 540, 960), 5, 0, 2),
             ((16, 1080, 1920), 5, 1, 0), ((16, 540, 960), 5, 1, 0),
             ((4, 1080, 1920), 15, 0, 0)):
-        window = rand_u8(n + 2, h, w)
-        args = (window[1:-1], window[:-2], window[2:], parity, effort)
-        err = max_err(kernels.tomsmocomp_plane(*args),
-                      kernels.tomsmocomp_plane_ref(*args))
-        record("tomsmocomp", f"effort {effort} parity {parity} {(n, h, w)}",
-               err, timed(lambda: kernels.tomsmocomp_plane(*args), 20),
-               timed(lambda: kernels.tomsmocomp_plane_ref(*args), 3),
-               per_batch)
+        def make():
+            window = bench.u8(n + 2, h, w)
+            return (window[1:-1], window[:-2], window[2:], parity, effort)
+        ins = bench.rotation(make)
+        synth_rows = sum(1 for r in range(1, h - 1) if r % 2 != parity)
+        candidates = len(kernels.tmc_offsets(effort)) + 1
+        bench.record("tomsmocomp", f"effort {effort} parity {parity} "
+                                   f"{(n, h, w)}", per_batch,
+                     kernels.tomsmocomp_plane, kernels.tomsmocomp_plane_ref,
+                     ins, (2 * n + 2) * h * w,
+                     n * synth_rows * w * (TMC_OPS_PER_CANDIDATE * candidates
+                                           + TMC_OPS),
+                     plain_reps=3)
+        del ins
 
     # denoise3d at its defaults: luma 4/6, chroma 3/4
     for plane, (n, h, w), (s, t), per_batch in (
             ("y", (16, 720, 1280), (4.0, 6.0), 1),
             ("u/v", (16, 360, 640), (3.0, 4.0), 2)):
-        dev = torch.device("cuda")
         sp = torch.from_numpy(precalc_coefs(s)).to(dev)
         tp = torch.from_numpy(precalc_coefs(t)).to(dev)
-        vs = []
-        for k in range(2):
-            src = rand_u8(n, h, w)
-            for axis, name in ((-1, "H"), (-2, "V")):
-                got = kernels.d3_spatial_scan(src, sp, axis)
-                if k == 0:
-                    err = max_err(got, kernels.d3_spatial_scan_ref(src, sp,
-                                                                   axis))
-                    record("d3_spatial_scan", f"{plane} {name} {(n, h, w)}",
-                           err,
-                           timed(lambda: kernels.d3_spatial_scan(src, sp,
-                                                                 axis), 20),
-                           timed(lambda: kernels.d3_spatial_scan_ref(
-                               src, sp, axis), 1), per_batch)
-                src = got
-            vs.append(src)
+        numel = n * h * w
+        hin = bench.rotation(lambda: (bench.u8(n, h, w), sp, -1))
+        bench.record("d3_spatial_scan", f"{plane} H {(n, h, w)}", per_batch,
+                     kernels.d3_spatial_scan, kernels.d3_spatial_scan_ref,
+                     hin, numel * 5 + _nbytes(sp),
+                     numel * SCAN_OPS["d3_spatial_scan"])
+        vin = [(kernels.d3_spatial_scan(x, sp, -1), sp, -2) for x, _, _ in hin]
+        del hin
+        bench.record("d3_spatial_scan", f"{plane} V {(n, h, w)}", per_batch,
+                     kernels.d3_spatial_scan, kernels.d3_spatial_scan_ref,
+                     vin, numel * 8 + _nbytes(sp),
+                     numel * SCAN_OPS["d3_spatial_scan"])
+        vs = [kernels.d3_spatial_scan(x, sp, -2) for x, _, _ in vin[:2]]
+        del vin
         # two consecutive batches: the previous-output carry crosses them
         prev0 = torch.zeros((h, w), dtype=torch.int32, device=dev)
         o1, p1 = kernels.d3_temporal_scan(vs[0], prev0, tp)
         o2, p2 = kernels.d3_temporal_scan(vs[1], p1, tp)
         r1, q1 = kernels.d3_temporal_scan_ref(vs[0], prev0, tp)
         r2, q2 = kernels.d3_temporal_scan_ref(vs[1], q1, tp)
-        err = max(max_err(o1, r1), max_err(p1, q1), max_err(o2, r2),
-                  max_err(p2, q2))
-        record("d3_temporal_scan", f"{plane} 2 batches {(n, h, w)}", err,
-               timed(lambda: kernels.d3_temporal_scan(vs[0], prev0, tp), 20),
-               timed(lambda: kernels.d3_temporal_scan_ref(vs[0], prev0, tp),
-                     3), per_batch)
+        bench.check("d3_temporal_scan", f"{plane} 2 batches {(n, h, w)}",
+                    (o1, p1, o2, p2), (r1, q1, r2, q2))
+        del vs, o1, p1, o2, p2, r1, q1, r2, q2
+        tin = bench.rotation(lambda: (bench.u8(n, h, w).to(torch.int32),
+                                      bench.u8(h, w).to(torch.int32), tp))
+        bench.record("d3_temporal_scan", f"{plane} {(n, h, w)}", per_batch,
+                     kernels.d3_temporal_scan, kernels.d3_temporal_scan_ref,
+                     tin, numel * 5 + h * w * 8 + _nbytes(tp),
+                     numel * SCAN_OPS["d3_temporal_scan"], plain_reps=3)
+        del tin
+
+
+def _check_ragged(torch, kernels, zoom, hq, bench):
+    """Phase 3 off the paths: the spatial scans (hqdn3d and denoise3d,
+    both axes, uint8 and int32 input) and the zoom pass (up and down;
+    box where a plane is too small for a wider filter) at ragged shapes,
+    and a band wider than the kernel's unrolled bound (sinc8 1920 ->
+    320), each against its plain version, tolerance 0."""
+    from tcforge_tpu_torch.modules.filters.denoise3d import precalc_coefs
+    dev = bench.dev
+    scans = (("hqdn3d_spatial_scan", kernels.spatial_scan,
+              kernels.spatial_scan_ref, hq.luts(dev)[0], 16),
+             ("d3_spatial_scan", kernels.d3_spatial_scan,
+              kernels.d3_spatial_scan_ref,
+              torch.from_numpy(precalc_coefs(4.0)).to(dev), 0))
+    for shape in RAGGED_SHAPES:
+        u8 = bench.u8(*shape)
+        for name, fn, ref, lut, shift in scans:
+            # int32 input in the step's domain, as the V pass gets it
+            i32 = (u8.to(torch.int32) << shift) + (torch.from_numpy(
+                bench.rng.integers(0, 1 << shift, shape, dtype=np.int32))
+                .to(dev) if shift else 0)
+            for x in (u8, i32):
+                for axis in (-1, -2):
+                    bench.check(name, f"{shape} {x.dtype} axis {axis}",
+                                fn(x, lut, axis), ref(x, lut, axis))
+        for axis in (-1, -2):
+            old = shape[axis]
+            for new in (old * 3 // 2 + 1, max(1, old * 2 // 3)):
+                filters = (("box",) if min(old, new) < 4
+                           else ("lanczos3", "sinc8"))
+                for filt in filters:
+                    band = zoom._device_band(old, new, filt, str(dev))
+                    bench.check("zoom_pass", f"{filt} {shape} axis {axis} "
+                                             f"{old}->{new}",
+                                kernels.zoom_pass(u8, band, axis),
+                                kernels.zoom_pass_ref(u8, band, axis))
+    for shape, axis in (((2, 64, 1920), -1), ((2, 1920, 64), -2)):
+        band = zoom._device_band(1920, 320, "sinc8", str(dev))
+        u8 = bench.u8(*shape)
+        bench.check("zoom_pass", f"sinc8 {shape} axis {axis} 1920->320 "
+                                 f"({band.weights.shape[1]} taps)",
+                    kernels.zoom_pass(u8, band, axis),
+                    kernels.zoom_pass_ref(u8, band, axis))
+    # a rows pass with more 32-row blocks than a grid's y could hold
+    tall = bench.u8(1950, 1080, 16)
+    band = zoom._device_band(16, 25, "lanczos3", str(dev))
+    bench.check("zoom_pass", "lanczos3 (1950, 1080, 16) axis -1 16->25",
+                kernels.zoom_pass(tall, band, -1),
+                kernels.zoom_pass_ref(tall, band, -1))
+
+
+def _scan_steps(torch, kernels, hq, bench):
+    """Phase 3's step latency of the spatial scans: the luma H and V
+    passes at 720p on 1 and 16 frames of noise and 16 flat frames, in ms
+    and ns per step (one sample along a line).  A time per step that
+    does not fall with fewer lines in flight is each line's own latency,
+    its serial chain's; noise spreads the table lookups over the banks,
+    a flat plane sends every lane to one entry."""
+    from tcforge_tpu_torch.modules.filters.denoise3d import precalc_coefs
+    dev = bench.dev
+    scans = (("hqdn3d_spatial_scan", kernels.spatial_scan, hq.luts(dev)[0]),
+             ("d3_spatial_scan", kernels.d3_spatial_scan,
+              torch.from_numpy(precalc_coefs(4.0)).to(dev)))
+    h, w = STEP_SHAPE
+    for n, content in ((1, "noise"), (16, "noise"), (16, "flat")):
+        def make():
+            x = bench.u8(n, h, w)
+            if content == "flat":
+                x.fill_(int(bench.rng.integers(0, 256)))
+            return (x,)
+        frames = bench.rotation(make)
+        for name, fn, lut in scans:
+            hin = [(x, lut, -1) for x, in frames]
+            h_ms = bench.time(fn, hin, 20)
+            vin = [(fn(*a), lut, -2) for a in hin]
+            v_ms = bench.time(fn, vin, 20)
+            emit(phase="scan_step", kernel=name, frames=n, content=content,
+                 h_ms=h_ms, h_ns_per_step=h_ms * 1e6 / w,
+                 v_ms=v_ms, v_ns_per_step=v_ms * 1e6 / h)
+            del hin, vin
+        del frames
 
 
 def _run_path(torch, cli, kernels, tmp, name, spec):

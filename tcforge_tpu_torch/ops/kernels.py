@@ -59,26 +59,34 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
+# outputs per block of the zoom kernel's rows pass (csrc/zoom_pass.cu
+# kStrip); a Band's ``lo`` holds one entry per strip of this many
+ZOOM_STRIP = 128
+
+
 class Band(NamedTuple):
     """A resample pass's contributor bands (ops/zoom.py band_table,
     which checks that every band lies inside the ``oldsize`` source
     samples): int32 (new,) first source index, int32 (new,) tap count
-    and int32 (new, maxtaps) zero-padded 16.16 weights."""
+    and int32 (new, maxtaps) zero-padded 16.16 weights; and, per strip
+    of ``ZOOM_STRIP`` outputs, int32 ``lo`` the strip's lowest first
+    index, with ``span`` the widest ``max(first + taps) - lo`` of any
+    strip (ops/zoom.py strip_spans)."""
 
     first: torch.Tensor
     taps: torch.Tensor
     weights: torch.Tensor
     oldsize: int
+    lo: torch.Tensor
+    span: int
 
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "hqdn3d_scan": {
-        "tc_hqdn3d_spatial_scan": (_P, _I, _P, _P, _LL, _LL, _LL, _LL, _LL,
-                                   _I, _P),
+        "tc_hqdn3d_spatial_scan": (_P, _I, _P, _P, _LL, _LL, _LL, _I, _P),
         "tc_hqdn3d_temporal_scan": (_P, _P, _P, _P, _P, _I, _LL, _P),
-        "tc_d3_spatial_scan": (_P, _I, _P, _P, _LL, _LL, _LL, _LL, _LL,
-                               _I, _P),
+        "tc_d3_spatial_scan": (_P, _I, _P, _P, _LL, _LL, _LL, _I, _P),
         "tc_d3_temporal_scan": (_P, _P, _P, _P, _P, _I, _LL, _P),
     },
     "unsharp": {
@@ -88,7 +96,8 @@ _SIGNATURES = {
         "tc_tomsmocomp": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P),
     },
     "zoom_pass": {
-        "tc_zoom_pass": (_P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _P),
+        "tc_zoom_pass": (_P, _P, _P, _P, _P, _I, _P, _I, _I, _LL, _LL, _LL,
+                         _LL, _I, _P),
     },
 }
 
@@ -168,15 +177,6 @@ def _scan_dim(axis: int) -> int:
     return axis % 3
 
 
-def _scan_geom(shape, dim: int) -> Tuple[int, ...]:
-    """(lines, inner, group_stride, line_stride, elem_stride, len) of the
-    scan lines of a contiguous (N, H, W) tensor along ``dim``."""
-    n, h, w = shape
-    if dim == 2:     # lines (n, y), contiguous along the line
-        return (n * h, n * h, 0, w, 1, w)
-    return (n * w, w, h * w, 1, w, h)   # lines (n, x), stride W
-
-
 def _scan_ref(f: torch.Tensor, dim: int, step) -> torch.Tensor:
     """``out[0] = f[0]``, ``out[s] = step(out[s-1], f[s])`` along ``dim``,
     one whole slice per loop turn."""
@@ -217,7 +217,7 @@ def spatial_scan(x: torch.Tensor, lut: torch.Tensor,
         return out
     _call("hqdn3d_scan", "tc_hqdn3d_spatial_scan", x.data_ptr(),
           int(x.dtype == torch.uint8), out.data_ptr(), lut.data_ptr(),
-          *_scan_geom(x.shape, dim), _stream(x))
+          *x.shape, int(dim == 2), _stream(x))
     launches["hqdn3d_spatial_scan"] += 1
     return out
 
@@ -270,9 +270,13 @@ def _check_band(band: Band, old: int) -> Tuple[int, int]:
     _check(band.first, "band.first", (torch.int32,), 1)
     _check(band.taps, "band.taps", (torch.int32,), 1)
     _check(band.weights, "band.weights", (torch.int32,), 2)
+    _check(band.lo, "band.lo", (torch.int32,), 1)
     new = band.weights.shape[0]
     if band.first.shape[0] != new or band.taps.shape[0] != new:
         raise ValueError("band tables disagree on the output size")
+    if band.lo.shape[0] != -(-new // ZOOM_STRIP):
+        raise ValueError(f"band.lo: expected one entry per {ZOOM_STRIP} "
+                         f"outputs, got {band.lo.shape[0]} for {new}")
     if band.oldsize != old:
         raise ValueError(f"band made for {band.oldsize} source samples, "
                          f"plane has {old}")
@@ -304,7 +308,7 @@ def zoom_pass(img: torch.Tensor, band: Band, axis: int) -> torch.Tensor:
     _check(img, "img", (torch.uint8,), 3)
     dim = _scan_dim(axis)
     new, maxtaps = _check_band(band, img.shape[dim])
-    if not _on_cuda(img, band.first, band.taps, band.weights):
+    if not _on_cuda(img, band.first, band.taps, band.weights, band.lo):
         return zoom_pass_ref(img, band, axis)
     b, h, w = img.shape
     out_shape = (b, h, new) if dim == 2 else (b, new, w)
@@ -313,8 +317,8 @@ def zoom_pass(img: torch.Tensor, band: Band, axis: int) -> torch.Tensor:
         return out
     _call("zoom_pass", "tc_zoom_pass", img.data_ptr(), out.data_ptr(),
           band.first.data_ptr(), band.taps.data_ptr(),
-          band.weights.data_ptr(), maxtaps, b, h, w, new, int(dim == 2),
-          _stream(img))
+          band.weights.data_ptr(), maxtaps, band.lo.data_ptr(), band.span,
+          ZOOM_STRIP, b, h, w, new, int(dim == 2), _stream(img))
     launches["zoom_pass"] += 1
     return out
 
@@ -551,7 +555,7 @@ def d3_spatial_scan(x: torch.Tensor, lut: torch.Tensor,
         return out
     _call("hqdn3d_scan", "tc_d3_spatial_scan", x.data_ptr(),
           int(x.dtype == torch.uint8), out.data_ptr(), lut.data_ptr(),
-          *_scan_geom(x.shape, dim), _stream(x))
+          *x.shape, int(dim == 2), _stream(x))
     launches["d3_spatial_scan"] += 1
     return out
 

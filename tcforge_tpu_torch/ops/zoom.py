@@ -195,13 +195,34 @@ def band_table(oldsize: int, newsize: int, filter_name: str = "lanczos3"
     return first, taps, weights
 
 
+def strip_spans(first: np.ndarray, taps: np.ndarray,
+                strip: int = kernels.ZOOM_STRIP) -> Tuple[np.ndarray, int]:
+    """The source span of each strip of ``strip`` consecutive outputs,
+    which the zoom kernel's rows pass stages: int32 (nstrips,) ``lo``,
+    the lowest first index of the strip, and ``span``, the widest
+    ``max(first + taps) - lo`` over the strips.  Every tap of every
+    output of strip s lies in ``[lo[s], lo[s] + span)``."""
+    n = len(first)
+    nstrips = -(-n // strip)
+    pad = nstrips * strip - n          # pad with the last output
+    starts = np.append(first, np.repeat(first[-1:], pad))
+    ends = np.append(first + taps, np.repeat(first[-1:] + taps[-1:], pad))
+    lo = starts.reshape(nstrips, strip).min(axis=1)
+    span = int((ends.reshape(nstrips, strip).max(axis=1) - lo).max())
+    return lo.astype(np.int32), span
+
+
 @lru_cache(maxsize=64)
 def _device_band(oldsize: int, newsize: int, filter_name: str,
                  device: str) -> kernels.Band:
-    """``band_table`` as tensors on ``device``, made once per device."""
-    tables = band_table(oldsize, newsize, filter_name)
+    """``band_table`` and its ``strip_spans`` as tensors on ``device``,
+    made once per device."""
+    first, taps, weights = band_table(oldsize, newsize, filter_name)
+    lo, span = strip_spans(first, taps)
     return kernels.Band(*(torch.from_numpy(np.array(a)).to(device)
-                          for a in tables), oldsize=oldsize)
+                          for a in (first, taps, weights)),
+                        oldsize=oldsize, lo=torch.from_numpy(lo).to(device),
+                        span=span)
 
 
 def zoom_plane(img: torch.Tensor, new_w: int, new_h: int,

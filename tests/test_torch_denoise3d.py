@@ -96,6 +96,35 @@ def test_spatial_scan_is_the_lowpass_recurrence(axis, dtype):
     np.testing.assert_array_equal(got, np.moveaxis(want, 0, axis))
 
 
+# H or W in {1, 2, 31, 33, 127, 129}: the spatial kernel's ragged tiles
+RAGGED_SHAPES = [(2, 1, 33), (2, 33, 1), (1, 2, 129), (2, 129, 2),
+                 (3, 31, 127), (1, 127, 31)]
+
+
+@pytest.mark.parametrize("shape", RAGGED_SHAPES)
+@pytest.mark.parametrize("axis", [-1, -2])
+@pytest.mark.parametrize("dtype", [np.uint8, np.int32])
+def test_plain_spatial_pass_matches_pallas_interpret_at_ragged_shapes(
+        shape, axis, dtype):
+    """One spatial pass against the TPU kernel ``spatial_scan`` mode
+    "d3" (closed form + probed corrections) in interpret mode, as
+    tests/test_filters.py runs it."""
+    import math
+    from tcforge_tpu.ops.kernels import lut_correction, spatial_scan
+    rng = np.random.default_rng(sum(shape) - axis)
+    x = rand_u8(rng, *shape).astype(dtype)
+    lines = np.moveaxis(x.astype(np.int32), axis, 0)
+    gamma = math.log(0.25) / math.log(1.0 - 4.0 / 255.0)
+    want = np.asarray(spatial_scan(
+        jnp.asarray(lines.reshape(lines.shape[0], -1)), gamma, True,
+        mode="d3", corr=lut_correction(4.0, mode="d3")))
+    want = np.moveaxis(want.reshape(lines.shape), 0, axis)
+    got = kernels.d3_spatial_scan(torch.from_numpy(x),
+                                  torch.from_numpy(td3.precalc_coefs(4.0)),
+                                  axis)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_two_batches_carry():
     rng = np.random.default_rng(9)
     b1, b2 = rand_u8(rng, 4, 12, 20), rand_u8(rng, 3, 12, 20)

@@ -16,6 +16,7 @@ from tcforge_tpu_torch.core.frame import FrameBatch
 from tcforge_tpu_torch.core.formats import ImageFormat
 from tcforge_tpu_torch.core.job import Job
 from tcforge_tpu_torch.modules.filters import hqdn3d as thq
+from tcforge_tpu_torch.ops import kernels
 
 CPU = torch.device("cpu")
 
@@ -73,6 +74,37 @@ def test_plain_scans_match_pallas_interpret(shape):
     got2, ga2 = port_denoise(b2, ga, 4.0, 6.0)
     for got, want in ((got1, want1), (ga, wa), (got2, want2), (ga2, wa2)):
         np.testing.assert_array_equal(got, np.asarray(want))
+
+
+# H or W in {1, 2, 31, 33, 127, 129}: the spatial kernel's ragged tiles
+RAGGED_SHAPES = [(2, 1, 33), (2, 33, 1), (1, 2, 129), (2, 129, 2),
+                 (3, 31, 127), (1, 127, 31)]
+
+
+@pytest.mark.parametrize("shape", RAGGED_SHAPES)
+@pytest.mark.parametrize("axis", [-1, -2])
+@pytest.mark.parametrize("dtype", [np.uint8, np.int32])
+def test_plain_spatial_pass_matches_pallas_interpret_at_ragged_shapes(
+        shape, axis, dtype):
+    """One spatial pass against the TPU kernel ``spatial_scan`` (closed
+    form + probed corrections) in interpret mode, as
+    tests/test_filters.py runs it; int32 input in the 16.16 domain, as
+    the V pass gets it."""
+    from tcforge_tpu.ops.kernels import _gamma_of, lut_correction, spatial_scan
+    rng = np.random.default_rng(sum(shape) - axis)
+    u8 = rand_u8(rng, *shape)
+    f = u8.astype(np.int32) << 16
+    if dtype == np.int32:
+        f = f + rng.integers(0, 1 << 16, shape, dtype=np.int32)
+    x = u8 if dtype == np.uint8 else f
+    lines = np.moveaxis(f, axis, 0)
+    want = np.asarray(spatial_scan(
+        jnp.asarray(lines.reshape(lines.shape[0], -1)), _gamma_of(4.0), True,
+        corr=lut_correction(4.0)))
+    want = np.moveaxis(want.reshape(lines.shape), 0, axis)
+    got = kernels.spatial_scan(torch.from_numpy(x),
+                               torch.from_numpy(thq.precalc_coefs(4.0)), axis)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_two_batches_carry():

@@ -66,6 +66,60 @@ def test_plain_pass_matches_apply_pass_exact(filt, axis, old, new):
     np.testing.assert_array_equal(got, want)
 
 
+# sizes 1, 2, 31, 33, 127, 129, up and down, so that maxtaps runs from 1
+# (box upscale) to 66 (sinc8 129 -> 31); planes too small for a wider
+# filter take box (the reference's reflection needs old >= its support)
+RAGGED_BANDS = [("box", 1, 2), ("box", 2, 1), ("box", 1, 1), ("box", 2, 4),
+                ("box", 33, 50), ("box", 129, 86),
+                ("lanczos3", 31, 47), ("lanczos3", 33, 22),
+                ("lanczos3", 127, 191), ("lanczos3", 129, 86),
+                ("sinc8", 31, 20), ("sinc8", 33, 50), ("sinc8", 127, 84),
+                ("sinc8", 129, 31)]
+
+
+@pytest.mark.parametrize("filt,old,new", RAGGED_BANDS)
+@pytest.mark.parametrize("axis", [-1, -2])
+def test_plain_pass_matches_apply_pass_exact_at_ragged_sizes(filt, old, new,
+                                                             axis):
+    shape = (2, 33, old) if axis == -1 else (2, old, 31)
+    img = rand_u8(*shape, seed=old + new)
+    band = zoom._device_band(old, new, filt, "cpu")
+    got = kernels.zoom_pass(torch.from_numpy(img), band, axis).numpy()
+    want = np.asarray(jzoom._apply_pass_exact(
+        jnp.asarray(img), jzoom.contrib_matrix(old, new, filt), axis))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_ragged_bands_span_the_tap_counts():
+    widths = {zoom.band_table(o, n, f)[2].shape[1] for f, o, n in RAGGED_BANDS}
+    assert min(widths) == 1 and max(widths) > 32
+
+
+@pytest.mark.parametrize("strip", [kernels.ZOOM_STRIP, 5])
+@pytest.mark.parametrize("filt,old,new", [
+    ("lanczos3", 1920, 1280), ("lanczos3", 1280, 1920), ("sinc8", 1920, 320),
+    ("lanczos3", 540, 360)] + RAGGED_BANDS)
+def test_strip_spans_hold_every_tap(filt, old, new, strip):
+    """Every tap of every output lies in its strip's staged span, and the
+    span is the widest strip's (upscales have first indices that are not
+    monotone, so the lowest one of a strip is not always its first)."""
+    first, taps, _ = zoom.band_table(old, new, filt)
+    lo, span = zoom.strip_spans(first, taps, strip)
+    assert lo.dtype == np.int32 and lo.shape == (-(-new // strip),)
+    s = np.arange(new) // strip
+    assert (lo[s] <= first).all()
+    assert (first + taps <= lo[s] + span).all()
+    assert (first == lo[s]).any()
+    assert (first + taps == lo[s] + span).any()
+
+
+def test_band_lo_must_cover_the_strips():
+    img = torch.zeros((1, 3, 300), dtype=torch.uint8)
+    band = zoom._device_band(300, 200, "lanczos3", "cpu")
+    with pytest.raises(ValueError, match="one entry per"):
+        kernels.zoom_pass(img, band._replace(lo=band.lo[:1]), -1)
+
+
 @pytest.mark.parametrize("filt", ["lanczos3", "mitchell"])
 @pytest.mark.parametrize("axis", [-1, -2])
 def test_plain_pass_matches_pallas_interpret(filt, axis):
