@@ -2,6 +2,7 @@
 """Drive the torch port's paths once on one CUDA card and check them.
 
     python3 chip_smoke.py        # from the root of a checkout, one card
+    python3 chip_smoke.py --parent DIR   # and an earlier checkout's kernels
 
 The main path is the 1080i -> 720p chain of ``bench.py``: YUV420P
 1920x1080, batch 16, ``-I 5`` linear-blend deinterlace, ``-Z 1280x720``
@@ -22,10 +23,16 @@ Phases, each of which raises on failure:
 3. each kernel against its plain torch version on the card, tolerance 0
    (all of it is integer arithmetic): at its paths' shapes, and off the
    paths at ragged shapes and a band wider than the zoom's unrolled
-   bound; at the paths' shapes each is timed over a rotation of inputs
-   larger than L2, beside its plain version, its bound (bytes or int32
-   operations) and the one PyTorch call that computes the same function
-   where there is one;
+   bound, TomsMoComp's window form over ragged planes, every effort and
+   batches of 1, 2 and 17 frames, and the temporal scans at ragged,
+   unaligned and aligned planes of 1 and 17 frames, two batches in a
+   row; at the paths' shapes each is timed over a rotation of inputs
+   larger than L2, beside its plain
+   version, its bound (bytes or int32 operations) and the one PyTorch
+   call that computes the same function where there is one; with
+   ``--parent DIR``, the TomsMoComp and temporal kernels of the checkout
+   in DIR are built too, called through DIR's own wrappers and timed in
+   turns with this tree's on the same inputs;
 4. each path through the port's CLI on a seeded 48-frame Y4M, with the
    launch counts set to 0 just before and read just after: every kernel
    of the path was launched, and the output equals the same chain built
@@ -116,11 +123,12 @@ SCAN_OPS = {"hqdn3d_spatial_scan": 5, "d3_spatial_scan": 4,
 # unsharp: 2*sx + 2*sy adds for the blur (the [1,1] cascade) and this
 # many for rounding, shift, sharpening and clamp per pixel
 UNSHARP_OPS = 8
-# TomsMoComp per synthesized pixel: per candidate a pair average (3), an
-# abs difference (2) and a compare-and-select (3); then the +1 bias and
-# the clamp to the bob pair's window
-TMC_OPS_PER_CANDIDATE = 8
-TMC_OPS = 8
+# TomsMoComp per 32-bit word of four synthesized pixels (byte-SIMD
+# operations do four at once): per candidate a pair average, an abs
+# difference, a compare and two selects; then the +1 bias and the clamp
+# to the bob pair's window (min, max, two saturated adds, max, min)
+TMC_OPS_PER_CANDIDATE = 5
+TMC_OPS = 7
 # kernel timing: the host time to queue one call, which the stream
 # sleeps ahead of the timed calls, at the card's clock
 QUEUE_S_PER_CALL = 2e-4
@@ -131,6 +139,20 @@ RAGGED_SHAPES = ((2, 1, 1), (3, 31, 33), (2, 129, 127), (1, 719, 1277),
                  (2, 37, 400), (1, 2, 129))
 # the spatial scans' step latency: a 720p luma plane
 STEP_SHAPE = (720, 1280)
+# phase 3 off the paths, TomsMoComp's window form: widths and heights
+# (|dx| = 4 reaches both edges at effort 15), batches of n frames, two
+# in a row so that the carried frames cross them
+TMC_WIDTHS = (1, 5, 9, 13, 127, 1277)
+TMC_HEIGHTS = (1, 3, 4, 5)
+TMC_BATCHES = (1, 2, 17)
+# the temporal scans off the paths: planes (h, w) and the offset in
+# elements at which the input tensors start.  plane % 4 != 0 or an
+# offset of 1 takes the scalar path; 64x128 and 360x640 at offset 0 take
+# the four-pixel vectors, at 1 frame (fewer than the kernel loads ahead)
+# and 17 (one batch ahead and a frame left over)
+TEMPORAL_PLANES = ((1, 1, 0), (3, 5, 0), (37, 402, 0), (719, 1277, 0),
+                   (64, 128, 1), (64, 128, 0), (360, 640, 0))
+TEMPORAL_FRAMES = (1, 17)
 
 KERNELS = {
     "hqdn3d_spatial_scan": ("tcforge_tpu_torch/csrc/hqdn3d_scan.cu",
@@ -151,7 +173,8 @@ KERNELS = {
 LIBS = ("hqdn3d_scan", "zoom_pass", "unsharp", "tomsmocomp")
 # each wrapper of ops/kernels.py, whose plain version is <name>_ref
 WRAPPERS = ("spatial_scan", "temporal_scan", "zoom_pass", "unsharp_plane",
-            "tomsmocomp_plane", "d3_spatial_scan", "d3_temporal_scan")
+            "tomsmocomp_plane", "tomsmocomp_window", "d3_spatial_scan",
+            "d3_temporal_scan")
 
 
 def write_test_y4m(path, width: int, height: int, frames: int,
@@ -198,7 +221,18 @@ def plain_versions(kernels):
             setattr(kernels, name, fn)
 
 
-def main() -> int:
+def main(argv=()) -> int:
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument(
+        "--parent", metavar="DIR",
+        help="a checkout of an earlier commit (any since 0713932, which "
+             "has this tree's temporal_scan, d3_temporal_scan and "
+             "tomsmocomp_plane wrappers): its TomsMoComp and temporal "
+             "kernels are built from DIR and called through DIR's own "
+             "wrappers, timed beside this tree's, in turns, on the same "
+             "inputs")
+    args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -246,11 +280,15 @@ def main() -> int:
               filters=[FilterSpec("hqdn3d", "luma=4.0")])
     hq = Hqdn3dFilter(job, "luma=4.0")
     bench = KernelBench(torch, dev, kernels)
+    if args.parent:
+        bench.parent = ParentKernels(Path(args.parent))
     _check_main_kernels(torch, kernels, zoom, hq, bench)
     torch.cuda.empty_cache()
     _check_slice_kernels(torch, kernels, bench)
     torch.cuda.empty_cache()
     _check_ragged(torch, kernels, zoom, hq, bench)
+    _check_tmc_windows(torch, kernels, bench)
+    _check_temporal_planes(torch, kernels, hq, bench)
     torch.cuda.empty_cache()
     _scan_steps(torch, kernels, hq, bench)
     torch.cuda.empty_cache()
@@ -329,6 +367,8 @@ def main() -> int:
             owner = next(p for p, spec in PATHS.items()
                          if name in spec["kernels"])
             launches[name] = path_launches[owner][name]
+    if bench.parent:
+        emit(phase="parent_summary", per_batch=bench.versus_sums)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches[name],
@@ -498,6 +538,8 @@ class KernelBench:
         self.stats = {k: {"max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0,
                           "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0,
                           "library_ms": None} for k in KERNELS}
+        self.parent = None
+        self.versus_sums = {}
 
     def u8(self, *shape):
         return self.torch.from_numpy(
@@ -531,9 +573,9 @@ class KernelBench:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
-    def check(self, kernel, case, got, want):
+    def check(self, kernel, case, got, want, quiet=False):
         """Max abs err of ``got`` against ``want`` (tensors or tuples of
-        them); emits it and raises unless it is 0."""
+        them); emits it (unless ``quiet``) and raises unless it is 0."""
         torch = self.torch
         if isinstance(got, torch.Tensor):
             got, want = (got,), (want,)
@@ -545,7 +587,9 @@ class KernelBench:
             if a.numel():
                 err = max(err, int((a.to(torch.int64) - b.to(torch.int64))
                                    .abs().max()))
-        emit(phase="kernel_check", kernel=kernel, case=case, max_abs_err=err)
+        if not quiet:
+            emit(phase="kernel_check", kernel=kernel, case=case,
+                 max_abs_err=err)
         check(err == 0, f"{kernel} {case} differs from its plain version "
                         f"(max abs err {err})")
         s = self.stats[kernel]
@@ -580,6 +624,26 @@ class KernelBench:
         if lib_ms is not None and per_batch:
             s["library_ms"] = (s["library_ms"] or 0.0) + lib_ms * per_batch
 
+    def versus(self, kernel, case, per_batch, fn, parent_fn, inputs,
+               parent_inputs, reps=20):
+        """This tree's ``fn`` and the parent's ``parent_fn`` on the same
+        inputs (``parent_inputs[i]`` holds ``inputs[i]`` in the form the
+        parent's kernel takes): equal outputs, then timed in turns
+        (parent, this, this, parent); per-batch sums kept by kernel."""
+        self.check(kernel, f"{case} vs parent", fn(*inputs[0]),
+                   parent_fn(*parent_inputs[0]))
+        p1 = self.time(parent_fn, parent_inputs, reps)
+        c1 = self.time(fn, inputs, reps)
+        c2 = self.time(fn, inputs, reps)
+        p2 = self.time(parent_fn, parent_inputs, reps)
+        emit(phase="versus_parent", kernel=kernel, case=case,
+             per_batch=per_batch, ms=[c1, c2], parent_ms=[p1, p2])
+        sums = self.versus_sums.setdefault(
+            kernel, {"ms": [0.0, 0.0], "parent_ms": [0.0, 0.0]})
+        for key, pair in (("ms", (c1, c2)), ("parent_ms", (p1, p2))):
+            for i, t in enumerate(pair):
+                sums[key][i] += t * per_batch
+
     def summary(self, kernel):
         s = self.stats[kernel]
         return {"max_abs_err": s["max_abs_err"], "ms": s["ms"],
@@ -587,6 +651,49 @@ class KernelBench:
                 "bound_by": ("bytes" if s["bytes_ms"] >= s["ops_ms"]
                              else "operations"),
                 "library_ms": s["library_ms"]}
+
+
+class ParentKernels:
+    """The TomsMoComp and temporal-scan wrappers of an earlier checkout's
+    ``tcforge_tpu_torch/ops/kernels.py``.  DIR's package is in
+    ``sys.modules`` only while it imports, so its wrappers keep their own
+    modules: at first use they build DIR's ``csrc`` into DIR's
+    ``_build``, and they call DIR's C interfaces.  Any checkout whose ``kernels.py`` has
+    ``temporal_scan``, ``d3_temporal_scan`` and ``tomsmocomp_plane``
+    with this tree's signatures will do: every commit since the
+    TomsMoComp and denoise3d ports (0713932)."""
+
+    PKG = "tcforge_tpu_torch"
+    TEMPORAL = {"hqdn3d_temporal_scan": "temporal_scan",
+                "d3_temporal_scan": "d3_temporal_scan"}
+
+    def __init__(self, root: Path):
+        import importlib
+
+        def ours(name):
+            return name == self.PKG or name.startswith(self.PKG + ".")
+
+        root = root.resolve()
+        saved = {k: m for k, m in sys.modules.items() if ours(k)}
+        for k in saved:
+            del sys.modules[k]
+        sys.path.insert(0, str(root))
+        try:
+            self.kernels = importlib.import_module(self.PKG + ".ops.kernels")
+        finally:
+            sys.path.remove(str(root))
+            for k in [k for k in sys.modules if ours(k)]:
+                del sys.modules[k]
+            sys.modules.update(saved)
+        check(Path(self.kernels.__file__).resolve().is_relative_to(root),
+              f"{root} holds no {self.PKG}")
+
+    def temporal(self, name):
+        return getattr(self.kernels, self.TEMPORAL[name])
+
+    def tomsmocomp(self, window, parity, effort):
+        return self.kernels.tomsmocomp_plane(window[1:-1], window[:-2],
+                                             window[2:], parity, effort)
 
 
 def _nbytes(*tensors) -> int:
@@ -615,7 +722,7 @@ def _check_main_kernels(torch, kernels, zoom, hq, bench):
                      per_batch, kernels.spatial_scan, kernels.spatial_scan_ref,
                      vin, numel * 8 + lut_bytes,
                      numel * SCAN_OPS["hqdn3d_spatial_scan"])
-        vs = [kernels.spatial_scan(x, sp, -2) for x, _, _ in vin[:2]]
+        vs = [kernels.spatial_scan(x, sp, -2) for x, _, _ in vin]
         del vin
         # two consecutive batches: the FrameAnt carry crosses them
         ant0 = (vs[0][0] >> 16) << 8
@@ -625,15 +732,15 @@ def _check_main_kernels(torch, kernels, zoom, hq, bench):
         r2, b2 = kernels.temporal_scan_ref(vs[1], b1, tp)
         bench.check("hqdn3d_temporal_scan", f"{plane} 2 batches {(n, h, w)}",
                     (o1, a1, o2, a2), (r1, b1, r2, b2))
-        del vs, o1, a1, o2, a2, r1, b1, r2, b2
-        tin = bench.rotation(lambda: (
-            bench.u8(n, h, w).to(torch.int32) << 16,
-            bench.u8(h, w).to(torch.int32) << 8, tp))
-        bench.record("hqdn3d_temporal_scan", f"{plane} {(n, h, w)}",
-                     per_batch, kernels.temporal_scan,
-                     kernels.temporal_scan_ref, tin,
-                     numel * 5 + h * w * 8 + _nbytes(tp),
-                     numel * SCAN_OPS["hqdn3d_temporal_scan"], plain_reps=3)
+        del o1, a1, o2, a2, r1, b1, r2, b2
+        # timed as the path feeds it: V-pass outputs, each with the
+        # FrameAnt the scan of the one before left (the lookups' spread
+        # over the table, and so over the banks, depends on both)
+        tin = _carried(kernels.temporal_scan, vs, ant0, tp)
+        del vs
+        _record_temporal(bench, kernels, "hqdn3d_temporal_scan", plane,
+                         per_batch, kernels.temporal_scan,
+                         kernels.temporal_scan_ref, tin)
         del tin
 
     for plane, (h, w), (nh, nw), per_batch in (
@@ -673,6 +780,31 @@ def _check_main_kernels(torch, kernels, zoom, hq, bench):
             del ins, lib
 
 
+def _carried(scan, vs, carry, lut):
+    """(v, carry, lut) per V-pass output of ``vs``, the carry of each
+    the one that ``scan`` left after the one before, as in the path."""
+    tin = []
+    for v in vs:
+        tin.append((v, carry, lut))
+        carry = scan(v, carry, lut)[1]
+    return tin
+
+
+def _record_temporal(bench, kernels, name, plane, per_batch, fn, ref, tin):
+    """Phase 3's timing of a temporal scan on ``tin`` (v, carry, lut),
+    and beside the parent's kernel where one was built."""
+    v, carry, lut = tin[0]
+    n, h, w = v.shape
+    numel = n * h * w
+    case = f"{plane} {(n, h, w)}"
+    bench.record(name, case, per_batch, fn, ref, tin,
+                 numel * 5 + h * w * 8 + _nbytes(lut),
+                 numel * SCAN_OPS[name], plain_reps=3)
+    if bench.parent:
+        bench.versus(name, case, per_batch, fn,
+                     bench.parent.temporal(name), tin, tin)
+
+
 def _check_slice_kernels(torch, kernels, bench):
     """Phase 3 for unsharp, TomsMoComp and the denoise3d scans."""
     from tcforge_tpu_torch.modules.filters.denoise3d import precalc_coefs
@@ -702,25 +834,42 @@ def _check_slice_kernels(torch, kernels, bench):
                      library=lib, plain_reps=3)
         del ins, lib
 
-    # TomsMoComp: cfg4 (effort 5, topfirst -> parity 0) per plane, the
-    # other parity, and effort 15
-    for (n, h, w), effort, parity, per_batch in (
-            ((16, 1080, 1920), 5, 0, 1), ((16, 540, 960), 5, 0, 2),
-            ((16, 1080, 1920), 5, 1, 0), ((16, 540, 960), 5, 1, 0),
-            ((4, 1080, 1920), 15, 0, 0)):
-        def make():
-            window = bench.u8(n + 2, h, w)
-            return (window[1:-1], window[:-2], window[2:], parity, effort)
+    # TomsMoComp through the window form, as cfg4's filter calls it:
+    # cfg4 (effort 5, topfirst -> parity 0) per plane; the other parity,
+    # effort 15 and the plane form (three tensors) off the path
+    for (n, h, w), effort, parity, per_batch, fn in (
+            ((16, 1080, 1920), 5, 0, 1, kernels.tomsmocomp_window),
+            ((16, 540, 960), 5, 0, 2, kernels.tomsmocomp_window),
+            ((16, 1080, 1920), 5, 1, 0, kernels.tomsmocomp_window),
+            ((16, 540, 960), 5, 1, 0, kernels.tomsmocomp_window),
+            ((4, 1080, 1920), 15, 0, 0, kernels.tomsmocomp_window),
+            ((16, 1080, 1920), 5, 0, 0, kernels.tomsmocomp_plane)):
+        if fn is kernels.tomsmocomp_plane:
+            def make():
+                window = bench.u8(n + 2, h, w)
+                return (window[1:-1], window[:-2], window[2:], parity,
+                        effort)
+            ref, form = kernels.tomsmocomp_plane_ref, "plane form"
+        else:
+            def make():
+                return (bench.u8(2, h, w), bench.u8(n, h, w), parity, effort)
+            ref, form = kernels.tomsmocomp_window_ref, "window"
         ins = bench.rotation(make)
         synth_rows = sum(1 for r in range(1, h - 1) if r % 2 != parity)
         candidates = len(kernels.tmc_offsets(effort)) + 1
-        bench.record("tomsmocomp", f"effort {effort} parity {parity} "
-                                   f"{(n, h, w)}", per_batch,
-                     kernels.tomsmocomp_plane, kernels.tomsmocomp_plane_ref,
+        case = f"{form} effort {effort} parity {parity} {(n, h, w)}"
+        bench.record("tomsmocomp", case, per_batch, fn, ref,
                      ins, (2 * n + 2) * h * w,
-                     n * synth_rows * w * (TMC_OPS_PER_CANDIDATE * candidates
-                                           + TMC_OPS),
+                     n * synth_rows * -(-w // 4) * (
+                         TMC_OPS_PER_CANDIDATE * candidates + TMC_OPS),
                      plain_reps=3)
+        if bench.parent and per_batch:
+            # the parent's filter built the window with cat before its
+            # kernel; the cat is not timed here
+            bench.versus("tomsmocomp", case, per_batch, fn,
+                         bench.parent.tomsmocomp, ins,
+                         [(torch.cat([st, b]), par, eff)
+                          for st, b, par, eff in ins])
         del ins
 
     # denoise3d at its defaults: luma 4/6, chroma 3/4
@@ -741,7 +890,7 @@ def _check_slice_kernels(torch, kernels, bench):
                      kernels.d3_spatial_scan, kernels.d3_spatial_scan_ref,
                      vin, numel * 8 + _nbytes(sp),
                      numel * SCAN_OPS["d3_spatial_scan"])
-        vs = [kernels.d3_spatial_scan(x, sp, -2) for x, _, _ in vin[:2]]
+        vs = [kernels.d3_spatial_scan(x, sp, -2) for x, _, _ in vin]
         del vin
         # two consecutive batches: the previous-output carry crosses them
         prev0 = torch.zeros((h, w), dtype=torch.int32, device=dev)
@@ -751,13 +900,14 @@ def _check_slice_kernels(torch, kernels, bench):
         r2, q2 = kernels.d3_temporal_scan_ref(vs[1], q1, tp)
         bench.check("d3_temporal_scan", f"{plane} 2 batches {(n, h, w)}",
                     (o1, p1, o2, p2), (r1, q1, r2, q2))
-        del vs, o1, p1, o2, p2, r1, q1, r2, q2
-        tin = bench.rotation(lambda: (bench.u8(n, h, w).to(torch.int32),
-                                      bench.u8(h, w).to(torch.int32), tp))
-        bench.record("d3_temporal_scan", f"{plane} {(n, h, w)}", per_batch,
-                     kernels.d3_temporal_scan, kernels.d3_temporal_scan_ref,
-                     tin, numel * 5 + h * w * 8 + _nbytes(tp),
-                     numel * SCAN_OPS["d3_temporal_scan"], plain_reps=3)
+        del o1, p1, o2, p2, r1, q1, r2, q2
+        # timed as the path feeds it: V-pass outputs, each with the
+        # previous output the scan of the one before left
+        tin = _carried(kernels.d3_temporal_scan, vs, prev0, tp)
+        del vs
+        _record_temporal(bench, kernels, "d3_temporal_scan", plane,
+                         per_batch, kernels.d3_temporal_scan,
+                         kernels.d3_temporal_scan_ref, tin)
         del tin
 
 
@@ -809,6 +959,94 @@ def _check_ragged(torch, kernels, zoom, hq, bench):
     bench.check("zoom_pass", "lanczos3 (1950, 1080, 16) axis -1 16->25",
                 kernels.zoom_pass(tall, band, -1),
                 kernels.zoom_pass_ref(tall, band, -1))
+
+
+def _check_tmc_windows(torch, kernels, bench):
+    """Phase 3 off the paths for TomsMoComp's window form, each case
+    over two batches in a row with the filter's carry of the last two
+    window frames between them: every width of TMC_WIDTHS by every
+    height of TMC_HEIGHTS at effort 0 and 15, both parities and n of
+    TMC_BATCHES; every effort level on a ragged and an aligned plane; a
+    batch at an address off 16 bytes.  One line per sweep."""
+    from tcforge_tpu_torch.modules.filters.tomsmocomp import window_carry
+
+    def two_batches(h, w, n, parity, effort, offset=0):
+        state = bench.u8(2, h, w)
+        got, want = [], []
+        for _ in range(2):
+            batch = bench.u8(n * h * w + offset)[offset:].view(n, h, w)
+            got += [kernels.tomsmocomp_window(state, batch, parity, effort)]
+            want += [kernels.tomsmocomp_window_ref(state, batch, parity,
+                                                   effort)]
+            carry = window_carry(state, batch)
+            want_carry = torch.cat([state, batch])[-2:]
+            got += [carry]
+            want += [want_carry]
+            state = carry
+        bench.check("tomsmocomp", f"window n {n} {(h, w)} parity {parity} "
+                                  f"effort {effort} offset {offset}",
+                    tuple(got), tuple(want), quiet=True)
+
+    cases = 0
+    for w in TMC_WIDTHS:
+        for h in TMC_HEIGHTS:
+            for effort in (0, 15):
+                for parity in (0, 1):
+                    for n in TMC_BATCHES:
+                        two_batches(h, w, n, parity, effort)
+                        cases += 1
+    for h, w in ((37, 1277), (66, 1920)):
+        for effort in (0, 1, 3, 5, 9, 11, 13, 15):
+            for parity in (0, 1):
+                two_batches(h, w, 3, parity, effort)
+                cases += 1
+    two_batches(40, 1920, 3, 0, 15, offset=1)
+    emit(phase="kernel_sweep", kernel="tomsmocomp", form="window",
+         cases=cases + 1, max_abs_err=0)
+
+
+def _check_temporal_planes(torch, kernels, hq, bench):
+    """Phase 3 off the paths for both temporal scans: the planes of
+    TEMPORAL_PLANES (each with its input tensors at its offset),
+    TEMPORAL_FRAMES frames, two batches in a row with the carry handed
+    over.  One line per kernel."""
+    from tcforge_tpu_torch.modules.filters.denoise3d import precalc_coefs
+    dev = bench.dev
+
+    def int32(x, offset):
+        buf = torch.empty(x.numel() + offset, dtype=torch.int32, device=dev)
+        return buf[offset:].view(x.shape).copy_(x)
+
+    def low_bits(shape, bits):
+        return torch.from_numpy(bench.rng.integers(
+            0, 1 << bits, shape, dtype=np.int32)).to(dev)
+
+    scans = (
+        ("hqdn3d_temporal_scan", kernels.temporal_scan,
+         kernels.temporal_scan_ref, hq.luts(dev)[1],
+         lambda s: (bench.u8(*s).int() << 16) + low_bits(s, 16),
+         lambda s: (bench.u8(*s).int() << 8) + low_bits(s, 8)),
+        ("d3_temporal_scan", kernels.d3_temporal_scan,
+         kernels.d3_temporal_scan_ref,
+         torch.from_numpy(precalc_coefs(6.0)).to(dev),
+         lambda s: bench.u8(*s).int(), lambda s: bench.u8(*s).int()))
+    for name, fn, ref, lut, make_v, make_carry in scans:
+        cases = 0
+        for h, w, offset in TEMPORAL_PLANES:
+            for frames in TEMPORAL_FRAMES:
+                carry = want_carry = int32(make_carry((h, w)), offset)
+                got, want = [], []
+                for _ in range(2):
+                    v = int32(make_v((frames, h, w)), offset)
+                    out, carry = fn(v, carry, lut)
+                    ref_out, want_carry = ref(v, want_carry, lut)
+                    got += [out, carry]
+                    want += [ref_out, want_carry]
+                    carry = int32(carry, offset)
+                bench.check(name, f"{(frames, h, w)} offset {offset}",
+                            tuple(got), tuple(want), quiet=True)
+                cases += 1
+        emit(phase="kernel_sweep", kernel=name, cases=cases, max_abs_err=0)
 
 
 def _scan_steps(torch, kernels, hq, bench):
@@ -885,4 +1123,4 @@ def _run_path(torch, cli, kernels, tmp, name, spec):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

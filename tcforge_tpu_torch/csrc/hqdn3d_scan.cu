@@ -33,15 +33,17 @@
 // what is left is the chain's own latency, which sets the floor.
 //
 // Measured (chip_smoke.py phase 3, NVIDIA H100 80GB HBM3, 700.00 W),
-// per 16-frame batch: hq 0.319 ms and d3 0.210 ms, against the previous
-// design's 0.937-0.946 and 0.840-0.841 timed the same way (one thread
-// per line, each load consumed in the step that issued it, an
-// uncoalesced H pass: 288 / 235 ns a step).  The luma H pass takes
-// 0.097 / 0.056 ms, 76 / 44 ns a step; at batch 1 (one warp per SM)
-// still 64 / 41 ns, so the time is each warp's own latency, not the
-// bytes: a 1280-step line takes 82 / 52 us however few lines share the
-// card, against a byte bound of 22 us for the luma H pass.  The V
-// passes take 0.063 / 0.057 ms, near half the device-memory rate.
+// per 16-frame batch: hq 0.302 ms (0.319 before each block's table
+// load started at its own chunk, below) and d3 0.210 ms, against the
+// design before this one, 0.937-0.946 and 0.840-0.841 timed the same way
+// (one thread per line, each load consumed in the step that issued it,
+// an uncoalesced H pass: 288 / 235 ns a step).  The luma H pass takes
+// 0.086 / 0.056 ms, 67 / 44 ns a step (hq 76 before the staggered table
+// load); at batch 1 (one warp per SM) 64 / 41 ns, so the time is each
+// warp's own latency, not the bytes: a 1280-step line takes 82 / 52 us
+// however few lines share the card, against a byte bound of 22 us for
+// the luma H pass.  The V passes take 0.058 / 0.056 ms, near half the
+// device-memory rate.
 //
 // Design, H pass (lines along W, scan_rows_kernel): one warp per block
 // owns 32 rows, one lane per row.  The warp stages 32-row x 128-sample
@@ -67,10 +69,31 @@
 // store.  (Keeping the next 32 rows in registers instead ran slower
 // than the previous design.)  320 luma and 160 chroma blocks per batch.
 //
-// The table: shared memory, loaded once per block (32 KB for hqdn3d).
+// The table: shared memory, loaded once per block (32 KB for hqdn3d),
+// each block starting at its own 16-byte chunk, so that the blocks that
+// load at one time do not queue on the same L2 lines (the hq spatial
+// scan's batch from 0.318 to 0.302 ms; d3's 2 KB table gains nothing).
 // The chain: Chain carries the last table value, so only the shared
 // load, the clamped add (a DPX add-min-relu, __viaddmin_s32_relu) and
 // the index's shift and address are serial.
+//
+// Design, temporal pass (temporal_scan_kernel): what bounds it is bytes,
+// the int32 V-pass output read once (16 frames) and a byte per sample
+// written, 0.036 ms per 720p YUV420 batch.  The previous design ran one
+// thread per pixel in 128-thread blocks, and each of ~10,800 blocks per
+// batch loaded the whole table for 16 steps of 128 pixels.  Now as many
+// blocks as fit on the card at once (512 threads for hq, 256 for d3)
+// load the table once and stride over the plane; a thread takes four
+// neighbouring pixels (four independent chains), loads sixteen frames
+// of them ahead as 16-byte vectors and stores a 4-byte word per frame;
+// a scalar tail takes plane % 4 and unaligned pointers.  The hq step
+// carries FrameAnt << 8, which is one mask of dst + 0x1000007F, clamps
+// its index with the DPX add-min-relu, and packs the four output bytes
+// (byte 2 of dst + 0x10007FFF) with PRMT.  Measured (chip_smoke.py phase 3 with
+// --parent, V-pass outputs and carries as the path feeds them, NVIDIA
+// H100 80GB HBM3, 700.00 W), per 720p batch: hq 0.055 ms and d3 0.049,
+// against the previous design's 0.108 and 0.048 timed in turns in the
+// same run; d3's small table gave the old design little to lose.
 //
 // Why the V pass is not fused with the temporal scan: a fused kernel
 // would run one thread per column over 16 frames x 720 rows, i.e. 1280
@@ -82,7 +105,7 @@
 
 namespace {
 
-constexpr int kThreads = 128;     // temporal scans
+constexpr int kTemporalPix = 4;        // temporal scans: pixels per thread
 constexpr int kTileCols = 128;    // H pass: samples per row per tile
 constexpr int kStages = 2;        // H pass: tiles in flight per warp
 constexpr int kColThreads = 64;   // V pass: columns per block
@@ -108,10 +131,20 @@ struct HqStep {
   static __device__ __forceinline__ int index(int t, int off) {
     return __viaddmin_s32_relu(t, off, (kLutSize << 12) - 1) >> 12;
   }
-  static __device__ __forceinline__ int temporal_prev(int carry) { return carry << 8; }
-  static __device__ __forceinline__ int next_carry(int dst) { return ((dst + 0x1000007F) >> 8) & 0xFFFF; }
-  static __device__ __forceinline__ uint8_t emit(int dst) {
-    return static_cast<uint8_t>(((dst + 0x10007FFF) >> 16) & 0xFF);
+  // The temporal pass carries FrameAnt << 8, which is the next step's
+  // prev: ((dst + 0x1000007F) >> 8 & 0xFFFF) << 8 is one mask.  It
+  // returns a word whose byte kEmitByte is the output byte
+  // ((dst + 0x10007FFF) >> 16) & 0xFF.
+  static constexpr int kEmitByte = 2;
+  // temporal pass: threads per block and frames loaded ahead, each
+  // step's fastest in probes on the card
+  static constexpr int kTemporalThreads = 512, kTemporalBatch = 16;
+  static __device__ __forceinline__ int carry_in(int ant) { return ant << 8; }
+  static __device__ __forceinline__ int carry_out(int c) { return c >> 8; }
+  static __device__ __forceinline__ uint32_t temporal(int& c, int v, const int* lut) {
+    const int dst = v + lut[index(c - v, kOffset)];
+    c = (dst + 0x1000007F) & 0xFFFF00;
+    return static_cast<uint32_t>(dst + 0x10007FFF);
   }
 };
 
@@ -130,9 +163,16 @@ struct D3Step {
   static __device__ __forceinline__ int index(int t, int off) {
     return __viaddmin_s32_relu(t, off, kLutSize - 1);
   }
-  static __device__ __forceinline__ int temporal_prev(int carry) { return carry; }
-  static __device__ __forceinline__ int next_carry(int dst) { return dst; }
-  static __device__ __forceinline__ uint8_t emit(int dst) { return static_cast<uint8_t>(dst); }
+  // The temporal pass carries the previous output; byte 0 of it is the
+  // output byte.
+  static constexpr int kEmitByte = 0;
+  static constexpr int kTemporalThreads = 256, kTemporalBatch = 16;
+  static __device__ __forceinline__ int carry_in(int prev) { return prev; }
+  static __device__ __forceinline__ int carry_out(int c) { return c; }
+  static __device__ __forceinline__ uint32_t temporal(int& c, int v, const int* lut) {
+    c = v + lut[index(c - v, kOffset)];
+    return static_cast<uint32_t>(c);
+  }
 };
 
 // A spatial scan line, step by step.  out = c + t, with c the last
@@ -158,28 +198,23 @@ struct Chain {
   }
 };
 
-__host__ __device__ __forceinline__ bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
+// The table into shared memory.  Every block reads the same bytes, so
+// each starts at its own 16-byte chunk (97 chunks on per block, modulo
+// the table): blocks that load at one time then spread over L2 instead
+// of queueing on the same lines.
 template <int N>
 __device__ __forceinline__ void load_lut(int* lut, const int32_t* __restrict__ g) {
   if (aligned16(g)) {
-    for (int i = threadIdx.x; i < N / 4; i += blockDim.x)
-      reinterpret_cast<int4*>(lut)[i] = reinterpret_cast<const int4*>(g)[i];
+    const unsigned rotate = (blockIdx.x + gridDim.x * blockIdx.y) * 97u;
+    for (int i = threadIdx.x; i < N / 4; i += blockDim.x) {
+      const int k = static_cast<int>((i + rotate) % (N / 4));
+      reinterpret_cast<int4*>(lut)[k] = reinterpret_cast<const int4*>(g)[k];
+    }
   } else {
     for (int i = threadIdx.x; i < N; i += blockDim.x) lut[i] = g[i];
   }
   __syncthreads();
 }
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
 
 // The H pass's shared layout for input type T: a tile row is kRowBytes
 // (kChunks 16-byte chunks of kPer samples); chunk c of row r is stored
@@ -408,24 +443,76 @@ scan_cols_kernel(const T* __restrict__ x, int32_t* __restrict__ out,
   }
 }
 
-// Per pixel p, over the frames f: dst = step(temporal_prev(carry),
-// v[f, p]); carry = next_carry(dst); out[f, p] = emit(dst).
+// kPix neighbouring pixels of the temporal pass, loaded and stored
+// as one vector.
+template <int kPix>
+struct alignas(4 * kPix) Pixels {
+  int v[kPix];
+};
+
+// One frame of kPix pixels (kTemporalPix or 1): each carry steps on its
+// sample of x, and the output bytes go to out[g] as one kPix-byte store.
+template <typename Step, int kPix>
+__device__ __forceinline__ void temporal_frame(uint8_t* out, long long g, Pixels<kPix>& carry,
+                                               const Pixels<kPix>& x, const int* lut) {
+  uint32_t e[kPix];
+#pragma unroll
+  for (int q = 0; q < kPix; ++q) e[q] = Step::temporal(carry.v[q], x.v[q], lut);
+  constexpr unsigned k = Step::kEmitByte, pair = k | (4 + k) << 4;
+  if constexpr (kPix == 1) {
+    out[g] = static_cast<uint8_t>(e[0] >> (8 * k));
+  } else {
+    static_assert(kPix == 4, "four pixels a word");
+    reinterpret_cast<uint32_t*>(out)[g] =
+        __byte_perm(__byte_perm(e[0], e[1], pair), __byte_perm(e[2], e[3], pair), 0x5410);
+  }
+}
+
+// Per pixel p, over the frames f: out[f, p] = the step of the carry on
+// v[f, p].  Persistent blocks, each loading the table once, stride over
+// the plane: a thread takes kPix pixels at a time (`groups` of them,
+// vector loads of v and the carry, a kPix-byte store per frame, the
+// loads of kBatch frames issued before their steps), then single pixels
+// for the rest (plane % kPix, or every pixel when `groups` is 0).
 template <typename Step>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Step::kTemporalThreads)
 temporal_scan_kernel(const int32_t* __restrict__ v, const int32_t* __restrict__ carry_in,
                      uint8_t* __restrict__ out, int32_t* __restrict__ carry_out,
-                     const int32_t* __restrict__ lut_g, int frames, long long plane) {
+                     const int32_t* __restrict__ lut_g, int frames, long long plane,
+                     long long groups) {
+  constexpr int kPix = kTemporalPix, kBatch = Step::kTemporalBatch;
+  using P = Pixels<kPix>;
   __shared__ __align__(16) int lut[Step::kLutSize];
   load_lut<Step::kLutSize>(lut, lut_g);
-  const long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (p >= plane) return;
-  int carry = carry_in[p];
-  for (int f = 0; f < frames; ++f) {
-    const int dst = Step::step(Step::temporal_prev(carry), v[f * plane + p], lut);
-    carry = Step::next_carry(dst);
-    out[f * plane + p] = Step::emit(dst);
+  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long g = first; g < groups; g += stride) {
+    P carry = reinterpret_cast<const P*>(carry_in)[g];
+#pragma unroll
+    for (int q = 0; q < kPix; ++q) carry.v[q] = Step::carry_in(carry.v[q]);
+    int f = 0;
+    for (; f + kBatch <= frames; f += kBatch) {
+      P x[kBatch];
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i)
+        x[i] = reinterpret_cast<const P*>(v + (f + i) * plane)[g];
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i)
+        temporal_frame<Step, kPix>(out + (f + i) * plane, g, carry, x[i], lut);
+    }
+    for (; f < frames; ++f)
+      temporal_frame<Step, kPix>(out + f * plane, g, carry,
+                                 reinterpret_cast<const P*>(v + f * plane)[g], lut);
+#pragma unroll
+    for (int q = 0; q < kPix; ++q) carry.v[q] = Step::carry_out(carry.v[q]);
+    reinterpret_cast<P*>(carry_out)[g] = carry;
   }
-  carry_out[p] = carry;
+  for (long long p = kPix * groups + first; p < plane; p += stride) {
+    Pixels<1> carry{{Step::carry_in(carry_in[p])}};
+    for (int f = 0; f < frames; ++f)
+      temporal_frame<Step, 1>(out + f * plane, p, carry, Pixels<1>{{v[f * plane + p]}}, lut);
+    carry_out[p] = Step::carry_out(carry.v[0]);
+  }
 }
 
 template <typename Step, typename T>
@@ -478,12 +565,35 @@ int launch_spatial(const void* x, int x_is_u8, int32_t* out, const int32_t* lut,
                  : launch_cols<Step>(static_cast<const int32_t*>(x), out, lut, b, h, w, stream);
 }
 
+// As many blocks as fit on the card at once (no more than the work
+// needs), so that each loads the table once.
 template <typename Step>
 int launch_temporal(const int32_t* v, const int32_t* carry_in, uint8_t* out,
                     int32_t* carry_out, const int32_t* lut, int frames,
                     long long plane, cudaStream_t stream) {
-  temporal_scan_kernel<Step><<<tc_blocks(plane, kThreads), kThreads, 0, stream>>>(
-      v, carry_in, out, carry_out, lut, frames, plane);
+  static int resident = 0;
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, temporal_scan_kernel<Step>,
+                                                          Step::kTemporalThreads, 0);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    resident = sms * per_sm;
+  }
+  constexpr int kPix = kTemporalPix;
+  const auto aligned = [](const void* p, int bytes) {
+    return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+  };
+  const bool vec = plane % kPix == 0 && aligned(v, 4 * kPix) && aligned(carry_in, 4 * kPix) &&
+                   aligned(carry_out, 4 * kPix) && aligned(out, kPix);
+  const long long groups = vec ? plane / kPix : 0;
+  const long long items = groups + (plane - kPix * groups);
+  const unsigned need = tc_blocks(items, Step::kTemporalThreads);
+  const unsigned blocks = need < static_cast<unsigned>(resident) ? need : resident;
+  temporal_scan_kernel<Step><<<blocks, Step::kTemporalThreads, 0, stream>>>(
+      v, carry_in, out, carry_out, lut, frames, plane, groups);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,13 +5,15 @@ TomsMoComp).  Per missing line pixel, the best of the bob pair, the
 no-motion pair (biased by +1) and the SearchEffort's motion pairs
 (previous frame at +d against next frame at -d) wins by the smallest
 abs-diff, and is clamped to the bob pair's [min - 4, max + 4] envelope.
-Each plane is one launch of ``ops/kernels.py`` ``tomsmocomp_plane``.
+Each plane is one launch of ``ops/kernels.py`` ``tomsmocomp_window``.
 
 The filter carries a two-frame window per plane: output j is built
 from inputs (j-2, j-1, j), so the first two frames of a stream have no
 real window and are marked ``ATTR_SKIPPED``, which the engine drops at
-write.  ``usevertfilter`` softens the result with a [1,2,1]/4 vertical
-pass in plain torch.
+write.  The kernel reads the window from the carried frames and the
+batch where they lie (``tomsmocomp_window``); the carry is a copy of
+the last two window frames.  ``usevertfilter`` softens the result with
+a [1,2,1]/4 vertical pass in plain torch.
 
 ``usestrangebob=1`` runs the plain torch version
 (``tomsmocomp_plane_ref``) on the card too: the kernel computes only
@@ -36,6 +38,13 @@ from tcforge_tpu_torch.ops import kernels
 # the JAX filter's name for the effort table (tomsmocomp.py:43-61); the
 # kernel wrapper and the plain version read the same table
 _offsets_for_effort = kernels.tmc_offsets
+
+
+def window_carry(state: torch.Tensor, batch: torch.Tensor) -> torch.Tensor:
+    """The last two frames of the window ``state ++ batch``, copied: a
+    view could alias an input buffer that the engine reuses."""
+    n = batch.shape[0]
+    return batch[-2:].clone() if n >= 2 else torch.cat([state[n:], batch])
 
 
 @register
@@ -73,34 +82,32 @@ class TomsMoCompFilter(VideoFilter):
         vert = bool(self.options["usevertfilter"])
         strange = bool(self.options["usestrangebob"])
 
-        def run_plane(window, luma):
-            prev, curr, nxt = window[:-2], window[1:-1], window[2:]
+        def run_plane(key, batch, luma):
             if strange:
-                out = kernels.tomsmocomp_plane_ref(curr, prev, nxt, parity,
-                                                   effort, True, luma)
+                window = torch.cat([state[key], batch])
+                out = kernels.tomsmocomp_plane_ref(
+                    window[1:-1], window[:-2], window[2:], parity, effort,
+                    True, luma)
             else:
-                out = kernels.tomsmocomp_plane(curr, prev, nxt, parity,
-                                               effort)
+                out = kernels.tomsmocomp_window(state[key], batch, parity,
+                                                effort)
             if vert:
                 out = out.to(torch.int32)
                 up = torch.roll(out, 1, dims=-2)
                 dn = torch.roll(out, -1, dims=-2)
                 out = ((up + 2 * out + dn + 2) >> 2).clamp_(0, 255) \
                     .to(torch.uint8)
-            return out
+            return out, window_carry(state[key], batch)
 
-        wy = torch.cat([state["y"], fb.y])
-        wu = torch.cat([state["u"], fb.u])
-        wv = torch.cat([state["v"], fb.v])
-        out_y = run_plane(wy, True)
-        out_u = run_plane(wu, False)
-        out_v = run_plane(wv, False)
+        (out_y, new_y), (out_u, new_u), (out_v, new_v) = (
+            run_plane("y", fb.y, True), run_plane("u", fb.u, False),
+            run_plane("v", fb.v, False))
 
         # output j is built from inputs (j-2, j-1, j): the first two
         # stream outputs lack a real window and are skipped
         attrs = fb.attrs if fb.attrs is not None else torch.zeros(
             (fb.batch,), dtype=torch.int32, device=fb.device)
         attrs = torch.where(fb.frame_ids < 2, attrs | ATTR_SKIPPED, attrs)
-        new_state = {"y": wy[-2:], "u": wu[-2:], "v": wv[-2:]}
+        new_state = {"y": new_y, "u": new_u, "v": new_v}
         out = fb.with_planes(y=out_y, u=out_u, v=out_v).with_attrs(attrs)
         return out, new_state

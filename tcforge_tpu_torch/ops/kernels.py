@@ -11,8 +11,8 @@ wrapper                    CUDA source                 replaces (tcforge_tpu)
                                                        ``zoom_pass_pallas``
 ``unsharp_plane``          ``csrc/unsharp.cu``         ops/kernels.py
                                                        ``unsharp_plane_pallas``
-``tomsmocomp_plane``       ``csrc/tomsmocomp.cu``      ops/kernels.py
-                                                       ``tomsmocomp_plane_
+``tomsmocomp_plane``,      ``csrc/tomsmocomp.cu``      ops/kernels.py
+``tomsmocomp_window``                                  ``tomsmocomp_plane_
                                                        pallas2`` and
                                                        ``tomsmocomp_plane_
                                                        pallas``
@@ -93,7 +93,8 @@ _SIGNATURES = {
         "tc_unsharp": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     },
     "tomsmocomp": {
-        "tc_tomsmocomp": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P),
+        "tc_tomsmocomp": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        "tc_tomsmocomp_window": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
     "zoom_pass": {
         "tc_zoom_pass": (_P, _P, _P, _P, _P, _I, _P, _I, _I, _LL, _LL, _LL,
@@ -498,6 +499,11 @@ def tomsmocomp_plane_ref(curr: torch.Tensor, prev: torch.Tensor,
     return torch.where(keep, c, synth).clamp_(0, 255).to(torch.uint8)
 
 
+def _check_tmc(parity: int, effort: int) -> None:
+    if parity not in (0, 1) or not 0 <= effort <= 15:
+        raise ValueError(f"parity {parity} / effort {effort} out of range")
+
+
 def tomsmocomp_plane(curr: torch.Tensor, prev: torch.Tensor,
                      nxt: torch.Tensor, parity: int,
                      effort: int) -> torch.Tensor:
@@ -511,20 +517,49 @@ def tomsmocomp_plane(curr: torch.Tensor, prev: torch.Tensor,
     if not curr.shape == prev.shape == nxt.shape:
         raise ValueError("curr/prev/nxt shapes differ: "
                          f"{[tuple(t.shape) for t in (curr, prev, nxt)]}")
-    if parity not in (0, 1) or not 0 <= effort <= 15:
-        raise ValueError(f"parity {parity} / effort {effort} out of range")
+    _check_tmc(parity, effort)
     if not _on_cuda(curr, prev, nxt):
         return tomsmocomp_plane_ref(curr, prev, nxt, parity, effort)
     out = torch.empty_like(curr)
     if curr.numel() == 0:
         return out
-    offs = tmc_offsets(effort)[1:]
-    flat = (ctypes.c_int * (2 * len(offs) or 1))(
-        *[v for pair in offs for v in pair])
-    n, h, w = curr.shape
     _call("tomsmocomp", "tc_tomsmocomp", curr.data_ptr(), prev.data_ptr(),
-          nxt.data_ptr(), out.data_ptr(), n, h, w, parity,
-          ctypes.cast(flat, ctypes.c_void_p), len(offs), _stream(curr))
+          nxt.data_ptr(), out.data_ptr(), *curr.shape, parity, effort,
+          _stream(curr))
+    launches["tomsmocomp"] += 1
+    return out
+
+
+def tomsmocomp_window_ref(state: torch.Tensor, batch: torch.Tensor,
+                          parity: int, effort: int) -> torch.Tensor:
+    """Plain version of ``tomsmocomp_window``: the window built with
+    ``cat``, then ``tomsmocomp_plane_ref``."""
+    window = torch.cat([state, batch])
+    return tomsmocomp_plane_ref(window[1:-1], window[:-2], window[2:],
+                                parity, effort)
+
+
+def tomsmocomp_window(state: torch.Tensor, batch: torch.Tensor, parity: int,
+                      effort: int) -> torch.Tensor:
+    """``tomsmocomp_plane`` over the window ``state ++ batch`` without
+    building it: ``state`` is the carried uint8 (2, H, W), ``batch`` the
+    uint8 (N, H, W); output j has prev ``state[j]`` (j < 2) else
+    ``batch[j-2]``, curr ``state[1]`` (j = 0) else ``batch[j-1]``, and
+    next ``batch[j]``."""
+    _check(state, "state", (torch.uint8,), 3)
+    _check(batch, "batch", (torch.uint8,), 3)
+    if state.shape[0] != 2 or state.shape[1:] != batch.shape[1:]:
+        raise ValueError(f"state {tuple(state.shape)} is not two frames of "
+                         f"the batch's {tuple(batch.shape[1:])}")
+    _check_tmc(parity, effort)
+    if not _on_cuda(state, batch):
+        return tomsmocomp_window_ref(state, batch, parity, effort)
+    out = torch.empty_like(batch)
+    if batch.numel() == 0:
+        return out
+    _call("tomsmocomp", "tc_tomsmocomp_window", state.data_ptr(),
+          batch.data_ptr(), out.data_ptr(), *batch.shape, parity, effort,
+          _stream(batch))
     launches["tomsmocomp"] += 1
     return out
 

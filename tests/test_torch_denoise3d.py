@@ -201,3 +201,39 @@ def test_wrapper_checks():
     with pytest.raises(ValueError, match="dtype"):
         kernels.d3_temporal_scan(x.to(torch.uint8),
                                  torch.zeros((4, 5), dtype=torch.int32), lut)
+
+
+# the temporal kernel's vector groups of four and its scalar tail:
+# planes with plane % 4 != 0, a single pixel, and 1 frame
+TEMPORAL_PLANES = [(1, 1), (3, 5), (7, 13), (31, 33), (2, 2)]
+
+
+def jax_temporal(v, prev, lut):
+    """The JAX filter's temporal step (denoise3d.py:77-82, ``_lowpass``
+    with the exact LUT) over the frames of v."""
+    out = []
+    prev = jnp.asarray(prev)
+    for frame in jnp.asarray(v):
+        prev = jd3._lowpass(prev, frame, jnp.asarray(lut))
+        out.append(prev)
+    return np.asarray(jnp.stack(out)).astype(np.uint8), np.asarray(prev)
+
+
+@pytest.mark.parametrize("plane", TEMPORAL_PLANES)
+@pytest.mark.parametrize("frames", [1, 5])
+def test_temporal_pass_matches_jax_lut_at_ragged_planes(plane, frames):
+    """The temporal pass alone over two batches, the previous output
+    carried."""
+    rng = np.random.default_rng(frames * 100 + sum(plane))
+    lut = td3.precalc_coefs(6.0)
+    prev = rand_u8(rng, *plane).astype(np.int32)
+    want_prev = prev
+    for _ in range(2):
+        v = rand_u8(rng, frames, *plane).astype(np.int32)
+        got, prev_t = kernels.d3_temporal_scan(torch.from_numpy(v),
+                                               torch.from_numpy(prev),
+                                               torch.from_numpy(lut))
+        want, want_prev = jax_temporal(v, want_prev, lut)
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(prev_t.numpy(), want_prev)
+        prev = prev_t.numpy()

@@ -160,3 +160,42 @@ def test_filter_apply_matches_jax_over_two_batches():
 def test_rejects_non_420():
     with pytest.raises(ValueError, match="YUV420P"):
         thq.Hqdn3dFilter(Job()).init_state(8, 8, ImageFormat.YUV422P, CPU)
+
+
+# the temporal kernel's vector groups of four and its scalar tail:
+# planes with plane % 4 != 0, a single pixel, and 1 frame
+TEMPORAL_PLANES = [(1, 1), (3, 5), (7, 13), (31, 33), (2, 2)]
+
+
+def jax_temporal(v, ant, lut):
+    """The JAX filter's temporal step (hqdn3d.py:118-126, ``_lpm`` with
+    the exact LUT) over the frames of v."""
+    out = []
+    ant = jnp.asarray(ant)
+    for frame in jnp.asarray(v):
+        dst = jhq._lpm(ant << 8, frame, jnp.asarray(lut))
+        ant = ((dst + 0x1000007F) >> 8) & 0xFFFF
+        out.append(((dst + 0x10007FFF) >> 16) & 0xFF)
+    return np.asarray(jnp.stack(out)).astype(np.uint8), np.asarray(ant)
+
+
+@pytest.mark.parametrize("plane", TEMPORAL_PLANES)
+@pytest.mark.parametrize("frames", [1, 5])
+def test_temporal_pass_matches_jax_lut_at_ragged_planes(plane, frames):
+    """The temporal pass alone over two batches, the FrameAnt carried:
+    V-pass-like input (16.16 samples with fraction bits) and a 16-bit
+    FrameAnt."""
+    rng = np.random.default_rng(frames * 100 + sum(plane))
+    lut = thq.precalc_coefs(6.0)
+    ant = rng.integers(0, 1 << 16, plane, dtype=np.int32)
+    want_ant = ant
+    for _ in range(2):
+        v = ((rand_u8(rng, frames, *plane).astype(np.int32) << 16)
+             + rng.integers(0, 1 << 16, (frames, *plane), dtype=np.int32))
+        got, ant_t = kernels.temporal_scan(torch.from_numpy(v),
+                                           torch.from_numpy(ant),
+                                           torch.from_numpy(lut))
+        want, want_ant = jax_temporal(v, want_ant, lut)
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(ant_t.numpy(), want_ant)
+        ant = ant_t.numpy()

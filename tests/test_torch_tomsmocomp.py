@@ -1,7 +1,9 @@
 """TomsMoComp in the torch port (plain version on the CPU) against the
 JAX filter: the jnp tournament at every effort level and both parities,
-StrangeBob on luma and chroma, the Pallas kernel in interpret mode, and
-the filter over two batches with its window carried.  Tolerance 0."""
+StrangeBob on luma and chroma, the Pallas kernel in interpret mode, the
+window form (carried frames and batch, never concatenated) at ragged
+shapes, and the filter over two batches with its window carried, at
+batches of 1, 2 and 5 frames too.  Tolerance 0."""
 
 from __future__ import annotations
 
@@ -186,3 +188,88 @@ def test_wrapper_checks():
         kernels.tomsmocomp_plane(x, x, x, 2, 5)
     with pytest.raises(ValueError, match="out of range"):
         kernels.tomsmocomp_plane(x, x, x, 0, 16)
+
+
+@pytest.mark.parametrize("options", ["", "searcheffort=15:topfirst=0",
+                                     "usestrangebob=1"])
+@pytest.mark.parametrize("n", (1, 2, 5))
+def test_window_form_and_filter_over_small_batches(options, n):
+    """Two batches of n frames: the window form's plain version on the
+    carried frames and the batch, and the filter's apply (its outputs,
+    flags and carried frames, n < 2 included), against the JAX filter."""
+    w, h = 22, 14
+    port, pstate, ref, jstate = _filter_pair(options, w, h)
+    effort = port.options["searcheffort"]
+    parity = 0 if port.options["topfirst"] else 1
+    rng = np.random.default_rng(n + len(options))
+    for first in (0, n):
+        planes = [rng.integers(0, 256, (n, hh, ww), dtype=np.uint8)
+                  for hh, ww in ((h, w), (h // 2, w // 2), (h // 2, w // 2))]
+        if not port.options["usestrangebob"]:
+            got = kernels.tomsmocomp_window_ref(
+                pstate["y"], torch.from_numpy(planes[0]), parity, effort)
+            want = _jax_plane(*_window_views(
+                np.concatenate([pstate["y"].numpy(), planes[0]])),
+                parity, effort)
+            np.testing.assert_array_equal(got.numpy(), want)
+        pout, pstate = port.apply(
+            FrameBatch.from_numpy(*planes, device=CPU, first_id=first),
+            pstate)
+        jout, jstate = ref.apply(
+            JFrameBatch.from_numpy(*planes, first_id=first), jstate)
+        for got, want in zip(pout.to_numpy(), jout.planes):
+            np.testing.assert_array_equal(got, np.asarray(want))
+        np.testing.assert_array_equal(pout.attrs.numpy(),
+                                      np.asarray(jout.attrs))
+        for key in ("y", "u", "v"):
+            np.testing.assert_array_equal(pstate[key].numpy(),
+                                          np.asarray(jstate[key]))
+
+
+def _window_views(window):
+    """(curr, prev, next) of a (n + 2, H, W) window."""
+    return window[1:-1], window[:-2], window[2:]
+
+
+@pytest.mark.parametrize("effort", (0, 15))
+@pytest.mark.parametrize("h", (1, 3, 4, 5))
+@pytest.mark.parametrize("w", (1, 5, 9, 13, 127))
+def test_window_form_at_ragged_shapes(w, h, effort):
+    """Widths that are no multiple of 4 or 16 and planes of 1-5 rows
+    (rows 0 and H-1 kept whatever the parity; |dx| = 4 at effort 15
+    reaches both edges), against the jnp tournament."""
+    parity = (w + h) % 2
+    rng = np.random.default_rng(w * 10 + h + effort)
+    state = rng.integers(0, 256, (2, h, w), dtype=np.uint8)
+    batch = rng.integers(0, 256, (3, h, w), dtype=np.uint8)
+    got = kernels.tomsmocomp_window(torch.from_numpy(state),
+                                    torch.from_numpy(batch), parity, effort)
+    want = _jax_plane(*_window_views(np.concatenate([state, batch])),
+                      parity, effort)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("n", (1, 2, 3))
+def test_window_carry_is_a_copy_of_the_last_two_frames(n):
+    state = torch.arange(2 * 6, dtype=torch.uint8).reshape(2, 2, 3)
+    batch = torch.arange(n * 6, dtype=torch.uint8).reshape(n, 2, 3) + 100
+    carry = ttmc.window_carry(state, batch)
+    np.testing.assert_array_equal(carry.numpy(),
+                                  torch.cat([state, batch])[-2:].numpy())
+    assert carry.is_contiguous()
+    assert carry.data_ptr() not in (state.data_ptr(), batch.data_ptr())
+    batch.fill_(0)
+    assert int(carry[-1].max()) > 0
+
+
+def test_window_wrapper_checks():
+    state = torch.zeros((2, 6, 5), dtype=torch.uint8)
+    batch = torch.zeros((3, 6, 5), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="two frames"):
+        kernels.tomsmocomp_window(state[:1], batch, 0, 5)
+    with pytest.raises(ValueError, match="two frames"):
+        kernels.tomsmocomp_window(state[:, :5].contiguous(), batch, 0, 5)
+    with pytest.raises(ValueError, match="dtype"):
+        kernels.tomsmocomp_window(state, batch.int(), 0, 5)
+    with pytest.raises(ValueError, match="out of range"):
+        kernels.tomsmocomp_window(state, batch, 0, 16)
