@@ -7,13 +7,19 @@
 The main path is the 1080i -> 720p chain of ``bench.py``: YUV420P
 1920x1080, batch 16, ``-I 5`` linear-blend deinterlace, ``-Z 1280x720``
 Lanczos3 zoom, ``-J hqdn3d=luma=4.0`` (which runs after the zoom, at
-1280x720).  Three more paths follow it, each driven on its own:
+1280x720).  Five more paths follow it, each driven on its own:
 
 - cfg2 (``benches/run_configs.py:162-170``): 1280x720, batch 16,
   ``-J hqdn3d=luma=4.0,unsharp=luma=0.8:luma_matrix=7x5``;
 - cfg4 (``run_configs.py:183-191``): 1920x1080 at 29.97 fps, batch 16,
   ``-J tomsmocomp=searcheffort=5``; its first two frames are skipped;
-- denoise3d: 1280x720, batch 16, ``-J denoise3d`` at its defaults.
+- denoise3d: 1280x720, batch 16, ``-J denoise3d`` at its defaults;
+- cfg3 (``run_configs.py:173-181``): 720x480 at 29.97 fps, batch 16,
+  ``-J 32detect,ivtc,decimate`` on 3:2 telecined content.  Its modules
+  hold no kernel: the same torch code on the CPU is its plain version;
+- cfg1 (``run_configs.py:108-159``): YUV420P 640x480, batch 16,
+  ``colorspace.convert`` to RGB24 and back, then ``zoom_plane`` to
+  512x384 / 256x192 (the zoom kernel, six launches a batch).
 
 Phases, each of which raises on failure:
 
@@ -26,23 +32,29 @@ Phases, each of which raises on failure:
    bound, TomsMoComp's window form over ragged planes, every effort and
    batches of 1, 2 and 17 frames, and the temporal scans at ragged,
    unaligned and aligned planes of 1 and 17 frames, two batches in a
-   row; at the paths' shapes each is timed over a rotation of inputs
-   larger than L2, beside its plain
-   version, its bound (bytes or int32 operations) and the one PyTorch
-   call that computes the same function where there is one; with
-   ``--parent DIR``, the TomsMoComp and temporal kernels of the checkout
-   in DIR are built too, called through DIR's own wrappers and timed in
-   turns with this tree's on the same inputs;
+   row, and unsharp's fifteen register instances, its tiled kernel at
+   the same and at larger matrices, over ragged and aligned planes of 1
+   to 17 frames; at the paths' shapes each is timed over a rotation of
+   inputs larger than L2, beside its plain version, its bound (bytes or
+   int32 operations) and the one PyTorch call that computes the same
+   function where there is one; with ``--parent DIR``, the unsharp,
+   TomsMoComp and temporal kernels of the checkout in DIR are built
+   too, called through DIR's own wrappers and timed in turns with this
+   tree's on the same inputs;
 4. each path through the port's CLI on a seeded 48-frame Y4M, with the
    launch counts set to 0 just before and read just after: every kernel
    of the path was launched, and the output equals the same chain built
-   from the plain versions on the card, byte for byte;
+   from the plain versions on the card, byte for byte; cfg3 and cfg1
+   against the same torch code run on the CPU in this process, and so
+   the small ``FLAG_CASES`` (every internal transform, on YUV and RGB
+   jobs, and 32drop);
 5. the small cases whose SHA-256 ``tests/test_torch_cli.py`` pins
    against the JAX CLI, run on the card: same digests;
 6. numbers: steady-state chain frames/s on device-resident batches
-   (CUDA events) for the main path, cfg2, cfg4 and denoise3d, beside the
-   host's time to queue the batches and the device's busy share and
-   kernel time by name (torch.profiler); end-to-end CLI frames/s.
+   (CUDA events) for the main path, cfg2, cfg4, denoise3d, cfg3 and
+   cfg1, beside the host's time to queue the batches and the device's
+   busy share and kernel time by name (torch.profiler); end-to-end CLI
+   frames/s.
 
 It prints one JSON object per result, then the kernels' summary and, as
 its last line, ``{"ok": true, "device": {...}}``.  It imports nothing of
@@ -108,6 +120,48 @@ PATH_GOLDEN_SHA256 = {
                   "0a3acedc9b1cd7b7425bbdeafceb4648"),
 }
 
+# cfg3: the cadence chain at NTSC size on 3:2 telecined content, and
+# its small golden case (--batch 7: batches of 7, 7 and 6)
+CFG3 = dict(w=720, h=480, fps=(30000, 1001),
+            args=["-J", "32detect,ivtc,decimate"])
+CFG3_GOLDEN = dict(w=64, h=48, frames=20, seed=9, args=[
+    "-J", "32detect,ivtc,decimate", "--batch", "7"])
+CFG3_GOLDEN_SHA256 = ("29d34e89df8e54f98dda96d207a315e8"
+                      "c4b51a5e96599f7e22278642ace16f95")
+# the small RGB case: -V rgb24 with a clip, both flips and gamma, on the
+# golden input
+RGB_GOLDEN_ARGS = ["-V", "rgb24", "-j", "8,16", "-z", "-l", "-G", "0.8",
+                   "--batch", "3"]
+RGB_GOLDEN_SHA256 = ("3ad8f423c6ac8b9c4fd0c37399ced669"
+                     "38ac2833b54bf8b18dbe28992bfaf09a")
+# the internal transforms and 32drop through the CLI on the golden
+# input, on the card against the CPU here and against the JAX CLI in
+# tests/test_torch_cli.py.  The frame count is a multiple of --batch
+# where -C is on: the JAX package caches its antialias tables inside the
+# first jit trace, and a second trace (a shorter last batch) fails there.
+FLAG_CASES = {
+    "rgb_deint3_aa_gray_swap_reduce": ["-V", "rgb24", "-I", "3", "-C", "2",
+                                       "-K", "-k", "-r", "2", "--batch", "7"],
+    "rgb_expand_zoom_clip": ["-V", "rgb24", "-X", "1,1,8", "-Z", "48x32",
+                             "-Y", "2,-2", "--batch", "3"],
+    "yuv422_shrink_aa_gamma_postclip": [
+        "-V", "yuv422p", "-B", "1,2,8", "-C", "1", "-G", "1.3",
+        "--post_clip", "2,4", "--batch", "7"],
+    "yuv444_preclip_dropfield": ["-V", "yuv444p", "--pre_clip", "0,4", "-I",
+                                 "4", "--batch", "3"],
+    "yuv411_blend_zoom": ["-V", "yuv411p", "-I", "5", "-Z", "64x24",
+                          "--zoom_filter", "mitchell", "--batch", "3"],
+    "grow_reduce_gray_flips": ["-j-4,2", "-r", "1,2", "-K", "-l", "-z", "-I",
+                               "1"],
+    "rgb_aa_para": ["-V", "rgb24", "-I", "4", "-C", "1",
+                    "--antialias_para", "0.5,0.2", "--batch", "7"],
+    "drop32": ["-J", "32drop", "--batch", "5"],
+    "ivtc_bottom_magic_decimate": ["-J", "ivtc=field=1:magic=1,decimate",
+                                   "--batch", "16"],
+}
+# cfg1: YUV420P -> RGB24 -> YUV420P, then the zoom
+CFG1_W, CFG1_H, CFG1_ZOOM = 640, 480, (512, 384)
+
 # the bound (H100 SXM datasheet): device memory at 3.35 TB/s, and
 # int32 instructions at 64 lanes per SM (half the 128 fp32 lanes behind
 # the 67 TFLOP/s fp32 peak) x 132 SMs x 1.98 GHz; the card's L2
@@ -123,6 +177,13 @@ SCAN_OPS = {"hqdn3d_spatial_scan": 5, "d3_spatial_scan": 4,
 # unsharp: 2*sx + 2*sy adds for the blur (the [1,1] cascade) and this
 # many for rounding, shift, sharpening and clamp per pixel
 UNSHARP_OPS = 8
+# unsharp off the path: matrices (the fifteen register instances, steps
+# 0..3 on each axis, are checked besides), planes, amounts
+UNSHARP_MATRICES = ((3, 3), (5, 5), (7, 5), (7, 7), (3, 7), (9, 9),
+                    (17, 15), (33, 1), (1, 33))
+UNSHARP_SHAPES = ((2, 1, 1), (3, 31, 33), (2, 129, 127), (1, 719, 1277),
+                  (2, 37, 400), (1, 2, 129), (17, 9, 64), (17, 33, 36))
+UNSHARP_AMOUNTS = (0.8, -1.5)
 # TomsMoComp per 32-bit word of four synthesized pixels (byte-SIMD
 # operations do four at once): per candidate a pair average, an abs
 # difference, a compare and two selects; then the +1 bias and the clamp
@@ -194,6 +255,44 @@ def write_test_y4m(path, width: int, height: int, frames: int,
                              dtype=np.uint8))
 
 
+def write_telecine_y4m(path, width: int, height: int, frames: int,
+                       seed: int, fps=(30000, 1001)) -> None:
+    """A seeded YUV420P Y4M of 3:2 telecined film: a progressive
+    sequence (8x8 blocks of noise panning 8 pixels a film frame, each
+    frame with its own grain of +-3) whose fields are repeated A A, B B,
+    B C, C D, D D, and +-1 of noise on every video frame, so that the
+    repeated frame that decimate looks for is close to its neighbour
+    and not equal to it."""
+    from tcforge_tpu_torch.io.y4m import Y4MHeader, Y4MWriter
+    rng = np.random.default_rng(seed)
+    films = -(-frames // 5) * 4
+
+    def film_planes(h, w, block):
+        wide = np.kron(rng.integers(16, 240, (-(-h // block),
+                                              -(-w // block) + films)),
+                       np.ones((block, block), dtype=np.int64))
+        return [np.clip(wide[:h, block * i:block * i + w]
+                        + rng.integers(-3, 4, (h, w)), 0, 255)
+                for i in range(films)]
+
+    film = list(zip(film_planes(height, width, 8),
+                    film_planes(height // 2, width // 2, 4),
+                    film_planes(height // 2, width // 2, 4)))
+    hdr = Y4MHeader(width=width, height=height, fps_num=fps[0],
+                    fps_den=fps[1])
+    with Y4MWriter(str(path), hdr) as wr:
+        for k in range(frames):
+            group, phase = divmod(k, 5)
+            top, bottom = ((0, 0), (1, 1), (1, 2), (2, 3), (3, 3))[phase]
+            planes = []
+            for t, b in zip(film[4 * group + top], film[4 * group + bottom]):
+                p = t.copy()
+                p[1::2] = b[1::2]
+                p += rng.integers(-1, 2, p.shape)
+                planes.append(np.clip(p, 0, 255).astype(np.uint8))
+            wr.write_frame(*planes)
+
+
 def sha256_file(path) -> str:
     return hashlib.sha256(Path(path).read_bytes()).hexdigest()
 
@@ -227,8 +326,9 @@ def main(argv=()) -> int:
     parser.add_argument(
         "--parent", metavar="DIR",
         help="a checkout of an earlier commit (any since 0713932, which "
-             "has this tree's temporal_scan, d3_temporal_scan and "
-             "tomsmocomp_plane wrappers): its TomsMoComp and temporal "
+             "has this tree's unsharp_plane, temporal_scan, "
+             "d3_temporal_scan and tomsmocomp_plane wrappers): its "
+             "unsharp, TomsMoComp and temporal "
              "kernels are built from DIR and called through DIR's own "
              "wrappers, timed beside this tree's, in turns, on the same "
              "inputs")
@@ -242,7 +342,7 @@ def main(argv=()) -> int:
     from tcforge_tpu_torch.core.job import FilterSpec, Job
     from tcforge_tpu_torch.io.y4m import Y4MReader
     from tcforge_tpu_torch.modules.filters.hqdn3d import Hqdn3dFilter
-    from tcforge_tpu_torch.ops import _build, kernels, video, zoom
+    from tcforge_tpu_torch.ops import _build, colorspace, kernels, video, zoom
 
     dev = torch.device("cuda")
 
@@ -287,6 +387,7 @@ def main(argv=()) -> int:
     _check_slice_kernels(torch, kernels, bench)
     torch.cuda.empty_cache()
     _check_ragged(torch, kernels, zoom, hq, bench)
+    _check_unsharp_sizes(torch, kernels, bench)
     _check_tmc_windows(torch, kernels, bench)
     _check_temporal_planes(torch, kernels, hq, bench)
     torch.cuda.empty_cache()
@@ -354,12 +455,53 @@ def main(argv=()) -> int:
                   f"{name} golden output differs from the JAX-pinned "
                   "digest")
 
+        # 4. cfg3 at full width, against its CPU run; 5. its small case
+        # and the RGB case
+        _run_cfg3(torch, cli, kernels, tmp)
+        for name, src_y4m, argv, pinned in (
+                ("cfg3", tmp / "golden_cfg3_in.y4m", CFG3_GOLDEN["args"],
+                 CFG3_GOLDEN_SHA256),
+                ("rgb24", tmp / "golden_in.y4m", RGB_GOLDEN_ARGS,
+                 RGB_GOLDEN_SHA256)):
+            if name == "cfg3":
+                write_telecine_y4m(src_y4m, CFG3_GOLDEN["w"],
+                                   CFG3_GOLDEN["h"], CFG3_GOLDEN["frames"],
+                                   CFG3_GOLDEN["seed"])
+            gout = tmp / f"golden_{name}.y4m"
+            rc = cli.main(["-i", str(src_y4m), "-o", str(gout), *argv,
+                           "--device", "cuda", "--progress_off", "-q"])
+            digest = sha256_file(gout)
+            emit(phase="golden", path=name, sha256=digest, pinned=pinned)
+            check(rc == 0 and digest == pinned,
+                  f"{name} golden output differs from the JAX-pinned digest")
+
+        # the internal transforms and 32drop, plain torch ops: the
+        # card's output against the CPU's
+        gsrc = tmp / "golden_in.y4m"
+        for name, argv in FLAG_CASES.items():
+            outs = {}
+            for device in ("cuda", "cpu"):
+                outs[device] = tmp / f"flags_{name}_{device}.y4m"
+                rc = cli.main(["-i", str(gsrc), "-o", str(outs[device]),
+                               *argv, "--device", device, "--progress_off",
+                               "-q"])
+                check(rc == 0, f"{name} on {device}: CLI exit code {rc}")
+            same = outs["cuda"].read_bytes() == outs["cpu"].read_bytes()
+            emit(phase="flags_vs_cpu", case=name, identical=same,
+                 sha256=sha256_file(outs["cuda"]))
+            check(same, f"{name}: the card's output differs from the CPU's")
+
+    # 4. cfg1 at full width, against its CPU run
+    _run_cfg1(torch, dev, kernels, colorspace, zoom)
+
     # 6. steady-state chain frames/s on device-resident batches
     fps = _chain_fps(torch, dev)
     emit(phase="chain", batch=MAIN_BATCH, **fps)
-    for name, spec in PATHS.items():
+    for name, spec in (*PATHS.items(), ("cfg3", CFG3)):
         fps = _chain_fps(torch, dev, spec["w"], spec["h"], spec["args"][1])
         emit(phase="chain", path=name, batch=MAIN_BATCH, **fps)
+    fps = _cfg1_fps(torch, dev, colorspace, zoom)
+    emit(phase="chain", path="cfg1", batch=MAIN_BATCH, **fps)
 
     # each kernel's launches in the run of the path that carries it
     for name, (src, _) in KERNELS.items():
@@ -430,7 +572,6 @@ def _chain_fps(torch, dev, width: int = MAIN_W, height: int = MAIN_H,
     the same batches under torch.profiler, the device's busy share and
     its kernel time by name."""
     from tcforge_tpu_torch.core.formats import ImageFormat
-    from tcforge_tpu_torch.core.frame import FrameBatch
     from tcforge_tpu_torch.core.job import FilterSpec, Job
     from tcforge_tpu_torch.pipeline.chain import VideoChain
 
@@ -444,29 +585,45 @@ def _chain_fps(torch, dev, width: int = MAIN_W, height: int = MAIN_H,
                   filters=[FilterSpec("hqdn3d", "luma=4.0")],
                   batch_size=MAIN_BATCH)
     chain = VideoChain(job, ImageFormat.YUV420P, width, height)
-    states = chain.initial_states(dev)
+    batches = _noise_batches(torch, dev, width, height,
+                             warmup + timed_batches)
+    return _timed_batches(torch, chain, chain.initial_states(dev), batches,
+                          warmup)
+
+
+def _noise_batches(torch, dev, width: int, height: int, count: int):
+    """``count`` seeded YUV420P batches of uniform noise on the card."""
+    from tcforge_tpu_torch.core.formats import ImageFormat
+    from tcforge_tpu_torch.core.frame import FrameBatch
     gen = torch.Generator(device=dev).manual_seed(11)
 
     def plane(h, w):
         return torch.randint(0, 256, (MAIN_BATCH, h, w), generator=gen,
                              dtype=torch.uint8, device=dev)
 
-    batches = [FrameBatch(
+    return [FrameBatch(
         format=ImageFormat.YUV420P, y=plane(height, width),
         u=plane(height // 2, width // 2), v=plane(height // 2, width // 2),
         attrs=torch.zeros(MAIN_BATCH, dtype=torch.int32, device=dev),
         frame_ids=torch.arange(k * MAIN_BATCH, (k + 1) * MAIN_BATCH,
                                dtype=torch.int32, device=dev),
-        fps=25.0) for k in range(warmup + timed_batches)]
+        fps=25.0) for k in range(count)]
+
+
+def _timed_batches(torch, step, states, batches, warmup: int):
+    """``step(batch, states) -> (out, states)`` over ``batches``: the
+    first ``warmup`` untimed, the rest between CUDA events, then once
+    more under torch.profiler (see ``_chain_fps``)."""
+    timed_batches = len(batches) - warmup
     for fb in batches[:warmup]:
-        _, states = chain(fb, states)
+        _, states = step(fb, states)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     start.record()
     for fb in batches[warmup:]:
-        out, states = chain(fb, states)
+        out, states = step(fb, states)
     end.record()
     queue_s = time.perf_counter() - t0
     torch.cuda.synchronize()
@@ -476,7 +633,7 @@ def _chain_fps(torch, dev, width: int = MAIN_W, height: int = MAIN_H,
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for fb in batches[warmup:]:
-            _, states = chain(fb, states)
+            _, states = step(fb, states)
         torch.cuda.synchronize()
     busy = _device_busy(prof, timed_batches)
     if busy["busy_ms_per_batch"] is not None:
@@ -488,6 +645,63 @@ def _chain_fps(torch, dev, width: int = MAIN_W, height: int = MAIN_H,
             "ms_per_batch": dev_ms / timed_batches,
             "queue_ms_per_batch": queue_s * 1e3 / timed_batches,
             "frames": frames, "out_shape": list(out.y.shape), **busy}
+
+
+def cfg1_step(colorspace, zoom, fb):
+    """cfg1's step on one YUV420P batch: to RGB24 and back, then each
+    plane through the zoom (benches/run_configs.py:118-128)."""
+    from tcforge_tpu_torch.core.formats import ImageFormat
+    back = colorspace.convert(colorspace.convert(fb, ImageFormat.RGB24),
+                              ImageFormat.YUV420P)
+    zw, zh = CFG1_ZOOM
+    return back.with_planes(y=zoom.zoom_plane(back.y, zw, zh),
+                            u=zoom.zoom_plane(back.u, zw // 2, zh // 2),
+                            v=zoom.zoom_plane(back.v, zw // 2, zh // 2))
+
+
+def _run_cfg1(torch, dev, kernels, colorspace, zoom):
+    """Phase 4 for cfg1: one seeded batch through ``cfg1_step`` on the
+    card, with the counts set to 0 just before and read just after, and
+    the same batch through the same code on the CPU (which runs the zoom's
+    plain version): equal planes, six zoom launches."""
+    from tcforge_tpu_torch.core.formats import ImageFormat
+    from tcforge_tpu_torch.core.frame import FrameBatch
+    rng = np.random.default_rng(13)
+    planes = [rng.integers(0, 256, (MAIN_BATCH, h, w), dtype=np.uint8)
+              for h, w in ((CFG1_H, CFG1_W), (CFG1_H // 2, CFG1_W // 2),
+                           (CFG1_H // 2, CFG1_W // 2))]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    got = cfg1_step(colorspace, zoom, FrameBatch.from_numpy(
+        *planes, device=dev, fmt=ImageFormat.YUV420P))
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    want = cfg1_step(colorspace, zoom, FrameBatch.from_numpy(
+        *planes, device=torch.device("cpu"), fmt=ImageFormat.YUV420P))
+    check(launches["zoom_pass"] == 6 and not any(
+        n for k, n in launches.items() if k != "zoom_pass"),
+        f"cfg1 launches {launches}")
+    check(dict(kernels.launches) == launches,
+          "cfg1's CPU run launched a kernel")
+    zw, zh = CFG1_ZOOM
+    check(tuple(got.y.shape) == (MAIN_BATCH, zh, zw)
+          and tuple(got.u.shape) == (MAIN_BATCH, zh // 2, zw // 2),
+          f"cfg1 output shapes {got.y.shape} {got.u.shape}")
+    err = max(int((g.cpu().int() - w.int()).abs().max())
+              for g, w in zip(got.planes, want.planes))
+    emit(phase="path", path="cfg1", frames=MAIN_BATCH, launches=launches)
+    emit(phase="path_vs_cpu", path="cfg1", max_abs_err=err)
+    check(err == 0, f"cfg1 differs from its CPU run (max abs err {err})")
+
+
+def _cfg1_fps(torch, dev, colorspace, zoom, warmup: int = 2,
+              timed_batches: int = 8):
+    """``_chain_fps`` for cfg1's step on 640x480 batches."""
+    batches = _noise_batches(torch, dev, CFG1_W, CFG1_H,
+                             warmup + timed_batches)
+    return _timed_batches(
+        torch, lambda fb, states: (cfg1_step(colorspace, zoom, fb), states),
+        None, batches, warmup)
 
 
 def _device_busy(prof, batches: int) -> dict:
@@ -654,11 +868,12 @@ class KernelBench:
 
 
 class ParentKernels:
-    """The TomsMoComp and temporal-scan wrappers of an earlier checkout's
-    ``tcforge_tpu_torch/ops/kernels.py``.  DIR's package is in
+    """The unsharp, TomsMoComp and temporal-scan wrappers of an earlier
+    checkout's ``tcforge_tpu_torch/ops/kernels.py``.  DIR's package is in
     ``sys.modules`` only while it imports, so its wrappers keep their own
     modules: at first use they build DIR's ``csrc`` into DIR's
-    ``_build``, and they call DIR's C interfaces.  Any checkout whose ``kernels.py`` has
+    ``_build``, and they call DIR's C interfaces.  Any checkout whose
+    ``kernels.py`` has ``unsharp_plane(img, sx, sy, amount)``,
     ``temporal_scan``, ``d3_temporal_scan`` and ``tomsmocomp_plane``
     with this tree's signatures will do: every commit since the
     TomsMoComp and denoise3d ports (0713932)."""
@@ -690,6 +905,9 @@ class ParentKernels:
 
     def temporal(self, name):
         return getattr(self.kernels, self.TEMPORAL[name])
+
+    def unsharp(self, img, sx, sy, amount):
+        return self.kernels.unsharp_plane(img, sx, sy, amount)
 
     def tomsmocomp(self, window, parity, effort):
         return self.kernels.tomsmocomp_plane(window[1:-1], window[:-2],
@@ -743,9 +961,13 @@ def _check_main_kernels(torch, kernels, zoom, hq, bench):
                          kernels.temporal_scan_ref, tin)
         del tin
 
+    # the main path's passes, then cfg1's (not in the main path's sums)
     for plane, (h, w), (nh, nw), per_batch in (
             ("y", (1080, 1920), (720, 1280), 1),
-            ("u/v", (540, 960), (360, 640), 2)):
+            ("u/v", (540, 960), (360, 640), 2),
+            ("cfg1 y", (CFG1_H, CFG1_W), CFG1_ZOOM[::-1], 0),
+            ("cfg1 u/v", (CFG1_H // 2, CFG1_W // 2),
+             (CFG1_ZOOM[1] // 2, CFG1_ZOOM[0] // 2), 0)):
         src_shape = (16, h, w)
         for axis, old, new, name in ((-1, w, nw, "H"), (-2, h, nh, "V")):
             band = zoom._device_band(old, new, "lanczos3", str(dev))
@@ -811,7 +1033,8 @@ def _check_slice_kernels(torch, kernels, bench):
     import torch.nn.functional as F
 
     dev = bench.dev
-    # unsharp: cfg2's luma (7x5, 0.8; chroma amount 0 launches nothing),
+    # unsharp: cfg2's luma (7x5, 0.8; chroma amount 0 launches nothing)
+    # through the register kernel, the tiled kernel on the same inputs,
     # and 17x15 where the uint32 sums wrap.  The library call is the
     # blur's sum alone: conv2d of the replicate-padded float32 plane with
     # the binomial, exact below 2^24 (7x5: 255 * 2^10).
@@ -832,6 +1055,19 @@ def _check_slice_kernels(torch, kernels, bench):
                      kernels.unsharp_plane, kernels.unsharp_plane_ref, ins,
                      2 * numel, numel * (2 * sx + 2 * sy + UNSHARP_OPS),
                      library=lib, plain_reps=3)
+        if per_batch:
+            case = f"{mx}x{my} {am} {(n, h, w)}"
+            def tiled(*a):
+                return kernels.unsharp_plane(*a, tiled=True)
+            bench.check("unsharp", case + " tiled kernel", tiled(*ins[0]),
+                        kernels.unsharp_plane(*ins[0]))
+            emit(phase="kernel", kernel="unsharp",
+                 case=case + " tiled kernel", per_batch=0,
+                 ms=bench.time(tiled, ins, 20))
+            if bench.parent:
+                bench.versus("unsharp", case, per_batch,
+                             kernels.unsharp_plane, bench.parent.unsharp,
+                             ins, ins)
         del ins, lib
 
     # TomsMoComp through the window form, as cfg4's filter calls it:
@@ -959,6 +1195,35 @@ def _check_ragged(torch, kernels, zoom, hq, bench):
     bench.check("zoom_pass", "lanczos3 (1950, 1080, 16) axis -1 16->25",
                 kernels.zoom_pass(tall, band, -1),
                 kernels.zoom_pass_ref(tall, band, -1))
+
+
+def _check_unsharp_sizes(torch, kernels, bench):
+    """Phase 3 off the path for unsharp: every register instance (steps
+    0..3 on each axis) through the register kernel and through the tiled
+    one, and the matrices of UNSHARP_MATRICES, each over the planes of
+    UNSHARP_SHAPES (the second half of them starting one byte off a
+    word) with a sharpening and a blurring amount in turn.  One line per
+    matrix."""
+    small = [(2 * sx + 1, 2 * sy + 1) for sx in range(4) for sy in range(4)
+             if sx + sy]
+    for mx, my in small + [m for m in UNSHARP_MATRICES if m not in small]:
+        sx, sy = mx // 2, my // 2
+        cases = 0
+        for i, (n, h, w) in enumerate(UNSHARP_SHAPES * 2):
+            offset = i // len(UNSHARP_SHAPES)
+            img = bench.u8(n * h * w + offset)[offset:].view(n, h, w)
+            amount = UNSHARP_AMOUNTS[(i + sx) % 2]
+            want = kernels.unsharp_plane_ref(img, sx, sy, amount)
+            forms = (False, True) if (mx, my) in small else (False,)
+            for tiled in forms:
+                bench.check("unsharp", f"{mx}x{my} {amount} {(n, h, w)} "
+                                       f"offset {offset} tiled {tiled}",
+                            kernels.unsharp_plane(img, sx, sy, amount,
+                                                  tiled=tiled),
+                            want, quiet=True)
+                cases += 1
+        emit(phase="kernel_sweep", kernel="unsharp", matrix=f"{mx}x{my}",
+             cases=cases, max_abs_err=0)
 
 
 def _check_tmc_windows(torch, kernels, bench):
@@ -1120,6 +1385,43 @@ def _run_path(torch, cli, kernels, tmp, name, spec):
          frames_out=frames_out, sha256=sha256_file(out))
     check(same, f"{name} differs from the plain chain on the card")
     return launches
+
+
+def _run_cfg3(torch, cli, kernels, tmp):
+    """Phase 4 for cfg3: the CLI on the card over a telecined 48-frame
+    Y4M, and the same CLI on the CPU in this process (cfg3's modules hold
+    no kernel, so the same torch code on the CPU is its plain version):
+    the same bytes, the same count of written frames, and no kernel
+    launched by either."""
+    from tcforge_tpu_torch.io.y4m import Y4MReader
+    src = tmp / "in_cfg3.y4m"
+    out, plain = tmp / "out_cfg3.y4m", tmp / "cpu_cfg3.y4m"
+    write_telecine_y4m(src, CFG3["w"], CFG3["h"], PATH_FRAMES, seed=5,
+                       fps=CFG3["fps"])
+    argv = [*CFG3["args"], "--batch", str(MAIN_BATCH), "--progress_off",
+            "-q"]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main(["-i", str(src), "-o", str(out), *argv, "--device", "cuda"])
+    torch.cuda.synchronize()
+    e2e_s = time.perf_counter() - t0
+    check(rc == 0, f"cfg3: CLI exit code {rc}")
+    with Y4MReader(str(out)) as r:
+        frames_out = sum(1 for _ in r)
+    emit(phase="path", path="cfg3", frames=PATH_FRAMES, seconds=e2e_s,
+         e2e_fps=PATH_FRAMES / e2e_s, frames_out=frames_out,
+         launches=dict(kernels.launches))
+    # 44 frames leave decimate's delay of 4; one of every five is dropped
+    check(35 <= frames_out <= 36, f"cfg3: {frames_out} frames out")
+    rc = cli.main(["-i", str(src), "-o", str(plain), *argv, "--device",
+                   "cpu"])
+    check(rc == 0 and not any(kernels.launches.values()),
+          "cfg3: the CPU run failed, or a kernel was launched")
+    same = out.read_bytes() == plain.read_bytes()
+    emit(phase="path_vs_cpu", path="cfg3", identical=same,
+         frames_out=frames_out, sha256=sha256_file(out))
+    check(same, "cfg3 differs from its CPU run")
 
 
 if __name__ == "__main__":

@@ -1,8 +1,13 @@
 """Command line of the port: ``python -m tcforge_tpu_torch.cli``.
 
-It takes the JAX CLI's own flag names for what the port carries so
-far: ``-I`` 1/3/4/5, ``-Z`` and the ``-J`` filters hqdn3d, unsharp,
-tomsmocomp and denoise3d (comma-separated, run in their slots' order):
+It takes the JAX CLI's own flag names, with the same parsing, for what
+the port carries so far: the internal transforms ``--pre_clip``, ``-j``,
+``-I`` 1/3/4/5, ``-X``, ``-B``, ``-Z``, ``-Y``, ``-r``, ``-z``, ``-l``,
+``-k``, ``-K``, ``-G``, ``-C`` and ``--post_clip``, the internal
+colorspace ``-V`` (planar YUV or RGB; the Y4M output of an RGB job
+is YUV420P) and the ``-J`` filters hqdn3d, unsharp, tomsmocomp,
+denoise3d, ivtc, 32detect, decimate and 32drop (comma-separated, run
+in their slots' order):
 
     python -m tcforge_tpu_torch.cli -i in.y4m -I 5 -Z 1280x720 \\
         -J hqdn3d=luma=4.0 -o out.y4m [--batch 16] [--device cuda]
@@ -11,6 +16,10 @@ tomsmocomp and denoise3d (comma-separated, run in their slots' order):
     python -m tcforge_tpu_torch.cli -i in1080.y4m -o out.y4m \\
         -J tomsmocomp=searcheffort=5
     python -m tcforge_tpu_torch.cli -i in720.y4m -o out.y4m -J denoise3d
+    python -m tcforge_tpu_torch.cli -i ntsc.y4m -o film.y4m \\
+        -J 32detect,ivtc,decimate
+    python -m tcforge_tpu_torch.cli -i in.y4m -o out.y4m -V rgb24 \\
+        -j 8,16 -z -l -G 0.8
 
 and refuses every other flag of the JAX CLI with an error that names
 it.  ``--device cuda`` (the default) with no card raises: the CLI never
@@ -25,7 +34,31 @@ from typing import List, Optional
 
 import torch
 
+from tcforge_tpu_torch.core.formats import format_from_string
 from tcforge_tpu_torch.core.job import FilterSpec, Job
+
+
+def _parse_clip(text: str):
+    """-j T[,L[,B[,R]]] with omitted values mirroring the reference
+    (L defaults to T, B to T, R to L)."""
+    parts = [int(x) for x in text.split(",")]
+    t = parts[0]
+    l = parts[1] if len(parts) > 1 else t
+    b = parts[2] if len(parts) > 2 else t
+    r = parts[3] if len(parts) > 3 else l
+    return (t, l, b, r)
+
+
+def _resize_units(spec: str):
+    """-X/-B n[,m[,M]]: n rows and m columns of M pixels, M one of 8, 16
+    and 32 (the default); the job counts 8-pixel units, (w, h)."""
+    parts = [int(x) for x in spec.split(",")]
+    n = parts[0]
+    m = parts[1] if len(parts) > 1 else 0
+    mult = parts[2] if len(parts) > 2 else 32
+    if mult not in (8, 16, 32):
+        raise SystemExit("invalid multiplier for -X/-B (must be 8, 16, or 32)")
+    return (m * mult // 8, n * mult // 8)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -37,12 +70,44 @@ def build_parser() -> argparse.ArgumentParser:
                    help="input file (YUV4MPEG2)")
     p.add_argument("-o", dest="video_out", required=True,
                    help="output file (YUV4MPEG2)")
+    p.add_argument("--pre_clip", dest="pre_clip",
+                   help="initial region clip T[,L[,B[,R]]] (before "
+                        "all filters)")
+    p.add_argument("-j", dest="im_clip", help="clip T[,L[,B[,R]]]")
     p.add_argument("-I", dest="deinterlace", type=int, default=0,
                    help="deinterlace mode 1, 3, 4 or 5")
-    p.add_argument("-Z", dest="zoom", help="zoom WxH (Lanczos3)")
+    p.add_argument("-X", dest="resize_up",
+                   help="expand by n rows, m cols of M px [0,0,32]")
+    p.add_argument("-B", dest="resize_down",
+                   help="shrink by n rows, m cols of M px [0,0,32]")
+    p.add_argument("-Z", dest="zoom", help="zoom WxH (slow, filtered)")
+    p.add_argument("--zoom_filter", default="lanczos3",
+                   help="zoom filter (lanczos3|bell|box|mitchell|...)")
+    p.add_argument("-Y", dest="ex_clip", help="export clip T[,L[,B[,R]]]")
+    p.add_argument("-r", dest="reduce", help="reduce n[,m]")
+    p.add_argument("-z", dest="flip_v", action="store_true",
+                   help="flip vertically")
+    p.add_argument("-l", dest="flip_h", action="store_true", help="mirror")
+    p.add_argument("-k", dest="rgbswap", action="store_true",
+                   help="swap red/blue")
+    p.add_argument("-K", dest="decolor", action="store_true",
+                   help="grayscale")
+    p.add_argument("-G", dest="gamma", type=float, default=0.0,
+                   help="gamma correction")
+    p.add_argument("-C", dest="antialias", type=int, default=0,
+                   help="antialias mode 1..3")
+    p.add_argument("--antialias_para", default="",
+                   help="antialias center pixel weight, xy-bias "
+                        "[0.333,0.500]")
+    p.add_argument("--post_clip", dest="post_clip",
+                   help="final region clip T[,L[,B[,R]]] (after all "
+                        "filters)")
     p.add_argument("-J", dest="filters", action="append", default=[],
                    help="filter[=options],... list: hqdn3d, unsharp, "
-                        "tomsmocomp, denoise3d")
+                        "tomsmocomp, denoise3d, ivtc, 32detect, decimate, "
+                        "32drop")
+    p.add_argument("-V", dest="colorspace", default="yuv420p",
+                   help="internal colorspace (yuv420p|rgb24|yuv422p)")
     p.add_argument("--batch", type=int, default=16,
                    help="frames per device batch")
     p.add_argument("--max_frames", type=int, help="stop after N frames")
@@ -67,9 +132,37 @@ def args_to_job(args: argparse.Namespace) -> Job:
     job = Job(video_in_file=args.video_in, video_out_file=args.video_out,
               deinterlace=args.deinterlace, batch_size=args.batch,
               max_frames=args.max_frames)
+    if args.pre_clip:
+        job.pre_im_clip = _parse_clip(args.pre_clip)
+    if args.im_clip:
+        job.im_clip = _parse_clip(args.im_clip)
+    if args.post_clip:
+        job.post_ex_clip = _parse_clip(args.post_clip)
+    if args.resize_up:
+        job.resize_up = _resize_units(args.resize_up)
+    if args.resize_down:
+        job.resize_down = _resize_units(args.resize_down)
     if args.zoom:
         w, h = args.zoom.split("x", 1)
         job.zoom_width, job.zoom_height = int(w), int(h)
+    job.zoom_filter = args.zoom_filter
+    if args.ex_clip:
+        job.ex_clip = _parse_clip(args.ex_clip)
+    if args.reduce:
+        parts = [int(x) for x in args.reduce.split(",")]
+        job.reduce_h = parts[0]
+        job.reduce_w = parts[1] if len(parts) > 1 else parts[0]
+    job.flip_v = args.flip_v
+    job.flip_h = args.flip_h
+    job.rgbswap = args.rgbswap
+    job.decolor = args.decolor
+    job.gamma = args.gamma
+    job.antialias = args.antialias
+    if args.antialias_para:
+        w, b = args.antialias_para.split(",")
+        job.antialias_weight = float(w)
+        job.antialias_bias = float(b)
+    job.im_colorspace = format_from_string(args.colorspace)
     for chain in args.filters:
         for part in chain.split(","):
             if part.strip():

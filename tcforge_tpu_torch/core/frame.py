@@ -33,10 +33,11 @@ class FrameBatch:
     """A batch of N video frames as planar tensors on one device.
 
     Planar YUV: ``y`` is (N, H, W) uint8; ``u``/``v`` are the subsampled
-    (N, H//sy, W//sx) chroma planes.  ``attrs`` (the frame attribute
-    bitmask) and ``frame_ids`` are (N,) int32.  ``rgb`` and
-    ``timestamps`` keep the JAX record's shape and are unused by the
-    port's chains so far.
+    (N, H//sy, W//sx) chroma planes; Y8/GRAY8 set only ``y``.  RGB
+    formats: ``rgb`` is (N, H, W, C) uint8 in R,G,B[,A] order and the
+    planes are None.  ``attrs`` (the frame attribute bitmask) and
+    ``frame_ids`` are (N,) int32.  ``timestamps`` keeps the JAX record's
+    shape and is unused by the port's chains so far.
     """
 
     format: ImageFormat
@@ -77,11 +78,16 @@ class FrameBatch:
             return (self.rgb,)
         return tuple(p for p in (self.y, self.u, self.v) if p is not None)
 
-    def with_planes(self, *, y=None, u=None, v=None,
+    def with_planes(self, *, y=None, u=None, v=None, rgb=None,
                     format: Optional[ImageFormat] = None) -> "FrameBatch":
-        """Return a copy with replaced image planes (metadata kept)."""
+        """Return a copy with replaced image planes (metadata kept);
+        ``rgb`` replaces the planes altogether, and the reverse."""
+        fmt = format if format is not None else self.format
+        if rgb is not None:
+            return dataclasses.replace(self, format=fmt, rgb=rgb,
+                                       y=None, u=None, v=None)
         return dataclasses.replace(
-            self, format=format if format is not None else self.format,
+            self, format=fmt, rgb=None,
             y=y if y is not None else self.y,
             u=u if u is not None else self.u,
             v=v if v is not None else self.v)
@@ -90,26 +96,28 @@ class FrameBatch:
         return dataclasses.replace(self, attrs=attrs)
 
     @staticmethod
-    def from_numpy(y: np.ndarray, u: Optional[np.ndarray] = None,
+    def from_numpy(y: Optional[np.ndarray] = None,
+                   u: Optional[np.ndarray] = None,
                    v: Optional[np.ndarray] = None, *,
+                   rgb: Optional[np.ndarray] = None,
                    device: torch.device,
                    fmt: ImageFormat = ImageFormat.YUV420P,
                    fps: float = 0.0, first_id: int = 0) -> "FrameBatch":
         """Build a batch on ``device`` from host uint8 planes (a batch
-        dimension is added to 2-D planes)."""
+        dimension is added to 2-D planes and to a 3-D ``rgb``)."""
 
-        def prep(a):
+        def prep(a, ndim):
             if a is None:
                 return None
             a = np.ascontiguousarray(a, dtype=np.uint8)
-            if a.ndim == 2:
+            if a.ndim == ndim:
                 a = a[None]
             return torch.from_numpy(a).to(device)
 
-        y, u, v = prep(y), prep(u), prep(v)
-        n = y.shape[0]
+        y, u, v, rgb = prep(y, 2), prep(u, 2), prep(v, 2), prep(rgb, 3)
+        n = (y if y is not None else rgb).shape[0]
         return FrameBatch(
-            format=fmt, y=y, u=u, v=v,
+            format=fmt, y=y, u=u, v=v, rgb=rgb,
             attrs=torch.zeros((n,), dtype=torch.int32, device=device),
             frame_ids=torch.arange(first_id, first_id + n,
                                    dtype=torch.int32, device=device),

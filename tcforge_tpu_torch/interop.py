@@ -7,6 +7,13 @@ weights: hqdn3d's ``{"init", "y", "u", "v"}`` (FrameAnt), tomsmocomp's
 mid-stream where a JAX run stopped, and the reverse.  The JAX side hands
 over its state as numpy arrays (``np.asarray`` of each leaf), so this
 module needs no JAX.
+
+The cadence filters carry frames and counters: ivtc's ``{"y", "u", "v"}``
+of two frames goes through ``states_from_numpy`` like the others;
+decimate's ring (``metric``, ``ok``, ``frame_in``, ``frame_out``,
+``count`` and the four delayed frames) and 32drop's ``last``, ``lasti``,
+``fnum``, ``lfnum``, ``dcnt`` go through ``cadence_state_from_numpy``,
+because the port keeps their counters on the host as Python ints.
 """
 
 from __future__ import annotations
@@ -29,13 +36,36 @@ def states_from_numpy(states: Any, device: torch.device) -> Any:
     return torch.from_numpy(np.array(states)).to(device)
 
 
+# the leaves of decimate's and 32drop's states that the port keeps on the
+# host: its integer state machines run there
+_HOST_LEAVES = ("ok", "frame_in", "frame_out", "count", "fnum", "lfnum",
+                "dcnt")
+
+
+def cadence_state_from_numpy(state: Any, device: torch.device) -> Any:
+    """A JAX decimate or 32drop state of numpy arrays -> the port's:
+    frames and the metric ring as tensors on ``device``, the counters
+    as Python ints and ``ok`` as a list of ints."""
+    out = {}
+    for key, leaf in state.items():
+        if key in _HOST_LEAVES:
+            out[key] = np.asarray(leaf).tolist()
+        else:
+            out[key] = states_from_numpy(leaf, device)
+    return out
+
+
 def states_to_numpy(states: Any) -> Any:
     """The port's per-filter states -> the same structure of host numpy
-    arrays, as the JAX chain takes them."""
+    arrays, as the JAX chain takes them (host-side counters as int32)."""
     if states is None:
         return None
     if isinstance(states, dict):
         return {k: states_to_numpy(v) for k, v in states.items()}
     if isinstance(states, (list, tuple)):
+        if states and all(isinstance(v, int) for v in states):
+            return np.asarray(states, dtype=np.int32)
         return type(states)(states_to_numpy(v) for v in states)
+    if isinstance(states, int):
+        return np.asarray(states, dtype=np.int32)
     return states.detach().cpu().numpy()

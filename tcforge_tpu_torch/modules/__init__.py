@@ -2,4 +2,4 @@
 built-in filters, as importing ``tcforge_tpu.modules`` does."""
 
 from tcforge_tpu_torch.modules.filters import (  # noqa: F401
-    denoise3d, hqdn3d, tomsmocomp, unsharp)
+    cadence, denoise3d, hqdn3d, tomsmocomp, unsharp)

@@ -74,6 +74,10 @@ class VideoFilter(abc.ABC):
     def apply(self, fb: FrameBatch, state: Any) -> Tuple[FrameBatch, Any]:
         ...
 
+    def collect(self, state: Any) -> None:
+        """Host-side look at the state a batch left, which the engine
+        calls after every batch (32detect's verbose lines)."""
+
 
 _REGISTRIES: Dict[ModuleKind, Dict[str, Type[VideoFilter]]] = {
     k: {} for k in ModuleKind}

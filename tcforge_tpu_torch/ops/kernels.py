@@ -90,7 +90,7 @@ _SIGNATURES = {
         "tc_d3_temporal_scan": (_P, _P, _P, _P, _P, _I, _LL, _P),
     },
     "unsharp": {
-        "tc_unsharp": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+        "tc_unsharp": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     },
     "tomsmocomp": {
         "tc_tomsmocomp": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -377,12 +377,17 @@ def unsharp_plane_ref(img: torch.Tensor, sx: int, sy: int,
     return res.clamp_(0, 255).to(torch.uint8)
 
 
-def unsharp_plane(img: torch.Tensor, sx: int, sy: int,
-                  amount: float) -> torch.Tensor:
+def unsharp_plane(img: torch.Tensor, sx: int, sy: int, amount: float,
+                  tiled: bool = False) -> torch.Tensor:
     """unsharp over (N, H, W) uint8 with ``sx``/``sy`` steps (half the
     matrix sizes): the edge-clamped binomial blur ``acc`` of 2*sx + 1 by
     2*sy + 1 taps mod 2^32, ``blur = (acc + halfscale) >> scalebits``,
-    ``clip(src + (((src - blur) * amount16.16) >> 16), 0, 255)``."""
+    ``clip(src + (((src - blur) * amount16.16) >> 16), 0, 255)``.
+
+    On the card, matrices up to 7x7 run the register kernel and every
+    other size the tiled one; ``tiled`` sends a small matrix to the
+    tiled kernel too, so that a check can hold both against the plain
+    version."""
     _check(img, "img", (torch.uint8,), 3)
     scalebits, halfscale, amount_fx = _unsharp_fixed(sx, sy, amount)
     if not _on_cuda(img):
@@ -392,7 +397,7 @@ def unsharp_plane(img: torch.Tensor, sx: int, sy: int,
         return out
     n, h, w = img.shape
     _call("unsharp", "tc_unsharp", img.data_ptr(), out.data_ptr(), n, h, w,
-          sx, sy, scalebits, amount_fx, _stream(img))
+          sx, sy, scalebits, amount_fx, int(tiled), _stream(img))
     launches["unsharp"] += 1
     return out
 

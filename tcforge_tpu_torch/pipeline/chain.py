@@ -1,10 +1,14 @@
 """Filter-chain execution: job transforms + filters, one batch at a time.
 
-The port of ``tcforge_tpu/pipeline/chain.py`` for the transforms this
-slice carries: ``-I`` deinterlace modes 1, 3, 4 and 5 and the ``-Z``
-zoom.  Every other internal transform raises ``NotImplementedError``
-naming its flag.  ``VideoChain`` keeps the JAX program order (PRE
-slots, internal transforms, POST slots) and threads the running
+The port of ``tcforge_tpu/pipeline/chain.py``: the filter slots around
+the internal transform chain of ``video_trans.c`` (the "jIXBZYrzlkKGC"
+order: -j clip, -I deinterlace, -X/-B fast resize, -Z zoom, -Y clip,
+-r reduce, -z flip, -l mirror, -k rgbswap, -K grayscale, -G gamma,
+-C antialias), on planar YUV and on RGB batches.  ``-I 2`` is a filter
+in the JAX package and still to come here: it raises
+``NotImplementedError``.  ``VideoChain`` keeps the JAX program order
+(entry conversion to ``job.im_colorspace`` and --pre_clip, PRE slots,
+internal transforms, POST slots, --post_clip) and threads the running
 geometry through ``initial_states`` as the JAX chain does, so hqdn3d
 (a POST_M filter) runs after the zoom, at the output size.  PyTorch
 runs eagerly, so there is no jit segmentation and no host stage.
@@ -12,7 +16,7 @@ runs eagerly, so there is no jit segmentation and no host stage.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import torch
 
@@ -22,7 +26,7 @@ from tcforge_tpu_torch.core.frame import FrameBatch
 from tcforge_tpu_torch.core.job import Job
 from tcforge_tpu_torch.modules.registry import (FilterSlot, ModuleKind,
                                                 VideoFilter, new_module)
-from tcforge_tpu_torch.ops import video, zoom
+from tcforge_tpu_torch.ops import colorspace, video, zoom
 
 _SLOT_ORDER = (FilterSlot.PRE_S, FilterSlot.PRE_M, FilterSlot.POST_M,
                FilterSlot.POST_S)
@@ -30,71 +34,154 @@ _SLOT_ORDER = (FilterSlot.PRE_S, FilterSlot.PRE_M, FilterSlot.POST_M,
 
 def _plane_divs(fmt: ImageFormat) -> Tuple[Tuple[int, int], ...]:
     """(width_div, height_div) per plane (set_vtd, video_trans.c:72-110)."""
-    sx, sy = fmt.subsampling
-    return ((1, 1), (sx, sy), (sx, sy))
+    if fmt.is_planar:
+        sx, sy = fmt.subsampling
+        return ((1, 1), (sx, sy), (sx, sy))
+    return ((1, 1),)
+
+
+def _black(fmt: ImageFormat) -> Tuple[int, ...]:
+    """black_pixel per plane: 0 for Y/RGB, 128 for chroma
+    (video_trans.c:86,93)."""
+    if fmt.is_planar:
+        return (0, 128, 128)
+    return (0,)
 
 
 def unsupported_flags(job: Job) -> List[str]:
     """The job's active internal transforms that the port lacks so far."""
-    checks = (
-        ("--pre_clip", bool(job.pre_im_clip)),
-        ("-j", bool(job.im_clip)),
-        ("-I %d" % job.deinterlace, job.deinterlace not in (0, 1, 3, 4, 5)),
-        ("-X/-B", job.resize_up != job.resize_down),
-        ("-Y", bool(job.ex_clip)),
-        ("-r", job.reduce_w > 1 or job.reduce_h > 1),
-        ("--post_clip", bool(job.post_ex_clip)),
-        ("-z", job.flip_v),
-        ("-l", job.flip_h),
-        ("-k", job.rgbswap),
-        ("-K", job.decolor),
-        ("-G", job.gamma > 0 and job.gamma != 1.0),
-        ("-C", job.antialias > 0),
-    )
-    return [flag for flag, active in checks if active]
+    return ["-I 2"] if job.deinterlace == 2 else []
 
 
-def _check_supported(job: Job, fmt: ImageFormat) -> None:
+def _check_supported(job: Job) -> None:
     flags = unsupported_flags(job)
     if flags:
         raise NotImplementedError(
             "not yet ported to tcforge_tpu_torch: " + ", ".join(flags))
-    if not fmt.is_planar or fmt != job.im_colorspace:
-        raise NotImplementedError(
-            f"tcforge_tpu_torch runs planar YUV input in its own "
-            f"colorspace only (-V), got {fmt} for {job.im_colorspace}")
+
+
+def _with_yuv(fb: FrameBatch, planes: Sequence[torch.Tensor]) -> FrameBatch:
+    """``fb`` with its one to three planes replaced, luma first."""
+    return fb.with_planes(y=planes[0],
+                          u=planes[1] if len(planes) > 1 else None,
+                          v=planes[2] if len(planes) > 2 else None)
+
+
+def _on_planes(fb: FrameBatch, op: Callable[..., torch.Tensor],
+               args: Sequence[Tuple] = ((),)) -> FrameBatch:
+    """Run a plane op over the batch: on an RGB batch channel-first,
+    (N, C, H, W), with ``args[0]``; else on every plane with its own
+    ``args`` entry (the last one again where the planes outnumber them)."""
+    if fb.rgb is not None:
+        out = op(torch.movedim(fb.rgb, -1, 1), *args[0])
+        return fb.with_planes(rgb=torch.movedim(out, 1, -1).contiguous())
+    return _with_yuv(fb, [op(p, *args[min(i, len(args) - 1)])
+                          for i, p in enumerate(fb.planes)])
+
+
+def apply_clip(fb: FrameBatch, clip: Tuple[int, int, int, int]) -> FrameBatch:
+    """One clip stage (tcv_clip semantics; negative values grow with
+    black/neutral border) on a batch in either representation."""
+    t, l, b, r = clip
+    if fb.rgb is not None:
+        return fb.with_planes(rgb=video.clip_rgb(fb.rgb, t, l, b, r, 0))
+    return _on_planes(fb, video.clip, [
+        (t // dy, l // dx, b // dy, r // dx, blk)
+        for (dx, dy), blk in zip(_plane_divs(fb.format), _black(fb.format))])
 
 
 def apply_video_trans(job: Job, fb: FrameBatch) -> FrameBatch:
-    """process_vid_frame port (video_trans.c:192-460), batched, for the
-    transforms of this slice."""
-    _check_supported(job, fb.format)
+    """process_vid_frame port (video_trans.c:192-460), batched."""
+    _check_supported(job)
     divs = _plane_divs(fb.format)
+    is_rgb = fb.rgb is not None
+
+    # -j import clip
+    if job.im_clip:
+        fb = apply_clip(fb, job.im_clip)
 
     # -I deinterlace
     mode = job.deinterlace
-    if mode == 1:          # interpolate Y only (video_trans.c:230-250)
-        fb = fb.with_planes(y=video.deint_interpolate(fb.y))
+    if mode in (1, 5):     # interpolate / linear blend, Y only
+        deint = (video.deint_interpolate if mode == 1
+                 else video.deint_linear_blend)
+        if is_rgb:
+            fb = _on_planes(fb, deint)
+        else:
+            fb = fb.with_planes(y=deint(fb.y))
     elif mode in (3, 4):   # drop bottom field (+zoom back for 3)
-        planes = [video.deint_drop_field(p) for p in fb.planes]
+        w, h = fb.width, fb.height
+        fb = _on_planes(fb, video.deint_drop_field)
         if mode == 3:
-            w, h = fb.width, fb.height
-            planes = [zoom.zoom_plane(p, w // dx, h // dy, job.zoom_filter)
-                      for p, (dx, dy) in zip(planes, divs)]
-        fb = fb.with_planes(y=planes[0], u=planes[1], v=planes[2])
-    elif mode == 5:        # linear blend, Y only
-        fb = fb.with_planes(y=video.deint_linear_blend(fb.y))
+            fb = _on_planes(fb, zoom.zoom_plane, [
+                (w // dx, h // dy, job.zoom_filter) for dx, dy in divs])
+
+    # -X / -B fast resize (video_trans.c:280-300)
+    rw = job.resize_up[0] - job.resize_down[0]
+    rh = job.resize_up[1] - job.resize_down[1]
+    if rw or rh:
+        fb = _on_planes(fb, video.resize_fast, [
+            (rw, rh, 8 // dx, 8 // dy) for dx, dy in divs])
 
     # -Z zoom (video_trans.c:300-325)
     if job.zoom_width and job.zoom_height:
         zw, zh = job.zoom_width, job.zoom_height
-        y = zoom.zoom_plane(fb.y, zw, zh, job.zoom_filter,
-                            interlaced=job.zoom_interlaced)
-        # chroma never interlaced (video_trans.c:305-315)
-        dx, dy = divs[1]
-        u = zoom.zoom_plane(fb.u, zw // dx, zh // dy, job.zoom_filter)
-        v = zoom.zoom_plane(fb.v, zw // dx, zh // dy, job.zoom_filter)
-        fb = fb.with_planes(y=y, u=u, v=v)
+        if is_rgb:
+            fb = _on_planes(fb, lambda p: zoom.zoom_plane(
+                p, zw, zh, job.zoom_filter, interlaced=job.zoom_interlaced))
+        else:
+            planes = list(fb.planes)
+            planes[0] = zoom.zoom_plane(planes[0], zw, zh, job.zoom_filter,
+                                        interlaced=job.zoom_interlaced)
+            for i in range(1, len(planes)):
+                dx, dy = divs[i]
+                # chroma never interlaced (video_trans.c:305-315)
+                planes[i] = zoom.zoom_plane(planes[i], zw // dx, zh // dy,
+                                            job.zoom_filter)
+            fb = _with_yuv(fb, planes)
+
+    # -Y export clip
+    if job.ex_clip:
+        fb = apply_clip(fb, job.ex_clip)
+
+    # -r reduce
+    if job.reduce_w > 1 or job.reduce_h > 1:
+        fb = _on_planes(fb, video.reduce, [(job.reduce_w, job.reduce_h)])
+
+    # -z / -l flips
+    if job.flip_v:
+        fb = (fb.with_planes(rgb=video.flip_v_rgb(fb.rgb)) if is_rgb
+              else _on_planes(fb, video.flip_v))
+    if job.flip_h:
+        fb = (fb.with_planes(rgb=video.flip_h_rgb(fb.rgb)) if is_rgb
+              else _on_planes(fb, video.flip_h))
+
+    # -k rgbswap
+    if job.rgbswap and is_rgb:
+        fb = fb.with_planes(rgb=torch.flip(fb.rgb, (-1,)))
+
+    # -K decolor
+    if job.decolor:
+        if is_rgb:
+            fb = fb.with_planes(rgb=video.decolor_rgb(fb.rgb))
+        elif fb.u is not None:
+            fb = fb.with_planes(u=torch.full_like(fb.u, 128),
+                                v=torch.full_like(fb.v, 128))
+
+    # -G gamma
+    if job.gamma > 0 and job.gamma != 1.0:
+        if is_rgb:
+            fb = fb.with_planes(rgb=video.gamma_correct(fb.rgb, job.gamma))
+        else:
+            fb = fb.with_planes(y=video.gamma_correct(fb.y, job.gamma))
+
+    # -C antialias
+    if job.antialias > 0:
+        aa = (job.antialias_weight, job.antialias_bias)
+        if is_rgb:
+            fb = _on_planes(fb, video.antialias, [aa])
+        else:
+            fb = fb.with_planes(y=video.antialias(fb.y, *aa))
     return fb
 
 
@@ -106,7 +193,7 @@ class VideoChain:
 
     def __init__(self, job: Job, in_format: ImageFormat,
                  width: int, height: int):
-        _check_supported(job, in_format)
+        _check_supported(job)
         self.job = job
         self.in_format = in_format
         self.width, self.height = width, height
@@ -125,6 +212,9 @@ class VideoChain:
         filter's carry matches the frame size it will see."""
         states: List[Any] = [None] * len(self.filters)
         w, h = self.width, self.height
+        if self.job.pre_im_clip:       # runs before the PRE slots
+            t, l, b, r = self.job.pre_im_clip
+            w, h = w - l - r, h - t - b
         for slot in (FilterSlot.PRE_S, FilterSlot.PRE_M):
             for i in self._by_slot[slot]:
                 states[i] = self.filters[i].init_state(
@@ -140,15 +230,36 @@ class VideoChain:
         return states
 
     def program(self) -> List[Tuple[str, int]]:
-        """The chain as a linear op list in execution order: PRE slots,
-        internal transforms (index -1), POST slots (chain.py:323-335)."""
-        prog: List[Tuple[str, int]] = []
+        """The chain as a linear op list in execution order: entry
+        conversion and --pre_clip, PRE slots, internal transforms, POST
+        slots, --post_clip (chain.py:323-335); the fixed ops carry
+        index -1."""
+        prog: List[Tuple[str, int]] = [("pre", -1)]
         for slot in (FilterSlot.PRE_S, FilterSlot.PRE_M):
             prog += [("filter", i) for i in self._by_slot[slot]]
         prog.append(("trans", -1))
         for slot in (FilterSlot.POST_M, FilterSlot.POST_S):
             prog += [("filter", i) for i in self._by_slot[slot]]
+        prog.append(("post", -1))
         return prog
+
+    def _run_op(self, fb: FrameBatch, kind: str) -> FrameBatch:
+        if kind == "pre":
+            # entry colorspace conversion (-V: internal colorspace)
+            if fb.format != self.job.im_colorspace:
+                fb = colorspace.convert(fb, self.job.im_colorspace)
+            # --pre_clip runs in the import stage, before any filter
+            # (preprocess_vid_frame, video_trans.c:483)
+            if self.job.pre_im_clip:
+                fb = apply_clip(fb, self.job.pre_im_clip)
+        elif kind == "trans":
+            fb = apply_video_trans(self.job, fb)
+        elif kind == "post":
+            # --post_clip runs at export, after everything
+            # (postprocess_vid_frame, video_trans.c:548)
+            if self.job.post_ex_clip:
+                fb = apply_clip(fb, self.job.post_ex_clip)
+        return fb
 
     def __call__(self, fb: FrameBatch,
                  states: List[Any]) -> Tuple[FrameBatch, List[Any]]:
@@ -157,5 +268,5 @@ class VideoChain:
             if kind == "filter":
                 fb, states[i] = self.filters[i].apply(fb, states[i])
             else:
-                fb = apply_video_trans(self.job, fb)
+                fb = self._run_op(fb, kind)
         return fb, states

@@ -3,7 +3,10 @@ chain's ``trace_step`` at the ``entry()`` shapes of ``__graft_entry__``
 (512x288 -> 448x256, batch 4): one batch, two batches with the carry
 handed over through ``interop``, and batch-size invariance.  Then the
 slice's paths (cfg2, cfg4, denoise3d of ``chip_smoke.PATHS``) at
-128x72, batch 3, over two batches with every carry compared.
+128x72, batch 3, over two batches with every carry compared.  Then
+every internal transform of ``apply_video_trans`` alone and three at a
+time, on YUV and on RGB jobs (the entry conversion and the pre and
+post clips included), and cfg1 and cfg3 as wholes at a small size.
 Tolerance 0."""
 
 from __future__ import annotations
@@ -71,7 +74,8 @@ def _jax_states_np(states):
 
 def test_program_order_runs_hqdn3d_after_the_zoom(chains):
     jchain, tchain = chains
-    assert tchain.program() == [("trans", -1), ("filter", 0)]
+    assert tchain.program() == [("pre", -1), ("trans", -1), ("filter", 0),
+                                ("post", -1)]
     # FrameAnt is sized for the zoomed frame, as in the JAX chain
     tstate = tchain.initial_states(CPU)[0]
     jstate = jchain.initial_states()[0]
@@ -135,7 +139,14 @@ def test_batch_size_invariance(chains, batches):
     ("pre_im_clip", (2, 2, 2, 2), "--pre_clip"),
     ("post_ex_clip", (2, 2, 2, 2), "--post_clip")])
 def test_unported_transforms_raise(field, value, flag):
+    """``-I 2`` (a filter in the JAX package) is all that is still
+    refused; every other transform of the list builds its chain."""
     job = Job(**{field: value})
+    if flag != "-I 2":
+        assert unsupported_flags(job) == []
+        assert VideoChain(job, ImageFormat.YUV420P, 64, 48).program()[1] == \
+            ("trans", -1)
+        return
     assert unsupported_flags(job) == [flag]
     with pytest.raises(NotImplementedError, match=flag):
         VideoChain(job, ImageFormat.YUV420P, 64, 48)
@@ -177,3 +188,116 @@ def test_slice_path_two_batches(path):
             assert (t is None) == (j is None)
             for key in j or ():
                 np.testing.assert_array_equal(t[key], j[key])
+
+
+# every internal transform alone, then three at a time
+TW, TH = 64, 48
+TRANSFORMS = {
+    "j": dict(im_clip=(2, 4, 6, 8)),
+    "j_grow": dict(im_clip=(-2, -4, 0, -8)),
+    "I1": dict(deinterlace=1),
+    "I3": dict(deinterlace=3),
+    "I4": dict(deinterlace=4),
+    "I5": dict(deinterlace=5),
+    "X": dict(resize_up=(1, 2)),
+    "B": dict(resize_down=(2, 1)),
+    "XB": dict(resize_up=(1, 0), resize_down=(0, 1)),
+    "Z": dict(zoom_width=48, zoom_height=40),
+    "Z_interlaced": dict(zoom_width=80, zoom_height=40,
+                         zoom_interlaced=True),
+    "Z_bell": dict(zoom_width=32, zoom_height=56, zoom_filter="bell"),
+    "Y": dict(ex_clip=(4, 2, 0, 6)),
+    "r": dict(reduce_w=2, reduce_h=2),
+    "r_h": dict(reduce_h=3),
+    "z": dict(flip_v=True),
+    "l": dict(flip_h=True),
+    "k": dict(rgbswap=True),
+    "K": dict(decolor=True),
+    "G": dict(gamma=0.8),
+    "C": dict(antialias=1),
+    "C_para": dict(antialias=2, antialias_weight=0.5, antialias_bias=0.2),
+    "pre_clip": dict(pre_im_clip=(2, 0, 4, 2)),
+    "post_clip": dict(post_ex_clip=(0, 2, 2, -4)),
+    "j+z+G": dict(im_clip=(2, 4, 6, 8), flip_v=True, gamma=1.6),
+    "I3+r+K": dict(deinterlace=3, reduce_w=2, decolor=True),
+    "X+Y+C": dict(resize_up=(1, 1), ex_clip=(2, 2, 2, 2), antialias=1),
+    "pre+Z+l+post": dict(pre_im_clip=(0, 2, 0, 2), zoom_width=40,
+                         zoom_height=32, flip_h=True,
+                         post_ex_clip=(2, 2, 2, 2)),
+}
+
+
+@pytest.mark.parametrize("csp", ["yuv420p", "rgb24", "yuv422p"])
+@pytest.mark.parametrize("name", sorted(TRANSFORMS))
+def test_internal_transforms_match_jax(name, csp):
+    kw = dict(im_v_width=TW, im_v_height=TH, **TRANSFORMS[name])
+    jchain = JVideoChain(JJob(**kw, im_colorspace=JImageFormat(csp)),
+                         JImageFormat.YUV420P, TW, TH)
+    tchain = VideoChain(Job(**kw, im_colorspace=ImageFormat(csp)),
+                        ImageFormat.YUV420P, TW, TH)
+    rng = np.random.default_rng(len(name))
+    planes = [rng.integers(0, 256, (2, h, w), dtype=np.uint8)
+              for h, w in ((TH, TW), (TH // 2, TW // 2), (TH // 2, TW // 2))]
+    jout, _ = jchain.trace_step(JFrameBatch.from_numpy(*planes), [])
+    tout, _ = tchain(FrameBatch.from_numpy(*planes, device=CPU), [])
+    assert tout.format.value == jout.format.value == csp
+    assert len(tout.planes) == len(jout.planes)
+    for got, want in zip(tout.planes, jout.planes):
+        assert got.is_contiguous()
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # the geometry the job announces is the one that came out
+    if "deinterlace" not in kw or kw["deinterlace"] != 4:
+        assert (tout.width, tout.height) == tchain.job.export_size()
+
+
+def test_cfg1_whole_matches_jax(monkeypatch):
+    """cfg1 (benches/run_configs.py:118-128) at 64x48 -> 48x32: 420P to
+    RGB24 and back, then the zoom of each plane."""
+    from tcforge_tpu.ops import colorspace as jcs
+    from tcforge_tpu.ops import zoom as jzoom
+    from tcforge_tpu_torch.ops import colorspace, zoom
+    monkeypatch.setattr(chip_smoke, "CFG1_ZOOM", (48, 32))
+    rng = np.random.default_rng(21)
+    planes = [rng.integers(0, 256, (3, h, w), dtype=np.uint8)
+              for h, w in ((48, 64), (24, 32), (24, 32))]
+    back = jcs.convert(jcs.convert(JFrameBatch.from_numpy(*planes),
+                                   JImageFormat.RGB24), JImageFormat.YUV420P)
+    want = (jzoom.zoom_plane(back.y, 48, 32), jzoom.zoom_plane(back.u, 24, 16),
+            jzoom.zoom_plane(back.v, 24, 16))
+    got = chip_smoke.cfg1_step(colorspace, zoom,
+                               FrameBatch.from_numpy(*planes, device=CPU))
+    for g, w in zip(got.planes, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("batch", [5, 16])
+def test_cfg3_chain_matches_jax(batch, tmp_path):
+    """``-J 32detect,ivtc,decimate`` in its slots' order (ivtc PRE_S,
+    32detect PRE_M, decimate POST_S) over a telecined stream, the JAX
+    chain jitted as its engine runs it."""
+    from tcforge_tpu_torch.io.y4m import Y4MReader
+    chip_smoke.write_telecine_y4m(tmp_path / "t.y4m", TW, TH, 2 * batch,
+                                  seed=6)
+    with Y4MReader(str(tmp_path / "t.y4m")) as r:
+        planes = r.read_batch(2 * batch)
+    text = "32detect=force_mode=3,ivtc,decimate"
+    kw = dict(im_v_width=TW, im_v_height=TH, batch_size=batch)
+    jchain = JVideoChain(JJob(**kw, filters=_filters(JFilterSpec, text)),
+                         JImageFormat.YUV420P, TW, TH)
+    tchain = VideoChain(Job(**kw, filters=_filters(FilterSpec, text)),
+                        ImageFormat.YUV420P, TW, TH)
+    assert [(k, i) for k, i in tchain.program()] == \
+        [(k, -1 if i is None else i) for k, i in jchain._program()]
+    assert [tchain.filters[i].info.name for k, i in tchain.program()
+            if k == "filter"] == ["ivtc", "32detect", "decimate"]
+    jstates, tstates = jchain.initial_states(), tchain.initial_states(CPU)
+    for k in range(2):
+        part = [p[k * batch:(k + 1) * batch] for p in planes]
+        jout, jstates = jchain(JFrameBatch.from_numpy(
+            *part, first_id=k * batch), jstates)
+        tout, tstates = tchain(FrameBatch.from_numpy(
+            *part, device=CPU, first_id=k * batch), tstates)
+        for g, w in zip(tout.to_numpy(), jout.planes):
+            np.testing.assert_array_equal(g, np.asarray(w))
+        np.testing.assert_array_equal(tout.attrs.numpy(),
+                                      np.asarray(jout.attrs))

@@ -6,7 +6,10 @@ hqdn3d=luma=4.0`` and the slice's paths cfg2, cfg4 and denoise3d) go
 through both CLIs on the CPU; the output files must be identical, and
 their SHA-256 values are the constants that ``chip_smoke.py`` checks
 again on the card.  The engine drops the frames a filter marks SKIPPED
-or BROKEN, as the JAX engine does.
+or BROKEN, as the JAX engine does.  Then cfg3 on a telecined 64x48
+stream of 20 frames (bytes, frame count and the skipped counter equal
+to the JAX engine's), the small ``-V rgb24`` case, and the internal
+transforms' flags through both parsers.
 """
 
 from __future__ import annotations
@@ -17,7 +20,12 @@ import pytest
 import torch
 
 import chip_smoke
+from tcforge_tpu.cli import build_parser as jax_build_parser
+from tcforge_tpu.cli import args_to_job as jax_args_to_job
 from tcforge_tpu.cli import main as jax_cli_main
+from tcforge_tpu.core.job import Job as JJob
+from tcforge_tpu.ops import video as jax_video
+from tcforge_tpu.pipeline.engine import Pipeline as JPipeline
 from tcforge_tpu_torch import cli
 from tcforge_tpu_torch.core.frame import (ATTR_BROKEN, ATTR_SKIPPED,
                                           FrameBatch)
@@ -129,6 +137,131 @@ def test_engine_counters_and_max_frames(golden_input, tmp_path):
     with Y4MReader(str(tmp_path / "o.y4m")) as r:
         assert r.header.fps_num == 25000 and r.header.fps_den == 1000
         assert sum(1 for _ in r) == 5
+
+
+@pytest.fixture(scope="module")
+def telecine_input(tmp_path_factory):
+    spec = chip_smoke.CFG3_GOLDEN
+    path = tmp_path_factory.mktemp("cfg3") / "in.y4m"
+    chip_smoke.write_telecine_y4m(path, spec["w"], spec["h"],
+                                  spec["frames"], spec["seed"])
+    return path
+
+
+def test_cfg3_cli_matches_jax_cli_byte_for_byte(telecine_input, tmp_path):
+    args = [*chip_smoke.CFG3_GOLDEN["args"], "--progress_off", "-q"]
+    ref, out = tmp_path / "jax.y4m", tmp_path / "port.y4m"
+    assert jax_cli_main(["-i", str(telecine_input), "-o", str(ref),
+                         *args]) == 0
+    assert cli.main(["-i", str(telecine_input), "-o", str(out), *args,
+                     "--device", "cpu"]) == 0
+    assert out.read_bytes() == ref.read_bytes()
+    assert chip_smoke.sha256_file(out) == chip_smoke.CFG3_GOLDEN_SHA256
+    with Y4MReader(str(out)) as r:
+        assert (r.header.fps_num, r.header.fps_den) == (30000, 1001)
+        assert sum(1 for _ in r) == 13
+
+
+@pytest.mark.parametrize("batch", [1, 5, 7, 16])
+def test_cfg3_engine_counters_match_the_jax_engine(telecine_input, tmp_path,
+                                                   batch):
+    """Most batches of cfg3 drop some frames: written and skipped equal
+    the JAX engine's at every batch size, and the files are equal."""
+    filters = "32detect,ivtc,decimate".split(",")
+    ref, out = tmp_path / "jax.y4m", tmp_path / "port.y4m"
+    jc = JPipeline(JJob(
+        video_in_file=str(telecine_input), video_out_file=str(ref),
+        ex_m_module="y4m", batch_size=batch, mesh_mode="off",
+        filters=[chip_smoke_filter(f, jax=True) for f in filters])
+    ).run(progress=False)
+    pc = Pipeline(Job(
+        video_in_file=str(telecine_input), video_out_file=str(out),
+        batch_size=batch,
+        filters=[chip_smoke_filter(f, jax=False) for f in filters]),
+        torch.device("cpu")).run()
+    assert (pc.frames, pc.written, pc.skipped, pc.dropped) == \
+        (jc.frames_in, jc.encoded, jc.skipped, jc.dropped)
+    assert pc.written == 13 and pc.skipped == 7
+    assert out.read_bytes() == ref.read_bytes()
+
+
+def chip_smoke_filter(text, jax):
+    from tcforge_tpu.core.job import FilterSpec as JFilterSpec
+    return (JFilterSpec if jax else FilterSpec).parse(text)
+
+
+def test_rgb_job_cli_matches_jax_cli_byte_for_byte(golden_input,
+                                                       tmp_path):
+    args = [*chip_smoke.RGB_GOLDEN_ARGS, "--progress_off", "-q"]
+    ref, out = tmp_path / "jax.y4m", tmp_path / "port.y4m"
+    assert jax_cli_main(["-i", str(golden_input), "-o", str(ref), *args]) == 0
+    assert cli.main(["-i", str(golden_input), "-o", str(out), *args,
+                     "--device", "cpu"]) == 0
+    assert out.read_bytes() == ref.read_bytes()
+    assert chip_smoke.sha256_file(out) == chip_smoke.RGB_GOLDEN_SHA256
+    with Y4MReader(str(out)) as r:
+        assert (r.header.width, r.header.height) == (128 - 32, 72 - 16)
+
+
+@pytest.fixture
+def fresh_aa_tables():
+    """No antialias table of an earlier trace in the JAX package's
+    cache, before the test and after it."""
+    jax_video._aa_luts.cache_clear()
+    yield
+    jax_video._aa_luts.cache_clear()
+
+
+@pytest.mark.parametrize("case", sorted(chip_smoke.FLAG_CASES))
+def test_flags_cli_matches_jax_cli_byte_for_byte(case, golden_input,
+                                                 tmp_path, fresh_aa_tables):
+    """The cases that ``chip_smoke.py`` runs on the card and on the CPU,
+    here against the JAX CLI."""
+    args = [*chip_smoke.FLAG_CASES[case], "--progress_off", "-q"]
+    ref, out = tmp_path / "jax.y4m", tmp_path / "port.y4m"
+    assert jax_cli_main(["-i", str(golden_input), "-o", str(ref), *args]) == 0
+    assert cli.main(["-i", str(golden_input), "-o", str(out), *args,
+                     "--device", "cpu"]) == 0
+    assert out.read_bytes() == ref.read_bytes()
+
+
+@pytest.mark.parametrize("argv", [
+    ["-j", "8"], ["-j", "8,16"], ["-j", "8,16,2"], ["-j", "1,2,3,4"],
+    ["--pre_clip", "2,4", "--post_clip", "6"], ["-Y", "0,8,2"],
+    ["-X", "1"], ["-X", "1,2"], ["-B", "2,1,8"], ["-X", "1,1,16", "-B", "1"],
+    ["-r", "2"], ["-r", "2,3"], ["-z", "-l", "-k", "-K"], ["-G", "0.7"],
+    ["-C", "3", "--antialias_para", "0.4,0.6"], ["-V", "rgb24"],
+    ["-V", "yuv422p"], ["-V", "rgb"], ["-Z", "320x240", "--zoom_filter",
+                                       "bell"]])
+def test_flags_parse_like_the_jax_cli(argv):
+    """The internal transforms' fields of the job, from both parsers."""
+    base = ["-i", "a.y4m", "-o", "b.y4m"]
+    port = cli.args_to_job(cli.build_parser().parse_args(base + argv))
+    ref = jax_args_to_job(jax_build_parser().parse_args(base + argv))
+    for field in ("pre_im_clip", "im_clip", "ex_clip", "post_ex_clip",
+                  "resize_up", "resize_down", "zoom_width", "zoom_height",
+                  "zoom_filter", "reduce_w", "reduce_h", "flip_v", "flip_h",
+                  "rgbswap", "decolor", "gamma", "antialias",
+                  "antialias_weight", "antialias_bias", "deinterlace"):
+        assert getattr(port, field) == getattr(ref, field), field
+    assert port.im_colorspace.value == ref.im_colorspace.value
+
+
+def test_resize_multiplier_is_checked():
+    with pytest.raises(SystemExit):
+        cli.args_to_job(cli.build_parser().parse_args(
+            ["-i", "a", "-o", "b", "-X", "1,1,12"]))
+
+
+@pytest.mark.parametrize("csp", ["bgr24", "rgba32", "y8", "yv12"])
+def test_engine_refuses_colorspaces_the_y4m_writer_cannot_take(golden_input,
+                                                            tmp_path, csp):
+    from tcforge_tpu_torch.core.formats import ImageFormat
+    job = Job(video_in_file=str(golden_input),
+              video_out_file=str(tmp_path / "o.y4m"),
+              im_colorspace=ImageFormat(csp))
+    with pytest.raises(NotImplementedError, match=csp):
+        Pipeline(job, torch.device("cpu"))
 
 
 def test_cli_refuses_flags_it_lacks(golden_input, tmp_path, capsys):

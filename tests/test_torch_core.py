@@ -24,8 +24,10 @@ from tcforge_tpu_torch.core import formats as tformats
 from tcforge_tpu_torch.core import job as tjob
 from tcforge_tpu.core import frame as jframe
 from tcforge_tpu_torch.core import frame as tframe
+from tcforge_tpu_torch.core.formats import ImageFormat
 from tcforge_tpu_torch.core.frame import FrameBatch
 from tcforge_tpu_torch.modules import registry as tregistry
+from tcforge_tpu_torch.modules.filters import cadence
 from tcforge_tpu_torch.modules.filters.denoise3d import Denoise3dFilter
 from tcforge_tpu_torch.modules.filters.hqdn3d import Hqdn3dFilter
 from tcforge_tpu_torch.modules.filters.tomsmocomp import TomsMoCompFilter
@@ -105,7 +107,11 @@ def test_filter_slots_and_kinds_match():
     ("hqdn3d", Hqdn3dFilter, "luma=4.0"),
     ("unsharp", UnsharpFilter, "luma=0.8:luma_matrix=7x5"),
     ("tomsmocomp", TomsMoCompFilter, "searcheffort=5"),
-    ("denoise3d", Denoise3dFilter, "")])
+    ("denoise3d", Denoise3dFilter, ""),
+    ("ivtc", cadence.IvtcFilter, "field=1"),
+    ("32detect", cadence.Detect32Filter, "threshold=12"),
+    ("decimate", cadence.DecimateFilter, ""),
+    ("32drop", cadence.Drop32Filter, "")])
 def test_registry_lookup(name, cls, options):
     job = tjob.Job()
     mod = tregistry.new_module(tregistry.ModuleKind.FILTER, name, job,
@@ -149,6 +155,29 @@ def test_frame_batch_roundtrip():
     assert int(fb2.y.sum()) == 0 and fb2.u is fb.u and fb2.fps == 25.0
     single = FrameBatch.from_numpy(y[0], device=torch.device("cpu"))
     assert single.y.shape == (1, 6, 8) and single.u is None
+
+
+def test_frame_batch_rgb_form():
+    """``rgb`` replaces the planes, the planes replace ``rgb``, as in the
+    JAX record."""
+    rng = np.random.default_rng(1)
+    rgb = rng.integers(0, 256, (2, 4, 6, 3), dtype=np.uint8)
+    cpu = torch.device("cpu")
+    fb = FrameBatch.from_numpy(rgb=rgb, device=cpu, fmt=ImageFormat.RGB24)
+    jfb = jframe.FrameBatch.from_numpy(rgb=rgb, fmt=jformats.ImageFormat.RGB24)
+    assert (fb.batch, fb.height, fb.width) == (jfb.batch, jfb.height,
+                                              jfb.width) == (2, 4, 6)
+    assert fb.y is None and len(fb.planes) == len(jfb.planes) == 1
+    np.testing.assert_array_equal(fb.to_numpy()[0], rgb)
+    y = torch.zeros((2, 4, 6), dtype=torch.uint8)
+    back = fb.with_planes(y=y, u=y[:, :2, :3], v=y[:, :2, :3],
+                          format=ImageFormat.YUV420P)
+    assert back.rgb is None and back.y is y and len(back.planes) == 3
+    again = back.with_planes(rgb=fb.rgb, format=ImageFormat.RGB24)
+    assert again.y is None and again.u is None and again.rgb is fb.rgb
+    single = FrameBatch.from_numpy(rgb=rgb[0], device=cpu,
+                                   fmt=ImageFormat.RGB24)
+    assert single.rgb.shape == (1, 4, 6, 3)
 
 
 class TestWrapperChecks:

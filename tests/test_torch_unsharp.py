@@ -56,6 +56,22 @@ def test_plain_matches_pallas_interpret(h, w, mx, my, am):
     np.testing.assert_array_equal(_port(img, mx, my, am), want)
 
 
+@pytest.mark.parametrize("sx,sy", [(sx, sy) for sx in range(4)
+                                   for sy in range(4) if sx + sy])
+def test_register_kernel_sizes_match_jax(sx, sy):
+    """The fifteen matrices up to 7x7 (the card's register kernel has one
+    instance for each); ``tiled`` picks the card's other kernel and
+    changes nothing in the result."""
+    mx, my = 2 * sx + 1, 2 * sy + 1
+    img = _img(19, 44, 10 * sx + sy, n=2)
+    am = 0.8 if (sx + sy) % 2 else -1.5
+    want = np.asarray(jun.unsharp_plane(jnp.asarray(img), mx, my, am))
+    np.testing.assert_array_equal(_port(img, mx, my, am), want)
+    tiled = kernels.unsharp_plane(torch.from_numpy(img), sx, sy, am,
+                                  tiled=True)
+    np.testing.assert_array_equal(tiled.numpy(), want)
+
+
 def test_wrap_case_really_wraps():
     """At 17x15 the un-normalised sum of a white plane exceeds 2^32."""
     assert 255 * (1 << (2 * (8 + 7))) > 1 << 32
