@@ -2,7 +2,8 @@
 """Drive the torch port's paths once on one CUDA card and check them.
 
     python3 chip_smoke.py        # from the root of a checkout, one card
-    python3 chip_smoke.py --parent DIR   # and an earlier checkout's kernels
+    python3 chip_smoke.py --parent DIR   # and an earlier checkout's
+                                         # kernels and CLI
 
 The main path is the 1080i -> 720p chain of ``bench.py``: YUV420P
 1920x1080, batch 16, ``-I 5`` linear-blend deinterlace, ``-Z 1280x720``
@@ -19,7 +20,12 @@ Lanczos3 zoom, ``-J hqdn3d=luma=4.0`` (which runs after the zoom, at
   hold no kernel: the same torch code on the CPU is its plain version;
 - cfg1 (``run_configs.py:108-159``): YUV420P 640x480, batch 16,
   ``colorspace.convert`` to RGB24 and back, then ``zoom_plane`` to
-  512x384 / 256x192 (the zoom kernel, six launches a batch).
+  512x384 / 256x192 (the zoom kernel, six launches a batch);
+- the field-rate paths (``FIELD_PATHS``) on an interlaced clip with a
+  moving block and a cut (``write_motion_y4m``): smartdeint, 1080i
+  ``-J smartdeinter,hqdn3d=luma=4.0 -Z 1280x720``; bob, NTSC
+  ``-J doublefps,smartbob`` (no kernel); modfps, NTSC with every fifth
+  frame repeated, ``-J modfps=buffer=7 --export_fps 25 -Z 720x576``.
 
 Phases, each of which raises on failure:
 
@@ -44,17 +50,21 @@ Phases, each of which raises on failure:
 4. each path through the port's CLI on a seeded 48-frame Y4M, with the
    launch counts set to 0 just before and read just after: every kernel
    of the path was launched, and the output equals the same chain built
-   from the plain versions on the card, byte for byte; cfg3 and cfg1
-   against the same torch code run on the CPU in this process, and so
-   the small ``FLAG_CASES`` (every internal transform, on YUV and RGB
-   jobs, and 32drop);
+   from the plain versions on the card, byte for byte; cfg3, bob and
+   cfg1 against the same torch code run on the CPU in this process, and
+   so the small ``FLAG_CASES`` (every internal transform, on YUV and RGB
+   jobs, ``-I 2``, the engine's flags, and the filters of plain torch
+   ops), and the engine at every ``--prefetch`` 1, 2, 4 and ``--batch``
+   1, 3, 16;
 5. the small cases whose SHA-256 ``tests/test_torch_cli.py`` pins
    against the JAX CLI, run on the card: same digests;
 6. numbers: steady-state chain frames/s on device-resident batches
-   (CUDA events) for the main path, cfg2, cfg4, denoise3d, cfg3 and
-   cfg1, beside the host's time to queue the batches and the device's
-   busy share and kernel time by name (torch.profiler); end-to-end CLI
-   frames/s.
+   (CUDA events) for every path, beside the host's time to queue the
+   batches, the step's peak device memory and the device's busy share
+   and kernel time by name (torch.profiler); then each path's CLI on
+   160 frames (ten batches), wall clock, with the serial engine's
+   stages timed one by one beside it (``engine_stages``), and with
+   ``--parent DIR`` the parent's CLI in turns on the same file.
 
 It prints one JSON object per result, then the kernels' summary and, as
 its last line, ``{"ok": true, "device": {...}}``.  It imports nothing of
@@ -107,6 +117,7 @@ PATHS = {
                       frames_out=PATH_FRAMES),
 }
 MAIN_KERNELS = ("hqdn3d_spatial_scan", "hqdn3d_temporal_scan", "zoom_pass")
+MAIN_PATH = dict(w=MAIN_W, h=MAIN_H, fps=(25, 1), args=MAIN_ARGS)
 
 # the paths' small golden cases (GOLDEN_W x GOLDEN_H, GOLDEN_FRAMES
 # frames, --batch 3): SHA-256 pinned against the JAX CLI on the CPU by
@@ -122,8 +133,9 @@ PATH_GOLDEN_SHA256 = {
 
 # cfg3: the cadence chain at NTSC size on 3:2 telecined content, and
 # its small golden case (--batch 7: batches of 7, 7 and 6)
-CFG3 = dict(w=720, h=480, fps=(30000, 1001),
-            args=["-J", "32detect,ivtc,decimate"])
+CFG3 = dict(w=720, h=480, fps=(30000, 1001), content="telecine",
+            args=["-J", "32detect,ivtc,decimate"], kernels=(),
+            frames_out=PATH_FRAMES - 13)
 CFG3_GOLDEN = dict(w=64, h=48, frames=20, seed=9, args=[
     "-J", "32detect,ivtc,decimate", "--batch", "7"])
 CFG3_GOLDEN_SHA256 = ("29d34e89df8e54f98dda96d207a315e8"
@@ -158,7 +170,62 @@ FLAG_CASES = {
     "drop32": ["-J", "32drop", "--batch", "5"],
     "ivtc_bottom_magic_decimate": ["-J", "ivtc=field=1:magic=1,decimate",
                                    "--batch", "16"],
+    "deinterlace_2": ["-I", "2", "--batch", "3"],
+    "engine_seek_ranges_interval": ["-L", "1", "-c", "0.0-0.2,0.3-0.6",
+                                    "--frame_interval", "2", "--batch", "2",
+                                    "--prefetch", "1", "-J", "null"],
+    "engine_identity": ["--batch", "3"],
+    "engine_max_frames_prefetch": ["--max_frames", "5", "--prefetch", "4",
+                                   "-I", "5", "--batch", "1"],
+    "smartyuv": ["-J", "smartyuv", "--batch", "3"],
+    "smartyuv_luma_field": ["-J", "smartyuv=doChroma=0:diffmode=1:Blend=0"],
+    "barrel": ["-J", "barrel=order2=0.2:order4=0.05:range=1-5/2"],
+    "fps_up": ["-J", "fps=25:40", "--batch", "3"],
+    "fps_down_skip": ["-J", "fps=infps=25:outfps=15,skip=0.2-0.4"],
+    "slowmo": ["-J", "slowmo=factor=3", "--max_frames", "5"],
+    "simple": ["-J", "invert,levels=input=16-235:gamma=1.2,"
+                     "deinterlace=mode=linear_blend,"
+                     "mask=lefttop=8x8:rightbot=100x60,null", "--batch", "3"],
+    "testframe": ["-J", "testframe=mode=2"],
 }
+# the field-rate paths: interlaced content from write_motion_y4m (modfps:
+# every fifth frame repeated), input geometry and fps, CLI arguments,
+# the kernels each must launch (bob runs none: it is held against the
+# same CLI on the CPU), frames out of PATH_FRAMES in, and the small
+# golden case (GOLDEN_FRAMES, or ``frames``, of w x h, --batch 3) whose
+# SHA-256 tests/test_torch_cli.py pins against the JAX CLI
+FIELD_PATHS = {
+    "smartdeint": dict(
+        w=1920, h=1080, fps=(30000, 1001), content="motion", repeat=0,
+        args=["-J", "smartdeinter,hqdn3d=luma=4.0", "-Z", "1280x720"],
+        kernels=("hqdn3d_spatial_scan", "hqdn3d_temporal_scan",
+                 "zoom_pass"), frames_out=PATH_FRAMES,
+        golden=dict(w=64, h=48, args=["-J", "smartdeinter,hqdn3d=luma=4.0",
+                                      "-Z", "48x32"])),
+    "bob": dict(
+        w=720, h=480, fps=(30000, 1001), content="motion", repeat=0,
+        args=["-J", "doublefps,smartbob"], kernels=(),
+        frames_out=2 * PATH_FRAMES,
+        golden=dict(w=64, h=48, args=["-J", "doublefps,smartbob"])),
+    "modfps": dict(
+        w=720, h=480, fps=(30000, 1001), content="motion", repeat=5,
+        args=["-J", "modfps=buffer=7", "--export_fps", "25", "-Z",
+              "720x576"], kernels=("zoom_pass",), frames_out=34,
+        golden=dict(w=64, h=48, frames=20,
+                    args=["-J", "modfps=buffer=7", "--export_fps", "25",
+                          "-Z", "64x56"])),
+}
+FIELD_GOLDEN_SHA256 = {
+    "smartdeint": ("085dc1c239fa8d3f7cd8e6ac38cc7d6c"
+                   "a4f435e6af31b1a2059b9ce4adaca41e"),
+    "bob": ("29d99393f54d914868613b5dd6cc3c30"
+            "f1ab8641637d7377362d440f8c264fbc"),
+    "modfps": ("9134f6d84ffb9f2ce1957664edee4aa7"
+               "d0fd520c9c71aedf9304771165233631"),
+}
+# the CLI timings: ten batches of MAIN_BATCH frames, enough for the
+# engine's stages to overlap
+ENGINE_FRAMES = 10 * 16
 # cfg1: YUV420P -> RGB24 -> YUV420P, then the zoom
 CFG1_W, CFG1_H, CFG1_ZOOM = 640, 480, (512, 384)
 
@@ -293,6 +360,66 @@ def write_telecine_y4m(path, width: int, height: int, frames: int,
             wr.write_frame(*planes)
 
 
+def write_motion_y4m(path, width: int, height: int, frames: int, seed: int,
+                     fps=(30000, 1001), repeat_every: int = 0) -> None:
+    """A seeded interlaced YUV420P Y4M: a fixed noise background with a
+    noise block a quarter of the frame wide that moves 4 pixels right
+    and 2 down a frame, its bottom field half a step ahead of its top
+    field, and one hard cut (a new background and block) at the middle
+    frame; +-1 of grain on every frame.  With ``repeat_every`` = k, every
+    k-th frame repeats the one before it (with its own grain): a
+    near-duplicate for modfps to skip."""
+    from tcforge_tpu_torch.io.y4m import Y4MHeader, Y4MWriter
+    rng = np.random.default_rng(seed)
+
+    def scene(h, w):
+        bg = rng.integers(16, 236, (h, w), dtype=np.int16)
+        block = rng.integers(16, 236, (max(1, h // 4), max(1, w // 4)),
+                             dtype=np.int16)
+        return bg, block
+
+    def draw(bg, block, x, y, half):
+        out = bg.copy()
+        bh, bw = block.shape
+        y0 = y % max(1, bg.shape[0] - bh)
+        for rows, dx in ((slice(0, None, 2), 0), (slice(1, None, 2), half)):
+            x0 = (x + dx) % max(1, bg.shape[1] - bw)
+            out[y0:y0 + bh, x0:x0 + bw][rows] = block[rows]
+        return out
+
+    scenes = [[scene(height, width), scene(height // 2, width // 2),
+               scene(height // 2, width // 2)] for _ in range(2)]
+    hdr = Y4MHeader(width=width, height=height, fps_num=fps[0],
+                    fps_den=fps[1], interlacing="t")
+    t = 0
+    with Y4MWriter(str(path), hdr) as wr:
+        for k in range(frames):
+            if not (repeat_every and k % repeat_every == repeat_every - 1):
+                t += 1                      # else the last frame again
+            planes = []
+            for i, (bg, block) in enumerate(scenes[2 * k >= frames]):
+                s = 2 if i == 0 else 1       # chroma moves half as far
+                p = draw(bg, block, 2 * s * t, s * t, s) + rng.integers(
+                    -1, 2, bg.shape, dtype=np.int16)
+                planes.append(np.clip(p, 0, 255).astype(np.uint8))
+            wr.write_frame(*planes)
+
+
+def write_input(spec, path, frames: int, seed: int) -> None:
+    """A path's input: ``frames`` frames of its geometry, fps and
+    content (``noise``, the default, ``telecine`` or ``motion``)."""
+    content = spec.get("content", "noise")
+    if content == "telecine":
+        write_telecine_y4m(path, spec["w"], spec["h"], frames, seed,
+                           fps=spec["fps"])
+    elif content == "motion":
+        write_motion_y4m(path, spec["w"], spec["h"], frames, seed,
+                         fps=spec["fps"], repeat_every=spec["repeat"])
+    else:
+        write_test_y4m(path, spec["w"], spec["h"], frames, seed,
+                       fps=spec["fps"])
+
+
 def sha256_file(path) -> str:
     return hashlib.sha256(Path(path).read_bytes()).hexdigest()
 
@@ -330,8 +457,8 @@ def main(argv=()) -> int:
              "d3_temporal_scan and tomsmocomp_plane wrappers): its "
              "unsharp, TomsMoComp and temporal "
              "kernels are built from DIR and called through DIR's own "
-             "wrappers, timed beside this tree's, in turns, on the same "
-             "inputs")
+             "wrappers, and its CLI runs the paths it has, each timed "
+             "beside this tree's, in turns, on the same inputs")
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -381,7 +508,7 @@ def main(argv=()) -> int:
     hq = Hqdn3dFilter(job, "luma=4.0")
     bench = KernelBench(torch, dev, kernels)
     if args.parent:
-        bench.parent = ParentKernels(Path(args.parent))
+        bench.parent = ParentPackage(Path(args.parent))
     _check_main_kernels(torch, kernels, zoom, hq, bench)
     torch.cuda.empty_cache()
     _check_slice_kernels(torch, kernels, bench)
@@ -457,7 +584,7 @@ def main(argv=()) -> int:
 
         # 4. cfg3 at full width, against its CPU run; 5. its small case
         # and the RGB case
-        _run_cfg3(torch, cli, kernels, tmp)
+        _run_path(torch, cli, kernels, tmp, "cfg3", CFG3)
         for name, src_y4m, argv, pinned in (
                 ("cfg3", tmp / "golden_cfg3_in.y4m", CFG3_GOLDEN["args"],
                  CFG3_GOLDEN_SHA256),
@@ -475,8 +602,27 @@ def main(argv=()) -> int:
             check(rc == 0 and digest == pinned,
                   f"{name} golden output differs from the JAX-pinned digest")
 
-        # the internal transforms and 32drop, plain torch ops: the
-        # card's output against the CPU's
+        # 4. and 5. for the field-rate paths, on interlaced content
+        for name, spec in FIELD_PATHS.items():
+            path_launches[name] = _run_path(torch, cli, kernels, tmp, name,
+                                            spec)
+            g = spec["golden"]
+            gsrc = tmp / f"golden_{name}_in.y4m"
+            gout = tmp / f"golden_{name}.y4m"
+            write_input({**spec, **g}, gsrc, g.get("frames", GOLDEN_FRAMES),
+                        GOLDEN_SEED)
+            rc = cli.main(["-i", str(gsrc), "-o", str(gout), *g["args"],
+                           "--batch", "3", "--device", "cuda",
+                           "--progress_off", "-q"])
+            digest = sha256_file(gout)
+            emit(phase="golden", path=name, sha256=digest,
+                 pinned=FIELD_GOLDEN_SHA256[name])
+            check(rc == 0 and digest == FIELD_GOLDEN_SHA256[name],
+                  f"{name} golden output differs from the JAX-pinned "
+                  "digest")
+
+        # the internal transforms, the engine's flags and the filters of
+        # plain torch ops: the card's output against the CPU's
         gsrc = tmp / "golden_in.y4m"
         for name, argv in FLAG_CASES.items():
             outs = {}
@@ -491,17 +637,45 @@ def main(argv=()) -> int:
                  sha256=sha256_file(outs["cuda"]))
             check(same, f"{name}: the card's output differs from the CPU's")
 
+        # the staged engine (pinned rings, two copy streams) at every
+        # read-ahead depth and batch size: the card's bytes against the
+        # CPU's, on modfps's small case (its read-back, the zoom kernel)
+        g = FIELD_PATHS["modfps"]["golden"]
+        gsrc = tmp / "golden_modfps_in.y4m"
+        argv = ["-i", str(gsrc), *g["args"], "--progress_off", "-q"]
+        want = tmp / "sweep_cpu.y4m"
+        check(cli.main([*argv, "-o", str(want), "--device", "cpu"]) == 0,
+              "engine sweep: the CPU run failed")
+        for prefetch in (1, 2, 4):
+            for batch in (1, 3, 16):
+                got = tmp / f"sweep_{prefetch}_{batch}.y4m"
+                rc = cli.main([*argv, "-o", str(got), "--device", "cuda",
+                               "--prefetch", str(prefetch), "--batch",
+                               str(batch)])
+                same = rc == 0 and got.read_bytes() == want.read_bytes()
+                emit(phase="engine_vs_cpu", prefetch=prefetch, batch=batch,
+                     identical=same)
+                check(same, f"engine at --prefetch {prefetch} --batch "
+                            f"{batch}: the card's output differs")
+
     # 4. cfg1 at full width, against its CPU run
     _run_cfg1(torch, dev, kernels, colorspace, zoom)
 
     # 6. steady-state chain frames/s on device-resident batches
-    fps = _chain_fps(torch, dev)
-    emit(phase="chain", batch=MAIN_BATCH, **fps)
-    for name, spec in (*PATHS.items(), ("cfg3", CFG3)):
-        fps = _chain_fps(torch, dev, spec["w"], spec["h"], spec["args"][1])
+    for name, spec in (("main", MAIN_PATH), *PATHS.items(), ("cfg3", CFG3),
+                       *FIELD_PATHS.items()):
+        fps = _chain_fps(torch, dev, spec)
         emit(phase="chain", path=name, batch=MAIN_BATCH, **fps)
+        torch.cuda.empty_cache()
     fps = _cfg1_fps(torch, dev, colorspace, zoom)
     emit(phase="chain", path="cfg1", batch=MAIN_BATCH, **fps)
+
+    # 6. the CLI end to end, with the serial stages beside it
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        for name, spec in (("main", MAIN_PATH), *PATHS.items(),
+                           ("cfg3", CFG3), *FIELD_PATHS.items()):
+            _cli_rates(torch, dev, cli, Path(tmp), name, spec,
+                       bench.parent if name not in FIELD_PATHS else None)
 
     # each kernel's launches in the run of the path that carries it
     for name, (src, _) in KERNELS.items():
@@ -559,36 +733,71 @@ def _plain_chain(torch, dev, planes, hq, video, zoom, kernels):
     return [torch.cat(o) for o in outs]
 
 
-def _chain_fps(torch, dev, width: int = MAIN_W, height: int = MAIN_H,
-               filters: str = "", warmup: int = 2, timed_batches: int = 8):
+def _chain_fps(torch, dev, spec, warmup: int = 2, timed_batches: int = 8):
     """Frames/s of VideoChain on batches already on the card: CUDA
     events around ``timed_batches`` distinct batches after ``warmup``
-    ones, with every filter's carry kept throughout.  With no
-    ``filters`` it is the main path; else the ``-J`` chain alone.
+    ones, with every filter's carry kept throughout.  The chain is the
+    job the CLI builds from the path's arguments (``spec["args"]``) at
+    its geometry and rate; the batches are uniform noise, on which these
+    chains do the same work as on any content.
 
     Beside it, the host's time to queue those batches (taken before the
     synchronize: near the device time when the host holds the chain
-    back, below it when the device does), and from one more pass over
-    the same batches under torch.profiler, the device's busy share and
-    its kernel time by name."""
+    back, below it when the device does), the step's peak device memory
+    above its inputs, and from one more pass over the same batches under
+    torch.profiler, the device's busy share and its kernel time by
+    name."""
+    from tcforge_tpu_torch import cli
     from tcforge_tpu_torch.core.formats import ImageFormat
-    from tcforge_tpu_torch.core.job import FilterSpec, Job
     from tcforge_tpu_torch.pipeline.chain import VideoChain
 
-    if filters:
-        job = Job(im_v_width=width, im_v_height=height,
-                  filters=[FilterSpec.parse(f) for f in filters.split(",")],
-                  batch_size=MAIN_BATCH)
-    else:
-        job = Job(im_v_width=MAIN_W, im_v_height=MAIN_H, deinterlace=5,
-                  zoom_width=1280, zoom_height=720,
-                  filters=[FilterSpec("hqdn3d", "luma=4.0")],
-                  batch_size=MAIN_BATCH)
-    chain = VideoChain(job, ImageFormat.YUV420P, width, height)
-    batches = _noise_batches(torch, dev, width, height,
+    job = cli.args_to_job(cli.build_parser().parse_args(
+        ["-i", "-", "-o", "-", *spec["args"], "--batch", str(MAIN_BATCH)]))
+    job.im_v_width, job.im_v_height = spec["w"], spec["h"]
+    job.fps = spec["fps"][0] / spec["fps"][1]
+    chain = VideoChain(job, ImageFormat.YUV420P, spec["w"], spec["h"])
+    batches = _noise_batches(torch, dev, spec["w"], spec["h"],
                              warmup + timed_batches)
     return _timed_batches(torch, chain, chain.initial_states(dev), batches,
                           warmup)
+
+
+def _cli_rates(torch, dev, cli, tmp, name, spec, parent=None):
+    """The path's CLI on the card over ENGINE_FRAMES frames of its
+    content (ten batches), wall clock to the last byte written, after
+    one untimed run of each CLI: twice, or with ``parent`` in turns with
+    the parent's CLI on the same file (parent, this, this, parent); then
+    the serial stages of the same job (``engine_stages``)."""
+    src, out = tmp / f"cli_{name}.y4m", tmp / f"cli_{name}_out.y4m"
+    write_input(spec, src, ENGINE_FRAMES, seed=6)
+    argv = ["-i", str(src), "-o", str(out), *spec["args"], "--batch",
+            str(MAIN_BATCH), "--device", "cuda", "--progress_off", "-q"]
+
+    def rate(main):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check(rc == 0, f"{name}: CLI exit code {rc}")
+        return ENGINE_FRAMES / seconds
+
+    def parent_rate():
+        with parent.active():
+            return rate(parent.cli.main)
+
+    rate(cli.main)
+    if parent is None:
+        fps, parent_fps = [rate(cli.main), rate(cli.main)], None
+    else:
+        parent_rate()           # the parent's first run builds its kernels
+        p1 = parent_rate()
+        fps = [rate(cli.main), rate(cli.main)]
+        parent_fps = [p1, parent_rate()]
+    stages = engine_stages(torch, dev, cli, src, out, spec["args"])
+    emit(phase="cli", path=name, frames=ENGINE_FRAMES, fps=fps,
+         parent_fps=parent_fps, serial_stages=stages)
+    src.unlink()
 
 
 def _noise_batches(torch, dev, width: int, height: int, count: int):
@@ -618,6 +827,8 @@ def _timed_batches(torch, step, states, batches, warmup: int):
     for fb in batches[:warmup]:
         _, states = step(fb, states)
     torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
@@ -628,6 +839,7 @@ def _timed_batches(torch, step, states, batches, warmup: int):
     queue_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     dev_ms = start.elapsed_time(end)
+    step_peak_mb = (torch.cuda.max_memory_allocated() - resident) / 1e6
     frames = MAIN_BATCH * timed_batches
 
     from torch.profiler import ProfilerActivity, profile
@@ -644,7 +856,67 @@ def _timed_batches(torch, step, states, batches, warmup: int):
     return {"chain_fps": frames / (dev_ms / 1e3),
             "ms_per_batch": dev_ms / timed_batches,
             "queue_ms_per_batch": queue_s * 1e3 / timed_batches,
-            "frames": frames, "out_shape": list(out.y.shape), **busy}
+            "step_peak_mb": step_peak_mb, "frames": frames,
+            "out_shape": list(out.y.shape), **busy}
+
+
+def engine_stages(torch, dev, cli, src, out, argv, batch: int = MAIN_BATCH):
+    """The serial engine's five stages for one CLI job on the card, each
+    timed alone with the card synchronized after it: Y4M read, copy to
+    the card from pageable memory, chain, copy back, Y4M write (every
+    frame, no selection).  Returns ms per batch of each stage over the
+    whole file, their sum, and the frames/s of the sum and of the slowest
+    stage: what a serial engine and a fully overlapped one could reach."""
+    from tcforge_tpu_torch.core.frame import FrameBatch
+    from tcforge_tpu_torch.io.y4m import Y4MHeader, Y4MReader, Y4MWriter
+    from tcforge_tpu_torch.pipeline.chain import VideoChain
+    job = cli.args_to_job(cli.build_parser().parse_args(
+        ["-i", str(src), "-o", str(out), *argv]))
+    ms = dict.fromkeys(("read", "to_card", "chain", "to_host", "write"), 0.0)
+    frames = batches = 0
+    with contextlib.ExitStack() as stack:
+        reader = stack.enter_context(Y4MReader(str(src)))
+        hdr = reader.header
+        job.im_v_width, job.im_v_height, job.fps = (hdr.width, hdr.height,
+                                                    hdr.fps)
+        chain = VideoChain(job, hdr.format, hdr.width, hdr.height)
+        states = chain.initial_states(dev)
+        writer = None
+        torch.cuda.synchronize()
+        while True:
+            t0 = time.perf_counter()
+            planes = reader.read_batch(batch)
+            t1 = time.perf_counter()
+            if planes is None:
+                break
+            fb = FrameBatch.from_numpy(*planes, device=dev, fmt=hdr.format,
+                                       fps=job.fps, first_id=frames)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            result, states = chain(fb, states)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            host = result.to_numpy()
+            t4 = time.perf_counter()
+            if writer is None:
+                writer = stack.enter_context(Y4MWriter(str(out), Y4MHeader(
+                    width=result.width, height=result.height,
+                    format=result.format)))
+            writer.write_batch(*host)
+            t5 = time.perf_counter()
+            for key, a, b in (("read", t0, t1), ("to_card", t1, t2),
+                              ("chain", t2, t3), ("to_host", t3, t4),
+                              ("write", t4, t5)):
+                ms[key] += (b - a) * 1e3
+            frames += fb.batch
+            batches += 1
+    per_batch = {k: v / batches for k, v in ms.items()}
+    total = sum(per_batch.values())
+    slowest = max(per_batch.values())
+    return {"frames": frames, "ms_per_batch": per_batch,
+            "sum_ms_per_batch": total,
+            "serial_fps": frames / (total * batches / 1e3),
+            "overlapped_fps": frames / (slowest * batches / 1e3)}
 
 
 def cfg1_step(colorspace, zoom, fb):
@@ -867,41 +1139,64 @@ class KernelBench:
                 "library_ms": s["library_ms"]}
 
 
-class ParentKernels:
-    """The unsharp, TomsMoComp and temporal-scan wrappers of an earlier
-    checkout's ``tcforge_tpu_torch/ops/kernels.py``.  DIR's package is in
-    ``sys.modules`` only while it imports, so its wrappers keep their own
-    modules: at first use they build DIR's ``csrc`` into DIR's
-    ``_build``, and they call DIR's C interfaces.  Any checkout whose
-    ``kernels.py`` has ``unsharp_plane(img, sx, sy, amount)``,
-    ``temporal_scan``, ``d3_temporal_scan`` and ``tomsmocomp_plane``
-    with this tree's signatures will do: every commit since the
-    TomsMoComp and denoise3d ports (0713932)."""
+class ParentPackage:
+    """An earlier checkout's ``tcforge_tpu_torch``: its kernel wrappers
+    (``ops/kernels.py``) and its CLI, imported under their own module
+    objects.  DIR's package is in ``sys.modules`` only while it imports
+    and while ``active()`` holds, so its code keeps its own modules: at
+    first use its wrappers build DIR's ``csrc`` into DIR's ``_build``
+    and call DIR's C interfaces, and its CLI runs its own engine.  Any
+    checkout whose ``kernels.py`` has ``unsharp_plane(img, sx, sy,
+    amount)``, ``temporal_scan``, ``d3_temporal_scan`` and
+    ``tomsmocomp_plane`` with this tree's signatures will do: every
+    commit since the TomsMoComp and denoise3d ports (0713932)."""
 
     PKG = "tcforge_tpu_torch"
+    MODULES = ("ops.kernels", "cli", "pipeline.engine")
     TEMPORAL = {"hqdn3d_temporal_scan": "temporal_scan",
                 "d3_temporal_scan": "d3_temporal_scan"}
 
     def __init__(self, root: Path):
         import importlib
-
-        def ours(name):
-            return name == self.PKG or name.startswith(self.PKG + ".")
-
         root = root.resolve()
-        saved = {k: m for k, m in sys.modules.items() if ours(k)}
-        for k in saved:
-            del sys.modules[k]
         sys.path.insert(0, str(root))
         try:
-            self.kernels = importlib.import_module(self.PKG + ".ops.kernels")
+            with self._swapped({}):
+                for name in self.MODULES:
+                    importlib.import_module(f"{self.PKG}.{name}")
+                self.modules = {k: m for k, m in sys.modules.items()
+                                if self._ours(k)}
         finally:
             sys.path.remove(str(root))
-            for k in [k for k in sys.modules if ours(k)]:
-                del sys.modules[k]
-            sys.modules.update(saved)
+        self.kernels = self.modules[self.PKG + ".ops.kernels"]
+        self.cli = self.modules[self.PKG + ".cli"]
         check(Path(self.kernels.__file__).resolve().is_relative_to(root),
               f"{root} holds no {self.PKG}")
+
+    @classmethod
+    def _ours(cls, name: str) -> bool:
+        return name == cls.PKG or name.startswith(cls.PKG + ".")
+
+    @classmethod
+    @contextlib.contextmanager
+    def _swapped(cls, modules):
+        """The package's entries of ``sys.modules`` replaced by
+        ``modules`` while the block runs."""
+        saved = {k: m for k, m in sys.modules.items() if cls._ours(k)}
+        for k in saved:
+            del sys.modules[k]
+        sys.modules.update(modules)
+        try:
+            yield
+        finally:
+            for k in [k for k in sys.modules if cls._ours(k)]:
+                del sys.modules[k]
+            sys.modules.update(saved)
+
+    def active(self):
+        """The parent's modules in ``sys.modules``: its code's imports
+        inside functions find its own package."""
+        return self._swapped(self.modules)
 
     def temporal(self, name):
         return getattr(self.kernels, self.TEMPORAL[name])
@@ -1347,81 +1642,50 @@ def _scan_steps(torch, kernels, hq, bench):
 
 
 def _run_path(torch, cli, kernels, tmp, name, spec):
-    """Phase 4 for one of the slice's paths: the CLI on the card with
-    the counts set to 0 just before and read just after, then the same
-    CLI on the plain versions on the card; the outputs must be equal
-    byte for byte.  Returns the path's launch counts."""
+    """Phase 4 for one path: its CLI on the card over PATH_FRAMES frames
+    of its content, with the counts set to 0 just before and read just
+    after (each of its kernels launched), then the same CLI on its plain
+    versions: on the card where the path holds kernels, else on the CPU
+    in this process, launching none; the same frames out and the same
+    bytes.  Returns the path's launch counts."""
+    from tcforge_tpu_torch.io.y4m import Y4MReader
     src = tmp / f"in_{name}.y4m"
     out, plain = tmp / f"out_{name}.y4m", tmp / f"plain_{name}.y4m"
-    write_test_y4m(src, spec["w"], spec["h"], PATH_FRAMES, seed=5,
-                   fps=spec["fps"])
-    argv = [*spec["args"], "--batch", str(MAIN_BATCH), "--device", "cuda",
+    write_input(spec, src, PATH_FRAMES, seed=5)
+    argv = ["-i", str(src), *spec["args"], "--batch", str(MAIN_BATCH),
             "--progress_off", "-q"]
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    rc = cli.main(["-i", str(src), "-o", str(out), *argv])
+    rc = cli.main([*argv, "-o", str(out), "--device", "cuda"])
     torch.cuda.synchronize()
     e2e_s = time.perf_counter() - t0
     launches = dict(kernels.launches)
     check(rc == 0, f"{name}: CLI exit code {rc}")
+    with Y4MReader(str(out)) as r:
+        frames_out = sum(1 for _ in r)
     emit(phase="path", path=name, frames=PATH_FRAMES, seconds=e2e_s,
-         e2e_fps=PATH_FRAMES / e2e_s, launches=launches)
+         e2e_fps=PATH_FRAMES / e2e_s, frames_out=frames_out,
+         launches=launches)
     for kernel in spec["kernels"]:
         check(launches[kernel] > 0, f"kernel {kernel} was not launched by "
                                     f"the {name} path")
-    from tcforge_tpu_torch.io.y4m import Y4MReader
-    with Y4MReader(str(out)) as r:
-        frames_out = sum(1 for _ in r)
     check(frames_out == spec["frames_out"],
           f"{name}: {frames_out} frames out, expected {spec['frames_out']}")
     kernels.reset_launches()
-    with plain_versions(kernels):
-        rc = cli.main(["-i", str(src), "-o", str(plain), *argv])
+    if spec["kernels"]:
+        with plain_versions(kernels):
+            rc = cli.main([*argv, "-o", str(plain), "--device", "cuda"])
+    else:
+        rc = cli.main([*argv, "-o", str(plain), "--device", "cpu"])
     check(rc == 0 and not any(kernels.launches.values()),
           f"{name}: the plain run failed or launched a kernel")
     same = out.read_bytes() == plain.read_bytes()
-    emit(phase="path_vs_plain", path=name, identical=same,
-         frames_out=frames_out, sha256=sha256_file(out))
-    check(same, f"{name} differs from the plain chain on the card")
+    emit(phase="path_vs_plain" if spec["kernels"] else "path_vs_cpu",
+         path=name, identical=same, frames_out=frames_out,
+         sha256=sha256_file(out))
+    check(same, f"{name} differs from its plain run")
     return launches
-
-
-def _run_cfg3(torch, cli, kernels, tmp):
-    """Phase 4 for cfg3: the CLI on the card over a telecined 48-frame
-    Y4M, and the same CLI on the CPU in this process (cfg3's modules hold
-    no kernel, so the same torch code on the CPU is its plain version):
-    the same bytes, the same count of written frames, and no kernel
-    launched by either."""
-    from tcforge_tpu_torch.io.y4m import Y4MReader
-    src = tmp / "in_cfg3.y4m"
-    out, plain = tmp / "out_cfg3.y4m", tmp / "cpu_cfg3.y4m"
-    write_telecine_y4m(src, CFG3["w"], CFG3["h"], PATH_FRAMES, seed=5,
-                       fps=CFG3["fps"])
-    argv = [*CFG3["args"], "--batch", str(MAIN_BATCH), "--progress_off",
-            "-q"]
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    rc = cli.main(["-i", str(src), "-o", str(out), *argv, "--device", "cuda"])
-    torch.cuda.synchronize()
-    e2e_s = time.perf_counter() - t0
-    check(rc == 0, f"cfg3: CLI exit code {rc}")
-    with Y4MReader(str(out)) as r:
-        frames_out = sum(1 for _ in r)
-    emit(phase="path", path="cfg3", frames=PATH_FRAMES, seconds=e2e_s,
-         e2e_fps=PATH_FRAMES / e2e_s, frames_out=frames_out,
-         launches=dict(kernels.launches))
-    # 44 frames leave decimate's delay of 4; one of every five is dropped
-    check(35 <= frames_out <= 36, f"cfg3: {frames_out} frames out")
-    rc = cli.main(["-i", str(src), "-o", str(plain), *argv, "--device",
-                   "cpu"])
-    check(rc == 0 and not any(kernels.launches.values()),
-          "cfg3: the CPU run failed, or a kernel was launched")
-    same = out.read_bytes() == plain.read_bytes()
-    emit(phase="path_vs_cpu", path="cfg3", identical=same,
-         frames_out=frames_out, sha256=sha256_file(out))
-    check(same, "cfg3 differs from its CPU run")
 
 
 if __name__ == "__main__":

@@ -2,12 +2,17 @@
 
 It takes the JAX CLI's own flag names, with the same parsing, for what
 the port carries so far: the internal transforms ``--pre_clip``, ``-j``,
-``-I`` 1/3/4/5, ``-X``, ``-B``, ``-Z``, ``-Y``, ``-r``, ``-z``, ``-l``,
-``-k``, ``-K``, ``-G``, ``-C`` and ``--post_clip``, the internal
-colorspace ``-V`` (planar YUV or RGB; the Y4M output of an RGB job
-is YUV420P) and the ``-J`` filters hqdn3d, unsharp, tomsmocomp,
-denoise3d, ivtc, 32detect, decimate and 32drop (comma-separated, run
-in their slots' order):
+``-I`` 1 to 5 (2 does nothing, as in the JAX chain), ``-X``, ``-B``,
+``-Z``, ``-Y``, ``-r``, ``-z``, ``-l``, ``-k``, ``-K``, ``-G``, ``-C``
+and ``--post_clip``, the internal colorspace ``-V`` (planar YUV or RGB;
+the Y4M output of an RGB job is YUV420P), the engine's ``-c`` ranges
+(parsed at the input's rate), ``--frame_interval``, ``-L``,
+``--max_frames``, ``--export_fps``, ``--batch``, ``--prefetch`` and
+``--progress_rate``, and the ``-J`` filters hqdn3d, unsharp,
+tomsmocomp, denoise3d, ivtc, 32detect, decimate, 32drop, smartdeinter,
+smartyuv, doublefps, smartbob, barrel, fps, skip, slowmo, modfps,
+invert, levels, deinterlace, mask, testframe and null
+(comma-separated, run in their slots' order):
 
     python -m tcforge_tpu_torch.cli -i in.y4m -I 5 -Z 1280x720 \\
         -J hqdn3d=luma=4.0 -o out.y4m [--batch 16] [--device cuda]
@@ -20,6 +25,12 @@ in their slots' order):
         -J 32detect,ivtc,decimate
     python -m tcforge_tpu_torch.cli -i in.y4m -o out.y4m -V rgb24 \\
         -j 8,16 -z -l -G 0.8
+    python -m tcforge_tpu_torch.cli -i in1080i.y4m -o out.y4m \\
+        -J smartdeinter,hqdn3d=luma=4.0 -Z 1280x720
+    python -m tcforge_tpu_torch.cli -i ntsc.y4m -o 60p.y4m \\
+        -J doublefps,smartbob
+    python -m tcforge_tpu_torch.cli -i ntsc.y4m -o pal.y4m \\
+        -J modfps=buffer=7 --export_fps 25 -Z 720x576
 
 and refuses every other flag of the JAX CLI with an error that names
 it.  ``--device cuda`` (the default) with no card raises: the CLI never
@@ -35,6 +46,7 @@ from typing import List, Optional
 import torch
 
 from tcforge_tpu_torch.core.formats import format_from_string
+from tcforge_tpu_torch.core.framecode import parse_ranges
 from tcforge_tpu_torch.core.job import FilterSpec, Job
 
 
@@ -75,7 +87,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "all filters)")
     p.add_argument("-j", dest="im_clip", help="clip T[,L[,B[,R]]]")
     p.add_argument("-I", dest="deinterlace", type=int, default=0,
-                   help="deinterlace mode 1, 3, 4 or 5")
+                   help="deinterlace mode 1..5")
     p.add_argument("-X", dest="resize_up",
                    help="expand by n rows, m cols of M px [0,0,32]")
     p.add_argument("-B", dest="resize_down",
@@ -103,14 +115,24 @@ def build_parser() -> argparse.ArgumentParser:
                    help="final region clip T[,L[,B[,R]]] (after all "
                         "filters)")
     p.add_argument("-J", dest="filters", action="append", default=[],
-                   help="filter[=options],... list: hqdn3d, unsharp, "
-                        "tomsmocomp, denoise3d, ivtc, 32detect, decimate, "
-                        "32drop")
+                   help="filter chain: name[=opts][,name...]")
     p.add_argument("-V", dest="colorspace", default="yuv420p",
                    help="internal colorspace (yuv420p|rgb24|yuv422p)")
+    p.add_argument("-c", dest="ranges",
+                   help="encode ranges S-E[/step][,...] (times or frames)")
+    p.add_argument("--frame_interval", type=int, default=1,
+                   help="encode every Nth frame")
+    p.add_argument("--max_frames", type=int, help="stop after N frames")
+    p.add_argument("-L", "--vob_seek", dest="vob_offset", type=int,
+                   default=0, help="seek: skip the first N source frames")
+    p.add_argument("--export_fps", dest="export_fps", type=float,
+                   default=0.0, help="output fps (for fps/modfps filters)")
     p.add_argument("--batch", type=int, default=16,
                    help="frames per device batch")
-    p.add_argument("--max_frames", type=int, help="stop after N frames")
+    p.add_argument("--prefetch", type=int, default=2,
+                   help="host prefetch depth")
+    p.add_argument("--progress_rate", type=float, default=0.5,
+                   help="progress meter update interval (seconds)")
     p.add_argument("--progress_off", action="store_true")
     p.add_argument("-q", "--quiet", action="store_true")
     p.add_argument("--device", default="cuda",
@@ -131,7 +153,11 @@ def _device(name: str) -> torch.device:
 def args_to_job(args: argparse.Namespace) -> Job:
     job = Job(video_in_file=args.video_in, video_out_file=args.video_out,
               deinterlace=args.deinterlace, batch_size=args.batch,
-              max_frames=args.max_frames)
+              max_frames=args.max_frames, frame_interval=args.frame_interval,
+              vob_offset=args.vob_offset, prefetch_depth=args.prefetch,
+              progress_rate=args.progress_rate)
+    if args.export_fps:
+        job.ex_fps = args.export_fps
     if args.pre_clip:
         job.pre_im_clip = _parse_clip(args.pre_clip)
     if args.im_clip:
@@ -170,22 +196,43 @@ def args_to_job(args: argparse.Namespace) -> Job:
     return job
 
 
-def main(argv: Optional[List[str]] = None) -> int:
+def _parse(argv: Optional[List[str]]) -> argparse.Namespace:
     parser = build_parser()
     args, extra = parser.parse_known_args(argv)
     if extra:
         parser.error("not supported by the torch port yet: "
                      + " ".join(extra))
+    return args
+
+
+def _probed_job(args: argparse.Namespace) -> Job:
+    """The job with the input's size and rate from its header, and the
+    -c ranges parsed at that rate (the JAX CLI parses them after its
+    probe)."""
+    from tcforge_tpu_torch.pipeline.engine import probe
+    job = args_to_job(args)
+    probe(job)
+    if args.ranges:
+        job.ranges = parse_ranges(args.ranges, job.fps)
+    return job
+
+
+def job_from_argv(argv: List[str]) -> Job:
+    """The job that ``main(argv)`` would run, without running it."""
+    return _probed_job(_parse(argv))
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = _parse(argv)
     from tcforge_tpu_torch.pipeline.engine import Pipeline
 
-    pipe = Pipeline(args_to_job(args), _device(args.device))
-    show = not (args.progress_off or args.quiet)
-    counters = pipe.run(
-        progress=(lambda c: print(f"\r[torch] {c.frames} frames",
-                                  end="", file=sys.stderr))
-        if show else None)
-    if show:
-        print(file=sys.stderr)
+    device = _device(args.device)
+    try:
+        pipe = Pipeline(_probed_job(args), device)
+        counters = pipe.run(progress=not (args.progress_off or args.quiet))
+    except (OSError, ValueError, KeyError, NotImplementedError) as e:
+        print(f"[torch] the pipeline failed: {e}", file=sys.stderr)
+        return 1
     if not args.quiet:
         print(f"[torch] {counters.summary()} on {pipe.device}",
               file=sys.stderr)

@@ -12,8 +12,9 @@ The cadence filters carry frames and counters: ivtc's ``{"y", "u", "v"}``
 of two frames goes through ``states_from_numpy`` like the others;
 decimate's ring (``metric``, ``ok``, ``frame_in``, ``frame_out``,
 ``count`` and the four delayed frames) and 32drop's ``last``, ``lasti``,
-``fnum``, ``lfnum``, ``dcnt`` go through ``cadence_state_from_numpy``,
-because the port keeps their counters on the host as Python ints.
+``fnum``, ``lfnum``, ``dcnt`` go through ``carry_from_numpy``, because
+the port keeps their counters on the host as Python ints; so do the
+carries of smartdeinter, smartyuv, doublefps, smartbob and modfps.
 """
 
 from __future__ import annotations
@@ -36,23 +37,35 @@ def states_from_numpy(states: Any, device: torch.device) -> Any:
     return torch.from_numpy(np.array(states)).to(device)
 
 
-# the leaves of decimate's and 32drop's states that the port keeps on the
-# host: its integer state machines run there
+# the leaves that the port keeps on the host, where its integer state
+# machines run: decimate's and 32drop's ring flags and counters, and
+# modfps's ring flags, scores and counters
 _HOST_LEAVES = ("ok", "frame_in", "frame_out", "count", "fnum", "lfnum",
-                "dcnt")
+                "dcnt", "score", "framesin")
 
 
-def cadence_state_from_numpy(state: Any, device: torch.device) -> Any:
-    """A JAX decimate or 32drop state of numpy arrays -> the port's:
-    frames and the metric ring as tensors on ``device``, the counters
-    as Python ints and ``ok`` as a list of ints."""
-    out = {}
-    for key, leaf in state.items():
-        if key in _HOST_LEAVES:
-            out[key] = np.asarray(leaf).tolist()
-        else:
-            out[key] = states_from_numpy(leaf, device)
-    return out
+def carry_from_numpy(state: Any, device: torch.device) -> Any:
+    """A JAX filter carry of numpy arrays -> the port's, for the filters
+    whose carry the port keeps partly on the host: decimate and 32drop,
+    smartdeinter (``(prev, saved, first)``), smartyuv (that triple per
+    plane), doublefps fullheight (``prev_y``, ``first``), smartbob (the
+    previous field) and modfps (the delayed frames, ``mlast`` and the
+    ring).  Frames go to ``device`` as tensors; ``first`` becomes a
+    Python bool, the host leaves Python ints (``ok`` and ``score``
+    lists of them), and modfps's ``outframes`` a numpy float32."""
+    if state is None:
+        return None
+    if isinstance(state, dict):
+        return {k: (np.asarray(v).tolist() if k in _HOST_LEAVES
+                    else np.float32(v) if k == "outframes"
+                    else carry_from_numpy(v, device))
+                for k, v in state.items()}
+    if isinstance(state, (tuple, list)):
+        return type(state)(carry_from_numpy(v, device) for v in state)
+    a = np.asarray(state)
+    if a.dtype == np.bool_ and a.ndim == 0:
+        return bool(a)
+    return torch.from_numpy(np.array(a)).to(device)
 
 
 def states_to_numpy(states: Any) -> Any:
@@ -68,4 +81,6 @@ def states_to_numpy(states: Any) -> Any:
         return type(states)(states_to_numpy(v) for v in states)
     if isinstance(states, int):
         return np.asarray(states, dtype=np.int32)
+    if isinstance(states, np.generic):
+        return np.asarray(states)
     return states.detach().cpu().numpy()

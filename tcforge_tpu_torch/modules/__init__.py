@@ -2,4 +2,5 @@
 built-in filters, as importing ``tcforge_tpu.modules`` does."""
 
 from tcforge_tpu_torch.modules.filters import (  # noqa: F401
-    cadence, denoise3d, hqdn3d, tomsmocomp, unsharp)
+    bob, cadence, denoise3d, extras, hqdn3d, modfps, rate, simple,
+    smartdeinter, tomsmocomp, unsharp)

@@ -16,7 +16,7 @@ port computes that datum for the whole batch on the device, pulls the
 few integers in one copy, runs the integer state machine on the host
 and assembles the frames with one gather: one wait per batch in place
 of one per frame.  Those state machines' counters are Python ints in
-the carried state (``interop.cadence_state_from_numpy`` converts the
+the carried state (``interop.carry_from_numpy`` converts the
 JAX filters' states).  The float tests run in float32 as XLA compiles
 them in the JAX engine's jitted chain (``_comb_ratio``).
 """

@@ -1,0 +1,193 @@
+"""smartyuv and barrel, in plain torch.
+
+The port of the video filters of ``tcforge_tpu/modules/filters/extras.py``
+(its audio filter, aclip, waits for the port's audio):
+
+- smartyuv (``filter_smartyuv.c``): the YUV-native smart deinterlacer,
+  smartdeinter's core run on each plane with ``colordiff``: luma with
+  ``threshold``, U and V at their own size with ``chromathres`` when
+  ``doChroma``.  YUV420P only, like the reference.
+- barrel (``filter_barrel.c``): lens distortion by radial remap, the
+  configure-time map in float64 on the host and a 9-tap fixed-point
+  gather (``>> 15``) per plane.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Tuple
+
+import numpy as np
+import torch
+
+from tcforge_tpu_torch.core.formats import ImageFormat
+from tcforge_tpu_torch.core.frame import ATTR_SKIPPED, FrameBatch
+from tcforge_tpu_torch.core.optstr import ModuleDesc, ParamSpec
+from tcforge_tpu_torch.modules.filters.smartdeinter import smartdeinter_rgb
+from tcforge_tpu_torch.modules.registry import (FilterSlot, ModuleInfo,
+                                                ModuleKind, VideoFilter,
+                                                register)
+
+
+@register
+class SmartYuvFilter(VideoFilter):
+    """filter_smartyuv.c: the motion-adaptive deinterlacer per plane
+    (defaults 14/7/31 with highq, cubic, Blend and doChroma on,
+    filter_smartyuv.c:71-73, 1235-1245)."""
+
+    info = ModuleInfo(name="smartyuv", kind=ModuleKind.FILTER)
+    desc = ModuleDesc(
+        name="smartyuv", comment="motion-adaptive deinterlace (YUV)",
+        capabilities="VY",
+        params=[
+            ParamSpec("motionOnly", "show motion areas only", "d", 0,
+                      0, 1),
+            ParamSpec("diffmode", "0=frame 1=field 2=both", "d", 0,
+                      0, 2),
+            ParamSpec("threshold", "motion threshold (luma)", "d", 14,
+                      0, 255),
+            ParamSpec("chromathres", "motion threshold (chroma)", "d",
+                      7, 0, 255),
+            ParamSpec("scenethres", "scene change threshold %", "d",
+                      31, 0, 255),
+            ParamSpec("highq", "motion map denoising", "d", 1, 0, 1),
+            ParamSpec("cubic", "cubic interpolation", "d", 1, 0, 1),
+            ParamSpec("Blend", "blend instead of interpolate", "d", 1,
+                      0, 1),
+            ParamSpec("doChroma", "enable chroma processing", "d", 1,
+                      0, 1),
+            ParamSpec("verbose", "verbose mode", "d", 0, 0, 1)])
+    slots = FilterSlot.PRE_M
+
+    def init_state(self, width: int, height: int, fmt: ImageFormat,
+                   device: torch.device) -> Any:
+        if fmt != ImageFormat.YUV420P:
+            raise ValueError("smartyuv: this filter is only capable of "
+                             "YUV mode")
+
+        def plane_state(h, w):
+            return (torch.zeros((h, w, 1), dtype=torch.int32, device=device),
+                    torch.zeros((h // 2, w, 1), dtype=torch.int32,
+                                device=device),
+                    True)
+
+        st = {"y": plane_state(height, width)}
+        if self.options["doChroma"]:
+            st["u"] = plane_state(height // 2, width // 2)
+            st["v"] = plane_state(height // 2, width // 2)
+        return st
+
+    def apply(self, fb: FrameBatch, state: Any) -> Tuple[FrameBatch, Any]:
+        o = self.options
+        new_state = dict(state)
+
+        def run(plane, key, thresh):
+            out, new_state[key] = smartdeinter_rgb(
+                plane[..., None], state[key], thresh, o["scenethres"],
+                o["diffmode"], bool(o["highq"]), bool(o["Blend"]),
+                bool(o["cubic"]), bool(o["motionOnly"]), colordiff=True)
+            return out[..., 0]
+
+        y = run(fb.y, "y", o["threshold"])
+        if o["doChroma"]:
+            u = run(fb.u, "u", o["chromathres"])
+            v = run(fb.v, "v", o["chromathres"])
+            return fb.with_planes(y=y, u=u, v=v), new_state
+        return fb.with_planes(y=y), new_state
+
+
+def barrel_map(width: int, height: int, cx: float, cy: float,
+               order2: float, order4: float):
+    """gen_distortion_map (filter_barrel.c:230-300) in float64 numpy:
+    (srcy, srcx, weights[9]) with the weights scaled to 0x8000 and the
+    center tap absorbing the rounding error, as the C does."""
+    r_scale_sq = 4.0 / (width * width + height * height)
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float64)
+    dx = (xx + 0.5) - cx
+    dy = (yy + 0.5) - cy
+    r_sq = (dx * dx + dy * dy) * r_scale_sq
+    mult = 1 + order2 * r_sq + order4 * r_sq * r_sq
+    srcx = cx + mult * dx
+    srcy = cy + mult * dy
+    mx = np.floor(srcx)
+    my = np.floor(srcy)
+    raw = np.empty((9, height, width))
+    for t, (wy, wx) in enumerate((a, b) for a in (-1, 0, 1)
+                                 for b in (-1, 0, 1)):
+        ddy = (my + wy + 0.5) - srcy
+        ddx = (mx + wx + 0.5) - srcx
+        dist = np.sqrt(ddx * ddx + ddy * ddy)
+        # the reference's "simple cubic" hack (line 276)
+        raw[t] = np.where(dist >= 1, 0.0,
+                          (3.0 + dist * dist * (-7.0 + dist * 4.0)) / 3.0)
+    total = raw.sum(axis=0)
+    w = np.floor(raw / total * 0x8000 + 0.5).astype(np.int64)
+    w[4] += 0x8000 - w.sum(axis=0)          # the center tweak (line 292)
+    return (my.astype(np.int32), mx.astype(np.int32), w.astype(np.int32))
+
+
+def barrel_plane(src: torch.Tensor, m, defval: int) -> torch.Tensor:
+    """filter_plane: the 9-tap weighted gather over (N, h, w) uint8,
+    ``>> 15``; taps outside the plane read ``defval``."""
+    my, mx, w = m
+    h, wd = src.shape[-2:]
+    src32 = src.to(torch.int32)
+    acc = torch.zeros(src.shape, dtype=torch.int32, device=src.device)
+    t = 0
+    for wy in (-1, 0, 1):
+        for wx in (-1, 0, 1):
+            sy, sx = my + wy, mx + wx
+            ok = (sy >= 0) & (sy < h) & (sx >= 0) & (sx < wd)
+            px = src32[:, sy.clamp(0, h - 1), sx.clamp(0, wd - 1)]
+            acc += torch.where(ok, px, defval) * w[t]
+            t += 1
+    return (acc >> 15).to(src.dtype)
+
+
+@register
+class BarrelFilter(VideoFilter):
+    """filter_barrel.c: apply or remove barrel (lens) distortion; U and V
+    take a half-size map centered at cx/2, cy/2 (barrel_configure:
+    218-224), and ``range=start-end/step`` gates frames by id (lines
+    378-381)."""
+
+    info = ModuleInfo(name="barrel", kind=ModuleKind.FILTER)
+    desc = ModuleDesc(
+        name="barrel", comment="apply or remove barrel distortion",
+        capabilities="VY",
+        params=[ParamSpec("order2", "strength of order-2 distortion",
+                          "f", 0.0),
+                ParamSpec("order4", "strength of order-4 distortion",
+                          "f", 0.0),
+                ParamSpec("center", "center of distortion x/y",
+                          "d/d", None),
+                ParamSpec("range", "apply only to given frames",
+                          "d-d/d", (0, 1 << 30, 1))])
+    slots = FilterSlot.POST_M
+
+    def init_state(self, width: int, height: int, fmt: ImageFormat,
+                   device: torch.device) -> Any:
+        o2, o4 = self.options["order2"], self.options["order4"]
+        c = self.options["center"]
+        cx, cy = c if c else (width // 2, height // 2)
+
+        def on_device(m):
+            return tuple(torch.from_numpy(a).to(device) for a in m)
+
+        self._map_y = on_device(barrel_map(width, height, cx, cy, o2, o4))
+        self._map_uv = on_device(barrel_map(width // 2, height // 2,
+                                            cx / 2.0, cy / 2.0, o2, o4))
+        return None
+
+    def apply(self, fb: FrameBatch, state: Any) -> Tuple[FrameBatch, Any]:
+        if fb.y is None:
+            raise ValueError("barrel: YUV420P only (like the reference)")
+        start, end, step = self.options["range"]
+        ids = (fb.frame_ids if fb.frame_ids is not None
+               else torch.arange(fb.batch, dtype=torch.int32,
+                                 device=fb.device))
+        act = ((ids >= start) & (ids <= end) & ((ids - start) % step == 0)
+               & ((fb.attrs & ATTR_SKIPPED) == 0)).view(-1, 1, 1)
+        y = torch.where(act, barrel_plane(fb.y, self._map_y, 16), fb.y)
+        u = torch.where(act, barrel_plane(fb.u, self._map_uv, 128), fb.u)
+        v = torch.where(act, barrel_plane(fb.v, self._map_uv, 128), fb.v)
+        return fb.with_planes(y=y, u=u, v=v), state

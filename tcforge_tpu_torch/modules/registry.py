@@ -78,6 +78,11 @@ class VideoFilter(abc.ABC):
         """Host-side look at the state a batch left, which the engine
         calls after every batch (32detect's verbose lines)."""
 
+    def finalize(self, state: Any) -> None:
+        """Host-side end-of-stream hook (the reference's filter CLOSE
+        tag): the engine calls it once, after the last ``collect``, also
+        when the run fails."""
+
 
 _REGISTRIES: Dict[ModuleKind, Dict[str, Type[VideoFilter]]] = {
     k: {} for k in ModuleKind}

@@ -4,9 +4,10 @@ The port of ``tcforge_tpu/pipeline/chain.py``: the filter slots around
 the internal transform chain of ``video_trans.c`` (the "jIXBZYrzlkKGC"
 order: -j clip, -I deinterlace, -X/-B fast resize, -Z zoom, -Y clip,
 -r reduce, -z flip, -l mirror, -k rgbswap, -K grayscale, -G gamma,
--C antialias), on planar YUV and on RGB batches.  ``-I 2`` is a filter
-in the JAX package and still to come here: it raises
-``NotImplementedError``.  ``VideoChain`` keeps the JAX program order
+-C antialias), on planar YUV and on RGB batches.  ``-I 2`` does
+nothing here, as in the JAX chain (its motion-adaptive deinterlacer is
+the ``smartdeinter`` filter, which ``-J`` names).  ``VideoChain`` keeps
+the JAX program order
 (entry conversion to ``job.im_colorspace`` and --pre_clip, PRE slots,
 internal transforms, POST slots, --post_clip) and threads the running
 geometry through ``initial_states`` as the JAX chain does, so hqdn3d
@@ -48,18 +49,6 @@ def _black(fmt: ImageFormat) -> Tuple[int, ...]:
     return (0,)
 
 
-def unsupported_flags(job: Job) -> List[str]:
-    """The job's active internal transforms that the port lacks so far."""
-    return ["-I 2"] if job.deinterlace == 2 else []
-
-
-def _check_supported(job: Job) -> None:
-    flags = unsupported_flags(job)
-    if flags:
-        raise NotImplementedError(
-            "not yet ported to tcforge_tpu_torch: " + ", ".join(flags))
-
-
 def _with_yuv(fb: FrameBatch, planes: Sequence[torch.Tensor]) -> FrameBatch:
     """``fb`` with its one to three planes replaced, luma first."""
     return fb.with_planes(y=planes[0],
@@ -92,7 +81,6 @@ def apply_clip(fb: FrameBatch, clip: Tuple[int, int, int, int]) -> FrameBatch:
 
 def apply_video_trans(job: Job, fb: FrameBatch) -> FrameBatch:
     """process_vid_frame port (video_trans.c:192-460), batched."""
-    _check_supported(job)
     divs = _plane_divs(fb.format)
     is_rgb = fb.rgb is not None
 
@@ -115,6 +103,7 @@ def apply_video_trans(job: Job, fb: FrameBatch) -> FrameBatch:
         if mode == 3:
             fb = _on_planes(fb, zoom.zoom_plane, [
                 (w // dx, h // dy, job.zoom_filter) for dx, dy in divs])
+    # mode 2 is the smartdeinter filter's, which -J names: nothing here
 
     # -X / -B fast resize (video_trans.c:280-300)
     rw = job.resize_up[0] - job.resize_down[0]
@@ -193,7 +182,6 @@ class VideoChain:
 
     def __init__(self, job: Job, in_format: ImageFormat,
                  width: int, height: int):
-        _check_supported(job)
         self.job = job
         self.in_format = in_format
         self.width, self.height = width, height
@@ -205,6 +193,26 @@ class VideoChain:
         self._by_slot: Dict[FilterSlot, List[int]] = {
             s: [i for i, f in enumerate(self.filters) if f.slots & s]
             for s in _SLOT_ORDER}
+
+    def is_identity(self) -> bool:
+        """True when the whole per-batch step is a no-op: no -J filters
+        and none of the internal video transforms
+        (video_trans.c "jIXBZYrzlkKGC") is active for this job.  The
+        engine then keeps the planes in host memory and sends nothing to
+        the device (the JAX chain's ``is_identity``)."""
+        job = self.job
+        return (not self.filters
+                and self.in_format == job.im_colorspace
+                and not job.im_clip and not job.ex_clip
+                and not job.pre_im_clip and not job.post_ex_clip
+                and job.deinterlace <= 0
+                and job.resize_up == job.resize_down
+                and not (job.zoom_width and job.zoom_height)
+                and job.reduce_w <= 1 and job.reduce_h <= 1
+                and not job.flip_v and not job.flip_h
+                and not job.rgbswap and not job.decolor
+                and (job.gamma <= 0 or job.gamma == 1.0)
+                and job.antialias <= 0)
 
     def initial_states(self, device: torch.device) -> List[Any]:
         """Thread the running geometry through the chain in execution

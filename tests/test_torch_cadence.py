@@ -162,7 +162,7 @@ def test_state_handed_from_jax_mid_stream(content, name):
                           ref.init_state(W, H, JImageFormat.YUV420P))
     want, jstate2 = ref_apply(JFrameBatch.from_numpy(*second, first_id=7),
                               jstate)
-    convert = (interop.cadence_state_from_numpy
+    convert = (interop.carry_from_numpy
                if name in ("decimate", "32drop")
                else interop.states_from_numpy)
     pstate = convert(_np_state(jstate), CPU)

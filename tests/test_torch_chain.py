@@ -26,7 +26,7 @@ from tcforge_tpu_torch.core.formats import ImageFormat
 from tcforge_tpu_torch.core.frame import FrameBatch
 from tcforge_tpu_torch.core.job import FilterSpec, Job
 from tcforge_tpu_torch.interop import states_from_numpy, states_to_numpy
-from tcforge_tpu_torch.pipeline.chain import VideoChain, unsupported_flags
+from tcforge_tpu_torch.pipeline.chain import VideoChain
 
 W, H, OUT_W, OUT_H, BATCH = 512, 288, 448, 256, 4
 CPU = torch.device("cpu")
@@ -139,17 +139,23 @@ def test_batch_size_invariance(chains, batches):
     ("pre_im_clip", (2, 2, 2, 2), "--pre_clip"),
     ("post_ex_clip", (2, 2, 2, 2), "--post_clip")])
 def test_unported_transforms_raise(field, value, flag):
-    """``-I 2`` (a filter in the JAX package) is all that is still
-    refused; every other transform of the list builds its chain."""
+    """Every transform of the list builds its chain, ``-I 2`` too: the
+    JAX chain does nothing for it (its deinterlacer is the smartdeinter
+    filter), so the program runs and hands the batch back unchanged."""
     job = Job(**{field: value})
+    chain = VideoChain(job, ImageFormat.YUV420P, 64, 48)
+    assert chain.program()[1] == ("trans", -1)
+    assert not chain.is_identity()
     if flag != "-I 2":
-        assert unsupported_flags(job) == []
-        assert VideoChain(job, ImageFormat.YUV420P, 64, 48).program()[1] == \
-            ("trans", -1)
         return
-    assert unsupported_flags(job) == [flag]
-    with pytest.raises(NotImplementedError, match=flag):
-        VideoChain(job, ImageFormat.YUV420P, 64, 48)
+    rng = np.random.default_rng(4)
+    planes = [rng.integers(0, 256, (2, h, w), dtype=np.uint8)
+              for h, w in ((48, 64), (24, 32), (24, 32))]
+    fb = FrameBatch.from_numpy(*planes, device=CPU)
+    out, states = chain(fb, chain.initial_states(CPU))
+    assert states == []
+    for got, want in zip(out.planes, planes):
+        np.testing.assert_array_equal(got.numpy(), want)
 
 
 SW, SH, SBATCH = 128, 72, 3

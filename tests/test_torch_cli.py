@@ -6,10 +6,16 @@ hqdn3d=luma=4.0`` and the slice's paths cfg2, cfg4 and denoise3d) go
 through both CLIs on the CPU; the output files must be identical, and
 their SHA-256 values are the constants that ``chip_smoke.py`` checks
 again on the card.  The engine drops the frames a filter marks SKIPPED
-or BROKEN, as the JAX engine does.  Then cfg3 on a telecined 64x48
-stream of 20 frames (bytes, frame count and the skipped counter equal
-to the JAX engine's), the small ``-V rgb24`` case, and the internal
-transforms' flags through both parsers.
+or BROKEN, as the JAX engine does, and calls each filter's ``finalize``
+once, after the last ``collect``, also when the reader raises.  Then
+cfg3 on a telecined 64x48 stream of 20 frames (bytes, frame count and
+the skipped counter equal to the JAX engine's), the field-rate paths'
+small cases on an interlaced clip with motion, the small ``-V rgb24``
+case, the ``FLAG_CASES`` (the internal transforms, ``-I 2``, the
+engine's flags and the filters of plain torch ops), and the internal
+transforms' flags through both parsers.  Every run of the port's engine
+goes through ``test_torch_engine.run_cli`` or ``run_engine``: in a
+thread joined with a timeout.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from tcforge_tpu_torch.modules import registry
 from tcforge_tpu_torch.modules.registry import (ModuleInfo, ModuleKind,
                                                 VideoFilter)
 from tcforge_tpu_torch.pipeline.engine import Pipeline
+from test_torch_engine import run_cli, run_engine
 
 
 @pytest.fixture(scope="module")
@@ -51,7 +58,7 @@ def test_port_cli_matches_jax_cli_byte_for_byte(golden_input, tmp_path):
     assert jax_cli_main(["-i", str(golden_input), "-o", str(ref),
                          *chip_smoke.GOLDEN_ARGS, "--progress_off",
                          "-q"]) == 0
-    assert cli.main(["-i", str(golden_input), "-o", str(out),
+    assert run_cli(["-i", str(golden_input), "-o", str(out),
                      *chip_smoke.GOLDEN_ARGS, "--device", "cpu",
                      "--progress_off", "-q"]) == 0
     assert out.read_bytes() == ref.read_bytes()
@@ -69,7 +76,7 @@ def test_path_cli_matches_jax_cli_byte_for_byte(path, golden_input,
     ref, out = tmp_path / "jax.y4m", tmp_path / "port.y4m"
     assert jax_cli_main(["-i", str(golden_input), "-o", str(ref),
                          *args]) == 0
-    assert cli.main(["-i", str(golden_input), "-o", str(out), *args,
+    assert run_cli(["-i", str(golden_input), "-o", str(out), *args,
                      "--device", "cpu"]) == 0
     assert out.read_bytes() == ref.read_bytes()
     assert chip_smoke.sha256_file(out) == chip_smoke.PATH_GOLDEN_SHA256[path]
@@ -120,18 +127,106 @@ def test_engine_drops_skipped_and_broken_frames(golden_input, tmp_path,
     job = Job(video_in_file=str(golden_input), video_out_file=str(out),
               batch_size=3,
               filters=[FilterSpec("test_mark_frames", marks)])
-    counters = Pipeline(job, torch.device("cpu")).run()
+    counters = run_engine(Pipeline(job, torch.device("cpu")))
     assert (counters.frames, counters.written) == (7, len(kept))
     assert (counters.skipped, counters.dropped) == (skipped, dropped)
     with Y4MReader(str(out)) as r:
         assert [int(y[0, 0]) for y, _, _ in r] == kept
 
 
+@pytest.fixture
+def recorders(monkeypatch):
+    """Registers ``test_record_calls``, a filter that records the engine's
+    calls of ``collect`` and ``finalize`` with the frames seen so far;
+    returns the list of its instances."""
+    made = []
+
+    class _RecordCalls(VideoFilter):
+        info = ModuleInfo(name="test_record_calls", kind=ModuleKind.FILTER)
+        desc = None
+
+        def __init__(self, job, options: str = ""):
+            self.job = job
+            self.calls = []
+            made.append(self)
+
+        def init_state(self, width, height, fmt, device):
+            return 0
+
+        def apply(self, fb, state):
+            return fb, state + fb.batch
+
+        def collect(self, state):
+            self.calls.append(("collect", state))
+
+        def finalize(self, state):
+            self.calls.append(("finalize", state))
+
+    monkeypatch.setitem(registry._REGISTRIES[ModuleKind.FILTER],
+                        "test_record_calls", _RecordCalls)
+    return made
+
+
+def test_finalize_runs_once_per_filter_after_the_last_collect(
+        golden_input, tmp_path, recorders):
+    assert run_cli(["-i", str(golden_input), "-o", str(tmp_path / "o.y4m"),
+                    "-J", "test_record_calls,test_record_calls", "--batch",
+                    "3", "--device", "cpu", "-q"]) == 0
+    assert len(recorders) == 2
+    for r in recorders:
+        assert r.calls == [("collect", 3), ("collect", 6), ("collect", 7),
+                           ("finalize", 7)]
+
+
+def test_finalize_runs_when_the_reader_raises(golden_input, tmp_path,
+                                              recorders):
+    """A file cut in its sixth frame: two batches of 2 go through, the
+    reader raises on the third, the CLI exits 1, and each filter is
+    finalized once with the state the last batch left."""
+    data = golden_input.read_bytes()
+    frame = 6 + GOLDEN_FRAME_BYTES
+    header = len(data) - chip_smoke.GOLDEN_FRAMES * frame
+    src = tmp_path / "cut.y4m"
+    src.write_bytes(data[:header + 5 * frame + 100])
+    assert run_cli(["-i", str(src), "-o", str(tmp_path / "o.y4m"), "-J",
+                    "test_record_calls,test_record_calls", "--batch", "2",
+                    "--prefetch", "1", "--device", "cpu", "-q"]) == 1
+    for r in recorders:
+        assert r.calls == [("collect", 2), ("collect", 4), ("finalize", 4)]
+
+
+GOLDEN_FRAME_BYTES = chip_smoke.GOLDEN_W * chip_smoke.GOLDEN_H * 3 // 2
+
+
+@pytest.mark.parametrize("path", sorted(chip_smoke.FIELD_PATHS))
+def test_field_path_cli_matches_jax_cli_byte_for_byte(path, tmp_path):
+    """The field-rate paths' small golden cases on write_motion_y4m's
+    clip: both CLIs, the same bytes, the digest chip_smoke.py checks on
+    the card, and the frames out (doublefps doubles them; modfps trails
+    its buffer of 7 and drops one in six at 29.97 -> 25)."""
+    spec = chip_smoke.FIELD_PATHS[path]
+    g = spec["golden"]
+    frames = g.get("frames", chip_smoke.GOLDEN_FRAMES)
+    src = tmp_path / "in.y4m"
+    chip_smoke.write_input({**spec, **g}, src, frames,
+                           chip_smoke.GOLDEN_SEED)
+    args = [*g["args"], "--batch", "3", "--progress_off", "-q"]
+    ref, out = tmp_path / "jax.y4m", tmp_path / "port.y4m"
+    assert jax_cli_main(["-i", str(src), "-o", str(ref), *args]) == 0
+    assert run_cli(["-i", str(src), "-o", str(out), *args,
+                    "--device", "cpu"]) == 0
+    assert out.read_bytes() == ref.read_bytes()
+    assert chip_smoke.sha256_file(out) == chip_smoke.FIELD_GOLDEN_SHA256[path]
+    with Y4MReader(str(out)) as r:
+        n = sum(1 for _ in r)
+    assert n == {"smartdeint": frames, "bob": 2 * frames, "modfps": 11}[path]
+
+
 def test_engine_counters_and_max_frames(golden_input, tmp_path):
     job = Job(video_in_file=str(golden_input),
               video_out_file=str(tmp_path / "o.y4m"), deinterlace=5,
               zoom_width=64, zoom_height=48, batch_size=3, max_frames=5)
-    counters = Pipeline(job, torch.device("cpu")).run()
+    counters = run_engine(Pipeline(job, torch.device("cpu")))
     assert (counters.frames, counters.batches) == (5, 2)
     assert counters.seconds > 0
     with Y4MReader(str(tmp_path / "o.y4m")) as r:
@@ -153,7 +248,7 @@ def test_cfg3_cli_matches_jax_cli_byte_for_byte(telecine_input, tmp_path):
     ref, out = tmp_path / "jax.y4m", tmp_path / "port.y4m"
     assert jax_cli_main(["-i", str(telecine_input), "-o", str(ref),
                          *args]) == 0
-    assert cli.main(["-i", str(telecine_input), "-o", str(out), *args,
+    assert run_cli(["-i", str(telecine_input), "-o", str(out), *args,
                      "--device", "cpu"]) == 0
     assert out.read_bytes() == ref.read_bytes()
     assert chip_smoke.sha256_file(out) == chip_smoke.CFG3_GOLDEN_SHA256
@@ -174,11 +269,11 @@ def test_cfg3_engine_counters_match_the_jax_engine(telecine_input, tmp_path,
         ex_m_module="y4m", batch_size=batch, mesh_mode="off",
         filters=[chip_smoke_filter(f, jax=True) for f in filters])
     ).run(progress=False)
-    pc = Pipeline(Job(
+    pc = run_engine(Pipeline(Job(
         video_in_file=str(telecine_input), video_out_file=str(out),
         batch_size=batch,
         filters=[chip_smoke_filter(f, jax=False) for f in filters]),
-        torch.device("cpu")).run()
+        torch.device("cpu")))
     assert (pc.frames, pc.written, pc.skipped, pc.dropped) == \
         (jc.frames_in, jc.encoded, jc.skipped, jc.dropped)
     assert pc.written == 13 and pc.skipped == 7
@@ -195,7 +290,7 @@ def test_rgb_job_cli_matches_jax_cli_byte_for_byte(golden_input,
     args = [*chip_smoke.RGB_GOLDEN_ARGS, "--progress_off", "-q"]
     ref, out = tmp_path / "jax.y4m", tmp_path / "port.y4m"
     assert jax_cli_main(["-i", str(golden_input), "-o", str(ref), *args]) == 0
-    assert cli.main(["-i", str(golden_input), "-o", str(out), *args,
+    assert run_cli(["-i", str(golden_input), "-o", str(out), *args,
                      "--device", "cpu"]) == 0
     assert out.read_bytes() == ref.read_bytes()
     assert chip_smoke.sha256_file(out) == chip_smoke.RGB_GOLDEN_SHA256
@@ -220,7 +315,7 @@ def test_flags_cli_matches_jax_cli_byte_for_byte(case, golden_input,
     args = [*chip_smoke.FLAG_CASES[case], "--progress_off", "-q"]
     ref, out = tmp_path / "jax.y4m", tmp_path / "port.y4m"
     assert jax_cli_main(["-i", str(golden_input), "-o", str(ref), *args]) == 0
-    assert cli.main(["-i", str(golden_input), "-o", str(out), *args,
+    assert run_cli(["-i", str(golden_input), "-o", str(out), *args,
                      "--device", "cpu"]) == 0
     assert out.read_bytes() == ref.read_bytes()
 
@@ -266,7 +361,7 @@ def test_engine_refuses_colorspaces_the_y4m_writer_cannot_take(golden_input,
 
 def test_cli_refuses_flags_it_lacks(golden_input, tmp_path, capsys):
     with pytest.raises(SystemExit) as exc:
-        cli.main(["-i", str(golden_input), "-o", str(tmp_path / "o.y4m"),
+        run_cli(["-i", str(golden_input), "-o", str(tmp_path / "o.y4m"),
                   "-g", "128x72", "--device", "cpu"])
     assert exc.value.code == 2
     assert "not supported by the torch port yet: -g 128x72" in \
@@ -277,7 +372,7 @@ def test_cli_cuda_without_a_card_raises(golden_input, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        cli.main(["-i", str(golden_input), "-o", str(tmp_path / "o.y4m"),
+        run_cli(["-i", str(golden_input), "-o", str(tmp_path / "o.y4m"),
                   "-q"])
     assert not (tmp_path / "o.y4m").exists()
 
