@@ -25,7 +25,11 @@ Lanczos3 zoom, ``-J hqdn3d=luma=4.0`` (which runs after the zoom, at
   moving block and a cut (``write_motion_y4m``): smartdeint, 1080i
   ``-J smartdeinter,hqdn3d=luma=4.0 -Z 1280x720``; bob, NTSC
   ``-J doublefps,smartbob`` (no kernel); modfps, NTSC with every fifth
-  frame repeated, ``-J modfps=buffer=7 --export_fps 25 -Z 720x576``.
+  frame repeated, ``-J modfps=buffer=7 --export_fps 25 -Z 720x576``;
+- the clean-up paths (``CLEAN_PATHS``) on the same clip with grain or
+  impulse noise: dvdclean, NTSC ``-J yuvdenoise,pp=de`` (the
+  ``yuvdenoise_chroma`` kernel, one launch a frame); capture, PAL
+  ``-J yuvmedian,dnr,xsharpen`` (no kernel).
 
 Phases, each of which raises on failure:
 
@@ -43,7 +47,8 @@ Phases, each of which raises on failure:
    to 17 frames; at the paths' shapes each is timed over a rotation of
    inputs larger than L2, beside its plain version, its bound (bytes or
    int32 operations) and the one PyTorch call that computes the same
-   function where there is one; with ``--parent DIR``, the unsharp,
+   function where there is one; ``yuvdenoise_chroma`` at dvdclean's
+   shape and at ragged planes; with ``--parent DIR``, the unsharp,
    TomsMoComp and temporal kernels of the checkout in DIR are built
    too, called through DIR's own wrappers and timed in turns with this
    tree's on the same inputs;
@@ -52,16 +57,19 @@ Phases, each of which raises on failure:
    of the path was launched, and the output equals the same chain built
    from the plain versions on the card, byte for byte; cfg3, bob and
    cfg1 against the same torch code run on the CPU in this process, and
-   so the small ``FLAG_CASES`` (every internal transform, on YUV and RGB
-   jobs, ``-I 2``, the engine's flags, and the filters of plain torch
-   ops), and the engine at every ``--prefetch`` 1, 2, 4 and ``--batch``
-   1, 3, 16;
+   so capture, the small ``FLAG_CASES`` (every internal transform, on
+   YUV and RGB jobs, ``-I 2``, the engine's flags, and the filters of
+   plain torch ops) and ``CLEAN_FLAG_CASES`` (the clean-up filters'
+   other options, their logs too), and the engine at every
+   ``--prefetch`` 1, 2, 4 and ``--batch`` 1, 3, 16;
 5. the small cases whose SHA-256 ``tests/test_torch_cli.py`` pins
    against the JAX CLI, run on the card: same digests;
 6. numbers: steady-state chain frames/s on device-resident batches
    (CUDA events) for every path, beside the host's time to queue the
    batches, the step's peak device memory and the device's busy share
-   and kernel time by name (torch.profiler); then each path's CLI on
+   and kernel time by name (torch.profiler), and dvdclean's device
+   time split between its block search, its chroma kernel, the rest of
+   yuvdenoise and pp; then each path's CLI on
    160 frames (ten batches), wall clock, with the serial engine's
    stages timed one by one beside it (``engine_stages``), and with
    ``--parent DIR`` the parent's CLI in turns on the same file.
@@ -223,6 +231,85 @@ FIELD_GOLDEN_SHA256 = {
     "modfps": ("9134f6d84ffb9f2ce1957664edee4aa7"
                "d0fd520c9c71aedf9304771165233631"),
 }
+# the clean-up paths: write_motion_y4m's clip with grain a few levels deep
+# (dvdclean: yuvdenoise's low-contrast gate and scene reset, pp's
+# deblock) or impulse noise (capture: the median, dnr's locks and scene
+# change); input geometry and fps, CLI arguments, the kernels each must
+# launch (capture runs none: it is held against the same CLI on the
+# CPU), frames out, and the small golden case (GOLDEN_FRAMES of w x h,
+# --batch 3) whose SHA-256 tests/test_torch_cli.py pins against the JAX
+# CLI
+CLEAN_PATHS = {
+    "dvdclean": dict(
+        w=720, h=480, fps=(30000, 1001), content="motion", grain=2,
+        args=["-J", "yuvdenoise,pp=de"], kernels=("yuvdenoise_chroma",),
+        frames_out=PATH_FRAMES, chain_on_content=True,
+        golden=dict(w=64, h=48, args=["-J", "yuvdenoise,pp=de"])),
+    "capture": dict(
+        w=720, h=576, fps=(25, 1), content="motion", impulses=0.02,
+        args=["-J", "yuvmedian,dnr,xsharpen"], kernels=(),
+        frames_out=PATH_FRAMES, chain_on_content=True,
+        golden=dict(w=64, h=48, args=["-J", "yuvmedian,dnr,xsharpen"])),
+}
+CLEAN_GOLDEN_SHA256 = {
+    "dvdclean": ("8b9cf0a9b81df4c8042c8d85e290631d"
+                 "890b6b418ab97c8de75b71a313c85ff6"),
+    "capture": ("6d6aec77e0340fc80a4be26d67361173"
+                "d06f582aa3ab67e6900972f2d6e8a5c6"),
+}
+# the other clean-up filters and option families through the CLI, on
+# the card against the CPU here and against the JAX CLI in
+# tests/test_torch_cli.py, on CLEAN_FLAG_INPUT (64x64: yuvdenoise takes
+# multiples of 16, its mode 1 splits fields at a multiple of 32);
+# "{dir}" is a directory of the run's own, where write_clean_aux puts
+# compare's pattern and yait's ops file, and the filters their logs
+CLEAN_FLAG_INPUT = dict(w=64, h=64, fps=(30000, 1001), content="motion",
+                        grain=2)
+CLEAN_FLAG_CASES = {
+    "pp_deint_tn": ["-J", "pp=lb/li/ci/md/fd/tn:4:12:20", "--batch", "3"],
+    "pp_fast_chroma": ["-J", "pp=fa/-al/hb:32:20:y/fq:6"],
+    "yuvdenoise_fields": ["-J", "yuvdenoise=mode=1:deinterlace=1",
+                          "--batch", "3"],
+    "yuvdenoise_pass2": ["-J", "yuvdenoise=mode=2:border=8x8-48x48"],
+    "smooth": ["-J", "smooth=strength=0.6:cdiff=12", "--batch", "3"],
+    "msharpen": ["-J", "msharpen=strength=150:threshold=8"],
+    "compare": ["-J", "compare=pattern={dir}/pattern.png:"
+                "results={dir}/compare.log:delta=40", "--batch", "3"],
+    "whitebalance": ["-J", "whitebalance=level=-50:limit=+0-3+5"],
+    "detectclipping": ["-J", "detectclipping=limit=30:log={dir}/clip.log",
+                       "--batch", "3"],
+    "facemask": ["-J", "facemask=xpos=8:ypos=8:xdim=32:ydim=24:"
+                 "xresolution=8:yresolution=6"],
+    "fields": ["-J", "fields=shift=1:flip=1", "--batch", "3"],
+    "yait_log": ["-J", "yait=log={dir}/yait.log", "--batch", "3"],
+    "yait_ops": ["-J", "yait=ops={dir}/yait.ops", "--batch", "3"],
+    "denoise3d_rgb24": ["-V", "rgb24", "-J", "denoise3d", "--batch", "3"],
+}
+# the files the CLEAN_FLAG_CASES write besides their Y4M
+CLEAN_FLAG_FILES = {"compare": "compare.log", "detectclipping": "clip.log",
+                    "yait_log": "yait.log"}
+
+
+def write_clean_aux(directory) -> None:
+    """compare's pattern (a 40x30 RGBA PNG of gray ramps, opaque but for
+    a transparent band) and yait's ops file (save, copy, drop and the
+    deinterlacers over the first frames) in ``directory``."""
+    from tcforge_tpu_torch.io.image import write_png
+    directory = Path(directory)
+    yy, xx = np.mgrid[0:30, 0:40]
+    rgba = np.stack([xx * 6, yy * 8, (xx + yy) * 3,
+                     np.where(xx < 6, 0, 255)], axis=-1).astype(np.uint8)
+    write_png(str(directory / "pattern.png"), rgba)
+    (directory / "yait.ops").write_text(
+        "0: es\n1: oc\n2: d\n3: 5\n4: ec1\n5: os3\n")
+
+
+def clean_flag_argv(name: str, directory) -> list:
+    """CLEAN_FLAG_CASES[name] with "{dir}" made ``directory``."""
+    return [a.replace("{dir}", str(directory))
+            for a in CLEAN_FLAG_CASES[name]]
+
+
 # the CLI timings: ten batches of MAIN_BATCH frames, enough for the
 # engine's stages to overlap
 ENGINE_FRAMES = 10 * 16
@@ -257,6 +344,11 @@ UNSHARP_AMOUNTS = (0.8, -1.5)
 # to the bob pair's window (min, max, two saturated adds, max, min)
 TMC_OPS_PER_CANDIDATE = 5
 TMC_OPS = 7
+# yuvdenoise's chroma correction per pixel: |ref - tmp| and its test,
+# f1's subtraction, product, division and two clamps, f2, the flat-index
+# test, and the 3-tap blend (four sums, two products, two divisions by
+# 3, a sum and a division by 255) and the select
+YD_CHROMA_OPS = 24
 # kernel timing: the host time to queue one call, which the stream
 # sleeps ahead of the timed calls, at the card's clock
 QUEUE_S_PER_CALL = 2e-4
@@ -297,12 +389,15 @@ KERNELS = {
                         "tcforge_tpu/ops/kernels.py:221"),
     "d3_temporal_scan": ("tcforge_tpu_torch/csrc/hqdn3d_scan.cu",
                          "tcforge_tpu/ops/kernels.py:337"),
+    # not a TPU kernel: the lax.scan of correct_chroma
+    "yuvdenoise_chroma": ("tcforge_tpu_torch/csrc/yuvdenoise.cu",
+                          "tcforge_tpu/modules/filters/yuvdenoise.py:183"),
 }
-LIBS = ("hqdn3d_scan", "zoom_pass", "unsharp", "tomsmocomp")
+LIBS = ("hqdn3d_scan", "zoom_pass", "unsharp", "tomsmocomp", "yuvdenoise")
 # each wrapper of ops/kernels.py, whose plain version is <name>_ref
 WRAPPERS = ("spatial_scan", "temporal_scan", "zoom_pass", "unsharp_plane",
             "tomsmocomp_plane", "tomsmocomp_window", "d3_spatial_scan",
-            "d3_temporal_scan")
+            "d3_temporal_scan", "yuvdenoise_chroma")
 
 
 def write_test_y4m(path, width: int, height: int, frames: int,
@@ -361,14 +456,17 @@ def write_telecine_y4m(path, width: int, height: int, frames: int,
 
 
 def write_motion_y4m(path, width: int, height: int, frames: int, seed: int,
-                     fps=(30000, 1001), repeat_every: int = 0) -> None:
+                     fps=(30000, 1001), repeat_every: int = 0,
+                     grain: int = 1, impulses: float = 0.0) -> None:
     """A seeded interlaced YUV420P Y4M: a fixed noise background with a
     noise block a quarter of the frame wide that moves 4 pixels right
     and 2 down a frame, its bottom field half a step ahead of its top
     field, and one hard cut (a new background and block) at the middle
-    frame; +-1 of grain on every frame.  With ``repeat_every`` = k, every
-    k-th frame repeats the one before it (with its own grain): a
-    near-duplicate for modfps to skip."""
+    frame; +-``grain`` of grain on every frame, and with ``impulses`` = p
+    that share of each plane's samples set to 0 or 255 (a capture's
+    impulse noise).  With ``repeat_every`` = k, every k-th frame repeats
+    the one before it (with its own grain): a near-duplicate for modfps
+    to skip."""
     from tcforge_tpu_torch.io.y4m import Y4MHeader, Y4MWriter
     rng = np.random.default_rng(seed)
 
@@ -400,7 +498,10 @@ def write_motion_y4m(path, width: int, height: int, frames: int, seed: int,
             for i, (bg, block) in enumerate(scenes[2 * k >= frames]):
                 s = 2 if i == 0 else 1       # chroma moves half as far
                 p = draw(bg, block, 2 * s * t, s * t, s) + rng.integers(
-                    -1, 2, bg.shape, dtype=np.int16)
+                    -grain, grain + 1, bg.shape, dtype=np.int16)
+                if impulses:
+                    hit = rng.random(bg.shape) < impulses
+                    p[hit] = 255 * rng.integers(0, 2, int(hit.sum()))
                 planes.append(np.clip(p, 0, 255).astype(np.uint8))
             wr.write_frame(*planes)
 
@@ -414,7 +515,9 @@ def write_input(spec, path, frames: int, seed: int) -> None:
                            fps=spec["fps"])
     elif content == "motion":
         write_motion_y4m(path, spec["w"], spec["h"], frames, seed,
-                         fps=spec["fps"], repeat_every=spec["repeat"])
+                         fps=spec["fps"], repeat_every=spec.get("repeat", 0),
+                         grain=spec.get("grain", 1),
+                         impulses=spec.get("impulses", 0.0))
     else:
         write_test_y4m(path, spec["w"], spec["h"], frames, seed,
                        fps=spec["fps"])
@@ -512,6 +615,8 @@ def main(argv=()) -> int:
     _check_main_kernels(torch, kernels, zoom, hq, bench)
     torch.cuda.empty_cache()
     _check_slice_kernels(torch, kernels, bench)
+    torch.cuda.empty_cache()
+    _check_yuvdenoise_chroma(torch, kernels, bench)
     torch.cuda.empty_cache()
     _check_ragged(torch, kernels, zoom, hq, bench)
     _check_unsharp_sizes(torch, kernels, bench)
@@ -621,6 +726,46 @@ def main(argv=()) -> int:
                   f"{name} golden output differs from the JAX-pinned "
                   "digest")
 
+        # 4. and 5. for the clean-up paths, on grain and impulse noise
+        for name, spec in CLEAN_PATHS.items():
+            path_launches[name] = _run_path(torch, cli, kernels, tmp, name,
+                                            spec)
+            g = spec["golden"]
+            gsrc = tmp / f"golden_{name}_in.y4m"
+            gout = tmp / f"golden_{name}.y4m"
+            write_input({**spec, **g}, gsrc, GOLDEN_FRAMES, GOLDEN_SEED)
+            rc = cli.main(["-i", str(gsrc), "-o", str(gout), *g["args"],
+                           "--batch", "3", "--device", "cuda",
+                           "--progress_off", "-q"])
+            digest = sha256_file(gout)
+            emit(phase="golden", path=name, sha256=digest,
+                 pinned=CLEAN_GOLDEN_SHA256[name])
+            check(rc == 0 and digest == CLEAN_GOLDEN_SHA256[name],
+                  f"{name} golden output differs from the JAX-pinned "
+                  "digest")
+
+        # the clean-up filters' other options: the card's output (and
+        # log) against the CPU's
+        csrc = tmp / "clean_flags_in.y4m"
+        write_input(CLEAN_FLAG_INPUT, csrc, GOLDEN_FRAMES, GOLDEN_SEED)
+        for name in CLEAN_FLAG_CASES:
+            got = {}
+            for device in ("cuda", "cpu"):
+                d = tmp / f"clean_{name}_{device}"
+                d.mkdir()
+                write_clean_aux(d)
+                rc = cli.main(["-i", str(csrc), "-o", str(d / "out.y4m"),
+                               *clean_flag_argv(name, d), "--device",
+                               device, "--progress_off", "-q"])
+                check(rc == 0, f"{name} on {device}: CLI exit code {rc}")
+                got[device] = [(d / f).read_bytes() for f in
+                               ("out.y4m", CLEAN_FLAG_FILES.get(name))
+                               if f]
+            same = got["cuda"] == got["cpu"]
+            emit(phase="flags_vs_cpu", case=name, identical=same,
+                 sha256=hashlib.sha256(got["cuda"][0]).hexdigest())
+            check(same, f"{name}: the card's output differs from the CPU's")
+
         # the internal transforms, the engine's flags and the filters of
         # plain torch ops: the card's output against the CPU's
         gsrc = tmp / "golden_in.y4m"
@@ -663,24 +808,30 @@ def main(argv=()) -> int:
 
     # 6. steady-state chain frames/s on device-resident batches
     for name, spec in (("main", MAIN_PATH), *PATHS.items(), ("cfg3", CFG3),
-                       *FIELD_PATHS.items()):
+                       *FIELD_PATHS.items(), *CLEAN_PATHS.items()):
         fps = _chain_fps(torch, dev, spec)
         emit(phase="chain", path=name, batch=MAIN_BATCH, **fps)
         torch.cuda.empty_cache()
+    emit(phase="dvdclean_split", **_dvdclean_split(
+        torch, dev, kernels, CLEAN_PATHS["dvdclean"]))
+    torch.cuda.empty_cache()
     fps = _cfg1_fps(torch, dev, colorspace, zoom)
     emit(phase="chain", path="cfg1", batch=MAIN_BATCH, **fps)
 
     # 6. the CLI end to end, with the serial stages beside it
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
         for name, spec in (("main", MAIN_PATH), *PATHS.items(),
-                           ("cfg3", CFG3), *FIELD_PATHS.items()):
+                           ("cfg3", CFG3), *FIELD_PATHS.items(),
+                           *CLEAN_PATHS.items()):
             _cli_rates(torch, dev, cli, Path(tmp), name, spec,
-                       bench.parent if name not in FIELD_PATHS else None)
+                       bench.parent if name not in FIELD_PATHS
+                       and name not in CLEAN_PATHS else None)
 
     # each kernel's launches in the run of the path that carries it
     for name, (src, _) in KERNELS.items():
         if name not in MAIN_KERNELS:
-            owner = next(p for p, spec in PATHS.items()
+            owner = next(p for p, spec in (*PATHS.items(),
+                                           *CLEAN_PATHS.items())
                          if name in spec["kernels"])
             launches[name] = path_launches[owner][name]
     if bench.parent:
@@ -739,7 +890,9 @@ def _chain_fps(torch, dev, spec, warmup: int = 2, timed_batches: int = 8):
     ones, with every filter's carry kept throughout.  The chain is the
     job the CLI builds from the path's arguments (``spec["args"]``) at
     its geometry and rate; the batches are uniform noise, on which these
-    chains do the same work as on any content.
+    chains do the same work as on any content, or with
+    ``chain_on_content`` the path's own content (the clean-up filters'
+    gates and scene tests take one branch on noise).
 
     Beside it, the host's time to queue those batches (taken before the
     synchronize: near the device time when the host holds the chain
@@ -756,8 +909,10 @@ def _chain_fps(torch, dev, spec, warmup: int = 2, timed_batches: int = 8):
     job.im_v_width, job.im_v_height = spec["w"], spec["h"]
     job.fps = spec["fps"][0] / spec["fps"][1]
     chain = VideoChain(job, ImageFormat.YUV420P, spec["w"], spec["h"])
-    batches = _noise_batches(torch, dev, spec["w"], spec["h"],
-                             warmup + timed_batches)
+    batches = (_content_batches(torch, dev, spec, warmup + timed_batches)
+               if spec.get("chain_on_content") else
+               _noise_batches(torch, dev, spec["w"], spec["h"],
+                              warmup + timed_batches))
     return _timed_batches(torch, chain, chain.initial_states(dev), batches,
                           warmup)
 
@@ -817,6 +972,20 @@ def _noise_batches(torch, dev, width: int, height: int, count: int):
         frame_ids=torch.arange(k * MAIN_BATCH, (k + 1) * MAIN_BATCH,
                                dtype=torch.int32, device=dev),
         fps=25.0) for k in range(count)]
+
+
+def _content_batches(torch, dev, spec, count: int):
+    """``count`` batches of the path's own content (``write_input``,
+    seed 8) on the card, frame ids running on."""
+    from tcforge_tpu_torch.core.frame import FrameBatch
+    from tcforge_tpu_torch.io.y4m import Y4MReader
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_content_") as tmp:
+        path = Path(tmp) / "content.y4m"
+        write_input(spec, path, count * MAIN_BATCH, seed=8)
+        with Y4MReader(str(path)) as r:
+            return [FrameBatch.from_numpy(
+                *r.read_batch(MAIN_BATCH), device=dev, fps=25.0,
+                first_id=k * MAIN_BATCH) for k in range(count)]
 
 
 def _timed_batches(torch, step, states, batches, warmup: int):
@@ -1440,6 +1609,104 @@ def _check_slice_kernels(torch, kernels, bench):
                          per_batch, kernels.d3_temporal_scan,
                          kernels.d3_temporal_scan_ref, tin)
         del tin
+
+
+def _check_yuvdenoise_chroma(torch, kernels, bench):
+    """Phase 3 for yuvdenoise's chroma correction: U and V of a 720x480
+    frame (dvdclean's shape, one launch a frame), timed, then odd and
+    even widths, heights 2, 3, 120 (a field) and 240, at thresholds 0
+    and 5 (the default).  No PyTorch call computes the row recurrence."""
+    dev = bench.dev
+
+    def planes(p, h2, w2, threshold=5):
+        ref = torch.from_numpy(bench.rng.integers(
+            16, 241, (p, h2, w2), dtype=np.int32)).to(dev)
+        noise = torch.from_numpy(bench.rng.integers(
+            -20, 21, (p, h2, w2), dtype=np.int32)).to(dev)
+        return ref, (ref + noise).clamp_(0, 255), threshold
+
+    n = 2 * 240 * 360
+    bench.record("yuvdenoise_chroma", "720x480 U+V", MAIN_BATCH,
+                 kernels.yuvdenoise_chroma, kernels.yuvdenoise_chroma_ref,
+                 bench.rotation(lambda: planes(2, 240, 360)),
+                 nbytes=3 * 4 * n, ops=YD_CHROMA_OPS * n)
+    cases = 0
+    for p, h2, w2 in ((2, 2, 7), (2, 3, 8), (1, 3, 1), (2, 120, 360),
+                      (1, 240, 361), (2, 240, 33)):
+        for threshold in (0, 5):
+            args = planes(p, h2, w2, threshold)
+            bench.check("yuvdenoise_chroma", f"{p}x{h2}x{w2} T={threshold}",
+                        kernels.yuvdenoise_chroma(*args),
+                        kernels.yuvdenoise_chroma_ref(*args), quiet=True)
+            cases += 1
+    emit(phase="kernel_sweep", kernel="yuvdenoise_chroma", cases=cases,
+         max_abs_err=0)
+
+
+def _busy_ms(torch, fn, calls: int) -> float:
+    """The device's busy ms per call of ``fn`` over ``calls`` calls, from
+    a torch.profiler trace (the union of its kernels' spans: host time
+    between them is not counted)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return _device_busy(prof, calls)["busy_ms_per_batch"]
+
+
+def _dvdclean_split(torch, dev, kernels, spec, batches: int = 4):
+    """Where dvdclean's device time goes, per 16-frame batch of its
+    content: the whole chain, yuvdenoise alone, its block search (16
+    calls of ``mc_search`` on 720x480 luma) and its chroma kernel (16
+    launches on U and V), and pp alone; device busy ms from
+    torch.profiler, each piece on its own."""
+    from tcforge_tpu_torch import cli
+    from tcforge_tpu_torch.core.formats import ImageFormat
+    from tcforge_tpu_torch.modules.filters import pp as ppf
+    from tcforge_tpu_torch.modules.filters import yuvdenoise as ydf
+    from tcforge_tpu_torch.pipeline.chain import VideoChain
+    data = _content_batches(torch, dev, spec, batches)
+    job = cli.args_to_job(cli.build_parser().parse_args(
+        ["-i", "-", "-o", "-", *spec["args"]]))
+    chain = VideoChain(job, ImageFormat.YUV420P, spec["w"], spec["h"])
+    yd = ydf.YuvDenoiseFilter(job, "")
+    pp = ppf.PPFilter(job, "de")
+    out = {}
+    for name, step, init in (
+            ("chain", chain, chain.initial_states(dev)),
+            ("yuvdenoise", yd.apply, yd.init_state(
+                spec["w"], spec["h"], ImageFormat.YUV420P, dev)),
+            ("pp", pp.apply, None)):
+        carry = {"state": init, "calls": 0}
+
+        def run(step=step, carry=carry):
+            fb = data[carry["calls"] % batches]
+            _, carry["state"] = step(fb, carry["state"])
+            carry["calls"] += 1
+        out[f"{name}_busy_ms"] = _busy_ms(torch, run, batches)
+    ry = ydf.contrast_plane(data[0].y, 100, ydf.Y_LO, ydf.Y_HI)
+    searched = torch.ones((spec["h"] // 8, spec["w"] // 8), dtype=torch.bool,
+                          device=dev)
+
+    def search():
+        for i in range(MAIN_BATCH):
+            ydf.mc_search(ry[i], ry[i - 1], 8, searched)
+    out["search_busy_ms"] = _busy_ms(torch, search, 2)
+    rc = torch.stack([ydf.contrast_plane(p, 100, ydf.C_LO, ydf.C_HI)
+                      for p in (data[0].u, data[0].v)], dim=1)
+
+    def chroma():
+        for i in range(MAIN_BATCH):
+            kernels.yuvdenoise_chroma(rc[i], rc[i - 1], 5)
+    out["chroma_kernel_busy_ms"] = _busy_ms(torch, chroma, 2)
+    parts = (out["yuvdenoise_busy_ms"], out["search_busy_ms"],
+             out["chroma_kernel_busy_ms"])
+    out["yuvdenoise_rest_busy_ms"] = (None if None in parts
+                                      else parts[0] - parts[1] - parts[2])
+    return out
 
 
 def _check_ragged(torch, kernels, zoom, hq, bench):

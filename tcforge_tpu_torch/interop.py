@@ -15,6 +15,15 @@ decimate's ring (``metric``, ``ok``, ``frame_in``, ``frame_out``,
 ``fnum``, ``lfnum``, ``dcnt`` go through ``carry_from_numpy``, because
 the port keeps their counters on the host as Python ints; so do the
 carries of smartdeinter, smartyuv, doublefps, smartbob and modfps.
+
+The clean-up filters' carries go through ``carry_from_numpy`` too: the
+0-d ``init`` (and pp's tmpnoise ``seeded``) becomes a Python bool,
+decided on the host, and the rest stays on the device: yuvdenoise's
+``reset`` counter and its ``y/u/v`` and ``y2/u2/v2`` averages, dnr's
+reference frame and lock history ``hist``, pp's previous output planes,
+yait's previous frame or row buffer (and pass 1's ``ed``, ``od``,
+``ids``), detectclipping's bounds, fields' saved field and denoise3d's
+RGB24 carry ``{"rgb": (H, W, 3)}``.
 """
 
 from __future__ import annotations

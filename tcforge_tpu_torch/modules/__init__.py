@@ -2,5 +2,6 @@
 built-in filters, as importing ``tcforge_tpu.modules`` does."""
 
 from tcforge_tpu_torch.modules.filters import (  # noqa: F401
-    bob, cadence, denoise3d, extras, hqdn3d, modfps, rate, simple,
-    smartdeinter, tomsmocomp, unsharp)
+    analysis, bob, cadence, denoise3d, dnr, extras, hqdn3d, median, modfps,
+    msharpen, pp, rate, simple, smartdeinter, smooth, tomsmocomp, unsharp,
+    xsharpen, yait, yuvdenoise)

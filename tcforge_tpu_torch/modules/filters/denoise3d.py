@@ -10,8 +10,10 @@ zero at the start, so the first frame is filtered against black
 (filter_denoise3d.c:377).  Per plane, three launches: ``ops/kernels.py``
 ``d3_spatial_scan`` along W, then along H, then ``d3_temporal_scan``.
 
-Defaults: luma/chroma spatial 4/3, luma/chroma temporal 6/4.  YUV420P
-and YUV422P; RGB24 is not ported yet.  ``nonative`` is accepted and
+Defaults: luma/chroma spatial 4/3, luma/chroma temporal 6/4.  YUV420P,
+YUV422P and RGB24, whose three channels all go through the luma tables
+(each a contiguous copy of its channel, with its own (H, W) slice of
+the (H, W, 3) int32 carry).  ``nonative`` is accepted and
 ignored: it turns off the JAX package's CPU fast path, which the port
 does not have.
 """
@@ -91,11 +93,12 @@ class Denoise3dFilter(VideoFilter):
 
     def init_state(self, width: int, height: int, fmt: ImageFormat,
                    device: torch.device) -> Any:
-        if fmt == ImageFormat.RGB24:
-            raise NotImplementedError(
-                "denoise3d on RGB24 is not yet ported to tcforge_tpu_torch")
-        if fmt not in (ImageFormat.YUV420P, ImageFormat.YUV422P):
+        if fmt not in (ImageFormat.YUV420P, ImageFormat.YUV422P,
+                       ImageFormat.RGB24):
             raise ValueError("denoise3d supports YUV420P/YUV422P/RGB24")
+        if fmt == ImageFormat.RGB24:
+            return {"rgb": torch.zeros((height, width, 3),
+                                       dtype=torch.int32, device=device)}
         uh, uw = fmt.uv_plane_shape(width, height)
 
         def zeros(h, w):
@@ -104,10 +107,14 @@ class Denoise3dFilter(VideoFilter):
                 "v": zeros(uh, uw)}
 
     def apply(self, fb: FrameBatch, state: Any) -> Tuple[FrameBatch, Any]:
-        if fb.rgb is not None:
-            raise NotImplementedError(
-                "denoise3d on RGB24 is not yet ported to tcforge_tpu_torch")
         ls, lt, cs, ct = self.luts(fb.device)
+        if fb.rgb is not None:
+            chans, carries = zip(*(
+                denoise_plane(fb.rgb[..., c].contiguous(),
+                              state["rgb"][..., c].contiguous(), ls, lt)
+                for c in range(3)))
+            return (fb.with_planes(rgb=torch.stack(chans, dim=-1)),
+                    {"rgb": torch.stack(carries, dim=-1)})
         y, prev_y = denoise_plane(fb.y, state["y"], ls, lt)
         u, prev_u = denoise_plane(fb.u, state["u"], cs, ct)
         v, prev_v = denoise_plane(fb.v, state["v"], cs, ct)

@@ -1,11 +1,11 @@
-"""Simple stateless filters: invert, levels, deinterlace, mask,
-testframe, null.
+"""Simple filters: invert, levels, deinterlace, mask, testframe,
+compare, null.
 
 The port of ``tcforge_tpu/modules/filters/simple.py`` (analogues of
 ``filter_invert.c``, ``filter_levels.c``, ``filter_mask.c``,
-``filter_testframe.c``, ``filter_null.c``), in plain torch.  Its
-``compare`` reads a PNG pattern through the JAX package's image
-reader and comes with the port's importers.
+``filter_testframe.c``, ``filter_compare.c``, ``filter_null.c``), in
+plain torch.  ``compare`` reads its pattern through the port's copy of
+``io/image.py`` and resizes it with the port's zoom.
 """
 
 from __future__ import annotations
@@ -15,12 +15,13 @@ from typing import Any, Tuple
 import numpy as np
 import torch
 
+from tcforge_tpu_torch.core.formats import ImageFormat
 from tcforge_tpu_torch.core.frame import FrameBatch
 from tcforge_tpu_torch.core.optstr import ModuleDesc, ParamSpec
 from tcforge_tpu_torch.modules.registry import (FilterSlot, ModuleInfo,
                                                 ModuleKind, VideoFilter,
                                                 register)
-from tcforge_tpu_torch.ops import video
+from tcforge_tpu_torch.ops import colorspace, video, zoom
 
 
 @register
@@ -173,6 +174,104 @@ class TestFrameFilter(VideoFilter):
         return fb.with_planes(
             y=y, u=torch.full_like(fb.u, 128) if fb.u is not None else None,
             v=torch.full_like(fb.v, 128) if fb.v is not None else None), state
+
+
+@register
+class CompareFilter(VideoFilter):
+    """filter_compare.c: find a pattern image in the video.
+
+    The pattern is Gaussian-resized to the frame size (``zoom_plane``,
+    the zoom kernel on the card; compare_setup_pattern:180-195) and its
+    fully opaque pixels (alpha 255) form the mask.  Per frame, the mean
+    absolute difference of each RGB channel over the mask, a float32 sum
+    over the float32 pixel count, is held against ``delta`` (default
+    45.0), and ``collect`` appends '1' (a match) or 'n' to the results
+    file after a ``#fps:`` header (compare_filter_video:406-440);
+    ``finalize`` closes it.  ``flip`` mirrors the pattern, ``rgbswap``
+    swaps R and B.  YUV sessions compare luma only.
+
+    The jitted JAX filter divides by the count, a constant of the trace,
+    which XLA compiles to a product with its float32 reciprocal; the
+    port computes that.  The sums are of integers, exact in float32 up
+    to 2^24 (a 128x72 frame and more), and exact in int64 here.
+    """
+
+    info = ModuleInfo(name="compare", kind=ModuleKind.FILTER)
+    desc = ModuleDesc(
+        name="compare", comment="compare with other image to find "
+        "a pattern",
+        params=[ParamSpec("pattern", "pattern image file path", "s",
+                          "compare.png"),
+                ParamSpec("results", "results file path", "s",
+                          "compare.log"),
+                ParamSpec("delta", "delta error allowed", "f", 45.0,
+                          0.0, 100.0),
+                ParamSpec("rgbswap", "swap R/B in the pattern", "d",
+                          0, 0, 1),
+                ParamSpec("flip", "mirror the pattern", "d", 0, 0, 1)])
+    slots = FilterSlot.POST_S
+
+    def __init__(self, job, options: str = ""):
+        super().__init__(job, options)
+        self._pattern = None
+        self._results = None
+
+    def _setup(self, width: int, height: int, device: torch.device):
+        from tcforge_tpu_torch.io.image import read_image
+        img = read_image(self.options["pattern"], keep_alpha=True)
+        if self.options["flip"]:
+            img = np.flip(img, axis=0)
+        if self.options["rgbswap"]:
+            img = img[..., [2, 1, 0, 3]]
+        planes = torch.from_numpy(
+            np.ascontiguousarray(np.moveaxis(img, -1, 0))).to(device)
+        rs = zoom.zoom_plane(planes, width, height, "gaussian")
+        mask = rs[3] == 255                 # GM opacity == 0
+        count = int(mask.sum())
+        if not count:
+            mask = torch.ones_like(mask)
+            count = height * width
+        self._pattern = (rs[:3].to(torch.int32), mask,
+                         float(np.float32(1) / np.float32(count)))
+
+    def init_state(self, width: int, height: int, fmt: ImageFormat,
+                   device: torch.device) -> Any:
+        self._setup(width, height, device)
+        return {"match": torch.full((1,), -1, dtype=torch.int32,
+                                    device=device)}
+
+    def apply(self, fb: FrameBatch, state: Any) -> Tuple[FrameBatch, Any]:
+        pat, mask, inv = self._pattern
+        delta = float(np.float32(self.options["delta"]))
+
+        def mean_diff(plane, ref):
+            d = (plane.to(torch.int32) - ref).abs()
+            total = torch.where(mask[None], d, 0).sum(dim=(1, 2))
+            return total.to(torch.float32) * inv
+
+        if fb.rgb is not None:
+            ok = None
+            for c in range(3):
+                good = mean_diff(fb.rgb[..., c], pat[c]) < delta
+                ok = good if ok is None else ok & good
+        else:
+            py, _, _ = colorspace.rgb_to_yuv_pixels(torch.movedim(pat, 0, -1))
+            ok = mean_diff(fb.y, py) < delta
+        return fb, {"match": ok.to(torch.int32)}
+
+    def collect(self, state: Any) -> None:
+        if self._results is None:
+            self._results = open(self.options["results"], "w")
+            self._results.write(f"#fps:{self.job.fps:f}\n")
+        for v in state["match"].cpu().numpy():
+            if v >= 0:
+                self._results.write("1" if v else "n")
+        self._results.flush()
+
+    def finalize(self, state: Any) -> None:
+        if self._results is not None:
+            self._results.close()
+            self._results = None
 
 
 @register

@@ -20,6 +20,11 @@ wrapper                    CUDA source                 replaces (tcforge_tpu)
                                                        ``spatial_scan`` "d3"
 ``d3_temporal_scan``       ``csrc/hqdn3d_scan.cu``     ops/kernels.py
                                                        ``temporal3d_scan``
+``yuvdenoise_chroma``      ``csrc/yuvdenoise.cu``      modules/filters/
+                                                       yuvdenoise.py
+                                                       ``correct_chroma``
+                                                       (a ``lax.scan``, not
+                                                       a Pallas kernel)
 =========================  ==========================  =====================
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
@@ -51,7 +56,8 @@ launches: Dict[str, int] = {"hqdn3d_spatial_scan": 0,
                             "unsharp": 0,
                             "tomsmocomp": 0,
                             "d3_spatial_scan": 0,
-                            "d3_temporal_scan": 0}
+                            "d3_temporal_scan": 0,
+                            "yuvdenoise_chroma": 0}
 
 
 def reset_launches() -> None:
@@ -95,6 +101,9 @@ _SIGNATURES = {
     "tomsmocomp": {
         "tc_tomsmocomp": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
         "tc_tomsmocomp_window": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    },
+    "yuvdenoise": {
+        "tc_yuvdenoise_chroma": (_P, _P, _P, _I, _I, _I, _I, _P),
     },
     "zoom_pass": {
         "tc_zoom_pass": (_P, _P, _P, _P, _P, _I, _P, _I, _I, _LL, _LL, _LL,
@@ -636,3 +645,59 @@ def d3_temporal_scan(v: torch.Tensor, prev: torch.Tensor,
           lut.data_ptr(), n, h * w, _stream(v))
     launches["d3_temporal_scan"] += 1
     return out, prev_out
+
+
+# --------------------------------------------------------------------- #
+# Kernel Y: yuvdenoise's chroma correction (a row recurrence)
+
+def yuvdenoise_chroma_ref(ref: torch.Tensor, tmp: torch.Tensor,
+                          threshold: int) -> torch.Tensor:
+    """Plain version of ``yuvdenoise_chroma``: the JAX ``lax.scan`` over
+    rows (yuvdenoise.py:183-218) as a Python loop, one row of every
+    plane per turn."""
+    p, h2, w2 = ref.shape
+    q = (ref - tmp).abs()
+    f1 = (255 * (q - threshold) // max(1, threshold)).clamp_(0, 255)
+    f2 = 255 - f1
+    app = q > threshold
+    simple = (tmp * f2 + ref * f1) // 255
+    flat = (torch.arange(h2, device=ref.device)[:, None] * w2
+            + torch.arange(w2, device=ref.device)[None, :])
+    three = (flat > w2) & (flat < w2 * h2 - w2)
+    out = torch.empty_like(tmp)
+    prev = torch.zeros_like(tmp[:, 0])
+    for r in range(h2):
+        above, below = (r - 1) % h2, (r + 1) % h2
+        tt = ((ref[:, r] + ref[:, below] + ref[:, above]) * f1[:, r] // 3
+              + (tmp[:, r] + tmp[:, below] + prev) * f2[:, r] // 3) // 255
+        prev = torch.where(app[:, r], torch.where(three[r], tt,
+                                                  simple[:, r]), tmp[:, r])
+        out[:, r] = prev
+    return out
+
+
+def yuvdenoise_chroma(ref: torch.Tensor, tmp: torch.Tensor,
+                      threshold: int) -> torch.Tensor:
+    """yuvdenoise's correct_frame2 on chroma (denoise.c:414-478) for P
+    int32 (P, H2, W2) planes at once.  Per pixel ``q = |ref - tmp|``,
+    ``f1 = clamp(255*(q - T) // max(1, T), 0, 255)``, ``f2 = 255 - f1``;
+    where ``q > T`` the pixel becomes ``(tmp*f2 + ref*f1) // 255`` or,
+    at the interior flat indices ``W2 < c < W2*H2 - W2``, the vertical
+    3-tap ``((ref + ref_below + ref_above)*f1 // 3 + (tmp + tmp_below +
+    out_above)*f2 // 3) // 255``, which reads the row above after it was
+    corrected; elsewhere it stays ``tmp``.  Returns int32 (P, H2, W2)."""
+    _check(ref, "ref", (torch.int32,), 3)
+    _check(tmp, "tmp", (torch.int32,), 3)
+    if ref.shape != tmp.shape:
+        raise ValueError(f"ref {tuple(ref.shape)} and tmp "
+                         f"{tuple(tmp.shape)} differ")
+    if not _on_cuda(ref, tmp):
+        return yuvdenoise_chroma_ref(ref, tmp, threshold)
+    out = torch.empty_like(tmp)
+    if out.numel() == 0:
+        return out
+    _call("yuvdenoise", "tc_yuvdenoise_chroma", ref.data_ptr(),
+          tmp.data_ptr(), out.data_ptr(), int(threshold), *ref.shape,
+          _stream(ref))
+    launches["yuvdenoise_chroma"] += 1
+    return out

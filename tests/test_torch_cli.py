@@ -41,6 +41,7 @@ from tcforge_tpu_torch.modules import registry
 from tcforge_tpu_torch.modules.registry import (ModuleInfo, ModuleKind,
                                                 VideoFilter)
 from tcforge_tpu_torch.pipeline.engine import Pipeline
+from test_torch_denoise import yuvdenoise_pieces_jitted
 from test_torch_engine import run_cli, run_engine
 
 
@@ -220,6 +221,117 @@ def test_field_path_cli_matches_jax_cli_byte_for_byte(path, tmp_path):
     with Y4MReader(str(out)) as r:
         n = sum(1 for _ in r)
     assert n == {"smartdeint": frames, "bob": 2 * frames, "modfps": 11}[path]
+
+
+def jax_cli(argv):
+    """The JAX CLI on ``argv``.  A job with yuvdenoise runs with jit
+    disabled but for yuvdenoise's pieces, each jitted on its own:
+    jitting the whole step takes minutes on a CPU.  Its other filters
+    (pp's deblock, dering and autolevels at their defaults) give the
+    same bytes jitted and not (tests/test_torch_denoise.py)."""
+    if any("yuvdenoise" in a for a in argv):
+        with yuvdenoise_pieces_jitted():
+            return jax_cli_main(argv)
+    return jax_cli_main(argv)
+
+
+@pytest.mark.parametrize("path", sorted(chip_smoke.CLEAN_PATHS))
+def test_clean_path_cli_matches_jax_cli_byte_for_byte(path, tmp_path):
+    """The clean-up paths' small golden cases (64x48, the grain or
+    impulse clip with its cut, --batch 3): both CLIs, the same bytes and
+    the digest chip_smoke.py checks on the card."""
+    spec = chip_smoke.CLEAN_PATHS[path]
+    g = spec["golden"]
+    src = tmp_path / "in.y4m"
+    chip_smoke.write_input({**spec, **g}, src, chip_smoke.GOLDEN_FRAMES,
+                           chip_smoke.GOLDEN_SEED)
+    args = [*g["args"], "--batch", "3", "--progress_off", "-q"]
+    ref, out = tmp_path / "jax.y4m", tmp_path / "port.y4m"
+    assert jax_cli(["-i", str(src), "-o", str(ref), *args]) == 0
+    assert run_cli(["-i", str(src), "-o", str(out), *args,
+                    "--device", "cpu"]) == 0
+    assert out.read_bytes() == ref.read_bytes()
+    assert chip_smoke.sha256_file(out) == chip_smoke.CLEAN_GOLDEN_SHA256[path]
+    with Y4MReader(str(out)) as r:
+        assert sum(1 for _ in r) == chip_smoke.GOLDEN_FRAMES
+
+
+@pytest.fixture(scope="module")
+def clean_flag_input(tmp_path_factory):
+    path = tmp_path_factory.mktemp("clean") / "in.y4m"
+    chip_smoke.write_input(chip_smoke.CLEAN_FLAG_INPUT, path,
+                           chip_smoke.GOLDEN_FRAMES, chip_smoke.GOLDEN_SEED)
+    return path
+
+
+@pytest.mark.parametrize("case", sorted(chip_smoke.CLEAN_FLAG_CASES))
+def test_clean_flags_cli_matches_jax_cli_byte_for_byte(case, clean_flag_input,
+                                                       tmp_path):
+    """The clean-up filters' other options through both CLIs: the same
+    Y4M bytes, and the same log or results file where the filter writes
+    one."""
+    dirs = {side: tmp_path / side for side in ("jax", "port")}
+    for d in dirs.values():
+        d.mkdir()
+        chip_smoke.write_clean_aux(d)
+    outs = {side: dirs[side] / "out.y4m" for side in dirs}
+    common = ["-i", str(clean_flag_input), "--progress_off", "-q"]
+    assert jax_cli([*common, "-o", str(outs["jax"]),
+                    *chip_smoke.clean_flag_argv(case, dirs["jax"])]) == 0
+    assert run_cli([*common, "-o", str(outs["port"]), "--device", "cpu",
+                    *chip_smoke.clean_flag_argv(case, dirs["port"])]) == 0
+    assert outs["port"].read_bytes() == outs["jax"].read_bytes()
+    name = chip_smoke.CLEAN_FLAG_FILES.get(case)
+    if name:
+        text = (dirs["port"] / name).read_text()
+        want = (dirs["jax"] / name).read_text()
+        if case == "compare":
+            # the JAX engine on a multi-device CPU mesh pads the last
+            # batch with copies of its last frame, and the JAX compare
+            # writes a result for those too, after the real frames'
+            head, results = want.split("\n", 1)
+            assert len(results) >= chip_smoke.GOLDEN_FRAMES
+            want = head + "\n" + results[:chip_smoke.GOLDEN_FRAMES]
+            assert len(text.split("\n", 1)[1]) == chip_smoke.GOLDEN_FRAMES
+        assert text and text == want
+
+
+@pytest.mark.parametrize("case,module", [
+    ("detectclipping", "analysis"), ("compare", "simple"),
+    ("yait_log", "yait")])
+def test_logs_are_written_once_after_the_last_collect(
+        case, module, clean_flag_input, tmp_path, monkeypatch):
+    """detectclipping and yait open their file once, in ``finalize``,
+    after the last ``collect``; compare opens its results once, at the
+    first ``collect``, and closes it in ``finalize``.  Through the CLI,
+    in batches of 3 (7 frames: three collects)."""
+    import builtins
+    import importlib
+    mod = importlib.import_module(
+        f"tcforge_tpu_torch.modules.filters.{module}")
+    events = []
+    cls = next(c for c in vars(mod).values() if isinstance(c, type)
+               and getattr(c, "info", None) is not None
+               and c.info.name == case.split("_")[0])
+    for hook in ("collect", "finalize"):
+        def spy(self, state, _orig=getattr(cls, hook), _hook=hook):
+            events.append(_hook)
+            return _orig(self, state)
+        monkeypatch.setattr(cls, hook, spy)
+
+    def opened(path, mode="r", *a, **k):
+        if "w" in mode:
+            events.append("open")
+        return builtins.open(path, mode, *a, **k)
+    monkeypatch.setattr(mod, "open", opened, raising=False)
+    chip_smoke.write_clean_aux(tmp_path)
+    assert run_cli(["-i", str(clean_flag_input), "-o",
+                    str(tmp_path / "o.y4m"), "--device", "cpu", "-q",
+                    *chip_smoke.clean_flag_argv(case, tmp_path)]) == 0
+    first = ["collect", "open"] if case == "compare" else ["collect"]
+    assert events == first + ["collect", "collect", "finalize"] + (
+        [] if case == "compare" else ["open"])
+    assert (tmp_path / chip_smoke.CLEAN_FLAG_FILES[case]).stat().st_size
 
 
 def test_engine_counters_and_max_frames(golden_input, tmp_path):

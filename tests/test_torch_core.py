@@ -39,7 +39,7 @@ PORT = REPO / "tcforge_tpu_torch"
 
 COPIES = ["core/formats.py", "core/optstr.py", "core/codecs.py",
           "core/framecode.py", "core/job.py", "core/ratiocodes.py",
-          "io/y4m.py"]
+          "io/y4m.py", "io/image.py"]
 
 
 def _imported_modules(path: Path):

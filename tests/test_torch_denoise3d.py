@@ -183,8 +183,23 @@ def test_filter_matches_jax_from_a_jax_carry(fmt, jfmt, uv, options):
 
 
 def test_rgb_not_ported():
-    with pytest.raises(NotImplementedError, match="RGB24"):
-        td3.Denoise3dFilter(Job()).init_state(8, 8, ImageFormat.RGB24, CPU)
+    """RGB24 is ported now (the name is kept): the carry is JAX's (H, W,
+    3) int32 zeros, and one batch equals the JAX filter's, every
+    channel through the luma tables (more cases in
+    test_torch_analysis.py)."""
+    port, ref = td3.Denoise3dFilter(Job()), jd3.Denoise3dFilter(JJob())
+    state = port.init_state(8, 8, ImageFormat.RGB24, CPU)
+    jstate = ref.init_state(8, 8, JImageFormat.RGB24)
+    np.testing.assert_array_equal(state["rgb"].numpy(),
+                                  np.asarray(jstate["rgb"]))
+    rgb = rand_u8(np.random.default_rng(4), 2, 8, 8, 3)
+    out, state = port.apply(FrameBatch.from_numpy(
+        rgb=rgb, device=CPU, fmt=ImageFormat.RGB24), state)
+    jout, jstate = ref.apply(JFrameBatch.from_numpy(
+        rgb=rgb, fmt=JImageFormat.RGB24), jstate)
+    np.testing.assert_array_equal(out.rgb.numpy(), np.asarray(jout.rgb))
+    np.testing.assert_array_equal(state["rgb"].numpy(),
+                                  np.asarray(jstate["rgb"]))
 
 
 def test_wrapper_checks():
