@@ -29,7 +29,15 @@ Lanczos3 zoom, ``-J hqdn3d=luma=4.0`` (which runs after the zoom, at
 - the clean-up paths (``CLEAN_PATHS``) on the same clip with grain or
   impulse noise: dvdclean, NTSC ``-J yuvdenoise,pp=de`` (the
   ``yuvdenoise_chroma`` kernel, one launch a frame); capture, PAL
-  ``-J yuvmedian,dnr,xsharpen`` (no kernel).
+  ``-J yuvmedian,dnr,xsharpen`` (no kernel);
+- the stabilization and broadcast paths (``OVERLAY_PATHS``): stabilize,
+  two CLI runs on 1080p hand-held footage (``write_shaky_y4m``), pass 1
+  ``-J stabilize`` (the ``stabilize_field_search`` kernel, one launch a
+  batch) writing the ``.trf`` file and pass 2 ``-J transform`` reading
+  it (``transform_warp`` and ``unsharp``, three launches each a batch);
+  broadcast, 1080i telecined film with a station logo, ``-J
+  fieldanalysis,logoaway,logo`` (the logo's chroma through
+  ``zoom_pass`` at setup).
 
 Phases, each of which raises on failure:
 
@@ -48,7 +56,10 @@ Phases, each of which raises on failure:
    inputs larger than L2, beside its plain version, its bound (bytes or
    int32 operations) and the one PyTorch call that computes the same
    function where there is one; ``yuvdenoise_chroma`` at dvdclean's
-   shape and at ragged planes; with ``--parent DIR``, the unsharp,
+   shape and at ragged planes; the field search and the warp at the
+   stabilize path's shapes and off it (stepsize 1, 2 and 6, ragged
+   frames, fields over the edges, ties, shakiness 10; every
+   interpolation with and without crop); with ``--parent DIR``, the unsharp,
    TomsMoComp and temporal kernels of the checkout in DIR are built
    too, called through DIR's own wrappers and timed in turns with this
    tree's on the same inputs;
@@ -60,7 +71,10 @@ Phases, each of which raises on failure:
    so capture, the small ``FLAG_CASES`` (every internal transform, on
    YUV and RGB jobs, ``-I 2``, the engine's flags, and the filters of
    plain torch ops) and ``CLEAN_FLAG_CASES`` (the clean-up filters'
-   other options, their logs too), and the engine at every
+   other options, their logs too), stabilize's two passes against the
+   same two runs on the plain versions on the card (the ``.trf`` and
+   both outputs), broadcast against its CPU run (its RESULTS lines too)
+   and ``OVERLAY_FLAG_CASES``, and the engine at every
    ``--prefetch`` 1, 2, 4 and ``--batch`` 1, 3, 16;
 5. the small cases whose SHA-256 ``tests/test_torch_cli.py`` pins
    against the JAX CLI, run on the card: same digests;
@@ -69,7 +83,8 @@ Phases, each of which raises on failure:
    batches, the step's peak device memory and the device's busy share
    and kernel time by name (torch.profiler), and dvdclean's device
    time split between its block search, its chroma kernel, the rest of
-   yuvdenoise and pp; then each path's CLI on
+   yuvdenoise and pp, and stabilize pass 1's between the field search
+   and the rest; then each path's CLI (stabilize's two passes apart) on
    160 frames (ten batches), wall clock, with the serial engine's
    stages timed one by one beside it (``engine_stages``), and with
    ``--parent DIR`` the parent's CLI in turns on the same file.
@@ -310,6 +325,121 @@ def clean_flag_argv(name: str, directory) -> list:
             for a in CLEAN_FLAG_CASES[name]]
 
 
+# the stabilization and broadcast paths.  stabilize is two CLI runs on
+# hand-held footage (write_shaky_y4m): pass 1 writes the .trf file in
+# the run's directory, pass 2 reads it and warps every frame (bilinear,
+# then the 5x5 unsharp on all three planes); its kernels are those of
+# both passes, and both runs are held against the same two runs on the
+# plain versions on the card (the .trf and the Y4M bytes).  broadcast is
+# telecined film with a 192x96 station logo in the top right: field
+# analysis, the logo painted out by XY interpolation and a watermark
+# (write_logo_png, {dir}/logo.png) stamped bottom left, whose chroma the
+# Lanczos3 zoom converts at setup; it is held against the same CLI on
+# the CPU, its logged RESULTS lines too.  Their small golden cases run
+# in a directory of their own with the .trf named relatively (its header
+# names it): SHA-256 pinned against the JAX CLI by
+# tests/test_torch_cli.py and checked again on the card.
+OVERLAY_PATHS = {
+    "stabilize": dict(
+        w=1920, h=1080, fps=(30000, 1001), content="shaky",
+        passes=(["-J", "stabilize=result={dir}/shake.trf"],
+                ["-J", "transform=input={dir}/shake.trf"]),
+        kernels=("stabilize_field_search", "transform_warp", "unsharp"),
+        frames_out=PATH_FRAMES,
+        golden=dict(w=160, h=120, frames=12, batch=5, passes=(
+            ["-J", "stabilize=result=shake.trf"],
+            ["-J", "transform=input=shake.trf"]))),
+    "broadcast": dict(
+        w=1920, h=1080, fps=(30000, 1001), content="telecine",
+        station=(1664, 48, 192, 96), logo=(192, 96),
+        args=["-J", "fieldanalysis,logoaway=pos=1664x48:size=192x96:mode=2,"
+                    "logo=file={dir}/logo.png:posdef=3:hqconv=1"],
+        kernels=("zoom_pass",), frames_out=PATH_FRAMES,
+        golden=dict(w=64, h=48, station=(48, 4, 12, 8), logo=(16, 8),
+                    batch=3, args=[
+                        "-J", "fieldanalysis,logoaway=pos=48x4:size=12x8:"
+                        "mode=2,logo=file={dir}/logo.png:posdef=3:hqconv=1"])),
+}
+OVERLAY_GOLDEN_SHA256 = {
+    "stabilize.trf": ("5c3555518d765bd5f6d1a5fa766dc969"
+                      "c01e0435eecc9efd81ff64c9341754e6"),
+    "stabilize": ("03733c470393143b2db3152b630d6cd9"
+                  "b18b44f5b5c39ef93fb482d499c15897"),
+    "broadcast": ("b050afab6b71df3d2d785543bf2c1068"
+                  "789af01374924df73d6185a47a9a86a5"),
+}
+# the slice's other option families through the CLI on
+# OVERLAY_FLAG_INPUT (the broadcast content at 64x48): on the card
+# against the CPU here, against the JAX CLI in tests/test_torch_cli.py.
+# "{dir}" is the run's own directory, where write_overlay_aux puts the
+# logo, logoaway's shape image and a .trf of made-up transforms
+OVERLAY_FLAG_INPUT = dict(w=64, h=48, fps=(30000, 1001), content="telecine",
+                          station=(48, 4, 12, 8))
+OVERLAY_FLAG_CASES = {
+    "stabilize_algo0": ["-J", "stabilize=algo=0:result={dir}/a0.trf",
+                        "--batch", "3"],
+    "transform_zero": ["-J", "transform=input={dir}/rows.trf:interpol=0:"
+                             "sharpen=0", "--batch", "3"],
+    "transform_linear": ["-J", "transform=input={dir}/rows.trf:interpol=1:"
+                               "sharpen=0"],
+    "transform_quadratic_crop": ["-J", "transform=input={dir}/rows.trf:"
+                                       "interpol=3:crop=1:sharpen=0"],
+    "transform_bicubic": ["-J", "transform=input={dir}/rows.trf:"
+                                "interpol=4:sharpen=0", "--batch", "3"],
+    "transform_invert_absolute": [
+        "-J", "transform=input={dir}/rows.trf:invert=1:relative=0:"
+              "sharpen=0"],
+    "transform_clamps": ["-J", "transform=input={dir}/rows.trf:maxshift=1:"
+                               "maxangle=0.002:optzoom=0:sharpen=0"],
+    "logoaway_solid_shape": ["-J", "logoaway=mode=1:pos=48x4:size=12x8:"
+                                   "file={dir}/shape.ppm", "--batch", "3"],
+    "logoaway_shape_border": ["-J", "logoaway=mode=3:pos=48x4:size=12x8:"
+                                    "file={dir}/shape.ppm:border=1"],
+    "logo_fade_range_flip": ["-J", "logo=file={dir}/logo.png:posdef=4:"
+                                   "fade=2-2:range=1-5:flip=1"],
+    "logo_rgbswap_grayout": ["-J", "logo=file={dir}/logo.png:pos=10x6:"
+                                   "rgbswap=1:grayout=1", "--batch", "3"],
+    "fieldanalysis_outdiff2": ["-J", "fieldanalysis=outdiff=2", "--batch",
+                               "3"],
+    "fieldanalysis_outdiff9": ["-J", "fieldanalysis=outdiff=9"],
+    "29to23": ["-J", "29to23", "--batch", "3"],
+    "cpaudio_logoaway": ["-J", "cpaudio,logoaway=mode=2:pos=48x4:size=12x8"],
+    "hqdn3d_cpaudio": ["-J", "hqdn3d,cpaudio", "--batch", "3"],
+    "rgb24_logoaway_logo": ["-V", "rgb24", "-J",
+                            "logoaway=mode=2:pos=48x4:size=12x8,"
+                            "logo=file={dir}/logo.png:posdef=1",
+                            "--batch", "3"],
+}
+# the files the OVERLAY_FLAG_CASES write besides their Y4M
+OVERLAY_FLAG_FILES = {"stabilize_algo0": "a0.trf"}
+
+
+def write_overlay_aux(directory, logo=(16, 8)) -> None:
+    """In ``directory``: the watermark ``logo.png`` (``logo`` = (w, h)),
+    logoaway's shape image ``shape.ppm`` (12x8: opaque in a diamond,
+    levels of alpha around it) and ``rows.trf``, nine made-up
+    transforms (shifts of a few pixels, turns of a few hundredths of a
+    radian)."""
+    from tcforge_tpu_torch.io.image import write_image
+    from tcforge_tpu_torch.modules.filters.stabilize import write_trf
+    directory = Path(directory)
+    write_logo_png(directory / "logo.png", *logo, seed=1)
+    yy, xx = np.mgrid[0:8, 0:12]
+    shape = np.where(abs(xx - 6) + abs(yy - 4) < 4, 255,
+                     (xx * 20 + yy * 7) % 256).astype(np.uint8)
+    write_image(str(directory / "shape.ppm"), np.stack([shape] * 3, -1))
+    rng = np.random.default_rng(12)
+    rows = np.stack([rng.normal(0, 2, 9), rng.normal(0, 2, 9),
+                     rng.normal(0, 0.02, 9), np.zeros(9)], axis=1)
+    write_trf(str(directory / "rows.trf"), list(rows), {"made": "up"})
+
+
+def overlay_argv(args, directory) -> list:
+    """A path's or a flag case's arguments with "{dir}" made
+    ``directory``."""
+    return [a.replace("{dir}", str(directory)) for a in args]
+
+
 # the CLI timings: ten batches of MAIN_BATCH frames, enough for the
 # engine's stages to overlap
 ENGINE_FRAMES = 10 * 16
@@ -349,6 +479,14 @@ TMC_OPS = 7
 # test, and the 3-tap blend (four sums, two products, two divisions by
 # 3, a sum and a division by 255) and the select
 YD_CHROMA_OPS = 24
+# the field search: one byte SAD per pixel per candidate; __vsadu4 takes
+# four in one int32 lane operation, so its bound counts four to an
+# operation.  The warp: float32 operations per output pixel of the
+# bilinear form (two source coordinates, two floors, four weights, three
+# fused multiply-adds and two products) at the card's float32 rate
+SADS_PER_OP = 4
+WARP_FLOPS = 24
+FP32_OPS_PER_S = 67e12
 # kernel timing: the host time to queue one call, which the stream
 # sleeps ahead of the timed calls, at the card's clock
 QUEUE_S_PER_CALL = 2e-4
@@ -392,12 +530,20 @@ KERNELS = {
     # not a TPU kernel: the lax.scan of correct_chroma
     "yuvdenoise_chroma": ("tcforge_tpu_torch/csrc/yuvdenoise.cu",
                           "tcforge_tpu/modules/filters/yuvdenoise.py:183"),
+    # not TPU kernels: the lax.scan of field_search and the XLA ops of
+    # warp_plane
+    "stabilize_field_search": ("tcforge_tpu_torch/csrc/stabilize.cu",
+                               "tcforge_tpu/modules/filters/stabilize.py:209"),
+    "transform_warp": ("tcforge_tpu_torch/csrc/stabilize.cu",
+                       "tcforge_tpu/modules/filters/stabilize.py:632"),
 }
-LIBS = ("hqdn3d_scan", "zoom_pass", "unsharp", "tomsmocomp", "yuvdenoise")
+LIBS = ("hqdn3d_scan", "zoom_pass", "unsharp", "tomsmocomp", "yuvdenoise",
+        "stabilize")
 # each wrapper of ops/kernels.py, whose plain version is <name>_ref
 WRAPPERS = ("spatial_scan", "temporal_scan", "zoom_pass", "unsharp_plane",
             "tomsmocomp_plane", "tomsmocomp_window", "d3_spatial_scan",
-            "d3_temporal_scan", "yuvdenoise_chroma")
+            "d3_temporal_scan", "yuvdenoise_chroma", "stabilize_field_search",
+            "transform_warp")
 
 
 def write_test_y4m(path, width: int, height: int, frames: int,
@@ -418,13 +564,15 @@ def write_test_y4m(path, width: int, height: int, frames: int,
 
 
 def write_telecine_y4m(path, width: int, height: int, frames: int,
-                       seed: int, fps=(30000, 1001)) -> None:
+                       seed: int, fps=(30000, 1001), station=None) -> None:
     """A seeded YUV420P Y4M of 3:2 telecined film: a progressive
     sequence (8x8 blocks of noise panning 8 pixels a film frame, each
     frame with its own grain of +-3) whose fields are repeated A A, B B,
     B C, C D, D D, and +-1 of noise on every video frame, so that the
     repeated frame that decimate looks for is close to its neighbour
-    and not equal to it."""
+    and not equal to it.  With ``station`` = (x, y, w, h) a static
+    "station logo" (``station_logo``) covers that luma box and its
+    chroma on every frame, over the grain."""
     from tcforge_tpu_torch.io.y4m import Y4MHeader, Y4MWriter
     rng = np.random.default_rng(seed)
     films = -(-frames // 5) * 4
@@ -452,6 +600,12 @@ def write_telecine_y4m(path, width: int, height: int, frames: int,
                 p[1::2] = b[1::2]
                 p += rng.integers(-1, 2, p.shape)
                 planes.append(np.clip(p, 0, 255).astype(np.uint8))
+            if station is not None:
+                x, y, bw, bh = station
+                for i, logo in enumerate(station_logo(bw, bh)):
+                    s = 1 if i == 0 else 2
+                    planes[i][y // s:y // s + bh // s,
+                              x // s:x // s + bw // s] = logo
             wr.write_frame(*planes)
 
 
@@ -506,13 +660,98 @@ def write_motion_y4m(path, width: int, height: int, frames: int, seed: int,
             wr.write_frame(*planes)
 
 
+def station_logo(width: int, height: int):
+    """A broadcaster's static logo of ``width`` x ``height`` as YUV420P
+    planes: a white frame two pixels wide around a dark field with a
+    light diagonal band, and a tinted chroma."""
+    yy, xx = np.mgrid[0:height, 0:width]
+    y = np.where((abs(xx - yy * width // max(height, 1)) < width // 8 + 1),
+                 200, 40)
+    border = ((xx < 2) | (yy < 2) | (xx >= width - 2) | (yy >= height - 2))
+    y = np.where(border, 235, y).astype(np.uint8)
+    ch, cw = height // 2, width // 2
+    return (y, np.full((ch, cw), 90, np.uint8),
+            np.full((ch, cw), 170, np.uint8))
+
+
+def write_logo_png(path, width: int, height: int, seed: int) -> None:
+    """The watermark for ``logo``: a seeded RGBA PNG whose alpha is 0
+    (the video shows), 255 (the logo is copied) and every level between
+    (blended) in bands, over coloured gradients."""
+    from tcforge_tpu_torch.io.image import write_png
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:height, 0:width]
+    alpha = np.select([xx < width // 4, xx >= 3 * width // 4],
+                      [0, 255], (xx * 255 // max(width - 1, 1)))
+    alpha = np.where((yy + xx) % 7 == 0, rng.integers(0, 256, alpha.shape),
+                     alpha)
+    rgba = np.stack([xx * 255 // max(width - 1, 1),
+                     yy * 255 // max(height - 1, 1),
+                     rng.integers(0, 256, (height, width)), alpha],
+                    axis=-1).astype(np.uint8)
+    write_png(str(path), rgba)
+
+
+def write_shaky_y4m(path, width: int, height: int, frames: int, seed: int,
+                    fps=(30000, 1001), shakiness: int = 4) -> None:
+    """A seeded YUV420P Y4M of hand-held footage: a base of noise
+    upsampled in 8x8 blocks (features about 8 pixels wide, so the
+    strided coarse search finds a basin), moved by a seeded random walk
+    of integer translations kept inside half of stabilize's maxshift
+    (``min(w, h) * shakiness // 40``), and every fourth frame turned by
+    0.5 to 2 degrees about the centre (nearest neighbour), so that the
+    rotation estimate sees a signal.  Chroma follows at half the
+    translation."""
+    from tcforge_tpu_torch.io.y4m import Y4MHeader, Y4MWriter
+    rng = np.random.default_rng(seed)
+    limit = max(1, min(width, height) * shakiness // 40 // 2)
+    margin = 2 * limit + max(width, height) // 8 + 8
+    bases = []
+    for s, block in ((1, 8), (2, 4)):
+        h, w = height // s + 2 * margin, width // s + 2 * margin
+        small = rng.integers(16, 236, (-(-h // block), -(-w // block)))
+        bases.append(np.kron(small, np.ones((block, block), np.int64))
+                     [:h, :w].astype(np.uint8))
+    hdr = Y4MHeader(width=width, height=height, fps_num=fps[0],
+                    fps_den=fps[1])
+    tx = ty = 0
+    with Y4MWriter(str(path), hdr) as wr:
+        for k in range(frames):
+            tx = int(np.clip(tx + rng.integers(-2, 3), -limit, limit))
+            ty = int(np.clip(ty + rng.integers(-2, 3), -limit, limit))
+            angle = (np.deg2rad(rng.uniform(0.5, 2.0))
+                     * rng.choice((-1, 1)) if k % 4 == 3 else 0.0)
+            planes = []
+            for s, base in zip((1, 2, 2), (bases[0], bases[1], bases[1])):
+                h, w = height // s, width // s
+                if not angle:
+                    y0, x0 = margin - ty // s, margin - tx // s
+                    planes.append(base[y0:y0 + h, x0:x0 + w])
+                    continue
+                c, sn = np.cos(angle), np.sin(angle)
+                yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+                cx, cy = (w - 1) / 2, (h - 1) / 2
+                sx = c * (xx - cx) - sn * (yy - cy) + cx - tx // s + margin
+                sy = sn * (xx - cx) + c * (yy - cy) + cy - ty // s + margin
+                sx = np.clip(np.rint(sx).astype(np.int64), 0,
+                             base.shape[1] - 1)
+                sy = np.clip(np.rint(sy).astype(np.int64), 0,
+                             base.shape[0] - 1)
+                planes.append(base[sy, sx])
+            wr.write_frame(*planes)
+
+
 def write_input(spec, path, frames: int, seed: int) -> None:
     """A path's input: ``frames`` frames of its geometry, fps and
-    content (``noise``, the default, ``telecine`` or ``motion``)."""
+    content (``noise``, the default, ``telecine`` (with the path's
+    ``station`` box), ``motion`` or ``shaky``)."""
     content = spec.get("content", "noise")
     if content == "telecine":
         write_telecine_y4m(path, spec["w"], spec["h"], frames, seed,
-                           fps=spec["fps"])
+                           fps=spec["fps"], station=spec.get("station"))
+    elif content == "shaky":
+        write_shaky_y4m(path, spec["w"], spec["h"], frames, seed,
+                        fps=spec["fps"])
     elif content == "motion":
         write_motion_y4m(path, spec["w"], spec["h"], frames, seed,
                          fps=spec["fps"], repeat_every=spec.get("repeat", 0),
@@ -617,6 +856,8 @@ def main(argv=()) -> int:
     _check_slice_kernels(torch, kernels, bench)
     torch.cuda.empty_cache()
     _check_yuvdenoise_chroma(torch, kernels, bench)
+    torch.cuda.empty_cache()
+    _check_stabilize_kernels(torch, kernels, bench)
     torch.cuda.empty_cache()
     _check_ragged(torch, kernels, zoom, hq, bench)
     _check_unsharp_sizes(torch, kernels, bench)
@@ -766,6 +1007,15 @@ def main(argv=()) -> int:
                  sha256=hashlib.sha256(got["cuda"][0]).hexdigest())
             check(same, f"{name}: the card's output differs from the CPU's")
 
+        # 4. and 5. for the stabilization and broadcast paths, and their
+        # other options against the CPU
+        path_launches["stabilize"] = _run_stabilize(torch, cli, kernels,
+                                                    tmp)
+        path_launches["broadcast"] = _run_broadcast(torch, cli, kernels,
+                                                    tmp)
+        _overlay_goldens(cli, tmp)
+        _overlay_flag_cases(cli, tmp)
+
         # the internal transforms, the engine's flags and the filters of
         # plain torch ops: the card's output against the CPU's
         gsrc = tmp / "golden_in.y4m"
@@ -826,12 +1076,17 @@ def main(argv=()) -> int:
             _cli_rates(torch, dev, cli, Path(tmp), name, spec,
                        bench.parent if name not in FIELD_PATHS
                        and name not in CLEAN_PATHS else None)
+    # 6. the stabilization and broadcast paths: chains, CLIs, pass 1's split
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_overlay_") as tmp:
+        _overlay_rates(torch, dev, cli, Path(tmp))
+    torch.cuda.empty_cache()
 
     # each kernel's launches in the run of the path that carries it
     for name, (src, _) in KERNELS.items():
         if name not in MAIN_KERNELS:
             owner = next(p for p, spec in (*PATHS.items(),
-                                           *CLEAN_PATHS.items())
+                                           *CLEAN_PATHS.items(),
+                                           *OVERLAY_PATHS.items())
                          if name in spec["kernels"])
             launches[name] = path_launches[owner][name]
     if bench.parent:
@@ -1252,19 +1507,21 @@ class KernelBench:
         return err
 
     def record(self, kernel, case, per_batch, fn, ref, inputs, nbytes, ops,
-               library=None, reps=20, plain_reps=1):
+               library=None, reps=20, plain_reps=1,
+               ops_per_s=INT32_OPS_PER_S):
         """Check ``fn`` against ``ref`` on the first input and time both,
         and ``library`` (a call and its own inputs) where one PyTorch call
         computes the same function.  ``nbytes`` and ``ops``: what one call
-        must move and compute, for its bound.  ``per_batch``: launches of
-        this case in one 16-frame batch of the kernel's path (0: a check
-        off the path, not in the sums)."""
+        must move and compute, for its bound, the operations at
+        ``ops_per_s``.  ``per_batch``: launches of this case in one
+        16-frame batch of the kernel's path (0: a check off the path, not
+        in the sums)."""
         err = self.check(kernel, case, fn(*inputs[0]), ref(*inputs[0]))
         ms = self.time(fn, inputs, reps)
         plain_ms = self.time(ref, inputs, plain_reps)
         lib_ms = self.time(*library, 5) if library else None
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / INT32_OPS_PER_S * 1e3
+        ops_ms = ops / ops_per_s * 1e3
         emit(phase="kernel", kernel=kernel, case=case, max_abs_err=err,
              ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
              bound_ms=max(bytes_ms, ops_ms),
@@ -1953,6 +2210,356 @@ def _run_path(torch, cli, kernels, tmp, name, spec):
          sha256=sha256_file(out))
     check(same, f"{name} differs from its plain run")
     return launches
+
+
+def _check_stabilize_kernels(torch, kernels, bench):
+    """Phase 3 for the field search and the warp: at the stabilize
+    path's shapes (1080p, batch 16, 98 fields of 108 at shakiness 4,
+    stepsize 6; the warp's luma and chroma planes at a turn and a zoom),
+    timed; then off the path at stepsize 1, 2 and 6, odd sizes, frames
+    of 1 to 3 rows, fields at and over the edges, ties placed on
+    purpose, and shakiness 10 at 1080p (270-pixel fields, the patch in
+    73 KB of shared memory); and every interpolation, with and without
+    crop, on ragged planes with pure-translation frames among them.  The
+    warp's library call is F.grid_sample (bilinear, the same source
+    coordinates), timed only: its borders and rounding differ."""
+    import torch.nn.functional as F
+    from tcforge_tpu_torch.modules.filters import stabilize as st
+    dev = bench.dev
+    spec = OVERLAY_PATHS["stabilize"]
+    w, h = spec["w"], spec["h"]
+
+    def fields(fw, fh, shakiness=4, stepsize=6):
+        m = min(fw, fh) * shakiness // 40
+        return (torch.from_numpy(st.init_fields(fw, fh, m, m, stepsize))
+                .to(dev), m)
+
+    centers, m = fields(w, h)
+    nf = centers.shape[0]
+    cands = (2 * m // 6 + 1) ** 2 + 11 ** 2 - 1
+    sads = MAIN_BATCH * nf * cands * m * m
+    bench.record("stabilize_field_search",
+                 f"{nf} fields of {m} px, {cands} candidates, "
+                 f"{(MAIN_BATCH, h, w)} ({sads} byte SADs)", 1,
+                 kernels.stabilize_field_search,
+                 kernels.stabilize_field_search_ref,
+                 bench.rotation(lambda: (bench.u8(h, w),
+                                         bench.u8(MAIN_BATCH, h, w), centers,
+                                         m, m, 6)),
+                 (MAIN_BATCH + 1) * h * w + _nbytes(centers)
+                 + MAIN_BATCH * nf * 8, sads / SADS_PER_OP, plain_reps=1)
+    cases = 0
+
+    def search(prev, frames, c, size, maxshift, stepsize, case):
+        nonlocal cases
+        bench.check("stabilize_field_search", case,
+                    kernels.stabilize_field_search(prev, frames, c, size,
+                                                   maxshift, stepsize),
+                    kernels.stabilize_field_search_ref(
+                        prev, frames, c, size, maxshift, stepsize),
+                    quiet=True)
+        cases += 1
+
+    for fw, fh in ((96, 64), (53, 37), (41, 25)):
+        for stepsize in (1, 2, 6):
+            c, mm = fields(fw, fh, 4, stepsize)
+            frames = bench.u8(3, fh, fw)
+            search(frames[0], frames, c, mm, mm, stepsize,
+                   f"{(3, fh, fw)} stepsize {stepsize}")
+    edge = torch.tensor([[0, 0], [39, 2], [-2, 1], [45, -4], [20, 1]],
+                        dtype=torch.int32, device=dev)
+    for rows in (1, 2, 3):
+        for stepsize in (1, 2):
+            frames = bench.u8(2, rows, 40)
+            search(frames[0], frames, edge, 3, 2, stepsize,
+                   f"{rows} rows, fields over the edges, stepsize "
+                   f"{stepsize}")
+    yy, xx = torch.meshgrid(torch.arange(48, device=dev),
+                            torch.arange(64, device=dev), indexing="ij")
+    tex = ((xx % 4) * 40 + (yy % 4) * 9).to(torch.uint8)
+    ties = torch.stack([torch.roll(tex, (1, 2), (0, 1)),
+                        torch.full_like(tex, 77)])
+    for stepsize in (1, 2, 6):
+        c, _ = fields(64, 48, 4, stepsize)
+        search(tex, ties, c, 8, 8, stepsize,
+               f"ties, stepsize {stepsize}")
+    c, mm = fields(w, h, 10)
+    frames = bench.u8(2, h, w)
+    search(frames[0], frames, c, mm, mm, 6, f"shakiness 10: {mm} px fields")
+    emit(phase="kernel_sweep", kernel="stabilize_field_search", cases=cases,
+         max_abs_err=0)
+
+    # the warp, as pass 2 calls it: a turn of 0.02 rad and a 3 % zoom
+    trans = np.tile(np.array([[3.25, -1.5, 0.02, 3.0]], np.float32),
+                    (MAIN_BATCH, 1))
+    for plane, (pw, ph), scale, dv, per_batch in (
+            ("y", (w, h), 1.0, 16, 1), ("u/v", (w // 2, h // 2), 0.5, 128,
+                                        2)):
+        fp, ip = (torch.from_numpy(a).to(dev) for a in st.warp_params(
+            trans, pw, ph, scale, 0.25 / (180 / np.pi)))
+        x_s, y_s = st.source_coords(fp, ph, pw)
+        grid = torch.stack([x_s * (2.0 / (pw - 1)) - 1,
+                            y_s * (2.0 / (ph - 1)) - 1], dim=-1)
+        numel = MAIN_BATCH * ph * pw
+        bench.record(
+            "transform_warp", f"{plane} bilinear {(MAIN_BATCH, ph, pw)}",
+            per_batch, kernels.transform_warp, kernels.transform_warp_ref,
+            bench.rotation(lambda: (bench.u8(MAIN_BATCH, ph, pw), fp, ip,
+                                    2, 0, dv)),
+            2 * numel + _nbytes(fp, ip), WARP_FLOPS * numel,
+            library=(lambda x: F.grid_sample(x, grid, mode="bilinear",
+                                             align_corners=True),
+                     bench.rotation(lambda: (bench.u8(
+                         MAIN_BATCH, 1, ph, pw).to(torch.float32),))),
+            plain_reps=3, ops_per_s=FP32_OPS_PER_S)
+    cases = 0
+    for n, ph, pw in ((3, 37, 53), (2, 1, 40), (2, 3, 17), (5, 26, 38)):
+        t = np.random.default_rng(n * ph).normal(
+            0, [3, 3, 0.05, 4], (n, 4)).astype(np.float32)
+        t[::2, 2:] = 0                  # pure translations among them
+        for scale in (1.0, 0.5):
+            fp, ip = (torch.from_numpy(a).to(dev) for a in st.warp_params(
+                t, pw, ph, scale, 0.25 / (180 / np.pi)))
+            plane = bench.u8(n, ph, pw)
+            for interp in (0, 1, 2, 3, 4):
+                for crop in (0, 1):
+                    bench.check("transform_warp",
+                                f"{(n, ph, pw)} scale {scale} interp "
+                                f"{interp} crop {crop}",
+                                kernels.transform_warp(plane, fp, ip, interp,
+                                                       crop, 16),
+                                kernels.transform_warp_ref(
+                                    plane, fp, ip, interp, crop, 16),
+                                quiet=True)
+                    cases += 1
+    emit(phase="kernel_sweep", kernel="transform_warp", cases=cases,
+         max_abs_err=0)
+
+
+@contextlib.contextmanager
+def captured_log():
+    """The lines the port logs at INFO while the block runs."""
+    import logging
+
+    class Lines(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.INFO)
+            self.lines = []
+
+        def emit(self, record):
+            self.lines.append(record.getMessage())
+
+    logger = logging.getLogger("tcforge_tpu_torch")
+    handler, level = Lines(), logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    try:
+        yield handler.lines
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+
+
+def _run_stabilize(torch, cli, kernels, tmp):
+    """Phase 4 for the two-pass stabilize path: both CLI runs on the
+    card over PATH_FRAMES frames of shaky footage, the counts set to 0
+    before each and read after (pass 1 launches the field search, pass 2
+    the warp and unsharp on all three planes of every batch), then the
+    same two runs on the plain versions on the card in the same
+    directory: the .trf and both Y4M files byte for byte.  Returns the
+    launches of both passes."""
+    spec = OVERLAY_PATHS["stabilize"]
+    src = tmp / "in_stabilize.y4m"
+    write_input(spec, src, PATH_FRAMES, seed=5)
+    d = tmp / "stabilize"
+    d.mkdir()
+    common = ["-i", str(src), "--batch", str(MAIN_BATCH), "--progress_off",
+              "-q", "--device", "cuda"]
+    runs, total = {}, {}
+    for mode in ("kernels", "plain"):
+        ctx = plain_versions(kernels) if mode == "plain" else \
+            contextlib.nullcontext()
+        files, counts = [], []
+        with ctx:
+            for i, args in enumerate(spec["passes"]):
+                out = d / f"pass{i + 1}.y4m"
+                torch.cuda.synchronize()
+                kernels.reset_launches()
+                t0 = time.perf_counter()
+                rc = cli.main([*common, "-o", str(out),
+                               *overlay_argv(args, d)])
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                check(rc == 0, f"stabilize pass {i + 1} ({mode}): CLI exit "
+                               f"code {rc}")
+                counts.append(dict(kernels.launches))
+                files.append(out.read_bytes())
+                if mode == "kernels":
+                    emit(phase="path", path=f"stabilize pass {i + 1}",
+                         frames=PATH_FRAMES, seconds=seconds,
+                         e2e_fps=PATH_FRAMES / seconds,
+                         launches=counts[-1])
+            files.append((d / "shake.trf").read_bytes())
+        runs[mode] = files
+        if mode == "kernels":
+            batches = -(-PATH_FRAMES // MAIN_BATCH)
+            check(counts[0]["stabilize_field_search"] == batches,
+                  f"stabilize pass 1 launches {counts[0]}")
+            check(counts[1]["transform_warp"] == 3 * batches
+                  and counts[1]["unsharp"] == 3 * batches,
+                  f"stabilize pass 2 launches {counts[1]}")
+            total = {k: counts[0][k] + counts[1][k] for k in counts[0]}
+        else:
+            check(not any(v for c in counts for v in c.values()),
+                  f"stabilize's plain runs launched a kernel: {counts}")
+    from tcforge_tpu_torch.io.y4m import Y4MReader
+    with Y4MReader(str(d / "pass2.y4m")) as r:
+        frames_out = sum(1 for _ in r)
+    check(frames_out == spec["frames_out"],
+          f"stabilize: {frames_out} frames out")
+    same = runs["kernels"] == runs["plain"]
+    emit(phase="path_vs_plain", path="stabilize", identical=same,
+         frames_out=frames_out,
+         trf_sha256=hashlib.sha256(runs["kernels"][2]).hexdigest(),
+         sha256=hashlib.sha256(runs["kernels"][1]).hexdigest())
+    check(same, "stabilize differs from its plain runs (the .trf or a "
+                "pass's output)")
+    return total
+
+
+def _run_broadcast(torch, cli, kernels, tmp):
+    """Phase 4 for the broadcast path: its CLI on the card over
+    PATH_FRAMES frames of telecined film with the station logo, the
+    counts set to 0 just before and read just after (the logo's chroma
+    zoom), then the same CLI on the CPU: the same bytes and the same
+    RESULTS and CONCLUSION lines.  Returns the launches."""
+    spec = OVERLAY_PATHS["broadcast"]
+    src = tmp / "in_broadcast.y4m"
+    write_input(spec, src, PATH_FRAMES, seed=5)
+    d = tmp / "broadcast"
+    d.mkdir()
+    write_overlay_aux(d, logo=spec["logo"])
+    argv = ["-i", str(src), *overlay_argv(spec["args"], d), "--batch",
+            str(MAIN_BATCH), "--progress_off", "-q"]
+    got = {}
+    for device in ("cuda", "cpu"):
+        out = d / f"out_{device}.y4m"
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with captured_log() as lines:
+            rc = cli.main([*argv, "-o", str(out), "--device", device])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check(rc == 0, f"broadcast on {device}: CLI exit code {rc}")
+        if device == "cuda":
+            launches = dict(kernels.launches)
+            emit(phase="path", path="broadcast", frames=PATH_FRAMES,
+                 seconds=seconds, e2e_fps=PATH_FRAMES / seconds,
+                 launches=launches)
+            check(launches["zoom_pass"] == 4,
+                  f"broadcast: the logo's chroma zoom launched "
+                  f"{launches['zoom_pass']} times, not 4")
+        else:
+            check(not any(kernels.launches.values()),
+                  "broadcast's CPU run launched a kernel")
+        results = [x for x in lines if x.startswith("[fieldanalysis]")]
+        got[device] = (out.read_bytes(), results)
+    same = got["cuda"] == got["cpu"]
+    emit(phase="path_vs_cpu", path="broadcast", identical=same,
+         sha256=hashlib.sha256(got["cuda"][0]).hexdigest(),
+         results=got["cuda"][1])
+    check(same and len(got["cuda"][1]) == 5,
+          "broadcast differs from its CPU run (output or RESULTS lines)")
+    return launches
+
+
+def _overlay_goldens(cli, tmp):
+    """Phase 5 for the two paths: their small cases in a directory of
+    their own (the .trf named relatively), against the pinned digests."""
+    spec = OVERLAY_PATHS["stabilize"]
+    g = spec["golden"]
+    d = tmp / "golden_stabilize"
+    d.mkdir()
+    write_input({**spec, **g}, d / "in.y4m", g["frames"], GOLDEN_SEED)
+    common = ["-i", "in.y4m", "--batch", str(g["batch"]), "--progress_off",
+              "-q", "--device", "cuda"]
+    with contextlib.chdir(d):
+        rcs = [cli.main([*common, "-o", out, *args]) for out, args in
+               (("pass1.y4m", g["passes"][0]), ("out.y4m", g["passes"][1]))]
+    for key, name in (("stabilize.trf", "shake.trf"),
+                      ("stabilize", "out.y4m")):
+        digest = sha256_file(d / name)
+        emit(phase="golden", path=key, sha256=digest,
+             pinned=OVERLAY_GOLDEN_SHA256[key])
+        check(rcs == [0, 0] and digest == OVERLAY_GOLDEN_SHA256[key],
+              f"{key} golden output differs from the JAX-pinned digest")
+    spec = OVERLAY_PATHS["broadcast"]
+    g = spec["golden"]
+    d = tmp / "golden_broadcast"
+    d.mkdir()
+    write_input({**spec, **g}, d / "in.y4m", GOLDEN_FRAMES, GOLDEN_SEED)
+    write_overlay_aux(d, logo=g["logo"])
+    rc = cli.main(["-i", str(d / "in.y4m"), "-o", str(d / "out.y4m"),
+                   *overlay_argv(g["args"], d), "--batch", str(g["batch"]),
+                   "--device", "cuda", "--progress_off", "-q"])
+    digest = sha256_file(d / "out.y4m")
+    emit(phase="golden", path="broadcast", sha256=digest,
+         pinned=OVERLAY_GOLDEN_SHA256["broadcast"])
+    check(rc == 0 and digest == OVERLAY_GOLDEN_SHA256["broadcast"],
+          "broadcast golden output differs from the JAX-pinned digest")
+
+
+def _overlay_flag_cases(cli, tmp):
+    """OVERLAY_FLAG_CASES: the card's output (and .trf) against the
+    CPU's, each in a directory of its own."""
+    src = tmp / "overlay_flags_in.y4m"
+    write_input(OVERLAY_FLAG_INPUT, src, GOLDEN_FRAMES, GOLDEN_SEED)
+    for name in OVERLAY_FLAG_CASES:
+        got = {}
+        for device in ("cuda", "cpu"):
+            d = tmp / f"overlay_{name}_{device}"
+            d.mkdir()
+            write_overlay_aux(d)
+            rc = cli.main(["-i", str(src), "-o", str(d / "out.y4m"),
+                           *overlay_argv(OVERLAY_FLAG_CASES[name], d), "--device", device,
+                           "--progress_off", "-q"])
+            check(rc == 0, f"{name} on {device}: CLI exit code {rc}")
+            got[device] = [(d / f).read_bytes().replace(
+                str(d).encode(), b"{dir}") for f in
+                ("out.y4m", OVERLAY_FLAG_FILES.get(name)) if f]
+        same = got["cuda"] == got["cpu"]
+        emit(phase="flags_vs_cpu", case=name, identical=same,
+             sha256=hashlib.sha256(got["cuda"][0]).hexdigest())
+        check(same, f"{name}: the card's output differs from the CPU's")
+
+
+def _overlay_rates(torch, dev, cli, tmp):
+    """Phase 6 for the two paths: each CLI on ENGINE_FRAMES frames of its
+    content, broadcast's chain and stabilize's two chains (pass 2 on the
+    .trf its pass-1 CLI run wrote) on noise batches, and pass 1's traced
+    device time split between the field search and the rest."""
+    bspec = OVERLAY_PATHS["broadcast"]
+    write_overlay_aux(tmp, logo=bspec["logo"])
+    bspec = {**bspec, "args": overlay_argv(bspec["args"], tmp)}
+    sspec = OVERLAY_PATHS["stabilize"]
+    passes = [{**sspec, "args": overlay_argv(args, tmp)}
+              for args in sspec["passes"]]
+    rows = (("stabilize_pass1", passes[0]), ("stabilize_pass2", passes[1]),
+            ("broadcast", bspec))
+    for name, spec in rows:
+        _cli_rates(torch, dev, cli, tmp, name, spec)
+    for name, spec in rows:
+        chain = _chain_fps(torch, dev, spec)
+        emit(phase="chain", path=name, batch=MAIN_BATCH, **chain)
+        torch.cuda.empty_cache()
+        if name == "stabilize_pass1" and chain["kernels_ms_per_batch"]:
+            # the traced chain's device time: the search and the rest
+            search = sum(v for k, v in chain["kernels_ms_per_batch"].items()
+                         if "field_search" in k)
+            emit(phase="stabilize_pass1_split", batch=MAIN_BATCH,
+                 busy_ms=chain["busy_ms_per_batch"], search_ms=search,
+                 rest_ms=chain["busy_ms_per_batch"] - search)
 
 
 if __name__ == "__main__":

@@ -1,9 +1,10 @@
-"""Batched frame container of the port (``tcforge_tpu/core/frame.py``).
+"""Batched frame containers of the port (``tcforge_tpu/core/frame.py``).
 
 A ``FrameBatch`` holds N frames as planar tensors ``(N, H, W)`` per
 plane on one device, with the same fields as the JAX ``FrameBatch``.
 It is a frozen dataclass; ``with_planes`` and ``with_attrs`` return a
-new batch.  The ``ATTR_*`` flags keep the JAX values.
+new batch.  The ``ATTR_*`` flags keep the JAX values.  An
+``AudioBatch`` holds N audio frames as one ``(N, S, C)`` tensor.
 """
 
 from __future__ import annotations
@@ -126,3 +127,38 @@ class FrameBatch:
     def to_numpy(self) -> Tuple[np.ndarray, ...]:
         """The image planes as host uint8 arrays, luma first."""
         return tuple(p.cpu().numpy() for p in self.planes)
+
+
+@dataclasses.dataclass(frozen=True)
+class AudioBatch:
+    """A batch of N audio frames (one frame = the samples covering one
+    video frame period, as in the reference's TCFrameAudio).
+
+    ``pcm`` is (N, S, C) int16 (or float32 mid-chain): S samples per
+    frame, C channels; ``attrs`` and ``frame_ids`` are (N,) int32.
+    """
+
+    pcm: torch.Tensor
+    rate: int = 48000
+    channels: int = 2
+    bits: int = 16
+    attrs: Optional[torch.Tensor] = None
+    frame_ids: Optional[torch.Tensor] = None
+
+    @property
+    def batch(self) -> int:
+        return self.pcm.shape[0]
+
+    @property
+    def samples_per_frame(self) -> int:
+        return self.pcm.shape[1]
+
+    def with_pcm(self, pcm: torch.Tensor) -> "AudioBatch":
+        return dataclasses.replace(self, pcm=pcm)
+
+    def has_attr(self, flag: int) -> torch.Tensor:
+        """(N,) bool mask of frames carrying the given attribute flag."""
+        if self.attrs is None:
+            return torch.zeros((self.batch,), dtype=torch.bool,
+                               device=self.pcm.device)
+        return (self.attrs & flag) != 0

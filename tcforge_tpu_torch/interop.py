@@ -24,6 +24,13 @@ reference frame and lock history ``hist``, pp's previous output planes,
 yait's previous frame or row buffer (and pass 1's ``ed``, ``od``,
 ``ids``), detectclipping's bounds, fields' saved field and denoise3d's
 RGB24 carry ``{"rgb": (H, W, 3)}``.
+
+stabilize's carry goes through ``carry_from_numpy`` too: ``init``
+becomes a Python bool and the previous frame, the last batch's field
+shifts, contrasts, ``valid`` flags and ids stay tensors; so does
+fieldanalysis's, whose previous frame and fields stay on the device
+while ``started``, the telecine state and the eight ``counts`` become
+Python ints, where its state machine runs.
 """
 
 from __future__ import annotations
@@ -47,10 +54,12 @@ def states_from_numpy(states: Any, device: torch.device) -> Any:
 
 
 # the leaves that the port keeps on the host, where its integer state
-# machines run: decimate's and 32drop's ring flags and counters, and
-# modfps's ring flags, scores and counters
+# machines run: decimate's and 32drop's ring flags and counters,
+# modfps's ring flags, scores and counters, and fieldanalysis's state
+# and counters
 _HOST_LEAVES = ("ok", "frame_in", "frame_out", "count", "fnum", "lfnum",
-                "dcnt", "score", "framesin")
+                "dcnt", "score", "framesin", "started", "telecine",
+                "counts")
 
 
 def carry_from_numpy(state: Any, device: torch.device) -> Any:

@@ -2,8 +2,10 @@
 
 The port's counterpart of ``tcforge_tpu/modules/registry.py``, cut to
 what its chains use: ``ModuleKind`` and ``FilterSlot`` keep the JAX
-values, ``VideoFilter`` the same methods with tensors in place of jax
-arrays, and ``new_module(FILTER, name, ...)`` returns the torch class.
+values, ``VideoFilter`` and ``AudioFilter`` the same methods with
+tensors in place of jax arrays, and ``new_module(FILTER, name, ...)``
+returns the torch class.  A ``-J`` list names video and audio filters
+alike; the video chain keeps the ``VideoFilter`` instances.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from typing import Any, Dict, Tuple, Type
 import torch
 
 from tcforge_tpu_torch.core.formats import ImageFormat
-from tcforge_tpu_torch.core.frame import FrameBatch
+from tcforge_tpu_torch.core.frame import AudioBatch, FrameBatch
 from tcforge_tpu_torch.core.job import Job
 from tcforge_tpu_torch.core.optstr import ModuleDesc
 
@@ -46,20 +48,27 @@ class ModuleInfo:
 
     name: str
     kind: ModuleKind
+    media: str = "video"                       # video | audio | both
 
 
-class VideoFilter(abc.ABC):
-    """Batched video filter: FrameBatch in, FrameBatch out, with an
-    explicit carry state for temporal filters."""
+class Module(abc.ABC):
+    """A module instance: its job and its parsed options."""
 
     info: ModuleInfo
     desc: ModuleDesc
-    slots: FilterSlot = FilterSlot.POST_M
 
     def __init__(self, job: Job, options: str = ""):
         self.job = job
         self.options: Dict[str, Any] = (
             self.desc.parse_options(options) if self.desc.params else {})
+
+
+class VideoFilter(Module):
+    """Batched video filter: FrameBatch in, FrameBatch out, with an
+    explicit carry state for temporal filters."""
+
+    slots: FilterSlot = FilterSlot.POST_M
+    media: str = "video"
 
     def init_state(self, width: int, height: int, fmt: ImageFormat,
                    device: torch.device) -> Any:
@@ -84,11 +93,31 @@ class VideoFilter(abc.ABC):
         when the run fails."""
 
 
-_REGISTRIES: Dict[ModuleKind, Dict[str, Type[VideoFilter]]] = {
+class AudioFilter(Module):
+    """Batched audio filter: AudioBatch in, AudioBatch out."""
+
+    slots: FilterSlot = FilterSlot.POST_M
+    media: str = "audio"
+
+    def init_state(self, rate: int, channels: int) -> Any:
+        return None
+
+    @abc.abstractmethod
+    def apply(self, ab: AudioBatch, state: Any) -> Tuple[AudioBatch, Any]:
+        ...
+
+    def collect(self, state: Any) -> None:
+        """Host-side per-batch hook (the same contract as VideoFilter's)."""
+
+    def finalize(self, state: Any) -> None:
+        """Host-side end-of-stream hook (filter CLOSE tag)."""
+
+
+_REGISTRIES: Dict[ModuleKind, Dict[str, Type[Module]]] = {
     k: {} for k in ModuleKind}
 
 
-def register(cls: Type[VideoFilter]) -> Type[VideoFilter]:
+def register(cls: Type[Module]) -> Type[Module]:
     """Class decorator: the TC_MODULE_ENTRY_POINT analogue."""
     info = getattr(cls, "info", None)
     if info is None:
@@ -100,7 +129,7 @@ def register(cls: Type[VideoFilter]) -> Type[VideoFilter]:
     return cls
 
 
-def lookup(kind: ModuleKind, name: str) -> Type[VideoFilter]:
+def lookup(kind: ModuleKind, name: str) -> Type[Module]:
     try:
         return _REGISTRIES[kind][name]
     except KeyError:
@@ -111,6 +140,6 @@ def lookup(kind: ModuleKind, name: str) -> Type[VideoFilter]:
 
 
 def new_module(kind: ModuleKind, name: str, job: Job,
-               options: str = "") -> VideoFilter:
+               options: str = "") -> Module:
     """tc_new_module analogue."""
     return lookup(kind, name)(job, options)

@@ -25,6 +25,14 @@ wrapper                    CUDA source                 replaces (tcforge_tpu)
                                                        ``correct_chroma``
                                                        (a ``lax.scan``, not
                                                        a Pallas kernel)
+``stabilize_field_search`` ``csrc/stabilize.cu``       modules/filters/
+                                                       stabilize.py
+                                                       ``field_search``
+                                                       (a ``lax.scan``)
+``transform_warp``         ``csrc/stabilize.cu``       modules/filters/
+                                                       stabilize.py
+                                                       ``warp_plane`` (XLA
+                                                       ops)
 =========================  ==========================  =====================
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
@@ -57,7 +65,9 @@ launches: Dict[str, int] = {"hqdn3d_spatial_scan": 0,
                             "tomsmocomp": 0,
                             "d3_spatial_scan": 0,
                             "d3_temporal_scan": 0,
-                            "yuvdenoise_chroma": 0}
+                            "yuvdenoise_chroma": 0,
+                            "stabilize_field_search": 0,
+                            "transform_warp": 0}
 
 
 def reset_launches() -> None:
@@ -104,6 +114,11 @@ _SIGNATURES = {
     },
     "yuvdenoise": {
         "tc_yuvdenoise_chroma": (_P, _P, _P, _I, _I, _I, _I, _P),
+    },
+    "stabilize": {
+        "tc_stabilize_field_search": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                      _I, _I, _P),
+        "tc_transform_warp": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     },
     "zoom_pass": {
         "tc_zoom_pass": (_P, _P, _P, _P, _P, _I, _P, _I, _I, _LL, _LL, _LL,
@@ -700,4 +715,110 @@ def yuvdenoise_chroma(ref: torch.Tensor, tmp: torch.Tensor,
           tmp.data_ptr(), out.data_ptr(), int(threshold), *ref.shape,
           _stream(ref))
     launches["yuvdenoise_chroma"] += 1
+    return out
+
+
+# --------------------------------------------------------------------- #
+# Kernel S: stabilize's field search and transform's warp
+
+def stabilize_field_search_ref(prev: torch.Tensor, frames: torch.Tensor,
+                               centers: torch.Tensor, size: int,
+                               maxshift: int, stepsize: int
+                               ) -> torch.Tensor:
+    """Plain version of ``stabilize_field_search``: the JAX loop of
+    ``field_search`` (stabilize.py:209-272), a gather and a sum per
+    candidate, over the batch at once."""
+    from tcforge_tpu_torch.modules.filters import stabilize
+    offs = torch.arange(size, dtype=torch.int32, device=frames.device) \
+        - size // 2
+    fy = centers[:, 1, None, None] + offs[None, :, None]
+    fx = centers[:, 0, None, None] + offs[None, None, :]
+    prevs = torch.cat([prev[None], frames[:-1]])
+    return stabilize.field_search(frames, prevs, fy, fx, maxshift, stepsize)
+
+
+def stabilize_field_search(prev: torch.Tensor, frames: torch.Tensor,
+                           centers: torch.Tensor, size: int, maxshift: int,
+                           stepsize: int) -> torch.Tensor:
+    """stabilize's block search (calcFieldTransYUV) for every field of
+    every frame of a uint8 (N, H, W) batch, frame n against frame n-1
+    and frame 0 against the (H, W) ``prev``.  Field f is the ``size``
+    square whose top left is ``centers[f] - size // 2`` (int32 (F, 2),
+    x then y), indexed as jnp indexes (a negative index wraps once,
+    then clamps).  The coarse grid (stride ``stepsize`` over
+    +-``maxshift``, dx outer, dy inner), then +-(stepsize-1) around each
+    field's coarse best; a later candidate wins only with a strictly
+    smaller SAD; a result at or beyond ``maxshift`` becomes 0.  Returns
+    int32 (N, F, 2) (dx, dy)."""
+    _check(prev, "prev", (torch.uint8,), 2)
+    _check(frames, "frames", (torch.uint8,), 3)
+    _check(centers, "centers", (torch.int32,), 2)
+    if tuple(prev.shape) != tuple(frames.shape[1:]):
+        raise ValueError(f"prev shape {tuple(prev.shape)} != frame "
+                         f"{tuple(frames.shape[1:])}")
+    if centers.shape[1] != 2 or size < 1 or stepsize < 1 or maxshift < 0:
+        raise ValueError(f"bad fields: centers {tuple(centers.shape)}, "
+                         f"size {size}, maxshift {maxshift}, "
+                         f"stepsize {stepsize}")
+    if not _on_cuda(prev, frames, centers):
+        return stabilize_field_search_ref(prev, frames, centers, size,
+                                          maxshift, stepsize)
+    n, h, w = frames.shape
+    nf = centers.shape[0]
+    out = torch.empty((n, nf, 2), dtype=torch.int32, device=frames.device)
+    if n == 0 or nf == 0:
+        return out
+    _call("stabilize", "tc_stabilize_field_search", prev.data_ptr(),
+          frames.data_ptr(), centers.data_ptr(), out.data_ptr(), n, nf, h,
+          w, size, maxshift, stepsize, _stream(frames))
+    launches["stabilize_field_search"] += 1
+    return out
+
+
+WARP_INTERPOLATIONS = (0, 1, 2, 3, 4)
+
+
+def transform_warp_ref(plane: torch.Tensor, fparams: torch.Tensor,
+                       iparams: torch.Tensor, interp: int, crop: int,
+                       default_val: int) -> torch.Tensor:
+    """Plain version of ``transform_warp``: ``stabilize.warp_plane``
+    over the batch."""
+    from tcforge_tpu_torch.modules.filters import stabilize
+    return stabilize.warp_plane(plane, fparams, iparams, interp=interp,
+                                crop=crop, default_val=default_val)
+
+
+def transform_warp(plane: torch.Tensor, fparams: torch.Tensor,
+                   iparams: torch.Tensor, interp: int, crop: int,
+                   default_val: int) -> torch.Tensor:
+    """transform's inverse-map warp (transformYUV,
+    filter_transform.c:426-536) of a uint8 (N, H, W) plane batch, frame
+    n with float32 ``fparams[n]`` = (zcos, zsin, c_x - tx*s, c_y - ty*s)
+    and int32 ``iparams[n]`` = (round(tx*s), round(ty*s),
+    pure-translation flag) (``stabilize.warp_params``): the ``interp``
+    interpolation (0 zero, 1 linear, 2 bilinear, 3 quadratic, 4
+    bicubic) at the source coordinates, or the rounded integer shift
+    where the flag is set; outside the source the pixel keeps its own
+    value, or with ``crop`` = 1 becomes ``default_val``.  Returns uint8
+    (N, H, W)."""
+    _check(plane, "plane", (torch.uint8,), 3)
+    _check(fparams, "fparams", (torch.float32,), 2)
+    _check(iparams, "iparams", (torch.int32,), 2)
+    n = plane.shape[0]
+    if tuple(fparams.shape) != (n, 4) or tuple(iparams.shape) != (n, 3):
+        raise ValueError(f"params {tuple(fparams.shape)} "
+                         f"{tuple(iparams.shape)} for {n} frames")
+    if interp not in WARP_INTERPOLATIONS or crop not in (0, 1):
+        raise ValueError(f"interp {interp}, crop {crop}")
+    if not _on_cuda(plane, fparams, iparams):
+        return transform_warp_ref(plane, fparams, iparams, interp, crop,
+                                  default_val)
+    out = torch.empty_like(plane)
+    if out.numel() == 0:
+        return out
+    _call("stabilize", "tc_transform_warp", plane.data_ptr(),
+          fparams.data_ptr(), iparams.data_ptr(), out.data_ptr(),
+          *plane.shape, int(interp), int(crop), int(default_val),
+          _stream(plane))
+    launches["transform_warp"] += 1
     return out

@@ -187,8 +187,10 @@ class VideoChain:
         self.width, self.height = width, height
         self.filters: List[VideoFilter] = []
         for spec in job.filters:
+            # one -J list names video and audio filters: every module is
+            # built, and the video chain keeps the video filters
             mod = new_module(ModuleKind.FILTER, spec.name, job, spec.options)
-            if spec.enabled:
+            if isinstance(mod, VideoFilter) and spec.enabled:
                 self.filters.append(mod)
         self._by_slot: Dict[FilterSlot, List[int]] = {
             s: [i for i, f in enumerate(self.filters) if f.slots & s]

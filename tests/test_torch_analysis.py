@@ -402,13 +402,14 @@ def test_new_filters_register_under_their_jax_names(name):
             == [(p.name, p.fmt, p.default) for p in jcls.desc.params])
 
 
-@pytest.mark.parametrize("name", ["divxkey", "control", "logo", "logoaway",
-                                  "fieldanalysis", "29to23", "stabilize",
-                                  "transform", "text", "subtitler",
-                                  "extsub", "ascii", "preview", "sdlview"])
+@pytest.mark.parametrize("name", ["divxkey", "control", "text",
+                                  "subtitler", "extsub", "ascii", "preview",
+                                  "sdlview", "normalize", "astat", "lowpass",
+                                  "detectsilence", "resample", "aclip"])
 def test_filters_outside_this_slice_still_raise(name):
-    """divxkey waits for the MPEG-4 import; the others for their own
-    slices: the lookup raises, no stand-in is registered."""
+    """divxkey waits for the MPEG-4 import, the audio filters for the
+    port's audio; the others for their own slices: the lookup raises, no
+    stand-in is registered."""
     from tcforge_tpu_torch.modules import registry as tregistry
     with pytest.raises(KeyError, match=name):
         tregistry.lookup(tregistry.ModuleKind.FILTER, name)

@@ -20,6 +20,7 @@ thread joined with a timeout.
 
 from __future__ import annotations
 
+import hashlib
 from typing import Any, Tuple
 
 import pytest
@@ -495,3 +496,93 @@ def test_chip_smoke_fails_without_a_card(capsys):
     assert chip_smoke.main() != 0
     out = capsys.readouterr().out
     assert '"ok"' not in out
+
+
+def test_stabilize_two_pass_cli_matches_jax_cli_byte_for_byte(tmp_path,
+                                                              monkeypatch):
+    """The stabilize path's small case (160x120 of shaky footage, 12
+    frames, --batch 5): pass 1 writes shake.trf in the run's directory,
+    pass 2 reads it; both CLIs give the same .trf and Y4M bytes, and the
+    digests chip_smoke.py checks on the card."""
+    spec = chip_smoke.OVERLAY_PATHS["stabilize"]
+    g = spec["golden"]
+    src = tmp_path / "in.y4m"
+    chip_smoke.write_input({**spec, **g}, src, g["frames"],
+                           chip_smoke.GOLDEN_SEED)
+    common = ["-i", str(src), "--batch", str(g["batch"]), "--progress_off",
+              "-q"]
+    files = {}
+    for side, main, extra in (("jax", jax_cli_main, []),
+                              ("port", run_cli, ["--device", "cpu"])):
+        d = tmp_path / side
+        d.mkdir()
+        monkeypatch.chdir(d)
+        assert main([*common, "-o", "pass1.y4m", *g["passes"][0],
+                     *extra]) == 0
+        assert main([*common, "-o", "out.y4m", *g["passes"][1], *extra]) == 0
+        files[side] = [(d / f).read_bytes() for f in ("shake.trf",
+                                                      "out.y4m")]
+    assert files["port"] == files["jax"]
+    assert b"#        result = shake.trf\n" in files["port"][0]
+    assert (hashlib.sha256(files["port"][0]).hexdigest()
+            == chip_smoke.OVERLAY_GOLDEN_SHA256["stabilize.trf"])
+    assert (hashlib.sha256(files["port"][1]).hexdigest()
+            == chip_smoke.OVERLAY_GOLDEN_SHA256["stabilize"])
+
+
+def test_broadcast_cli_matches_jax_cli_byte_for_byte(tmp_path):
+    """The broadcast path's small case (64x48 telecined film with its
+    station logo, the logo options scaled down, --batch 3)."""
+    spec = chip_smoke.OVERLAY_PATHS["broadcast"]
+    g = spec["golden"]
+    src = tmp_path / "in.y4m"
+    chip_smoke.write_input({**spec, **g}, src, chip_smoke.GOLDEN_FRAMES,
+                           chip_smoke.GOLDEN_SEED)
+    outs = {}
+    for side, main, extra in (("jax", jax_cli_main, []),
+                              ("port", run_cli, ["--device", "cpu"])):
+        d = tmp_path / side
+        d.mkdir()
+        chip_smoke.write_overlay_aux(d, logo=g["logo"])
+        outs[side] = d / "out.y4m"
+        assert main(["-i", str(src), "-o", str(outs[side]),
+                     *chip_smoke.overlay_argv(g["args"], d), "--batch",
+                     str(g["batch"]), "--progress_off", "-q", *extra]) == 0
+    assert outs["port"].read_bytes() == outs["jax"].read_bytes()
+    assert (chip_smoke.sha256_file(outs["port"])
+            == chip_smoke.OVERLAY_GOLDEN_SHA256["broadcast"])
+
+
+@pytest.fixture(scope="module")
+def overlay_flag_input(tmp_path_factory):
+    path = tmp_path_factory.mktemp("overlay") / "in.y4m"
+    chip_smoke.write_input(chip_smoke.OVERLAY_FLAG_INPUT, path,
+                           chip_smoke.GOLDEN_FRAMES, chip_smoke.GOLDEN_SEED)
+    return path
+
+
+@pytest.mark.parametrize("case", sorted(chip_smoke.OVERLAY_FLAG_CASES))
+def test_overlay_flags_cli_matches_jax_cli_byte_for_byte(
+        case, overlay_flag_input, tmp_path):
+    """The slice's other option families through both CLIs: the same Y4M
+    bytes, and the same .trf where the case writes one (audio filter
+    names in -J are built and skipped by the video chain)."""
+    files = {}
+    for side, main, extra in (("jax", jax_cli_main, []),
+                              ("port", run_cli, ["--device", "cpu"])):
+        d = tmp_path / side
+        d.mkdir()
+        chip_smoke.write_overlay_aux(d)
+        assert main(["-i", str(overlay_flag_input), "-o", str(d / "out.y4m"),
+                     *chip_smoke.overlay_argv(
+                         chip_smoke.OVERLAY_FLAG_CASES[case], d),
+                     "--progress_off", "-q", *extra]) == 0
+        name = chip_smoke.OVERLAY_FLAG_FILES.get(case)
+        files[side] = [(d / f).read_bytes() for f in ("out.y4m", name)
+                       if f]
+    if case == "stabilize_algo0":
+        # the header names the file by its path, which is the run's own
+        for side in files:
+            files[side][1] = files[side][1].replace(
+                str(tmp_path / side).encode(), b"{dir}")
+    assert files["port"] == files["jax"]
