@@ -37,7 +37,14 @@ Lanczos3 zoom, ``-J hqdn3d=luma=4.0`` (which runs after the zoom, at
   it (``transform_warp`` and ``unsharp``, three launches each a batch);
   broadcast, 1080i telecined film with a station logo, ``-J
   fieldanalysis,logoaway,logo`` (the logo's chroma through
-  ``zoom_pass`` at setup).
+  ``zoom_pass`` at setup);
+- the audio track: av, the main path at 29.97 fps with a 48 kHz stereo
+  WAV of the same length through ``-p``/``-m``, ``-J
+  hqdn3d=luma=4.0,normalize -E 44100`` (its kernels are the main path's;
+  the audio chain is plain torch and the host stage's numpy), and
+  audio_only, a 60 s WAV to WAV, once through ``-E 44100 -J
+  normalize,lowpass,astat`` and once through the jitted step's form,
+  ``-J normalize=algo=2,aclip,detectsilence,cpaudio``.
 
 Phases, each of which raises on failure:
 
@@ -74,8 +81,11 @@ Phases, each of which raises on failure:
    other options, their logs too), stabilize's two passes against the
    same two runs on the plain versions on the card (the ``.trf`` and
    both outputs), broadcast against its CPU run (its RESULTS lines too)
-   and ``OVERLAY_FLAG_CASES``, and the engine at every
-   ``--prefetch`` 1, 2, 4 and ``--batch`` 1, 3, 16;
+   and ``OVERLAY_FLAG_CASES``, av (its Y4M equal to the same CLI's
+   without the audio track, its WAV equal to the CPU's audio-only
+   session of the same samples, both files equal to the CPU's on three
+   batches) and audio_only (each run's WAV equal to the CPU's), and the
+   engine at every ``--prefetch`` 1, 2, 4 and ``--batch`` 1, 3, 16;
 5. the small cases whose SHA-256 ``tests/test_torch_cli.py`` pins
    against the JAX CLI, run on the card: same digests;
 6. numbers: steady-state chain frames/s on device-resident batches
@@ -87,7 +97,12 @@ Phases, each of which raises on failure:
    and the rest; then each path's CLI (stabilize's two passes apart) on
    160 frames (ten batches), wall clock, with the serial engine's
    stages timed one by one beside it (``engine_stages``), and with
-   ``--parent DIR`` the parent's CLI in turns on the same file.
+   ``--parent DIR`` the parent's CLI in turns on the same file; av's CLI
+   with and without its audio track and through each part of the track
+   alone (``AV_SPLIT``) in turns, the engine's video and audio stages
+   timed inside the CLI (``_StageClock``), audio_only's seconds of
+   audio per second, and the audio chain's host and device ms per batch
+   (``_audio_chain_ms``).
 
 It prints one JSON object per result, then the kernels' summary and, as
 its last line, ``{"ok": true, "device": {...}}``.  It imports nothing of
@@ -440,6 +455,80 @@ def overlay_argv(args, directory) -> list:
     return [a.replace("{dir}", str(directory)) for a in args]
 
 
+# the audio track.  av: the main path with a 48 kHz stereo s16 WAV of
+# the same length through -p/-m (benches/run_configs.py:194-275, cfg5's
+# audio half), on a 29.97 fps 1080i Y4M; audio_only: a WAV-to-WAV
+# session of AUDIO_ONLY_SECONDS, first through -E's streaming resampler
+# and op-by-op filters, then through the jitted step's form
+AV_FPS = (30000, 1001)
+AV_ARGS = ["-I", "5", "-Z", "1280x720", "-J", "hqdn3d=luma=4.0,normalize",
+           "-E", "44100"]
+AUDIO_RATE = 48000
+AUDIO_ONLY_SECONDS = 60
+AUDIO_ONLY_RUNS = {
+    "resampled": ["-E", "44100", "-J", "normalize,lowpass,astat"],
+    "jitted": ["-J", "normalize=algo=2,aclip,detectsilence,cpaudio"]}
+# the small cases whose digests tests/test_torch_cli.py pins against the
+# JAX CLI: the golden 128x72 Y4M (7 frames at 25 fps) with a WAV of the
+# same length, and a 1 s WAV alone
+AUDIO_GOLDEN_SECONDS = 1
+AUDIO_GOLDEN_ARGS = {
+    "av": ["-J", "hqdn3d=luma=4.0,normalize", "-E", "44100", "--batch", "3"],
+    "av_jitted": ["-J", "hqdn3d=luma=4.0,normalize", "--batch", "3"],
+    "volume_mono": ["-s", "1.5", "-d", "1", "--batch", "3"],
+    "volume_mono_resampled": ["-s", "1.5", "-d", "1", "-E", "44100",
+                              "--batch", "3"],
+    "audio_only_resampled": AUDIO_ONLY_RUNS["resampled"],
+    "audio_only_jitted": AUDIO_ONLY_RUNS["jitted"]}
+AUDIO_GOLDEN_SHA256 = {
+    "av.y4m": ("0c2b3b73ad48850154542efadbcb25c2"
+               "1c8d0524ac0b7e023f45ff0f6f50f81c"),
+    "av.wav": ("83747203c054b14edadbde028a29b99e"
+               "46a523cf057f3a6d45b4fbc4cba85f38"),
+    "av_jitted.y4m": ("0c2b3b73ad48850154542efadbcb25c2"
+                      "1c8d0524ac0b7e023f45ff0f6f50f81c"),
+    "av_jitted.wav": ("e8c5c1ded933efbc61a885d23fd7e670"
+                      "40d8228842e9600568e1ade963e67d8e"),
+    "volume_mono.y4m": ("d83353fa52bc611c2bc9e0440f0652fb"
+                        "f820a8043da64d7e2eb4c6ca25733c7b"),
+    "volume_mono.wav": ("6f9cf688c9305614b3d4d7b6a5bdda1a"
+                        "517295c53e897c0bcd236c3beb659086"),
+    "volume_mono_resampled.y4m": ("d83353fa52bc611c2bc9e0440f0652fb"
+                                  "f820a8043da64d7e2eb4c6ca25733c7b"),
+    "volume_mono_resampled.wav": ("cb90a727f3c70217348eb3f036c11d91"
+                                  "ae57cf88fa431c76a24385c57a75d203"),
+    "audio_only_resampled.wav": ("fd5949d35bfb0d01234064eaeb11c2de"
+                                 "dcd1c595d4d2c60a657e5c266e45279a"),
+    "audio_only_jitted.wav": ("0ecb988d10992123221868bda185808f"
+                              "3f0596527428938579fe45cdee1075f8")}
+
+
+def audio_golden_inputs(directory) -> dict:
+    """The small audio cases' inputs in ``directory``: the golden Y4M,
+    its WAV (1920 samples a frame at 25 fps) and the 1 s WAV."""
+    d = Path(directory)
+    paths = {"y4m": d / "golden_av.y4m", "wav": d / "golden_av.wav",
+             "long": d / "golden_long.wav"}
+    write_test_y4m(paths["y4m"], GOLDEN_W, GOLDEN_H, GOLDEN_FRAMES,
+                   GOLDEN_SEED)
+    spf = AUDIO_RATE // 25
+    write_test_wav(paths["wav"], GOLDEN_FRAMES * spf, GOLDEN_SEED,
+                   frame=spf)
+    write_test_wav(paths["long"], AUDIO_GOLDEN_SECONDS * AUDIO_RATE,
+                   GOLDEN_SEED + 1, frame=spf)
+    return paths
+
+
+def audio_golden_argv(case: str, paths: dict, out) -> list:
+    """The CLI arguments of an audio golden case, writing ``out``.y4m and
+    ``out``.wav (the audio-only cases ``out``.wav alone)."""
+    if case.startswith("audio_only"):
+        return ["-i", str(paths["long"]), "-o", f"{out}.wav",
+                *AUDIO_GOLDEN_ARGS[case]]
+    return ["-i", str(paths["y4m"]), "-p", str(paths["wav"]), "-o",
+            f"{out}.y4m", "-m", f"{out}.wav", *AUDIO_GOLDEN_ARGS[case]]
+
+
 # the CLI timings: ten batches of MAIN_BATCH frames, enough for the
 # engine's stages to overlap
 ENGINE_FRAMES = 10 * 16
@@ -561,6 +650,30 @@ def write_test_y4m(path, width: int, height: int, frames: int,
                              dtype=np.uint8),
                 rng.integers(0, 256, (height // 2, width // 2),
                              dtype=np.uint8))
+
+
+# the audio track's levels: silence, hiss, quiet, speech-like and loud
+AUDIO_LEVELS = (0.0, 2.0, 200.0, 3000.0, 12000.0)
+
+
+def write_test_wav(path, samples: int, seed: int, rate: int = 48000,
+                   channels: int = 2, frame: int = 1602) -> None:
+    """A seeded s16 WAV of Gaussian noise whose level holds for runs of
+    1 to 7 frames of ``frame`` samples, each run at one of
+    ``AUDIO_LEVELS``: normalize's gate and gain, aclip's skips and
+    detectsilence's intervals all see their branches."""
+    from tcforge_tpu_torch.io.wav import WavInfo, WavWriter
+    rng = np.random.default_rng(seed)
+    frames = -(-samples // frame)
+    runs = rng.integers(1, 8, size=frames)
+    levels = rng.choice(np.array(AUDIO_LEVELS, np.float32), size=frames)
+    per_frame = np.repeat(levels, runs)[:frames]
+    gain = np.repeat(per_frame, frame)[:samples, None]
+    noise = rng.standard_normal((samples, channels), dtype=np.float32)
+    pcm = np.clip(np.rint(noise * gain), -32768, 32767).astype(np.int16)
+    with WavWriter(str(path), WavInfo(rate=rate, channels=channels,
+                                      bits=16)) as w:
+        w.write_samples(pcm)
 
 
 def write_telecine_y4m(path, width: int, height: int, frames: int,
@@ -1015,6 +1128,15 @@ def main(argv=()) -> int:
                                                     tmp)
         _overlay_goldens(cli, tmp)
         _overlay_flag_cases(cli, tmp)
+
+        # 4., 5. and 6. for the audio track: the av path (its CLI timed
+        # with and without the track), the audio-only path, the small
+        # cases pinned against the JAX CLI
+        path_launches["av"] = _run_av(torch, cli, kernels, tmp)
+        _run_audio_only(torch, cli, tmp)
+        _audio_goldens(cli, tmp)
+        emit(phase="audio_chain", batch=MAIN_BATCH,
+             **_audio_chain_ms(torch, dev))
 
         # the internal transforms, the engine's flags and the filters of
         # plain torch ops: the card's output against the CPU's
@@ -2560,6 +2682,284 @@ def _overlay_rates(torch, dev, cli, tmp):
             emit(phase="stabilize_pass1_split", batch=MAIN_BATCH,
                  busy_ms=chain["busy_ms_per_batch"], search_ms=search,
                  rest_ms=chain["busy_ms_per_batch"] - search)
+
+
+def _av_files(tmp, frames: int):
+    """The av path's inputs: a 1080i Y4M at 29.97 fps and a 48 kHz stereo
+    WAV of the same length (round(48000/29.97) = 1602 samples a frame)."""
+    spf = round(AUDIO_RATE * AV_FPS[1] / AV_FPS[0])
+    src, wav = tmp / "av_in.y4m", tmp / "av_in.wav"
+    write_test_y4m(src, MAIN_W, MAIN_H, frames, seed=7, fps=AV_FPS)
+    write_test_wav(wav, frames * spf, seed=7, frame=spf)
+    return src, wav
+
+
+# the av CLI's split, timed in turns on the same file: the video alone,
+# the track through each part of the audio chain alone, the whole path
+AV_SPLIT = {
+    "video": (MAIN_ARGS, False),
+    "identity_audio": (MAIN_ARGS, True),
+    "resample_only": ([*MAIN_ARGS, "-E", "44100"], True),
+    "normalize_only": (["-I", "5", "-Z", "1280x720", "-J",
+                        "hqdn3d=luma=4.0,normalize"], True),
+    "av": (AV_ARGS, True)}
+# av's audio half alone, as an audio-only session: -E's chunks do not
+# depend on how the samples arrive, so its WAV is av's
+AV_AUDIO_ARGS = ["-E", "44100", "-J", "normalize"]
+# frames of av's run against the CPU: three batches of MAIN_BATCH
+AV_CPU_FRAMES = 3 * 16
+
+
+class _StageClock:
+    """Wall and thread CPU seconds, and calls, of functions wrapped in
+    place (``wrap``) while it is active; ``restore`` unwraps them."""
+
+    def __init__(self):
+        self.wall, self.cpu, self.calls, self._saved = {}, {}, {}, []
+
+    def wrap(self, owner, name: str, label: str) -> None:
+        fn = getattr(owner, name)
+        self._saved.append((owner, name, fn))
+        for d in (self.wall, self.cpu, self.calls):
+            d.setdefault(label, 0)
+
+        def timed(*args, **kwargs):
+            w, c = time.perf_counter(), time.thread_time()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.wall[label] += time.perf_counter() - w
+                self.cpu[label] += time.thread_time() - c
+                self.calls[label] += 1
+
+        setattr(owner, name, timed)
+
+    def restore(self) -> None:
+        for owner, name, fn in reversed(self._saved):
+            setattr(owner, name, fn)
+        self._saved.clear()
+
+    def per_call_ms(self) -> dict:
+        return {label: {"calls": n,
+                        "wall_ms": 1e3 * self.wall[label] / max(1, n),
+                        "cpu_ms": 1e3 * self.cpu[label] / max(1, n)}
+                for label, n in self.calls.items()}
+
+
+def _run_av(torch, cli, kernels, tmp):
+    """The av path (phases 4 and 6): the main path with its audio track
+    through the CLI on ENGINE_FRAMES frames, the launch counts set to 0
+    just before and read just after; its Y4M equal to the same CLI's
+    without -p/-m (exact-length audio: the adjust synchronizer clones
+    and drops nothing, and logs nothing); its whole WAV equal to the
+    CPU's audio-only session of the same samples (``AV_AUDIO_ARGS``);
+    both files equal to the CPU's on AV_CPU_FRAMES frames at the path's
+    batch; then the CLI's frames/s through each of ``AV_SPLIT`` in
+    turns, and the engine's stages timed inside the CLI with and
+    without the track."""
+    from tcforge_tpu_torch.pipeline import chain as chain_mod
+    src, wav = _av_files(tmp, ENGINE_FRAMES)
+
+    def run(out, args, audio: bool, device="cuda", extra=()):
+        argv = ["-i", str(src), *args, "--progress_off", "-q", "-o",
+                f"{out}.y4m", "--batch", str(MAIN_BATCH), "--device",
+                device, *extra]
+        if audio:
+            argv += ["-p", str(wav), "-m", f"{out}.wav"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with captured_log() as lines:
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check(rc == 0, f"av on {device}: CLI exit code {rc}")
+        return seconds, lines
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    seconds, lines = run(tmp / "av", AV_ARGS, True)
+    launches = dict(kernels.launches)
+    for name in MAIN_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched by the "
+                                  "av path")
+    synced = [x for x in lines if "(adjust)" in x]
+    check(not synced, f"av: the synchronizer cloned or dropped: {synced}")
+    run(tmp / "video", AV_ARGS, False)
+    same_video = ((tmp / "av.y4m").read_bytes()
+                  == (tmp / "video.y4m").read_bytes())
+    wav_bytes = (tmp / "av.wav").stat().st_size
+    want_bytes = 44 + 4 * (ENGINE_FRAMES * round(
+        AUDIO_RATE * AV_FPS[1] / AV_FPS[0]) * 44100 // AUDIO_RATE)
+    emit(phase="path", path="av", frames=ENGINE_FRAMES, seconds=seconds,
+         launches=launches, y4m_sha256=sha256_file(tmp / "av.y4m"),
+         wav_sha256=sha256_file(tmp / "av.wav"), wav_bytes=wav_bytes,
+         y4m_equals_video_alone=same_video)
+    check(same_video, "av: the Y4M differs from the same CLI's without "
+                      "the audio track")
+    check(wav_bytes == want_bytes, f"av: {wav_bytes} WAV bytes, "
+                                   f"{want_bytes} expected")
+    t0 = time.perf_counter()
+    rc = cli.main(["-i", str(wav), "-o", str(tmp / "av_audio_cpu.wav"),
+                   *AV_AUDIO_ARGS, "--device", "cpu", "--progress_off",
+                   "-q"])
+    check(rc == 0, f"av's audio on the CPU: exit code {rc}")
+    same_wav = ((tmp / "av.wav").read_bytes()
+                == (tmp / "av_audio_cpu.wav").read_bytes())
+    emit(phase="path_vs_cpu", path="av (whole WAV)", frames=ENGINE_FRAMES,
+         identical=same_wav, cpu_seconds=time.perf_counter() - t0)
+    check(same_wav, "av: the card's WAV differs from the CPU's audio-only "
+                    "session of the same samples")
+    outs, cpu_seconds = {}, 0.0
+    for device in ("cuda", "cpu"):
+        out = tmp / f"avcpu_{device}"
+        s, _ = run(out, AV_ARGS, True, device,
+                   ["--max_frames", str(AV_CPU_FRAMES)])
+        cpu_seconds = s
+        outs[device] = [Path(f"{out}.{e}").read_bytes()
+                        for e in ("y4m", "wav")]
+    same = outs["cuda"] == outs["cpu"]
+    emit(phase="path_vs_cpu", path="av", frames=AV_CPU_FRAMES,
+         batch=MAIN_BATCH, identical=same, cpu_seconds=cpu_seconds,
+         sha256=[hashlib.sha256(b).hexdigest() for b in outs["cuda"]])
+    check(same, "av: the card's Y4M or WAV differs from the CPU's")
+    # 6. the CLI's frames/s through each part of the track, in turns
+    # (the host's own spread between runs is wide: six of each, the
+    # order turned each round)
+    names = list(AV_SPLIT)
+    fps = {name: [] for name in names}
+    for r in range(6):
+        for name in names[r % len(names):] + names[:r % len(names)]:
+            args, audio = AV_SPLIT[name]
+            s, _ = run(tmp / "timed", args, audio)
+            fps[name].append(ENGINE_FRAMES / s)
+    emit(phase="cli", path="av", frames=ENGINE_FRAMES, fps=fps["av"],
+         video_alone_fps=fps["video"],
+         median_fps=float(np.median(fps["av"])),
+         median_video_alone_fps=float(np.median(fps["video"])),
+         split_fps=fps,
+         split_median_fps={k: float(np.median(v)) for k, v in fps.items()})
+    # where the track's time goes inside the CLI: the video chain's call
+    # (main thread), the audio's host stage (its own thread) and device
+    # stage (main thread), wall and CPU ms a call, three runs each
+    for name in ("video", "av", "video", "av", "video", "av"):
+        clock = _StageClock()
+        clock.wrap(chain_mod.VideoChain, "__call__", "video_chain")
+        clock.wrap(chain_mod.AudioChain, "prepare", "audio_prepare")
+        clock.wrap(chain_mod.AudioChain, "run", "audio_run")
+        try:
+            args, audio = AV_SPLIT[name]
+            s, _ = run(tmp / "timed", args, audio)
+        finally:
+            clock.restore()
+        emit(phase="av_stages", run=name, fps=ENGINE_FRAMES / s,
+             per_call=clock.per_call_ms())
+    for pattern in ("av*", "video*", "timed*"):
+        for f in tmp.glob(pattern):
+            f.unlink()
+    return launches
+
+
+def _run_audio_only(torch, cli, tmp):
+    """The audio_only path (phases 4 and 6): a WAV of AUDIO_ONLY_SECONDS
+    through each run of AUDIO_ONLY_RUNS on the card, timed (seconds of
+    audio per second, after an untimed run), and on the CPU: the same
+    bytes."""
+    src = tmp / "audio_only_in.wav"
+    write_test_wav(src, AUDIO_ONLY_SECONDS * AUDIO_RATE, seed=8)
+    for name, args in AUDIO_ONLY_RUNS.items():
+        outs, rates = {}, []
+        for device in ("cuda", "cuda", "cuda", "cpu"):
+            out = tmp / f"audio_only_{name}_{device}.wav"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc = cli.main(["-i", str(src), "-o", str(out), *args,
+                           "--device", device, "--progress_off", "-q"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            check(rc == 0, f"audio_only {name} on {device}: exit code {rc}")
+            if device == "cuda":
+                rates.append(AUDIO_ONLY_SECONDS / seconds)
+            outs[device] = out.read_bytes()
+        same = outs["cuda"] == outs["cpu"]
+        emit(phase="path", path=f"audio_only {name}",
+             seconds_of_audio=AUDIO_ONLY_SECONDS,
+             audio_seconds_per_s=rates[1:], first_run=rates[0],
+             sha256=hashlib.sha256(outs["cuda"]).hexdigest(),
+             cpu_seconds=seconds, identical_to_cpu=same)
+        check(same, f"audio_only {name}: the card's WAV differs from the "
+                    "CPU's")
+    src.unlink()
+
+
+def _audio_goldens(cli, tmp):
+    """Phase 5 for the audio track: the small cases whose digests
+    tests/test_torch_cli.py pins against the JAX CLI, on the card."""
+    paths = audio_golden_inputs(tmp)
+    for case in AUDIO_GOLDEN_ARGS:
+        out = tmp / f"golden_audio_{case}"
+        rc = cli.main([*audio_golden_argv(case, paths, out), "--device",
+                       "cuda", "--progress_off", "-q"])
+        check(rc == 0, f"audio golden {case}: exit code {rc}")
+        for key, pinned in AUDIO_GOLDEN_SHA256.items():
+            if key.startswith(case + "."):
+                digest = sha256_file(f"{out}.{key.split('.')[-1]}")
+                emit(phase="golden", path=key, sha256=digest, pinned=pinned)
+                check(digest == pinned, f"{key} differs from the JAX-pinned "
+                                        "digest")
+
+
+def _audio_chain_ms(torch, dev, batches: int = 10, warmup: int = 4):
+    """The audio chain of the av path alone, per batch of MAIN_BATCH
+    frames of 1602 stereo samples handed over in host memory, as the
+    engine hands them: the host's time in its host stage
+    (``AudioChain.prepare``, which the engine runs in a thread of its
+    own) and in its device stage (``run``, the main thread's queueing;
+    nothing in either waits for the card), timed without the profiler,
+    and, from a torch.profiler trace of the same batches through a
+    fresh chain, the device's busy time; with -E (the streaming branch,
+    normalize on 2048-sample chunks) and without (the jitted step's
+    form).  The warmup batches see each batch shape twice, so normalize
+    replays its CUDA graphs in the timed ones."""
+    from torch.profiler import ProfilerActivity, profile
+    from tcforge_tpu_torch.core.frame import AudioBatch
+    from tcforge_tpu_torch.core.job import FilterSpec, Job
+    from tcforge_tpu_torch.pipeline.chain import AudioChain
+    spf = round(AUDIO_RATE * AV_FPS[1] / AV_FPS[0])
+    rng = np.random.default_rng(9)
+    levels = np.array(AUDIO_LEVELS, np.float32)
+    inputs = [np.clip(np.rint(rng.standard_normal(
+        (MAIN_BATCH, spf, 2), dtype=np.float32) * rng.choice(
+            levels, (MAIN_BATCH, 1, 1))), -32768, 32767).astype(np.int16)
+        for _ in range(warmup + batches)]
+    out = {}
+    for branch, rate in (("resampled", 44100), ("jitted", 0)):
+        job = Job(filters=[FilterSpec("normalize", "")], a_rate=AUDIO_RATE,
+                  a_chan=2, dm_chan=2, mp3frequency=rate)
+
+        def run_all(host=None):
+            chain = AudioChain(job, dev)
+            states = chain.initial_states()
+            for i, x in enumerate(inputs):
+                t0 = time.perf_counter()
+                prepared = chain.prepare(AudioBatch(
+                    pcm=torch.from_numpy(x), rate=AUDIO_RATE))
+                t1 = time.perf_counter()
+                _, states, _ = chain.run(prepared, states)
+                if host is not None and i >= warmup:
+                    host += (t1 - t0, time.perf_counter() - t1)
+            torch.cuda.synchronize()
+
+        host = np.zeros(2)
+        run_all(host)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run_all()
+        host_ms = [float(v) * 1e3 / batches for v in host]
+        busy = _device_busy(prof, warmup + batches)
+        out[branch] = {"host_stage_ms_per_batch": host_ms[0],
+                       "queue_ms_per_batch": host_ms[1],
+                       "busy_ms_per_batch": busy["busy_ms_per_batch"],
+                       "kernels_ms_per_batch": busy["kernels_ms_per_batch"]}
+    return out
 
 
 if __name__ == "__main__":

@@ -12,7 +12,13 @@ the Y4M output of an RGB job is YUV420P), the engine's ``-c`` ranges
 tomsmocomp, denoise3d, ivtc, 32detect, decimate, 32drop, smartdeinter,
 smartyuv, doublefps, smartbob, barrel, fps, skip, slowmo, modfps,
 invert, levels, deinterlace, mask, testframe and null
-(comma-separated, run in their slots' order):
+(comma-separated, run in their slots' order), and the audio track:
+``-p`` (a WAV) and ``-m`` (a ``.wav``), ``-s``, ``-d``,
+``-E rate[,bits[,channels]]``, ``-D``, ``--av_fine_ms``, ``--sync``,
+``--resync_margin``, ``--resync_interval`` and ``--no_audio_adjust``,
+with the audio filters normalize, astat, lowpass, detectsilence,
+resample, aclip and cpaudio in the same ``-J`` list; a WAV given to
+``-i`` makes an audio-only session:
 
     python -m tcforge_tpu_torch.cli -i in.y4m -I 5 -Z 1280x720 \\
         -J hqdn3d=luma=4.0 -o out.y4m [--batch 16] [--device cuda]
@@ -31,10 +37,15 @@ invert, levels, deinterlace, mask, testframe and null
         -J doublefps,smartbob
     python -m tcforge_tpu_torch.cli -i ntsc.y4m -o pal.y4m \\
         -J modfps=buffer=7 --export_fps 25 -Z 720x576
+    python -m tcforge_tpu_torch.cli -i in.y4m -p in.wav -I 5 \\
+        -Z 1280x720 -J hqdn3d=luma=4.0,normalize -E 44100 \\
+        -o out.y4m -m out.wav
+    python -m tcforge_tpu_torch.cli -i in.wav -o out.wav -E 44100 \\
+        -J normalize,lowpass,astat
 
 and refuses every other flag of the JAX CLI with an error that names
-it.  ``--device cuda`` (the default) with no card raises: the CLI never
-drops to the CPU quietly.
+it, and any audio file but WAV.  ``--device cuda`` (the default) with
+no card raises: the CLI never drops to the CPU quietly.
 """
 
 from __future__ import annotations
@@ -76,12 +87,36 @@ def _resize_units(spec: str):
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="tcforge_tpu_torch", allow_abbrev=False,
-        description="tcforge on PyTorch/CUDA: Y4M in, filter chain, "
-                    "Y4M out")
+        description="tcforge on PyTorch/CUDA: Y4M (and WAV) in, filter "
+                    "chain, Y4M (and WAV) out")
     p.add_argument("-i", dest="video_in", required=True,
-                   help="input file (YUV4MPEG2)")
+                   help="input file (YUV4MPEG2, or WAV for an audio-only "
+                        "session)")
     p.add_argument("-o", dest="video_out", required=True,
-                   help="output file (YUV4MPEG2)")
+                   help="output file (YUV4MPEG2, or WAV for an "
+                        "audio-only session)")
+    p.add_argument("-p", dest="audio_in", help="audio input file (WAV)")
+    p.add_argument("-m", dest="audio_out", help="audio output file (WAV)")
+    # audio (the JAX CLI's flags and parsing)
+    p.add_argument("-s", "--audio_scale", dest="volume", type=float,
+                   default=1.0, help="volume scale")
+    p.add_argument("-E", dest="resample", default="0",
+                   help="audio output rate[,bits[,channels]]")
+    p.add_argument("-d", "--audio_swap", dest="channels", type=int,
+                   default=0, help="output channels")
+    p.add_argument("-D", "--sync_frame", dest="av_offset", type=int,
+                   default=0, help="A/V shift in frames (audio delay)")
+    p.add_argument("--av_fine_ms", type=int, default=0,
+                   help="sub-frame A/V shift in milliseconds")
+    p.add_argument("--sync", dest="sync_method", default="adjust",
+                   choices=["none", "adjust"],
+                   help="A/V synchronizer method")
+    p.add_argument("--resync_margin", type=int, default=1,
+                   help="max A/V drift in frames before resync [1]")
+    p.add_argument("--resync_interval", type=int, default=25,
+                   help="check A/V sync every N frames [25]")
+    p.add_argument("--no_audio_adjust", action="store_true",
+                   help="disable audio frame size adjustment")
     p.add_argument("--pre_clip", dest="pre_clip",
                    help="initial region clip T[,L[,B[,R]]] (before "
                         "all filters)")
@@ -152,6 +187,7 @@ def _device(name: str) -> torch.device:
 
 def args_to_job(args: argparse.Namespace) -> Job:
     job = Job(video_in_file=args.video_in, video_out_file=args.video_out,
+              audio_in_file=args.audio_in, audio_out_file=args.audio_out,
               deinterlace=args.deinterlace, batch_size=args.batch,
               max_frames=args.max_frames, frame_interval=args.frame_interval,
               vob_offset=args.vob_offset, prefetch_depth=args.prefetch,
@@ -193,6 +229,22 @@ def args_to_job(args: argparse.Namespace) -> Job:
         for part in chain.split(","):
             if part.strip():
                 job.filters.append(FilterSpec.parse(part.strip()))
+    job.volume = args.volume
+    # -E rate[,bits[,channels]] (export_afmt, cmdline_def.h:898)
+    eparts = str(args.resample).split(",")
+    job.mp3frequency = int(eparts[0] or 0)
+    if len(eparts) > 1 and eparts[1]:
+        job.dm_bits = int(eparts[1])
+    if len(eparts) > 2 and eparts[2]:
+        job.dm_chan = int(eparts[2])
+    job.av_offset = args.av_offset
+    job.sync_method = args.sync_method
+    job.resync_margin = args.resync_margin
+    job.resync_interval = args.resync_interval
+    job.no_audio_adjust = args.no_audio_adjust
+    if args.channels:
+        job.dm_chan = args.channels
+    job.av_fine_ms = args.av_fine_ms
     return job
 
 

@@ -129,6 +129,17 @@ class FrameBatch:
         return tuple(p.cpu().numpy() for p in self.planes)
 
 
+def host_to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor on ``device``; to a card through pinned
+    memory and a copy the host does not wait for."""
+    if not a.flags.writeable:
+        a = a.copy()
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 @dataclasses.dataclass(frozen=True)
 class AudioBatch:
     """A batch of N audio frames (one frame = the samples covering one
@@ -153,8 +164,33 @@ class AudioBatch:
     def samples_per_frame(self) -> int:
         return self.pcm.shape[1]
 
+    @property
+    def device(self) -> torch.device:
+        return self.pcm.device
+
     def with_pcm(self, pcm: torch.Tensor) -> "AudioBatch":
         return dataclasses.replace(self, pcm=pcm)
+
+    @staticmethod
+    def from_numpy(pcm: np.ndarray, *, device: torch.device,
+                   rate: int = 48000, first_id: Optional[int] = None
+                   ) -> "AudioBatch":
+        """A batch on ``device`` from host (N, S, C) samples (a batch
+        dimension is added to (S, C) samples); ``first_id`` numbers the
+        frames when given."""
+        pcm = np.ascontiguousarray(pcm)
+        if pcm.ndim == 2:
+            pcm = pcm[None]
+        t = torch.from_numpy(pcm).to(device)
+        ids = (None if first_id is None else torch.arange(
+            first_id, first_id + pcm.shape[0], dtype=torch.int32,
+            device=device))
+        return AudioBatch(pcm=t, rate=rate, channels=pcm.shape[-1],
+                          frame_ids=ids)
+
+    def to_numpy(self) -> np.ndarray:
+        """The samples as a host (N, S, C) array."""
+        return self.pcm.cpu().numpy()
 
     def has_attr(self, flag: int) -> torch.Tensor:
         """(N,) bool mask of frames carrying the given attribute flag."""

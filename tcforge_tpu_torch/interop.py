@@ -31,6 +31,14 @@ shifts, contrasts, ``valid`` flags and ids stay tensors; so does
 fieldanalysis's, whose previous frame and fields stay on the device
 while ``started``, the telecine state and the eight ``counts`` become
 Python ints, where its state machine runs.
+
+The audio filters' carries go through ``audio_states_from_numpy`` and
+``audio_states_to_numpy``, one per filter of an ``AudioChain``:
+normalize's ``(mul, lastavg, mem, idx)`` is three float32 tensors and
+a host int (the ring index), detectsilence's counters (``zeros``,
+``fid``) are host ints (the JAX carry's last ``events`` rows are what
+its ``collect`` has already read), and astat's, lowpass's and aclip's
+carries are tensors.
 """
 
 from __future__ import annotations
@@ -99,6 +107,42 @@ def states_to_numpy(states: Any) -> Any:
         return type(states)(states_to_numpy(v) for v in states)
     if isinstance(states, int):
         return np.asarray(states, dtype=np.int32)
-    if isinstance(states, np.generic):
+    if isinstance(states, (np.generic, np.ndarray)):
         return np.asarray(states)
     return states.detach().cpu().numpy()
+
+
+def audio_states_from_numpy(filters, states, device: torch.device) -> list:
+    """A JAX ``AudioChain``'s states (numpy leaves) -> the port's, for the
+    port's ``filters`` (the same filters in the same order)."""
+    out = []
+    for f, st in zip(filters, states):
+        name = f.info.name
+        if name == "normalize":
+            mul, lastavg, mem, idx = st
+            out.append((*states_from_numpy((mul, lastavg, mem), device),
+                        int(np.asarray(idx))))
+        elif name == "detectsilence":
+            out.append({"zeros": int(np.asarray(st["zeros"])),
+                        "fid": int(np.asarray(st["fid"])),
+                        "silent": torch.zeros((0,), dtype=torch.bool,
+                                              device=device)})
+        else:
+            out.append(states_from_numpy(st, device))
+    return out
+
+
+def audio_states_to_numpy(filters, states) -> list:
+    """The port's audio states -> a JAX ``AudioChain``'s (numpy leaves;
+    host counters as int32)."""
+    out = []
+    for f, st in zip(filters, states):
+        name = f.info.name
+        if name == "detectsilence":
+            f.collect(st)          # the flags not yet counted
+            out.append({"zeros": np.asarray(st["zeros"], dtype=np.int32),
+                        "fid": np.asarray(st["fid"], dtype=np.int32),
+                        "events": np.full((1, 2), -1, np.int32)})
+        else:
+            out.append(states_to_numpy(st))
+    return out

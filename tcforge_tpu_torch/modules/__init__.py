@@ -1,7 +1,12 @@
 """The port's module system.  Importing this package registers the
-built-in filters, as importing ``tcforge_tpu.modules`` does."""
+built-in filters, the WAV importer and multiplexor and the raw and null
+encoders, as importing ``tcforge_tpu.modules`` does."""
+
+from tcforge_tpu_torch.modules.encoders import basic as _encoders  # noqa: F401
+from tcforge_tpu_torch.modules.importers import wav_import  # noqa: F401
+from tcforge_tpu_torch.modules.muxers import basic as _muxers  # noqa: F401
 
 from tcforge_tpu_torch.modules.filters import (  # noqa: F401
-    analysis, bob, cadence, denoise3d, dnr, extras, hqdn3d, median, modfps,
+    analysis, audio_filters, bob, cadence, denoise3d, dnr, extras, hqdn3d, median, modfps,
     msharpen, overlay, pp, rate, simple, smartdeinter, smooth, stabilize, tomsmocomp,
     unsharp, xsharpen, yait, yuvdenoise)

@@ -1,7 +1,6 @@
 """smartyuv and barrel, in plain torch.
 
-The port of the video filters of ``tcforge_tpu/modules/filters/extras.py``
-(its audio filter, aclip, waits for the port's audio):
+The port of ``tcforge_tpu/modules/filters/extras.py``:
 
 - smartyuv (``filter_smartyuv.c``): the YUV-native smart deinterlacer,
   smartdeinter's core run on each plane with ``colordiff``: luma with
@@ -10,22 +9,28 @@ The port of the video filters of ``tcforge_tpu/modules/filters/extras.py``
 - barrel (``filter_barrel.c``): lens distortion by radial remap, the
   configure-time map in float64 on the host and a 9-tap fixed-point
   gather (``>> 15``) per plane.
+- aclip (``filter_aclip.c``): an audio filter that marks quiet audio
+  frames SKIPPED, with its range hysteresis, and the first loud frame
+  after a skipped run KEYFRAME, on the audio batch's attrs.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Tuple
 
 import numpy as np
 import torch
 
 from tcforge_tpu_torch.core.formats import ImageFormat
-from tcforge_tpu_torch.core.frame import ATTR_SKIPPED, FrameBatch
+from tcforge_tpu_torch.core.frame import (ATTR_KEYFRAME, ATTR_SKIPPED,
+                                          AudioBatch, FrameBatch)
 from tcforge_tpu_torch.core.optstr import ModuleDesc, ParamSpec
 from tcforge_tpu_torch.modules.filters.smartdeinter import smartdeinter_rgb
-from tcforge_tpu_torch.modules.registry import (FilterSlot, ModuleInfo,
-                                                ModuleKind, VideoFilter,
-                                                register)
+from tcforge_tpu_torch.modules.registry import (AudioFilter, FilterSlot,
+                                                ModuleInfo, ModuleKind,
+                                                VideoFilter, register)
+from tcforge_tpu_torch.ops.fp32 import recip32, sqrt32, tree_sum
 
 
 @register
@@ -191,3 +196,70 @@ class BarrelFilter(VideoFilter):
         u = torch.where(act, barrel_plane(fb.u, self._map_uv, 128), fb.u)
         v = torch.where(act, barrel_plane(fb.v, self._map_uv, 128), fb.v)
         return fb.with_planes(y=y, u=u, v=v), state
+
+
+@register
+class AclipFilter(AudioFilter):
+    """filter_aclip.c: skip audio frames whose RMS metric
+    sqrt(sum s^2)/nsamples*1000 stays under ``level``, with a
+    ``range``-frame hysteresis before skipping resumes, and mark the
+    first loud frame after a skipped run as a keyframe
+    (filter_aclip.c:125-158).
+
+    The JAX filter's per-frame scan is solved for the whole batch: in a
+    run of quiet frames the counter climbs from its start (the carried
+    counter for the batch's first run, 0 after a loud frame) and frame j
+    of the run is skipped once start + j reaches ``range``; a loud frame
+    is a keyframe when the frame before it was skipped.  The metric is
+    the jitted step's (the sum in XLA's order, times the folded
+    1000/nsamples) or op-by-op JAX's (divided, then multiplied)."""
+
+    info = ModuleInfo(name="aclip", kind=ModuleKind.FILTER, media="audio")
+    desc = ModuleDesc(
+        name="aclip", comment="skip quiet audio, keyframe loud edges",
+        params=[ParamSpec("level", "audio must be under this level to "
+                          "be skipped", "d", 10, 0, 255),
+                ParamSpec("range", "frames over level before skipping "
+                          "resumes", "d", 25, 0, 255)])
+    slots = FilterSlot.PRE_S
+    media = "audio"
+
+    def init_state(self, rate: int, channels: int,
+                   device: torch.device) -> Any:
+        # range_ctr starts at `range` (filter_aclip.c:94): the very
+        # first quiet frame is skipped at once
+        return {"range_ctr": torch.full((), self.options["range"],
+                                        dtype=torch.int32, device=device),
+                "skip_mode": torch.zeros((), dtype=torch.int32,
+                                         device=device)}
+
+    def apply(self, ab: AudioBatch, state: Any) -> Tuple[AudioBatch, Any]:
+        n, s, c = ab.pcm.shape
+        if n == 0:
+            return ab, state
+        level, rng = self.options["level"], self.options["range"]
+        dev = ab.pcm.device
+        x = ab.pcm.to(torch.float32)
+        nsamp = s * c
+        root = sqrt32(tree_sum(x * x, 2))
+        if self.jitted:
+            metric = root * np.float32(np.float32(recip32(nsamp)) * 1000)
+        else:
+            metric = (root / torch.full((), nsamp, dtype=torch.float32,
+                                        device=dev)) * 1000.0
+        quiet = metric < level
+        k = torch.arange(n, dtype=torch.int32, device=dev)
+        last_loud = torch.cummax(torch.where(quiet, -1, k), 0).values
+        start = torch.where(last_loud >= 0, 0, state["range_ctr"])
+        pos = start + (k - last_loud - 1)       # the counter before frame k
+        skip = quiet & (pos >= rng)
+        before = torch.cat([state["skip_mode"].view(1) == 1, skip[:-1]])
+        key = ~quiet & before
+        attrs = (ab.attrs if ab.attrs is not None
+                 else torch.zeros((n,), dtype=torch.int32, device=dev))
+        attrs = torch.where(skip, attrs | ATTR_SKIPPED, attrs)
+        attrs = torch.where(key, attrs | ATTR_KEYFRAME, attrs)
+        ctr = torch.where(quiet[-1], torch.clamp_max(pos[-1] + 1, rng), 0)
+        return (dataclasses.replace(ab, attrs=attrs),
+                {"range_ctr": ctr.to(torch.int32),
+                 "skip_mode": skip[-1].to(torch.int32)})

@@ -21,12 +21,13 @@ The port of ``tcforge_tpu/modules/filters/overlay.py``:
   lines.
 - 29to23 (``filter_29to23.c``): the fps filter at 29.97 -> 23.976.
 - cpaudio (``filter_cpaudio.c``): one audio channel copied over the
-  other (an ``AudioFilter``; the video chain builds it and skips it).
+  other (an ``AudioFilter``; the video chain builds it and skips it,
+  the audio chain runs it).
 
 Float32 divisions by a constant are the jitted JAX filters' products
 with the float32 reciprocal (``ops/fp32.py``), logo's faded opacity the
 fused multiply-add of the compiled code, and fieldanalysis sums its row
-sums in XLA's order (``_fa_row_total``).
+sums in XLA's order (``ops/fp32.py`` ``tree_sum``).
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ from tcforge_tpu_torch.core.optstr import ModuleDesc, ParamSpec
 from tcforge_tpu_torch.modules.registry import (AudioFilter, FilterSlot,
                                                 ModuleInfo, ModuleKind,
                                                 VideoFilter, register)
-from tcforge_tpu_torch.ops.fp32 import fma32, recip32
+from tcforge_tpu_torch.ops.fp32 import fma32, recip32, tree_sum
 
 _log = logging.getLogger("tcforge_tpu_torch")
 
@@ -605,28 +606,6 @@ def _fa_bob_fields(lum: torch.Tensor):
     return t, b
 
 
-def _fa_row_total(row: torch.Tensor, window: int = 32) -> torch.Tensor:
-    """The float32 sum over the last axis of (N, R) float32 row sums in
-    the order of XLA's CPU reduction: a reduction longer than 32 becomes
-    sums of windows of 32 (the axis padded to a multiple of 32, half the
-    padding in front), each summed in order, and the same again over the
-    window sums (XLA's tree reduction rewriter)."""
-    n, r = row.shape
-    if r > window:
-        pad = -r % window
-        row = torch.nn.functional.pad(row, (pad // 2, pad - pad // 2))
-        return _fa_row_total(_ordered_sum(row.view(n, -1, window)), window)
-    return _ordered_sum(row)
-
-
-def _ordered_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis, one element after the other."""
-    total = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
-    for i in range(x.shape[-1]):
-        total = total + x[..., i]
-    return total
-
-
 def _fa_compare(p1, p2, rows, denom_h):
     """pic_compare (filter_fieldanalysis.c:111-125): mean squared
     difference over `rows` leading rows, divided by width*denom_h.
@@ -637,7 +616,7 @@ def _fa_compare(p1, p2, rows, denom_h):
          - p2[..., :rows, :].to(torch.int32))
     row = (d * d).sum(dim=-1, dtype=torch.int32)        # (..., rows)
     lead = row.shape[:-1]
-    tot = _fa_row_total(row.reshape(-1, rows).to(torch.float32))
+    tot = tree_sum(row.reshape(-1, rows).to(torch.float32), 1)
     return tot.view(lead) * recip32(p1.shape[-1] * denom_h)
 
 

@@ -1,11 +1,17 @@
-"""Module kinds, the video filter base class and the filter registry.
+"""Module kinds, the module base classes and the registry.
 
 The port's counterpart of ``tcforge_tpu/modules/registry.py``, cut to
-what its chains use: ``ModuleKind`` and ``FilterSlot`` keep the JAX
-values, ``VideoFilter`` and ``AudioFilter`` the same methods with
-tensors in place of jax arrays, and ``new_module(FILTER, name, ...)``
-returns the torch class.  A ``-J`` list names video and audio filters
-alike; the video chain keeps the ``VideoFilter`` instances.
+what its engine uses: ``ModuleKind`` and ``FilterSlot`` keep the JAX
+values; ``VideoFilter`` and ``AudioFilter`` the same methods with
+tensors in place of jax arrays; ``Importer``, ``Encoder`` and ``Muxer``
+the JAX method names (``open``/``read_video_batch``/``read_audio_batch``/
+``close``, ``encode_video``/``encode_audio``/``flush``, ``open``/
+``write_video``/``write_audio``/``close``), on host numpy arrays.
+``new_module(kind, name, ...)`` returns the torch class, and
+``find_mux_module_for_path`` maps a file name to the port's
+multiplexor, as the JAX lookup does.  A
+``-J`` list names video and audio filters alike; the video chain keeps
+the ``VideoFilter`` instances, the audio chain the ``AudioFilter`` ones.
 """
 
 from __future__ import annotations
@@ -13,10 +19,12 @@ from __future__ import annotations
 import abc
 import enum
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple, Type
+from typing import Any, Dict, List, Optional, Tuple, Type
 
+import numpy as np
 import torch
 
+from tcforge_tpu_torch.core.codecs import Codec, ContainerFormat
 from tcforge_tpu_torch.core.formats import ImageFormat
 from tcforge_tpu_torch.core.frame import AudioBatch, FrameBatch
 from tcforge_tpu_torch.core.job import Job
@@ -49,6 +57,10 @@ class ModuleInfo:
     name: str
     kind: ModuleKind
     media: str = "video"                       # video | audio | both
+    codecs_in: Tuple[Codec, ...] = (Codec.ANY,)
+    codecs_out: Tuple[Codec, ...] = (Codec.ANY,)
+    formats_in: Tuple[ContainerFormat, ...] = ()
+    formats_out: Tuple[ContainerFormat, ...] = ()
 
 
 class Module(abc.ABC):
@@ -94,12 +106,18 @@ class VideoFilter(Module):
 
 
 class AudioFilter(Module):
-    """Batched audio filter: AudioBatch in, AudioBatch out."""
+    """Batched audio filter: AudioBatch in, AudioBatch out.  ``jitted``
+    says which form of the JAX filter the port computes (the audio chain
+    sets it per call): True as the jitted audio step runs it, False as
+    op-by-op JAX runs it on the ``-E`` resampler's chunks."""
 
     slots: FilterSlot = FilterSlot.POST_M
     media: str = "audio"
+    jitted: bool = True
 
-    def init_state(self, rate: int, channels: int) -> Any:
+    def init_state(self, rate: int, channels: int,
+                   device: torch.device) -> Any:
+        """Return the initial carry on ``device`` (None for stateless)."""
         return None
 
     @abc.abstractmethod
@@ -111,6 +129,67 @@ class AudioFilter(Module):
 
     def finalize(self, state: Any) -> None:
         """Host-side end-of-stream hook (filter CLOSE tag)."""
+
+
+class Importer(Module):
+    """Demultiplexor and decoder in one: host frames and samples."""
+
+    @abc.abstractmethod
+    def open(self, path: Optional[str]) -> None: ...
+
+    @abc.abstractmethod
+    def read_video_batch(self, n: int) -> Optional[Dict[str, np.ndarray]]:
+        """Stacked planes ('y', 'u', 'v' or 'rgb'), (N, H, W), or None at
+        the end of the stream."""
+
+    def read_audio_batch(self, n_samples: int) -> Optional[np.ndarray]:
+        """(S, C) int16 samples, or None."""
+        return None
+
+    def close(self) -> None:
+        pass
+
+    # geometry and rate, known after open()
+    width: int = 0
+    height: int = 0
+    fps: float = 0.0
+    format: ImageFormat = ImageFormat.YUV420P
+    total_frames: Optional[int] = None
+    audio_rate: int = 0
+    audio_channels: int = 0
+
+
+class Encoder(Module):
+    """Frame batch -> per-frame payload bytes (encode_video analogue),
+    from batches whose tensors are in host memory."""
+
+    @abc.abstractmethod
+    def encode_video(self, fb: FrameBatch) -> List[bytes]: ...
+
+    def encode_audio(self, ab: AudioBatch) -> List[bytes]:
+        raise NotImplementedError
+
+    # set by flush(): how many real frames the tail payloads contain
+    last_flush_frames: int = 0
+
+    def flush(self) -> List[bytes]:
+        return []
+
+
+class Muxer(Module):
+    """Container writer (write_video/write_audio analogue)."""
+
+    @abc.abstractmethod
+    def open(self, path: str) -> None: ...
+
+    @abc.abstractmethod
+    def write_video(self, payload: bytes, keyframe: bool = True) -> int: ...
+
+    def write_audio(self, payload: bytes, track: int = 0) -> int:
+        raise NotImplementedError
+
+    def close(self) -> None:
+        pass
 
 
 _REGISTRIES: Dict[ModuleKind, Dict[str, Type[Module]]] = {
@@ -143,3 +222,15 @@ def new_module(kind: ModuleKind, name: str, job: Job,
                options: str = "") -> Module:
     """tc_new_module analogue."""
     return lookup(kind, name)(job, options)
+
+
+# file-name extension -> multiplexor (the JAX package's _FORMAT_MAP,
+# cut to the multiplexors the port has)
+_MUX_BY_EXT: Dict[str, str] = {".wav": "wav"}
+
+
+def find_mux_module_for_path(path: str) -> Optional[str]:
+    """The port's multiplexor for a file name, by its extension."""
+    import os
+    name = _MUX_BY_EXT.get(os.path.splitext(path)[1].lower())
+    return name if name in _REGISTRIES[ModuleKind.MULTIPLEXOR] else None

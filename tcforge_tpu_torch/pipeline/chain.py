@@ -13,20 +13,30 @@ internal transforms, POST slots, --post_clip) and threads the running
 geometry through ``initial_states`` as the JAX chain does, so hqdn3d
 (a POST_M filter) runs after the zoom, at the output size.  PyTorch
 runs eagerly, so there is no jit segmentation and no host stage.
+
+``AudioChain`` is the JAX ``AudioChain`` (chain.py:420-559): ``-s``
+volume and ``-d`` channels, ``-E``'s exact streaming resampler (the JAX
+package's host stage, numpy) and the ``-J`` audio filters in their
+order, on the job's device.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Sequence, Tuple
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 import tcforge_tpu_torch.modules  # noqa: F401  (registers the filters)
 from tcforge_tpu_torch.core.formats import ImageFormat
-from tcforge_tpu_torch.core.frame import FrameBatch
+from tcforge_tpu_torch.core.frame import (AudioBatch, FrameBatch,
+                                          host_to_device)
 from tcforge_tpu_torch.core.job import Job
-from tcforge_tpu_torch.modules.registry import (FilterSlot, ModuleKind,
-                                                VideoFilter, new_module)
+from tcforge_tpu_torch.modules.registry import (AudioFilter, FilterSlot,
+                                                ModuleKind, VideoFilter,
+                                                new_module)
+from tcforge_tpu_torch.ops import audio as audio_ops
 from tcforge_tpu_torch.ops import colorspace, video, zoom
 
 _SLOT_ORDER = (FilterSlot.PRE_S, FilterSlot.PRE_M, FilterSlot.POST_M,
@@ -280,3 +290,222 @@ class VideoChain:
             else:
                 fb = self._run_op(fb, kind)
         return fb, states
+
+
+class AudioChain:
+    """The audio step (audio_trans.c and the audio filters).
+
+    Three branches, as in the JAX chain's ``__call__``:
+
+    - nothing to do (no audio filter, no ``-s``, ``-d`` equal to the
+      input's channels, no ``-E``): the batch comes back as it went in,
+      in host memory;
+    - no ``-E`` (or ``-E`` at the input's rate): the filters on the
+      job's device in the form of the JAX engine's jitted step
+      (``jitted`` on every filter);
+    - ``-E`` at another rate: the exact streaming resampler on the host
+      (the JAX engine reads its ``_pre`` output back for it), then the
+      filters on the device on fixed ``(k, 2048, ch)`` chunks through a
+      fifo, op by op (``jitted`` off), as the JAX engine runs them;
+      ``flush`` drains the resampler's hold-back and the fifo at the end
+      of the stream.
+
+    In both the volume and channel step (``pre``) runs first, on the
+    job's device.  ``__call__`` takes a batch in host memory and returns
+    the output batch, the states and the clipped-sample count (a device
+    scalar); it is ``prepare`` (the host stage, which the engine runs in
+    a thread of its own) and ``run`` (the device stage, the engine's
+    main thread).  With ``-E`` after ``-s`` or ``-d``, ``prepare`` runs
+    the pre step on the device on a stream of its own and reads it back
+    for the resampler, as the JAX chain reads its jitted pre step back;
+    that wait is the host stage's, not the main thread's.  ``run`` waits
+    for nothing."""
+
+    # fixed chunk size of the streaming-resample path (the JAX chain's
+    # RS_CHUNK); the sub-chunk remainder carries in a fifo
+    RS_CHUNK = 2048
+
+    def __init__(self, job: Job, device: torch.device):
+        self.job = job
+        self.device = torch.device(device)
+        self.filters: List[AudioFilter] = []
+        for spec in job.filters:
+            try:
+                mod = new_module(ModuleKind.FILTER, spec.name, job,
+                                 spec.options)
+            except KeyError:
+                continue
+            if isinstance(mod, AudioFilter) and spec.enabled:
+                self.filters.append(mod)
+        self._resampler: Optional[audio_ops.StreamingResampler] = None
+        self._rs_fifo: Optional[np.ndarray] = None
+        self._pre_stream: Optional[torch.cuda.Stream] = None
+
+    def initial_states(self) -> List[Any]:
+        return [f.init_state(self.job.a_rate, self.job.a_chan, self.device)
+                for f in self.filters]
+
+    def resamples(self, rate: int) -> bool:
+        """True when ``-E`` changes the rate: the streaming branch."""
+        return bool(self.job.mp3frequency and self.job.mp3frequency != rate)
+
+    def is_identity(self, ab: AudioBatch) -> bool:
+        job = self.job
+        return (not self.resamples(ab.rate) and not self.filters
+                and not (job.volume != 1.0 and job.volume > 0)
+                and job.dm_chan == ab.channels)
+
+    def pre(self, ab: AudioBatch) -> Tuple[AudioBatch, Any]:
+        """Volume and channel conversion only (everything before the
+        resampler), on the batch's device."""
+        nclip: Any = 0
+        if self.job.volume != 1.0 and self.job.volume > 0:
+            pcm, nclip = audio_ops.amplify(ab.pcm, self.job.volume)
+            ab = ab.with_pcm(pcm)
+        if self.job.dm_chan != ab.channels:
+            if ab.channels == 1 and self.job.dm_chan == 2:
+                ab = AudioBatch(pcm=audio_ops.mono_to_stereo(ab.pcm),
+                                rate=ab.rate, channels=2, attrs=ab.attrs,
+                                frame_ids=ab.frame_ids)
+            elif ab.channels == 2 and self.job.dm_chan == 1:
+                ab = AudioBatch(pcm=audio_ops.stereo_to_mono(ab.pcm),
+                                rate=ab.rate, channels=1, attrs=ab.attrs,
+                                frame_ids=ab.frame_ids)
+        return ab, nclip
+
+    def _filters(self, ab: AudioBatch, states: List[Any],
+                 jitted: bool) -> Tuple[AudioBatch, List[Any]]:
+        states = list(states)
+        for i, f in enumerate(self.filters):
+            f.jitted = jitted
+            ab, states[i] = f.apply(ab, states[i])
+        return ab, states
+
+    def step(self, ab: AudioBatch, states: List[Any]
+             ) -> Tuple[AudioBatch, List[Any], Any]:
+        """The JAX chain's jitted step (``_trace_step``) on ``ab``'s
+        device: pre, ``-E`` as one whole-batch ``resample_poly`` (edge
+        replicated at the batch's ends), then the filters.  The engine
+        does not call it (its ``-E`` takes the streaming branch); it is
+        the form of the JAX step that callers embedding the audio step
+        in a larger one hold no stream state for, kept so that the two
+        packages offer the same step."""
+        ab, nclip = self.pre(ab)
+        if self.resamples(ab.rate):
+            n, spf, ch = ab.pcm.shape
+            out = audio_ops.resample_poly(ab.pcm.reshape(1, n * spf, ch),
+                                          ab.rate, self.job.mp3frequency)
+            spf_out = out.shape[1] // n
+            ab = AudioBatch(pcm=out[0, :spf_out * n].reshape(n, spf_out, ch),
+                            rate=self.job.mp3frequency,
+                            channels=ab.channels, attrs=ab.attrs,
+                            frame_ids=ab.frame_ids)
+        ab, states = self._filters(ab, states, jitted=True)
+        return ab, states, nclip
+
+    def _upload(self, pcm: np.ndarray, rate: int) -> AudioBatch:
+        """Host samples as a batch on the device."""
+        return AudioBatch(pcm=host_to_device(pcm, self.device), rate=rate,
+                          channels=pcm.shape[-1])
+
+    def _changes_samples(self, ab: AudioBatch) -> bool:
+        """True when ``pre`` does something to ``ab``."""
+        return ((self.job.volume != 1.0 and self.job.volume > 0)
+                or self.job.dm_chan != ab.channels)
+
+    def _pre_on_host(self, ab: AudioBatch) -> Tuple[np.ndarray, int]:
+        """``pre`` on the device for the host resampler: the samples and
+        the clipped-sample count back in host memory.  On a card it runs
+        on a stream of its own, so the read-back waits for that stream
+        alone."""
+        if not self._changes_samples(ab):
+            return ab.pcm.numpy(), 0
+        if self.device.type != "cuda":
+            out, nclip = self.pre(self._upload(ab.pcm.numpy(), ab.rate))
+            return out.pcm.numpy(), int(nclip)
+        if self._pre_stream is None:
+            self._pre_stream = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(self._pre_stream):
+            out, nclip = self.pre(self._upload(ab.pcm.numpy(), ab.rate))
+            return out.pcm.cpu().numpy(), int(nclip)
+
+    def _chunks(self, out: np.ndarray, ch: int) -> np.ndarray:
+        """The fifo's whole chunks, (k, RS_CHUNK, ch); the remainder stays
+        in the fifo."""
+        fifo = self._rs_fifo
+        fifo = out if fifo is None or not len(fifo) \
+            else np.concatenate([fifo, out])
+        k = len(fifo) // self.RS_CHUNK
+        self._rs_fifo = fifo[k * self.RS_CHUNK:]
+        return fifo[:k * self.RS_CHUNK].reshape(k, self.RS_CHUNK, ch)
+
+    def prepare(self, ab: AudioBatch) -> "Prepared":
+        """The host stage of ``__call__`` on a batch in host memory: with
+        ``-E`` the pre step, the streaming resampler and the fifo's whole
+        chunks; without, nothing (the samples go to ``run``).  It touches
+        no filter state and waits for no work of ``run``'s, so the engine
+        runs it in a thread of its own; ``run`` takes what it returns, in
+        the same order."""
+        if self.is_identity(ab):
+            return Prepared(ab, None, 0, True)
+        if not self.resamples(ab.rate):
+            return Prepared(None, (ab.pcm.numpy(), ab.rate), 0, True)
+        pcm, nclip = self._pre_on_host(ab)
+        ch = pcm.shape[-1]
+        if self._resampler is None:
+            self._resampler = audio_ops.StreamingResampler(
+                ab.rate, self.job.mp3frequency, ch)
+            self._rs_fifo = None
+        out = self._resampler.process(pcm.reshape(-1, ch))
+        return Prepared(None, (self._chunks(out, ch), self.job.mp3frequency),
+                        nclip, False)
+
+    def run(self, prepared: "Prepared", states: List[Any]
+            ) -> Tuple[AudioBatch, List[Any], Any]:
+        """The device stage: the prepared samples to the device, the pre
+        step where ``prepare`` left it, then the filters in the form of
+        their branch.  Returns the batch, the states and the clipped
+        samples (a device scalar where the pre step ran here)."""
+        if prepared.identity is not None:
+            return prepared.identity, states, 0
+        ab = self._upload(*prepared.samples)
+        nclip: Any = prepared.nclip
+        if prepared.jitted:
+            ab, nclip = self.pre(ab)
+        ab, states = self._filters(ab, states, jitted=prepared.jitted)
+        return ab, states, nclip
+
+    def __call__(self, ab: AudioBatch, states: List[Any]
+                 ) -> Tuple[AudioBatch, List[Any], Any]:
+        return self.run(self.prepare(ab), states)
+
+    def flush(self, states: List[Any]
+              ) -> Tuple[Optional[AudioBatch], List[Any]]:
+        """Drain the resampler's hold-back and the chunk fifo at the end
+        of the stream: (batch, states), or (None, states)."""
+        if self._resampler is None:
+            return None, states
+        ch = self._resampler.channels
+        tail = self._resampler.flush()
+        parts = [p for p in (self._rs_fifo, tail)
+                 if p is not None and len(p)]
+        if not parts:
+            return None, states
+        pcm = np.concatenate(parts) if len(parts) > 1 else parts[0]
+        self._rs_fifo = np.zeros((0, ch), pcm.dtype)
+        return self._filters(self._upload(pcm[None], self.job.mp3frequency),
+                             states, jitted=False)
+
+
+@dataclasses.dataclass(frozen=True)
+class Prepared:
+    """What ``AudioChain.prepare`` hands ``run``: the batch itself when
+    the chain does nothing (``identity``), else the host samples and
+    their rate, the clipped-sample count of a pre step already run, and
+    the filters' form (``jitted``: no ``-E``, the pre step still to
+    run)."""
+
+    identity: Optional[AudioBatch]
+    samples: Optional[Tuple[np.ndarray, int]]
+    nclip: int
+    jitted: bool

@@ -1,37 +1,59 @@
 """The streaming engine: Y4M reader thread -> VideoChain on a device ->
-Y4M writer thread.
+Y4M writer thread, with an audio track beside it.
 
 The port of ``tcforge_tpu/pipeline/engine.py`` for a Y4M-to-Y4M
-session:
+session, with a WAV audio track (``-p`` in, ``-m`` out), and for an
+audio-only WAV-to-WAV session:
 
 - a reader thread reads ``job.batch_size`` frames at a time straight
   into host buffers (one ``preadv`` a batch) and fills a queue of at
   most ``job.prefetch_depth`` batches.  ``-L`` decodes and drops (the Y4M
   reader cannot seek), ``--max_frames`` and the end of the ``-c``
-  ranges bound the frames read, and the frame ids number the read
-  frames from 0 after the ``-L`` skip;
+  ranges bound the frames read.  With an audio track it reads
+  ``round(rate/fps)`` samples a frame read, runs the A/V synchronizer
+  (``pipeline/synchronizer.py``: the ``-D`` and ``--av_fine_ms`` shifts,
+  and the adjust method's clones and drops of frames) on the samples
+  and the planes, and the frame ids number the frames after it; then
+  the audio chain's host stage in a thread of its own
+  (``AudioChain.prepare``: with ``-E``, the volume and channel step on
+  the device and back, and the streaming resampler);
 - the main thread runs the chain (which converts to ``job.im_colorspace``
   on entry) with the carried filter states, hands each filter its state
   (``collect``) and converts an RGB session to YUV420P for the Y4M
-  writer, as the JAX Y4M multiplexor does;
+  writer, as the JAX Y4M multiplexor does; then the batch's samples,
+  cut into one audio frame per video frame, go through the rest of the
+  audio chain (``AudioChain.run``: without ``-E`` the volume and
+  channel step, then the filters; ``collect`` too) on the same device;
 - a writer thread selects the frames to write by the output batch's
   ``frame_ids`` (``-c``, ``--frame_interval``: a rate-changing filter
   emits another count than it read) and attrs (ATTR_SKIPPED and
   ATTR_BROKEN frames are not written), writes them in order (one
   ``writev`` a batch) and owns the written, skipped and dropped
-  counters: each frame lands in exactly one;
-- ``finalize`` runs on every filter once, after the last ``collect``,
-  also when the run fails.
+  counters: each frame lands in exactly one.  It writes the audio
+  payloads (the raw encoder's int16 frames) to the WAV multiplexor,
+  which opens once a batch has written a frame (or at the end of the
+  stream); audio made before that is held;
+- at the end of the stream ``AudioChain.flush`` drains ``-E``'s
+  resampler, and ``finalize`` runs on every filter once, video and
+  audio, after the last ``collect``, also when the run fails.
+
+An audio-only session (``-i in.wav -o out.wav``) reads nominal frames
+of ``round(rate/fps)`` samples (``-L`` and ``--max_frames`` count them),
+a batch's worth at a time, and each chunk goes through the audio chain
+as one audio frame, as in the JAX engine.
 
 A chain that does nothing (``VideoChain.is_identity``) is skipped and
-the planes never leave host memory.  On a CUDA device the batches cross
+the planes never leave host memory; so are the samples of an audio
+chain that does nothing.  On a CUDA device the batches cross
 through pinned host buffers: a ring of ``prefetch_depth + 1`` that the
 reader fills, each copied to the card on a copy stream
 (``non_blocking``) that the chain's stream waits on, and a ring of
 output buffers that a second stream copies back into, whose event the
-writer thread waits on before it reads them.  The batch loop has no
-``synchronize``; a filter that reads back inside its step (decimate,
-32drop, modfps) waits for that batch's chain alone.  On the CPU the same
+writer thread waits on before it reads them; the audio goes to the card
+through pinned memory and comes back on the second stream too.  The
+batch loop has no ``synchronize``; a filter that reads back inside its
+step (decimate, 32drop, modfps) waits for that batch's chain alone, and
+detectsilence reads its flags back in ``collect``.  On the CPU the same
 threads run without streams, on fresh host buffers per batch.
 
 Every wait is bounded: a thread that waits on a queue wakes every
@@ -41,6 +63,7 @@ reader and writer stop when the main thread does.
 
 from __future__ import annotations
 
+import logging
 import os
 import queue
 import sys
@@ -56,11 +79,19 @@ import torch
 from tcforge_tpu_torch.core import ratiocodes
 from tcforge_tpu_torch.core.formats import ImageFormat
 from tcforge_tpu_torch.core.frame import (ATTR_BROKEN, ATTR_SKIPPED,
-                                          FrameBatch)
+                                          AudioBatch, FrameBatch)
 from tcforge_tpu_torch.core.job import Job
+from tcforge_tpu_torch.io.wav import WavReader
 from tcforge_tpu_torch.io.y4m import Y4MError, Y4MHeader
+from tcforge_tpu_torch.modules.registry import (Encoder, Importer,
+                                                ModuleKind, Muxer,
+                                                find_mux_module_for_path,
+                                                new_module)
 from tcforge_tpu_torch.ops import colorspace
-from tcforge_tpu_torch.pipeline.chain import VideoChain
+from tcforge_tpu_torch.pipeline.chain import AudioChain, VideoChain
+from tcforge_tpu_torch.pipeline.synchronizer import new_synchronizer
+
+_log = logging.getLogger("tcforge_tpu_torch")
 
 _JOB_FORMATS = (ImageFormat.YUV420P, ImageFormat.YUV422P,
                 ImageFormat.YUV444P, ImageFormat.YUV411P,
@@ -75,16 +106,21 @@ class Counters:
     frames: int = 0           # read and run through the chain
     written: int = 0
     skipped: int = 0          # out of -c / --frame_interval, or SKIPPED
-    dropped: int = 0          # marked ATTR_BROKEN
+    dropped: int = 0          # marked ATTR_BROKEN, or dropped by the sync
+    cloned: int = 0           # cloned by the adjust synchronizer
     batches: int = 0
     seconds: float = 0.0
+    audio_frames: int = 0     # audio payloads written
+    audio_clipped: int = 0    # samples clipped by -s
 
     def summary(self) -> str:
         fps = self.frames / self.seconds if self.seconds > 0 else 0.0
+        audio = (f", {self.audio_frames} audio frames"
+                 if self.audio_frames else "")
         return (f"encoded {self.written} frames ({self.skipped} skipped, "
-                f"{self.dropped} dropped) of {self.frames} in "
-                f"{self.batches} batches, {self.seconds:.3f} s "
-                f"({fps:.1f} frames/s)")
+                f"{self.dropped} dropped, {self.cloned} cloned) of "
+                f"{self.frames} in {self.batches} batches{audio}, "
+                f"{self.seconds:.3f} s ({fps:.1f} frames/s)")
 
 
 class ProgressMeter:
@@ -128,9 +164,22 @@ def fps_to_ratio(fps: float) -> Tuple[int, int]:
     return frac.numerator, frac.denominator
 
 
-def probe(job: Job) -> Y4MHeader:
+def is_wav(path: str) -> bool:
+    """True when ``path`` starts as a RIFF/WAVE file."""
+    with open(path, "rb") as f:
+        head = f.read(12)
+    return head[:4] == b"RIFF" and head[8:12] == b"WAVE"
+
+
+def probe(job: Job) -> Optional[Y4MHeader]:
     """The input's Y4M header; sets the job's input size and rate from
-    it, as the JAX CLI's probe does."""
+    it, as the JAX CLI's probe does.  A WAV input (an audio-only
+    session) sets the audio rate, channels and bits, and gives None."""
+    if is_wav(job.video_in_file):
+        with WavReader(job.video_in_file) as r:
+            job.a_rate, job.a_chan = r.info.rate, r.info.channels
+            job.a_bits = r.info.bits
+        return None
     with open(job.video_in_file, "rb") as f:
         hdr = Y4MHeader.parse(f.readline(256))
     job.im_v_width, job.im_v_height = hdr.width, hdr.height
@@ -271,7 +320,10 @@ class _InputSlot:
     CUDA device the buffer is pinned and reused; ``event`` marks the end
     of its last copy to the card, which a refill waits for."""
 
-    def __init__(self, shapes, batch: int, pinned: bool):
+    def __init__(self, shapes, batch: int, pinned: bool,
+                 ring: bool = True):
+        self.batch = batch            # frames it holds
+        self.ring = ring              # False: made for one batch alone
         sizes = [batch * h * w for h, w in shapes]
         if pinned:
             self.flat = torch.empty(sum(sizes), dtype=torch.uint8,
@@ -302,9 +354,51 @@ class _OutputSlot:
         return [b[:t.shape[0]] for b, t in zip(self.bufs, tensors)]
 
 
+def _wav_path(flag: str, path: str) -> None:
+    """Refuse an audio output the port has no multiplexor for."""
+    if find_mux_module_for_path(path) != "wav":
+        raise NotImplementedError(
+            f"{flag} {path}: the torch port writes audio as WAV only (a "
+            ".wav file); other audio codecs and containers are not "
+            "ported yet")
+
+
+class _AudioOut:
+    """The WAV multiplexor of a session, owned by the writer thread: it
+    opens at ``open_now`` (the first written frame, or the end of the
+    stream) and holds the payloads given before that."""
+
+    def __init__(self, job: Job, path: str):
+        self.muxer: Muxer = new_module(ModuleKind.MULTIPLEXOR, "wav", job)
+        self.path = path
+        self.is_open = False
+        self._held: List[bytes] = []
+
+    def open_now(self) -> None:
+        if not self.is_open:
+            self.muxer.open(self.path)
+            self.is_open = True
+            for payload in self._held:
+                self.muxer.write_audio(payload)
+            self._held = []
+
+    def write(self, payloads: Sequence[bytes]) -> None:
+        if self.is_open:
+            for payload in payloads:
+                self.muxer.write_audio(payload)
+        else:
+            self._held.extend(payloads)
+
+    def close(self) -> None:
+        if self.is_open:
+            self.muxer.close()
+
+
 class Pipeline:
-    """Runs ``job`` (``video_in_file`` -> ``video_out_file``, both Y4M)
-    on ``device``."""
+    """Runs ``job`` on ``device``: ``video_in_file`` -> ``video_out_file``,
+    both Y4M, with ``audio_in_file`` -> ``audio_out_file`` (WAV) beside
+    them, or an audio-only session from a WAV ``video_in_file`` to a WAV
+    ``video_out_file``."""
 
     def __init__(self, job: Job, device: torch.device):
         if not job.video_in_file or not job.video_out_file:
@@ -314,6 +408,44 @@ class Pipeline:
         self.counters = Counters()
         hdr = probe(job)
         job.validate()
+        self.audio_only = hdr is None
+        self.audio_importer: Optional[Importer] = None
+        audio_in = (job.video_in_file if self.audio_only
+                    else job.audio_in_file)
+        if audio_in and not is_wav(audio_in):
+            raise NotImplementedError(
+                f"-p {audio_in}: the torch port imports WAV audio only")
+        if job.audio_out_file:
+            _wav_path("-m", job.audio_out_file)
+        if self.audio_only:
+            _wav_path("-o", job.video_out_file)
+        if audio_in:
+            self.audio_importer = new_module(ModuleKind.DEMULTIPLEXOR,
+                                             "wav", job)
+            self.audio_importer.open(audio_in)
+            job.a_rate = self.audio_importer.audio_rate
+            job.a_chan = self.audio_importer.audio_channels or job.a_chan
+        if not job.dm_chan:
+            job.dm_chan = job.a_chan or 2
+        if (self.audio_importer is not None and not self.audio_only
+                and not job.audio_out_file):
+            # the Y4M output takes no audio and no -m was given: the
+            # audio track is dropped, as in the JAX engine
+            _log.warning("[engine] muxer y4m is video-only and no -m "
+                         "given: audio disabled")
+            self.audio_importer.close()
+            self.audio_importer = None
+        self.sync = new_synchronizer(job)
+        self.achain = (AudioChain(job, self.device)
+                       if self.audio_importer is not None else None)
+        self.a_encoder: Encoder = new_module(ModuleKind.ENCODER, "raw", job)
+        if self.audio_only:
+            # the video filters of -J are built (their names checked)
+            # and get no frame
+            self.in_format = self.out_format = job.im_colorspace
+            self._shapes = []
+            self.chain = VideoChain(job, job.im_colorspace, 0, 0)
+            return
         self.in_format = hdr.format
         self._shapes = hdr.frame_planes_shapes()
         # what the file takes: the job's colorspace where that is
@@ -351,12 +483,16 @@ class Pipeline:
         self.counters.skipped += int((~mask & ~dropped).sum())
         return mask
 
+    def _samples_per_frame(self) -> int:
+        rate = self.audio_importer.audio_rate or self.job.a_rate
+        return int(round(rate / (self.job.fps or 25.0)))
+
     # -- the run --
 
     def run(self, progress: bool = False) -> Counters:
         job = self.job
         cuda = self.device.type == "cuda"
-        identity = self.chain.is_identity()
+        identity = self.audio_only or self.chain.is_identity()
         staged = cuda and not identity       # pinned buffers and streams
         max_frames = job.max_frames
         if job.ranges is not None and len(job.ranges):
@@ -374,47 +510,154 @@ class Pipeline:
         wq: "queue.Queue" = queue.Queue(maxsize=2 * depth)
         free_in: Optional["queue.Queue"] = None
         free_out: Optional["queue.Queue"] = None
+        h2d = d2h = None
+        if cuda:
+            d2h = torch.cuda.Stream(self.device)
         if staged:
             free_in, free_out = queue.Queue(), queue.Queue()
             for _ in range(depth + 1):
                 free_in.put(_InputSlot(shapes, job.batch_size, True))
                 free_out.put(_OutputSlot())
-            h2d, d2h = torch.cuda.Stream(self.device), \
-                torch.cuda.Stream(self.device)
+            h2d = torch.cuda.Stream(self.device)
         writer_err: List[BaseException] = []
         out_file: List[_FrameWriter] = []
+        audio_out: Optional[_AudioOut] = None
+        empty_wav: Optional[_AudioOut] = None
+        if self.achain is not None:
+            audio_out = _AudioOut(job, job.audio_out_file
+                                  or job.video_out_file)
+        if self.audio_only and job.audio_out_file:
+            # -o and -m both given: the audio goes to -m, and -o gets a
+            # WAV without samples, as the JAX engine writes it
+            empty_wav = _AudioOut(job, job.video_out_file)
+        spf = self._samples_per_frame() if self.achain is not None else 0
+
+        def audio_host_stage(pcm: np.ndarray, frames: Optional[int]):
+            """A batch's samples through the audio chain's host stage
+            (``AudioChain.prepare``): cut into ``frames`` audio frames (the
+            rest dropped, as in the JAX engine), or as one frame of an
+            audio-only session (``frames`` None)."""
+            if frames is None:
+                pcm = pcm[None]
+            else:
+                spf_b = pcm.shape[0] // max(1, frames)
+                pcm = pcm[:spf_b * frames].reshape(frames, spf_b,
+                                                   pcm.shape[-1])
+            if not pcm.flags.writeable:
+                pcm = pcm.copy()
+            return self.achain.prepare(AudioBatch(
+                pcm=torch.from_numpy(np.ascontiguousarray(pcm)),
+                rate=self.audio_importer.audio_rate or job.a_rate,
+                channels=pcm.shape[-1]))
+
+        def synced(first_id: int, got: int, slot: _InputSlot, pcm):
+            """The synchronizer on a batch's samples and planes: the
+            batch to queue, with the frame count after sync and, where a
+            frame was cloned or dropped, a slot of its own."""
+            pcm = self.sync.process_audio(pcm, spf)
+            audio_frames = pcm.shape[0] // spf if pcm is not None else 0
+            planes = {k: p[:got] for k, p in zip("yuv", slot.planes)}
+            out = self.sync.process_video(planes, audio_frames)
+            if out is not planes:
+                n = next(iter(out.values())).shape[0]
+                own = _InputSlot(shapes, max(1, n), staged, ring=False)
+                for dst, src in zip(own.planes, out.values()):
+                    dst[:n] = src
+                if free_in is not None:
+                    free_in.put(slot)
+                got, slot = n, own
+            return (first_id, got, slot, pcm)
+
+        # with an audio track the reader's items go through a thread of
+        # their own that runs the audio's host stage (numpy, mostly
+        # outside the interpreter lock) while the reader reads on
+        aq: Optional["queue.Queue"] = (queue.Queue(maxsize=depth)
+                                       if self.achain is not None else None)
 
         def read_loop() -> None:
+            out = aq if aq is not None else rq
             try:
-                left = job.vob_offset             # -L: decode and drop
-                if left:
-                    scratch = _InputSlot(shapes, 1, False)
-                    while left > 0 and reader.read_into(scratch.planes, 1):
-                        left -= 1
-                read = 0
-                while not stop.is_set():
-                    n = job.batch_size
-                    if max_frames is not None:
-                        n = min(n, max_frames - read)
-                        if n <= 0:
-                            break
-                    if free_in is None:
-                        slot = _InputSlot(shapes, n, False)
-                    else:
-                        slot = _get(free_in, lambda: not stop.is_set(),
-                                    "main")
-                        if slot.event is not None:
-                            slot.event.synchronize()
-                    got = reader.read_into(slot.planes, n)
-                    if not got or not _put(rq, (read, got, slot), stop):
-                        break
-                    read += got
-                    if got < n:                 # the end of the file
-                        break
+                if self.audio_only:
+                    read_audio_only()
+                else:
+                    read_av()
             except Exception as e:      # handed to the main thread
-                _put(rq, e, stop)
+                _put(out, e, stop)
                 return
-            _put(rq, _EOS, stop)
+            _put(out, _EOS, stop)
+
+        def prepare_loop() -> None:
+            """The audio's host stage on each item, in order."""
+            while True:
+                try:
+                    item = _get(aq, rthread.is_alive, "reader")
+                    if item is not _EOS and not isinstance(item, Exception):
+                        first_id, got, slot, pcm = item
+                        audio = (None if pcm is None else audio_host_stage(
+                            pcm, None if slot is None else got))
+                        item = (first_id, got, slot, audio)
+                except Exception as e:  # handed to the main thread
+                    item = e
+                if not _put(rq, item, stop) or item is _EOS \
+                        or isinstance(item, Exception):
+                    return
+
+        def read_audio_only() -> None:
+            # nominal frames of fps-worth samples keep the counters, -L
+            # and --max_frames meaningful without video
+            if job.vob_offset:
+                self.audio_importer.read_audio_batch(spf * job.vob_offset)
+            read = 0
+            while not stop.is_set():
+                n = job.batch_size
+                if max_frames is not None:
+                    n = min(n, max_frames - read)
+                    if n <= 0:
+                        break
+                pcm = self.audio_importer.read_audio_batch(spf * n)
+                if pcm is None or not len(pcm):
+                    break
+                frames = max(1, pcm.shape[0] // spf)
+                if not _put(aq, (read, frames, None, pcm), stop):
+                    break
+                read += frames
+
+        def read_av() -> None:
+            left = job.vob_offset             # -L: decode and drop
+            if left:
+                scratch = _InputSlot(shapes, 1, False)
+                while left > 0 and reader.read_into(scratch.planes, 1):
+                    left -= 1
+                if spf:
+                    self.audio_importer.read_audio_batch(
+                        spf * job.vob_offset)
+            read = 0             # source frames read (--max_frames)
+            emitted = 0          # frames after the synchronizer (ids)
+            while not stop.is_set():
+                n = job.batch_size
+                if max_frames is not None:
+                    n = min(n, max_frames - read)
+                    if n <= 0:
+                        break
+                if free_in is None:
+                    slot = _InputSlot(shapes, n, False)
+                else:
+                    slot = _get(free_in, lambda: not stop.is_set(), "main")
+                    if slot.event is not None:
+                        slot.event.synchronize()
+                got = reader.read_into(slot.planes, n)
+                if not got:
+                    break
+                item = (emitted, got, slot, None)
+                if spf:
+                    pcm = self.audio_importer.read_audio_batch(spf * got)
+                    item = synced(emitted, got, slot, pcm)
+                if not _put(aq if aq is not None else rq, item, stop):
+                    break
+                emitted += item[1]
+                read += got
+                if got < n:                 # the end of the file
+                    break
 
         def write_loop() -> None:
             try:
@@ -427,7 +670,10 @@ class Pipeline:
                         continue
                     if item is _EOS:
                         return
-                    (w, h), planes, ids, attrs, event, slot = item
+                    if item[0] == "a":
+                        write_audio(*item[1:])
+                        continue
+                    (w, h), planes, ids, attrs, event, slot = item[1:]
                     if event is not None:
                         event.synchronize()
                     keep = np.flatnonzero(self._kept(ids, attrs))
@@ -438,10 +684,23 @@ class Pipeline:
                                 fps_den=den, format=self.out_format)))
                     out_file[0].write(planes, keep)
                     self.counters.written += len(keep)
+                    if len(keep) and audio_out is not None:
+                        audio_out.open_now()
                     if slot is not None:
                         free_out.put(slot)
             except BaseException as e:
                 writer_err.append(e)
+
+        def write_audio(pcm, event) -> None:
+            if event is not None:
+                event.synchronize()
+            if self.audio_only:
+                audio_out.open_now()
+                if empty_wav is not None:
+                    empty_wav.open_now()
+            payloads = self.a_encoder.encode_audio(AudioBatch(pcm=pcm))
+            audio_out.write(payloads)
+            self.counters.audio_frames += len(payloads)
 
         def to_writer(item) -> None:
             # never block on a dead writer: surface its error instead
@@ -470,15 +729,16 @@ class Pipeline:
                     flat.copy_(slot.flat, non_blocking=True)
                     slot.event = torch.cuda.Event(blocking=True)
                     slot.event.record(h2d)
-                free_in.put(slot)
+                if slot.ring:
+                    free_in.put(slot)
                 compute = torch.cuda.current_stream(self.device)
                 compute.wait_event(slot.event)
                 flat.record_stream(compute)
                 planes, off = [], 0
                 for h, w in shapes:
-                    size = job.batch_size * h * w
+                    size = slot.batch * h * w
                     planes.append(flat[off:off + size].view(
-                        job.batch_size, h, w)[:got])
+                        slot.batch, h, w)[:got])
                     off += size
                 dev = self.device
             else:
@@ -507,7 +767,8 @@ class Pipeline:
             geometry = (out.width, out.height)
             if out.device.type != "cuda":
                 host = [np.ascontiguousarray(t.numpy()) for t in tensors]
-                return geometry, host[:-2], host[-2], host[-1], None, None
+                return ("v", geometry, host[:-2], host[-2], host[-1], None,
+                        None)
             slot = _get(free_out, writer_alive, "writer")
             dst = slot.views(tensors)
             d2h.wait_stream(torch.cuda.current_stream(self.device))
@@ -518,24 +779,74 @@ class Pipeline:
                 event = torch.cuda.Event(blocking=True)
                 event.record(d2h)
             host = [d.numpy() for d in dst]
-            return geometry, host[:-2], host[-2], host[-1], event, slot
+            return ("v", geometry, host[:-2], host[-2], host[-1], event,
+                    slot)
+
+        def audio_to_host(ab: AudioBatch):
+            """The writer's item for an audio batch: its samples in host
+            memory, or on their way there on the copy-back stream."""
+            pcm = ab.pcm
+            if pcm.device.type != "cuda":
+                return ("a", pcm, None)
+            host = torch.empty(pcm.shape, dtype=pcm.dtype, pin_memory=True)
+            d2h.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(d2h):
+                host.copy_(pcm, non_blocking=True)
+                pcm.record_stream(d2h)
+                event = torch.cuda.Event(blocking=True)
+                event.record(d2h)
+            return ("a", host, event)
+
+        def run_audio(prepared) -> None:
+            """A batch's prepared samples through the audio chain's
+            device stage and on to the writer."""
+            nonlocal astates, aclipped
+            out, astates, nclip = self.achain.run(prepared, astates)
+            for filt, state in zip(self.achain.filters, astates):
+                filt.collect(state)
+            aclipped = aclipped + nclip     # a device scalar: no wait
+            to_writer(audio_to_host(out))
 
         rthread = threading.Thread(target=read_loop, daemon=True,
                                    name="tcforge-reader")
+        pthread = (threading.Thread(target=prepare_loop, daemon=True,
+                                    name="tcforge-audio")
+                   if aq is not None else None)
+        # the thread that fills rq, and its name in an error
+        feeder, feeder_name = ((pthread, "audio") if pthread is not None
+                               else (rthread, "reader"))
         wthread = threading.Thread(target=write_loop, daemon=True,
                                    name="tcforge-writer")
-        states = self.chain.initial_states(self.device)
-        reader = _FrameReader(job.video_in_file)
+        states = ([] if self.audio_only
+                  else self.chain.initial_states(self.device))
+        astates = (self.achain.initial_states()
+                   if self.achain is not None else [])
+        aclipped: Any = 0
+        reader = None if self.audio_only else _FrameReader(job.video_in_file)
+        completed = False
         try:
             rthread.start()
+            if pthread is not None:
+                pthread.start()
             wthread.start()
             while True:
-                item = _get(rq, rthread.is_alive, "reader")
+                item = _get(rq, feeder.is_alive, feeder_name)
                 if item is _EOS:
+                    if self.achain is not None:
+                        tail, astates = self.achain.flush(astates)
+                        if tail is not None:
+                            to_writer(audio_to_host(tail))
+                    completed = True
                     break
                 if isinstance(item, Exception):
                     raise item
-                first_id, got, slot = item
+                first_id, got, slot, audio = item
+                if slot is None:             # an audio-only chunk
+                    self.counters.frames += got
+                    run_audio(audio)
+                    self.counters.batches += 1
+                    meter.update(self.counters.frames)
+                    continue
                 fb = to_device(first_id, got, slot)
                 if identity:
                     out = fb               # a no-op step: no device work
@@ -546,6 +857,8 @@ class Pipeline:
                 if out.rgb is not None:
                     out = colorspace.convert(out, self.out_format)
                 to_writer(to_host(out, first_id))
+                if audio is not None:
+                    run_audio(audio)
                 self.counters.frames += got
                 self.counters.batches += 1
                 meter.update(self.counters.frames)
@@ -559,20 +872,39 @@ class Pipeline:
                     continue
             wthread.join(timeout=_JOIN_S)
             stop.set()
-            rthread.join(timeout=_JOIN_S)
-            reader.close()
+            for thread in (rthread, pthread):
+                if thread is not None:
+                    thread.join(timeout=_JOIN_S)
+            if reader is not None:
+                reader.close()
             meter.finish()
             for filt, state in zip(self.chain.filters, states):
                 filt.finalize(state)
+            if self.achain is not None:
+                for filt, state in zip(self.achain.filters, astates):
+                    filt.finalize(state)
+            if self.audio_importer is not None:
+                self.audio_importer.close()
             for f in out_file:
                 f.close()
+            for wav in (audio_out, empty_wav):
+                if wav is not None:
+                    if completed and not writer_err:
+                        wav.open_now()      # the end of the stream
+                    wav.close()
         if writer_err:
             raise writer_err[0]
-        if wthread.is_alive() or rthread.is_alive():
+        if wthread.is_alive() or feeder.is_alive() or rthread.is_alive():
             raise RuntimeError("the engine's threads did not end")
-        if not out_file:                # no batch was read: the header
+        if not out_file and not self.audio_only:
+            # no batch was read: the header alone
             _FrameWriter(job.video_out_file, Y4MHeader(
                 *job.export_size(), fps_num=num, fps_den=den,
                 format=self.out_format)).close()
+        self.counters.audio_clipped += int(aclipped)
+        self.counters.cloned += self.sync.video_cloned
+        self.counters.dropped += self.sync.video_dropped
+        if self.sync.video_cloned or self.sync.video_dropped:
+            _log.info("[engine] %s", self.sync.summary())
         self.counters.seconds = time.perf_counter() - t0
         return self.counters

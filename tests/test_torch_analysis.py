@@ -407,9 +407,17 @@ def test_new_filters_register_under_their_jax_names(name):
                                   "sdlview", "normalize", "astat", "lowpass",
                                   "detectsilence", "resample", "aclip"])
 def test_filters_outside_this_slice_still_raise(name):
-    """divxkey waits for the MPEG-4 import, the audio filters for the
-    port's audio; the others for their own slices: the lookup raises, no
-    stand-in is registered."""
+    """divxkey waits for the MPEG-4 import, the others but the audio
+    filters for their own slices: the lookup raises, no stand-in is
+    registered.  The audio filters came with the port's audio track: each
+    is registered as an audio filter under its JAX name."""
+    from tcforge_tpu.modules import registry as jregistry
     from tcforge_tpu_torch.modules import registry as tregistry
+    jcls = jregistry.lookup(jregistry.ModuleKind.FILTER, name)
+    if issubclass(jcls, jregistry.AudioFilter):
+        cls = tregistry.lookup(tregistry.ModuleKind.FILTER, name)
+        assert issubclass(cls, tregistry.AudioFilter)
+        assert cls.info.name == name and int(cls.slots) == int(jcls.slots)
+        return
     with pytest.raises(KeyError, match=name):
         tregistry.lookup(tregistry.ModuleKind.FILTER, name)

@@ -13,14 +13,20 @@ the skipped counter equal to the JAX engine's), the field-rate paths'
 small cases on an interlaced clip with motion, the small ``-V rgb24``
 case, the ``FLAG_CASES`` (the internal transforms, ``-I 2``, the
 engine's flags and the filters of plain torch ops), and the internal
-transforms' flags through both parsers.  Every run of the port's engine
-goes through ``test_torch_engine.run_cli`` or ``run_engine``: in a
-thread joined with a timeout.
+transforms' flags through both parsers.  The audio track: the A/V and
+audio-only golden cases (``chip_smoke.AUDIO_GOLDEN_ARGS``), an audio
+filter in ``-J`` without ``-p``, the synchronizer's cases against the
+JAX CLI without its device mesh (its batches then match the port's),
+the audio-only session's flags, the refusals, and the audio flags
+through both parsers.  Every run of the port's engine goes through
+``test_torch_engine.run_cli`` or ``run_engine``: in a thread joined
+with a timeout.
 """
 
 from __future__ import annotations
 
 import hashlib
+from pathlib import Path
 from typing import Any, Tuple
 
 import pytest
@@ -586,3 +592,189 @@ def test_overlay_flags_cli_matches_jax_cli_byte_for_byte(
             files[side][1] = files[side][1].replace(
                 str(tmp_path / side).encode(), b"{dir}")
     assert files["port"] == files["jax"]
+
+
+# -- the audio track ---------------------------------------------------
+
+@pytest.fixture(scope="module")
+def audio_inputs(tmp_path_factory):
+    return chip_smoke.audio_golden_inputs(tmp_path_factory.mktemp("audio"))
+
+
+@pytest.mark.parametrize("case", sorted(chip_smoke.AUDIO_GOLDEN_ARGS))
+def test_audio_cli_matches_jax_cli_byte_for_byte(case, audio_inputs,
+                                                 tmp_path):
+    """The audio track's small cases through both CLIs: the A/V session
+    (-p, -m; with -E 44100 and without; -s 1.5 -d 1) on the golden Y4M
+    and the audio-only WAV-to-WAV session with -E and without: the same
+    Y4M and WAV bytes, and the digests chip_smoke.py checks on the
+    card."""
+    outs = {}
+    for side, main, extra in (("jax", jax_cli_main, []),
+                              ("port", run_cli, ["--device", "cpu"])):
+        base = tmp_path / side
+        assert main([*chip_smoke.audio_golden_argv(case, audio_inputs, base),
+                     "--progress_off", "-q", *extra]) == 0
+        outs[side] = {ext: Path(f"{base}.{ext}").read_bytes()
+                      for ext in ("y4m", "wav")
+                      if Path(f"{base}.{ext}").exists()}
+    assert outs["port"] == outs["jax"]
+    assert {f"{case}.{ext}": hashlib.sha256(data).hexdigest()
+            for ext, data in outs["port"].items()} == {
+        k: v for k, v in chip_smoke.AUDIO_GOLDEN_SHA256.items()
+        if k.startswith(case + ".")}
+
+
+def test_audio_filter_in_j_without_an_audio_track(audio_inputs, tmp_path):
+    """-J hqdn3d=luma=4.0,normalize with no -p: normalize is built and
+    has nothing to run on; the Y4M is -J hqdn3d=luma=4.0's, as in the JAX
+    CLI."""
+    src = str(audio_inputs["y4m"])
+    outs = {}
+    for name, main, filters, extra in (
+            ("jax", jax_cli_main, "hqdn3d=luma=4.0,normalize", []),
+            ("port", run_cli, "hqdn3d=luma=4.0,normalize",
+             ["--device", "cpu"]),
+            ("video", run_cli, "hqdn3d=luma=4.0", ["--device", "cpu"])):
+        outs[name] = tmp_path / f"{name}.y4m"
+        assert main(["-i", src, "-o", str(outs[name]), "-J", filters,
+                     "--batch", "3", "-q", *extra]) == 0
+    assert (outs["port"].read_bytes() == outs["jax"].read_bytes()
+            == outs["video"].read_bytes())
+
+
+@pytest.mark.parametrize("batch", [3, 16])
+def test_av_wav_under_resample_is_the_audio_only_sessions(batch,
+                                                          audio_inputs,
+                                                          tmp_path):
+    """With -E the filters see the resampler's 2048-sample chunks, which
+    do not depend on how the samples arrive: the A/V session's WAV is the
+    audio-only session's of the same samples (``chip_smoke._run_av``
+    holds the card's whole av WAV to the CPU's audio-only run so)."""
+    audio = chip_smoke.AV_AUDIO_ARGS
+    av = tmp_path / "av"
+    assert run_cli(["-i", str(audio_inputs["y4m"]), "-p",
+                    str(audio_inputs["wav"]), "-o", f"{av}.y4m", "-m",
+                    f"{av}.wav", "-J", "hqdn3d=luma=4.0", *audio,
+                    "--batch", str(batch), "--device", "cpu", "-q"]) == 0
+    alone = tmp_path / "alone.wav"
+    assert run_cli(["-i", str(audio_inputs["wav"]), "-o", str(alone),
+                    *audio, "--device", "cpu", "-q"]) == 0
+    assert Path(f"{av}.wav").read_bytes() == alone.read_bytes()
+
+
+@pytest.fixture(scope="module")
+def sync_inputs(tmp_path_factory):
+    """20 frames of 64x48 at 25 fps, a WAV six frames short of it and
+    one of its length."""
+    d = tmp_path_factory.mktemp("sync")
+    paths = {"y4m": d / "in.y4m", "short": d / "short.wav",
+             "exact": d / "exact.wav"}
+    chip_smoke.write_test_y4m(paths["y4m"], 64, 48, 20, 5)
+    chip_smoke.write_test_wav(paths["short"], 14 * 1920, 6, frame=1920)
+    chip_smoke.write_test_wav(paths["exact"], 20 * 1920, 7, frame=1920)
+    return paths
+
+
+SYNC_CASES = {
+    "clone": ("exact", ["-D", "-3", "--resync_interval", "4"]),
+    "drop": ("short", ["-D", "3", "--resync_interval", "4", "-c",
+                       "0.3-0.15"]),
+    "short_audio": ("short", ["--resync_interval", "0", "--resync_margin",
+                              "2", "--frame_interval", "2"]),
+    "clone_normalize": ("short", ["-D", "-5", "--resync_interval", "0",
+                                  "-J", "normalize"]),
+    "fine_ahead": ("exact", ["--av_fine_ms", "20", "-J", "normalize"]),
+    "fine_behind": ("exact", ["--av_fine_ms", "-20", "--sync", "none"]),
+    "seek": ("exact", ["-L", "3", "--max_frames", "11", "-D", "-3"]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SYNC_CASES))
+def test_sync_cli_matches_jax_cli_byte_for_byte(case, sync_inputs,
+                                                tmp_path):
+    """The A/V synchronizer through both CLIs (batches of 8, the JAX
+    engine without its device mesh so that the batches match): -D's
+    audio shift, --av_fine_ms, and adjust's clones and drops with audio
+    shorter than the video, the frame ids after sync under -c and
+    --frame_interval."""
+    wav, extra = SYNC_CASES[case]
+    common = ["-i", str(sync_inputs["y4m"]), "-p", str(sync_inputs[wav]),
+              "--batch", "8", *extra, "--progress_off", "-q"]
+    files = {}
+    for side, main, flags in (("jax", jax_cli_main, ["--mesh", "off"]),
+                              ("port", run_cli, ["--device", "cpu"])):
+        out = tmp_path / side
+        assert main([*common, "-o", f"{out}.y4m", "-m", f"{out}.wav",
+                     *flags]) == 0
+        files[side] = [Path(f"{out}.{e}").read_bytes() for e in ("y4m",
+                                                               "wav")]
+    assert files["port"] == files["jax"]
+
+
+def test_sync_counters_match_the_jax_engine(sync_inputs, tmp_path):
+    """Clones and drops land in the counters as in the JAX engine."""
+    argv = ["-i", str(sync_inputs["y4m"]), "-p", str(sync_inputs["short"]),
+            "-o", str(tmp_path / "o.y4m"), "-m", str(tmp_path / "o.wav"),
+            "--batch", "8", "-D", "-5", "--resync_interval", "0"]
+    from tcforge_tpu.cli import args_to_job as jargs, build_parser as jp
+    from tcforge_tpu.io.probe import probe_file, probe_to_job
+    jjob = jargs(jp().parse_args(argv + ["--mesh", "off"]))
+    probe_to_job(probe_file(jjob.video_in_file), jjob)
+    jc = JPipeline(jjob).run(progress=False)
+    pc = run_engine(Pipeline(cli.job_from_argv(argv), torch.device("cpu")))
+    assert (pc.written, pc.dropped, pc.cloned) == (jc.encoded, jc.dropped,
+                                                   jc.cloned)
+    assert pc.cloned == 5 and pc.dropped == 2
+    assert pc.audio_frames == jc.audio_frames
+
+
+@pytest.mark.parametrize("argv", [
+    ["-L", "2", "--max_frames", "9"], ["--max_frames", "3"],
+    ["-E", "22050,16,1", "-J", "aclip"], ["-d", "1", "--batch", "5"]])
+def test_audio_only_cli_flags_match_jax_cli(argv, audio_inputs, tmp_path):
+    """-L and --max_frames count the audio-only session's nominal frames
+    of round(rate/fps) samples; -E's bits and channels; -d."""
+    files = {}
+    for side, main, flags in (("jax", jax_cli_main, []),
+                              ("port", run_cli, ["--device", "cpu"])):
+        out = tmp_path / f"{side}.wav"
+        assert main(["-i", str(audio_inputs["long"]), "-o", str(out),
+                     *argv, "--progress_off", "-q", *flags]) == 0
+        files[side] = out.read_bytes()
+    assert files["port"] == files["jax"]
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["-p", "{wav}", "-m", "{tmp}/a.ogg"], "-m {tmp}/a.ogg"),
+    (["-p", "{y4m}", "-m", "{tmp}/a.wav"], "-p {y4m}"),
+    (["-i", "{wav}", "-o", "{tmp}/a.y4m"], "-o {tmp}/a.y4m")])
+def test_audio_outputs_the_port_lacks_are_refused(argv, message,
+                                                  audio_inputs, tmp_path,
+                                                  capsys):
+    def fill(text):
+        return (text.replace("{wav}", str(audio_inputs["wav"]))
+                .replace("{y4m}", str(audio_inputs["y4m"]))
+                .replace("{tmp}", str(tmp_path)))
+    argv = [fill(a) for a in argv]
+    if "-i" not in argv:
+        argv = ["-i", str(audio_inputs["y4m"]), "-o",
+                str(tmp_path / "v.y4m"), *argv]
+    assert run_cli([*argv, "--device", "cpu", "-q"]) == 1
+    assert fill(message) in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [
+    ["-s", "1.5", "-d", "1"], ["-E", "44100"], ["-E", "44100,8,1"],
+    ["-E", "32000,,2", "-d", "1"], ["-D", "-3", "--av_fine_ms", "20"],
+    ["--sync", "none", "--resync_margin", "3", "--resync_interval", "7",
+     "--no_audio_adjust"], ["-p", "a.wav", "-m", "b.wav"]])
+def test_audio_flags_parse_like_the_jax_cli(argv):
+    base = ["-i", "a.y4m", "-o", "b.y4m"]
+    port = cli.args_to_job(cli.build_parser().parse_args(base + argv))
+    ref = jax_args_to_job(jax_build_parser().parse_args(base + argv))
+    for field in ("volume", "mp3frequency", "dm_bits", "dm_chan",
+                  "av_offset", "av_fine_ms", "sync_method", "resync_margin",
+                  "resync_interval", "no_audio_adjust", "audio_in_file",
+                  "audio_out_file"):
+        assert getattr(port, field) == getattr(ref, field), field

@@ -34,12 +34,23 @@ from tcforge_tpu_torch.modules.filters.tomsmocomp import TomsMoCompFilter
 from tcforge_tpu_torch.modules.filters.unsharp import UnsharpFilter
 from tcforge_tpu_torch.ops import kernels, zoom
 
+# One intra-op thread per test process.  Every xdist worker collects
+# every test file before it runs any, so this line, in a port test
+# module that all workers import, sets each worker's torch to one
+# thread for the whole run.  Six workers with torch's default eight
+# threads each on eight cores oversubscribe the CPU: three copies of
+# test_torch_stabilize.py's warp_plane/transform_filter cases run at
+# once with eight threads each did not finish in 230 s, with one thread
+# each they took 47 s (one copy alone: 63 s with eight threads, 76 s
+# with one).
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "tcforge_tpu_torch"
 
 COPIES = ["core/formats.py", "core/optstr.py", "core/codecs.py",
           "core/framecode.py", "core/job.py", "core/ratiocodes.py",
-          "io/y4m.py", "io/image.py"]
+          "io/y4m.py", "io/image.py", "io/wav.py"]
 
 
 def _imported_modules(path: Path):
