@@ -44,13 +44,22 @@ Lanczos3 zoom, ``-J hqdn3d=luma=4.0`` (which runs after the zoom, at
   the audio chain is plain torch and the host stage's numpy), and
   audio_only, a 60 s WAV to WAV, once through ``-E 44100 -J
   normalize,lowpass,astat`` and once through the jitted step's form,
-  ``-J normalize=algo=2,aclip,detectsilence,cpaudio``.
+  ``-J normalize=algo=2,aclip,detectsilence,cpaudio``;
+- the DVD path: ``tests/data/mpeg2/dvd.vob`` (NTSC DVD video, 720x480
+  at 29.97 fps, 48 frames of MPEG-2 MP@ML frame pictures, GOP N=15 M=3,
+  6000 kbit/s, a video-only program stream) through ``-x mpeg -J
+  hqdn3d=luma=4.0``: the host parse (a g++ build of the port's pinned
+  copy of the JAX package's C++ parser), the reconstruction on the card
+  (``mpeg2_recon`` for each P and B picture, ``mpeg2_idct_intra`` for
+  intra runs), hqdn3d's scans; and the same on ``dvd_fields.vob``
+  (field pictures).
 
 Phases, each of which raises on failure:
 
 1. a CUDA card is present; print its name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``tcforge_tpu_torch/csrc`` (one nvcc per
-   source, all started together; sm_90a);
+   source, all started together; sm_90a) and the MPEG-2 parse library
+   (g++) beside them;
 3. each kernel against its plain torch version on the card, tolerance 0
    (all of it is integer arithmetic): at its paths' shapes, and off the
    paths at ragged shapes and a band wider than the zoom's unrolled
@@ -66,7 +75,12 @@ Phases, each of which raises on failure:
    shape and at ragged planes; the field search and the warp at the
    stabilize path's shapes and off it (stepsize 1, 2 and 6, ragged
    frames, fields over the edges, ties, shakiness 10; every
-   interpolation with and without crop); with ``--parent DIR``, the unsharp,
+   interpolation with and without crop); the two MPEG-2 kernels on every
+   call while every stream of ``tests/data/mpeg2`` decodes (every
+   picture of dvd.vob and of the field-picture stream, field MC, dual
+   prime, field DCT, MPEG-1 D-pictures, sizes that are not a multiple of
+   16, intra runs of 1 and 3 pictures) and timed at dvd.vob's shapes
+   beside ``torch.matmul`` of their IDCT part; with ``--parent DIR``, the unsharp,
    TomsMoComp and temporal kernels of the checkout in DIR are built
    too, called through DIR's own wrappers and timed in turns with this
    tree's on the same inputs;
@@ -87,7 +101,9 @@ Phases, each of which raises on failure:
    batches) and audio_only (each run's WAV equal to the CPU's), and the
    engine at every ``--prefetch`` 1, 2, 4 and ``--batch`` 1, 3, 16;
 5. the small cases whose SHA-256 ``tests/test_torch_cli.py`` pins
-   against the JAX CLI, run on the card: same digests;
+   against the JAX CLI, run on the card: same digests; and the MPEG
+   goldens (``MPEG_GOLDEN``: dvd.vob and the field-picture stream at full
+   width and the small streams, ``-c``, ``-L``, a cut stream);
 6. numbers: steady-state chain frames/s on device-resident batches
    (CUDA events) for every path, beside the host's time to queue the
    batches, the step's peak device memory and the device's busy share
@@ -102,7 +118,11 @@ Phases, each of which raises on failure:
    alone (``AV_SPLIT``) in turns, the engine's video and audio stages
    timed inside the CLI (``_StageClock``), audio_only's seconds of
    audio per second, and the audio chain's host and device ms per batch
-   (``_audio_chain_ms``).
+   (``_audio_chain_ms``); the DVD path on dvd.vob's stream three times
+   over (nine batches): the host's parse a batch, decode and hqdn3d on
+   the card (events, host queueing, device busy and time by kernel),
+   the CLI on that stream and on dvd.vob, six runs of each in turns,
+   and its serial stages (``mpeg_stages``).
 
 It prints one JSON object per result, then the kernels' summary and, as
 its last line, ``{"ok": true, "device": {...}}``.  It imports nothing of
@@ -529,6 +549,87 @@ def audio_golden_argv(case: str, paths: dict, out) -> list:
             f"{out}.y4m", "-m", f"{out}.wav", *AUDIO_GOLDEN_ARGS[case]]
 
 
+# the DVD path: MPEG-2 import of tests/data/mpeg2/dvd.vob (NTSC DVD
+# video, 720x480 at 29.97 fps, 48 frames, MP@ML frame pictures, GOP N=15
+# M=3, 6000 kbit/s, a video-only program stream; make_streams.py writes
+# it with the JAX package's encoder) into hqdn3d, and the same on the
+# field-picture stream; the kernels of both
+MPEG_DATA = ROOT / "tests" / "data" / "mpeg2"
+DVD_ARGS = ["-x", "mpeg", "-J", "hqdn3d=luma=4.0"]
+DVD_W, DVD_H, DVD_FRAMES = 720, 480, 48
+MPEG_KERNELS = ("mpeg2_recon", "mpeg2_idct_intra", "hqdn3d_spatial_scan",
+                "hqdn3d_temporal_scan")
+# the stream cut mid-picture: the first bytes of small.m2v
+MPEG_CUT = ("small.m2v", 7000)
+# the whole-path goldens: the port's CLI on the stream with the
+# arguments, SHA-256 pinned against the JAX CLI (with --mesh off) by
+# tests/test_torch_cli.py and tests/test_torch_mpeg_import.py on the CPU,
+# and checked again on the card
+MPEG_GOLDEN = {
+    "dvd": ("dvd.vob", DVD_ARGS + ["--batch", "16"]),
+    "dvd_fields": ("dvd_fields.vob", DVD_ARGS + ["--batch", "16"]),
+    "small_ps": ("small.mpg", ["-J", "hqdn3d=luma=4.0", "--batch", "3"]),
+    "small_es": ("small.m2v", ["-x", "mpeg2", "--batch", "4"]),
+    "fields": ("fields.m2v", ["-x", "vob", "-J", "hqdn3d=luma=4.0",
+                              "--batch", "3"]),
+    "mpeg1": ("mpeg1.m1v", ["--batch", "5"]),
+    "dpict": ("dpict.m1v", ["-x", "mpg", "--batch", "3"]),
+    "intra": ("intra.m2v", ["--batch", "3"]),
+    "odd": ("synth_odd.m2v", ["--batch", "3"]),
+    "synth": ("synth_tff0.m2v", ["--batch", "2"]),
+    "synth_fields": ("synth_fields.m2v", ["--batch", "4"]),
+    "ranges": ("small.mpg", ["-c", "0.2-0.9,0.12-0.17", "--batch", "3"]),
+    "seek": ("small.mpg", ["-L", "5", "--batch", "3"]),
+    "seek_es": ("small.m2v", ["-L", "4", "--max_frames", "7", "--batch",
+                              "2"]),
+    "b_run": ("small.m2v", ["--batch", "2", "--frame_interval", "2"]),
+    "cut": (None, ["--batch", "3"]),
+}
+MPEG_GOLDEN_SHA256 = {
+    "dvd": "9a2358e8def4fef5d45e0ac141498b349cb07a1bde50e6ae3120e8dfc339c4ef",
+    "dvd_fields":
+        "c6f90f999bd14c3675e0bbbd3c1079e1b2399bf88f9980ae832b9262caab8194",
+    "small_ps":
+        "306b35473395dda48e1169b1464f7254fc48467212aecf410ebe8ac99f4114ea",
+    "small_es":
+        "79671d4a1a819c6b7b79db1a53162975e9f7b77fbcb25d5b1a5708b802780a13",
+    "fields":
+        "25dd90665f93e09bd06af58884bb5f8dbfe591e11596760d50fa959b8eb4d747",
+    "mpeg1":
+        "d3c3e17e5ed4111bf69feb64294107f7d7eabd3ea346d37c2511997b8563f12c",
+    "dpict":
+        "cafa6098b4176694d66380e7a230ff1d20f7fdc24c30d94f676892f4ac34fc62",
+    "intra":
+        "34757c1b3e9db385abc5f46c2874b2ebbd67c07069d58e66e1d104028d305f5d",
+    "odd": "0047a816ed547ed20fef6c4302415ea62430cf91ec586c14e97e66203b7d279f",
+    "synth":
+        "668fb2cdb277c3834ecf4cbac8aac352998c1b4dd43b20730898b4cc36361ff6",
+    "synth_fields":
+        "b54d0655a69cf043463be6a8f4e6f1633e9f13a9519230f6bed2c74c6c08ecfb",
+    "ranges":
+        "f6eac6209ef4c53595dc39cfbeed120f519588a28591928840b93953ec95fae5",
+    "seek": "053a6467236db2a67d18193158e55314e2d68461ec4547c86c71dd010f0970c3",
+    "seek_es":
+        "d1ed0f4421836872518c98ee3dacf58f65065f0dd120fa558014f9433706081b",
+    "b_run":
+        "f92a7d04304b583ed3cdbe0190bda2ba4976bc36726015293e2e12e977f7eda9",
+    "cut": "f90d2d57f6fd146cef24e16bb83e0f76398479aeec423fbb57051c1f99a025f3",
+}
+
+
+def mpeg_golden_input(case: str, directory) -> Path:
+    """The stream of an ``MPEG_GOLDEN`` case: a file of
+    tests/data/mpeg2, or for ``cut`` the first ``MPEG_CUT`` bytes of one,
+    written into ``directory``."""
+    name = MPEG_GOLDEN[case][0]
+    if name is not None:
+        return MPEG_DATA / name
+    src, nbytes = MPEG_CUT
+    out = Path(directory) / "cut.m2v"
+    out.write_bytes((MPEG_DATA / src).read_bytes()[:nbytes])
+    return out
+
+
 # the CLI timings: ten batches of MAIN_BATCH frames, enough for the
 # engine's stages to overlap
 ENGINE_FRAMES = 10 * 16
@@ -540,6 +641,10 @@ CFG1_W, CFG1_H, CFG1_ZOOM = 640, 480, (512, 384)
 # the 67 TFLOP/s fp32 peak) x 132 SMs x 1.98 GHz; the card's L2
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# fused multiply-adds a second: float32 at the 67 TFLOP/s peak outside
+# the tensor cores, float64 at 34 TFLOP/s (two operations each)
+F32_FMA_PER_S = 67e12 / 2
+F64_FMA_PER_S = 34e12 / 2
 L2_BYTES = 50 << 20
 # int32 operations per element, the fewest each function needs: a
 # spatial step is the index (add, shift, two clamps for hqdn3d; add and
@@ -625,14 +730,23 @@ KERNELS = {
                                "tcforge_tpu/modules/filters/stabilize.py:209"),
     "transform_warp": ("tcforge_tpu_torch/csrc/stabilize.cu",
                        "tcforge_tpu/modules/filters/stabilize.py:632"),
+    # not TPU kernels: the XLA ops of _recon_picture_math and
+    # _recon_field_core, and the CPU branch of reconstruct_intra_batch_jax
+    # (the native float64 IDCT)
+    "mpeg2_recon": ("tcforge_tpu_torch/csrc/mpeg2_recon.cu",
+                    "tcforge_tpu/io/mpeg2codec.py:1527"),
+    "mpeg2_idct_intra": ("tcforge_tpu_torch/csrc/mpeg2_recon.cu",
+                         "tcforge_tpu/io/mpeg2codec.py:1851"),
 }
 LIBS = ("hqdn3d_scan", "zoom_pass", "unsharp", "tomsmocomp", "yuvdenoise",
-        "stabilize")
+        "stabilize", "mpeg2_recon")
+# the host libraries (g++): the MPEG-2 parse
+HOST_LIBS = ("mpeg2intra",)
 # each wrapper of ops/kernels.py, whose plain version is <name>_ref
 WRAPPERS = ("spatial_scan", "temporal_scan", "zoom_pass", "unsharp_plane",
             "tomsmocomp_plane", "tomsmocomp_window", "d3_spatial_scan",
             "d3_temporal_scan", "yuvdenoise_chroma", "stabilize_field_search",
-            "transform_warp")
+            "transform_warp", "mpeg2_recon", "mpeg2_idct_intra")
 
 
 def write_test_y4m(path, width: int, height: int, frames: int,
@@ -944,8 +1058,18 @@ def main(argv=()) -> int:
         path, report = _build.build(lib)
         return path, report, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(LIBS)) as pool:
+    def build_host(lib):
+        t0 = time.perf_counter()
+        path, report = _build.build_host(lib)
+        return path, report, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(LIBS) + len(HOST_LIBS)) as pool:
+        host = [pool.submit(build_host, lib) for lib in HOST_LIBS]
         builds = list(pool.map(build, LIBS))
+    for lib, job in zip(HOST_LIBS, host):
+        path, _report, seconds = job.result()
+        emit(phase="build", lib=lib, seconds=seconds, compiler="g++",
+             path=str(path.relative_to(ROOT)))
     for lib, (path, report, seconds) in zip(LIBS, builds):
         kernels._lib(lib)
         emit(phase="build", lib=lib, seconds=seconds,
@@ -971,6 +1095,8 @@ def main(argv=()) -> int:
     _check_yuvdenoise_chroma(torch, kernels, bench)
     torch.cuda.empty_cache()
     _check_stabilize_kernels(torch, kernels, bench)
+    torch.cuda.empty_cache()
+    _check_mpeg2_kernels(torch, kernels, bench)
     torch.cuda.empty_cache()
     _check_ragged(torch, kernels, zoom, hq, bench)
     _check_unsharp_sizes(torch, kernels, bench)
@@ -1133,6 +1259,10 @@ def main(argv=()) -> int:
         # with and without the track), the audio-only path, the small
         # cases pinned against the JAX CLI
         path_launches["av"] = _run_av(torch, cli, kernels, tmp)
+        # 4. and 5. for the DVD path: the MPEG-2 import into hqdn3d,
+        # and the MPEG goldens pinned against the JAX CLI
+        path_launches["dvd"] = _run_dvd(torch, cli, kernels, tmp)
+        _mpeg_goldens(cli, tmp)
         _run_audio_only(torch, cli, tmp)
         _audio_goldens(cli, tmp)
         emit(phase="audio_chain", batch=MAIN_BATCH,
@@ -1202,10 +1332,17 @@ def main(argv=()) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_overlay_") as tmp:
         _overlay_rates(torch, dev, cli, Path(tmp))
     torch.cuda.empty_cache()
+    # 6. the DVD path: decode and chain on the card, the host's parse,
+    # the CLI on nine batches with the serial stages beside it
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dvd_") as tmp:
+        _dvd_rates(torch, dev, cli, Path(tmp))
+    torch.cuda.empty_cache()
 
     # each kernel's launches in the run of the path that carries it
     for name, (src, _) in KERNELS.items():
-        if name not in MAIN_KERNELS:
+        if name in ("mpeg2_recon", "mpeg2_idct_intra"):
+            launches[name] = path_launches["dvd"][name]
+        elif name not in MAIN_KERNELS:
             owner = next(p for p, spec in (*PATHS.items(),
                                            *CLEAN_PATHS.items(),
                                            *OVERLAY_PATHS.items())
@@ -2960,6 +3097,384 @@ def _audio_chain_ms(torch, dev, batches: int = 10, warmup: int = 4):
                        "busy_ms_per_batch": busy["busy_ms_per_batch"],
                        "kernels_ms_per_batch": busy["kernels_ms_per_batch"]}
     return out
+
+
+# ---------------------------------------------------------------------- #
+# The DVD path: MPEG-1/2 import (host parse, reconstruction kernels) into
+# hqdn3d
+
+def _mpeg_importer(path, dev, buffers: int = 2, options: str = ""):
+    from tcforge_tpu_torch.core.job import Job
+    from tcforge_tpu_torch.modules.registry import ModuleKind, new_module
+    imp = new_module(ModuleKind.DEMULTIPLEXOR, "mpeg", Job(), options)
+    imp.open(str(path))
+    imp.start(dev, buffers)
+    return imp
+
+
+def _recon_bytes(args) -> int:
+    """What one frame picture's ``mpeg2_recon`` call must move: its
+    coefficient grids and records, each reference plane it reads once,
+    its three planes out."""
+    yc, uc, vc, mbinfo, fwd, bwd = args[:6]
+    refs = [p for planes in (fwd, bwd) if planes is not None for p in planes]
+    return (_nbytes(yc, uc, vc, mbinfo, *refs)
+            + yc.shape[0] * yc.shape[1] * 64 * 3 // 2)
+
+
+def _check_mpeg2_kernels(torch, kernels, bench):
+    """Phase 3 for the MPEG-2 reconstruction: every call of
+    ``mpeg2_recon`` and ``mpeg2_idct_intra`` while every stream of
+    tests/data/mpeg2 decodes on the card (dvd.vob's every picture, the
+    field-picture stream, field MC, dual prime, field DCT, MPEG-1 with
+    D-pictures, sizes that are not a multiple of 16) held against the
+    plain versions on the same inputs, at batches of 16, of 1 and of 3
+    (intra runs of one and of an odd count); the float64 IDCT on ragged
+    random grids of 1 and 5 pictures; then each timed at dvd.vob's
+    shapes beside its plain version, its bound and ``torch.matmul`` of
+    the IDCT's (blocks, 64) @ (64, 64) part."""
+    dev = bench.dev
+    recon, idct = kernels.mpeg2_recon, kernels.mpeg2_idct_intra
+    counts = {"mpeg2_recon": 0, "mpeg2_idct_intra": 0}
+    captured = {"recon": [], "idct": []}
+    where = {"case": ""}
+
+    def checked_recon(*args, **kw):
+        got = recon(*args, **kw)
+        bench.check("mpeg2_recon", where["case"], got,
+                    kernels.mpeg2_recon_ref(*args, **kw), quiet=True)
+        counts["mpeg2_recon"] += 1
+        if where["case"] == "dvd.vob b16":
+            captured["recon"].append(args)
+        return got
+
+    def checked_idct(coef):
+        got = idct(coef)
+        bench.check("mpeg2_idct_intra", where["case"], got,
+                    kernels.mpeg2_idct_intra_ref(coef), quiet=True)
+        counts["mpeg2_idct_intra"] += 1
+        if where["case"] == "dvd.vob b16":
+            captured["idct"].append(coef)
+        return got
+
+    streams = sorted(p.name for p in MPEG_DATA.iterdir()
+                     if p.suffix != ".py")
+    runs = [(name, 16) for name in streams] + [
+        ("intra.m2v", 1), ("intra.m2v", 3), ("dpict.m1v", 1),
+        ("synth_fields.m2v", 1), ("small.mpg", 3)]
+    kernels.mpeg2_recon, kernels.mpeg2_idct_intra = (checked_recon,
+                                                     checked_idct)
+    try:
+        for name, batch in runs:
+            where["case"] = f"{name} b{batch}"
+            imp = _mpeg_importer(MPEG_DATA / name, dev)
+            while imp.read_video_batch(batch) is not None:
+                pass
+            imp.close()
+    finally:
+        kernels.mpeg2_recon, kernels.mpeg2_idct_intra = recon, idct
+    rng = np.random.default_rng(11)
+    for n, bh, bw in ((1, 3, 5), (5, 7, 9), (1, 60, 90)):
+        coef = torch.from_numpy(rng.integers(-300, 300, (n, bh, bw, 64),
+                                             dtype=np.int32)).to(dev)
+        bench.check("mpeg2_idct_intra", f"random {n}x{bh}x{bw}",
+                    kernels.mpeg2_idct_intra(coef),
+                    kernels.mpeg2_idct_intra_ref(coef), quiet=True)
+        counts["mpeg2_idct_intra"] += 1
+    for kernel, cases in counts.items():
+        emit(phase="kernel_sweep", kernel=kernel, cases=cases,
+             streams=len(streams), max_abs_err=0)
+
+    # timed at dvd.vob's shapes: its P and B pictures in turn (each a
+    # different picture, more than L2 together), and its intra planes
+    from tcforge_tpu_torch.io.mpeg2codec import idct_kron
+    calls = captured["recon"]
+    check(len(calls) >= 8, f"dvd.vob gave {len(calls)} mpeg2_recon calls")
+    kmat = torch.from_numpy(idct_kron()).to(dev)
+
+    def fmas(args):
+        """Fused multiply-adds these coefficients need: 64 per nonzero
+        coefficient (one for each pixel of its block)."""
+        return 64 * int(sum(int((c != 0).sum()) for c in args[:3]))
+
+    def coef_rows(args):
+        return (torch.cat([c.reshape(-1, 64) for c in args[:3]])
+                .to(torch.float32),)
+
+    per_batch = len(calls) / (DVD_FRAMES / MAIN_BATCH)
+    # the bound of the mean call: the timed calls are these pictures in
+    # turn, B pictures reading two references and P pictures one
+    bench.record("mpeg2_recon", "720x480 P and B pictures", per_batch,
+                 lambda *a: kernels.mpeg2_recon(*a),
+                 lambda *a: kernels.mpeg2_recon_ref(*a), calls,
+                 nbytes=sum(map(_recon_bytes, calls)) / len(calls),
+                 ops=sum(map(fmas, calls)) / len(calls),
+                 library=(lambda c: torch.matmul(c, kmat),
+                          [coef_rows(a) for a in calls]),
+                 plain_reps=2, ops_per_s=F32_FMA_PER_S)
+    planes = captured["idct"]
+    check(len(planes) >= 3, f"dvd.vob gave {len(planes)} intra planes")
+    per_batch = len(planes) / (DVD_FRAMES / MAIN_BATCH)
+    kmat64 = kmat.to(torch.float64)
+    for label, group in (("720x480 intra Y", planes[0::3]),
+                         ("360x240 intra U, V", planes[1::3] + planes[2::3])):
+        inputs = [(c,) for c in group]
+        while sum(_nbytes(c) for (c,) in inputs) < L2_BYTES:
+            inputs = inputs + [(c.clone(),) for (c,) in inputs]
+        c0 = inputs[0][0]
+        blocks = c0.numel() // 64
+        bench.record("mpeg2_idct_intra", label,
+                     per_batch * len(group) / len(planes),
+                     kernels.mpeg2_idct_intra, kernels.mpeg2_idct_intra_ref,
+                     inputs, nbytes=_nbytes(c0) + blocks * 64,
+                     ops=1024 * blocks,
+                     library=(lambda c: torch.matmul(c, kmat64),
+                              [(c.reshape(-1, 64).to(torch.float64),)
+                               for (c,) in inputs]),
+                     plain_reps=2, ops_per_s=F64_FMA_PER_S)
+
+
+def _run_dvd(torch, cli, kernels, tmp):
+    """Phase 4 for the DVD path: dvd.vob through the port's CLI with the
+    launch counts set to 0 just before and read just after (the two
+    reconstruction kernels and hqdn3d's), its output equal to the same
+    CLI on the plain versions on the card, byte for byte, and equal at
+    --batch 1, 3, 16 and --prefetch 1, 4; the field-picture stream
+    against its plain versions too.  Returns the launches."""
+    argv = ["-i", str(MPEG_DATA / "dvd.vob"), *DVD_ARGS, "--device", "cuda",
+            "--progress_off", "-q"]
+    out = tmp / "dvd.y4m"
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main([*argv, "-o", str(out), "--batch", str(MAIN_BATCH)])
+    torch.cuda.synchronize()
+    e2e_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    check(rc == 0, f"dvd: CLI exit code {rc}")
+    emit(phase="path", path="dvd", frames=DVD_FRAMES, seconds=e2e_s,
+         e2e_fps=DVD_FRAMES / e2e_s,
+         launches={k: launches[k] for k in MPEG_KERNELS})
+    for name in MPEG_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched by the "
+                                  "dvd path")
+    want = out.read_bytes()
+    for name, src in (("dvd", "dvd.vob"), ("dvd_fields", "dvd_fields.vob")):
+        got = {}
+        for label, ctx in (("kernels", contextlib.nullcontext()),
+                           ("plain", plain_versions(kernels))):
+            path = tmp / f"{name}_{label}.y4m"
+            with ctx:
+                rc = cli.main(["-i", str(MPEG_DATA / src), *DVD_ARGS,
+                               "--device", "cuda", "--progress_off", "-q",
+                               "-o", str(path)])
+            check(rc == 0, f"{name} on the {label}: CLI exit code {rc}")
+            got[label] = path.read_bytes()
+        same = got["kernels"] == got["plain"]
+        emit(phase="path_vs_plain", path=name, identical=same,
+             sha256=hashlib.sha256(got["kernels"]).hexdigest())
+        check(same, f"{name}: the kernels' output differs from the plain "
+                    "versions' on the card")
+    check(want == (tmp / "dvd_kernels.y4m").read_bytes(),
+          "dvd: two runs of the CLI differ")
+    for prefetch in (1, 4):
+        for batch in (1, 3, 16):
+            path = tmp / f"dvd_{prefetch}_{batch}.y4m"
+            rc = cli.main([*argv, "-o", str(path), "--prefetch",
+                           str(prefetch), "--batch", str(batch)])
+            same = rc == 0 and path.read_bytes() == want
+            emit(phase="engine_vs_batch16", path="dvd", prefetch=prefetch,
+                 batch=batch, identical=same)
+            check(same, f"dvd at --prefetch {prefetch} --batch {batch}: "
+                        "the output differs")
+            path.unlink()
+    return launches
+
+
+def _mpeg_goldens(cli, tmp):
+    """Phase 5 for the MPEG import: every ``MPEG_GOLDEN`` case on the
+    card, its SHA-256 against the JAX CLI's pinned digest."""
+    for case, (_name, args) in MPEG_GOLDEN.items():
+        src = mpeg_golden_input(case, tmp)
+        out = tmp / f"mpeg_golden_{case}.y4m"
+        rc = cli.main(["-i", str(src), "-o", str(out), *args, "--device",
+                       "cuda", "--progress_off", "-q"])
+        digest = sha256_file(out)
+        emit(phase="golden", path=f"mpeg_{case}", sha256=digest,
+             pinned=MPEG_GOLDEN_SHA256[case])
+        check(rc == 0 and digest == MPEG_GOLDEN_SHA256[case],
+              f"mpeg {case} golden output differs from the JAX-pinned "
+              "digest")
+
+
+def _dvd_long_es(tmp, copies: int = 3) -> Path:
+    """dvd.vob's video elementary stream three times over (144 frames,
+    nine batches): a longer programme of the same pictures."""
+    from tcforge_tpu_torch.io import mpeg
+    es = b"".join(p for sid, p in mpeg.iter_pes_packets(
+        str(MPEG_DATA / "dvd.vob")) if 0xE0 <= sid <= 0xEF)
+    path = Path(tmp) / "dvd_long.m2v"
+    path.write_bytes(es * copies)
+    return path
+
+
+def _dvd_rates(torch, dev, cli, tmp):
+    """Phase 6 for the DVD path, on dvd.vob's stream three times over
+    (nine batches of 16): the host's parse and plan per batch; the
+    decode and hqdn3d on the card per batch (CUDA events; the host's
+    time to queue them; the device's busy share and time by kernel from
+    torch.profiler: the upload, mpeg2_recon, mpeg2_idct_intra, hqdn3d's
+    scans); then the CLI, wall clock, six runs on that stream and six on
+    dvd.vob in turns, and its serial stages one by one
+    (``mpeg_stages``)."""
+    from torch.profiler import ProfilerActivity, profile
+    from tcforge_tpu_torch.core.formats import ImageFormat
+    from tcforge_tpu_torch.core.frame import FrameBatch
+    from tcforge_tpu_torch.core.job import FilterSpec, Job
+    from tcforge_tpu_torch.pipeline.chain import VideoChain
+    src = _dvd_long_es(tmp)
+    job = Job(filters=[FilterSpec("hqdn3d", "luma=4.0")],
+              im_v_width=DVD_W, im_v_height=DVD_H)
+
+    def plans():
+        # a buffer for each of the nine plans: all parsed before the run
+        imp = _mpeg_importer(src, dev, buffers=10)
+        out, ms = [], []
+        while True:
+            t0 = time.perf_counter()
+            plan = imp.plan_batch(MAIN_BATCH)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if plan is None:
+                return imp, out, ms[:-1]
+            out.append(plan)
+
+    def run(imp, todo, copy):
+        chain = VideoChain(job, ImageFormat.YUV420P, DVD_W, DVD_H)
+        states = chain.initial_states(dev)
+        first = 0
+        for plan in todo:
+            planes = imp.execute(plan, copy)
+            n = planes["y"].shape[0]
+            fb = FrameBatch(format=ImageFormat.YUV420P, y=planes["y"],
+                            u=planes["u"], v=planes["v"],
+                            attrs=torch.zeros((n,), dtype=torch.int32,
+                                              device=dev),
+                            frame_ids=torch.arange(first, first + n,
+                                                   dtype=torch.int32,
+                                                   device=dev), fps=29.97)
+            _out, states = chain(fb, states)
+            first += n
+        return first
+
+    copy = torch.cuda.Stream(dev)
+    imp, todo, parse_ms = plans()
+    run(imp, todo[:1], copy)                   # warm: kernels loaded
+    imp, todo, parse_ms = plans()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    frames = run(imp, todo, copy)
+    end.record()
+    queue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    event_ms = start.elapsed_time(end)
+    imp, todo2, _ = plans()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run(imp, todo2, copy)
+        torch.cuda.synchronize()
+    batches = len(todo)
+    busy = _device_busy(prof, batches)
+    emit(phase="chain", path="dvd", batch=MAIN_BATCH, frames=frames,
+         chain_fps=frames / (event_ms / 1e3), ms_per_batch=event_ms / batches,
+         queue_ms_per_batch=queue_ms / batches,
+         parse_ms_per_batch=sum(parse_ms) / len(parse_ms),
+         parse_fps=frames / (sum(parse_ms) / 1e3), **busy,
+         busy_share=(busy["busy_ms_per_batch"] / (event_ms / batches)
+                     if busy["busy_ms_per_batch"] else None))
+    # the CLI on the long ES and on dvd.vob's program stream, in turns
+    # (the host's spread between runs is wide: six of each, the order
+    # turned each round)
+    out = Path(tmp) / "dvd_long.y4m"
+    argv = [*DVD_ARGS, "--batch", str(MAIN_BATCH)]
+    inputs = {"es": (src, frames), "ps": (MPEG_DATA / "dvd.vob", DVD_FRAMES)}
+    fps = {name: [] for name in inputs}
+    names = list(inputs)
+    for r in range(6):
+        for name in names[r % 2:] + names[:r % 2]:
+            path, n = inputs[name]
+            t0 = time.perf_counter()
+            rc = cli.main(["-i", str(path), "-o", str(out), *argv,
+                           "--device", "cuda", "--progress_off", "-q"])
+            torch.cuda.synchronize()
+            fps[name].append(n / (time.perf_counter() - t0))
+            check(rc == 0, f"dvd CLI on {path.name}: exit code {rc}")
+    emit(phase="cli", path="dvd", frames=frames, fps=fps["es"],
+         median_fps=float(np.median(fps["es"])),
+         min_fps=min(fps["es"]), max_fps=max(fps["es"]),
+         ps_frames=DVD_FRAMES, ps_fps=fps["ps"],
+         ps_median_fps=float(np.median(fps["ps"])),
+         stages=mpeg_stages(torch, dev, src, Path(tmp) / "stages.y4m", job))
+
+
+def mpeg_stages(torch, dev, src, out, job, batch: int = MAIN_BATCH):
+    """The serial engine's stages for an MPEG input on the card, each
+    timed alone with the card synchronized after it: the host parse and
+    plan, the decode (upload and reconstruction), the chain, the copy
+    back and the Y4M write.  Returns ms per batch of each, their sum and
+    the frames/s of the sum and of the slowest stage."""
+    from tcforge_tpu_torch.core.formats import ImageFormat
+    from tcforge_tpu_torch.core.frame import FrameBatch
+    from tcforge_tpu_torch.io.y4m import Y4MHeader, Y4MWriter
+    from tcforge_tpu_torch.pipeline.chain import VideoChain
+    imp = _mpeg_importer(src, dev)
+    chain = VideoChain(job, ImageFormat.YUV420P, imp.width, imp.height)
+    states = chain.initial_states(dev)
+    ms = dict.fromkeys(("parse", "decode", "chain", "to_host", "write"), 0.0)
+    frames = batches = 0
+    with Y4MWriter(str(out), Y4MHeader(width=imp.width, height=imp.height,
+                                       fps_num=30000, fps_den=1001,
+                                       format=ImageFormat.YUV420P)) as wr:
+        torch.cuda.synchronize()
+        while True:
+            t0 = time.perf_counter()
+            plan = imp.plan_batch(batch)
+            t1 = time.perf_counter()
+            if plan is None:
+                break
+            planes = imp.execute(plan)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            n = planes["y"].shape[0]
+            fb = FrameBatch(format=ImageFormat.YUV420P, y=planes["y"],
+                            u=planes["u"], v=planes["v"],
+                            attrs=torch.zeros((n,), dtype=torch.int32,
+                                              device=dev),
+                            frame_ids=torch.arange(frames, frames + n,
+                                                   dtype=torch.int32,
+                                                   device=dev), fps=29.97)
+            result, states = chain(fb, states)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            host = result.to_numpy()
+            t4 = time.perf_counter()
+            wr.write_batch(*host)
+            t5 = time.perf_counter()
+            for key, a, b in (("parse", t0, t1), ("decode", t1, t2),
+                              ("chain", t2, t3), ("to_host", t3, t4),
+                              ("write", t4, t5)):
+                ms[key] += (b - a) * 1e3
+            frames += n
+            batches += 1
+    imp.close()
+    per_batch = {k: v / batches for k, v in ms.items()}
+    total = sum(per_batch.values())
+    return {"frames": frames, "ms_per_batch": per_batch,
+            "sum_ms_per_batch": total,
+            "serial_fps": frames / (total * batches / 1e3),
+            "overlapped_fps": frames / (max(per_batch.values())
+                                        * batches / 1e3)}
 
 
 if __name__ == "__main__":

@@ -18,7 +18,11 @@ invert, levels, deinterlace, mask, testframe and null
 ``--resync_margin``, ``--resync_interval`` and ``--no_audio_adjust``,
 with the audio filters normalize, astat, lowpass, detectsilence,
 resample, aclip and cpaudio in the same ``-J`` list; a WAV given to
-``-i`` makes an audio-only session:
+``-i`` makes an audio-only session.  MPEG-1/2 4:2:0 video (a DVD's VOB,
+a program stream, an elementary stream) is read with ``-x mpeg`` (or
+its aliases ``mpeg2``, ``mpg`` and ``vob``), or found by its magic with
+the default ``-x auto``; its size and rate come from the sequence
+header, the host parses it and the card reconstructs it:
 
     python -m tcforge_tpu_torch.cli -i in.y4m -I 5 -Z 1280x720 \\
         -J hqdn3d=luma=4.0 -o out.y4m [--batch 16] [--device cuda]
@@ -42,6 +46,8 @@ resample, aclip and cpaudio in the same ``-J`` list; a WAV given to
         -o out.y4m -m out.wav
     python -m tcforge_tpu_torch.cli -i in.wav -o out.wav -E 44100 \\
         -J normalize,lowpass,astat
+    python -m tcforge_tpu_torch.cli -i dvd.vob -x mpeg \\
+        -J hqdn3d=luma=4.0 -o out.y4m --batch 16
 
 and refuses every other flag of the JAX CLI with an error that names
 it, and any audio file but WAV.  ``--device cuda`` (the default) with
@@ -87,14 +93,20 @@ def _resize_units(spec: str):
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="tcforge_tpu_torch", allow_abbrev=False,
-        description="tcforge on PyTorch/CUDA: Y4M (and WAV) in, filter "
-                    "chain, Y4M (and WAV) out")
+        description="tcforge on PyTorch/CUDA: Y4M or MPEG-1/2 video (and "
+                    "WAV) in, filter chain, Y4M (and WAV) out")
     p.add_argument("-i", dest="video_in", required=True,
-                   help="input file (YUV4MPEG2, or WAV for an audio-only "
+                   help="input file (YUV4MPEG2, an MPEG-1/2 program or "
+                        "elementary stream, or WAV for an audio-only "
                         "session)")
     p.add_argument("-o", dest="video_out", required=True,
                    help="output file (YUV4MPEG2, or WAV for an "
                         "audio-only session)")
+    p.add_argument("-x", "--import_with", dest="im_modules",
+                   default="auto,auto",
+                   help="import modules video[,audio] (video: auto, y4m, "
+                        "wav, mpeg or its aliases mpeg2, mpg, vob; "
+                        "name=options)")
     p.add_argument("-p", dest="audio_in", help="audio input file (WAV)")
     p.add_argument("-m", dest="audio_out", help="audio output file (WAV)")
     # audio (the JAX CLI's flags and parsing)
@@ -192,6 +204,10 @@ def args_to_job(args: argparse.Namespace) -> Job:
               max_frames=args.max_frames, frame_interval=args.frame_interval,
               vob_offset=args.vob_offset, prefetch_depth=args.prefetch,
               progress_rate=args.progress_rate)
+    # "-x module=optstring" (the JAX CLI's _mod_opts)
+    im_mods = (args.im_modules + ",auto").split(",")
+    job.im_v_module, _, job.im_v_string = im_mods[0].partition("=")
+    job.im_a_module, _, job.im_a_string = im_mods[1].partition("=")
     if args.export_fps:
         job.ex_fps = args.export_fps
     if args.pre_clip:

@@ -32,6 +32,12 @@ fieldanalysis's, whose previous frame and fields stay on the device
 while ``started``, the telecine state and the eight ``counts`` become
 Python ints, where its state machine runs.
 
+The MPEG importer's decoder state is its two anchor frames: the JAX
+importer's ``_ref_fwd`` and ``_ref_bwd``, (y, u, v) planes of the coded
+grid, go to the port importer's device tensors through
+``mpeg_refs_from_numpy`` and back through ``mpeg_refs_to_numpy``, so that
+the port can decode on from a JAX importer's position in the stream.
+
 The audio filters' carries go through ``audio_states_from_numpy`` and
 ``audio_states_to_numpy``, one per filter of an ``AudioChain``:
 normalize's ``(mul, lastavg, mem, idx)`` is three float32 tensors and
@@ -146,3 +152,23 @@ def audio_states_to_numpy(filters, states) -> list:
         else:
             out.append(states_to_numpy(st))
     return out
+
+
+def mpeg_refs_from_numpy(importer, ref_fwd, ref_bwd) -> None:
+    """Set the port MPEG importer's anchors (on the device it decodes
+    onto) from a JAX importer's ``_ref_fwd`` and ``_ref_bwd``: (y, u, v)
+    numpy planes, or None."""
+    def planes(ref):
+        if ref is None:
+            return None
+        return tuple(torch.from_numpy(np.array(np.asarray(p)))
+                     for p in ref)
+    importer.set_references(planes(ref_fwd), planes(ref_bwd))
+
+
+def mpeg_refs_to_numpy(importer):
+    """The port MPEG importer's anchors as the JAX importer holds them:
+    (ref_fwd, ref_bwd), each (y, u, v) numpy planes or None."""
+    return tuple(None if ref is None else
+                 tuple(p.detach().cpu().numpy() for p in ref)
+                 for ref in importer.references())

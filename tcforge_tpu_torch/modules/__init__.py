@@ -1,8 +1,9 @@
 """The port's module system.  Importing this package registers the
-built-in filters, the WAV importer and multiplexor and the raw and null
-encoders, as importing ``tcforge_tpu.modules`` does."""
+built-in filters, the WAV and MPEG importers, the WAV multiplexor and the
+raw and null encoders, as importing ``tcforge_tpu.modules`` does."""
 
 from tcforge_tpu_torch.modules.encoders import basic as _encoders  # noqa: F401
+from tcforge_tpu_torch.modules.importers import mpeg_import  # noqa: F401
 from tcforge_tpu_torch.modules.importers import wav_import  # noqa: F401
 from tcforge_tpu_torch.modules.muxers import basic as _muxers  # noqa: F401
 

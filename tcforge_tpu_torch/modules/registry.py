@@ -114,6 +114,9 @@ class AudioFilter(Module):
     slots: FilterSlot = FilterSlot.POST_M
     media: str = "audio"
     jitted: bool = True
+    # the audio chain sets it per call: True where -s's amplify ran in the
+    # same jitted step on the samples this filter gets
+    after_amplify: bool = False
 
     def init_state(self, rate: int, channels: int,
                    device: torch.device) -> Any:
@@ -208,7 +211,15 @@ def register(cls: Type[Module]) -> Type[Module]:
     return cls
 
 
+# reference module names that map onto one implementation (the JAX
+# registry's aliases, cut to the modules the port has): import_mpeg2.c,
+# import_mpg.c and import_vob.c all walk the same PS/ES demux
+_ALIASES = {ModuleKind.DEMULTIPLEXOR: {"mpeg2": "mpeg", "mpg": "mpeg",
+                                       "vob": "mpeg"}}
+
+
 def lookup(kind: ModuleKind, name: str) -> Type[Module]:
+    name = _ALIASES.get(kind, {}).get(name, name)
     try:
         return _REGISTRIES[kind][name]
     except KeyError:

@@ -33,6 +33,16 @@ wrapper                    CUDA source                 replaces (tcforge_tpu)
                                                        stabilize.py
                                                        ``warp_plane`` (XLA
                                                        ops)
+``mpeg2_recon``            ``csrc/mpeg2_recon.cu``     io/mpeg2codec.py
+                                                       ``_recon_picture_
+                                                       math`` and
+                                                       ``_recon_field_
+                                                       core`` (XLA ops)
+``mpeg2_idct_intra``       ``csrc/mpeg2_recon.cu``     io/mpeg2codec.py
+                                                       ``reconstruct_intra_
+                                                       batch_jax``'s CPU
+                                                       branch (the native
+                                                       float64 IDCT)
 =========================  ==========================  =====================
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
@@ -67,7 +77,9 @@ launches: Dict[str, int] = {"hqdn3d_spatial_scan": 0,
                             "d3_temporal_scan": 0,
                             "yuvdenoise_chroma": 0,
                             "stabilize_field_search": 0,
-                            "transform_warp": 0}
+                            "transform_warp": 0,
+                            "mpeg2_recon": 0,
+                            "mpeg2_idct_intra": 0}
 
 
 def reset_launches() -> None:
@@ -119,6 +131,10 @@ _SIGNATURES = {
         "tc_stabilize_field_search": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                       _I, _I, _P),
         "tc_transform_warp": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    },
+    "mpeg2_recon": {
+        "tc_mpeg2_recon": (_P, _P, _P),
+        "tc_mpeg2_idct_intra": (_P, _P, _LL, _I, _I, _P, _P),
     },
     "zoom_pass": {
         "tc_zoom_pass": (_P, _P, _P, _P, _P, _I, _P, _I, _I, _LL, _LL, _LL,
@@ -821,4 +837,156 @@ def transform_warp(plane: torch.Tensor, fparams: torch.Tensor,
           *plane.shape, int(interp), int(crop), int(default_val),
           _stream(plane))
     launches["transform_warp"] += 1
+    return out
+
+
+# --------------------------------------------------------------------- #
+# Kernel M: MPEG-2 picture reconstruction
+
+@lru_cache(maxsize=None)
+def _basis_host():
+    """The float64 IDCT basis as a ctypes array of 64 doubles (the JAX
+    package's ``_dct_basis``), handed to each launch."""
+    from tcforge_tpu_torch.io.mpeg2codec import dct_basis
+    return (ctypes.c_double * 64)(*dct_basis().reshape(-1).tolist())
+
+
+def _basis(device: torch.device) -> torch.Tensor:
+    from tcforge_tpu_torch.io.mpeg2codec import dct_basis
+    return torch.from_numpy(dct_basis()).to(device)
+
+
+def _check_plane(p: torch.Tensor, what: str) -> None:
+    if not isinstance(p, torch.Tensor) or p.dtype != torch.uint8 \
+            or p.dim() != 2:
+        raise ValueError(f"{what}: expected a uint8 2-D plane")
+    if p.shape[0] and p.stride(1) != 1:
+        raise ValueError(f"{what}: rows must be contiguous")
+
+
+def _refs_list(refs, field: bool, what: str) -> List[torch.Tensor]:
+    """The reference planes in the kernel's order: (y, u, v), or for a
+    field picture the top field's then the bottom field's."""
+    if refs is None:
+        return []
+    groups = list(refs) if field else [refs]
+    if len(groups) != (2 if field else 1):
+        raise ValueError(f"{what}: expected (top, bottom) field planes")
+    planes = [p for g in groups for p in g]
+    if len(planes) != 3 * len(groups):
+        raise ValueError(f"{what}: expected (y, u, v) planes")
+    for i, p in enumerate(planes):
+        _check_plane(p, f"{what}[{i}]")
+        if p.shape[0] == 0 or p.shape[1] == 0:
+            raise ValueError(f"{what}[{i}]: an empty plane")
+    return planes
+
+
+def mpeg2_recon_ref(ycoef, ucoef, vcoef, mbinfo, fwd, bwd, tff: bool,
+                    field_parity=None):
+    """Plain version of ``mpeg2_recon``: ``recon_picture_math`` or, for a
+    field picture, ``recon_field_math`` (io/mpeg2codec.py)."""
+    from tcforge_tpu_torch.io import mpeg2codec
+    if field_parity is None:
+        return mpeg2codec.recon_picture_math(ycoef, ucoef, vcoef, mbinfo,
+                                             fwd, bwd, tff)
+    return mpeg2codec.recon_field_math(ycoef, ucoef, vcoef, mbinfo, fwd, bwd,
+                                       field_parity)
+
+
+def mpeg2_recon(ycoef: torch.Tensor, ucoef: torch.Tensor,
+                vcoef: torch.Tensor, mbinfo: torch.Tensor, fwd, bwd,
+                tff: bool, field_parity=None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One 4:2:0 picture's planes from its parse output: int32 natural-
+    order coefficient grids (rows*2, mb_w*2, 64) and (rows, mb_w, 64)
+    twice, int32 macroblock records (rows*mb_w, 12) (flags, forward and
+    backward vectors, field selects).  A frame picture
+    (``field_parity`` None) predicts from ``fwd`` / ``bwd`` = (y, u, v)
+    uint8 frames or None, a field picture from (top, bottom) pairs of
+    (y, u, v) field planes of any height (rows need not be adjacent in
+    memory: a frame's lines of one parity will do).  Per pixel the
+    float32 IDCT (sequential fused multiply-adds over the 64
+    coefficients), a frame picture's field-DCT deinterleave, the frame,
+    field or dual-prime half-pel prediction (``tff``: top field first)
+    and the clipped sum.  Returns uint8 (rows*16, mb_w*16) and
+    (rows*8, mb_w*8) twice."""
+    for t, what in ((ycoef, "ycoef"), (ucoef, "ucoef"), (vcoef, "vcoef")):
+        _check(t, what, (torch.int32,), 3)
+    _check(mbinfo, "mbinfo", (torch.int32,), 2)
+    rows, mb_w = ycoef.shape[0] // 2, ycoef.shape[1] // 2
+    if (tuple(ycoef.shape) != (2 * rows, 2 * mb_w, 64)
+            or tuple(ucoef.shape) != (rows, mb_w, 64)
+            or tuple(vcoef.shape) != (rows, mb_w, 64)
+            or tuple(mbinfo.shape) != (rows * mb_w, 12)):
+        raise ValueError(f"grids {tuple(ycoef.shape)} {tuple(ucoef.shape)} "
+                         f"{tuple(vcoef.shape)} {tuple(mbinfo.shape)} do not "
+                         "make one 4:2:0 macroblock grid")
+    field = field_parity is not None
+    if field and field_parity not in (0, 1):
+        raise ValueError(f"field_parity {field_parity}")
+    fplanes = _refs_list(fwd, field, "fwd")
+    bplanes = _refs_list(bwd, field, "bwd")
+    if not field:
+        for planes, what in ((fplanes, "fwd"), (bplanes, "bwd")):
+            for p, mb in zip(planes, (16, 8, 8)):
+                if tuple(p.shape) != (rows * mb, mb_w * mb):
+                    raise ValueError(f"{what}: plane {tuple(p.shape)} is "
+                                     "not the coded grid")
+    if not _on_cuda(ycoef, ucoef, vcoef, mbinfo, *fplanes, *bplanes):
+        return mpeg2_recon_ref(ycoef, ucoef, vcoef, mbinfo, fwd, bwd, tff,
+                               field_parity)
+    dev = ycoef.device
+    out = (torch.empty((rows * 16, mb_w * 16), dtype=torch.uint8,
+                       device=dev),
+           torch.empty((rows * 8, mb_w * 8), dtype=torch.uint8, device=dev),
+           torch.empty((rows * 8, mb_w * 8), dtype=torch.uint8, device=dev))
+    if rows == 0 or mb_w == 0:
+        return out
+    meta = [ycoef.data_ptr(), ucoef.data_ptr(), vcoef.data_ptr(),
+            *(o.data_ptr() for o in out), mbinfo.data_ptr(), mb_w, rows,
+            int(bool(fplanes)), int(bool(bplanes)), int(bool(tff)),
+            int(field), int(field_parity or 0)]
+    for planes in (fplanes, bplanes):
+        for i in range(6):
+            if i < len(planes):
+                p = planes[i]
+                meta += [p.data_ptr(), p.shape[0], p.shape[1], p.stride(0)]
+            else:
+                meta += [0, 0, 0, 0]
+    arr = (ctypes.c_longlong * len(meta))(*meta)
+    _call("mpeg2_recon", "tc_mpeg2_recon", ctypes.cast(arr, _P),
+          ctypes.cast(_basis_host(), _P), _stream(ycoef))
+    launches["mpeg2_recon"] += 1
+    return out
+
+
+def mpeg2_idct_intra_ref(coef: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``mpeg2_idct_intra``: ``idct_intra_f64``
+    (io/mpeg2codec.py) with an exact float64 fused multiply-add."""
+    from tcforge_tpu_torch.io import mpeg2codec
+    return mpeg2codec.idct_intra_f64(coef, _basis(coef.device))
+
+
+def mpeg2_idct_intra(coef: torch.Tensor) -> torch.Tensor:
+    """The float64 IDCT of intra pictures: int32 (N, bh, bw, 64)
+    natural-order coefficient grids -> uint8 (N, bh*8, bw*8), per block
+    ``t = C B`` then ``o = B^T t`` with every sum a sequential fused
+    multiply-add over k = 0..7 from 0, rounded half to even and
+    clipped."""
+    _check(coef, "coef", (torch.int32,), 4)
+    if coef.shape[3] != 64:
+        raise ValueError(f"coef: expected 64 coefficients a block, got "
+                         f"{tuple(coef.shape)}")
+    if not _on_cuda(coef):
+        return mpeg2_idct_intra_ref(coef)
+    n, bh, bw = coef.shape[:3]
+    out = torch.empty((n, bh * 8, bw * 8), dtype=torch.uint8,
+                      device=coef.device)
+    if out.numel() == 0:
+        return out
+    _call("mpeg2_recon", "tc_mpeg2_idct_intra", coef.data_ptr(),
+          out.data_ptr(), n, bh, bw, ctypes.cast(_basis_host(), _P),
+          _stream(coef))
+    launches["mpeg2_idct_intra"] += 1
     return out

@@ -373,12 +373,28 @@ class AudioChain:
                                 frame_ids=ab.frame_ids)
         return ab, nclip
 
-    def _filters(self, ab: AudioBatch, states: List[Any],
-                 jitted: bool) -> Tuple[AudioBatch, List[Any]]:
+    # audio filters that pass the samples on as they came
+    _READ_ONLY = ("astat", "detectsilence")
+
+    def _amplified(self, ab: AudioBatch) -> bool:
+        """True when the jitted step's ``-s`` amplify feeds ``ab``'s
+        samples straight to the filters (no ``-d`` conversion between:
+        XLA then fuses the two otherwise)."""
+        return (self.job.volume != 1.0 and self.job.volume > 0
+                and self.job.dm_chan == ab.channels)
+
+    def _filters(self, ab: AudioBatch, states: List[Any], jitted: bool,
+                 amplified: bool = False) -> Tuple[AudioBatch, List[Any]]:
+        """The filters in turn; ``after_amplify`` tells a filter that
+        ``-s``'s amplify ran in the same jitted step on the samples it
+        gets (``amplified``, and no filter before it changed them)."""
         states = list(states)
+        amplified = jitted and amplified
         for i, f in enumerate(self.filters):
             f.jitted = jitted
+            f.after_amplify = amplified
             ab, states[i] = f.apply(ab, states[i])
+            amplified = amplified and f.info.name in self._READ_ONLY
         return ab, states
 
     def step(self, ab: AudioBatch, states: List[Any]
@@ -390,6 +406,7 @@ class AudioChain:
         the form of the JAX step that callers embedding the audio step
         in a larger one hold no stream state for, kept so that the two
         packages offer the same step."""
+        amplified = self._amplified(ab) and not self.resamples(ab.rate)
         ab, nclip = self.pre(ab)
         if self.resamples(ab.rate):
             n, spf, ch = ab.pcm.shape
@@ -400,7 +417,8 @@ class AudioChain:
                             rate=self.job.mp3frequency,
                             channels=ab.channels, attrs=ab.attrs,
                             frame_ids=ab.frame_ids)
-        ab, states = self._filters(ab, states, jitted=True)
+        ab, states = self._filters(ab, states, jitted=True,
+                                   amplified=amplified)
         return ab, states, nclip
 
     def _upload(self, pcm: np.ndarray, rate: int) -> AudioBatch:
@@ -470,9 +488,11 @@ class AudioChain:
             return prepared.identity, states, 0
         ab = self._upload(*prepared.samples)
         nclip: Any = prepared.nclip
+        amplified = prepared.jitted and self._amplified(ab)
         if prepared.jitted:
             ab, nclip = self.pre(ab)
-        ab, states = self._filters(ab, states, jitted=prepared.jitted)
+        ab, states = self._filters(ab, states, jitted=prepared.jitted,
+                                   amplified=amplified)
         return ab, states, nclip
 
     def __call__(self, ab: AudioBatch, states: List[Any]

@@ -1,9 +1,10 @@
-"""The streaming engine: Y4M reader thread -> VideoChain on a device ->
-Y4M writer thread, with an audio track beside it.
+"""The streaming engine: Y4M or MPEG reader thread -> VideoChain on a
+device -> Y4M writer thread, with an audio track beside it.
 
 The port of ``tcforge_tpu/pipeline/engine.py`` for a Y4M-to-Y4M
-session, with a WAV audio track (``-p`` in, ``-m`` out), and for an
-audio-only WAV-to-WAV session:
+session, with a WAV audio track (``-p`` in, ``-m`` out), for an MPEG-1/2
+video import (``-x mpeg``, or found by its magic: a program or
+elementary stream) to Y4M, and for an audio-only WAV-to-WAV session:
 
 - a reader thread reads ``job.batch_size`` frames at a time straight
   into host buffers (one ``preadv`` a batch) and fills a queue of at
@@ -37,10 +38,20 @@ audio-only WAV-to-WAV session:
   resampler, and ``finalize`` runs on every filter once, video and
   audio, after the last ``collect``, also when the run fails.
 
+An MPEG import splits its decode between the threads
+(``modules/importers/mpeg_import.py``): the reader thread runs the host
+parse into pinned coefficient buffers and plans the batch (the
+reconstruction order, the references, the display order); the main
+thread uploads the buffer on the copy stream and runs the
+reconstruction kernels, which write the chain's input batch on the
+device.  Its ``-L`` cuts the stream at a sequence header and decodes and
+drops the rest, before the threads start.
+
 An audio-only session (``-i in.wav -o out.wav``) reads nominal frames
 of ``round(rate/fps)`` samples (``-L`` and ``--max_frames`` count them),
 a batch's worth at a time, and each chunk goes through the audio chain
-as one audio frame, as in the JAX engine.
+as one audio frame, as in the JAX engine; the ``-J`` video filters get
+their initial states and their ``finalize`` and see no frame.
 
 A chain that does nothing (``VideoChain.is_identity``) is skipped and
 the planes never leave host memory; so are the samples of an audio
@@ -77,6 +88,7 @@ import numpy as np
 import torch
 
 from tcforge_tpu_torch.core import ratiocodes
+from tcforge_tpu_torch.core.codecs import ContainerFormat
 from tcforge_tpu_torch.core.formats import ImageFormat
 from tcforge_tpu_torch.core.frame import (ATTR_BROKEN, ATTR_SKIPPED,
                                           AudioBatch, FrameBatch)
@@ -86,7 +98,7 @@ from tcforge_tpu_torch.io.y4m import Y4MError, Y4MHeader
 from tcforge_tpu_torch.modules.registry import (Encoder, Importer,
                                                 ModuleKind, Muxer,
                                                 find_mux_module_for_path,
-                                                new_module)
+                                                lookup, new_module)
 from tcforge_tpu_torch.ops import colorspace
 from tcforge_tpu_torch.pipeline.chain import AudioChain, VideoChain
 from tcforge_tpu_torch.pipeline.synchronizer import new_synchronizer
@@ -171,14 +183,48 @@ def is_wav(path: str) -> bool:
     return head[:4] == b"RIFF" and head[8:12] == b"WAVE"
 
 
+_Y4M_MODULES = ("y4m", "yuv4mpeg")
+
+
+def video_module(job: Job) -> str:
+    """The import module of ``job``'s ``-i`` file: ``y4m``, ``wav`` or
+    ``mpeg``, from ``-x`` or, with ``-x auto``, from the file's magic
+    (a program or elementary stream, TS and CDXA go to ``mpeg``, which
+    names what it lacks)."""
+    name = job.im_v_module or "auto"
+    if name in _Y4M_MODULES:
+        return "y4m"
+    if name != "auto":
+        try:
+            return lookup(ModuleKind.DEMULTIPLEXOR, name).info.name
+        except KeyError as e:
+            raise NotImplementedError(
+                f"-x {name}: {e.args[0]}, besides y4m") from None
+    if is_wav(job.video_in_file):
+        return "wav"
+    from tcforge_tpu_torch.io.probe import sniff_magic
+    if sniff_magic(job.video_in_file) in (
+            ContainerFormat.MPEG_PS, ContainerFormat.MPEG_ES,
+            ContainerFormat.MPEG_TS, ContainerFormat.CDXA):
+        return "mpeg"
+    return "y4m"
+
+
 def probe(job: Job) -> Optional[Y4MHeader]:
     """The input's Y4M header; sets the job's input size and rate from
     it, as the JAX CLI's probe does.  A WAV input (an audio-only
-    session) sets the audio rate, channels and bits, and gives None."""
-    if is_wav(job.video_in_file):
+    session) sets the audio rate, channels and bits, and gives None; an
+    MPEG input sets the size and rate of its first sequence header
+    (the JAX CLI's ``probe_file``) and gives None."""
+    kind = video_module(job)
+    if kind == "wav":
         with WavReader(job.video_in_file) as r:
             job.a_rate, job.a_chan = r.info.rate, r.info.channels
             job.a_bits = r.info.bits
+        return None
+    if kind == "mpeg":
+        from tcforge_tpu_torch.io.probe import probe_file, probe_to_job
+        probe_to_job(probe_file(job.video_in_file), job)
         return None
     with open(job.video_in_file, "rb") as f:
         hdr = Y4MHeader.parse(f.readline(256))
@@ -406,9 +452,25 @@ class Pipeline:
         self.job = job
         self.device = torch.device(device)
         self.counters = Counters()
+        kind = video_module(job)
         hdr = probe(job)
         job.validate()
-        self.audio_only = hdr is None
+        self.audio_only = kind == "wav"
+        self.video_importer: Optional[Importer] = None
+        if kind == "mpeg":
+            if job.audio_in_file or job.audio_out_file:
+                raise NotImplementedError(
+                    "audio beside MPEG video input (-p, or a program "
+                    "stream's LPCM, MP2 and AC-3 tracks through -m) is not "
+                    "ported to the torch port yet")
+            self.video_importer = new_module(ModuleKind.DEMULTIPLEXOR,
+                                             "mpeg", job, job.im_v_string)
+            self.video_importer.open(job.video_in_file)
+            imp = self.video_importer
+            if not job.im_v_width:
+                job.im_v_width, job.im_v_height = imp.width, imp.height
+            if imp.fps and not job.hard_fps:
+                job.fps = imp.fps
         self.audio_importer: Optional[Importer] = None
         audio_in = (job.video_in_file if self.audio_only
                     else job.audio_in_file)
@@ -446,8 +508,14 @@ class Pipeline:
             self._shapes = []
             self.chain = VideoChain(job, job.im_colorspace, 0, 0)
             return
-        self.in_format = hdr.format
-        self._shapes = hdr.frame_planes_shapes()
+        if self.video_importer is not None:
+            w, h = self.video_importer.width, self.video_importer.height
+            self.in_format = ImageFormat.YUV420P
+            self._shapes = [(h, w), (h // 2, w // 2), (h // 2, w // 2)]
+        else:
+            w, h = hdr.width, hdr.height
+            self.in_format = hdr.format
+            self._shapes = hdr.frame_planes_shapes()
         # what the file takes: the job's colorspace where that is
         # planar YUV, and YUV420P for RGB24 (the JAX Y4M multiplexor,
         # muxers/basic.py:38-46, which writes no valid file for the
@@ -459,7 +527,7 @@ class Pipeline:
                 + ", ".join(f.value for f in _JOB_FORMATS))
         self.out_format = (ImageFormat.YUV420P if csp == ImageFormat.RGB24
                            else csp)
-        self.chain = VideoChain(job, hdr.format, hdr.width, hdr.height)
+        self.chain = VideoChain(job, self.in_format, w, h)
 
     # -- selection (export.c:254-291) --
 
@@ -492,8 +560,11 @@ class Pipeline:
     def run(self, progress: bool = False) -> Counters:
         job = self.job
         cuda = self.device.type == "cuda"
+        mpeg_in = self.video_importer
         identity = self.audio_only or self.chain.is_identity()
-        staged = cuda and not identity       # pinned buffers and streams
+        # pinned buffers and streams; an MPEG import decodes on the device
+        staged = cuda and not identity and mpeg_in is None
+        staged_out = cuda and (staged or mpeg_in is not None)
         max_frames = job.max_frames
         if job.ranges is not None and len(job.ranges):
             mf = job.ranges.max_frame
@@ -513,12 +584,15 @@ class Pipeline:
         h2d = d2h = None
         if cuda:
             d2h = torch.cuda.Stream(self.device)
+            h2d = torch.cuda.Stream(self.device)
         if staged:
-            free_in, free_out = queue.Queue(), queue.Queue()
+            free_in = queue.Queue()
             for _ in range(depth + 1):
                 free_in.put(_InputSlot(shapes, job.batch_size, True))
+        if staged_out:
+            free_out = queue.Queue()
+            for _ in range(depth + 1):
                 free_out.put(_OutputSlot())
-            h2d = torch.cuda.Stream(self.device)
         writer_err: List[BaseException] = []
         out_file: List[_FrameWriter] = []
         audio_out: Optional[_AudioOut] = None
@@ -579,6 +653,8 @@ class Pipeline:
             try:
                 if self.audio_only:
                     read_audio_only()
+                elif mpeg_in is not None:
+                    read_mpeg()
                 else:
                     read_av()
             except Exception as e:      # handed to the main thread
@@ -621,6 +697,24 @@ class Pipeline:
                 if not _put(aq, (read, frames, None, pcm), stop):
                     break
                 read += frames
+
+        def read_mpeg() -> None:
+            """The host half of the MPEG decode: a plan a batch."""
+            read = 0
+            while not stop.is_set():
+                n = job.batch_size
+                if max_frames is not None:
+                    n = min(n, max_frames - read)
+                    if n <= 0:
+                        break
+                plan = mpeg_in.plan_batch(n, alive=lambda: not stop.is_set())
+                if plan is None:
+                    break
+                got = len(plan.frames)
+                if not _put(rq, (read, got, plan, None), stop):
+                    mpeg_in.release(plan)
+                    break
+                read += got
 
         def read_av() -> None:
             left = job.vob_offset             # -L: decode and drop
@@ -720,6 +814,21 @@ class Pipeline:
                 raise writer_err[0]
             return wthread.is_alive()
 
+        def decoded(first_id: int, got: int, plan) -> Optional[FrameBatch]:
+            """The device half of the MPEG decode: the plan's frames as
+            the chain's input batch, on the device."""
+            planes = mpeg_in.execute(plan, h2d)
+            if planes is None:
+                return None
+            dev = self.device
+            return FrameBatch(
+                format=self.in_format, y=planes["y"], u=planes["u"],
+                v=planes["v"],
+                attrs=torch.zeros((got,), dtype=torch.int32, device=dev),
+                frame_ids=torch.arange(first_id, first_id + got,
+                                       dtype=torch.int32, device=dev),
+                fps=job.fps)
+
         def to_device(first_id: int, got: int, slot: _InputSlot
                       ) -> FrameBatch:
             if staged:
@@ -817,14 +926,22 @@ class Pipeline:
                                else (rthread, "reader"))
         wthread = threading.Thread(target=write_loop, daemon=True,
                                    name="tcforge-writer")
-        states = ([] if self.audio_only
-                  else self.chain.initial_states(self.device))
+        # an audio-only session's -J video filters get their states and
+        # their finalize too, as in the JAX engine (they see no frame)
+        states = self.chain.initial_states(self.device)
         astates = (self.achain.initial_states()
                    if self.achain is not None else [])
         aclipped: Any = 0
-        reader = None if self.audio_only else _FrameReader(job.video_in_file)
+        reader = (None if self.audio_only or mpeg_in is not None
+                  else _FrameReader(job.video_in_file))
         completed = False
         try:
+            if mpeg_in is not None:
+                mpeg_in.start(self.device, depth + 1)
+                if job.vob_offset:
+                    # -L: the cut at a sequence header, then decode and
+                    # drop (the JAX engine's importer.seek)
+                    mpeg_in.seek(job.vob_offset)
             rthread.start()
             if pthread is not None:
                 pthread.start()
@@ -841,13 +958,18 @@ class Pipeline:
                 if isinstance(item, Exception):
                     raise item
                 first_id, got, slot, audio = item
-                if slot is None:             # an audio-only chunk
+                if mpeg_in is not None:
+                    fb = decoded(first_id, got, slot)
+                    if fb is None:
+                        continue
+                elif slot is None:             # an audio-only chunk
                     self.counters.frames += got
                     run_audio(audio)
                     self.counters.batches += 1
                     meter.update(self.counters.frames)
                     continue
-                fb = to_device(first_id, got, slot)
+                else:
+                    fb = to_device(first_id, got, slot)
                 if identity:
                     out = fb               # a no-op step: no device work
                 else:
@@ -885,6 +1007,8 @@ class Pipeline:
                     filt.finalize(state)
             if self.audio_importer is not None:
                 self.audio_importer.close()
+            if mpeg_in is not None:
+                mpeg_in.close()
             for f in out_file:
                 f.close()
             for wav in (audio_out, empty_wav):

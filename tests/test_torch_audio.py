@@ -581,3 +581,67 @@ def test_audio_batch_numpy_round_trip():
     assert ab.frame_ids.tolist() == [5, 6, 7]
     np.testing.assert_array_equal(ab.to_numpy(), x)
     assert AudioBatch.from_numpy(x[0], device=CPU).pcm.shape == (1, 4, 2)
+
+
+@pytest.mark.parametrize("volume, rate, batch", [
+    ("0.5", 48000, 16), ("1.7", 48000, 16), ("0.5", 48000, 1),
+    ("1.7", 48000, 3), ("0.5", 48000, 7), ("1.7", 44100, 1),
+    ("0.5", 44100, 5), ("1.7", 44100, 16), ("0.5", 8000, 1),
+    ("1.7", 32000, 3)])
+def test_lowpass_after_volume_matches_the_jax_cli(volume, rate, batch,
+                                                  tmp_path):
+    """-s with -J lowpass and no -E: the JAX engine jits the amplify and
+    lowpass's scan into one program, where XLA contracts some of the
+    scan's products and not others (``_scan_pairs_amplified``).  A
+    WAV-to-WAV session on noise, five batches of ``batch`` nominal
+    frames at 25 frames/s (the carry crosses each boundary), byte for
+    byte against the JAX CLI's WAV.  The JAX side runs with ``--mesh
+    off``: the tests' eight-device mesh would round its batch up to a
+    multiple of eight, and a scan over other batches rounds otherwise."""
+    from tcforge_tpu.cli import main as jax_cli_main
+    from tcforge_tpu_torch import cli
+    src = tmp_path / "noise.wav"
+    rng = np.random.default_rng(23)
+    pcm = rng.integers(-32768, 32768,
+                       (5 * batch * (rate // 25), 2)).astype(np.int16)
+    with WavWriter(str(src), WavInfo(rate=rate, channels=2, bits=16)) as w:
+        w.write_samples(pcm)
+    outs = []
+    for main, extra in ((jax_cli_main, ["--mesh", "off"]),
+                        (cli.main, ["--device", "cpu"])):
+        out = tmp_path / f"out{len(outs)}.wav"
+        assert main(["-i", str(src), "-o", str(out), "-s", volume, "-J",
+                     "lowpass", "--batch", str(batch), "--progress_off",
+                     "-q", *extra]) == 0
+        outs.append(out.read_bytes())
+    assert outs[1] == outs[0]
+
+
+@pytest.mark.parametrize("frames, samples", [
+    (1, 16), (1, 20), (1, 24), (1, 31), (1, 40), (1, 48), (1, 256),
+    (1, 320), (1, 341), (1, 654), (2, 2048), (1, 4122), (3, 2048)])
+def test_lowpass_after_volume_step_matches_the_jitted_jax_step(frames,
+                                                               samples):
+    """The same fused program at scan lengths where the recursion's
+    bottom and its last two-element level change copies: lengths from 16
+    to 6144, each a power of two or just past one, where the new carry
+    is the bottom's value.  Two batches in a row, so the second starts
+    from a carry; output and carry exactly the jitted JAX step's."""
+    fields = dict(volume=0.5 if samples % 2 else 1.7, dm_chan=2)
+    jchain = JAudioChain(JJob(filters=[JFilterSpec.parse("lowpass")],
+                              **fields))
+    chain = AudioChain(Job(filters=[FilterSpec.parse("lowpass")], **fields),
+                       CPU)
+    jstep = jax.jit(jchain._trace_step)
+    jst, tst = jchain.initial_states(), chain.initial_states()
+    rng = np.random.default_rng(samples)
+    for _ in range(2):
+        x = rng.integers(-32768, 32768, (frames, samples, 2)
+                         ).astype(np.int16)
+        ja, jst, jclip = jstep(JAudioBatch(pcm=jnp.asarray(x), rate=48000,
+                                           channels=2), jst)
+        ta, tst, tclip = chain.step(AudioBatch(pcm=torch.from_numpy(x),
+                                               rate=48000, channels=2), tst)
+        same(ta.pcm, ja.pcm)
+        same(tst[0], jst[0])
+        assert int(tclip) == int(jclip)

@@ -13,7 +13,11 @@ the skipped counter equal to the JAX engine's), the field-rate paths'
 small cases on an interlaced clip with motion, the small ``-V rgb24``
 case, the ``FLAG_CASES`` (the internal transforms, ``-I 2``, the
 engine's flags and the filters of plain torch ops), and the internal
-transforms' flags through both parsers.  The audio track: the A/V and
+transforms' flags through both parsers.  The DVD path: MPEG-2 import
+of a 720x480 program stream into hqdn3d, frame pictures and field
+pictures, port CLI against JAX CLI (``chip_smoke.MPEG_GOLDEN``; the
+other MPEG goldens are in ``test_torch_mpeg_import.py``).  The audio
+track: the A/V and
 audio-only golden cases (``chip_smoke.AUDIO_GOLDEN_ARGS``), an audio
 filter in ``-J`` without ``-p``, the synchronizer's cases against the
 JAX CLI without its device mesh (its batches then match the port's),
@@ -50,6 +54,7 @@ from tcforge_tpu_torch.modules.registry import (ModuleInfo, ModuleKind,
 from tcforge_tpu_torch.pipeline.engine import Pipeline
 from test_torch_denoise import yuvdenoise_pieces_jitted
 from test_torch_engine import run_cli, run_engine
+from test_torch_mpeg_import import jax_native  # noqa: F401  (a fixture)
 
 
 @pytest.fixture(scope="module")
@@ -778,3 +783,50 @@ def test_audio_flags_parse_like_the_jax_cli(argv):
                   "resync_interval", "no_audio_adjust", "audio_in_file",
                   "audio_out_file"):
         assert getattr(port, field) == getattr(ref, field), field
+
+
+@pytest.mark.parametrize("case", ["dvd", "dvd_fields"])
+def test_dvd_path_cli_matches_jax_cli_byte_for_byte(case, tmp_path,
+                                                    jax_native):
+    """The slice's path at full width: NTSC DVD video (720x480, 29.97
+    fps, MP@ML, GOP N=15 M=3, 48 frames; and 6 frames of field
+    pictures) through the MPEG import and hqdn3d, both CLIs on the CPU:
+    the same bytes, and the digest chip_smoke.py checks on the card."""
+    src = chip_smoke.mpeg_golden_input(case, tmp_path)
+    args = [*chip_smoke.MPEG_GOLDEN[case][1], "--progress_off", "-q"]
+    ref, out = tmp_path / "jax.y4m", tmp_path / "port.y4m"
+    assert jax_cli_main(["-i", str(src), "-o", str(ref), *args, "--mesh",
+                         "off"]) == 0
+    assert run_cli(["-i", str(src), "-o", str(out), *args, "--device",
+                    "cpu"]) == 0
+    assert out.read_bytes() == ref.read_bytes()
+    assert chip_smoke.sha256_file(out) == chip_smoke.MPEG_GOLDEN_SHA256[case]
+    with Y4MReader(str(out)) as r:
+        assert (r.header.width, r.header.height) == (chip_smoke.DVD_W,
+                                                     chip_smoke.DVD_H)
+        assert abs(r.header.fps - 30000 / 1001) < 1e-9
+        assert sum(1 for _ in r) == (chip_smoke.DVD_FRAMES if case == "dvd"
+                                     else 6)
+
+
+@pytest.mark.parametrize("filters", ["detectclipping=log={log}",
+                                     "detectclipping=log={log}:post=1,"
+                                     "astat"])
+def test_audio_only_session_inits_and_finalizes_video_filters(
+        filters, audio_inputs, tmp_path):
+    """A WAV-to-WAV session builds the -J video filters, gives them their
+    initial states and their finalize (they see no frame), as the JAX
+    engine does: detectclipping writes its suggestion at the end, the
+    same line as the JAX CLI's."""
+    outs = {}
+    for side, main, extra in (("jax", jax_cli_main, []),
+                              ("port", run_cli, ["--device", "cpu"])):
+        log = tmp_path / f"{side}.log"
+        assert main(["-i", str(audio_inputs["wav"]), "-o",
+                     str(tmp_path / f"{side}.wav"), "-J",
+                     filters.format(log=log), "--progress_off", "-q",
+                     *extra]) == 0
+        outs[side] = (log.read_bytes(),
+                      (tmp_path / f"{side}.wav").read_bytes())
+    assert outs["port"] == outs["jax"]
+    assert outs["port"][0]

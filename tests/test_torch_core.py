@@ -50,7 +50,24 @@ PORT = REPO / "tcforge_tpu_torch"
 
 COPIES = ["core/formats.py", "core/optstr.py", "core/codecs.py",
           "core/framecode.py", "core/job.py", "core/ratiocodes.py",
-          "io/y4m.py", "io/image.py", "io/wav.py"]
+          "io/y4m.py", "io/image.py", "io/wav.py", "io/mpeg.py",
+          "io/probe.py", "io/ts.py"]
+# C++ sources copied whole from native/ (the MPEG-2 host parse)
+NATIVE_COPIES = {"csrc/mpeg2intra.cpp": "native/mpeg2intra.cpp",
+                 "csrc/mpeg2tables.h": "native/mpeg2tables.h"}
+# copies of line ranges of a source: the framework-free head of
+# io/mpeg2codec.py (up to its ``import jax``) without the two functions
+# that reach the JAX package (the 4:2:2 intra reconstruction and the
+# native decode loop), and its numpy field helpers
+RANGE_COPIES = {"io/mpeg2host.py": ("io/mpeg2codec.py",
+                                    ((1, 946), (983, 1069), (1880, 2031)))}
+
+
+def _rewrite(src: str) -> str:
+    """A source as the port copies it: every import of the JAX package,
+    indented lazy ones too, names the port's package instead."""
+    return re.sub(r"^(\s*)from tcforge_tpu([. ])", r"\1from tcforge_tpu_torch\2",
+                  src, flags=re.M)
 
 
 def _imported_modules(path: Path):
@@ -77,9 +94,33 @@ def test_copies_match_their_sources(rel):
     ours = (PORT / rel).read_text().splitlines(keepends=True)
     assert ours[0].startswith(f"# Copied from tcforge_tpu/{rel};")
     src = (REPO / "tcforge_tpu" / rel).read_text()
-    want = re.sub(r"^from tcforge_tpu\.", "from tcforge_tpu_torch.", src,
-                  flags=re.M)
-    assert "".join(ours[1:]) == want
+    assert "".join(ours[1:]) == _rewrite(src)
+
+
+@pytest.mark.parametrize("rel", sorted(NATIVE_COPIES))
+def test_native_copies_match_their_sources(rel):
+    ours = (PORT / rel).read_text().splitlines(keepends=True)
+    assert ours[0].startswith(f"// Copied from {NATIVE_COPIES[rel]};")
+    assert "".join(ours[1:]) == (REPO / NATIVE_COPIES[rel]).read_text()
+
+
+@pytest.mark.parametrize("rel,part", [(rel, i) for rel, (_, ranges)
+                                      in RANGE_COPIES.items()
+                                      for i in range(len(ranges))])
+def test_range_copies_match_their_sources(rel, part):
+    """Each pinned line range of the source, in the copy in order after
+    the one-line header, which names the ranges."""
+    src_rel, ranges = RANGE_COPIES[rel]
+    ours = (PORT / rel).read_text().splitlines(keepends=True)
+    spans = " and ".join(f"{a}-{b}" for a, b in ranges)
+    assert ours[0].startswith(f"# Copied from tcforge_tpu/{src_rel} lines "
+                              f"{spans};")
+    src = (REPO / "tcforge_tpu" / src_rel).read_text().splitlines(
+        keepends=True)
+    assert len(ours) == 1 + sum(b - a + 1 for a, b in ranges)
+    at = 1 + sum(b - a + 1 for a, b in ranges[:part])
+    a, b = ranges[part]
+    assert "".join(ours[at:at + b - a + 1]) == _rewrite("".join(src[a - 1:b]))
 
 
 def test_image_format_members():
