@@ -52,7 +52,13 @@ Lanczos3 zoom, ``-J hqdn3d=luma=4.0`` (which runs after the zoom, at
   copy of the JAX package's C++ parser), the reconstruction on the card
   (``mpeg2_recon`` for each P and B picture, ``mpeg2_idct_intra`` for
   intra runs), hqdn3d's scans; and the same on ``dvd_fields.vob``
-  (field pictures).
+  (field pictures);
+- the DVD rip: ``tests/data/dvd/VIDEO_TS`` (a decrypted title of NTSC
+  DVD video, 720x480, 28 frames over two VOB files and two chapters,
+  with a 48 kHz stereo AC-3 track) through ``-x dvd -T 1 -J
+  extsub=subtitle_file=title.idx,hqdn3d=luma=4.0 -m out.wav``: the
+  demux with the AC-3 decode in a worker process, the title's files
+  one after the other, the subtitles' blend and the dvd path's kernels.
 
 Phases, each of which raises on failure:
 
@@ -80,7 +86,8 @@ Phases, each of which raises on failure:
    picture of dvd.vob and of the field-picture stream, field MC, dual
    prime, field DCT, MPEG-1 D-pictures, sizes that are not a multiple of
    16, intra runs of 1 and 3 pictures) and timed at dvd.vob's shapes
-   beside ``torch.matmul`` of their IDCT part; with ``--parent DIR``, the unsharp,
+   beside ``torch.matmul`` of their IDCT part, and the four kernels of
+   the DVD rip on every call of a rip (phase 4); with ``--parent DIR``, the unsharp,
    TomsMoComp and temporal kernels of the checkout in DIR are built
    too, called through DIR's own wrappers and timed in turns with this
    tree's on the same inputs;
@@ -98,12 +105,18 @@ Phases, each of which raises on failure:
    and ``OVERLAY_FLAG_CASES``, av (its Y4M equal to the same CLI's
    without the audio track, its WAV equal to the CPU's audio-only
    session of the same samples, both files equal to the CPU's on three
-   batches) and audio_only (each run's WAV equal to the CPU's), and the
-   engine at every ``--prefetch`` 1, 2, 4 and ``--batch`` 1, 3, 16;
+   batches) and audio_only (each run's WAV equal to the CPU's), the DVD
+   rip (its .y4m and .wav against the JAX-pinned digests, every kernel
+   call against its plain version, and the run on the plain versions),
+   and the engine at every ``--prefetch`` 1, 2, 4 and ``--batch`` 1, 3,
+   16;
 5. the small cases whose SHA-256 ``tests/test_torch_cli.py`` pins
    against the JAX CLI, run on the card: same digests; and the MPEG
    goldens (``MPEG_GOLDEN``: dvd.vob and the field-picture stream at full
-   width and the small streams, ``-c``, ``-L``, a cut stream);
+   width and the small streams, ``-c``, ``-L``, a cut stream), and the
+   DVD goldens (``DVD_GOLDEN``: the rip, ``-T 1,2``, LPCM, MP2 and AC-3
+   VOBs, ``-a 1``, ``-p`` WAV beside MPEG video, ``-L`` with a track, a
+   directory, extsub from a ``.spu`` and from a ``.idx``/``.sub``);
 6. numbers: steady-state chain frames/s on device-resident batches
    (CUDA events) for every path, beside the host's time to queue the
    batches, the step's peak device memory and the device's busy share
@@ -122,7 +135,11 @@ Phases, each of which raises on failure:
    over (nine batches): the host's parse a batch, decode and hqdn3d on
    the card (events, host queueing, device busy and time by kernel),
    the CLI on that stream and on dvd.vob, six runs of each in turns,
-   and its serial stages (``mpeg_stages``).
+   and its serial stages (``mpeg_stages``); the DVD rip's CLI on a
+   448-frame title with its track, with its track and a film's count of
+   subtitle units (``film_vobsub``), and without ``-m``, six runs of
+   each in turns, and its serial stages with the audio decode
+   (``dvdrip_stages``), with each of the two subtitle files.
 
 It prints one JSON object per result, then the kernels' summary and, as
 its last line, ``{"ok": true, "device": {...}}``.  It imports nothing of
@@ -615,6 +632,97 @@ MPEG_GOLDEN_SHA256 = {
         "f92a7d04304b583ed3cdbe0190bda2ba4976bc36726015293e2e12e977f7eda9",
     "cut": "f90d2d57f6fd146cef24e16bb83e0f76398479aeec423fbb57051c1f99a025f3",
 }
+
+
+# the DVD rip: tests/data/dvd (make_streams.py there), a decrypted
+# VIDEO_TS title of NTSC DVD video (720x480, 28 frames, MPEG-2 MP@ML,
+# GOP N=15 M=3, about 1.7 Mbit/s) with a 48 kHz stereo AC-3 track at
+# 192 kbit/s, over two VOB files and two chapters, read with -x dvd -T
+# and its VobSub subtitles burnt in by extsub before hqdn3d, with -m for
+# the track; small program streams with each kind of DVD audio and
+# subtitles beside it.  The goldens' SHA-256 (the .y4m and the .wav) are
+# pinned against the JAX CLI with the FFmpeg bridge off (its in-tree
+# decoders) by tests/test_torch_dvd_audio.py and test_torch_dvd_title.py
+DVD_DATA = ROOT / "tests" / "data" / "dvd"
+RIP_ARGS = ["-x", "dvd", "-T", "1", "-J",
+            "extsub=subtitle_file={dvd}/title.idx,hqdn3d=luma=4.0"]
+DVD_GOLDEN = {
+    "rip": ("VIDEO_TS", RIP_ARGS),
+    "chapter2": ("VIDEO_TS", ["-x", "dvd", "-T", "1,2", "--batch", "5"]),
+    "lpcm": ("lpcm.vob", ["--batch", "3"]),
+    "mp2": ("mp2.vob", ["--batch", "5"]),
+    "ac3": ("ac3.vob", []),
+    "ac3_b3": ("ac3.vob", ["--batch", "3", "-J", "hqdn3d=luma=4.0"]),
+    "track1": ("ac3x2.vob", ["-a", "1", "--batch", "4"]),
+    "wav": ("mp2.vob", ["-p", "{wav}", "--batch", "5"]),
+    "seek": ("ac3.vob", ["-L", "3", "--batch", "4"]),
+    "dir": ("{dir}", ["--batch", "5"]),
+    "extsub_spu": ("ac3.vob", ["-J", "extsub=subtitle_file={dvd}/small.spu",
+                               "--batch", "5"]),
+    "extsub_idx": ("mp2.vob", ["-J", "extsub=subtitle_file={dvd}/small.idx:"
+                               "track=1:vertshift=5", "--batch", "5"]),
+}
+DVD_GOLDEN_SHA256 = {
+    "rip": (
+        "613b85beef38dc4d9fdb7cb555b25ac0a2ff42a2fa73280024c9aba4197357cf",
+        "e1df5a4cf82a5ad765f071a892f745b5356451ae50f589ced46d7b2698a1f302"),
+    "chapter2": (
+        "6cb93bb655464e55a0b797fbf00008497420fb8785277d415acc8fe357850db0",
+        "99216dadd5530114134127b528e8664f7af607aee23c13a28f6451203fe9b752"),
+    "lpcm": (
+        "f9df8ba1aa7a769be9ec1ee6b4990e39a2f89fbbf94a08eb56fb6c13dcc1ed4d",
+        "c487f8fe6f90e15d8899686af25953efbf986ef1bd547bca3b99ca2a98c1697d"),
+    "mp2": (
+        "00aea5eee3a3cec4c6e9438904a77d2c5c973a96fcadf37cd864d01bdfcc8481",
+        "68ae7165ac3f17ba0661fb3b0fe61da0d26ee2b8ac0dfc1e28592fdd01231417"),
+    "ac3": (
+        "00aea5eee3a3cec4c6e9438904a77d2c5c973a96fcadf37cd864d01bdfcc8481",
+        "1443adb6303e7fa95ac2f0510eff72ffdfc94e77b10a39fab345fc440bf47c72"),
+    "ac3_b3": (
+        "0dc50787b43495986705ec7293fd4169696dccf31430badc9ba4a817f337086c",
+        "1443adb6303e7fa95ac2f0510eff72ffdfc94e77b10a39fab345fc440bf47c72"),
+    "track1": (
+        "00aea5eee3a3cec4c6e9438904a77d2c5c973a96fcadf37cd864d01bdfcc8481",
+        "33534321124f8e72688d5ab711581d9e4cb63dcb39434887bf2fdb709ae11081"),
+    "wav": (
+        "00aea5eee3a3cec4c6e9438904a77d2c5c973a96fcadf37cd864d01bdfcc8481",
+        "ab331689c92ff5aa559af211eabb7049e595ca6751529ce73d6301892aa1c3d0"),
+    "seek": (
+        "88c84dabec539f330d8772b7722d260e4987bc4a20dbeb5a2f40327e4bb2e66c",
+        "aa3b98cfec2519e5d20e8c92b3555178ff205ecc40d232eb295eda018718bef5"),
+    "dir": (
+        "ce5651e90950cb499ac5d0060d5e1a3f45327dfaca981a59e22743a3139404d4",
+        "d0adc6576bb555e5881d3ac337549a6f68fc384a71acc01c1f139d400a0dce5c"),
+    "extsub_spu": (
+        "3caafdbffeee4cbc468cf454f3ec3af8f7dec224d7d7b9e3f3fcd9c5f29b9bfd",
+        "1443adb6303e7fa95ac2f0510eff72ffdfc94e77b10a39fab345fc440bf47c72"),
+    "extsub_idx": (
+        "598dea7dcee008e95ed20672af67acf2a4454278e2c0709d43da2c43f97520d0",
+        "68ae7165ac3f17ba0661fb3b0fe61da0d26ee2b8ac0dfc1e28592fdd01231417"),
+}
+
+
+def dvd_golden_argv(case: str, directory, out) -> list:
+    """The CLI arguments of a ``DVD_GOLDEN`` case, writing ``out``.y4m and
+    ``out``.wav; the inputs it needs beyond tests/data/dvd are written
+    into ``directory``: ``{wav}`` a seeded 48 kHz stereo WAV of one
+    second, ``{dir}`` a directory holding ac3.vob and mp2.vob (played one
+    after the other)."""
+    directory = Path(directory)
+    src, args = DVD_GOLDEN[case]
+    names = {"dvd": str(DVD_DATA), "wav": str(directory / "dvd_in.wav"),
+             "dir": str(directory / "vobs")}
+    if "{wav}" in " ".join(args) and not Path(names["wav"]).exists():
+        write_test_wav(names["wav"], 48000, seed=17)
+    if src == "{dir}" and not Path(names["dir"]).exists():
+        Path(names["dir"]).mkdir()
+        for k, name in enumerate(("ac3.vob", "mp2.vob")):
+            (Path(names["dir"]) / f"{k + 1}.vob").write_bytes(
+                (DVD_DATA / name).read_bytes())
+    src = (src.format(**names) if src.startswith("{")
+           else str(DVD_DATA / src))
+    return ["-i", src, "-o", f"{out}.y4m", "-m", f"{out}.wav",
+            *(a.format(**names) for a in args)]
 
 
 def mpeg_golden_input(case: str, directory) -> Path:
@@ -1263,6 +1371,11 @@ def main(argv=()) -> int:
         # and the MPEG goldens pinned against the JAX CLI
         path_launches["dvd"] = _run_dvd(torch, cli, kernels, tmp)
         _mpeg_goldens(cli, tmp)
+        # 4. and 5. for the DVD rip: the VIDEO_TS title with its AC-3
+        # track, subtitles and hqdn3d, and the DVD goldens
+        path_launches["dvdrip"] = _run_dvdrip(torch, cli, kernels, bench,
+                                              tmp)
+        _dvd_goldens(cli, tmp)
         _run_audio_only(torch, cli, tmp)
         _audio_goldens(cli, tmp)
         emit(phase="audio_chain", batch=MAIN_BATCH,
@@ -1337,6 +1450,11 @@ def main(argv=()) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dvd_") as tmp:
         _dvd_rates(torch, dev, cli, Path(tmp))
     torch.cuda.empty_cache()
+    # 6. the DVD rip: its CLI with the track (and a film's subtitles)
+    # and without, in turns; its serial stages
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rip_") as tmp:
+        _dvdrip_rates(torch, dev, cli, Path(tmp))
+    torch.cuda.empty_cache()
 
     # each kernel's launches in the run of the path that carries it
     for name, (src, _) in KERNELS.items():
@@ -1348,6 +1466,8 @@ def main(argv=()) -> int:
                                            *OVERLAY_PATHS.items())
                          if name in spec["kernels"])
             launches[name] = path_launches[owner][name]
+    emit(phase="launches", path="dvdrip", launches={
+        k: path_launches["dvdrip"][k] for k in RIP_KERNELS})
     if bench.parent:
         emit(phase="parent_summary", per_batch=bench.versus_sums)
     print(json.dumps({"kernels": [
@@ -3474,6 +3594,303 @@ def mpeg_stages(torch, dev, src, out, job, batch: int = MAIN_BATCH):
             "sum_ms_per_batch": total,
             "serial_fps": frames / (total * batches / 1e3),
             "overlapped_fps": frames / (max(per_batch.values())
+                                        * batches / 1e3)}
+
+
+
+# ---------------------------------------------------------------------- #
+# The DVD rip: -i VIDEO_TS -x dvd -T 1 with its AC-3 track (-m), extsub
+# and hqdn3d
+
+RIP_KERNELS = MPEG_KERNELS
+# the long title of the CLI timings: two VOB files, each the title's
+# sectors eight times over (448 frames; a disc's VOB file holds a GB)
+RIP_LONG_REPEAT = 8
+# a feature film's VobSub: about 1,500 units over two hours
+FILM_UNITS, FILM_STEP_MS = 1500, 4800
+
+
+def dvdrip_title(directory, repeat: int = 1) -> Path:
+    """A ``VIDEO_TS`` directory in ``directory``: the fixture title's IFOs
+    and its two VOB files, or with ``repeat`` more than 1 two VOB files
+    that each hold the title's sectors ``repeat`` times over (each of
+    its files starts at a GOP, so the copies play one after the
+    other)."""
+    src = DVD_DATA / "VIDEO_TS"
+    ts = Path(directory) / f"VIDEO_TS_{repeat}" / "VIDEO_TS"
+    ts.mkdir(parents=True)
+    for name in ("VIDEO_TS.IFO", "VTS_01_0.IFO"):
+        (ts / name).write_bytes((src / name).read_bytes())
+    vobs = [(src / f"VTS_01_{k}.VOB").read_bytes() for k in (1, 2)]
+    if repeat > 1:
+        vobs = [b"".join(vobs) * repeat] * 2
+    for k, vob in enumerate(vobs):
+        (ts / f"VTS_01_{k + 1}.VOB").write_bytes(vob)
+    return ts
+
+
+def film_vobsub(directory, units: int = FILM_UNITS,
+                step_ms: int = FILM_STEP_MS, src: str = "title") -> Path:
+    """A VobSub pair in ``directory`` with a film's count of units:
+    ``src``'s first-language units repeated in turn, the first at their
+    own times and then one every ``step_ms``; returns the .idx path."""
+    lines = (DVD_DATA / f"{src}.idx").read_text().splitlines()
+    sub = (DVD_DATA / f"{src}.sub").read_bytes()
+    first = next(i for i, line in enumerate(lines) if line.startswith("id:"))
+    stamps = []
+    for line in lines[first + 1:]:
+        if not line.startswith("timestamp:"):
+            break
+        hh, mm, ss, ms = (int(v) for v in line.split()[1][:-1].split(":"))
+        pos = int(line.rsplit(" ", 1)[1], 16)
+        size = 6 + int.from_bytes(sub[pos + 4:pos + 6], "big")
+        stamps.append((((hh * 60 + mm) * 60 + ss) * 1000 + ms,
+                       sub[pos:pos + size]))
+    out, body = lines[:first + 1], bytearray()
+    for k in range(units):
+        ms, packet = stamps[k % len(stamps)]
+        if k >= len(stamps):
+            ms = stamps[-1][0] + (k - len(stamps) + 1) * step_ms
+        hh, rest = divmod(ms, 3600000)
+        mm, rest = divmod(rest, 60000)
+        ss, rest = divmod(rest, 1000)
+        out.append(f"timestamp: {hh:02d}:{mm:02d}:{ss:02d}:{rest:03d}, "
+                   f"filepos: {len(body):09x}")
+        body += packet
+    idx = Path(directory) / f"film{units}.idx"
+    idx.write_text("\n".join(out) + "\n")
+    idx.with_suffix(".sub").write_bytes(bytes(body))
+    return idx
+
+
+def rip_args(subs=None) -> list:
+    """The rip's options, its subtitles from ``subs`` (an .idx path)
+    where given."""
+    args = [a.format(dvd=DVD_DATA) for a in RIP_ARGS]
+    if subs is not None:
+        args[-1] = args[-1].replace(f"{DVD_DATA}/title.idx", str(subs))
+    return args
+
+
+def rip_argv(title, out, audio: bool = True, subs=None) -> list:
+    """The rip's CLI arguments on ``title``, writing ``out``.y4m (and
+    ``out``.wav with the track)."""
+    return (["-i", str(title), "-o", f"{out}.y4m", *rip_args(subs)]
+            + (["-m", f"{out}.wav"] if audio else []))
+
+
+@contextlib.contextmanager
+def checked_kernels(kernels, bench, case: str, names):
+    """Every call of the wrappers ``names`` (kernel name: wrapper name)
+    held against its plain version on the same inputs; yields the count
+    of calls by kernel."""
+    saved = {w: getattr(kernels, w) for w in names.values()}
+    counts = dict.fromkeys(names, 0)
+
+    def checked(kernel, wrapper):
+        fn, ref = saved[wrapper], getattr(kernels, wrapper + "_ref")
+
+        def call(*a, **k):
+            got = fn(*a, **k)
+            bench.check(kernel, case, got, ref(*a, **k), quiet=True)
+            counts[kernel] += 1
+            return got
+        return call
+    try:
+        for kernel, wrapper in names.items():
+            setattr(kernels, wrapper, checked(kernel, wrapper))
+        yield counts
+    finally:
+        for wrapper, fn in saved.items():
+            setattr(kernels, wrapper, fn)
+
+
+_RIP_WRAPPERS = {"mpeg2_recon": "mpeg2_recon",
+                 "mpeg2_idct_intra": "mpeg2_idct_intra",
+                 "hqdn3d_spatial_scan": "spatial_scan",
+                 "hqdn3d_temporal_scan": "temporal_scan"}
+
+
+def _run_dvdrip(torch, cli, kernels, bench, tmp):
+    """Phase 4 for the DVD rip: the rip through the port's CLI with the
+    launch counts set to 0 just before and read just after (every kernel
+    of the path launched); its .y4m and .wav against the JAX-pinned
+    digests; the same CLI with every kernel call held against its plain
+    version (max abs err 0) and on the plain versions alone, byte for
+    byte.  Returns the launches."""
+    title = dvdrip_title(tmp)
+    out = tmp / "rip"
+    argv = [*rip_argv(title, out), "--device", "cuda", "--progress_off",
+            "-q"]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    check(rc == 0, f"dvdrip: CLI exit code {rc}")
+    frames = Path(f"{out}.y4m").read_bytes().count(b"FRAME\n")
+    emit(phase="path", path="dvdrip", frames=frames, seconds=seconds,
+         e2e_fps=frames / seconds,
+         launches={k: launches[k] for k in RIP_KERNELS})
+    for name in RIP_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched by the "
+                                  "dvdrip path")
+    want = [sha256_file(f"{out}.{ext}") for ext in ("y4m", "wav")]
+    emit(phase="golden", path="dvdrip", sha256=want,
+         pinned=list(DVD_GOLDEN_SHA256["rip"]))
+    check(tuple(want) == DVD_GOLDEN_SHA256["rip"],
+          "dvdrip output differs from the JAX-pinned digests")
+    for label in ("checked", "plain"):
+        path = tmp / f"rip_{label}"
+        ctx = (checked_kernels(kernels, bench, "dvdrip", _RIP_WRAPPERS)
+               if label == "checked" else plain_versions(kernels))
+        with ctx as counts:
+            rc = cli.main([*rip_argv(title, path), "--device", "cuda",
+                           "--progress_off", "-q"])
+        check(rc == 0, f"dvdrip on the {label}: CLI exit code {rc}")
+        got = [sha256_file(f"{path}.{ext}") for ext in ("y4m", "wav")]
+        same = got == want
+        emit(phase="path_vs_plain", path="dvdrip", run=label,
+             identical=same, checked_calls=counts)
+        check(same, f"dvdrip on the {label}: the output differs")
+    return launches
+
+
+def _dvd_goldens(cli, tmp):
+    """Phase 5 for the DVD rip: every ``DVD_GOLDEN`` case on the card, its
+    .y4m and .wav SHA-256 against the JAX CLI's pinned digests."""
+    for case in DVD_GOLDEN:
+        argv = dvd_golden_argv(case, tmp, tmp / f"dvd_golden_{case}")
+        rc = cli.main([*argv, "--device", "cuda", "--progress_off", "-q"])
+        digest = tuple(sha256_file(tmp / f"dvd_golden_{case}.{ext}")
+                       for ext in ("y4m", "wav"))
+        emit(phase="golden", path=f"dvd_{case}", sha256=list(digest),
+             pinned=list(DVD_GOLDEN_SHA256[case]))
+        check(rc == 0 and digest == DVD_GOLDEN_SHA256[case],
+              f"dvd {case} golden output differs from the JAX-pinned "
+              "digests")
+
+
+def _dvdrip_rates(torch, dev, cli, tmp):
+    """Phase 6 for the DVD rip, on a title of two VOB files that each
+    hold the fixture title ``RIP_LONG_REPEAT`` times: the CLI, wall
+    clock, six runs of each variant in turns: the rip with its track,
+    the same with a film's VobSub (``film_vobsub``), and without -m (no
+    track demuxed); then the serial stages a batch (``dvdrip_stages``)
+    with each subtitle file."""
+    title = dvdrip_title(tmp, RIP_LONG_REPEAT)
+    film = film_vobsub(tmp)
+    out = Path(tmp) / "rip_long"
+    variants = [("m", True, None), ("m_film_subs", True, film),
+                ("video_only", False, None)]
+    fps = {name: [] for name, _, _ in variants}
+    frames = {}
+    for r in range(6):
+        k = r % len(variants)
+        for name, audio, subs in variants[k:] + variants[:k]:
+            t0 = time.perf_counter()
+            rc = cli.main([*rip_argv(title, out, audio, subs), "--batch",
+                           str(MAIN_BATCH), "--device", "cuda",
+                           "--progress_off", "-q"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            check(rc == 0, f"dvdrip CLI ({name}): exit code {rc}")
+            frames[name] = Path(f"{out}.y4m").read_bytes().count(
+                b"FRAME\n")
+            fps[name].append(frames[name] / seconds)
+    emit(phase="cli", path="dvdrip", repeat=RIP_LONG_REPEAT, frames=frames,
+         film_units=FILM_UNITS, fps=fps,
+         median_fps={k: float(np.median(v)) for k, v in fps.items()},
+         min_fps={k: min(v) for k, v in fps.items()},
+         max_fps={k: max(v) for k, v in fps.items()})
+    for label, subs in (("title_subs", None), ("film_subs", film)):
+        emit(phase="stages", path="dvdrip", subs=label,
+             **dvdrip_stages(torch, dev, title, Path(tmp) / "stages.y4m",
+                             subs))
+
+
+def dvdrip_stages(torch, dev, title, out, subs=None,
+                  batch: int = MAIN_BATCH):
+    """The serial stages of the rip on the card, each timed alone with
+    the card synchronized after it: the host parse and plan (with the
+    demux), the wait for the audio track's samples of the batch (what
+    the decode process has not given back yet), the decode (upload and
+    reconstruction), the chain (extsub from ``subs`` or the title's
+    .idx, hqdn3d), the copy back and the Y4M write; ``audio_decode`` is
+    the decoder's own time a batch, in its process.  Returns ms per
+    batch of each, the sum of the serial ones and the frames/s of the
+    sum and of the slowest one."""
+    from tcforge_tpu_torch.core.formats import ImageFormat
+    from tcforge_tpu_torch.core.frame import FrameBatch
+    from tcforge_tpu_torch.core.job import FilterSpec, Job
+    from tcforge_tpu_torch.io.adec_worker import decode_seconds
+    from tcforge_tpu_torch.io.y4m import Y4MHeader, Y4MWriter
+    from tcforge_tpu_torch.modules.registry import ModuleKind, new_module
+    from tcforge_tpu_torch.pipeline.chain import VideoChain
+    job = Job(dvd_title=1, fps=30000 / 1001, filters=[
+        FilterSpec.parse(f) for f in rip_args(subs)[-1].split(",")])
+    imp = new_module(ModuleKind.DEMULTIPLEXOR, "dvd", job)
+    imp.open(str(title))
+    imp.start(dev, 2)
+    spf = int(round(imp.audio_rate / imp.fps))
+    chain = VideoChain(job, ImageFormat.YUV420P, imp.width, imp.height)
+    states = chain.initial_states(dev)
+    ms = dict.fromkeys(("parse", "audio", "decode", "chain", "to_host",
+                        "write"), 0.0)
+    ms["audio_decode"] = 0.0
+    frames = batches = 0
+    with Y4MWriter(str(out), Y4MHeader(
+            width=imp.width, height=imp.height, fps_num=30000,
+            fps_den=1001, format=ImageFormat.YUV420P)) as wr:
+        torch.cuda.synchronize()
+        while True:
+            dec0 = decode_seconds()
+            t0 = time.perf_counter()
+            plan = imp.plan_batch(batch)
+            t1 = time.perf_counter()
+            if plan is None:
+                break
+            n = len(plan.frames)
+            if n:
+                imp.read_audio_batch(spf * n)
+            t2 = time.perf_counter()
+            ms["audio_decode"] += (decode_seconds() - dec0) * 1e3
+            planes = imp.execute(plan)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            if planes is None:
+                continue
+            fb = FrameBatch(format=ImageFormat.YUV420P, y=planes["y"],
+                            u=planes["u"], v=planes["v"],
+                            attrs=torch.zeros((n,), dtype=torch.int32,
+                                              device=dev),
+                            frame_ids=torch.arange(
+                                frames, frames + n, dtype=torch.int32,
+                                device=dev), fps=job.fps,
+                            id_range=(frames, frames + n))
+            result, states = chain(fb, states)
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            host = result.to_numpy()
+            t5 = time.perf_counter()
+            wr.write_batch(*host)
+            t6 = time.perf_counter()
+            for key, a, b in (("parse", t0, t1), ("audio", t1, t2),
+                              ("decode", t2, t3), ("chain", t3, t4),
+                              ("to_host", t4, t5), ("write", t5, t6)):
+                ms[key] += (b - a) * 1e3
+            frames += n
+            batches += 1
+    imp.close()
+    per_batch = {k: v / batches for k, v in ms.items()}
+    serial = {k: v for k, v in per_batch.items() if k != "audio_decode"}
+    total = sum(serial.values())
+    return {"frames": frames, "ms_per_batch": per_batch,
+            "sum_ms_per_batch": total,
+            "serial_fps": frames / (total * batches / 1e3),
+            "overlapped_fps": frames / (max(serial.values())
                                         * batches / 1e3)}
 
 

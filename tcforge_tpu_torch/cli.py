@@ -11,7 +11,7 @@ the Y4M output of an RGB job is YUV420P), the engine's ``-c`` ranges
 ``--progress_rate``, and the ``-J`` filters hqdn3d, unsharp,
 tomsmocomp, denoise3d, ivtc, 32detect, decimate, 32drop, smartdeinter,
 smartyuv, doublefps, smartbob, barrel, fps, skip, slowmo, modfps,
-invert, levels, deinterlace, mask, testframe and null
+invert, levels, deinterlace, mask, testframe, extsub and null
 (comma-separated, run in their slots' order), and the audio track:
 ``-p`` (a WAV) and ``-m`` (a ``.wav``), ``-s``, ``-d``,
 ``-E rate[,bits[,channels]]``, ``-D``, ``--av_fine_ms``, ``--sync``,
@@ -22,7 +22,10 @@ resample, aclip and cpaudio in the same ``-J`` list; a WAV given to
 a program stream, an elementary stream) is read with ``-x mpeg`` (or
 its aliases ``mpeg2``, ``mpg`` and ``vob``), or found by its magic with
 the default ``-x auto``; its size and rate come from the sequence
-header, the host parses it and the card reconstructs it:
+header, the host parses it and the card reconstructs it.  A program
+stream's LPCM, MPEG audio or AC-3 track (``-a`` picks it) goes to ``-m``;
+``-x dvd -T title[,chapter[-chapter]]`` reads a decrypted ``VIDEO_TS``
+title and a directory given to ``-i`` plays its files in turn:
 
     python -m tcforge_tpu_torch.cli -i in.y4m -I 5 -Z 1280x720 \\
         -J hqdn3d=luma=4.0 -o out.y4m [--batch 16] [--device cuda]
@@ -48,6 +51,8 @@ header, the host parses it and the card reconstructs it:
         -J normalize,lowpass,astat
     python -m tcforge_tpu_torch.cli -i dvd.vob -x mpeg \\
         -J hqdn3d=luma=4.0 -o out.y4m --batch 16
+    python -m tcforge_tpu_torch.cli -i VIDEO_TS -x dvd -T 1 -o out.y4m \\
+        -J extsub=subtitle_file=subs.idx,hqdn3d=luma=4.0 -m out.wav
 
 and refuses every other flag of the JAX CLI with an error that names
 it, and any audio file but WAV.  ``--device cuda`` (the default) with
@@ -97,16 +102,22 @@ def build_parser() -> argparse.ArgumentParser:
                     "WAV) in, filter chain, Y4M (and WAV) out")
     p.add_argument("-i", dest="video_in", required=True,
                    help="input file (YUV4MPEG2, an MPEG-1/2 program or "
-                        "elementary stream, or WAV for an audio-only "
-                        "session)")
+                        "elementary stream, a directory of them, a "
+                        "VIDEO_TS directory with -x dvd, or WAV for an "
+                        "audio-only session)")
     p.add_argument("-o", dest="video_out", required=True,
                    help="output file (YUV4MPEG2, or WAV for an "
                         "audio-only session)")
     p.add_argument("-x", "--import_with", dest="im_modules",
                    default="auto,auto",
                    help="import modules video[,audio] (video: auto, y4m, "
-                        "wav, mpeg or its aliases mpeg2, mpg, vob; "
-                        "name=options)")
+                        "wav, mpeg or its aliases mpeg2, mpg, vob, dvd, "
+                        "multi; name=options)")
+    p.add_argument("-T", dest="dvd_title", default="",
+                   help="DVD title[,chapters[,angle]] of a decrypted "
+                        "VIDEO_TS directory (-x dvd)")
+    p.add_argument("-a", dest="a_track", type=int, default=0,
+                   help="audio track to extract")
     p.add_argument("-p", dest="audio_in", help="audio input file (WAV)")
     p.add_argument("-m", dest="audio_out", help="audio output file (WAV)")
     # audio (the JAX CLI's flags and parsing)
@@ -261,6 +272,18 @@ def args_to_job(args: argparse.Namespace) -> Job:
     if args.channels:
         job.dm_chan = args.channels
     job.av_fine_ms = args.av_fine_ms
+    job.a_track = args.a_track
+    if args.dvd_title:
+        # -T t[,c[-d][,a]] (cmdline_def.h:340)
+        parts = args.dvd_title.split(",")
+        job.dvd_title = int(parts[0])
+        if len(parts) > 1 and parts[1]:
+            ch = parts[1].split("-")
+            job.dvd_chapter1 = int(ch[0])
+            if len(ch) > 1 and ch[1]:
+                job.dvd_chapter2 = int(ch[1])
+        if len(parts) > 2 and parts[2]:
+            job.dvd_angle = int(parts[2])
     return job
 
 

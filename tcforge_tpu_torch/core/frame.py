@@ -37,8 +37,11 @@ class FrameBatch:
     (N, H//sy, W//sx) chroma planes; Y8/GRAY8 set only ``y``.  RGB
     formats: ``rgb`` is (N, H, W, C) uint8 in R,G,B[,A] order and the
     planes are None.  ``attrs`` (the frame attribute bitmask) and
-    ``frame_ids`` are (N,) int32.  ``timestamps`` keeps the JAX record's
-    shape and is unused by the port's chains so far.
+    ``frame_ids`` are (N,) int32.  ``id_range``: host-side bounds
+    ``(lo, hi)`` that every frame id lies in, ``lo <= id < hi``, where
+    the batch's maker knows them (None: unknown; a filter that repeats
+    or drops frames keeps them valid).  ``timestamps`` keeps the JAX
+    record's shape and is unused by the port's chains so far.
     """
 
     format: ImageFormat
@@ -51,6 +54,7 @@ class FrameBatch:
     timestamps: Optional[torch.Tensor] = None
     interlaced: bool = False
     fps: float = 0.0
+    id_range: Optional[Tuple[int, int]] = None
 
     @property
     def batch(self) -> int:
@@ -122,7 +126,7 @@ class FrameBatch:
             attrs=torch.zeros((n,), dtype=torch.int32, device=device),
             frame_ids=torch.arange(first_id, first_id + n,
                                    dtype=torch.int32, device=device),
-            fps=fps)
+            fps=fps, id_range=(first_id, first_id + n))
 
     def to_numpy(self) -> Tuple[np.ndarray, ...]:
         """The image planes as host uint8 arrays, luma first."""

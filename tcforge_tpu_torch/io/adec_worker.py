@@ -1,0 +1,236 @@
+"""A program stream's compressed audio decoded away from the demux.
+
+The MPEG importer's demux runs on the engine's reader thread, beside the
+host parse of the video.  The in-tree AC-3 and MPEG audio decoders
+(``io/a52dec.py``, ``io/mp2dec.py`` with ``io/mp3dec.py``) are pure
+Python: decoded inline, as the JAX importer does, they would hold the
+reader thread for longer than the parse itself, and in a thread they
+would hold the interpreter lock that the parse's Python half and the
+engine's threads need.  So the demux hands each payload, in demux
+order, to a ``Decoder``: one ``StreamDecoder`` of the JAX importer's
+kind in a child Python process (``python -m
+tcforge_tpu_torch.io.adec_worker``), which imports numpy and the
+decoder alone, reads pickled requests on its standard input and writes
+pickled results on its standard output, in the same order.  A thread of
+the parent reads those results into a queue as they arrive, so the
+child never waits on a full pipe, however far the demux runs ahead of
+the results it takes.
+
+A request is ``feed`` (a payload: ``StreamDecoder.feed`` then ``read``)
+or ``flush`` (``flush`` then ``read``), or ``reset`` (a fresh decoder:
+a process whose decoder closed serves the next one of its kind, so that
+a title's VOB files do not start one each); its result is ``(pcm,
+rate)``: the samples that the decoder gave back, (S, C) int16 or None,
+and the decoder's rate after it; ``decode_seconds`` sums the decoders'
+own time over the results taken.  A decoder that raises hands its error to
+the caller of ``result``, which raises it there.
+"""
+
+from __future__ import annotations
+
+import atexit
+import os
+import pickle
+import queue
+import struct
+import subprocess
+import sys
+import threading
+import time
+from pathlib import Path
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+_ROOT = Path(__file__).resolve().parent.parent.parent
+
+
+def new_stream_decoder(kind: str):
+    """The JAX importer's in-tree fallback decoder for ``kind``."""
+    if kind == "ac3":
+        from tcforge_tpu_torch.io.a52dec import StreamDecoder
+        return StreamDecoder()
+    if kind == "mp2":
+        from tcforge_tpu_torch.io.mp2dec import StreamDecoder
+        return StreamDecoder()
+    raise ValueError(f"no audio decoder for {kind!r}")
+
+
+def _run(dec, op: str, data: bytes):
+    t0 = time.perf_counter()
+    if op == "feed":
+        dec.feed(data)
+    else:
+        dec.flush()
+    return dec.read(), dec.rate, time.perf_counter() - t0
+
+
+# the decoders' own time over every result taken in this process
+_SECONDS = [0.0]
+
+
+def decode_seconds() -> float:
+    """The decoders' own time, in seconds, summed over every result
+    taken so far in this process."""
+    return _SECONDS[0]
+
+
+class _Worker:
+    """A child process serving one decoder at a time, and the thread
+    that moves its results into ``out`` as they arrive (None once its
+    output ends)."""
+
+    def __init__(self, kind: str):
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [str(_ROOT)] + ([env["PYTHONPATH"]]
+                            if env.get("PYTHONPATH") else []))
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "tcforge_tpu_torch.io.adec_worker", kind],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, env=env,
+            cwd=str(_ROOT))
+        self.out: "queue.Queue" = queue.Queue()
+        self._reader = threading.Thread(target=self._read,
+                                        name="tcforge-adec-results",
+                                        daemon=True)
+        self._reader.start()
+
+    def _read(self) -> None:
+        while True:
+            try:
+                got = _recv(self.proc.stdout)
+            except (OSError, ValueError, EOFError, pickle.UnpicklingError):
+                got = None
+            self.out.put(got)
+            if got is None:
+                return
+
+    def send(self, op: str, data: bytes) -> None:
+        _send(self.proc.stdin, (op, data))
+
+    def take(self):
+        """The oldest result not taken, waiting for it."""
+        got = self.out.get()
+        if got is None:
+            self.out.put(None)          # every later take sees the end
+            raise RuntimeError("the audio decode process ended "
+                               f"(exit code {self.proc.poll()})")
+        return got
+
+    def stop(self) -> None:
+        try:
+            self.proc.stdin.close()
+        except OSError:
+            pass
+        try:
+            self.proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+        self._reader.join(timeout=10)
+        self.proc.stdout.close()
+
+
+# worker processes whose decoder has closed, by kind: the next decoder of
+# that kind takes one and resets it (a title's VOB files each open a
+# decoder); stopped when the interpreter exits
+_IDLE: Dict[str, List[_Worker]] = {}
+_IDLE_LOCK = threading.Lock()
+
+
+@atexit.register
+def stop_idle_workers() -> None:
+    """Stop every idle worker process."""
+    with _IDLE_LOCK:
+        workers = [w for ws in _IDLE.values() for w in ws]
+        _IDLE.clear()
+    for worker in workers:
+        worker.stop()
+
+
+class Decoder:
+    """One stream decoder of ``kind`` in a worker process: requests in
+    order with ``submit``, their results in the same order with
+    ``result``."""
+
+    def __init__(self, kind: str):
+        self.kind = kind
+        self.pending = 0              # submitted, result not taken yet
+        with _IDLE_LOCK:
+            idle = _IDLE.get(kind, [])
+            self._worker = idle.pop() if idle else None
+        if self._worker is not None:
+            self.submit("reset")
+            self.result()
+        else:
+            self._worker = _Worker(kind)
+
+    def submit(self, op: str, data: bytes = b"") -> None:
+        self.pending += 1
+        self._worker.send(op, data)
+
+    def result(self) -> Tuple[Optional[np.ndarray], int]:
+        """The oldest request's ``(pcm, rate)``, waiting for it."""
+        if self.pending <= 0:
+            raise RuntimeError("no audio decode request is pending")
+        self.pending -= 1
+        ok, value = self._worker.take()
+        if not ok:
+            raise value
+        pcm, rate, seconds = value
+        _SECONDS[0] += seconds
+        return pcm, rate
+
+    def close(self) -> None:
+        """Drop the results not taken; the worker, once it answered them
+        all, waits idle for the next decoder of its kind."""
+        if self._worker is None:
+            return
+        worker, self._worker = self._worker, None
+        try:
+            while self.pending:
+                self.pending -= 1
+                worker.take()
+        except RuntimeError:             # the process ended: not reused
+            worker.stop()
+            return
+        with _IDLE_LOCK:
+            _IDLE.setdefault(self.kind, []).append(worker)
+
+
+def _send(f, obj) -> None:
+    data = pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
+    f.write(struct.pack("<Q", len(data)) + data)
+    f.flush()
+
+
+def _recv(f):
+    head = f.read(8)
+    if len(head) < 8:
+        return None
+    size = struct.unpack("<Q", head)[0]
+    return pickle.loads(f.read(size))
+
+
+def serve(kind: str) -> int:
+    """The worker process: requests from standard input, results to
+    standard output, until standard input closes."""
+    rd, wr = sys.stdin.buffer, sys.stdout.buffer
+    dec = new_stream_decoder(kind)
+    while True:
+        item = _recv(rd)
+        if item is None:
+            return 0
+        try:
+            if item[0] == "reset":     # the next stream: a new decoder
+                dec = new_stream_decoder(kind)
+                out = (True, (None, 0, 0.0))
+            else:
+                out = (True, _run(dec, *item))
+        except Exception as e:
+            out = (False, e)
+        _send(wr, out)
+
+
+if __name__ == "__main__":
+    sys.exit(serve(sys.argv[1]))

@@ -3,11 +3,14 @@ built-in filters, the WAV and MPEG importers, the WAV multiplexor and the
 raw and null encoders, as importing ``tcforge_tpu.modules`` does."""
 
 from tcforge_tpu_torch.modules.encoders import basic as _encoders  # noqa: F401
+from tcforge_tpu_torch.modules.importers import dvd_import  # noqa: F401
 from tcforge_tpu_torch.modules.importers import mpeg_import  # noqa: F401
+from tcforge_tpu_torch.modules.importers import multi  # noqa: F401
 from tcforge_tpu_torch.modules.importers import wav_import  # noqa: F401
 from tcforge_tpu_torch.modules.muxers import basic as _muxers  # noqa: F401
 
 from tcforge_tpu_torch.modules.filters import (  # noqa: F401
-    analysis, audio_filters, bob, cadence, denoise3d, dnr, extras, hqdn3d, median, modfps,
+    analysis, audio_filters, bob, cadence, denoise3d, dnr, extras, extsub, hqdn3d, median,
+    modfps,
     msharpen, overlay, pp, rate, simple, smartdeinter, smooth, stabilize, tomsmocomp,
     unsharp, xsharpen, yait, yuvdenoise)

@@ -1,6 +1,6 @@
-"""The MPEG PS/ES video import module (``import_mpeg2``/``import_vob``):
-the port of ``tcforge_tpu/modules/importers/mpeg_import.py`` for 4:2:0
-MPEG-1 and MPEG-2 video.
+"""The MPEG PS/ES import module (``import_mpeg2``/``import_vob``): the
+port of ``tcforge_tpu/modules/importers/mpeg_import.py`` for 4:2:0
+MPEG-1 and MPEG-2 video and a program stream's audio track.
 
 The decode is split in two halves, so that the engine can run them on
 two threads:
@@ -34,16 +34,27 @@ a warning.
 
 The windowed reader is the default; ``-L`` (``vob_offset``) opens the
 whole elementary stream instead, and ``seek`` cuts it at the last
-sequence header before the frame and decodes and drops the rest.  Not
-ported yet, each raising ``NotImplementedError``: a program stream's
-audio tracks, the 4:2:2 profile, TS and CDXA input and PSU navigation
-(``-S``, ``--psu_mode``).
+sequence header before the frame and decodes and drops the rest.
+
+A program stream's audio track demuxes beside the video, as the JAX
+importer's does (``_Track``): the first kind found wins (DVD LPCM,
+MPEG audio on PES 0xC0 + ``-a``, AC-3 on private-stream-1 sub-stream
+0x80 + ``-a``, PlayStation VAG), the windowed reader's discovery
+budget of two pumps decides whether the engine sees a track, and
+``read_audio_batch`` serves the fifo in demux order (the whole track,
+decoded at open, under ``-L``).  The AC-3 and MPEG audio decoders are
+pinned copies of the JAX package's in-tree ones, run in a worker
+process (``io/adec_worker.py``) while the reader thread parses on; LPCM
+and VAG decode inline.  Not ported yet, each raising
+``NotImplementedError``: the 4:2:2 profile, TS and CDXA input and PSU
+navigation (``-S``, ``--psu_mode``).
 """
 
 from __future__ import annotations
 
 import logging
 import queue
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Dict, Iterator, List, Optional, Tuple
 
@@ -77,6 +88,195 @@ def _sniff_422(path: str) -> bool:
         if (head[i + 4] >> 4) == 1:        # sequence extension
             return ((head[i + 5] >> 1) & 3) == 2
         i += 4
+
+
+class _Track:
+    """A program stream's audio track as the demux finds it: the JAX
+    importer's choice of track and decoder (the first kind found wins,
+    ``-a`` picks the sub-stream) and its fifo of samples, with the
+    decode in a worker process (``io/adec_worker.py``).
+
+    The fifo holds entries in demux order: samples ready at once (LPCM,
+    and VAG, decoded inline) and tickets for the decoder's results.
+    Where the JAX importer looks at what its decoder gave back (whether
+    a track was seen, how many samples wait, the rate), ``_resolve``
+    takes the decoder's results in order first, as far as the question
+    needs, so every answer is the one the JAX importer gives at the same
+    point of the demux.  A ``quiet`` entry is one the JAX importer
+    appends at the end of the source without marking the track seen or
+    taking its rate (the decoders' flush, VAG's tail)."""
+
+    def __init__(self, a_track: int):
+        self.a_track = a_track
+        self.kind: Optional[str] = None
+        self.dec = None                   # io.adec_worker.Decoder
+        self.vag = None                   # io.vag.VagStreamDecoder
+        self.entries: deque = deque()     # ("pcm", pcm, rate, quiet)
+        #                                   or ("dec", quiet)
+        self.fifo: List[np.ndarray] = []  # resolved samples
+        self.have = 0                     # samples in the fifo
+        self.seen = False
+        self.rate = 0
+        self.channels = 0
+
+    # -- the demux (the JAX importer's _ps_video_chunks) --------------- #
+
+    def _decoder(self, kind: str):
+        if self.dec is None:
+            from tcforge_tpu_torch.io.adec_worker import Decoder
+            self.dec = Decoder(kind)
+        return self.dec
+
+    def _feed(self, kind: str, payload: bytes) -> None:
+        self._decoder(kind).submit("feed", payload)
+        self.entries.append(("dec", False))
+
+    def demux(self, sid: int, payload: bytes) -> None:
+        """One non-video PES packet of the windowed reader."""
+        if sid == 0xC0 + self.a_track and self.kind in (None, "mp2"):
+            self.kind = "mp2"
+            self._feed("mp2", payload)
+        elif sid == mpeg.PES_PRIVATE1:
+            got = (mpeg.parse_lpcm_payload(payload, self.a_track)
+                   if self.vag is None else None)
+            if got is not None:
+                self.kind = "lpcm"
+                self.entries.append(("pcm", got[0], got[1], False))
+                return
+            if self.kind in (None, "ac3"):
+                raw3 = mpeg.parse_ac3_payload(payload, self.a_track)
+                if raw3 is not None:
+                    self.kind = "ac3"
+                    self._feed("ac3", raw3)
+                    return
+            raw = (mpeg.parse_vag_payload(payload)
+                   if self.kind not in ("lpcm", "mp2", "ac3") else None)
+            if raw is not None:
+                if self.vag is None:
+                    from tcforge_tpu_torch.io.vag import VagStreamDecoder
+                    self.vag = VagStreamDecoder()
+                pcm = self.vag.feed(raw)
+                if pcm is not None and len(pcm):
+                    self.entries.append(("pcm", pcm, self.vag.info.rate,
+                                         False))
+
+    def finish(self) -> None:
+        """The end of the source: VAG's tail and the decoder's flush."""
+        if self.vag is not None:
+            tail = self.vag.flush()
+            if tail is not None and len(tail):
+                self.entries.append(("pcm", tail, 0, True))
+        if self.dec is not None:
+            self.dec.submit("flush")
+            self.entries.append(("dec", True))
+
+    def demux_whole(self, sid: int, payload: bytes) -> None:
+        """One non-video PES packet of the whole-file reader (the JAX
+        importer's ``open`` under ``-L``: its kinds are chosen a little
+        differently)."""
+        kind = self.kind
+        if sid == 0xC0 + self.a_track and kind in (None, "mp2"):
+            self.kind = "mp2"
+            self._feed("mp2", payload)
+        elif sid == mpeg.PES_PRIVATE1:
+            got = (mpeg.parse_lpcm_payload(payload, self.a_track)
+                   if kind in (None, "lpcm") else None)
+            if got is not None:
+                self.kind = "lpcm"
+                self.entries.append(("pcm", got[0], got[1], False))
+                return
+            if kind in (None, "ac3"):
+                raw = mpeg.parse_ac3_payload(payload, self.a_track)
+                if raw is not None:
+                    self.kind = "ac3"
+                    self._feed("ac3", raw)
+                    return
+            raw = (mpeg.parse_vag_payload(payload)
+                   if kind in (None, "vag") else None)
+            if raw is not None:
+                self.kind = "vag"
+                if self.vag is None:
+                    from tcforge_tpu_torch.io.vag import VagStreamDecoder
+                    self.vag = VagStreamDecoder()
+                pcm = self.vag.feed(raw)
+                if pcm is not None and len(pcm):
+                    self.entries.append(("pcm", pcm, 0, True))
+
+    def finish_whole(self) -> Tuple[Optional[np.ndarray], int]:
+        """The whole file's samples and rate, as the JAX importer's
+        ``open`` leaves them under ``-L``."""
+        rate = None
+        if self.vag is not None:
+            tail = self.vag.flush()
+            if tail is not None and len(tail):
+                self.entries.append(("pcm", tail, 0, True))
+            if self.vag.info is not None:
+                rate = self.vag.info.rate
+        if self.dec is not None:
+            self.dec.submit("flush")
+            self.entries.append(("dec", True))
+        self.settle()
+        if self.dec is not None or rate is None:
+            rate = self.rate            # the decoder's, or the LPCM's
+        if not self.fifo:
+            return None, rate
+        return np.concatenate(self.fifo), rate
+
+    # -- the decoder's results, in demux order ------------------------- #
+
+    def _resolve(self) -> bool:
+        """Take the oldest entry into the fifo; False when none waits."""
+        if not self.entries:
+            return False
+        entry = self.entries.popleft()
+        if entry[0] == "pcm":
+            _, pcm, rate, quiet = entry
+        else:
+            quiet = entry[1]
+            pcm, rate = self.dec.result()
+            if pcm is None:
+                return True
+        self.fifo.append(pcm)
+        self.have += pcm.shape[0]
+        if not quiet:
+            self.seen = True
+            self.rate = rate
+            self.channels = pcm.shape[1]
+        return True
+
+    def settle(self) -> None:
+        """Every entry resolved (the JAX importer's state after the same
+        demux)."""
+        while self._resolve():
+            pass
+
+    def seen_now(self) -> bool:
+        while not self.seen and self._resolve():
+            pass
+        return self.seen
+
+    def enough(self, n: int) -> bool:
+        while self.have < n and self._resolve():
+            pass
+        return self.have >= n
+
+    def take(self, n: int) -> Optional[np.ndarray]:
+        """Up to ``n`` samples from the front of the fifo (after
+        ``enough``)."""
+        if not self.fifo:
+            return None
+        cat = (self.fifo[0] if len(self.fifo) == 1
+               else np.concatenate(self.fifo))
+        take, rest = cat[:n], cat[n:]
+        self.fifo = [rest] if rest.shape[0] else []
+        self.have = rest.shape[0]
+        return take if take.shape[0] else None
+
+    def close(self) -> None:
+        if self.dec is not None:
+            self.dec.close()
+            self.dec = None
+        self.entries.clear()
 
 
 class _Buffer:
@@ -126,13 +326,14 @@ class Plan:
     ops: List[tuple] = field(default_factory=list)
     frames: List[int] = field(default_factory=list)   # handles, display
     live: List[int] = field(default_factory=list)     # kept afterwards
+    owner: Optional["MpegImporter"] = None   # its importer, under multi
 
 
 @register
 class MpegImporter(Importer):
     info = ModuleInfo(name="mpeg", kind=ModuleKind.DEMULTIPLEXOR,
-                      media="video",
-                      codecs_out=(Codec.MPEG2,),
+                      media="both",
+                      codecs_out=(Codec.MPEG2, Codec.AC3, Codec.PCM),
                       formats_in=(ContainerFormat.MPEG_PS,
                                   ContainerFormat.MPEG_ES))
     desc = ModuleDesc(name="mpeg",
@@ -143,6 +344,9 @@ class MpegImporter(Importer):
                                         "memory) reader", "b", 1),
                               ParamSpec("window", "demux window KB",
                                         "d", 256)])
+    # False before ``open``: the session takes no audio from this stream,
+    # which then demuxes its video alone (the same frames)
+    demux_audio = True
 
     def open(self, path: Optional[str]) -> None:
         job = self.job
@@ -172,8 +376,16 @@ class MpegImporter(Importer):
             self.width, self.height, _aspect, self.fps = seq
         self._streaming = bool(self.options.get("stream", 1)
                                and not getattr(job, "vob_offset", 0))
+        self._track = (_Track(getattr(job, "a_track", 0))
+                       if self.demux_audio else None)
+        self._apcm: Optional[np.ndarray] = None
+        self._apos = 0
         if self._streaming:
             self._win_bytes = max(4, self.options.get("window", 256)) << 10
+            self._audio_done = False
+            # the discovery budget: a program stream's audio shows up
+            # within its first packs; an elementary stream has none
+            self._audio_probe = 2 if magic == ContainerFormat.MPEG_PS else 0
             self._src = (self._ps_video_chunks(path)
                          if magic == ContainerFormat.MPEG_PS
                          else self._file_chunks(path))
@@ -181,6 +393,12 @@ class MpegImporter(Importer):
             # pump until the sequence header is in the window
             while not self._bs.width and self._pump_stream():
                 pass
+            # the track as the JAX importer knows it after the same pumps
+            if self._track is not None:
+                self._track.settle()
+                if self._track.seen:
+                    self.audio_rate = self._track.rate
+                    self.audio_channels = self._track.channels
         else:
             self._es = self._whole_es(path, magic)
             self._bs = Mpeg2Bitstream(self._es)
@@ -199,14 +417,28 @@ class MpegImporter(Importer):
 
     # -- input -------------------------------------------------------- #
 
-    @staticmethod
-    def _whole_es(path: str, magic) -> bytes:
-        if magic == ContainerFormat.MPEG_PS:
-            return b"".join(payload for sid, payload
-                            in mpeg.iter_pes_packets(path)
-                            if 0xE0 <= sid <= 0xEF)
-        with open(path, "rb") as f:
-            return f.read()
+    def _whole_es(self, path: str, magic) -> bytes:
+        """The whole video elementary stream; a program stream's audio
+        track decoded whole beside it (``_apcm``)."""
+        if magic != ContainerFormat.MPEG_PS:
+            with open(path, "rb") as f:
+                return f.read()
+        es = bytearray()
+        track = self._track
+        for sid, payload in mpeg.iter_pes_packets(path):
+            if 0xE0 <= sid <= 0xEF:
+                es += payload
+            elif track is not None:
+                track.demux_whole(sid, payload)
+        if track is None:
+            return bytes(es)
+        self._apcm, rate = track.finish_whole()
+        track.close()
+        if rate is not None:
+            self.audio_rate = rate
+        if self._apcm is not None:
+            self.audio_channels = self._apcm.shape[1]
+        return bytes(es)
 
     def _file_chunks(self, path: str) -> Iterator[bytes]:
         with open(path, "rb") as f:
@@ -218,7 +450,9 @@ class MpegImporter(Importer):
 
     def _ps_video_chunks(self, path: str) -> Iterator[bytes]:
         """The program stream's video PES payloads in windows of at
-        least ``_win_bytes``."""
+        least ``_win_bytes``; the audio packets go to the track as the
+        demux meets them, and the track finishes before the last
+        window."""
         buf = bytearray()
         for sid, payload in mpeg.iter_pes_packets(
                 path, chunk=max(self._win_bytes, 1 << 16)):
@@ -227,6 +461,10 @@ class MpegImporter(Importer):
                 if len(buf) >= self._win_bytes:
                     yield bytes(buf)
                     buf.clear()
+            elif self._track is not None:
+                self._track.demux(sid, payload)
+        if self._track is not None:
+            self._track.finish()
         if buf:
             yield bytes(buf)
 
@@ -236,6 +474,7 @@ class MpegImporter(Importer):
         more = next(self._src, None)
         if more is None:
             self._bs.set_eos()
+            self._audio_done = True
             return False
         self._bs.feed(more)
         return True
@@ -254,16 +493,22 @@ class MpegImporter(Importer):
         self._next_handle += 1
         return self._next_handle
 
-    def start(self, device: torch.device, buffers: int = 1) -> None:
+    def start(self, device: torch.device, buffers: int = 1,
+              pool: Optional["queue.Queue[_Buffer]"] = None) -> None:
         """Decode onto ``device`` with a ring of ``buffers`` host buffers
         (pinned on a card): ``plan_batch`` takes one, ``execute`` gives
-        it back once its upload is queued."""
+        it back once its upload is queued.  ``pool``: the ring of an
+        importer of the same size that this one shares
+        (``buffer_pool``)."""
         self._device = torch.device(device)
+        if pool is not None:
+            self.buffer_pool = pool
+            return
         shapes = coef_shapes(self.width, self.height)
         pinned = self._device.type == "cuda"
-        self._free_q: "queue.Queue[_Buffer]" = queue.Queue()
+        self.buffer_pool: "queue.Queue[_Buffer]" = queue.Queue()
         for _ in range(buffers):
-            self._free_q.put(_Buffer(shapes, 16, pinned))
+            self.buffer_pool.put(_Buffer(shapes, 16, pinned))
 
     def _start_on_the_card(self) -> None:
         """``start`` on the card where the caller chose no device; raises
@@ -281,7 +526,7 @@ class MpegImporter(Importer):
         ``alive()`` turns false while it waits."""
         while True:
             try:
-                buf = self._free_q.get(timeout=0.1)
+                buf = self.buffer_pool.get(timeout=0.1)
                 break
             except queue.Empty:
                 if alive is not None and not alive():
@@ -424,7 +669,7 @@ class MpegImporter(Importer):
 
     def _release(self, buf: Optional[_Buffer]) -> None:
         if buf is not None:
-            self._free_q.put(buf)
+            self.buffer_pool.put(buf)
 
     def release(self, plan: Plan) -> None:
         """Give back a plan's buffer without running it (a run that
@@ -557,10 +802,40 @@ class MpegImporter(Importer):
             if out is not None:
                 return out
 
+    def read_audio_batch(self, n_samples: int) -> Optional[np.ndarray]:
+        """The track's next ``n_samples`` samples, (S, C) int16, fewer
+        at its end, or None (no track, or none seen yet: the JAX
+        importer's discovery budget of two pumps, after which a track
+        shows only as the video's pumps meet it)."""
+        if not self._streaming:
+            if self._apcm is None:
+                return None
+            chunk = self._apcm[self._apos:self._apos + n_samples]
+            if chunk.shape[0] == 0:
+                return None
+            self._apos += chunk.shape[0]
+            return chunk
+        track = self._track
+        if track is None:
+            return None
+        while (not track.seen_now() and not self._audio_done
+               and self._audio_probe > 0):
+            self._audio_probe -= 1
+            if not self._pump_stream():
+                break
+        if not track.seen_now():
+            return None
+        while not track.enough(n_samples) and not self._audio_done:
+            if not self._pump_stream():
+                break
+        track.enough(n_samples)
+        return track.take(n_samples)
+
     def seek(self, frame: int) -> bool:
         """-L: cut the elementary stream at the last sequence header
         whose coded-picture count is at most ``frame``, then decode and
-        drop the rest (the JAX importer's buffered ``seek``)."""
+        drop the rest (the JAX importer's buffered ``seek``); the audio
+        track moves to the same time."""
         if self._streaming:
             left = frame
             while left > 0:
@@ -568,6 +843,13 @@ class MpegImporter(Importer):
                 if got is None:
                     return False
                 left -= got["y"].shape[0]
+            drop = int(round(frame * self.audio_rate / self.fps)) \
+                if self.fps else 0
+            while drop > 0:
+                a = self.read_audio_batch(min(drop, 48000))
+                if a is None:
+                    break
+                drop -= a.shape[0]
             return True
         es = self._es
         units = mpeg.es_unit_ranges(es)
@@ -585,6 +867,9 @@ class MpegImporter(Importer):
             self._bs.close()
             self._bs = Mpeg2Bitstream(self._es)
             self._ref_fwd = self._ref_bwd = self._pend_field = None
+        if self._apcm is not None and self.fps:
+            self._apos = min(self._apcm.shape[0],
+                             int(round(frame * self.audio_rate / self.fps)))
         left = frame - best_count
         while left > 0:
             got = self.read_video_batch(min(left, 16))
@@ -593,9 +878,17 @@ class MpegImporter(Importer):
             left -= got["y"].shape[0]
         return True
 
-    def close(self) -> None:
+    def close_host(self) -> None:
+        """Close the parse and the audio track; the decoded frames on the
+        device stay for the plans not run yet."""
         if getattr(self, "_bs", None) is not None:
             self._bs.close()
             self._bs = None
+        if getattr(self, "_track", None) is not None:
+            self._track.close()
+            self._track = None
+
+    def close(self) -> None:
+        self.close_host()
         self._frames = {}
 

@@ -39,13 +39,20 @@ elementary stream) to Y4M, and for an audio-only WAV-to-WAV session:
   audio, after the last ``collect``, also when the run fails.
 
 An MPEG import splits its decode between the threads
-(``modules/importers/mpeg_import.py``): the reader thread runs the host
-parse into pinned coefficient buffers and plans the batch (the
-reconstruction order, the references, the display order); the main
-thread uploads the buffer on the copy stream and runs the
-reconstruction kernels, which write the chain's input batch on the
-device.  Its ``-L`` cuts the stream at a sequence header and decodes and
-drops the rest, before the threads start.
+(``modules/importers/mpeg_import.py``; ``multi`` for a directory and
+``dvd`` for a ``VIDEO_TS`` title play MPEG importers one file after the
+other): the reader thread runs the host parse into pinned coefficient
+buffers and plans the batch (the reconstruction order, the references,
+the display order); the main thread uploads the buffer on the copy
+stream and runs the reconstruction kernels, which write the chain's
+input batch on the device.  Its ``-L`` cuts the stream at a sequence
+header and decodes and drops the rest (``multi``: decodes and drops),
+before the threads start.  The program stream's own audio track is the
+session's audio source where it has one and no ``-p`` is given; the
+reader thread reads a batch's samples after its plan and runs the
+synchronizer on them and on the plan's frame handles (a clone repeats
+a handle, a drop leaves one out).  Without ``-m`` the track is not
+demuxed at all.
 
 An audio-only session (``-i in.wav -o out.wav``) reads nominal frames
 of ``round(rate/fps)`` samples (``-L`` and ``--max_frames`` count them),
@@ -184,13 +191,32 @@ def is_wav(path: str) -> bool:
 
 
 _Y4M_MODULES = ("y4m", "yuv4mpeg")
+# the JAX package's import module for each container that its magic
+# sniff names (``registry.find_import_module``): the ones the port lacks
+# are refused by that name
+JAX_IMPORT_MODULES = {
+    ContainerFormat.AVI: "avi", ContainerFormat.WAV: "wav",
+    ContainerFormat.YUV4MPEG: "y4m", ContainerFormat.RAW: "raw",
+    ContainerFormat.MPEG_PS: "mpeg", ContainerFormat.MPEG_ES: "mpeg",
+    ContainerFormat.MPEG_TS: "mpeg", ContainerFormat.MOV: "mov",
+    ContainerFormat.OGG: "ogg", ContainerFormat.MP3_FILE: "mp3",
+    ContainerFormat.AC3_FILE: "ac3", ContainerFormat.FLAC_FILE: "flac",
+    ContainerFormat.AAC_FILE: "aac", ContainerFormat.DV_FILE: "dv",
+    ContainerFormat.PVN: "pvn", ContainerFormat.IMAGES: "im",
+    ContainerFormat.XML: "xml", ContainerFormat.NUV: "nuv",
+    ContainerFormat.VAG: "vag", ContainerFormat.TEST: "framegen",
+    ContainerFormat.CDXA: "mpeg", ContainerFormat.MP2_FILE: "mp3",
+    ContainerFormat.SGI_IMAGE: "im", ContainerFormat.SUNAU: "au"}
 
 
 def video_module(job: Job) -> str:
-    """The import module of ``job``'s ``-i`` file: ``y4m``, ``wav`` or
-    ``mpeg``, from ``-x`` or, with ``-x auto``, from the file's magic
-    (a program or elementary stream, TS and CDXA go to ``mpeg``, which
-    names what it lacks)."""
+    """The import module of ``job``'s ``-i``: from ``-x`` or, with ``-x
+    auto``, ``multi`` for a directory and otherwise by the file's magic:
+    ``wav``, ``mpeg`` (a program or elementary stream; TS and CDXA too,
+    which ``mpeg`` refuses by name) or ``y4m`` (also where the magic is
+    unknown, as the JAX engine falls back to it).  A container the JAX
+    package imports with a module the port lacks is refused, naming the
+    module."""
     name = job.im_v_module or "auto"
     if name in _Y4M_MODULES:
         return "y4m"
@@ -200,31 +226,56 @@ def video_module(job: Job) -> str:
         except KeyError as e:
             raise NotImplementedError(
                 f"-x {name}: {e.args[0]}, besides y4m") from None
-    if is_wav(job.video_in_file):
+    vin = job.video_in_file
+    if os.path.isdir(vin):
+        return "multi"
+    if is_wav(vin):
         return "wav"
     from tcforge_tpu_torch.io.probe import sniff_magic
-    if sniff_magic(job.video_in_file) in (
-            ContainerFormat.MPEG_PS, ContainerFormat.MPEG_ES,
-            ContainerFormat.MPEG_TS, ContainerFormat.CDXA):
-        return "mpeg"
-    return "y4m"
+    fmt = sniff_magic(vin)
+    module = JAX_IMPORT_MODULES.get(fmt, "y4m")
+    if module in ("y4m", "mpeg"):
+        return module
+    raise NotImplementedError(
+        f"{vin}: {fmt.value} input (the {module} import module) is not "
+        "ported to the torch port yet")
+
+
+# the import modules that decode on the device through the MPEG
+# importer's plan/execute protocol
+_MPEG_MODULES = ("mpeg", "multi", "dvd")
 
 
 def probe(job: Job) -> Optional[Y4MHeader]:
     """The input's Y4M header; sets the job's input size and rate from
     it, as the JAX CLI's probe does.  A WAV input (an audio-only
     session) sets the audio rate, channels and bits, and gives None; an
-    MPEG input sets the size and rate of its first sequence header
-    (the JAX CLI's ``probe_file``) and gives None."""
+    MPEG input sets the size and rate of its first sequence header and
+    its first audio track's rate and channels (the JAX CLI's
+    ``probe_file``) and gives None.  A directory or a title (``multi``,
+    ``dvd``) probes its first file, as the JAX CLI does, where a probe
+    that fails sets nothing, and several files leave ``--max_frames``
+    unset."""
     kind = video_module(job)
     if kind == "wav":
         with WavReader(job.video_in_file) as r:
             job.a_rate, job.a_chan = r.info.rate, r.info.channels
             job.a_bits = r.info.bits
         return None
-    if kind == "mpeg":
+    if kind in _MPEG_MODULES:
         from tcforge_tpu_torch.io.probe import probe_file, probe_to_job
-        probe_to_job(probe_file(job.video_in_file), job)
+        from tcforge_tpu_torch.modules.importers.multi import expand_sources
+        max_frames = job.max_frames
+        try:
+            srcs = expand_sources(job.video_in_file)
+            probe_to_job(probe_file(srcs[0]), job)
+            if len(srcs) > 1 and not max_frames:
+                job.max_frames = None   # the first file's length
+        except Exception as e:          # as the JAX CLI's probe
+            if kind == "mpeg":
+                raise
+            _log.warning("[probe] probe failed (%s); relying on the "
+                         "import module", e)
         return None
     with open(job.video_in_file, "rb") as f:
         hdr = Y4MHeader.parse(f.readline(256))
@@ -457,21 +508,6 @@ class Pipeline:
         job.validate()
         self.audio_only = kind == "wav"
         self.video_importer: Optional[Importer] = None
-        if kind == "mpeg":
-            if job.audio_in_file or job.audio_out_file:
-                raise NotImplementedError(
-                    "audio beside MPEG video input (-p, or a program "
-                    "stream's LPCM, MP2 and AC-3 tracks through -m) is not "
-                    "ported to the torch port yet")
-            self.video_importer = new_module(ModuleKind.DEMULTIPLEXOR,
-                                             "mpeg", job, job.im_v_string)
-            self.video_importer.open(job.video_in_file)
-            imp = self.video_importer
-            if not job.im_v_width:
-                job.im_v_width, job.im_v_height = imp.width, imp.height
-            if imp.fps and not job.hard_fps:
-                job.fps = imp.fps
-        self.audio_importer: Optional[Importer] = None
         audio_in = (job.video_in_file if self.audio_only
                     else job.audio_in_file)
         if audio_in and not is_wav(audio_in):
@@ -481,12 +517,35 @@ class Pipeline:
             _wav_path("-m", job.audio_out_file)
         if self.audio_only:
             _wav_path("-o", job.video_out_file)
+        self.audio_importer: Optional[Importer] = None
+        if kind in _MPEG_MODULES:
+            self.video_importer = new_module(ModuleKind.DEMULTIPLEXOR,
+                                             kind, job, job.im_v_string)
+            # the stream's own track is the session's audio only with -m
+            # and no -p (the JAX engine drops it otherwise): without, it
+            # is not demuxed (the video decodes the same)
+            self.video_importer.demux_audio = bool(job.audio_out_file
+                                                   and not audio_in)
+            self.video_importer.open(job.video_in_file)
+            imp = self.video_importer
+            if not job.im_v_width:
+                job.im_v_width, job.im_v_height = imp.width, imp.height
+            if imp.fps and not job.hard_fps:
+                job.fps = imp.fps
+            if imp.audio_rate:
+                job.a_rate = imp.audio_rate
+                job.a_chan = imp.audio_channels or job.a_chan
         if audio_in:
             self.audio_importer = new_module(ModuleKind.DEMULTIPLEXOR,
                                              "wav", job)
             self.audio_importer.open(audio_in)
             job.a_rate = self.audio_importer.audio_rate
             job.a_chan = self.audio_importer.audio_channels or job.a_chan
+        elif self.video_importer is not None \
+                and self.video_importer.audio_rate:
+            # the program stream's own track (the JAX engine's
+            # importer-as-audio-source)
+            self.audio_importer = self.video_importer
         if not job.dm_chan:
             job.dm_chan = job.a_chan or 2
         if (self.audio_importer is not None and not self.audio_only
@@ -495,8 +554,10 @@ class Pipeline:
             # audio track is dropped, as in the JAX engine
             _log.warning("[engine] muxer y4m is video-only and no -m "
                          "given: audio disabled")
-            self.audio_importer.close()
+            if self.audio_importer is not self.video_importer:
+                self.audio_importer.close()
             self.audio_importer = None
+
         self.sync = new_synchronizer(job)
         self.achain = (AudioChain(job, self.device)
                        if self.audio_importer is not None else None)
@@ -604,6 +665,10 @@ class Pipeline:
             # -o and -m both given: the audio goes to -m, and -o gets a
             # WAV without samples, as the JAX engine writes it
             empty_wav = _AudioOut(job, job.video_out_file)
+        elif job.audio_out_file and self.achain is None:
+            # -m with no track to write (an MPEG input without one): a
+            # WAV without samples, as the JAX engine writes it
+            empty_wav = _AudioOut(job, job.audio_out_file)
         spf = self._samples_per_frame() if self.achain is not None else 0
 
         def audio_host_stage(pcm: np.ndarray, frames: Optional[int]):
@@ -642,6 +707,21 @@ class Pipeline:
                 got, slot = n, own
             return (first_id, got, slot, pcm)
 
+        def synced_plan(first_id: int, plan, pcm):
+            """The synchronizer on a plan's samples and frames: it picks
+            the frames by their handles (a clone repeats one, a drop
+            leaves one out), and a clone still to come keeps its frame on
+            the device."""
+            pcm = self.sync.process_audio(pcm, spf)
+            audio_frames = pcm.shape[0] // spf if pcm is not None else 0
+            handles = {"h": np.asarray(plan.frames, dtype=np.int64)}
+            out = self.sync.process_video(handles, audio_frames)
+            plan.frames = [int(h) for h in out["h"]]
+            saved = getattr(self.sync, "_saved", None)
+            if getattr(self.sync, "_op", 0) == 1 and saved is not None:
+                plan.live = sorted(set(plan.live) | {int(saved["h"])})
+            return (first_id, len(plan.frames), plan, pcm)
+
         # with an audio track the reader's items go through a thread of
         # their own that runs the audio's host stage (numpy, mostly
         # outside the interpreter lock) while the reader reads on
@@ -669,8 +749,10 @@ class Pipeline:
                     item = _get(aq, rthread.is_alive, "reader")
                     if item is not _EOS and not isinstance(item, Exception):
                         first_id, got, slot, pcm = item
-                        audio = (None if pcm is None else audio_host_stage(
-                            pcm, None if slot is None else got))
+                        audio = (None if pcm is None or (slot is not None
+                                                         and not got)
+                                 else audio_host_stage(
+                                     pcm, None if slot is None else got))
                         item = (first_id, got, slot, audio)
                 except Exception as e:  # handed to the main thread
                     item = e
@@ -699,8 +781,12 @@ class Pipeline:
                 read += frames
 
         def read_mpeg() -> None:
-            """The host half of the MPEG decode: a plan a batch."""
-            read = 0
+            """The host half of the MPEG decode: a plan a batch, with the
+            batch's samples and the synchronizer where there is a
+            track."""
+            read = 0             # source frames planned (--max_frames)
+            emitted = 0          # frames after the synchronizer (ids)
+            out = aq if aq is not None else rq
             while not stop.is_set():
                 n = job.batch_size
                 if max_frames is not None:
@@ -711,9 +797,14 @@ class Pipeline:
                 if plan is None:
                     break
                 got = len(plan.frames)
-                if not _put(rq, (read, got, plan, None), stop):
+                item = (emitted, got, plan, None)
+                if spf and got:
+                    pcm = self.audio_importer.read_audio_batch(spf * got)
+                    item = synced_plan(emitted, plan, pcm)
+                if not _put(out, item, stop):
                     mpeg_in.release(plan)
                     break
+                emitted += item[1]
                 read += got
 
         def read_av() -> None:
@@ -827,7 +918,7 @@ class Pipeline:
                 attrs=torch.zeros((got,), dtype=torch.int32, device=dev),
                 frame_ids=torch.arange(first_id, first_id + got,
                                        dtype=torch.int32, device=dev),
-                fps=job.fps)
+                fps=job.fps, id_range=(first_id, first_id + got))
 
         def to_device(first_id: int, got: int, slot: _InputSlot
                       ) -> FrameBatch:
@@ -861,7 +952,7 @@ class Pipeline:
                 attrs=torch.zeros((got,), dtype=torch.int32, device=dev),
                 frame_ids=torch.arange(first_id, first_id + got,
                                        dtype=torch.int32, device=dev),
-                fps=job.fps)
+                fps=job.fps, id_range=(first_id, first_id + got))
 
         def to_host(out: FrameBatch, first_id: int):
             """The writer's item for an output batch: its planes, ids
@@ -916,6 +1007,21 @@ class Pipeline:
             aclipped = aclipped + nclip     # a device scalar: no wait
             to_writer(audio_to_host(out))
 
+        def seek_mpeg(skip: int) -> None:
+            """-L on an MPEG input (the JAX engine's reader): the
+            importer's seek (the cut at a sequence header, its own track
+            moved too), or where it has none (``multi``) decode and drop;
+            then a separate track (-p) drops as many frames' samples."""
+            seeked = mpeg_in.seek(skip)
+            left = skip
+            while not seeked and left > 0:
+                got = mpeg_in.read_video_batch(min(left, job.batch_size))
+                if got is None:
+                    break
+                left -= got["y"].shape[0]
+            if spf and not (seeked and self.audio_importer is mpeg_in):
+                self.audio_importer.read_audio_batch(spf * skip)
+
         rthread = threading.Thread(target=read_loop, daemon=True,
                                    name="tcforge-reader")
         pthread = (threading.Thread(target=prepare_loop, daemon=True,
@@ -939,9 +1045,7 @@ class Pipeline:
             if mpeg_in is not None:
                 mpeg_in.start(self.device, depth + 1)
                 if job.vob_offset:
-                    # -L: the cut at a sequence header, then decode and
-                    # drop (the JAX engine's importer.seek)
-                    mpeg_in.seek(job.vob_offset)
+                    seek_mpeg(job.vob_offset)
             rthread.start()
             if pthread is not None:
                 pthread.start()
@@ -961,6 +1065,8 @@ class Pipeline:
                 if mpeg_in is not None:
                     fb = decoded(first_id, got, slot)
                     if fb is None:
+                        if audio is not None:
+                            run_audio(audio)
                         continue
                 elif slot is None:             # an audio-only chunk
                     self.counters.frames += got
@@ -1005,7 +1111,7 @@ class Pipeline:
             if self.achain is not None:
                 for filt, state in zip(self.achain.filters, astates):
                     filt.finalize(state)
-            if self.audio_importer is not None:
+            if self.audio_importer not in (None, mpeg_in):
                 self.audio_importer.close()
             if mpeg_in is not None:
                 mpeg_in.close()

@@ -408,9 +408,11 @@ def test_new_filters_register_under_their_jax_names(name):
                                   "detectsilence", "resample", "aclip"])
 def test_filters_outside_this_slice_still_raise(name):
     """divxkey waits for the MPEG-4 import, the others but the audio
-    filters for their own slices: the lookup raises, no stand-in is
-    registered.  The audio filters came with the port's audio track: each
-    is registered as an audio filter under its JAX name."""
+    filters and extsub for their own slices: the lookup raises, no
+    stand-in is registered.  The audio filters came with the port's audio
+    track: each is registered as an audio filter under its JAX name;
+    extsub came with the DVD rip: a video filter under its JAX name, with
+    the JAX option table."""
     from tcforge_tpu.modules import registry as jregistry
     from tcforge_tpu_torch.modules import registry as tregistry
     jcls = jregistry.lookup(jregistry.ModuleKind.FILTER, name)
@@ -418,6 +420,13 @@ def test_filters_outside_this_slice_still_raise(name):
         cls = tregistry.lookup(tregistry.ModuleKind.FILTER, name)
         assert issubclass(cls, tregistry.AudioFilter)
         assert cls.info.name == name and int(cls.slots) == int(jcls.slots)
+        return
+    if name == "extsub":
+        cls = tregistry.lookup(tregistry.ModuleKind.FILTER, name)
+        assert issubclass(cls, tregistry.VideoFilter)
+        assert cls.info.name == name and int(cls.slots) == int(jcls.slots)
+        assert ([(p.name, p.fmt, p.default) for p in cls.desc.params]
+                == [(p.name, p.fmt, p.default) for p in jcls.desc.params])
         return
     with pytest.raises(KeyError, match=name):
         tregistry.lookup(tregistry.ModuleKind.FILTER, name)

@@ -51,7 +51,9 @@ PORT = REPO / "tcforge_tpu_torch"
 COPIES = ["core/formats.py", "core/optstr.py", "core/codecs.py",
           "core/framecode.py", "core/job.py", "core/ratiocodes.py",
           "io/y4m.py", "io/image.py", "io/wav.py", "io/mpeg.py",
-          "io/probe.py", "io/ts.py"]
+          "io/probe.py", "io/ts.py", "io/ac3.py", "io/a52dec.py",
+          "io/mp2dec.py", "io/mp3dec.py", "io/vag.py", "io/ifo.py",
+          "io/spu.py", "io/vobsub.py", "io/mp3.py"]
 # C++ sources copied whole from native/ (the MPEG-2 host parse)
 NATIVE_COPIES = {"csrc/mpeg2intra.cpp": "native/mpeg2intra.cpp",
                  "csrc/mpeg2tables.h": "native/mpeg2tables.h"}

@@ -200,6 +200,18 @@ def test_cli_takes_x_like_the_jax_cli():
     theirs = jax_args_to_job(jax_build_parser().parse_args(argv))
     assert (ours.im_v_module, ours.im_v_string, ours.im_a_module) == \
         (theirs.im_v_module, theirs.im_v_string, theirs.im_a_module)
+    # -a and -T (title[,chapter[-chapter][,angle]]) as the JAX parser
+    # sets them
+    fields = ("a_track", "dvd_title", "dvd_chapter1", "dvd_chapter2",
+              "dvd_angle", "im_v_module")
+    for extra in (["-a", "1"], ["-x", "dvd", "-T", "2"],
+                  ["-x", "dvd", "-T", "1,3"], ["-T", "1,2-4"],
+                  ["-T", "3,,2", "-a", "2"], ["-T", "1,2-,3"]):
+        argv = ["-i", "VIDEO_TS", "-o", "o.y4m", *extra]
+        ours = cli.args_to_job(cli.build_parser().parse_args(argv))
+        theirs = jax_args_to_job(jax_build_parser().parse_args(argv))
+        assert ([getattr(ours, f) for f in fields]
+                == [getattr(theirs, f) for f in fields]), extra
 
 
 def _ts_file(path: Path) -> Path:
@@ -219,8 +231,8 @@ def _422_file(path: Path) -> Path:
     return path
 
 
-@pytest.mark.parametrize("what", ["ts", "422", "psu", "audio_in",
-                                  "audio_out", "module"])
+@pytest.mark.parametrize("what", ["ts", "422", "psu", "audio_in_not_wav",
+                                  "audio_out_not_wav", "module"])
 def test_pieces_out_of_this_slice_raise(what, tmp_path):
     """Each names what the port lacks; nothing decodes in silence."""
     src = DATA / "small.mpg"
@@ -234,12 +246,12 @@ def test_pieces_out_of_this_slice_raise(what, tmp_path):
     elif what == "psu":
         job["psu_unit"] = 1
         match = "PSU"
-    elif what == "audio_in":
-        job["audio_in_file"] = str(tmp_path / "a.wav")
-        match = "audio beside MPEG"
-    elif what == "audio_out":
-        job["audio_out_file"] = str(tmp_path / "a.wav")
-        match = "audio beside MPEG"
+    elif what == "audio_in_not_wav":
+        job["audio_in_file"] = str(DATA / "small.mpg")
+        match = "imports WAV audio only"
+    elif what == "audio_out_not_wav":
+        job["audio_out_file"] = str(tmp_path / "a.mp3")
+        match = "writes audio as WAV only"
     else:
         job["im_v_module"] = "avi"
         match = "-x avi"
