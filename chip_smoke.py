@@ -58,7 +58,15 @@ Lanczos3 zoom, ``-J hqdn3d=luma=4.0`` (which runs after the zoom, at
   with a 48 kHz stereo AC-3 track) through ``-x dvd -T 1 -J
   extsub=subtitle_file=title.idx,hqdn3d=luma=4.0 -m out.wav``: the
   demux with the AC-3 decode in a worker process, the title's files
-  one after the other, the subtitles' blend and the dvd path's kernels.
+  one after the other, the subtitles' blend and the dvd path's kernels;
+- the DVD authoring path, dvdauthor: 1080i at 29.97 fps with a 48 kHz
+  stereo WAV through ``-I 5 -Z 720x480 -J hqdn3d=luma=4.0 -y
+  mpeg2,raw,mpg -F gop_n=15:gop_m=3:rc=1:bitrate=6000`` to an MPEG-2
+  MP@ML program stream with DVD LPCM (cfg6's and cfg8's encoder
+  settings): the main path's zoom and hqdn3d kernels, then the
+  encoder's (``mpeg2_me``, ``mpeg2_enc_pred`` with its B-mode entry
+  ``mpeg2_enc_bmode``, ``mpeg2_enc_blocks``), each picture's levels coded
+  on the host by the pinned syntax writer (g++) under TM5 rate control.
 
 Phases, each of which raises on failure:
 
@@ -87,7 +95,15 @@ Phases, each of which raises on failure:
    prime, field DCT, MPEG-1 D-pictures, sizes that are not a multiple of
    16, intra runs of 1 and 3 pictures) and timed at dvd.vob's shapes
    beside ``torch.matmul`` of their IDCT part, and the four kernels of
-   the DVD rip on every call of a rip (phase 4); with ``--parent DIR``, the unsharp,
+   the DVD rip on every call of a rip (phase 4); the MPEG-2 encoder's
+   three kernels on every call of a 720x480 encode at the authoring
+   path's settings and off the path (search ranges 1 to 64 with one and
+   two references on ragged planes and a field of a frame, P and B
+   prediction, the block coder at qs 1, 2, 8 and 31, alternate scan,
+   MPEG-1, an intra mask, 4:2:2 intra planes), timed at 720x480 beside
+   float64 ``torch.matmul`` of the forward DCT, and the intra-only
+   encoder (the block coder under the pinned writer) against the pinned
+   numpy encoder at 720x480, byte for byte; with ``--parent DIR``, the unsharp,
    TomsMoComp and temporal kernels of the checkout in DIR are built
    too, called through DIR's own wrappers and timed in turns with this
    tree's on the same inputs;
@@ -108,7 +124,10 @@ Phases, each of which raises on failure:
    batches) and audio_only (each run's WAV equal to the CPU's), the DVD
    rip (its .y4m and .wav against the JAX-pinned digests, every kernel
    call against its plain version, and the run on the plain versions),
-   and the engine at every ``--prefetch`` 1, 2, 4 and ``--batch`` 1, 3,
+   dvdauthor (its program stream against the same CLI's on the plain
+   versions on the card, byte for byte, and read back by the port's
+   MPEG importer: every frame at 720x480, the WAV's samples in the LPCM
+   track), and the engine at every ``--prefetch`` 1, 2, 4 and ``--batch`` 1, 3,
    16;
 5. the small cases whose SHA-256 ``tests/test_torch_cli.py`` pins
    against the JAX CLI, run on the card: same digests; and the MPEG
@@ -116,7 +135,11 @@ Phases, each of which raises on failure:
    width and the small streams, ``-c``, ``-L``, a cut stream), and the
    DVD goldens (``DVD_GOLDEN``: the rip, ``-T 1,2``, LPCM, MP2 and AC-3
    VOBs, ``-a 1``, ``-p`` WAV beside MPEG video, ``-L`` with a track, a
-   directory, extsub from a ``.spu`` and from a ``.idx``/``.sub``);
+   directory, extsub from a ``.spu`` and from a ``.idx``/``.sub``), and
+   the export goldens (``AUTHOR_GOLDEN``: dvdauthor at 96x64, an
+   ``.m2v`` at constant q, intra only (4:2:0 and 4:2:2) and an identity
+   chain with their launch counts, dvd.vob re-encoded, field pictures with ``-w``, the
+   yuv4mpeg encoder, raw planes);
 6. numbers: steady-state chain frames/s on device-resident batches
    (CUDA events) for every path, beside the host's time to queue the
    batches, the step's peak device memory and the device's busy share
@@ -139,7 +162,11 @@ Phases, each of which raises on failure:
    448-frame title with its track, with its track and a film's count of
    subtitle units (``film_vobsub``), and without ``-m``, six runs of
    each in turns, and its serial stages with the audio decode
-   (``dvdrip_stages``), with each of the two subtitle files.
+   (``dvdrip_stages``), with each of the two subtitle files; the
+   authoring CLI on 160 frames of 1080i with its WAV, six timed runs
+   (median and spread), and the encoder's stages a batch
+   (``encode_stages``: queueing, device, the levels' download, the
+   syntax writer, the multiplexor).
 
 It prints one JSON object per result, then the kernels' summary and, as
 its last line, ``{"ok": true, "device": {...}}``.  It imports nothing of
@@ -741,6 +768,75 @@ def mpeg_golden_input(case: str, directory) -> Path:
 # the CLI timings: ten batches of MAIN_BATCH frames, enough for the
 # engine's stages to overlap
 ENGINE_FRAMES = 10 * 16
+# the DVD authoring path (cfg6's and cfg8's encoder settings,
+# benches/run_configs.py:277-310 and 311-421: GOP N=15, M=3, TM5 rate
+# control toward 6000 kbit/s, search range 8) from 1080i broadcast with
+# its 48 kHz stereo WAV to an NTSC DVD's 720x480 program stream with
+# LPCM audio
+AUTHOR_FPS = (30000, 1001)
+AUTHOR_SPF = 1602
+AUTHOR_W, AUTHOR_H = 720, 480
+AUTHOR_ENC = ["-y", "mpeg2,raw,mpg", "-F",
+              "gop_n=15:gop_m=3:rc=1:bitrate=6000"]
+AUTHOR_ARGS = ["-I", "5", "-Z", f"{AUTHOR_W}x{AUTHOR_H}", "-J",
+               "hqdn3d=luma=4.0", *AUTHOR_ENC]
+AUTHOR_FRAMES = 48
+AUTHOR_RATE_FRAMES = 160
+ENCODE_KERNELS = ("mpeg2_me", "mpeg2_enc_pred", "mpeg2_enc_bmode",
+                  "mpeg2_enc_blocks")
+AUTHOR_KERNELS = (*ENCODE_KERNELS, "zoom_pass", "hqdn3d_spatial_scan",
+                  "hqdn3d_temporal_scan")
+# phase 3: frames of the authoring path's content encoded with every
+# kernel call checked; the search ranges off the path
+ENC_CHECK_FRAMES = 16
+ENC_RANGES = (1, 4, 5, 8, 16, 64)
+# the small export cases that tests/test_torch_export.py holds against
+# the JAX CLI: (input, arguments, output suffix); "motion" is
+# write_author_inputs at AUTHOR_GOLDEN_W x AUTHOR_GOLDEN_H, {wav} its WAV
+AUTHOR_GOLDEN_W, AUTHOR_GOLDEN_H, AUTHOR_GOLDEN_FRAMES = 128, 96, 20
+AUTHOR_GOLDEN = {
+    "dvdauthor": ("motion", ["-p", "{wav}", "-I", "5", "-Z", "96x64", "-J",
+                             "hqdn3d=luma=4.0", *AUTHOR_ENC], ".mpg"),
+    "m2v": ("motion", ["-Z", "96x64", "-y", "mpeg2,raw,raw", "-F",
+                       "gop_n=12:gop_m=1:qscale=5"], ".m2v"),
+    "intra": ("motion", ["-Z", "96x64", "-y", "mpeg2"], ".m2v"),
+    "intra422": ("motion", ["-Z", "96x64", "-V", "yuv422p", "-y", "mpeg2",
+                            "-F", "qscale=4"], ".m2v"),
+    "identity": ("motion", ["-y", "mpeg2,raw,raw", "-F",
+                            "gop_n=6:gop_m=3:range=4", "--batch", "4"],
+                 ".m2v"),
+    "vob": ("dvd.vob", ["-x", "mpeg", "--max_frames", "7", "-y",
+                        "mpeg2,raw,raw", "-F",
+                        "gop_n=15:gop_m=3:rc=1:bitrate=6000"], ".m2v"),
+    "fields": ("motion", ["-Z", "96x64", "--encode_fields", "b", "-w",
+                          "2000", "--quantizers", "3,24", "-y",
+                          "mpeg2,raw,raw", "-F", "gop_n=6:gop_m=3"],
+               ".m2v"),
+    "yuv4mpeg": ("motion", ["-J", "hqdn3d", "-y", "yuv4mpeg,raw,raw"],
+                 ".y4m"),
+    "raw_yuv": ("motion", ["-p", "{wav}", "-J", "hqdn3d", "-y", "raw,raw",
+                           "--frame_interval", "3"], ".yuv"),
+}
+AUTHOR_GOLDEN_SHA256 = {
+    "dvdauthor": ("75e8d7a33884b7648a15d43d2c35d953"
+                  "4f5c7f7f5d8dec109adcbf9b8bd5aec6"),
+    "m2v": ("425401e8fc66d2d780df97df3eb82950"
+            "0f7d453ce5520ae762f06956f36128d5"),
+    "intra": ("a46ae566270bc60c317489e3165e3ec9"
+              "9d38bc1d5ee6bac0c741f22349b26486"),
+    "intra422": ("80b8c33a71dac091ffecd55846645928"
+                 "08b0076bb8c7ec65b447ba43fb955122"),
+    "identity": ("c1c19c547da767d24dad024cb04c88a8"
+                 "b2b6c376f25d99509629f38807a9b1b4"),
+    "vob": ("cfc3e73ad310c7654873c6782b061588"
+            "e2e660d7bc7a7f8cad9089619ab831ec"),
+    "fields": ("31602e9676ddeb8eed8ba2216b849c5d"
+               "e81aaa16900da99e805e2694c1085345"),
+    "yuv4mpeg": ("1ef64b5758ab1385ea0e090538f80f65"
+                 "8a1b35eeee0703954dc3424afa31529b"),
+    "raw_yuv": ("2c06301549718a072b34a738b3d78821"
+                "6e22aba20837e374dac33e6bffcddc1c"),
+}
 # cfg1: YUV420P -> RGB24 -> YUV420P, then the zoom
 CFG1_W, CFG1_H, CFG1_ZOOM = 640, 480, (512, 384)
 
@@ -845,16 +941,28 @@ KERNELS = {
                     "tcforge_tpu/io/mpeg2codec.py:1527"),
     "mpeg2_idct_intra": ("tcforge_tpu_torch/csrc/mpeg2_recon.cu",
                          "tcforge_tpu/io/mpeg2codec.py:1851"),
+    # not TPU kernels: the encoder's XLA ops (motion_search with
+    # halfpel_refine, _mc_pred_half, the block math of _intra_math_jax
+    # and _code_plane_inter), whose CPU route is native/tcforge_host.cpp
+    "mpeg2_me": ("tcforge_tpu_torch/csrc/mpeg2_encode.cu",
+                 "tcforge_tpu/io/mpeg2enc.py:388"),
+    "mpeg2_enc_pred": ("tcforge_tpu_torch/csrc/mpeg2_encode.cu",
+                       "tcforge_tpu/io/mpeg2enc.py:482"),
+    "mpeg2_enc_bmode": ("tcforge_tpu_torch/csrc/mpeg2_encode.cu",
+                        "tcforge_tpu/io/mpeg2enc.py:1110"),
+    "mpeg2_enc_blocks": ("tcforge_tpu_torch/csrc/mpeg2_encode.cu",
+                         "tcforge_tpu/io/mpeg2enc.py:606"),
 }
 LIBS = ("hqdn3d_scan", "zoom_pass", "unsharp", "tomsmocomp", "yuvdenoise",
-        "stabilize", "mpeg2_recon")
-# the host libraries (g++): the MPEG-2 parse
-HOST_LIBS = ("mpeg2intra",)
+        "stabilize", "mpeg2_recon", "mpeg2_encode")
+# the host libraries (g++): the MPEG-2 parse and syntax writer
+HOST_LIBS = ("mpeg2intra", "mpeg2encode")
 # each wrapper of ops/kernels.py, whose plain version is <name>_ref
 WRAPPERS = ("spatial_scan", "temporal_scan", "zoom_pass", "unsharp_plane",
             "tomsmocomp_plane", "tomsmocomp_window", "d3_spatial_scan",
             "d3_temporal_scan", "yuvdenoise_chroma", "stabilize_field_search",
-            "transform_warp", "mpeg2_recon", "mpeg2_idct_intra")
+            "transform_warp", "mpeg2_recon", "mpeg2_idct_intra", "mpeg2_me",
+            "mpeg2_enc_pred", "mpeg2_enc_bmode", "mpeg2_enc_blocks")
 
 
 def write_test_y4m(path, width: int, height: int, frames: int,
@@ -1206,6 +1314,8 @@ def main(argv=()) -> int:
     torch.cuda.empty_cache()
     _check_mpeg2_kernels(torch, kernels, bench)
     torch.cuda.empty_cache()
+    _check_encode_kernels(torch, kernels, bench)
+    torch.cuda.empty_cache()
     _check_ragged(torch, kernels, zoom, hq, bench)
     _check_unsharp_sizes(torch, kernels, bench)
     _check_tmc_windows(torch, kernels, bench)
@@ -1376,6 +1486,11 @@ def main(argv=()) -> int:
         path_launches["dvdrip"] = _run_dvdrip(torch, cli, kernels, bench,
                                               tmp)
         _dvd_goldens(cli, tmp)
+        # 4. and 5. for MPEG-2 export: the DVD authoring path at full
+        # width, and the export goldens pinned against the JAX CLI
+        path_launches["dvdauthor"] = _run_dvdauthor(torch, cli, kernels,
+                                                    tmp)
+        _author_goldens(cli, tmp)
         _run_audio_only(torch, cli, tmp)
         _audio_goldens(cli, tmp)
         emit(phase="audio_chain", batch=MAIN_BATCH,
@@ -1455,11 +1570,17 @@ def main(argv=()) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_rip_") as tmp:
         _dvdrip_rates(torch, dev, cli, Path(tmp))
     torch.cuda.empty_cache()
+    # 6. the DVD authoring path: its CLI and the encoder's stages
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_author_") as tmp:
+        _author_rates(torch, cli, Path(tmp))
+    torch.cuda.empty_cache()
 
     # each kernel's launches in the run of the path that carries it
     for name, (src, _) in KERNELS.items():
         if name in ("mpeg2_recon", "mpeg2_idct_intra"):
             launches[name] = path_launches["dvd"][name]
+        elif name in ENCODE_KERNELS:
+            launches[name] = path_launches["dvdauthor"][name]
         elif name not in MAIN_KERNELS:
             owner = next(p for p, spec in (*PATHS.items(),
                                            *CLEAN_PATHS.items(),
@@ -1468,6 +1589,8 @@ def main(argv=()) -> int:
             launches[name] = path_launches[owner][name]
     emit(phase="launches", path="dvdrip", launches={
         k: path_launches["dvdrip"][k] for k in RIP_KERNELS})
+    emit(phase="launches", path="dvdauthor", launches={
+        k: path_launches["dvdauthor"][k] for k in AUTHOR_KERNELS})
     if bench.parent:
         emit(phase="parent_summary", per_batch=bench.versus_sums)
     print(json.dumps({"kernels": [
@@ -1779,12 +1902,13 @@ def _cfg1_fps(torch, dev, colorspace, zoom, warmup: int = 2,
         None, batches, warmup)
 
 
-def _device_busy(prof, batches: int) -> dict:
+def _device_busy(prof, batches: int, names=()) -> dict:
     """From a torch.profiler trace, per batch: the window from the
     first device operation's start to the last one's end, the time in
     which a kernel, copy or fill ran, and the device time of the eight
     costliest names and of the rest (None where the trace holds no
-    device work)."""
+    device work); with ``names``, the device time of the operations
+    whose name holds each."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
         path = Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(path))
@@ -1792,7 +1916,8 @@ def _device_busy(prof, batches: int) -> dict:
     ops = [e for e in events if e.get("ph") == "X" and e.get("cat") in
            ("kernel", "gpu_memcpy", "gpu_memset")]
     if not ops:
-        return {"profiled_ms_per_batch": None, "busy_ms_per_batch": None,
+        return {**({"named_ms_per_batch": None} if names else {}),
+                "profiled_ms_per_batch": None, "busy_ms_per_batch": None,
                 "busy_share": None, "kernels_ms_per_batch": None}
     spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
                    for e in ops)
@@ -1809,7 +1934,10 @@ def _device_busy(prof, batches: int) -> dict:
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
     top = dict(ranked[:8])
     top["(the rest)"] = sum(v for _, v in ranked[8:])
-    return {"profiled_ms_per_batch": window_us / 1e3 / batches,
+    named = {n: sum(float(e["dur"]) for e in ops if n in e["name"]) / 1e3
+             / batches for n in names}
+    return {**({"named_ms_per_batch": named} if names else {}),
+            "profiled_ms_per_batch": window_us / 1e3 / batches,
             "busy_ms_per_batch": busy_us / 1e3 / batches,
             "kernels_ms_per_batch": {k: v / 1e3 / batches
                                      for k, v in top.items()}}
@@ -1866,8 +1994,9 @@ class KernelBench:
         """Max abs err of ``got`` against ``want`` (tensors or tuples of
         them); emits it (unless ``quiet``) and raises unless it is 0."""
         torch = self.torch
-        if isinstance(got, torch.Tensor):
-            got, want = (got,), (want,)
+        got, want = _flat_tensors(got), _flat_tensors(want)
+        check(len(got) == len(want),
+              f"{kernel} {case}: {len(got)} outputs against {len(want)}")
         err = 0
         for a, b in zip(got, want):
             check(a.shape == b.shape and a.dtype == b.dtype,
@@ -2016,6 +2145,16 @@ class ParentPackage:
 
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _flat_tensors(x) -> list:
+    """The tensors of a kernel's arguments or outputs, nested tuples and
+    lists flattened, None and other values left out."""
+    if hasattr(x, "data_ptr"):
+        return [x]
+    if isinstance(x, (tuple, list)):
+        return [t for e in x for t in _flat_tensors(e)]
+    return []
 
 
 def _check_main_kernels(torch, kernels, zoom, hq, bench):
@@ -3892,6 +4031,482 @@ def dvdrip_stages(torch, dev, title, out, subs=None,
             "serial_fps": frames / (total * batches / 1e3),
             "overlapped_fps": frames / (max(serial.values())
                                         * batches / 1e3)}
+
+
+# ------------------------------------------------------------------ #
+# The DVD authoring path: MPEG-2 export
+
+def write_author_inputs(directory, width: int, height: int, frames: int,
+                        seed: int = 5, name: str = "author_in"):
+    """The authoring path's inputs in ``directory``: an interlaced
+    YUV420P Y4M at 29.97 fps (``write_motion_y4m``) and a 48 kHz stereo
+    s16 WAV of the same length (1602 samples a frame), ``name`` .y4m and
+    .wav."""
+    directory = Path(directory)
+    src, wav = directory / f"{name}.y4m", directory / f"{name}.wav"
+    write_motion_y4m(src, width, height, frames, seed, fps=AUTHOR_FPS)
+    write_test_wav(wav, frames * AUTHOR_SPF, seed=seed, frame=AUTHOR_SPF)
+    return src, wav
+
+
+def author_golden_argv(case: str, directory, out) -> list:
+    """The CLI arguments of an ``AUTHOR_GOLDEN`` case, writing ``out``
+    and its suffix; its inputs are written into ``directory``."""
+    kind, args, suffix = AUTHOR_GOLDEN[case]
+    wav = Path(directory) / "author_golden_in.wav"
+    if kind == "dvd.vob":
+        src = MPEG_DATA / "dvd.vob"
+    else:
+        src = Path(directory) / "author_golden_in.y4m"
+        if not src.exists():
+            write_author_inputs(directory, AUTHOR_GOLDEN_W, AUTHOR_GOLDEN_H,
+                                AUTHOR_GOLDEN_FRAMES,
+                                name="author_golden_in")
+    return ["-i", str(src), "-o", f"{out}{suffix}",
+            *(a.replace("{wav}", str(wav)) for a in args)]
+
+
+def _tensors_clone(args):
+    """``args`` with every tensor cloned (nested tuples and lists kept)."""
+    if hasattr(args, "data_ptr"):
+        return args.clone()
+    if isinstance(args, (tuple, list)):
+        return type(args)(_tensors_clone(a) for a in args)
+    return args
+
+
+def _me_terms(h: int, w: int, r: int, nref: int) -> int:
+    """Byte differences a motion search of an (h, w) plane needs: the
+    candidates inside the plane of its exhaustive or coarse stage (8x8
+    blocks of the decimated planes), then the 25 refine and 9 half-pel
+    candidates of each macroblock, 256 each."""
+    mbh, mbw = h // 16, w // 16
+    if r <= 4:
+        mb, plane_h, plane_w, rr, tail = 16, h, w, r, 9
+    else:
+        mb, plane_h, plane_w, rr, tail = 8, h // 2, w // 2, (r + 1) // 2, 34
+    y0 = np.arange(mbh)[:, None] * mb
+    x0 = np.arange(mbw)[None, :] * mb
+    d = np.arange(-rr, rr + 1)
+    oky = ((y0[..., None] + d >= 0)
+           & (y0[..., None] + mb + d <= plane_h)).sum(-1)
+    okx = ((x0[..., None] + d >= 0)
+           & (x0[..., None] + mb + d <= plane_w)).sum(-1)
+    return nref * int((oky * okx).sum() * mb * mb + mbh * mbw * tail * 256)
+
+
+def _check_encode_kernels(torch, kernels, bench):
+    """Phase 3 for the MPEG-2 encoder: every call of ``mpeg2_me``,
+    ``mpeg2_enc_pred`` (and its ``mpeg2_enc_bmode`` entry) and
+    ``mpeg2_enc_blocks`` while 720x480 frames of the authoring path's
+    content encode at its settings, held against the plain versions on
+    the same inputs; off the path the search at ``ENC_RANGES`` with one
+    and two references on ragged planes and on a field of a frame (every
+    other row, read in place), the prediction in P and B form, the block
+    coder at qs 1, 2, 8 and 31 with and without alternate scan and MPEG-1
+    and with an intra mask; then each timed at the path's shapes beside
+    its plain version, its bound and, for the block coder, float64
+    ``torch.matmul`` of its forward DCT."""
+    from tcforge_tpu_torch.io import mpeg2enc
+    from tcforge_tpu_torch.io.mpeg2codec import dct_basis
+    from tcforge_tpu_torch.io.y4m import Y4MReader
+    dev = bench.dev
+    rng = np.random.default_rng(23)
+    wrappers = ENCODE_KERNELS
+    saved = {w: getattr(kernels, w) for w in wrappers}
+    captured = {w: [] for w in wrappers}
+    counts = dict.fromkeys(wrappers, 0)
+
+    def checked(wrapper):
+        fn, ref = saved[wrapper], getattr(kernels, wrapper + "_ref")
+
+        def call(*a):
+            got = fn(*a)
+            bench.check(wrapper, "720x480 authoring", got, ref(*a),
+                        quiet=True)
+            counts[wrapper] += 1
+            captured[wrapper].append((a, got))
+            return got
+        return call
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_enc_") as tmp:
+        src = Path(tmp) / "enc.y4m"
+        write_motion_y4m(src, AUTHOR_W, AUTHOR_H, ENC_CHECK_FRAMES, seed=9,
+                         fps=AUTHOR_FPS)
+        planes = [torch.from_numpy(p).to(dev)
+                  for p in _read_y4m(Y4MReader, src)]
+    enc = mpeg2enc.Mpeg2FullEncoder(AUTHOR_W, AUTHOR_H, 29.97, gop_n=15,
+                                    gop_m=3, rate_control=True,
+                                    bitrate_kbps=6000, qmin=2)
+    try:
+        for w in wrappers:
+            setattr(kernels, w, checked(w))
+        for i in range(ENC_CHECK_FRAMES):
+            enc.push_frame(planes[0][i], planes[1][i], planes[2][i])
+        enc.flush()
+    finally:
+        for w, fn in saved.items():
+            setattr(kernels, w, fn)
+    emit(phase="kernel_sweep", kernel="mpeg2_encode",
+         frames=ENC_CHECK_FRAMES, cases=counts, max_abs_err=0)
+
+    # off the path
+    def smooth(h, w, seed, shift=(0, 0)):
+        r = np.random.default_rng(seed)
+        yy, xx = np.mgrid[0:h, 0:w]
+        base = (128 + 60 * np.sin((xx + shift[1]) / 7.0 + seed)
+                + 50 * np.cos((yy + shift[0]) / 5.0))
+        return torch.from_numpy(np.clip(base + r.normal(0, 6, (h, w)), 0,
+                                        255).astype(np.uint8)).to(dev)
+
+    def vectors(*shape):
+        return torch.from_numpy(rng.integers(-40, 41, shape)
+                                .astype(np.int32)).to(dev)
+
+    cases = 0
+    for h, w in ((16, 16), (48, 64), (64, 96), (480, 720)):
+        mbh, mbw = h // 16, w // 16
+        for content in ("smooth", "noise"):
+            if content == "smooth":
+                refs = (smooth(h, w, 1), smooth(h, w, 2))
+                cur = smooth(h, w, 1, (3, -5))
+            else:
+                refs, cur = (bench.u8(h, w), bench.u8(h, w)), bench.u8(h, w)
+            for r in ENC_RANGES:
+                for n in (1, 2):
+                    bench.check("mpeg2_me", f"{h}x{w} r{r} {content} {n}",
+                                kernels.mpeg2_me(refs[:n], cur, r),
+                                kernels.mpeg2_me_ref(refs[:n], cur, r),
+                                quiet=True)
+                    cases += 1
+        y, u, v = (smooth(h, w, 3), smooth(h // 2, w // 2, 4),
+                   bench.u8(h // 2, w // 2))
+        fwd = (smooth(h, w, 5), bench.u8(h // 2, w // 2),
+               smooth(h // 2, w // 2, 6))
+        bwd = (bench.u8(h, w), smooth(h // 2, w // 2, 7),
+               bench.u8(h // 2, w // 2))
+        fmv, bmv = vectors(mbh, mbw, 2), vectors(mbh, mbw, 2)
+        mode = torch.from_numpy(rng.integers(0, 3, (mbh, mbw))
+                                .astype(np.int32)).to(dev)
+        sads = [torch.from_numpy(rng.integers(0, 20000, (mbh, mbw))
+                                 .astype(np.int32)).to(dev) for _ in (0, 1)]
+        for args in ((fwd, fmv), (fwd, fmv, bwd, bmv, mode), (fwd[:1], fmv)):
+            bench.check("mpeg2_enc_pred", f"{h}x{w} {len(args)} args",
+                        kernels.mpeg2_enc_pred(*args),
+                        kernels.mpeg2_enc_pred_ref(*args), quiet=True)
+            cases += 1
+        bargs = (fwd[0], bwd[0], fmv, sads[0], bmv, sads[1], y)
+        bench.check("mpeg2_enc_bmode", f"{h}x{w}",
+                    kernels.mpeg2_enc_bmode(*bargs),
+                    kernels.mpeg2_enc_bmode_ref(*bargs), quiet=True)
+        cases += 1
+        pred = kernels.mpeg2_enc_pred_ref(fwd, fmv)
+        intra_mb = torch.from_numpy(rng.random((mbh, mbw)) < 0.3).to(dev)
+        for qs in (1, 2, 8, 31):
+            for alt in (False, True):
+                for m1 in (False, True):
+                    for args in ((0, (y, u, v), None, qs, alt, m1),
+                                 (1, (y, u, v), pred, qs, alt, m1,
+                                  intra_mb),
+                                 (1, (y, u, v), pred, qs, alt, m1),
+                                 (2, (y, u, v), pred, qs, alt, m1)):
+                        bench.check("mpeg2_enc_blocks",
+                                    f"{h}x{w} mode {args[0]} q{qs}",
+                                    kernels.mpeg2_enc_blocks(*args),
+                                    kernels.mpeg2_enc_blocks_ref(*args),
+                                    quiet=True)
+                        cases += 1
+    # fields of a frame: every other row, read in place
+    frame = smooth(128, 96, 8)
+    top, bottom = frame[0::2], frame[1::2]
+    cu, cv = smooth(64, 48, 9)[0::2], smooth(64, 48, 10)[1::2]
+    for r in (4, 8):
+        bench.check("mpeg2_me", f"field r{r}",
+                    kernels.mpeg2_me((top,), bottom, r),
+                    kernels.mpeg2_me_ref((top,), bottom, r), quiet=True)
+    fargs = ((top, cu, cv), vectors(4, 6, 2))
+    bench.check("mpeg2_enc_pred", "field", kernels.mpeg2_enc_pred(*fargs),
+                kernels.mpeg2_enc_pred_ref(*fargs), quiet=True)
+    bargs = (0, (bottom, cu, cv), None, 6, True, False)
+    bench.check("mpeg2_enc_blocks", "field",
+                kernels.mpeg2_enc_blocks(*bargs),
+                kernels.mpeg2_enc_blocks_ref(*bargs), quiet=True)
+    # 4:2:2 intra planes: eight blocks a macroblock
+    for h, w in ((16, 16), (48, 64), (480, 720)):
+        planes = (smooth(h, w, 11), smooth(h, w // 2, 12), bench.u8(h, w // 2))
+        for qs in (1, 8, 31):
+            args = (0, planes, None, qs, False, False)
+            bench.check("mpeg2_enc_blocks", f"{h}x{w} 4:2:2 q{qs}",
+                        kernels.mpeg2_enc_blocks(*args),
+                        kernels.mpeg2_enc_blocks_ref(*args), quiet=True)
+            cases += 1
+    emit(phase="kernel_sweep", kernel="mpeg2_encode off the path",
+         cases=cases + 4, max_abs_err=0)
+
+    # the intra-only encoder (gop_n=1): the block coder under the pinned
+    # writer, byte for byte the pinned numpy encoder's on the host
+    from tcforge_tpu_torch.io.mpeg2host import Mpeg2Encoder
+    pictures = 0
+    for chroma, fields, qs in ((420, False, 5), (420, True, 1),
+                               (422, False, 31)):
+        kw = dict(qscale=qs, chroma=chroma, interlaced=fields)
+        on_card = mpeg2enc.Mpeg2IntraEncoder(AUTHOR_W, AUTHOR_H, 29.97, **kw)
+        on_host = Mpeg2Encoder(AUTHOR_W, AUTHOR_H, 29.97, **kw)
+        ch = AUTHOR_H if chroma == 422 else AUTHOR_H // 2
+        code = "encode_frame_fields" if fields else "encode_frame"
+        for i in range(2):
+            frame = (smooth(AUTHOR_H, AUTHOR_W, 13 + i),
+                     smooth(ch, AUTHOR_W // 2, 15 + i),
+                     bench.u8(ch, AUTHOR_W // 2))
+            got = getattr(on_card, code)(*frame, with_seq=i == 0)
+            want = getattr(on_host, code)(*(p.cpu().numpy() for p in frame),
+                                          with_seq=i == 0)
+            check(got == want, f"the intra-only encoder's picture ({chroma}"
+                               f", fields {fields}, q{qs}) differs from "
+                               "the pinned numpy encoder's")
+            pictures += 1
+    emit(phase="intra_encoder_vs_numpy", pictures=pictures, identical=True)
+
+    # timed at the path's shapes, the captured calls in turn (more than
+    # L2 together)
+    def rotation(calls):
+        inputs = [a for a, _ in calls]
+        while sum(_nbytes(*_flat_tensors(a)) for a in inputs) < L2_BYTES:
+            inputs = inputs + [_tensors_clone(a) for a in inputs]
+        return inputs
+
+    batches = ENC_CHECK_FRAMES / MAIN_BATCH
+    for nref, label in ((1, "P"), (2, "B")):
+        calls = [c for c in captured["mpeg2_me"] if len(c[0][0]) == nref]
+        check(bool(calls), f"no {label} motion search was captured")
+        bench.record("mpeg2_me", f"720x480 {label}", len(calls) / batches,
+                     lambda *a: kernels.mpeg2_me(*a),
+                     lambda *a: kernels.mpeg2_me_ref(*a), rotation(calls),
+                     nbytes=_nbytes(*_flat_tensors(calls[0])),
+                     ops=_me_terms(AUTHOR_H, AUTHOR_W, 8, nref)
+                     / SADS_PER_OP)
+    for bi, label in ((False, "P"), (True, "B")):
+        calls = [c for c in captured["mpeg2_enc_pred"]
+                 if (len(c[0]) > 2) == bi]
+        check(bool(calls), f"no {label} prediction was captured")
+        bench.record("mpeg2_enc_pred", f"720x480 {label}",
+                     len(calls) / batches,
+                     lambda *a: kernels.mpeg2_enc_pred(*a),
+                     lambda *a: kernels.mpeg2_enc_pred_ref(*a),
+                     rotation(calls),
+                     nbytes=_nbytes(*_flat_tensors(calls[0])), ops=0)
+    calls = captured["mpeg2_enc_bmode"]
+    check(bool(calls), "no B mode decision was captured")
+    bench.record("mpeg2_enc_bmode", "720x480", len(calls) / batches,
+                 lambda *a: kernels.mpeg2_enc_bmode(*a),
+                 lambda *a: kernels.mpeg2_enc_bmode_ref(*a),
+                 rotation(calls), nbytes=_nbytes(*_flat_tensors(calls[0])),
+                 ops=0)
+    kmat = torch.from_numpy(np.kron(dct_basis(), dct_basis())).to(dev)
+    for mode, label in ((0, "I"), (1, "P"), (2, "B")):
+        calls = [c for c in captured["mpeg2_enc_blocks"] if c[0][0] == mode]
+        check(bool(calls), f"no {label} block coding was captured")
+        ins = rotation(calls)
+        levels = calls[0][1][0]
+        blocks = levels.shape[0] * 6
+        coded = int((levels != 0).any(dim=2).sum())
+        recon = 0 if mode == 2 else blocks if mode == 0 else coded
+        bench.record("mpeg2_enc_blocks", f"720x480 {label}",
+                     len(calls) / batches,
+                     lambda *a: kernels.mpeg2_enc_blocks(*a),
+                     lambda *a: kernels.mpeg2_enc_blocks_ref(*a), ins,
+                     nbytes=_nbytes(*_flat_tensors(calls[0])),
+                     ops=1024 * (blocks + recon),
+                     library=(lambda c: torch.matmul(c, kmat),
+                              [(torch.cat([p.reshape(-1, 64) for p in
+                                           _flat_tensors(a[1])])
+                                .to(torch.float64),) for a in ins]),
+                     ops_per_s=F64_FMA_PER_S)
+
+
+def _author_argv(src, wav, out) -> list:
+    return ["-i", str(src), "-p", str(wav), "-o", str(out), *AUTHOR_ARGS,
+            "--batch", str(MAIN_BATCH), "--device", "cuda", "--progress_off",
+            "-q"]
+
+
+def _run_dvdauthor(torch, cli, kernels, tmp):
+    """Phase 4 for the DVD authoring path: 1080i with its WAV through the
+    port's CLI to a 720x480 program stream, the launch counts set to 0
+    just before and read just after (the encoder's three kernels, the
+    zoom's and hqdn3d's), its bytes equal to the same CLI's on the plain
+    versions on the card; the program stream read back by the port's
+    MPEG importer on the card: every frame at 720x480, the LPCM track the
+    WAV's samples.  Returns the launches."""
+    from tcforge_tpu_torch.io.wav import WavReader
+    src, wav = write_author_inputs(tmp, MAIN_W, MAIN_H, AUTHOR_FRAMES)
+    out = tmp / "author.mpg"
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main(_author_argv(src, wav, out))
+    torch.cuda.synchronize()
+    e2e_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    check(rc == 0, f"dvdauthor: CLI exit code {rc}")
+    emit(phase="path", path="dvdauthor", frames=AUTHOR_FRAMES,
+         seconds=e2e_s, e2e_fps=AUTHOR_FRAMES / e2e_s,
+         bytes=out.stat().st_size,
+         launches={k: launches[k] for k in AUTHOR_KERNELS})
+    for name in AUTHOR_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched by the "
+                                  "dvdauthor path")
+    plain = tmp / "author_plain.mpg"
+    with plain_versions(kernels):
+        rc = cli.main(_author_argv(src, wav, plain))
+    check(rc == 0, f"dvdauthor on the plain versions: exit code {rc}")
+    same = out.read_bytes() == plain.read_bytes()
+    emit(phase="path_vs_plain", path="dvdauthor", identical=same,
+         sha256=sha256_file(out))
+    check(same, "dvdauthor: the kernels' program stream differs from the "
+                "plain versions' on the card")
+    back, back_wav = tmp / "author_back.y4m", tmp / "author_back.wav"
+    # the whole-file demux: each batch's video (about 600 KB here) comes
+    # before its audio, past the windowed demux's discovery budget
+    rc = cli.main(["-i", str(out), "-x", "mpeg=stream=0", "-o", str(back),
+                   "-m", str(back_wav), "--device", "cuda", "--progress_off",
+                   "-q"])
+    check(rc == 0, f"dvdauthor read back: exit code {rc}")
+    with open(back, "rb") as f:
+        header = f.readline()
+        frames = f.read().count(b"FRAME\n")
+    with WavReader(str(wav)) as r:
+        want = r.read_samples(r.total_samples)
+    with WavReader(str(back_wav)) as r:
+        got = r.read_samples(r.total_samples)
+        got = got if got is not None else np.zeros((0, 2), np.int16)
+    ok = (f" W{AUTHOR_W} H{AUTHOR_H} ".encode() in header
+          and frames == AUTHOR_FRAMES
+          and got.shape[1] == 2 and got.shape[0] > 0
+          and np.array_equal(got, want[:got.shape[0]]))
+    emit(phase="dvdauthor_read_back", frames=frames,
+         header=header.decode().strip(), lpcm_samples=int(got.shape[0]),
+         wav_samples=int(want.shape[0]), lpcm_equal=ok)
+    check(ok, "dvdauthor: the program stream does not read back as its "
+              "frames at 720x480 with the WAV's samples")
+    for f in (src, wav, plain, back, back_wav):
+        f.unlink()
+    return launches
+
+
+def _author_goldens(cli, tmp):
+    """Phase 5 for MPEG-2 export: every ``AUTHOR_GOLDEN`` case on the
+    card, its SHA-256 against the JAX CLI's pinned digest."""
+    from tcforge_tpu_torch.ops import kernels
+    for case in AUTHOR_GOLDEN:
+        argv = author_golden_argv(case, tmp, tmp / f"author_golden_{case}")
+        kernels.reset_launches()
+        rc = cli.main([*argv, "--device", "cuda", "--progress_off", "-q"])
+        if case in ("identity", "intra", "intra422"):
+            # the identity chain has no filter and no transform: the
+            # frames go to the card all the same, for the encoder; intra
+            # only codes its blocks there
+            names = (ENCODE_KERNELS if case == "identity"
+                     else ("mpeg2_enc_blocks",))
+            launched = {k: kernels.launches[k] for k in names}
+            emit(phase="launches", path=f"author_{case}",
+                 launches=launched)
+            check(all(launched.values()), f"the {case} encode did not "
+                                          f"launch {launched}")
+        digest = sha256_file(argv[argv.index("-o") + 1])
+        emit(phase="golden", path=f"author_{case}", sha256=digest,
+             pinned=AUTHOR_GOLDEN_SHA256[case])
+        check(rc == 0 and digest == AUTHOR_GOLDEN_SHA256[case],
+              f"author {case} golden output differs from the JAX-pinned "
+              "digest")
+
+
+def encode_stages(torch, cli, src, wav, out, frames: int) -> dict:
+    """The authoring CLI twice more, per 16-frame batch.  First with the
+    encoder's and the multiplexor's calls timed inside it (host clocks,
+    wrappers around the module's functions): queueing each picture's
+    kernels and torch ops (``encode_*_math``), the syntax writer
+    (``m2e_picture``), the wait for and the copy of the picture's levels
+    and records with the rate controller's arithmetic (the rest of
+    ``_emit``), and the program stream multiplexor (on the writer
+    thread).  Then under torch.profiler: the device's busy time in the
+    run, and the encoder's kernels' share of it (the search, the
+    prediction with the B modes, the block coder)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tcforge_tpu_torch.io import mpeg2enc
+    from tcforge_tpu_torch.modules.muxers import ps_mux
+    ms = dict.fromkeys(("queue", "emit", "writer", "mux"), 0.0)
+
+    def timed(fn, key):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                ms[key] += (time.perf_counter() - t0) * 1e3
+        return call
+
+    cls, mux = mpeg2enc.Mpeg2FullEncoder, ps_mux.MpegPsMuxer
+    patched = [(mpeg2enc, name, "queue") for name in
+               ("encode_intra_math", "encode_p_math", "encode_b_math")]
+    patched += [(mpeg2enc, "m2e_picture", "writer"), (cls, "_emit", "emit"),
+                (mux, "write_video", "mux"), (mux, "write_audio", "mux")]
+    saved = [getattr(owner, name) for owner, name, _ in patched]
+    for owner, name, key in patched:
+        setattr(owner, name, timed(getattr(owner, name), key))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli.main(_author_argv(src, wav, out))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        for (owner, name, _), fn in zip(patched, saved):
+            setattr(owner, name, fn)
+    check(rc == 0, f"encode_stages: exit code {rc}")
+    batches = frames / MAIN_BATCH
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        rc = cli.main(_author_argv(src, wav, out))
+        torch.cuda.synchronize()
+    check(rc == 0, f"encode_stages under the profiler: exit code {rc}")
+    busy = _device_busy(prof, batches, ("me_kernel", "pred_kernel",
+                                        "bmode_kernel", "blocks_kernel"))
+    return {"frames": frames, "fps": frames / seconds,
+            "ms_per_batch": {"queue": ms["queue"] / batches,
+                             "download": (ms["emit"] - ms["writer"])
+                             / batches,
+                             "writer": ms["writer"] / batches,
+                             "mux": ms["mux"] / batches},
+            "device_busy_ms_per_batch": busy["busy_ms_per_batch"],
+            "encoder_kernels_ms_per_batch": busy["named_ms_per_batch"],
+            "device_kernels_ms_per_batch": busy["kernels_ms_per_batch"]}
+
+
+def _author_rates(torch, cli, tmp):
+    """Phase 6 for the DVD authoring path: its CLI on AUTHOR_RATE_FRAMES
+    frames of 1080i with the WAV, wall clock to the last byte, after one
+    untimed run, six runs (median and spread); then ``encode_stages``."""
+    src, wav = write_author_inputs(tmp, MAIN_W, MAIN_H, AUTHOR_RATE_FRAMES,
+                                   seed=6)
+    out = tmp / "author_rate.mpg"
+    fps = []
+    for r in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli.main(_author_argv(src, wav, out))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check(rc == 0, f"dvdauthor CLI: exit code {rc}")
+        if r:
+            fps.append(AUTHOR_RATE_FRAMES / seconds)
+    emit(phase="cli", path="dvdauthor", frames=AUTHOR_RATE_FRAMES, fps=fps,
+         median_fps=float(np.median(fps)), min_fps=min(fps),
+         max_fps=max(fps))
+    emit(phase="stages", path="dvdauthor",
+         **encode_stages(torch, cli, src, wav, out, AUTHOR_RATE_FRAMES))
+    for f in (src, wav, out):
+        f.unlink()
 
 
 if __name__ == "__main__":

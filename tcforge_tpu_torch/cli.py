@@ -25,7 +25,15 @@ the default ``-x auto``; its size and rate come from the sequence
 header, the host parses it and the card reconstructs it.  A program
 stream's LPCM, MPEG audio or AC-3 track (``-a`` picks it) goes to ``-m``;
 ``-x dvd -T title[,chapter[-chapter]]`` reads a decrypted ``VIDEO_TS``
-title and a directory given to ``-i`` plays its files in turn:
+title and a directory given to ``-i`` plays its files in turn.  The
+export stage takes the JAX CLI's ``-y venc[,aenc[,mux]]`` (encoders
+``raw``, ``null``, ``copy``, ``yuv4mpeg`` and ``mpeg2``; multiplexors
+``raw``, ``null``, ``y4m``, ``wav`` and ``mpg``, ``auto`` by the output's
+extension), ``-F`` (the video encoder's options, ``k=v:...``), ``-w``,
+``--video_max_bitrate``, ``--quantizers``, ``--encode_fields`` and
+``--pulldown``; the MPEG-2 encoder's motion search, prediction and block
+coding run on the card, its syntax writer on the host, and ``mpg`` writes
+a program stream with the audio track as DVD LPCM:
 
     python -m tcforge_tpu_torch.cli -i in.y4m -I 5 -Z 1280x720 \\
         -J hqdn3d=luma=4.0 -o out.y4m [--batch 16] [--device cuda]
@@ -53,6 +61,11 @@ title and a directory given to ``-i`` plays its files in turn:
         -J hqdn3d=luma=4.0 -o out.y4m --batch 16
     python -m tcforge_tpu_torch.cli -i VIDEO_TS -x dvd -T 1 -o out.y4m \\
         -J extsub=subtitle_file=subs.idx,hqdn3d=luma=4.0 -m out.wav
+    python -m tcforge_tpu_torch.cli -i in1080i.y4m -p in.wav -I 5 \\
+        -Z 720x480 -J hqdn3d=luma=4.0 -y mpeg2,raw,mpg \\
+        -F gop_n=15:gop_m=3:rc=1:bitrate=6000 -o out.mpg
+    python -m tcforge_tpu_torch.cli -i dvd.vob -y mpeg2,raw,raw \\
+        -F gop_n=12:gop_m=1:qscale=5 -o out.m2v
 
 and refuses every other flag of the JAX CLI with an error that names
 it, and any audio file but WAV.  ``--device cuda`` (the default) with
@@ -99,20 +112,42 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="tcforge_tpu_torch", allow_abbrev=False,
         description="tcforge on PyTorch/CUDA: Y4M or MPEG-1/2 video (and "
-                    "WAV) in, filter chain, Y4M (and WAV) out")
+                    "WAV) in, filter chain, Y4M, MPEG-2 or raw (and WAV) "
+                    "out")
     p.add_argument("-i", dest="video_in", required=True,
                    help="input file (YUV4MPEG2, an MPEG-1/2 program or "
                         "elementary stream, a directory of them, a "
                         "VIDEO_TS directory with -x dvd, or WAV for an "
                         "audio-only session)")
     p.add_argument("-o", dest="video_out", required=True,
-                   help="output file (YUV4MPEG2, or WAV for an "
-                        "audio-only session)")
+                   help="output file (YUV4MPEG2, WAV for an audio-only "
+                        "session, or the -y multiplexor's)")
     p.add_argument("-x", "--import_with", dest="im_modules",
                    default="auto,auto",
                    help="import modules video[,audio] (video: auto, y4m, "
                         "wav, mpeg or its aliases mpeg2, mpg, vob, dvd, "
                         "multi; name=options)")
+    p.add_argument("-y", "--export_with", dest="ex_modules",
+                   default="raw,raw,auto",
+                   help="export modules venc[,aenc[,mux]] (video: raw, "
+                        "null, copy, yuv4mpeg, mpeg2; mux: auto, raw, "
+                        "null, y4m, wav, mpg; name=options)")
+    p.add_argument("-F", "--export_param", dest="ex_v_fcc", default="",
+                   help="video encoder option string (module-specific, "
+                        "e.g. gop_n=12:gop_m=3)")
+    p.add_argument("-w", dest="bitrate",
+                   help="video bitrate kbps[,keyframes] (enables rate "
+                        "control)")
+    p.add_argument("--video_max_bitrate", type=int, default=0,
+                   help="maximum bitrate for VBR MPEG-2 (VBV cap) "
+                        "[same as -w]")
+    p.add_argument("--quantizers", default="",
+                   help="min,max quantizer for MPEG-like codecs [2,31]")
+    p.add_argument("--encode_fields", default="",
+                   help="field-based encoding: t (top-first), b "
+                        "(bottom-first), p (progressive), u (unknown)")
+    p.add_argument("--pulldown", action="store_true",
+                   help="set MPEG 3:2 pulldown flags on export")
     p.add_argument("-T", dest="dvd_title", default="",
                    help="DVD title[,chapters[,angle]] of a decrypted "
                         "VIDEO_TS directory (-x dvd)")
@@ -219,6 +254,31 @@ def args_to_job(args: argparse.Namespace) -> Job:
     im_mods = (args.im_modules + ",auto").split(",")
     job.im_v_module, _, job.im_v_string = im_mods[0].partition("=")
     job.im_a_module, _, job.im_a_string = im_mods[1].partition("=")
+    ex_mods = (args.ex_modules + ",raw,auto").split(",")
+    job.ex_v_module, _, job.ex_v_string = ex_mods[0].partition("=")
+    job.ex_a_module, _, job.ex_a_string = ex_mods[1].partition("=")
+    job.ex_m_module, _, job.ex_m_string = ex_mods[2].partition("=")
+    # the encoder's flags (tcforge_tpu/cli.py:412-431)
+    job.ex_v_fcc = args.ex_v_fcc
+    if args.bitrate:
+        parts = args.bitrate.split(",")
+        job.bitrate = int(parts[0])
+        if len(parts) > 1 and parts[1]:
+            job.keyframes = int(parts[1])
+        job.rc_requested = True
+    job.video_max_bitrate = args.video_max_bitrate
+    if args.quantizers:
+        mn, mx = args.quantizers.split(",")
+        job.min_quantizer, job.max_quantizer = int(mn), int(mx)
+        if not (1 <= job.min_quantizer <= 31
+                and 1 <= job.max_quantizer <= 31):
+            raise ValueError("--quantizers values must be in 1..31")
+    if args.encode_fields:
+        codes = {"p": 0, "t": 1, "b": 2, "u": 3}
+        if args.encode_fields not in codes:
+            raise ValueError("--encode_fields takes t, b, p or u")
+        job.encode_fields = codes[args.encode_fields]
+    job.pulldown = args.pulldown
     if args.export_fps:
         job.ex_fps = args.export_fps
     if args.pre_clip:

@@ -1,13 +1,18 @@
 """The port's module system.  Importing this package registers the
-built-in filters, the WAV and MPEG importers, the WAV multiplexor and the
-raw and null encoders, as importing ``tcforge_tpu.modules`` does."""
+built-in filters, the WAV, MPEG and framegen importers, the WAV, Y4M,
+raw, null and mpg multiplexors and the raw, null, copy, yuv4mpeg and
+mpeg2 encoders, as importing ``tcforge_tpu.modules`` does."""
 
 from tcforge_tpu_torch.modules.encoders import basic as _encoders  # noqa: F401
+from tcforge_tpu_torch.modules.encoders import image_enc  # noqa: F401
+from tcforge_tpu_torch.modules.encoders import mpeg2  # noqa: F401
+from tcforge_tpu_torch.modules.importers import framegen  # noqa: F401
 from tcforge_tpu_torch.modules.importers import dvd_import  # noqa: F401
 from tcforge_tpu_torch.modules.importers import mpeg_import  # noqa: F401
 from tcforge_tpu_torch.modules.importers import multi  # noqa: F401
 from tcforge_tpu_torch.modules.importers import wav_import  # noqa: F401
 from tcforge_tpu_torch.modules.muxers import basic as _muxers  # noqa: F401
+from tcforge_tpu_torch.modules.muxers import ps_mux  # noqa: F401
 
 from tcforge_tpu_torch.modules.filters import (  # noqa: F401
     analysis, audio_filters, bob, cadence, denoise3d, dnr, extras, extsub, hqdn3d, median,

@@ -1,10 +1,12 @@
-"""The raw and null encoders (``tcforge_tpu/modules/encoders/basic.py``).
+"""The raw, null and copy encoders (``tcforge_tpu/modules/encoders/
+basic.py``).
 
 ``raw`` packs each frame of a batch into its on-disk bytes: the planes
 of a planar frame one after the other (RGB: the packed pixels), and for
 audio one little-endian int16 payload per audio frame.  ``null``
-discards everything (encode_null.c).  Both take batches whose tensors
-are in host memory (the engine copies them back first).
+discards everything (encode_null.c); ``copy`` passes frames through as
+``raw`` packs them, and audio in its native byte order (encode_copy.c).
+A batch on a device comes to host memory first.
 """
 
 from __future__ import annotations
@@ -21,7 +23,14 @@ from tcforge_tpu_torch.modules.registry import (Encoder, ModuleInfo,
 
 
 def _host(a) -> np.ndarray:
-    return a.numpy() if hasattr(a, "numpy") else np.asarray(a)
+    return a.cpu().numpy() if hasattr(a, "numpy") else np.asarray(a)
+
+
+def frame_payloads(fb: FrameBatch) -> List[bytes]:
+    """Each frame of a batch as its on-disk bytes, plane after plane."""
+    planes = [_host(p) for p in fb.planes]
+    return [b"".join(p[i].tobytes() for p in planes)
+            for i in range(fb.batch)]
 
 
 @register
@@ -31,9 +40,7 @@ class RawEncoder(Encoder):
     desc = ModuleDesc(name="raw", comment="raw frame/PCM passthrough packer")
 
     def encode_video(self, fb: FrameBatch) -> List[bytes]:
-        planes = [_host(p) for p in fb.planes]
-        return [b"".join(p[i].tobytes() for p in planes)
-                for i in range(fb.batch)]
+        return frame_payloads(fb)
 
     def encode_audio(self, ab: AudioBatch) -> List[bytes]:
         pcm = _host(ab.pcm)
@@ -52,3 +59,17 @@ class NullEncoder(Encoder):
 
     def encode_audio(self, ab: AudioBatch) -> List[bytes]:
         return [b""] * ab.batch
+
+
+@register
+class CopyEncoder(Encoder):
+    info = ModuleInfo(name="copy", kind=ModuleKind.ENCODER, media="both",
+                      codecs_in=(Codec.ANY,), codecs_out=(Codec.ANY,))
+    desc = ModuleDesc(name="copy", comment="pass-through (encode_copy)")
+
+    def encode_video(self, fb: FrameBatch) -> List[bytes]:
+        return frame_payloads(fb)
+
+    def encode_audio(self, ab: AudioBatch) -> List[bytes]:
+        pcm = _host(ab.pcm)
+        return [pcm[i].tobytes() for i in range(pcm.shape[0])]

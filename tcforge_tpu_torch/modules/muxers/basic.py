@@ -1,17 +1,39 @@
-"""The WAV multiplexor (``tcforge_tpu/modules/muxers/basic.py``
-``WavMuxer``): audio payloads into a RIFF/WAVE file whose header is
-fixed up on close.  The rate is ``-E``'s (``mp3frequency``) or the
-input's (``a_rate``), the channels ``dm_chan``, the bits ``dm_bits``."""
+"""The WAV, Y4M, raw and null multiplexors (``tcforge_tpu/modules/
+muxers/basic.py``; multiplex_{wav,y4m,raw,null}.c analogues).
+
+``wav``: audio payloads into a RIFF/WAVE file whose header is fixed up on
+close; the rate is ``-E``'s (``mp3frequency``) or the input's
+(``a_rate``), the channels ``dm_chan``, the bits ``dm_bits``.  ``y4m``:
+packed planar frames behind ``FRAME`` lines (an RGB session's frames
+converted to YUV420P).  ``raw``: the payloads as they come, audio to a
+sibling ``<name>.aud`` (the main file in an audio-only session).
+``null``: counts and discards.  The engine writes the default
+``raw,raw,auto`` route to a ``.y4m`` with its own Y4M writer; ``y4m``
+serves the other encoders.
+"""
 
 from __future__ import annotations
 
 import numpy as np
 
 from tcforge_tpu_torch.core.codecs import Codec, ContainerFormat
+from tcforge_tpu_torch.core.formats import ImageFormat
 from tcforge_tpu_torch.core.optstr import ModuleDesc
 from tcforge_tpu_torch.io.wav import WavInfo, WavWriter
 from tcforge_tpu_torch.modules.registry import (ModuleInfo, ModuleKind,
                                                 Muxer, register)
+
+
+def fps_to_ratio(fps: float):
+    """Best rational fps for the container header, frc table first."""
+    from fractions import Fraction
+
+    from tcforge_tpu_torch.core import ratiocodes
+    code = ratiocodes.frc_code_from_value(fps)
+    if code is not None:
+        return ratiocodes.frc_code_to_ratio(code)
+    frac = Fraction(fps).limit_denominator(65535)
+    return frac.numerator, frac.denominator
 
 
 @register
@@ -37,3 +59,99 @@ class WavMuxer(Muxer):
 
     def close(self) -> None:
         self._w.close()
+
+
+@register
+class Y4MMuxer(Muxer):
+    info = ModuleInfo(name="y4m", kind=ModuleKind.MULTIPLEXOR, media="video",
+                      codecs_in=(Codec.YUV420P, Codec.YUV422P, Codec.RAW),
+                      formats_out=(ContainerFormat.YUV4MPEG,))
+    desc = ModuleDesc(name="y4m", comment="YUV4MPEG2 stream writer")
+    # behind the encoders that give frames (copy, an RGB job's planes);
+    # the default raw route to a .y4m keeps the engine's own writer,
+    # which writes straight from the batch's pinned planes
+
+    def open(self, path: str) -> None:
+        from tcforge_tpu_torch.io.y4m import Y4MHeader, Y4MWriter
+        w, h = ((self.job.ex_v_width, self.job.ex_v_height)
+                if self.job.ex_v_width else self.job.export_size())
+        num, den = fps_to_ratio(self.job.out_fps)
+        fmt = self.job.im_colorspace
+        self._rgb_in = fmt.is_rgb
+        self._size = (w, h)
+        if not fmt.is_planar or fmt.is_rgb:
+            fmt = ImageFormat.YUV420P
+        self._w = Y4MWriter(path, Y4MHeader(
+            width=w, height=h, fps_num=num, fps_den=den, format=fmt))
+
+    def write_video(self, payload: bytes, keyframe: bool = True) -> int:
+        if self._rgb_in:
+            from tcforge_tpu_torch.core.frame import FrameBatch
+            from tcforge_tpu_torch.ops import colorspace
+            w, h = self._size
+            rgb = np.frombuffer(payload, np.uint8).reshape(h, w, 3)
+            fb = FrameBatch.from_numpy(rgb=rgb[None].copy(),
+                                       fmt=self.job.im_colorspace)
+            out = colorspace.convert(fb, ImageFormat.YUV420P)
+            payload = b"".join(p[0].cpu().numpy().tobytes()
+                               for p in (out.y, out.u, out.v))
+        self._w._f.write(b"FRAME\n")
+        self._w._f.write(payload)
+        self._w.frames_written += 1
+        return len(payload)
+
+    def close(self) -> None:
+        self._w.close()
+
+
+@register
+class RawMuxer(Muxer):
+    info = ModuleInfo(name="raw", kind=ModuleKind.MULTIPLEXOR, media="both",
+                      codecs_in=(Codec.ANY,),
+                      formats_out=(ContainerFormat.RAW,))
+    desc = ModuleDesc(name="raw", comment="headerless stream writer")
+
+    def open(self, path: str) -> None:
+        self._path = path
+        self._f = open(path, "wb")
+        self._fa = None
+        job = self.job
+        self._audio_to_main = not (job.ex_v_width or job.im_v_width)
+
+    def write_video(self, payload: bytes, keyframe: bool = True) -> int:
+        self._f.write(payload)
+        return len(payload)
+
+    def write_audio(self, payload: bytes, track: int = 0) -> int:
+        # audio goes to a sibling <name>.aud stream (multiplex_raw.c);
+        # an audio-only session writes the main file
+        if self._audio_to_main:
+            self._f.write(payload)
+            return len(payload)
+        if self._fa is None:
+            self._fa = open(self._path + ".aud", "wb")
+        self._fa.write(payload)
+        return len(payload)
+
+    def close(self) -> None:
+        self._f.close()
+        if self._fa is not None:
+            self._fa.close()
+
+
+@register
+class NullMuxer(Muxer):
+    info = ModuleInfo(name="null", kind=ModuleKind.MULTIPLEXOR, media="both",
+                      codecs_in=(Codec.ANY,), formats_out=())
+    desc = ModuleDesc(name="null", comment="discard output (multiplex_null)")
+
+    def open(self, path: str) -> None:
+        self.bytes_written = 0
+
+    def write_video(self, payload: bytes, keyframe: bool = True) -> int:
+        self.bytes_written += len(payload)
+        return len(payload)
+
+    def write_audio(self, payload: bytes, track: int = 0) -> int:
+        self.bytes_written += len(payload)
+        return len(payload)

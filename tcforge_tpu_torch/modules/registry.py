@@ -235,13 +235,24 @@ def new_module(kind: ModuleKind, name: str, job: Job,
     return lookup(kind, name)(job, options)
 
 
-# file-name extension -> multiplexor (the JAX package's _FORMAT_MAP,
-# cut to the multiplexors the port has)
-_MUX_BY_EXT: Dict[str, str] = {".wav": "wav"}
+# file-name extension -> multiplexor (the JAX package's _FORMAT_MAP)
+MUX_BY_EXT: Dict[str, str] = {
+    ".nuv": "nuv", ".pvn": "pvn", ".mov": "mov", ".qt": "mov",
+    ".ppm": "im", ".pgm": "im", ".y4m": "y4m", ".avi": "avi",
+    ".wav": "wav", ".raw": "raw", ".yuv": "raw", ".ogg": "ogg",
+    ".ogm": "ogg", ".m2v": "raw", ".m1v": "raw", ".mpg": "mpg",
+    ".mpeg": "mpg", ".vob": "mpg", ".mp4": "lavf", ".webm": "lavf",
+    ".flac": "lavf", ".mkv": "lavf", ".ts": "lavf", ".es": "raw"}
+
+
+def jax_mux_module_for_path(path: str) -> Optional[str]:
+    """The JAX package's multiplexor for a file name, by its extension,
+    whether or not the port has it."""
+    import os
+    return MUX_BY_EXT.get(os.path.splitext(path)[1].lower())
 
 
 def find_mux_module_for_path(path: str) -> Optional[str]:
     """The port's multiplexor for a file name, by its extension."""
-    import os
-    name = _MUX_BY_EXT.get(os.path.splitext(path)[1].lower())
+    name = jax_mux_module_for_path(path)
     return name if name in _REGISTRIES[ModuleKind.MULTIPLEXOR] else None

@@ -43,6 +43,21 @@ wrapper                    CUDA source                 replaces (tcforge_tpu)
                                                        batch_jax``'s CPU
                                                        branch (the native
                                                        float64 IDCT)
+``mpeg2_me``               ``csrc/mpeg2_encode.cu``    io/mpeg2enc.py
+                                                       ``motion_search`` and
+                                                       ``halfpel_refine``
+                                                       (XLA ops; the CPU
+                                                       route's native
+                                                       ``tc_me16_refine``)
+``mpeg2_enc_pred``,        ``csrc/mpeg2_encode.cu``    io/mpeg2enc.py
+``mpeg2_enc_bmode``                                    ``_mc_pred_half`` and
+                                                       ``_b_code_math``'s
+                                                       mode choice (XLA ops)
+``mpeg2_enc_blocks``       ``csrc/mpeg2_encode.cu``    io/mpeg2enc.py
+                                                       ``_intra_math_jax``,
+                                                       ``_code_plane_inter``
+                                                       (XLA ops; the native
+                                                       float64 block coder)
 =========================  ==========================  =====================
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
@@ -79,7 +94,11 @@ launches: Dict[str, int] = {"hqdn3d_spatial_scan": 0,
                             "stabilize_field_search": 0,
                             "transform_warp": 0,
                             "mpeg2_recon": 0,
-                            "mpeg2_idct_intra": 0}
+                            "mpeg2_idct_intra": 0,
+                            "mpeg2_me": 0,
+                            "mpeg2_enc_pred": 0,
+                            "mpeg2_enc_bmode": 0,
+                            "mpeg2_enc_blocks": 0}
 
 
 def reset_launches() -> None:
@@ -135,6 +154,12 @@ _SIGNATURES = {
     "mpeg2_recon": {
         "tc_mpeg2_recon": (_P, _P, _P),
         "tc_mpeg2_idct_intra": (_P, _P, _LL, _I, _I, _P, _P),
+    },
+    "mpeg2_encode": {
+        "tc_mpeg2_me": (_P, _P),
+        "tc_mpeg2_enc_pred": (_P, _P),
+        "tc_mpeg2_enc_bmode": (_P, _P),
+        "tc_mpeg2_enc_blocks": (_P, _P, _P, _P),
     },
     "zoom_pass": {
         "tc_zoom_pass": (_P, _P, _P, _P, _P, _I, _P, _I, _I, _LL, _LL, _LL,
@@ -990,3 +1015,275 @@ def mpeg2_idct_intra(coef: torch.Tensor) -> torch.Tensor:
           _stream(coef))
     launches["mpeg2_idct_intra"] += 1
     return out
+
+
+# --------------------------------------------------------------------- #
+# Kernels E1-E3: the MPEG-2 encoder's motion search, prediction and block
+# coder (not TPU kernels: the JAX package's CPU route runs them in
+# native/tcforge_host.cpp, its device route as XLA ops)
+
+ME_MAX_RANGE = 64        # csrc/mpeg2_encode.cu kMaxRange
+
+
+def _meta(values) -> ctypes.c_void_p:
+    """A launch's arguments as one array of 64-bit integers (pointers,
+    strides, sizes), read on the host side of the C entry point."""
+    arr = (ctypes.c_longlong * len(values))(*values)
+    return ctypes.cast(arr, _P), arr
+
+
+def _check_mb_planes(planes, what: str, shape=None) -> Tuple[int, int]:
+    """uint8 2-D planes of one shape whose rows are contiguous (field
+    views of a frame are fine), both sides multiples of 16 for luma."""
+    for i, p in enumerate(planes):
+        _check_plane(p, f"{what}[{i}]")
+        if shape is not None and tuple(p.shape) != tuple(shape):
+            raise ValueError(f"{what}[{i}]: shape {tuple(p.shape)}, "
+                             f"expected {tuple(shape)}")
+        shape = p.shape
+    return tuple(shape)
+
+
+def _check_420(planes, what: str) -> Tuple[int, int]:
+    if len(planes) not in (1, 3):
+        raise ValueError(f"{what}: expected (y,) or (y, u, v) planes")
+    h, w = _check_mb_planes(planes[:1], what)
+    if h % 16 or w % 16 or h == 0 or w == 0:
+        raise ValueError(f"{what}: {w}x{h} is not a whole number of "
+                         "macroblocks")
+    _check_mb_planes(planes[1:], what, (h // 2, w // 2))
+    return h, w
+
+
+def _check_mvs(mv: torch.Tensor, what: str, mbh: int, mbw: int) -> None:
+    _check(mv, what, (torch.int32,), 3)
+    if tuple(mv.shape) != (mbh, mbw, 2):
+        raise ValueError(f"{what}: shape {tuple(mv.shape)}, expected "
+                         f"{(mbh, mbw, 2)}")
+
+
+def _check_range(r: int) -> None:
+    if not 1 <= int(r) <= ME_MAX_RANGE:
+        raise ValueError(f"search range {r}: 1..{ME_MAX_RANGE}")
+
+
+def mpeg2_me_ref(refs, cur: torch.Tensor, r: int):
+    """Plain version of ``mpeg2_me``: ``me16_refine_math`` (io/mpeg2enc.py)
+    for each reference."""
+    from tcforge_tpu_torch.io.mpeg2enc import me16_refine_math
+    outs = [me16_refine_math(ref, cur, r) for ref in refs]
+    return (torch.stack([o[0] for o in outs]),
+            torch.stack([o[1] for o in outs]))
+
+
+def mpeg2_me(refs, cur: torch.Tensor, r: int):
+    """The encoder's motion search of ``cur`` (a uint8 luma plane whose
+    sides are multiples of 16) in each of one or two reference planes of
+    its shape: per 16x16 macroblock the integer search (exhaustive for
+    ``r <= 4``; else exhaustive on 2x2-decimated planes within
+    ``(r+1)//2``, then +-2 at full resolution, clamped to +-r) and the
+    3x3 half-pel refine, each the first strict minimum in dy-major order,
+    candidates that leave the plane at ``1 << 30``.  Returns int32
+    (n, mbh, mbw, 2) half-pel vectors (y, x) and int32 (n, mbh, mbw)
+    SADs (``tc_me16_refine``)."""
+    refs = list(refs)
+    if not 1 <= len(refs) <= 2:
+        raise ValueError("mpeg2_me: one or two reference planes")
+    h, w = _check_420([cur], "cur")
+    _check_mb_planes(refs, "refs", (h, w))
+    _check_range(r)
+    if not _on_cuda(cur, *refs):
+        return mpeg2_me_ref(refs, cur, r)
+    dev = cur.device
+    mbh, mbw = h // 16, w // 16
+    mv = torch.empty((len(refs), mbh, mbw, 2), dtype=torch.int32,
+                     device=dev)
+    sad = torch.empty((len(refs), mbh, mbw), dtype=torch.int32, device=dev)
+    meta = [cur.data_ptr(), cur.stride(0), h, w, int(r), len(refs),
+            mv.data_ptr(), sad.data_ptr()]
+    for i in range(2):
+        p = refs[min(i, len(refs) - 1)]
+        meta += [p.data_ptr(), p.stride(0)]
+    ptr, _keep = _meta(meta)
+    _call("mpeg2_encode", "tc_mpeg2_me", ptr, _stream(cur))
+    launches["mpeg2_me"] += 1
+    return mv, sad
+
+
+def mpeg2_enc_pred_ref(fwd, fmv, bwd=None, bmv=None, mode=None):
+    """Plain version of ``mpeg2_enc_pred``: ``enc_pred_math``
+    (io/mpeg2enc.py)."""
+    from tcforge_tpu_torch.io.mpeg2enc import enc_pred_math
+    return enc_pred_math(fwd, fmv, bwd, bmv, mode)
+
+
+def mpeg2_enc_pred(fwd, fmv: torch.Tensor, bwd=None, bmv=None, mode=None):
+    """The half-pel prediction of a picture's planes, (y,) or (y, u, v) of
+    4:2:0: per macroblock from ``fwd`` at int32 (mbh, mbw, 2) half-pel
+    vectors ``fmv`` (chroma at the vectors halved toward 0), each sample
+    coordinate clamped into its plane on its own (``tc_mc_pred_half``).
+    With ``mode`` (int32 (mbh, mbw): 0 forward, 1 backward, 2 the
+    average ``(f + b + 1) >> 1``) each macroblock is predicted from the
+    reference(s) its mode uses, ``bwd`` at ``bmv`` for the backward one
+    (``tc_b_mc_sel_pred2``).  Returns contiguous uint8 planes."""
+    fwd = list(fwd)
+    h, w = _check_420(fwd, "fwd")
+    mbh, mbw = h // 16, w // 16
+    _check_mvs(fmv, "fmv", mbh, mbw)
+    bplanes = []
+    if mode is not None:
+        bplanes = list(bwd)
+        if len(bplanes) != len(fwd):
+            raise ValueError("bwd: one plane for each of fwd's")
+        _check_420(bplanes, "bwd")
+        _check_mb_planes(bplanes[:1], "bwd", (h, w))
+        _check_mvs(bmv, "bmv", mbh, mbw)
+        _check(mode, "mode", (torch.int32,), 2)
+        if tuple(mode.shape) != (mbh, mbw):
+            raise ValueError(f"mode: shape {tuple(mode.shape)}")
+    extra = [bmv, mode] if mode is not None else []
+    if not _on_cuda(fmv, *fwd, *bplanes, *extra):
+        return mpeg2_enc_pred_ref(fwd, fmv, bwd, bmv, mode)
+    dev = fmv.device
+    outs = tuple(torch.empty(p.shape, dtype=torch.uint8, device=dev)
+                 for p in fwd)
+    meta = [len(fwd), mbw, fmv.data_ptr(),
+            bmv.data_ptr() if mode is not None else 0,
+            mode.data_ptr() if mode is not None else 0]
+    for i in range(3):
+        if i < len(fwd):
+            f, o = fwd[i], outs[i]
+            b = bplanes[i] if bplanes else f
+            meta += [f.data_ptr(), f.stride(0), b.data_ptr(), b.stride(0),
+                     o.data_ptr(), o.shape[0], o.shape[1]]
+        else:
+            meta += [0] * 7
+    ptr, _keep = _meta(meta)
+    _call("mpeg2_encode", "tc_mpeg2_enc_pred", ptr, _stream(fmv))
+    launches["mpeg2_enc_pred"] += 1
+    return outs
+
+
+def mpeg2_enc_bmode_ref(fy, by, fmv, fsad, bmv, bsad, cur):
+    """Plain version of ``mpeg2_enc_bmode``: ``enc_bmode_math``
+    (io/mpeg2enc.py)."""
+    from tcforge_tpu_torch.io.mpeg2enc import enc_bmode_math
+    return enc_bmode_math(fy, by, fmv, fsad, bmv, bsad, cur)
+
+
+def mpeg2_enc_bmode(fy: torch.Tensor, by: torch.Tensor, fmv: torch.Tensor,
+                    fsad: torch.Tensor, bmv: torch.Tensor,
+                    bsad: torch.Tensor, cur: torch.Tensor) -> torch.Tensor:
+    """A B picture's macroblock modes, the second entry point of the
+    prediction kernel: per 16x16 macroblock the SAD of the average of
+    its forward and backward luma predictions (``tc_bisad`` of two
+    ``tc_mc_pred_half``), then the first minimum of ``(fsad, bsad, bisad -
+    256)``: int32 (mbh, mbw), 0 forward, 1 backward, 2 both."""
+    h, w = _check_420([cur], "cur")
+    _check_mb_planes([fy, by], "refs", (h, w))
+    mbh, mbw = h // 16, w // 16
+    for mv, what in ((fmv, "fmv"), (bmv, "bmv")):
+        _check_mvs(mv, what, mbh, mbw)
+    for s, what in ((fsad, "fsad"), (bsad, "bsad")):
+        _check(s, what, (torch.int32,), 2)
+        if tuple(s.shape) != (mbh, mbw):
+            raise ValueError(f"{what}: shape {tuple(s.shape)}")
+    if not _on_cuda(fy, by, fmv, fsad, bmv, bsad, cur):
+        return mpeg2_enc_bmode_ref(fy, by, fmv, fsad, bmv, bsad, cur)
+    mode = torch.empty((mbh, mbw), dtype=torch.int32, device=cur.device)
+    meta = [cur.data_ptr(), cur.stride(0), fy.data_ptr(), fy.stride(0),
+            by.data_ptr(), by.stride(0), h, w, fmv.data_ptr(),
+            fsad.data_ptr(), bmv.data_ptr(), bsad.data_ptr(),
+            mode.data_ptr()]
+    ptr, _keep = _meta(meta)
+    _call("mpeg2_encode", "tc_mpeg2_enc_bmode", ptr, _stream(cur))
+    launches["mpeg2_enc_bmode"] += 1
+    return mode
+
+
+@lru_cache(maxsize=None)
+def _enc_tables(alt: bool):
+    """The block coder's constant tables for a launch: the float64 DCT
+    basis (64 doubles), and the scan order then the intra matrix (128
+    ints)."""
+    from tcforge_tpu_torch.io.mpeg2codec import dct_basis
+    from tcforge_tpu_torch.io.mpeg2enc import intra_weights, scan_order
+    basis = (ctypes.c_double * 64)(*dct_basis().reshape(-1).tolist())
+    ints = (ctypes.c_int * 128)(*scan_order(alt).tolist(),
+                                *intra_weights().tolist())
+    return basis, ints
+
+
+def mpeg2_enc_blocks_ref(mode, cur, pred, qs, alt, m1, intra_mb=None):
+    """Plain version of ``mpeg2_enc_blocks``: ``enc_blocks_math``
+    (io/mpeg2enc.py)."""
+    from tcforge_tpu_torch.io.mpeg2enc import enc_blocks_math
+    return enc_blocks_math(mode, cur, pred, qs, alt, m1, intra_mb)
+
+
+def mpeg2_enc_blocks(mode: int, cur, pred, qs: int, alt: bool, m1: bool,
+                     intra_mb=None):
+    """The block coder of a picture's three planes: per 8x8 block
+    the float64 forward DCT, the quantiser at ``qs`` (1..31; MPEG-1
+    levels with ``m1``), the dequantiser (oddification with ``m1``, else
+    the 13818-2 mismatch control), the float64 IDCT and the clipped
+    reconstruction, the levels in scan order (alternate with ``alt``)
+    written to a macroblock-interleaved int16 (nmb, 6, 64) array.
+    ``mode`` 0: intra (``pred`` None), of 4:2:0 or of 4:2:2 planes (chroma
+    of the luma's height: (nmb, 8, 64) levels, the chroma blocks of a
+    macroblock Cb Cr Cb Cr); 1: inter from the uint8 prediction
+    planes ``pred``, with reconstruction (an all-zero block reconstructs
+    to its prediction), the blocks of the macroblocks set in ``intra_mb``
+    (bool (mbh, mbw)) coded intra instead; 2: inter levels alone.  Returns
+    (levels, (rec y, u, v) or None for mode 2) (``tc_enc_intra_plane``,
+    ``tc_enc_inter_plane`` with ``tc_enc_intra_sel``,
+    ``tc_enc_inter_levels``)."""
+    if mode not in (0, 1, 2):
+        raise ValueError(f"mpeg2_enc_blocks: mode {mode}")
+    if not 1 <= int(qs) <= 31:
+        raise ValueError(f"qs {qs}: 1..31")
+    cur = list(cur)
+    if len(cur) != 3:
+        raise ValueError("cur: expected (y, u, v)")
+    h, w = _check_420(cur[:1], "cur")
+    c422 = mode == 0 and cur[1].dim() == 2 and cur[1].shape[0] == h
+    _check_mb_planes(cur[1:], "cur", (h if c422 else h // 2, w // 2))
+    mbh, mbw = h // 16, w // 16
+    tensors = list(cur)
+    if mode == 0:
+        if pred is not None or intra_mb is not None:
+            raise ValueError("intra: no prediction and no intra_mb")
+    else:
+        pred = list(pred)
+        if len(pred) != 3:
+            raise ValueError("pred: expected (y, u, v)")
+        _check_mb_planes(pred[:1], "pred", (h, w))
+        _check_mb_planes(pred[1:], "pred", (h // 2, w // 2))
+        tensors += pred
+    if intra_mb is not None:
+        if mode != 1:
+            raise ValueError("intra_mb: inter mode with reconstruction only")
+        _check(intra_mb, "intra_mb", (torch.bool,), 2)
+        if tuple(intra_mb.shape) != (mbh, mbw):
+            raise ValueError(f"intra_mb: shape {tuple(intra_mb.shape)}")
+        tensors.append(intra_mb)
+    if not _on_cuda(*tensors):
+        return mpeg2_enc_blocks_ref(mode, cur, pred, qs, alt, m1, intra_mb)
+    dev = cur[0].device
+    levels = torch.empty((mbh * mbw, 8 if c422 else 6, 64),
+                         dtype=torch.int16, device=dev)
+    rec = (tuple(torch.empty(p.shape, dtype=torch.uint8, device=dev)
+                 for p in cur) if mode != 2 else None)
+    meta = [mode, int(qs), int(bool(m1)), mbw, levels.data_ptr(),
+            intra_mb.data_ptr() if intra_mb is not None else 0]
+    for i in range(3):
+        p = pred[i] if pred is not None else cur[i]
+        meta += [cur[i].data_ptr(), cur[i].stride(0), p.data_ptr(),
+                 p.stride(0), rec[i].data_ptr() if rec else 0,
+                 cur[i].shape[0], cur[i].shape[1]]
+    ptr, _keep = _meta(meta)
+    basis, ints = _enc_tables(bool(alt))
+    _call("mpeg2_encode", "tc_mpeg2_enc_blocks", ptr,
+          ctypes.cast(basis, _P), ctypes.cast(ints, _P), _stream(cur[0]))
+    launches["mpeg2_enc_blocks"] += 1
+    return levels, rec

@@ -1,5 +1,6 @@
 """The streaming engine: Y4M or MPEG reader thread -> VideoChain on a
-device -> Y4M writer thread, with an audio track beside it.
+device -> Y4M writer thread (or an encoder and a multiplexor), with an
+audio track beside it.
 
 The port of ``tcforge_tpu/pipeline/engine.py`` for a Y4M-to-Y4M
 session, with a WAV audio track (``-p`` in, ``-m`` out), for an MPEG-1/2
@@ -60,10 +61,27 @@ a batch's worth at a time, and each chunk goes through the audio chain
 as one audio frame, as in the JAX engine; the ``-J`` video filters get
 their initial states and their ``finalize`` and see no frame.
 
+The export stage beyond the Y4M writer (``-y venc[,aenc[,mux]]``, the
+JAX engine's): the frames to write (-c, --frame_interval, the skipped
+and broken ones out) go to the video encoder on the main thread, after
+the batch's chain, as the JAX engine selects before it encodes; the
+MPEG-2 encoder takes them on the device and waits for it once a picture
+(``io/mpeg2enc.py``).  Its payloads, and the audio encoder's, go to the
+writer thread's multiplexor, which opens at the first batch that gives
+payloads (or at the end of the stream) and holds the audio given before;
+at the end of the stream the encoder's tail (its delayed pictures and
+its end code) is written before the audio chain's.  With ``-m`` the
+audio goes to a WAV beside it, else into the multiplexor where it takes
+audio (``mpg``'s LPCM, ``raw``'s ``.aud``).  The default route, the raw
+encoders to a ``.y4m``, keeps the writer thread's own Y4M writer.  The
+synthetic source ``framegen`` hands the reader host planes (and its
+pink noise as the source's own track), as a Y4M file does.
+
 A chain that does nothing (``VideoChain.is_identity``) is skipped and
-the planes never leave host memory; so are the samples of an audio
-chain that does nothing.  On a CUDA device the batches cross
-through pinned host buffers: a ring of ``prefetch_depth + 1`` that the
+the planes never leave host memory, unless the encoder takes them on the
+device; so are the samples of an audio chain that does nothing.  On a
+CUDA device the batches cross through pinned host buffers: a ring of
+``prefetch_depth + 1`` that the
 reader fills, each copied to the card on a copy stream
 (``non_blocking``) that the chain's stream waits on, and a ring of
 output buffers that a second stream copies back into, whose event the
@@ -81,6 +99,7 @@ reader and writer stop when the main thread does.
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 import queue
@@ -88,13 +107,11 @@ import sys
 import threading
 import time
 from dataclasses import dataclass
-from fractions import Fraction
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from tcforge_tpu_torch.core import ratiocodes
 from tcforge_tpu_torch.core.codecs import ContainerFormat
 from tcforge_tpu_torch.core.formats import ImageFormat
 from tcforge_tpu_torch.core.frame import (ATTR_BROKEN, ATTR_SKIPPED,
@@ -102,9 +119,11 @@ from tcforge_tpu_torch.core.frame import (ATTR_BROKEN, ATTR_SKIPPED,
 from tcforge_tpu_torch.core.job import Job
 from tcforge_tpu_torch.io.wav import WavReader
 from tcforge_tpu_torch.io.y4m import Y4MError, Y4MHeader
+from tcforge_tpu_torch.modules.muxers.basic import fps_to_ratio
 from tcforge_tpu_torch.modules.registry import (Encoder, Importer,
                                                 ModuleKind, Muxer,
                                                 find_mux_module_for_path,
+                                                jax_mux_module_for_path,
                                                 lookup, new_module)
 from tcforge_tpu_torch.ops import colorspace
 from tcforge_tpu_torch.pipeline.chain import AudioChain, VideoChain
@@ -173,16 +192,6 @@ class ProgressMeter:
             sys.stderr.write("\n")
 
 
-def fps_to_ratio(fps: float) -> Tuple[int, int]:
-    """Best rational fps for the container header, frc table first (as
-    the JAX y4m multiplexor writes it)."""
-    code = ratiocodes.frc_code_from_value(fps)
-    if code is not None:
-        return ratiocodes.frc_code_to_ratio(code)
-    frac = Fraction(fps).limit_denominator(65535)
-    return frac.numerator, frac.denominator
-
-
 def is_wav(path: str) -> bool:
     """True when ``path`` starts as a RIFF/WAVE file."""
     with open(path, "rb") as f:
@@ -244,6 +253,9 @@ def video_module(job: Job) -> str:
 # the import modules that decode on the device through the MPEG
 # importer's plan/execute protocol
 _MPEG_MODULES = ("mpeg", "multi", "dvd")
+# import modules that hand over host planes (``read_video_batch``): the
+# synthetic source, cfg6's input
+_HOST_MODULES = ("framegen",)
 
 
 def probe(job: Job) -> Optional[Y4MHeader]:
@@ -257,6 +269,8 @@ def probe(job: Job) -> Optional[Y4MHeader]:
     that fails sets nothing, and several files leave ``--max_frames``
     unset."""
     kind = video_module(job)
+    if kind in _HOST_MODULES:
+        return None                 # the module sets them at open
     if kind == "wav":
         with WavReader(job.video_in_file) as r:
             job.a_rate, job.a_chan = r.info.rate, r.info.channels
@@ -382,6 +396,26 @@ class _FrameReader:
         return True
 
 
+class _ImporterReader:
+    """An import module's frames (``read_video_batch``) copied into the
+    reader's host planes, as ``_FrameReader`` reads a Y4M's."""
+
+    def __init__(self, importer: Importer):
+        self.importer = importer
+
+    def close(self) -> None:
+        self.importer.close()
+
+    def read_into(self, planes: Sequence[np.ndarray], n: int) -> int:
+        got = self.importer.read_video_batch(n)
+        if got is None:
+            return 0
+        count = got["y"].shape[0]
+        for dst, key in zip(planes, "yuv"):
+            dst[:count] = got[key]
+        return count
+
+
 class _FrameWriter:
     """A Y4M file written from host planes: one ``writev`` a batch,
     straight from the planes."""
@@ -451,6 +485,17 @@ class _OutputSlot:
         return [b[:t.shape[0]] for b, t in zip(self.bufs, tensors)]
 
 
+def _select_frames(fb: FrameBatch, keep: np.ndarray) -> FrameBatch:
+    """The frames ``keep`` of a batch, on its device."""
+    idx = torch.as_tensor(keep, dtype=torch.long, device=fb.device)
+
+    def pick(t):
+        return None if t is None else t.index_select(0, idx)
+    return dataclasses.replace(
+        fb, y=pick(fb.y), u=pick(fb.u), v=pick(fb.v), rgb=pick(fb.rgb),
+        attrs=pick(fb.attrs), frame_ids=pick(fb.frame_ids))
+
+
 def _wav_path(flag: str, path: str) -> None:
     """Refuse an audio output the port has no multiplexor for."""
     if find_mux_module_for_path(path) != "wav":
@@ -491,11 +536,83 @@ class _AudioOut:
             self.muxer.close()
 
 
+def _export_modules(job: Job) -> Optional[Tuple[str, str, str]]:
+    """The export stage of ``-y venc[,aenc[,mux]]`` (the JAX engine's):
+    None for the default route to a Y4M file (the raw encoders into the
+    y4m multiplexor, chosen or found by the output's extension, or by no
+    extension the port knows), which the engine writes with its own Y4M
+    writer; else the video encoder, audio encoder and multiplexor, ``auto``
+    resolved by the output's extension.  A multiplexor the JAX package
+    would pick and the port lacks is refused by its name."""
+    venc, aenc = job.ex_v_module or "raw", job.ex_a_module or "raw"
+    mux = job.ex_m_module or "auto"
+    if mux == "auto":
+        path = job.video_out_file or ""
+        mux = find_mux_module_for_path(path)
+        if mux is None:
+            jax_name = jax_mux_module_for_path(path)
+            if jax_name is not None:
+                raise NotImplementedError(
+                    f"-o {path}: the {jax_name} multiplexor is not ported "
+                    "to the torch port yet")
+    if venc == "raw" and aenc == "raw" and mux in (None, "y4m"):
+        return None
+    if mux is None:
+        mux = "null"                   # as the JAX engine falls back
+    return venc, aenc, mux
+
+
+class _MuxOut:
+    """The export stage's multiplexor (and ``-m``'s WAV beside it), owned
+    by the writer thread.  It opens at the first batch that gives payloads
+    (or at the end of the stream), as the JAX engine's muxers do, and
+    holds the audio given before that."""
+
+    def __init__(self, job: Job, muxer: Muxer, aux: Optional["_AudioOut"]):
+        self.job = job
+        self.muxer = muxer
+        self.aux = aux
+        self.is_open = False
+        self._held: List[bytes] = []
+
+    def open_now(self) -> None:
+        if self.is_open:
+            return
+        self.muxer.open(self.job.video_out_file or "")
+        if self.aux is not None:
+            self.aux.open_now()
+        self.is_open = True
+        held, self._held = self._held, []
+        self.audio(held)
+
+    def video(self, payloads: Sequence[bytes]) -> None:
+        if payloads:
+            self.open_now()
+        for payload in payloads:
+            self.muxer.write_video(payload)
+
+    def audio(self, payloads: Sequence[bytes]) -> None:
+        if not self.is_open:
+            self._held.extend(payloads)
+        elif self.aux is not None:
+            self.aux.write(payloads)
+        else:
+            for payload in payloads:
+                self.muxer.write_audio(payload)
+
+    def close(self) -> None:
+        if self.is_open:
+            self.muxer.close()
+        if self.aux is not None:
+            self.aux.close()
+
+
 class Pipeline:
-    """Runs ``job`` on ``device``: ``video_in_file`` -> ``video_out_file``,
-    both Y4M, with ``audio_in_file`` -> ``audio_out_file`` (WAV) beside
-    them, or an audio-only session from a WAV ``video_in_file`` to a WAV
-    ``video_out_file``."""
+    """Runs ``job`` on ``device``: ``video_in_file`` (Y4M, MPEG, the
+    synthetic source) -> ``video_out_file`` (Y4M, or what the ``-y``
+    encoder and multiplexor write), with ``audio_in_file`` ->
+    ``audio_out_file`` (WAV) beside them, or an audio-only session from a
+    WAV ``video_in_file`` to a WAV ``video_out_file``."""
 
     def __init__(self, job: Job, device: torch.device):
         if not job.video_in_file or not job.video_out_file:
@@ -518,6 +635,19 @@ class Pipeline:
         if self.audio_only:
             _wav_path("-o", job.video_out_file)
         self.audio_importer: Optional[Importer] = None
+        self.host_importer: Optional[Importer] = None
+        if kind in _HOST_MODULES:
+            imp = new_module(ModuleKind.DEMULTIPLEXOR, kind, job,
+                             job.im_v_string)
+            imp.open(job.video_in_file)
+            self.host_importer = imp
+            if not job.im_v_width:
+                job.im_v_width, job.im_v_height = imp.width, imp.height
+            if imp.fps and not job.hard_fps:
+                job.fps = imp.fps
+            if imp.audio_rate:
+                job.a_rate = imp.audio_rate
+                job.a_chan = imp.audio_channels or job.a_chan
         if kind in _MPEG_MODULES:
             self.video_importer = new_module(ModuleKind.DEMULTIPLEXOR,
                                              kind, job, job.im_v_string)
@@ -541,20 +671,23 @@ class Pipeline:
             self.audio_importer.open(audio_in)
             job.a_rate = self.audio_importer.audio_rate
             job.a_chan = self.audio_importer.audio_channels or job.a_chan
-        elif self.video_importer is not None \
-                and self.video_importer.audio_rate:
-            # the program stream's own track (the JAX engine's
-            # importer-as-audio-source)
-            self.audio_importer = self.video_importer
+        else:
+            # the source's own track (the JAX engine's importer as the
+            # audio source): a program stream's, the synthetic one's
+            source = self.video_importer or self.host_importer
+            if source is not None and source.audio_rate:
+                self.audio_importer = source
         if not job.dm_chan:
             job.dm_chan = job.a_chan or 2
+        route = None if self.audio_only else _export_modules(job)
         if (self.audio_importer is not None and not self.audio_only
-                and not job.audio_out_file):
+                and not job.audio_out_file and route is None):
             # the Y4M output takes no audio and no -m was given: the
             # audio track is dropped, as in the JAX engine
             _log.warning("[engine] muxer y4m is video-only and no -m "
                          "given: audio disabled")
-            if self.audio_importer is not self.video_importer:
+            if self.audio_importer not in (self.video_importer,
+                                           self.host_importer):
                 self.audio_importer.close()
             self.audio_importer = None
 
@@ -562,6 +695,30 @@ class Pipeline:
         self.achain = (AudioChain(job, self.device)
                        if self.audio_importer is not None else None)
         self.a_encoder: Encoder = new_module(ModuleKind.ENCODER, "raw", job)
+        # the export stage beyond the Y4M writer: the encoder on the main
+        # thread, the multiplexor on the writer's
+        self.encoder: Optional[Encoder] = None
+        self.muxer: Optional[Muxer] = None
+        if route is not None:
+            venc, aenc, mux = route
+            # -F and -y's module options reach the encoder when they look
+            # like options (k=v); a bare fourcc is the muxer's
+            v_opts = job.ex_v_fcc if "=" in (job.ex_v_fcc or "") else ""
+            v_opts = job.ex_v_string or v_opts
+            self.encoder = new_module(ModuleKind.ENCODER, venc, job, v_opts)
+            self.a_encoder = new_module(ModuleKind.ENCODER, aenc, job,
+                                        job.ex_a_string)
+            self.muxer = new_module(ModuleKind.MULTIPLEXOR, mux, job,
+                                    job.ex_m_string)
+            if (self.audio_importer is not None and not job.audio_out_file
+                    and self.muxer.info.media == "video"):
+                _log.warning("[engine] muxer %s is video-only and no -m "
+                             "given: audio disabled", mux)
+                if self.audio_importer not in (self.video_importer,
+                                               self.host_importer):
+                    self.audio_importer.close()
+                self.audio_importer = None
+                self.achain = None
         if self.audio_only:
             # the video filters of -J are built (their names checked)
             # and get no frame
@@ -569,8 +726,9 @@ class Pipeline:
             self._shapes = []
             self.chain = VideoChain(job, job.im_colorspace, 0, 0)
             return
-        if self.video_importer is not None:
-            w, h = self.video_importer.width, self.video_importer.height
+        source = self.video_importer or self.host_importer
+        if source is not None:
+            w, h = source.width, source.height
             self.in_format = ImageFormat.YUV420P
             self._shapes = [(h, w), (h // 2, w // 2), (h // 2, w // 2)]
         else:
@@ -622,7 +780,11 @@ class Pipeline:
         job = self.job
         cuda = self.device.type == "cuda"
         mpeg_in = self.video_importer
-        identity = self.audio_only or self.chain.is_identity()
+        # an encoder that codes on the device gets its batches there, also
+        # from a chain that does nothing
+        on_device = bool(getattr(self.encoder, "on_device", False))
+        identity = self.audio_only or (self.chain.is_identity()
+                                       and not on_device)
         # pinned buffers and streams; an MPEG import decodes on the device
         staged = cuda and not identity and mpeg_in is None
         staged_out = cuda and (staged or mpeg_in is not None)
@@ -658,17 +820,23 @@ class Pipeline:
         out_file: List[_FrameWriter] = []
         audio_out: Optional[_AudioOut] = None
         empty_wav: Optional[_AudioOut] = None
-        if self.achain is not None:
-            audio_out = _AudioOut(job, job.audio_out_file
-                                  or job.video_out_file)
-        if self.audio_only and job.audio_out_file:
-            # -o and -m both given: the audio goes to -m, and -o gets a
-            # WAV without samples, as the JAX engine writes it
-            empty_wav = _AudioOut(job, job.video_out_file)
-        elif job.audio_out_file and self.achain is None:
-            # -m with no track to write (an MPEG input without one): a
-            # WAV without samples, as the JAX engine writes it
-            empty_wav = _AudioOut(job, job.audio_out_file)
+        mux_out: Optional[_MuxOut] = None
+        if self.muxer is not None:
+            # -m's WAV opens with the multiplexor, with or without a track
+            mux_out = _MuxOut(job, self.muxer, _AudioOut(
+                job, job.audio_out_file) if job.audio_out_file else None)
+        else:
+            if self.achain is not None:
+                audio_out = _AudioOut(job, job.audio_out_file
+                                      or job.video_out_file)
+            if self.audio_only and job.audio_out_file:
+                # -o and -m both given: the audio goes to -m, and -o gets
+                # a WAV without samples, as the JAX engine writes it
+                empty_wav = _AudioOut(job, job.video_out_file)
+            elif job.audio_out_file and self.achain is None:
+                # -m with no track to write (an MPEG input without one): a
+                # WAV without samples, as the JAX engine writes it
+                empty_wav = _AudioOut(job, job.audio_out_file)
         spf = self._samples_per_frame() if self.achain is not None else 0
 
         def audio_host_stage(pcm: np.ndarray, frames: Optional[int]):
@@ -858,6 +1026,13 @@ class Pipeline:
                     if item[0] == "a":
                         write_audio(*item[1:])
                         continue
+                    if item[0] == "e":          # encoded frames
+                        mux_out.video(item[1])
+                        continue
+                    if item[0] == "t":          # the encoder's tail
+                        mux_out.open_now()
+                        mux_out.video(item[1])
+                        continue
                     (w, h), planes, ids, attrs, event, slot = item[1:]
                     if event is not None:
                         event.synchronize()
@@ -884,7 +1059,10 @@ class Pipeline:
                 if empty_wav is not None:
                     empty_wav.open_now()
             payloads = self.a_encoder.encode_audio(AudioBatch(pcm=pcm))
-            audio_out.write(payloads)
+            if mux_out is not None:
+                mux_out.audio(payloads)
+            else:
+                audio_out.write(payloads)
             self.counters.audio_frames += len(payloads)
 
         def to_writer(item) -> None:
@@ -997,6 +1175,22 @@ class Pipeline:
                 event.record(d2h)
             return ("a", host, event)
 
+        def encode(out: FrameBatch, first_id: int) -> None:
+            """The export stage of an output batch: the frames to write
+            (-c, --frame_interval, the skipped and broken ones out) go to
+            the encoder, before it, as in the JAX engine; its payloads to
+            the writer thread's multiplexor."""
+            ids = (out.frame_ids.cpu().numpy() if out.frame_ids is not None
+                   else np.arange(first_id, first_id + out.batch))
+            attrs = (out.attrs.cpu().numpy() if out.attrs is not None
+                     else np.zeros(out.batch, np.int32))
+            keep = np.flatnonzero(self._kept(ids, attrs))
+            if len(keep) < out.batch:
+                out = _select_frames(out, keep)
+            payloads = self.encoder.encode_video(out) if len(keep) else []
+            self.counters.written += len(keep)
+            to_writer(("e", payloads))
+
         def run_audio(prepared) -> None:
             """A batch's prepared samples through the audio chain's
             device stage and on to the writer."""
@@ -1039,6 +1233,8 @@ class Pipeline:
                    if self.achain is not None else [])
         aclipped: Any = 0
         reader = (None if self.audio_only or mpeg_in is not None
+                  else _ImporterReader(self.host_importer)
+                  if self.host_importer is not None
                   else _FrameReader(job.video_in_file))
         completed = False
         try:
@@ -1053,6 +1249,11 @@ class Pipeline:
             while True:
                 item = _get(rq, feeder.is_alive, feeder_name)
                 if item is _EOS:
+                    if self.encoder is not None and job.encoder_flush:
+                        # the encoder's delayed pictures and its end code
+                        to_writer(("t", self.encoder.flush()))
+                        self.counters.written += \
+                            self.encoder.last_flush_frames
                     if self.achain is not None:
                         tail, astates = self.achain.flush(astates)
                         if tail is not None:
@@ -1082,9 +1283,12 @@ class Pipeline:
                     out, states = self.chain(fb, states)
                 for filt, state in zip(self.chain.filters, states):
                     filt.collect(state)
-                if out.rgb is not None:
-                    out = colorspace.convert(out, self.out_format)
-                to_writer(to_host(out, first_id))
+                if self.encoder is not None:
+                    encode(out, first_id)
+                else:
+                    if out.rgb is not None:
+                        out = colorspace.convert(out, self.out_format)
+                    to_writer(to_host(out, first_id))
                 if audio is not None:
                     run_audio(audio)
                 self.counters.frames += got
@@ -1111,7 +1315,8 @@ class Pipeline:
             if self.achain is not None:
                 for filt, state in zip(self.achain.filters, astates):
                     filt.finalize(state)
-            if self.audio_importer not in (None, mpeg_in):
+            if self.audio_importer not in (None, mpeg_in,
+                                           self.host_importer):
                 self.audio_importer.close()
             if mpeg_in is not None:
                 mpeg_in.close()
@@ -1122,11 +1327,13 @@ class Pipeline:
                     if completed and not writer_err:
                         wav.open_now()      # the end of the stream
                     wav.close()
+            if mux_out is not None:
+                mux_out.close()
         if writer_err:
             raise writer_err[0]
         if wthread.is_alive() or feeder.is_alive() or rthread.is_alive():
             raise RuntimeError("the engine's threads did not end")
-        if not out_file and not self.audio_only:
+        if not out_file and not self.audio_only and mux_out is None:
             # no batch was read: the header alone
             _FrameWriter(job.video_out_file, Y4MHeader(
                 *job.export_size(), fps_num=num, fps_den=den,

@@ -53,16 +53,23 @@ COPIES = ["core/formats.py", "core/optstr.py", "core/codecs.py",
           "io/y4m.py", "io/image.py", "io/wav.py", "io/mpeg.py",
           "io/probe.py", "io/ts.py", "io/ac3.py", "io/a52dec.py",
           "io/mp2dec.py", "io/mp3dec.py", "io/vag.py", "io/ifo.py",
-          "io/spu.py", "io/vobsub.py", "io/mp3.py"]
+          "io/spu.py", "io/vobsub.py", "io/mp3.py", "io/psmux.py",
+          "modules/importers/framegen.py"]
 # C++ sources copied whole from native/ (the MPEG-2 host parse)
 NATIVE_COPIES = {"csrc/mpeg2intra.cpp": "native/mpeg2intra.cpp",
-                 "csrc/mpeg2tables.h": "native/mpeg2tables.h"}
+                 "csrc/mpeg2tables.h": "native/mpeg2tables.h",
+                 "csrc/mpeg2encode.cpp": "native/mpeg2encode.cpp"}
 # copies of line ranges of a source: the framework-free head of
 # io/mpeg2codec.py (up to its ``import jax``) without the two functions
 # that reach the JAX package (the 4:2:2 intra reconstruction and the
-# native decode loop), and its numpy field helpers
+# native decode loop), and its numpy field helpers; the jax-free parts of
+# io/mpeg2enc.py (numpy, the macroblock modes, the alternate scan, the
+# D-picture math, TM5 rate control)
 RANGE_COPIES = {"io/mpeg2host.py": ("io/mpeg2codec.py",
-                                    ((1, 946), (983, 1069), (1880, 2031)))}
+                                    ((1, 946), (983, 1069), (1880, 2031))),
+                "io/mpeg2rc.py": ("io/mpeg2enc.py",
+                                  ((31, 31), (37, 40), (43, 49),
+                                   (1192, 1316)))}
 
 
 def _rewrite(src: str) -> str:
