@@ -66,7 +66,15 @@ Lanczos3 zoom, ``-J hqdn3d=luma=4.0`` (which runs after the zoom, at
   settings): the main path's zoom and hqdn3d kernels, then the
   encoder's (``mpeg2_me``, ``mpeg2_enc_pred`` with its B-mode entry
   ``mpeg2_enc_bmode``, ``mpeg2_enc_blocks``), each picture's levels coded
-  on the host by the pinned syntax writer (g++) under TM5 rate control.
+  on the host by the pinned syntax writer (g++) under TM5 rate control;
+- the DivX path, divx: ``tests/data/mpeg4/divx.avi`` (cfg10's geometry
+  and encoder settings: 640x480 at 25 fps, XVID, libavcodec mpeg4 with
+  GOP 12, two B frames and 4MV, 24 frames, a 48 kHz stereo PCM track)
+  through ``-x avi -J hqdn3d=luma=4.0 -y raw,raw,avi``: the AVI demux,
+  the host parse of each chunk (the pinned numpy parse), each VOP
+  reconstructed on the card in one launch (``mpeg4_idct_intra`` for an
+  I-VOP, ``mpeg4_recon`` for a P or B VOP), hqdn3d's scans, and the avi
+  multiplexor writing I420 frames and the PCM track.
 
 Phases, each of which raises on failure:
 
@@ -103,7 +111,13 @@ Phases, each of which raises on failure:
    MPEG-1, an intra mask, 4:2:2 intra planes), timed at 720x480 beside
    float64 ``torch.matmul`` of the forward DCT, and the intra-only
    encoder (the block coder under the pinned writer) against the pinned
-   numpy encoder at 720x480, byte for byte; with ``--parent DIR``, the unsharp,
+   numpy encoder at 720x480, byte for byte; the two MPEG-4 kernels on
+   every call while every stream of ``tests/data/mpeg4`` decodes
+   (divx.avi's every VOP, 200x136, drop-frame and packed chunks, the
+   in-tree encoder's stream) and on 24 VOPs of random records off the
+   path (coefficients in [-2048, 2047], vectors far outside the frame,
+   rounding 0 and 1, 1MV and 4MV, every mask, I-VOPs, grids of one
+   macroblock to 720x576's), timed on divx.avi's VOPs; with ``--parent DIR``, the unsharp,
    TomsMoComp and temporal kernels of the checkout in DIR are built
    too, called through DIR's own wrappers and timed in turns with this
    tree's on the same inputs;
@@ -127,7 +141,9 @@ Phases, each of which raises on failure:
    dvdauthor (its program stream against the same CLI's on the plain
    versions on the card, byte for byte, and read back by the port's
    MPEG importer: every frame at 720x480, the WAV's samples in the LPCM
-   track), and the engine at every ``--prefetch`` 1, 2, 4 and ``--batch`` 1, 3,
+   track), divx (one reconstruction launch a VOP; its AVI against the
+   CPU run's, byte for byte, and its chunks at ``--batch 3``), and the
+   engine at every ``--prefetch`` 1, 2, 4 and ``--batch`` 1, 3,
    16;
 5. the small cases whose SHA-256 ``tests/test_torch_cli.py`` pins
    against the JAX CLI, run on the card: same digests; and the MPEG
@@ -139,7 +155,11 @@ Phases, each of which raises on failure:
    the export goldens (``AUTHOR_GOLDEN``: dvdauthor at 96x64, an
    ``.m2v`` at constant q, intra only (4:2:0 and 4:2:2) and an identity
    chain with their launch counts, dvd.vob re-encoded, field pictures with ``-w``, the
-   yuv4mpeg encoder, raw planes);
+   yuv4mpeg encoder, raw planes), and the AVI goldens (``AVI_GOLDEN``:
+   divx at full width, the small MPEG-4 streams with PCM, a batch
+   boundary inside a B run, drop-frame and packed chunks, the in-tree
+   encoder's stream at ``--batch 1``, divxkey, ``-c``, YUY2 and LZO2,
+   the lzo encoder after ``-L``, DivX to PAL DVD);
 6. numbers: steady-state chain frames/s on device-resident batches
    (CUDA events) for every path, beside the host's time to queue the
    batches, the step's peak device memory and the device's busy share
@@ -166,7 +186,11 @@ Phases, each of which raises on failure:
    authoring CLI on 160 frames of 1080i with its WAV, six timed runs
    (median and spread), and the encoder's stages a batch
    (``encode_stages``: queueing, device, the levels' download, the
-   syntax writer, the multiplexor).
+   syntax writer, the multiplexor); the DivX path on divx.avi four times
+   over (96 frames, written by the port's AviWriter): its decode against
+   the fixture's repeated, the CLI four runs after an untimed one
+   (median and spread), and its serial stages (``avi_stages``: parse,
+   upload, reconstruction, chain, copy back, write).
 
 It prints one JSON object per result, then the kernels' summary and, as
 its last line, ``{"ok": true, "device": {...}}``.  It imports nothing of
@@ -765,6 +789,85 @@ def mpeg_golden_input(case: str, directory) -> Path:
     return out
 
 
+# the DivX path: tests/data/mpeg4/divx.avi (make_streams.py there), cfg10's
+# geometry and encoder settings (benches/run_configs.py:564-660): 640x480
+# at 25 fps, XVID, libavcodec mpeg4 with GOP 12, two B frames and 4MV,
+# about 1.5 Mbit/s, 24 frames, a 48 kHz stereo PCM track; through -x avi
+# -J hqdn3d=luma=4.0 -y raw,raw,avi (raw I420 frames and the PCM track in
+# one AVI).  The host parses each chunk (the pinned numpy parse), the
+# card reconstructs each VOP (mpeg4_idct_intra or mpeg4_recon), then
+# hqdn3d's scans
+MPEG4_DATA = ROOT / "tests" / "data" / "mpeg4"
+DIVX_ARGS = ["-x", "avi", "-J", "hqdn3d=luma=4.0", "-y", "raw,raw,avi"]
+DIVX_W, DIVX_H, DIVX_FRAMES = 640, 480, 24
+AVI_KERNELS = ("mpeg4_recon", "mpeg4_idct_intra", "hqdn3d_spatial_scan",
+               "hqdn3d_temporal_scan")
+# the AVI goldens: the port's CLI on a fixture with the arguments ("{dir}"
+# the output directory), its outputs' SHA-256 pinned against the JAX CLI
+# (TCFORGE_NATIVE_MPEG4=1, the numpy decode; --mesh off) by
+# tests/test_torch_mpeg4.py on the CPU, and checked again on the card
+AVI_GOLDEN = {
+    "divx": ("divx.avi", DIVX_ARGS + ["--batch", "16"], ("out.avi",)),
+    "small": ("small.avi", ["-J", "hqdn3d=luma=4.0", "--batch", "3", "-m",
+                            "{dir}/out.wav"], ("out.y4m", "out.wav")),
+    "odd_b4": ("odd.avi", ["-x", "avi", "-y", "raw,raw,avi", "--batch", "4"],
+               ("out.avi",)),
+    "packed": ("packed.avi", ["--batch", "2"], ("out.y4m",)),
+    "drop": ("drop.avi", ["-y", "raw,raw,avi", "--batch", "3"],
+             ("out.avi",)),
+    "native_b1": ("native.avi", ["--batch", "1"], ("out.y4m",)),
+    "divxkey": ("small.avi", ["-J", "divxkey", "-y", "raw,raw,avi",
+                              "--batch", "5"], ("out.avi",)),
+    "ranges": ("odd.avi", ["-c", "0.2-0.5,0.7-0.9", "--batch", "3"],
+               ("out.y4m",)),
+    "yuy2": ("yuy2.avi", ["-y", "raw,raw,avi"], ("out.avi",)),
+    "lzo": ("lzo.avi", ["-J", "hqdn3d", "-y", "raw,raw,avi"], ("out.avi",)),
+    "lzo_seek": ("lzo.avi", ["-L", "2", "-y", "lzo,raw,avi", "-F", "LZO2"],
+                 ("out.avi",)),
+    "pal_dvd": ("divx.avi", ["-Z", "720x576", "-y", "mpeg2,raw,mpg",
+                             "--max_frames", "6", "--batch", "3"],
+                ("out.mpg",)),
+}
+AVI_GOLDEN_SHA256 = {
+    "divx": (
+        "1cc28b2e5b3ad0ba71e28e1431ad662ed3c40b7d8f28ea19658bf424b0d332a7",),
+    "small": (
+        "f7bc7485f9f86f9194a4731faff30262268b7f2b5bde6d5b759ba50eec0db2d0",
+        "0d5b30e1755a1715c641d2674c7eb5d4d5ee78a3beeea81766809e7c040c99b2",),
+    "odd_b4": (
+        "24d34431b3a540854ba8d4e980ae7024ca3b787d33c3b03c2ece46d83d2a8b8e",),
+    "packed": (
+        "3ae1b1f5176df16846eeec7417a2376c3a79a3b8821fb79c19078f9f01f20ff9",),
+    "drop": (
+        "b341030463574757fd48fcfcfee121822544b5539e1d80e5e5a00def7c381f88",),
+    "native_b1": (
+        "3b9a5b0b920291e14bd1545b112c290b6282c139e6d7e044f342ff83f9e969b2",),
+    "divxkey": (
+        "47c5e9762780cfbce8d8cde794122b0510f5238b73a84af37964adbb8e19a486",),
+    "ranges": (
+        "5c5abcc47b81784a10209fc67a7d865618ab1c80d4763677a84dce4a24c161df",),
+    "yuy2": (
+        "741f046049c1db683de3168d109a81e475a05cc21f2fac40bde56f22cce75933",),
+    "lzo": (
+        "cddb15922ffe8234d6b5e4dff31adc0fd24a79995158a95bbbd6c0034dfbfc57",),
+    "lzo_seek": (
+        "96fb2b9e86e8416696def2352c95c8d574a2d15dc9b621343f634ae5a9027d40",),
+    "pal_dvd": (
+        "71e46118ec59739df0bfe5f74043366382b63c85d10e349a8277028b2304674a",),
+}
+
+
+def avi_golden_argv(case: str, directory) -> list:
+    """The CLI arguments of an ``AVI_GOLDEN`` case writing into
+    ``directory``."""
+    name, args, outs = AVI_GOLDEN[case]
+    return ["-i", str(MPEG4_DATA / name), "-o", f"{directory}/{outs[0]}",
+            *(a.replace("{dir}", str(directory)) for a in args)]
+
+
+def avi_golden_outputs(case: str, directory) -> list:
+    return [Path(directory) / f for f in AVI_GOLDEN[case][2]]
+
 # the CLI timings: ten batches of MAIN_BATCH frames, enough for the
 # engine's stages to overlap
 ENGINE_FRAMES = 10 * 16
@@ -952,9 +1055,15 @@ KERNELS = {
                         "tcforge_tpu/io/mpeg2enc.py:1110"),
     "mpeg2_enc_blocks": ("tcforge_tpu_torch/csrc/mpeg2_encode.cu",
                          "tcforge_tpu/io/mpeg2enc.py:606"),
+    # not TPU kernels: the XLA ops of _recon_vop_math and, for an I-VOP,
+    # xvid_idct_jax (the JAX CLI's route is the numpy decoder's)
+    "mpeg4_recon": ("tcforge_tpu_torch/csrc/mpeg4_recon.cu",
+                    "tcforge_tpu/io/mpeg4jax.py:140"),
+    "mpeg4_idct_intra": ("tcforge_tpu_torch/csrc/mpeg4_recon.cu",
+                         "tcforge_tpu/io/mpeg4jax.py:52"),
 }
 LIBS = ("hqdn3d_scan", "zoom_pass", "unsharp", "tomsmocomp", "yuvdenoise",
-        "stabilize", "mpeg2_recon", "mpeg2_encode")
+        "stabilize", "mpeg2_recon", "mpeg2_encode", "mpeg4_recon")
 # the host libraries (g++): the MPEG-2 parse and syntax writer
 HOST_LIBS = ("mpeg2intra", "mpeg2encode")
 # each wrapper of ops/kernels.py, whose plain version is <name>_ref
@@ -962,7 +1071,8 @@ WRAPPERS = ("spatial_scan", "temporal_scan", "zoom_pass", "unsharp_plane",
             "tomsmocomp_plane", "tomsmocomp_window", "d3_spatial_scan",
             "d3_temporal_scan", "yuvdenoise_chroma", "stabilize_field_search",
             "transform_warp", "mpeg2_recon", "mpeg2_idct_intra", "mpeg2_me",
-            "mpeg2_enc_pred", "mpeg2_enc_bmode", "mpeg2_enc_blocks")
+            "mpeg2_enc_pred", "mpeg2_enc_bmode", "mpeg2_enc_blocks",
+            "mpeg4_recon", "mpeg4_idct_intra")
 
 
 def write_test_y4m(path, width: int, height: int, frames: int,
@@ -1316,6 +1426,8 @@ def main(argv=()) -> int:
     torch.cuda.empty_cache()
     _check_encode_kernels(torch, kernels, bench)
     torch.cuda.empty_cache()
+    _check_mpeg4_kernels(torch, kernels, bench)
+    torch.cuda.empty_cache()
     _check_ragged(torch, kernels, zoom, hq, bench)
     _check_unsharp_sizes(torch, kernels, bench)
     _check_tmc_windows(torch, kernels, bench)
@@ -1491,6 +1603,10 @@ def main(argv=()) -> int:
         path_launches["dvdauthor"] = _run_dvdauthor(torch, cli, kernels,
                                                     tmp)
         _author_goldens(cli, tmp)
+        # 4. and 5. for the DivX path: divx.avi through -x avi, one
+        # reconstruction launch a VOP, and the AVI goldens
+        path_launches["divx"] = _run_divx(torch, cli, kernels, tmp)
+        _avi_goldens(cli, tmp)
         _run_audio_only(torch, cli, tmp)
         _audio_goldens(cli, tmp)
         emit(phase="audio_chain", batch=MAIN_BATCH,
@@ -1574,6 +1690,10 @@ def main(argv=()) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_author_") as tmp:
         _author_rates(torch, cli, Path(tmp))
     torch.cuda.empty_cache()
+    # 6. the DivX path: its CLI on 96 frames and its serial stages
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_divx_") as tmp:
+        _divx_rates(torch, dev, cli, Path(tmp))
+    torch.cuda.empty_cache()
 
     # each kernel's launches in the run of the path that carries it
     for name, (src, _) in KERNELS.items():
@@ -1581,6 +1701,8 @@ def main(argv=()) -> int:
             launches[name] = path_launches["dvd"][name]
         elif name in ENCODE_KERNELS:
             launches[name] = path_launches["dvdauthor"][name]
+        elif name in ("mpeg4_recon", "mpeg4_idct_intra"):
+            launches[name] = path_launches["divx"][name]
         elif name not in MAIN_KERNELS:
             owner = next(p for p, spec in (*PATHS.items(),
                                            *CLEAN_PATHS.items(),
@@ -1591,6 +1713,8 @@ def main(argv=()) -> int:
         k: path_launches["dvdrip"][k] for k in RIP_KERNELS})
     emit(phase="launches", path="dvdauthor", launches={
         k: path_launches["dvdauthor"][k] for k in AUTHOR_KERNELS})
+    emit(phase="launches", path="divx", launches={
+        k: path_launches["divx"][k] for k in AVI_KERNELS})
     if bench.parent:
         emit(phase="parent_summary", per_batch=bench.versus_sums)
     print(json.dumps({"kernels": [
@@ -4506,6 +4630,405 @@ def _author_rates(torch, cli, tmp):
     emit(phase="stages", path="dvdauthor",
          **encode_stages(torch, cli, src, wav, out, AUTHOR_RATE_FRAMES))
     for f in (src, wav, out):
+        f.unlink()
+
+
+
+# ---------------------------------------------------------------------- #
+# The DivX path: -x avi on divx.avi (MPEG-4 part 2 with a PCM track), the
+# host parse, mpeg4_recon / mpeg4_idct_intra on the card, hqdn3d, the avi
+# multiplexor
+
+_AVI_WRAPPERS = {"mpeg4_recon": "mpeg4_recon",
+                 "mpeg4_idct_intra": "mpeg4_idct_intra"}
+# phase 3 off the path: macroblock grids (mbw, mbh) of VOPs of random
+# records, among them 720x576's coded grid and grids of one macroblock
+# row or column
+MPEG4_GRIDS = ((1, 1), (3, 2), (1, 9), (11, 1), (40, 30), (45, 36))
+# the XVID IDCT's int32 operations an output sample, the fewest its two
+# passes need (row: four even and four odd sums of products, the
+# butterfly, shift and wrap; column: the TAN and SQRT2 products, the
+# butterfly, shift and wrap), and the prediction's a predicted sample
+# (four taps, their sum, rounding, shift, the average and the clip)
+MPEG4_IDCT_OPS = 20
+MPEG4_MC_OPS = 10
+
+
+def avi_plans(path):
+    """Every VOP plan of an MPEG-4 AVI, parsed on the host (as the
+    importer parses them: drop-frame chunks are all-skip P plans once a
+    VOP was seen, a packed chunk's placeholder is skipped)."""
+    from tcforge_tpu_torch.io.avi import AviReader
+    from tcforge_tpu_torch.io.mpeg4dec import Mpeg4Decoder
+    dec, plans, debt = Mpeg4Decoder(), [], 0
+    with AviReader(str(path)) as r:
+        for i in range(r.video_frames):
+            raw = r.read_video_frame(i)[0]
+            if raw:
+                got = dec.parse_plans(bytes(raw))
+                debt += max(0, len(got) - 1)
+                plans += got
+            elif debt:
+                debt -= 1
+            elif plans:
+                p = dec._plan_new("P")
+                p["use_f"][:] = 1
+                dec._plan = None
+                plans.append(p)
+    return dec, plans
+
+
+def _avi_importer(path, dev, buffers: int = 2):
+    from tcforge_tpu_torch.core.job import Job
+    from tcforge_tpu_torch.modules.registry import ModuleKind, new_module
+    imp = new_module(ModuleKind.DEMULTIPLEXOR, "avi", Job())
+    imp.open(str(path))
+    imp.start(dev, buffers)
+    return imp
+
+
+def _vop_bytes(args) -> int:
+    """What one ``mpeg4_recon`` call must move: its records, each anchor
+    plane it reads once, its three planes out."""
+    vop, mbw = args[0], args[1]
+    refs = [q for planes in args[3:5] if planes is not None for q in planes]
+    return _nbytes(vop, *refs) + vop.shape[0] * 384
+
+
+def _vop_ops(args) -> int:
+    """Operations these records need: the IDCT of each block with a
+    coefficient, the prediction of each sample of a predicted macroblock
+    (once a direction)."""
+    vop = args[0]
+    blocks = int((vop[:, :384].reshape(-1, 6, 64) != 0).any(-1).sum())
+    dirs = 0 if len(args) < 5 else int(
+        (vop[:, 404] != 0).sum() + (vop[:, 405] != 0).sum())
+    return MPEG4_IDCT_OPS * 64 * blocks + MPEG4_MC_OPS * 384 * dirs
+
+
+def _random_vop(torch, rng, mbw, mbh, dev, kind):
+    """Records of a VOP off the path: dense coefficients in [-2048, 2047]
+    (where int32 and int64 IDCTs differ), every mask combination, 1MV and
+    4MV macroblocks, vectors from small to far past the frame."""
+    from tcforge_tpu_torch.io.mpeg4recon import REC
+    nmb = mbw * mbh
+    rec = np.zeros((nmb, REC), np.int16)
+    dense = rng.random(nmb) < 0.5
+    coef = rng.integers(-2048, 2048, (nmb, 384))
+    coef[~dense] *= rng.random((int((~dense).sum()), 384)) < 0.05
+    rec[:, :384] = coef
+    reach = rng.choice([2, 33, 700, 4000], size=(nmb, 1))
+    mv = rng.integers(-reach, reach + 1, (nmb, 8))
+    one = rng.random(nmb) < 0.5                    # 1MV: four equal
+    mv[one] = np.tile(mv[one, :2], 4)
+    rec[:, 384:392] = mv
+    rec[:, 392:400] = rng.integers(-reach, reach + 1, (nmb, 8))
+    rec[:, 400:404] = rng.integers(-reach, reach + 1, (nmb, 4))
+    if kind != "I":
+        rec[:, 404] = rng.integers(0, 2, nmb)
+        rec[:, 405] = rng.integers(0, 2, nmb) if kind == "B" else 0
+    return torch.from_numpy(rec).to(dev)
+
+
+def _check_mpeg4_kernels(torch, kernels, bench):
+    """Phase 3 for the MPEG-4 reconstruction: every call of
+    ``mpeg4_recon`` and ``mpeg4_idct_intra`` while every stream of
+    tests/data/mpeg4 decodes on the card (divx.avi's every VOP, 200x136,
+    drop-frame chunks, packed P+B chunks, the in-tree encoder's stream)
+    held against the plain versions on the same inputs; then VOPs of
+    random records off the path (dense coefficients in [-2048, 2047],
+    vectors far outside the frame, rounding 0 and 1, 1MV and 4MV
+    macroblocks, every mask, I-VOPs) on grids from one macroblock to
+    720x576's; then each timed on divx.avi's VOPs beside its plain
+    version and its bound (no PyTorch call computes the XVID integer
+    IDCT with the MC: library none)."""
+    dev = bench.dev
+    captured = {"mpeg4_recon": [], "mpeg4_idct_intra": []}
+    streams = ["divx.avi", "small.avi", "odd.avi", "native.avi",
+               "drop.avi", "packed.avi"]
+    cases = 0
+    with checked_kernels(kernels, bench, "mpeg4 streams",
+                         _AVI_WRAPPERS) as counts:
+        checked = {w: getattr(kernels, w) for w in captured}
+
+        def keeping(w):
+            def call(*a):
+                captured[w].append(a)
+                return checked[w](*a)
+            return call
+        for name in streams:
+            if name == "divx.avi":      # its calls, kept for the timing
+                for w in checked:
+                    setattr(kernels, w, keeping(w))
+            imp = _avi_importer(MPEG4_DATA / name, dev)
+            while imp.read_video_batch(5) is not None:
+                pass
+            imp.close()
+            for w, fn in checked.items():
+                setattr(kernels, w, fn)
+        stream_counts = dict(counts)
+    rng = np.random.default_rng(13)
+    for mbw, mbh in MPEG4_GRIDS:
+        fwd, bwd = (tuple(torch.from_numpy(rng.integers(
+            0, 256, (mbh * mb, mbw * mb), dtype=np.uint8)).to(dev)
+            for mb in (16, 8, 8)) for _ in range(2))
+        for kind, rounding in (("I", 0), ("P", 0), ("P", 1), ("B", 0)):
+            vop = _random_vop(torch, rng, mbw, mbh, dev, kind)
+            label = f"{mbw}x{mbh} MBs {kind} rounding {rounding}"
+            if kind == "I":
+                bench.check("mpeg4_idct_intra", label,
+                            kernels.mpeg4_idct_intra(vop, mbw),
+                            kernels.mpeg4_idct_intra_ref(vop, mbw),
+                            quiet=True)
+            else:
+                args = (vop, mbw, rounding, fwd, bwd if kind == "B" else None)
+                bench.check("mpeg4_recon", label, kernels.mpeg4_recon(*args),
+                            kernels.mpeg4_recon_ref(*args), quiet=True)
+            cases += 1
+    for kernel, n in stream_counts.items():
+        emit(phase="kernel_sweep", kernel=kernel, cases=n,
+             streams=len(streams), off_path=cases, max_abs_err=0)
+    recon, intra = captured["mpeg4_recon"], captured["mpeg4_idct_intra"]
+    check(len(recon) >= 8 and len(intra) >= 2,
+          f"divx.avi gave {len(recon)} mpeg4_recon and {len(intra)} "
+          "mpeg4_idct_intra calls")
+    per = DIVX_FRAMES / MAIN_BATCH
+    inputs = list(recon)
+    while sum(_vop_bytes(a) for a in inputs) < L2_BYTES:
+        inputs = inputs + list(recon)
+    bench.record("mpeg4_recon", "640x480 P and B VOPs", len(recon) / per,
+                 kernels.mpeg4_recon, kernels.mpeg4_recon_ref, inputs,
+                 nbytes=sum(map(_vop_bytes, recon)) / len(recon),
+                 ops=sum(map(_vop_ops, recon)) / len(recon), plain_reps=2)
+    inputs = list(intra)
+    while sum(_vop_bytes(a) for a in inputs) < L2_BYTES:
+        inputs = inputs + list(intra)
+    bench.record("mpeg4_idct_intra", "640x480 I-VOPs", len(intra) / per,
+                 kernels.mpeg4_idct_intra, kernels.mpeg4_idct_intra_ref,
+                 inputs, nbytes=sum(map(_vop_bytes, intra)) / len(intra),
+                 ops=sum(map(_vop_ops, intra)) / len(intra), plain_reps=2)
+
+
+
+def _run_divx(torch, cli, kernels, tmp):
+    """Phase 4 for the DivX path: divx.avi through the port's CLI with
+    the launch counts set to 0 just before and read just after (one
+    reconstruction launch per VOP: ``mpeg4_idct_intra`` for each I-VOP,
+    ``mpeg4_recon`` for each other, and hqdn3d's), its AVI equal byte for
+    byte to the same CLI's with --device cpu (the plain versions) and at
+    --batch 3 with --prefetch 1.  Returns the launches."""
+    argv = ["-i", str(MPEG4_DATA / "divx.avi"), *DIVX_ARGS, "--progress_off",
+            "-q"]
+    out = tmp / "divx.avi"
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main([*argv, "-o", str(out), "--batch", str(MAIN_BATCH),
+                   "--device", "cuda"])
+    torch.cuda.synchronize()
+    e2e_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    check(rc == 0, f"divx: CLI exit code {rc}")
+    _dec, plans = avi_plans(MPEG4_DATA / "divx.avi")
+    intra = sum(p["kind"] == "I" for p in plans)
+    emit(phase="path", path="divx", frames=DIVX_FRAMES, seconds=e2e_s,
+         e2e_fps=DIVX_FRAMES / e2e_s, vops=len(plans), i_vops=intra,
+         launches={k: launches[k] for k in AVI_KERNELS})
+    for name in AVI_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched by the "
+                                  "divx path")
+    check(launches["mpeg4_idct_intra"] == intra
+          and launches["mpeg4_recon"] == len(plans) - intra,
+          f"divx: {launches['mpeg4_idct_intra']} + "
+          f"{launches['mpeg4_recon']} launches for {len(plans)} VOPs")
+    want = out.read_bytes()
+    path = tmp / "divx_cpu.avi"
+    rc = cli.main([*argv, "-o", str(path), "--device", "cpu"])
+    same = rc == 0 and path.read_bytes() == want
+    emit(phase="path_vs_cpu", path="divx", identical=same,
+         sha256=hashlib.sha256(want).hexdigest())
+    check(same, "divx: the card's output differs from the CPU's")
+    # the AVI interleaves a batch's video and audio chunks, so another
+    # batch size writes other bytes: the chunks are compared
+    rc = cli.main([*argv, "-o", str(path), "--device", "cuda", "--batch",
+                   "3", "--prefetch", "1"])
+    same = rc == 0 and _avi_chunks(path) == _avi_chunks(out)
+    emit(phase="engine_vs_batch16", path="divx", batch=3, prefetch=1,
+         identical=same)
+    check(same, "divx at --batch 3: the chunks differ from --batch 16's")
+    path.unlink()
+    return launches
+
+
+def _avi_chunks(path):
+    """An AVI's video chunks and its first track's bytes."""
+    from tcforge_tpu_torch.io.avi import AviReader
+    with AviReader(str(path)) as r:
+        return ([r.read_video_frame(i)[0] for i in range(r.video_frames)],
+                b"".join(r.read_audio_chunks(0)) if r.audio else b"")
+
+
+def _avi_goldens(cli, tmp):
+    """Phase 5 for the AVI import: every ``AVI_GOLDEN`` case on the card,
+    its outputs' SHA-256 against the JAX CLI's pinned digests."""
+    for case in AVI_GOLDEN:
+        d = tmp / f"avi_golden_{case}"
+        d.mkdir()
+        rc = cli.main([*avi_golden_argv(case, d), "--device", "cuda",
+                       "--progress_off", "-q"])
+        digests = [sha256_file(f) if f.exists() else None
+                   for f in avi_golden_outputs(case, d)]
+        emit(phase="golden", path=f"avi_{case}", sha256=digests,
+             pinned=list(AVI_GOLDEN_SHA256[case]))
+        check(rc == 0 and digests == list(AVI_GOLDEN_SHA256[case]),
+              f"avi {case} golden output differs from the JAX-pinned "
+              "digest")
+
+
+DIVX_COPIES = 4
+
+
+def divx_long(directory, copies: int) -> Path:
+    """divx.avi's chunks and PCM ``copies`` times over (96 frames), in
+    one AVI written by the port's own ``AviWriter``: a longer programme
+    of the same VOPs (each copy starts at its I-VOP and VOL header)."""
+    from tcforge_tpu_torch.io.avi import (AviAudioStream, AviReader,
+                                          AviVideoStream, AviWriter)
+    with AviReader(str(MPEG4_DATA / "divx.avi")) as r:
+        v, a = r.video, r.audio[0]
+        video = [r.read_video_frame(i) for i in range(r.video_frames)]
+        pcm = b"".join(r.read_audio_chunks(0))
+    spf = len(pcm) // len(video)
+    path = Path(directory) / "divx_long.avi"
+    w = AviWriter(str(path), AviVideoStream(fourcc=v.fourcc, width=v.width,
+                                            height=v.height, fps=v.fps),
+                  [AviAudioStream(rate=a.rate, channels=a.channels,
+                                  bits=a.bits)])
+    for _ in range(copies):
+        for i, (chunk, key) in enumerate(video):
+            w.write_video_frame(chunk, key)
+            w.write_audio(pcm[i * spf:(i + 1) * spf])
+    w.close()
+    return path
+
+
+def avi_stages(torch, dev, src, out, job, batch: int = MAIN_BATCH):
+    """The serial engine's stages for an MPEG-4 AVI on the card, each
+    timed alone with the card synchronized after it: the host parse and
+    plan, the upload of the plan's records (the same bytes copied alone),
+    the decode (upload and reconstruction; the reconstruction is the
+    difference), the chain, the copy back and the AVI write.  Returns ms
+    per batch of each, their sum and the frames/s of the sum and of the
+    slowest stage."""
+    from tcforge_tpu_torch.core.formats import ImageFormat
+    from tcforge_tpu_torch.core.frame import FrameBatch
+    from tcforge_tpu_torch.io.avi import AviVideoStream, AviWriter
+    from tcforge_tpu_torch.pipeline.chain import VideoChain
+    imp = _avi_importer(src, dev)
+    chain = VideoChain(job, ImageFormat.YUV420P, imp.width, imp.height)
+    states = chain.initial_states(dev)
+    ms = dict.fromkeys(("parse", "upload", "reconstruction", "chain",
+                        "to_host", "write"), 0.0)
+    frames = batches = 0
+    w = AviWriter(str(out), AviVideoStream(width=imp.width,
+                                           height=imp.height, fps=imp.fps))
+    torch.cuda.synchronize()
+    while True:
+        t0 = time.perf_counter()
+        plan = imp.plan_batch(batch)
+        t1 = time.perf_counter()
+        if plan is None:
+            break
+        n = plan.used * plan.buffer.per_slot if plan.buffer else 0
+        if n:
+            plan.buffer.flat[:n].to(dev, non_blocking=True)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        planes = imp.execute(plan)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        got = planes["y"].shape[0]
+        fb = FrameBatch(format=ImageFormat.YUV420P, y=planes["y"],
+                        u=planes["u"], v=planes["v"],
+                        attrs=torch.zeros((got,), dtype=torch.int32,
+                                          device=dev),
+                        frame_ids=torch.arange(frames, frames + got,
+                                               dtype=torch.int32,
+                                               device=dev), fps=25.0)
+        result, states = chain(fb, states)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        host = result.to_numpy()
+        t5 = time.perf_counter()
+        for i in range(got):
+            w.write_video_frame(b"".join(p[i].tobytes() for p in host))
+        t6 = time.perf_counter()
+        for key, a, b in (("parse", t0, t1), ("upload", t1, t2),
+                          ("chain", t3, t4), ("to_host", t4, t5),
+                          ("write", t5, t6)):
+            ms[key] += (b - a) * 1e3
+        ms["reconstruction"] += ((t3 - t2) - (t2 - t1)) * 1e3
+        frames += got
+        batches += 1
+    w.close()
+    imp.close()
+    per_batch = {k: v / batches for k, v in ms.items()}
+    total = sum(per_batch.values())
+    return {"frames": frames, "ms_per_batch": per_batch,
+            "sum_ms_per_batch": total,
+            "serial_fps": frames / (total * batches / 1e3),
+            "overlapped_fps": frames / (max(per_batch.values())
+                                        * batches / 1e3)}
+
+
+def _divx_rates(torch, dev, cli, tmp):
+    """Phase 6 for the DivX path, on divx.avi four times over (96 frames,
+    six batches): the long file's decode on the card against the
+    fixture's decode repeated, frame for frame; the CLI, wall clock to the
+    last byte, four runs after an untimed one (median and spread); then
+    ``avi_stages``."""
+    from tcforge_tpu_torch.core.job import FilterSpec, Job
+    src = divx_long(tmp, DIVX_COPIES)
+    one = []
+    imp = _avi_importer(MPEG4_DATA / "divx.avi", dev)
+    while (b := imp.read_video_batch(MAIN_BATCH)) is not None:
+        one += [tuple(b[k][i] for k in "yuv") for i in range(len(b["y"]))]
+    imp.close()
+    imp = _avi_importer(src, dev)
+    seen = 0
+    while (b := imp.read_video_batch(MAIN_BATCH)) is not None:
+        for i in range(len(b["y"])):
+            ref = one[seen % len(one)]
+            check(all(torch.equal(b[k][i], ref[j])
+                      for j, k in enumerate("yuv")),
+                  f"divx_long: frame {seen} differs from divx.avi's frame "
+                  f"{seen % len(one)}")
+            seen += 1
+    imp.close()
+    frames = DIVX_COPIES * DIVX_FRAMES
+    check(seen == frames, f"divx_long gave {seen} frames")
+    emit(phase="path_vs_repeat", path="divx_long", frames=seen,
+         identical=True)
+    out = tmp / "divx_long_out.avi"
+    fps = []
+    for r in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli.main(["-i", str(src), "-o", str(out), *DIVX_ARGS,
+                       "--batch", str(MAIN_BATCH), "--device", "cuda",
+                       "--progress_off", "-q"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check(rc == 0, f"divx CLI: exit code {rc}")
+        if r:
+            fps.append(frames / seconds)
+    job = Job(filters=[FilterSpec("hqdn3d", "luma=4.0")],
+              im_v_width=DIVX_W, im_v_height=DIVX_H)
+    emit(phase="cli", path="divx", frames=frames, fps=fps,
+         median_fps=float(np.median(fps)), min_fps=min(fps),
+         max_fps=max(fps),
+         stages=avi_stages(torch, dev, src, tmp / "stages.avi", job))
+    for f in (src, out, tmp / "stages.avi"):
         f.unlink()
 
 

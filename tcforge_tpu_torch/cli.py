@@ -25,11 +25,15 @@ the default ``-x auto``; its size and rate come from the sequence
 header, the host parses it and the card reconstructs it.  A program
 stream's LPCM, MPEG audio or AC-3 track (``-a`` picks it) goes to ``-m``;
 ``-x dvd -T title[,chapter[-chapter]]`` reads a decrypted ``VIDEO_TS``
-title and a directory given to ``-i`` plays its files in turn.  The
-export stage takes the JAX CLI's ``-y venc[,aenc[,mux]]`` (encoders
-``raw``, ``null``, ``copy``, ``yuv4mpeg`` and ``mpeg2``; multiplexors
-``raw``, ``null``, ``y4m``, ``wav`` and ``mpg``, ``auto`` by the output's
-extension), ``-F`` (the video encoder's options, ``k=v:...``), ``-w``,
+title and a directory given to ``-i`` plays its files in turn.  An AVI
+(``-x avi``, or found by its magic) brings raw, LZO2 or MPEG-4 part 2
+(DivX/Xvid) video and a PCM track; MPEG-4 is parsed on the host and
+reconstructed on the card.  The export stage takes the JAX CLI's ``-y
+venc[,aenc[,mux]]`` (encoders ``raw``, ``null``, ``copy``,
+``yuv4mpeg``, ``mpeg2`` and ``lzo``; multiplexors ``raw``, ``null``,
+``y4m``, ``wav``, ``mpg`` and ``avi``, ``auto`` by the output's
+extension), ``--avi_comments``, ``-F`` (the video encoder's options,
+``k=v:...``, or the AVI's fourcc), ``-w``,
 ``--video_max_bitrate``, ``--quantizers``, ``--encode_fields`` and
 ``--pulldown``; the MPEG-2 encoder's motion search, prediction and block
 coding run on the card, its syntax writer on the host, and ``mpg`` writes
@@ -66,6 +70,8 @@ a program stream with the audio track as DVD LPCM:
         -F gop_n=15:gop_m=3:rc=1:bitrate=6000 -o out.mpg
     python -m tcforge_tpu_torch.cli -i dvd.vob -y mpeg2,raw,raw \\
         -F gop_n=12:gop_m=1:qscale=5 -o out.m2v
+    python -m tcforge_tpu_torch.cli -i divx.avi -x avi \\
+        -J hqdn3d=luma=4.0 -y raw,raw,avi -o out.avi
 
 and refuses every other flag of the JAX CLI with an error that names
 it, and any audio file but WAV.  ``--device cuda`` (the default) with
@@ -111,9 +117,9 @@ def _resize_units(spec: str):
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="tcforge_tpu_torch", allow_abbrev=False,
-        description="tcforge on PyTorch/CUDA: Y4M or MPEG-1/2 video (and "
-                    "WAV) in, filter chain, Y4M, MPEG-2 or raw (and WAV) "
-                    "out")
+        description="tcforge on PyTorch/CUDA: Y4M, MPEG-1/2 or AVI video "
+                    "(and WAV) in, filter chain, Y4M, MPEG-2, AVI or raw "
+                    "(and WAV) out")
     p.add_argument("-i", dest="video_in", required=True,
                    help="input file (YUV4MPEG2, an MPEG-1/2 program or "
                         "elementary stream, a directory of them, a "
@@ -148,6 +154,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(bottom-first), p (progressive), u (unknown)")
     p.add_argument("--pulldown", action="store_true",
                    help="set MPEG 3:2 pulldown flags on export")
+    p.add_argument("--avi_comments", dest="avi_comments",
+                   help="file of 'TAG text' lines -> AVI LIST INFO")
     p.add_argument("-T", dest="dvd_title", default="",
                    help="DVD title[,chapters[,angle]] of a decrypted "
                         "VIDEO_TS directory (-x dvd)")
@@ -260,6 +268,7 @@ def args_to_job(args: argparse.Namespace) -> Job:
     job.ex_m_module, _, job.ex_m_string = ex_mods[2].partition("=")
     # the encoder's flags (tcforge_tpu/cli.py:412-431)
     job.ex_v_fcc = args.ex_v_fcc
+    job.avi_comments_file = args.avi_comments
     if args.bitrate:
         parts = args.bitrate.split(",")
         job.bitrate = int(parts[0])

@@ -1,0 +1,291 @@
+"""MPEG-4 part 2 (DivX/Xvid) VOP reconstruction in torch.
+
+The port's counterpart of the JAX package's ``io/mpeg4jax.py``: the
+host parse (``io/mpeg4dec.py`` ``Mpeg4Decoder.parse_plans``, a pinned
+copy) records each VOP's plan (its dequantized coefficient blocks, each
+8x8 block's forward and backward half-pel vectors, the chroma vectors
+it derived and the macroblock masks), and this module rebuilds the
+planes from it on the device.
+
+- ``stage_plan`` packs a plan into one int16 record a macroblock
+  (``REC`` values: the six blocks' coefficients, the vectors, the
+  masks), so that a batch of VOPs goes up to the card in one copy.
+- ``Anchors`` keeps the decode order's two anchors (by any handle) and
+  gives display order with the one-anchor lag of the JAX ``_make_step``
+  (``mpeg4jax.py:193-211``): a B-VOP displays at once and predicts from
+  both anchors, a P-VOP from the newer, an anchor displays the anchor
+  before it, the first anchor displays nothing, and ``flush`` gives the
+  last anchor at the end of the stream (``run_plans``,
+  ``decode_stream_jax``).
+- ``reconstruct`` runs one VOP in one launch (``mpeg4_idct_intra`` for
+  an I-VOP, ``mpeg4_recon`` for a P or B VOP; ``ops/kernels.py``) from
+  the anchors' planes, carried on the device.
+- ``crop`` cuts a coded (macroblock-aligned) frame to the VOL's size.
+
+The plain versions the wrappers run on the CPU: ``xvid_idct_ref`` (the
+XVID integer IDCT in int64, as the numpy ``_xvid_idct`` computes it:
+the JAX device form's int32 column pass wraps where
+``_SQRT2 * (d +- c)`` passes 2**31, and the JAX CLI decodes through
+numpy), and ``mpeg4_recon_ref`` (per 8x8 block half-pel MC in gather
+form with each sample coordinate clamped on its own to the coded plane,
+as the numpy decoder's edge-padded planes give at any vector length,
+the bidirectional average ``(f + b + 1) >> 1`` and the clip, as
+``_recon_vop_math``).  Not ported: the GOP scan (``_recon_gop_core``)
+and the shift-select MC, which exist for the TPU.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from tcforge_tpu_torch.io import mpeg4dec as M
+
+Planes = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+# one macroblock's record, int16: the six 8x8 blocks' coefficients
+# (Y0 Y1 Y2 Y3 Cb Cr, raster within a block), the four luma blocks'
+# forward and backward vectors (x, y), the forward and backward chroma
+# vectors, use_f, use_b and two values of padding
+REC = 408
+COEF, FMV, BMV, FCMV, BCMV, USE_F, USE_B = 0, 384, 392, 400, 402, 404, 405
+
+
+def stage_plan(plan: dict, out: Optional[np.ndarray] = None) -> np.ndarray:
+    """A plan's (nmb, ``REC``) int16 records, written into ``out`` when
+    given (a slot of a pinned host buffer)."""
+    nmb = plan["mbw"] * plan["mbh"]
+    if out is None:
+        out = np.empty((nmb, REC), np.int16)
+    out[:, COEF:FMV] = plan["blocks"].reshape(nmb, 384)
+    out[:, FMV:BMV] = plan["mvs4"].reshape(nmb, 8)
+    out[:, BMV:FCMV] = plan["bmvs4"].reshape(nmb, 8)
+    out[:, FCMV:BCMV] = plan["cmv"]
+    out[:, BCMV:USE_F] = plan["bcmv"]
+    out[:, USE_F] = plan["use_f"]
+    out[:, USE_B] = plan["use_b"]
+    out[:, USE_B + 1:] = 0
+    return out
+
+
+def _i16(x: torch.Tensor) -> torch.Tensor:
+    return ((x + 0x8000) & 0xFFFF) - 0x8000
+
+
+def xvid_idct_ref(blocks: torch.Tensor) -> torch.Tensor:
+    """(n, 8, 8) integer coefficients -> (n, 8, 8) int64 samples in the
+    int16 range: ``mpeg4dec._xvid_idct`` in torch, every product and sum
+    in 64 bits."""
+    b = blocks.to(torch.int64)
+    rows = torch.empty_like(b)
+    for r in range(8):
+        c1, c2, c3, c4, c5, c6, c7 = M._ROW_TABS[r]
+        rnd = M._ROW_RND[r]
+        x = [b[:, r, i] for i in range(8)]
+        a0 = c4 * x[0] + c2 * x[2] + c4 * x[4] + c6 * x[6] + rnd
+        a1 = c4 * x[0] + c6 * x[2] - c4 * x[4] - c2 * x[6] + rnd
+        a2 = c4 * x[0] - c6 * x[2] - c4 * x[4] + c2 * x[6] + rnd
+        a3 = c4 * x[0] - c2 * x[2] + c4 * x[4] - c6 * x[6] + rnd
+        b0 = c1 * x[1] + c3 * x[3] + c5 * x[5] + c7 * x[7]
+        b1 = c3 * x[1] - c7 * x[3] - c1 * x[5] - c5 * x[7]
+        b2 = c5 * x[1] - c1 * x[3] + c7 * x[5] + c3 * x[7]
+        b3 = c7 * x[1] - c5 * x[3] + c3 * x[5] - c1 * x[7]
+        for i, v in enumerate((a0 + b0, a1 + b1, a2 + b2, a3 + b3,
+                               a3 - b3, a2 - b2, a1 - b1, a0 - b0)):
+            rows[:, r, i] = _i16(v >> 11)
+    x = [rows[:, i, :] for i in range(8)]
+    t17a = ((M._TAN1 * x[7]) >> 16) + x[1]
+    t17b = ((M._TAN1 * x[1]) >> 16) - x[7]
+    t35a = ((M._TAN3 * x[5]) >> 16) + x[3]
+    t35b = ((M._TAN3 * x[3]) >> 16) - x[5]
+    b0 = t17a + t35a
+    d = t17a - t35a
+    c = t17b + t35b
+    e0 = 2 * ((M._SQRT2 * (d + c)) >> 16)
+    e1 = 2 * ((M._SQRT2 * (d - c)) >> 16)
+    t26a = ((M._TAN2 * x[6]) >> 16) + x[2]
+    t26b = ((M._TAN2 * x[2]) >> 16) - x[6]
+    s04 = x[0] + x[4]
+    d04 = x[0] - x[4]
+    a0 = s04 + t26a
+    a1 = s04 - t26a
+    a2 = d04 + t26b
+    a3 = d04 - t26b
+    return torch.stack([_i16(v >> 6) for v in (
+        a0 + b0, a2 + e0, a3 + e1, a1 - t35b + t17b, a1 + t35b - t17b,
+        a3 - e1, a2 - e0, a0 - b0)], dim=1)
+
+
+def _blocks_to_planes(res: torch.Tensor, mbw: int) -> Planes:
+    """(nmb, 6, 8, 8) -> the (16*mbh, 16*mbw) luma and two (8*mbh,
+    8*mbw) chroma planes (luma blocks in quadrant order)."""
+    nmb = res.shape[0]
+    mbh = nmb // mbw
+    y = res[:, :4].reshape(mbh, mbw, 2, 2, 8, 8).permute(0, 2, 4, 1, 3, 5)
+    u = res[:, 4].reshape(mbh, mbw, 8, 8).permute(0, 2, 1, 3)
+    v = res[:, 5].reshape(mbh, mbw, 8, 8).permute(0, 2, 1, 3)
+    return (y.reshape(16 * mbh, 16 * mbw), u.reshape(8 * mbh, 8 * mbw),
+            v.reshape(8 * mbh, 8 * mbw))
+
+
+def _residuals(vop: torch.Tensor, mbw: int) -> Planes:
+    nmb = vop.shape[0]
+    res = xvid_idct_ref(vop[:, COEF:FMV].reshape(nmb * 6, 8, 8))
+    return _blocks_to_planes(res.reshape(nmb, 6, 8, 8), mbw)
+
+
+def _check_vop(vop: torch.Tensor, mbw: int) -> int:
+    if vop.dtype != torch.int16 or vop.dim() != 2 or vop.shape[1] != REC:
+        raise ValueError(f"vop: expected int16 (nmb, {REC}) records, got "
+                         f"{vop.dtype} {tuple(vop.shape)}")
+    if mbw <= 0 or vop.shape[0] % mbw:
+        raise ValueError(f"vop: {vop.shape[0]} macroblocks are not rows "
+                         f"of {mbw}")
+    return vop.shape[0] // mbw
+
+
+def mpeg4_idct_intra_ref(vop: torch.Tensor, mbw: int) -> Planes:
+    """Plain version of ``mpeg4_idct_intra``: an I-VOP's planes, the
+    IDCT of every block clipped to uint8."""
+    _check_vop(vop, mbw)
+    return tuple(p.clamp(0, 255).to(torch.uint8)
+                 for p in _residuals(vop, mbw))
+
+
+def _mc_plane(ref: torch.Tensor, mvx: torch.Tensor, mvy: torch.Tensor,
+              rnd: int) -> torch.Tensor:
+    """Half-pel prediction of a whole plane from per-pixel vectors
+    (``Mpeg4Decoder._mc_block``): two taps ``(a + b + 1 - rnd) >> 1``,
+    four taps ``(a + b + c + d + 2 - rnd) >> 2``, each sample's row and
+    column clamped on its own to the plane."""
+    h, w = ref.shape
+    dev = ref.device
+    gy = torch.arange(h, device=dev).view(h, 1)
+    gx = torch.arange(w, device=dev).view(1, w)
+    mvx, mvy = mvx.to(torch.int64), mvy.to(torch.int64)
+    x0, y0 = gx + (mvx >> 1), gy + (mvy >> 1)
+    hx, hy = (mvx & 1) != 0, (mvy & 1) != 0
+    r = ref.to(torch.int64)
+    xa, xb = x0.clamp(0, w - 1), (x0 + 1).clamp(0, w - 1)
+    ya, yb = y0.clamp(0, h - 1), (y0 + 1).clamp(0, h - 1)
+    p00, p01 = r[ya, xa], r[ya, xb]
+    p10, p11 = r[yb, xa], r[yb, xb]
+    return torch.where(
+        hx & hy, (p00 + p01 + p10 + p11 + 2 - rnd) >> 2,
+        torch.where(hx, (p00 + p01 + 1 - rnd) >> 1,
+                    torch.where(hy, (p00 + p10 + 1 - rnd) >> 1, p00)))
+
+
+def _luma_vectors(mvs: torch.Tensor, mbh: int, mbw: int):
+    """(nmb, 8) vectors of the four luma blocks -> (x, y) per pixel."""
+    v = mvs.reshape(mbh, mbw, 2, 2, 2).permute(0, 2, 1, 3, 4)
+    v = v.reshape(2 * mbh, 2 * mbw, 2)
+    v = v.repeat_interleave(8, 0).repeat_interleave(8, 1)
+    return v[..., 0], v[..., 1]
+
+
+def _chroma_vectors(cmv: torch.Tensor, mbh: int, mbw: int):
+    v = cmv.reshape(mbh, mbw, 2).repeat_interleave(8, 0) \
+        .repeat_interleave(8, 1)
+    return v[..., 0], v[..., 1]
+
+
+def _mb_mask(mask: torch.Tensor, mbh: int, mbw: int, px: int):
+    return (mask.reshape(mbh, mbw) != 0).repeat_interleave(px, 0) \
+        .repeat_interleave(px, 1)
+
+
+def mpeg4_recon_ref(vop: torch.Tensor, mbw: int, rounding: int,
+                    fwd: Optional[Planes], bwd: Optional[Planes]) -> Planes:
+    """Plain version of ``mpeg4_recon``: a P or B VOP's planes from its
+    records and the two anchors on the coded grid (``_recon_vop_math``
+    with gather MC): the forward prediction with ``rounding`` (a
+    P-VOP's rounding type; a B-VOP's is 0), the backward with 0, their
+    average where a macroblock uses both, 0 where it uses neither (an
+    intra macroblock), plus the IDCT, clipped to uint8."""
+    mbh = _check_vop(vop, mbw)
+    res = _residuals(vop, mbw)
+    use_f, use_b = vop[:, USE_F], vop[:, USE_B]
+    out = []
+    for p in range(3):
+        px = 16 if p == 0 else 8
+        uf = _mb_mask(use_f, mbh, mbw, px)
+        ub = _mb_mask(use_b, mbh, mbw, px)
+        preds = []
+        for ref, lo, hi, rnd in ((fwd, FMV, FCMV, rounding),
+                                 (bwd, BMV, BCMV, 0)):
+            if ref is None:
+                preds.append(torch.zeros_like(res[p]))
+                continue
+            if p == 0:
+                mvx, mvy = _luma_vectors(vop[:, lo:lo + 8], mbh, mbw)
+            else:
+                mvx, mvy = _chroma_vectors(vop[:, hi:hi + 2], mbh, mbw)
+            preds.append(_mc_plane(ref[p], mvx, mvy, rnd))
+        f, b = preds
+        pred = torch.where(uf & ub, (f + b + 1) >> 1,
+                           torch.where(uf, f, torch.where(
+                               ub, b, torch.zeros_like(f))))
+        out.append((pred + res[p]).clamp(0, 255).to(torch.uint8))
+    return tuple(out)
+
+
+class Anchors:
+    """The two anchors of the decode order, by handle: ``fwd`` the
+    older, ``bwd`` the newer."""
+
+    def __init__(self):
+        self.fwd = self.bwd = None
+
+    def add(self, kind: str, handle):
+        """A VOP of ``kind`` decoded as ``handle``: the handles it
+        predicts from (forward, backward; None for none) and the handle
+        it displays (None for the stream's first anchor)."""
+        if kind == "B":
+            return self.fwd, self.bwd, handle
+        refs = (self.bwd if kind == "P" else None), None
+        shown = self.bwd
+        self.fwd, self.bwd = self.bwd, handle
+        return refs + (shown,)
+
+    def flush(self):
+        """The last anchor's handle at the end of the stream, once."""
+        shown, self.bwd = self.bwd, None
+        return shown
+
+
+def reconstruct(vop: torch.Tensor, kind: str, rounding: int, mbw: int,
+                fwd: Optional[Planes], bwd: Optional[Planes]) -> Planes:
+    """One VOP's coded-grid planes, one launch: the IDCT alone for an
+    I-VOP, else the prediction from ``fwd`` and ``bwd`` (a B-VOP's
+    rounding is 0) with the IDCT."""
+    from tcforge_tpu_torch.ops import kernels
+    if kind == "I":
+        return kernels.mpeg4_idct_intra(vop, mbw)
+    return kernels.mpeg4_recon(vop, mbw, rounding if kind == "P" else 0,
+                               fwd, bwd)
+
+
+def crop(frame: Planes, width: int, height: int) -> Planes:
+    """A coded frame cut to the VOL's size (``_crop_planes``)."""
+    y, u, v = frame
+    ch, cw = (height + 1) // 2, (width + 1) // 2
+    return y[:height, :width], u[:ch, :cw], v[:ch, :cw]
+
+
+def decode_plans(plans: List[dict], device, width: int, height: int
+                 ) -> List[Planes]:
+    """Every display frame of decode-order ``plans`` (a whole stream),
+    cropped to ``width`` x ``height``: each VOP one launch, the last
+    anchor flushed (``decode_stream_jax``)."""
+    anchors, frames, shown = Anchors(), {}, []
+    for h, plan in enumerate(plans):
+        vop = torch.from_numpy(stage_plan(plan)).to(device)
+        fh, bh, show = anchors.add(plan["kind"], h)
+        frames[h] = reconstruct(vop, plan["kind"], int(plan["rounding"]),
+                                plan["mbw"], frames.get(fh), frames.get(bh))
+        shown.append(show)
+    shown.append(anchors.flush())
+    return [crop(frames[h], width, height) for h in shown if h is not None]

@@ -1,9 +1,10 @@
 """The raw, null and copy encoders (``tcforge_tpu/modules/encoders/
 basic.py``).
 
-``raw`` packs each frame of a batch into its on-disk bytes: the planes
-of a planar frame one after the other (RGB: the packed pixels), and for
-audio one little-endian int16 payload per audio frame.  ``null``
+``raw`` packs each frame of a batch into its on-disk bytes for its
+format (the planes of a planar frame one after the other, packed YUV
+interleaved, RGB: the packed pixels), and for audio one little-endian
+int16 payload per audio frame.  ``null``
 discards everything (encode_null.c); ``copy`` passes frames through as
 ``raw`` packs them, and audio in its native byte order (encode_copy.c).
 A batch on a device comes to host memory first.
@@ -18,6 +19,7 @@ import numpy as np
 from tcforge_tpu_torch.core.codecs import Codec
 from tcforge_tpu_torch.core.frame import AudioBatch, FrameBatch
 from tcforge_tpu_torch.core.optstr import ModuleDesc
+from tcforge_tpu_torch.io.rawio import pack_frame
 from tcforge_tpu_torch.modules.registry import (Encoder, ModuleInfo,
                                                 ModuleKind, register)
 
@@ -27,9 +29,11 @@ def _host(a) -> np.ndarray:
 
 
 def frame_payloads(fb: FrameBatch) -> List[bytes]:
-    """Each frame of a batch as its on-disk bytes, plane after plane."""
+    """Each frame of a batch as its on-disk bytes for the batch's format
+    (``io/rawio.pack_frame``: planar YUV plane after plane, packed YUV
+    interleaved, YV12's chroma swapped, RGB in its byte order)."""
     planes = [_host(p) for p in fb.planes]
-    return [b"".join(p[i].tobytes() for p in planes)
+    return [pack_frame(tuple(p[i] for p in planes), fb.format)
             for i in range(fb.batch)]
 
 

@@ -1,12 +1,11 @@
 """Analysis and correction filters: whitebalance, detectclipping,
-facemask, fields.
+facemask, fields, divxkey.
 
 The port of ``tcforge_tpu/modules/filters/analysis.py`` (analogues of
 ``filter_whitebalance.c``, ``filter_detectclipping.c``,
-``filter_facemask.c`` and ``filter_fields.c``).  Per-pixel work is
-batched torch; the converging detector and the field shifter carry
-their state across batches.  divxkey, which scans an MPEG-4 stream, comes
-with the port's AVI import.
+``filter_facemask.c``, ``filter_fields.c`` and ``filter_divxkey.c``).
+Per-pixel work is batched torch; the converging detector and the field
+shifter carry their state across batches.
 
 Float32 means follow the jitted JAX filters: XLA compiles a mean over n
 values to ``sum * (1/n)`` with the float32 reciprocal.
@@ -21,7 +20,7 @@ import numpy as np
 import torch
 
 from tcforge_tpu_torch.core.formats import ImageFormat
-from tcforge_tpu_torch.core.frame import FrameBatch
+from tcforge_tpu_torch.core.frame import ATTR_KEYFRAME, FrameBatch
 from tcforge_tpu_torch.core.optstr import ModuleDesc, ParamSpec
 from tcforge_tpu_torch.modules.registry import (FilterSlot, ModuleInfo,
                                                 ModuleKind, VideoFilter,
@@ -376,3 +375,42 @@ class FieldsFilter(VideoFilter):
             return fb.with_planes(rgb=out), state
         out, state = self._run(fb.y, state)
         return fb.with_planes(y=out), state
+
+
+@register
+class DivxKeyFilter(VideoFilter):
+    """filter_divxkey.c: mark MPEG-4/DivX keyframes.
+
+    The whole file (``es=``, else the job's input) is scanned for VOP
+    start codes at construction (``io/mpeg4.scan_keyframes``); each
+    frame whose id is an intra VOP's index gets ``ATTR_KEYFRAME``, ids
+    past the scan none (the JAX filter's sentinel).
+    """
+
+    info = ModuleInfo(name="divxkey", kind=ModuleKind.FILTER)
+    desc = ModuleDesc(
+        name="divxkey", comment="mark MPEG-4 (DivX) keyframes",
+        params=[ParamSpec("es", "MPEG-4 ES file to scan", "s", "")])
+    slots = FilterSlot.PRE_S
+
+    def __init__(self, job, options: str = ""):
+        super().__init__(job, options)
+        path = self.options["es"] or getattr(job, "video_in_file", None)
+        from tcforge_tpu_torch.io.mpeg4 import scan_keyframes
+        try:
+            with open(path, "rb") as f:
+                data = f.read()
+        except (OSError, TypeError) as e:
+            raise ValueError(f"divxkey: cannot read ES ({e})")
+        keys = scan_keyframes(data)
+        self.n_frames = keys.shape[0]
+        self._is_key = torch.from_numpy(np.concatenate([keys, [False]]))
+
+    def apply(self, fb: FrameBatch, state: Any) -> Tuple[FrameBatch, Any]:
+        idx = _frame_ids(fb).to(torch.int64).clamp(0, self.n_frames)
+        key = self._is_key.to(fb.device)[idx]
+        attrs = (fb.attrs if fb.attrs is not None
+                 else torch.zeros(fb.batch, dtype=torch.int32,
+                                  device=fb.device))
+        attrs = torch.where(key, attrs | ATTR_KEYFRAME, attrs)
+        return fb.with_attrs(attrs), state

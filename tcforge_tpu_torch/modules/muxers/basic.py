@@ -1,11 +1,16 @@
-"""The WAV, Y4M, raw and null multiplexors (``tcforge_tpu/modules/
-muxers/basic.py``; multiplex_{wav,y4m,raw,null}.c analogues).
+"""The WAV, Y4M, AVI, raw and null multiplexors (``tcforge_tpu/modules/
+muxers/basic.py``; multiplex_{wav,y4m,avi,raw,null}.c analogues).
 
 ``wav``: audio payloads into a RIFF/WAVE file whose header is fixed up on
 close; the rate is ``-E``'s (``mp3frequency``) or the input's
 (``a_rate``), the channels ``dm_chan``, the bits ``dm_bits``.  ``y4m``:
 packed planar frames behind ``FRAME`` lines (an RGB session's frames
-converted to YUV420P).  ``raw``: the payloads as they come, audio to a
+converted to YUV420P).  ``avi``: the pinned ``io/avi.AviWriter``
+(AVI 1.0 with OpenDML segments); the video fourcc is the ``fourcc``
+option, else ``-F`` when it is a fourcc, else the encoder's (``mpeg2``
+gives ``mpg2``), else the colorspace's (``I420``); a PCM track when the
+job has audio and no ``-m``; ``--avi_comments``' ``TAG text`` lines as
+LIST INFO.  ``raw``: the payloads as they come, audio to a
 sibling ``<name>.aud`` (the main file in an audio-only session).
 ``null``: counts and discards.  The engine writes the default
 ``raw,raw,auto`` route to a ``.y4m`` with its own Y4M writer; ``y4m``
@@ -18,7 +23,7 @@ import numpy as np
 
 from tcforge_tpu_torch.core.codecs import Codec, ContainerFormat
 from tcforge_tpu_torch.core.formats import ImageFormat
-from tcforge_tpu_torch.core.optstr import ModuleDesc
+from tcforge_tpu_torch.core.optstr import ModuleDesc, ParamSpec
 from tcforge_tpu_torch.io.wav import WavInfo, WavWriter
 from tcforge_tpu_torch.modules.registry import (ModuleInfo, ModuleKind,
                                                 Muxer, register)
@@ -98,6 +103,71 @@ class Y4MMuxer(Muxer):
         self._w._f.write(b"FRAME\n")
         self._w._f.write(payload)
         self._w.frames_written += 1
+        return len(payload)
+
+    def close(self) -> None:
+        self._w.close()
+
+
+@register
+class AviMuxer(Muxer):
+    info = ModuleInfo(name="avi", kind=ModuleKind.MULTIPLEXOR, media="both",
+                      codecs_in=(Codec.ANY,),
+                      formats_out=(ContainerFormat.AVI,))
+    desc = ModuleDesc(name="avi", comment="AVI container writer (avilib)",
+                      params=[ParamSpec("fourcc", "video fourcc", "s", "")])
+
+    _FMT_FOURCC = {
+        ImageFormat.YUV420P: "I420", ImageFormat.YV12: "YV12",
+        ImageFormat.YUY2: "YUY2", ImageFormat.UYVY: "UYVY",
+        ImageFormat.RGB24: "RGB ", ImageFormat.BGR24: "DIB ",
+    }
+    # compressed video encoders imply their fourcc (players route the
+    # stream by strf biCompression, like the wFormatTag below)
+    _ENC_FOURCC = {"x264": "H264", "xvid": "XVID", "mpeg2": "mpg2",
+                   "dv": "dvsd", "movjpeg": "MJPG", "theora": "theo"}
+
+    def open(self, path: str) -> None:
+        from tcforge_tpu_torch.io.avi import (AviAudioStream, AviVideoStream,
+                                              AviWriter)
+        job = self.job
+        w, h = ((job.ex_v_width, job.ex_v_height)
+                if job.ex_v_width else job.export_size())
+        # -F doubles as fourcc (short, no '=') or encoder option string
+        job_fcc = job.ex_v_fcc or ""
+        if "=" in job_fcc or len(job_fcc) > 4:
+            job_fcc = ""
+        fourcc = (self.options.get("fourcc") or job_fcc
+                  or self._ENC_FOURCC.get(job.ex_v_module or "", "")
+                  or self._FMT_FOURCC.get(job.im_colorspace, "I420"))
+        video = AviVideoStream(fourcc=fourcc.strip(), width=w, height=h,
+                               fps=job.out_fps)
+        tracks = []
+        if job.audio_out_file is None and job.a_rate:
+            # the audio encoders the port has write PCM (format tag 1)
+            tracks.append(AviAudioStream(
+                format_tag=1, byte_rate=0,
+                rate=(job.mp3frequency or job.a_rate),
+                channels=job.dm_chan, bits=job.dm_bits))
+        comments = None
+        cf = getattr(job, "avi_comments_file", None)
+        if cf:
+            # one "TAG text" per line (avimerge -c)
+            comments = {}
+            with open(cf) as f:
+                for line in f:
+                    line = line.strip()
+                    if line and not line.startswith("#"):
+                        tag, _, text = line.partition(" ")
+                        comments[tag[:4]] = text.strip()
+        self._w = AviWriter(path, video, tracks, comments=comments)
+
+    def write_video(self, payload: bytes, keyframe: bool = True) -> int:
+        self._w.write_video_frame(payload, keyframe)
+        return len(payload)
+
+    def write_audio(self, payload: bytes, track: int = 0) -> int:
+        self._w.write_audio(payload, track)
         return len(payload)
 
     def close(self) -> None:

@@ -58,6 +58,14 @@ wrapper                    CUDA source                 replaces (tcforge_tpu)
                                                        ``_code_plane_inter``
                                                        (XLA ops; the native
                                                        float64 block coder)
+``mpeg4_recon``            ``csrc/mpeg4_recon.cu``     io/mpeg4jax.py
+                                                       ``_recon_vop_math``
+                                                       (XLA ops; the JAX
+                                                       CLI's route is the
+                                                       numpy decoder's)
+``mpeg4_idct_intra``       ``csrc/mpeg4_recon.cu``     io/mpeg4jax.py
+                                                       ``xvid_idct_jax`` of
+                                                       an I-VOP (XLA ops)
 =========================  ==========================  =====================
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
@@ -98,7 +106,9 @@ launches: Dict[str, int] = {"hqdn3d_spatial_scan": 0,
                             "mpeg2_me": 0,
                             "mpeg2_enc_pred": 0,
                             "mpeg2_enc_bmode": 0,
-                            "mpeg2_enc_blocks": 0}
+                            "mpeg2_enc_blocks": 0,
+                            "mpeg4_recon": 0,
+                            "mpeg4_idct_intra": 0}
 
 
 def reset_launches() -> None:
@@ -160,6 +170,10 @@ _SIGNATURES = {
         "tc_mpeg2_enc_pred": (_P, _P),
         "tc_mpeg2_enc_bmode": (_P, _P),
         "tc_mpeg2_enc_blocks": (_P, _P, _P, _P),
+    },
+    "mpeg4_recon": {
+        "tc_mpeg4_recon": (_P, _P),
+        "tc_mpeg4_idct_intra": (_P, _P),
     },
     "zoom_pass": {
         "tc_zoom_pass": (_P, _P, _P, _P, _P, _I, _P, _I, _I, _LL, _LL, _LL,
@@ -1287,3 +1301,96 @@ def mpeg2_enc_blocks(mode: int, cur, pred, qs: int, alt: bool, m1: bool,
           ctypes.cast(basis, _P), ctypes.cast(ints, _P), _stream(cur[0]))
     launches["mpeg2_enc_blocks"] += 1
     return levels, rec
+
+
+# --------------------------------------------------------------------- #
+# Kernel V: MPEG-4 part 2 VOP reconstruction (not a TPU kernel: the JAX
+# package's device form is XLA ops, io/mpeg4jax.py)
+
+def _vop_args(vop: torch.Tensor, mbw: int, refs, what: str
+              ) -> Tuple[int, List[torch.Tensor]]:
+    """Checks a VOP's records and its anchors: the macroblock rows, and
+    the anchor planes ((y, u, v) uint8 on the coded grid, contiguous)."""
+    _check(vop, "vop", (torch.int16,), 2)
+    from tcforge_tpu_torch.io.mpeg4recon import REC
+    if vop.shape[1] != REC or mbw <= 0 or vop.shape[0] % mbw:
+        raise ValueError(f"vop: {tuple(vop.shape)} is not rows of {mbw} "
+                         f"macroblock records of {REC}")
+    mbh = vop.shape[0] // mbw
+    planes: List[torch.Tensor] = []
+    for ref, name in zip(refs, what):
+        if ref is None:
+            continue
+        ref = list(ref)
+        if len(ref) != 3:
+            raise ValueError(f"{name}: expected (y, u, v) planes")
+        for p, mb in zip(ref, (16, 8, 8)):
+            _check(p, name, (torch.uint8,), 2)
+            if tuple(p.shape) != (mbh * mb, mbw * mb):
+                raise ValueError(f"{name}: plane {tuple(p.shape)} is not "
+                                 "the coded grid")
+        planes += ref
+    return mbh, planes
+
+
+def _vop_out(vop: torch.Tensor, mbh: int, mbw: int):
+    return tuple(torch.empty((mbh * mb, mbw * mb), dtype=torch.uint8,
+                             device=vop.device) for mb in (16, 8, 8))
+
+
+def mpeg4_recon_ref(vop, mbw: int, rounding: int, fwd, bwd):
+    """Plain version of ``mpeg4_recon`` (io/mpeg4recon.py)."""
+    from tcforge_tpu_torch.io import mpeg4recon
+    return mpeg4recon.mpeg4_recon_ref(vop, mbw, rounding, fwd, bwd)
+
+
+def mpeg4_recon(vop: torch.Tensor, mbw: int, rounding: int, fwd, bwd):
+    """A P or B VOP's planes: int16 (nmb, ``REC``) macroblock records
+    (io/mpeg4recon.py ``stage_plan``: the dequantized blocks, each luma
+    block's forward and backward half-pel vectors, the chroma vectors,
+    use_f and use_b), macroblock rows of ``mbw``, the forward anchor
+    ``fwd`` and backward anchor ``bwd`` ((y, u, v) uint8 coded-grid
+    planes, or None: a prediction from None is 0).  Per block the XVID
+    integer IDCT (64-bit, as the numpy decoder), per pixel the half-pel
+    prediction (``rounding`` forward, 0 backward; each sample coordinate
+    clamped to the plane), the average of both where a macroblock uses
+    both, and the clipped sum.  Returns uint8 (16*mbh, 16*mbw) and
+    (8*mbh, 8*mbw) twice."""
+    if int(rounding) not in (0, 1):
+        raise ValueError(f"rounding {rounding}: 0 or 1")
+    mbh, planes = _vop_args(vop, mbw, (fwd, bwd), ("fwd", "bwd"))
+    if not _on_cuda(vop, *planes):
+        return mpeg4_recon_ref(vop, mbw, rounding, fwd, bwd)
+    out = _vop_out(vop, mbh, mbw)
+    if vop.shape[0] == 0:
+        return out
+    meta = [vop.data_ptr(), *(o.data_ptr() for o in out), mbw, mbh,
+            int(rounding)]
+    for ref in (fwd, bwd):
+        meta += [0, 0, 0] if ref is None else [p.data_ptr() for p in ref]
+    ptr, _keep = _meta(meta)
+    _call("mpeg4_recon", "tc_mpeg4_recon", ptr, _stream(vop))
+    launches["mpeg4_recon"] += 1
+    return out
+
+
+def mpeg4_idct_intra_ref(vop, mbw: int):
+    """Plain version of ``mpeg4_idct_intra`` (io/mpeg4recon.py)."""
+    from tcforge_tpu_torch.io import mpeg4recon
+    return mpeg4recon.mpeg4_idct_intra_ref(vop, mbw)
+
+
+def mpeg4_idct_intra(vop: torch.Tensor, mbw: int):
+    """An I-VOP's planes from its records (the coefficients alone): the
+    XVID integer IDCT of every block, clipped to uint8."""
+    mbh, _ = _vop_args(vop, mbw, (), ())
+    if not _on_cuda(vop):
+        return mpeg4_idct_intra_ref(vop, mbw)
+    out = _vop_out(vop, mbh, mbw)
+    if vop.shape[0] == 0:
+        return out
+    ptr, _keep = _meta([vop.data_ptr(), *(o.data_ptr() for o in out), mbw,
+                        mbh, 0, 0, 0, 0, 0, 0, 0])
+    _call("mpeg4_recon", "tc_mpeg4_idct_intra", ptr, _stream(vop))
+    launches["mpeg4_idct_intra"] += 1
+    return out

@@ -112,7 +112,7 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from tcforge_tpu_torch.core.codecs import ContainerFormat
+from tcforge_tpu_torch.core.codecs import Codec, ContainerFormat
 from tcforge_tpu_torch.core.formats import ImageFormat
 from tcforge_tpu_torch.core.frame import (ATTR_BROKEN, ATTR_SKIPPED,
                                           AudioBatch, FrameBatch)
@@ -222,8 +222,8 @@ def video_module(job: Job) -> str:
     """The import module of ``job``'s ``-i``: from ``-x`` or, with ``-x
     auto``, ``multi`` for a directory and otherwise by the file's magic:
     ``wav``, ``mpeg`` (a program or elementary stream; TS and CDXA too,
-    which ``mpeg`` refuses by name) or ``y4m`` (also where the magic is
-    unknown, as the JAX engine falls back to it).  A container the JAX
+    which ``mpeg`` refuses by name), ``avi`` or ``y4m`` (also where the
+    magic is unknown, as the JAX engine falls back to it).  A container the JAX
     package imports with a module the port lacks is refused, naming the
     module."""
     name = job.im_v_module or "auto"
@@ -243,7 +243,7 @@ def video_module(job: Job) -> str:
     from tcforge_tpu_torch.io.probe import sniff_magic
     fmt = sniff_magic(vin)
     module = JAX_IMPORT_MODULES.get(fmt, "y4m")
-    if module in ("y4m", "mpeg"):
+    if module in ("y4m", "mpeg", "avi"):
         return module
     raise NotImplementedError(
         f"{vin}: {fmt.value} input (the {module} import module) is not "
@@ -267,7 +267,9 @@ def probe(job: Job) -> Optional[Y4MHeader]:
     ``probe_file``) and gives None.  A directory or a title (``multi``,
     ``dvd``) probes its first file, as the JAX CLI does, where a probe
     that fails sets nothing, and several files leave ``--max_frames``
-    unset."""
+    unset.  An AVI sets the size, rate, chunk count (``--max_frames``),
+    a packed YUV layout (the job's colorspace) and its first track's
+    rate and channels from its headers, as the JAX CLI's probe does."""
     kind = video_module(job)
     if kind in _HOST_MODULES:
         return None                 # the module sets them at open
@@ -276,7 +278,7 @@ def probe(job: Job) -> Optional[Y4MHeader]:
             job.a_rate, job.a_chan = r.info.rate, r.info.channels
             job.a_bits = r.info.bits
         return None
-    if kind in _MPEG_MODULES:
+    if kind in _MPEG_MODULES or kind == "avi":
         from tcforge_tpu_torch.io.probe import probe_file, probe_to_job
         from tcforge_tpu_torch.modules.importers.multi import expand_sources
         max_frames = job.max_frames
@@ -286,7 +288,7 @@ def probe(job: Job) -> Optional[Y4MHeader]:
             if len(srcs) > 1 and not max_frames:
                 job.max_frames = None   # the first file's length
         except Exception as e:          # as the JAX CLI's probe
-            if kind == "mpeg":
+            if kind in ("mpeg", "avi"):
                 raise
             _log.warning("[probe] probe failed (%s); relying on the "
                          "import module", e)
@@ -410,6 +412,10 @@ class _ImporterReader:
         got = self.importer.read_video_batch(n)
         if got is None:
             return 0
+        if "rgb" in got:
+            count = got["rgb"].shape[0]
+            planes[0][:count] = got["rgb"].reshape(planes[0][:count].shape)
+            return count
         count = got["y"].shape[0]
         for dst, key in zip(planes, "yuv"):
             dst[:count] = got[key]
@@ -562,6 +568,14 @@ def _export_modules(job: Job) -> Optional[Tuple[str, str, str]]:
     return venc, aenc, mux
 
 
+def _muxes_audio(job: Job) -> bool:
+    """True when ``job``'s export route has a multiplexor that takes
+    audio."""
+    route = _export_modules(job)
+    return route is not None and lookup(
+        ModuleKind.MULTIPLEXOR, route[2]).info.media != "video"
+
+
 class _MuxOut:
     """The export stage's multiplexor (and ``-m``'s WAV beside it), owned
     by the writer thread.  It opens at the first batch that gives payloads
@@ -636,28 +650,23 @@ class Pipeline:
             _wav_path("-o", job.video_out_file)
         self.audio_importer: Optional[Importer] = None
         self.host_importer: Optional[Importer] = None
-        if kind in _HOST_MODULES:
+        imp: Optional[Importer] = None
+        if kind in _HOST_MODULES or kind in _MPEG_MODULES or kind == "avi":
             imp = new_module(ModuleKind.DEMULTIPLEXOR, kind, job,
                              job.im_v_string)
+            # the source's own track is the session's audio only with -m
+            # (an AVI's also in a multiplexor that takes audio) and no -p
+            # (the JAX engine drops it otherwise): without, it is not
+            # demuxed (the video decodes the same)
+            imp.demux_audio = not audio_in and bool(
+                job.audio_out_file or (kind == "avi" and _muxes_audio(job)))
             imp.open(job.video_in_file)
-            self.host_importer = imp
-            if not job.im_v_width:
-                job.im_v_width, job.im_v_height = imp.width, imp.height
-            if imp.fps and not job.hard_fps:
-                job.fps = imp.fps
-            if imp.audio_rate:
-                job.a_rate = imp.audio_rate
-                job.a_chan = imp.audio_channels or job.a_chan
-        if kind in _MPEG_MODULES:
-            self.video_importer = new_module(ModuleKind.DEMULTIPLEXOR,
-                                             kind, job, job.im_v_string)
-            # the stream's own track is the session's audio only with -m
-            # and no -p (the JAX engine drops it otherwise): without, it
-            # is not demuxed (the video decodes the same)
-            self.video_importer.demux_audio = bool(job.audio_out_file
-                                                   and not audio_in)
-            self.video_importer.open(job.video_in_file)
-            imp = self.video_importer
+            # the MPEG importers and an MPEG-4 AVI decode on the device
+            # (plan/execute); the others give host planes
+            if kind in _MPEG_MODULES or getattr(imp, "planned", False):
+                self.video_importer = imp
+            else:
+                self.host_importer = imp
             if not job.im_v_width:
                 job.im_v_width, job.im_v_height = imp.width, imp.height
             if imp.fps and not job.hard_fps:
@@ -729,8 +738,19 @@ class Pipeline:
         source = self.video_importer or self.host_importer
         if source is not None:
             w, h = source.width, source.height
-            self.in_format = ImageFormat.YUV420P
-            self._shapes = [(h, w), (h // 2, w // 2), (h // 2, w // 2)]
+            self.in_format = fmt = source.format
+            if fmt.is_rgb:
+                # an RGB source stays RGB where the multiplexor takes it
+                # (the JAX engine's _setup_modules); one plane of pixels
+                self._shapes = [(h, w * 3)]
+                if job.im_colorspace == ImageFormat.YUV420P and \
+                        route is not None and {Codec.RGB24, Codec.ANY} & set(
+                            lookup(ModuleKind.MULTIPLEXOR,
+                                   route[2]).info.codecs_in):
+                    job.im_colorspace = ImageFormat.RGB24
+            else:
+                self._shapes = [(h, w), fmt.uv_plane_shape(w, h),
+                                fmt.uv_plane_shape(w, h)]
         else:
             w, h = hdr.width, hdr.height
             self.in_format = hdr.format
@@ -738,9 +758,9 @@ class Pipeline:
         # what the file takes: the job's colorspace where that is
         # planar YUV, and YUV420P for RGB24 (the JAX Y4M multiplexor,
         # muxers/basic.py:38-46, which writes no valid file for the
-        # other formats either)
+        # other formats either); an encoder takes the chain's frames
         csp = job.im_colorspace
-        if csp not in _JOB_FORMATS:
+        if csp not in _JOB_FORMATS and route is None:
             raise NotImplementedError(
                 f"-V {csp.value}: the Y4M writer takes "
                 + ", ".join(f.value for f in _JOB_FORMATS))
@@ -1123,6 +1143,14 @@ class Pipeline:
                 planes = [torch.from_numpy(p[:got]) for p in slot.planes]
                 dev = torch.device("cpu") if identity else self.device
                 planes = [p.to(dev) for p in planes]
+            if self.in_format.is_rgb:         # (N, H, W*3) -> pixels
+                rgb = planes[0].view(got, planes[0].shape[1], -1, 3)
+                return FrameBatch(
+                    format=self.in_format, rgb=rgb,
+                    attrs=torch.zeros((got,), dtype=torch.int32, device=dev),
+                    frame_ids=torch.arange(first_id, first_id + got,
+                                           dtype=torch.int32, device=dev),
+                    fps=job.fps, id_range=(first_id, first_id + got))
             return FrameBatch(
                 format=self.in_format, y=planes[0],
                 u=planes[1] if len(planes) > 1 else None,

@@ -407,12 +407,12 @@ def test_new_filters_register_under_their_jax_names(name):
                                   "sdlview", "normalize", "astat", "lowpass",
                                   "detectsilence", "resample", "aclip"])
 def test_filters_outside_this_slice_still_raise(name):
-    """divxkey waits for the MPEG-4 import, the others but the audio
-    filters and extsub for their own slices: the lookup raises, no
-    stand-in is registered.  The audio filters came with the port's audio
-    track: each is registered as an audio filter under its JAX name;
-    extsub came with the DVD rip: a video filter under its JAX name, with
-    the JAX option table."""
+    """The others but the audio filters, extsub and divxkey wait for
+    their own slices: the lookup raises, no stand-in is registered.  The
+    audio filters came with the port's audio track: each is registered as
+    an audio filter under its JAX name; extsub came with the DVD rip and
+    divxkey with the MPEG-4 import: each a video filter under its JAX
+    name, with the JAX option table."""
     from tcforge_tpu.modules import registry as jregistry
     from tcforge_tpu_torch.modules import registry as tregistry
     jcls = jregistry.lookup(jregistry.ModuleKind.FILTER, name)
@@ -421,7 +421,7 @@ def test_filters_outside_this_slice_still_raise(name):
         assert issubclass(cls, tregistry.AudioFilter)
         assert cls.info.name == name and int(cls.slots) == int(jcls.slots)
         return
-    if name == "extsub":
+    if name in ("extsub", "divxkey"):
         cls = tregistry.lookup(tregistry.ModuleKind.FILTER, name)
         assert issubclass(cls, tregistry.VideoFilter)
         assert cls.info.name == name and int(cls.slots) == int(jcls.slots)

@@ -54,7 +54,8 @@ COPIES = ["core/formats.py", "core/optstr.py", "core/codecs.py",
           "io/probe.py", "io/ts.py", "io/ac3.py", "io/a52dec.py",
           "io/mp2dec.py", "io/mp3dec.py", "io/vag.py", "io/ifo.py",
           "io/spu.py", "io/vobsub.py", "io/mp3.py", "io/psmux.py",
-          "modules/importers/framegen.py"]
+          "modules/importers/framegen.py", "io/avi.py", "io/rawio.py",
+          "io/tclzo.py", "io/_mp4tables.py", "io/mpeg4.py"]
 # C++ sources copied whole from native/ (the MPEG-2 host parse)
 NATIVE_COPIES = {"csrc/mpeg2intra.cpp": "native/mpeg2intra.cpp",
                  "csrc/mpeg2tables.h": "native/mpeg2tables.h",
@@ -64,8 +65,11 @@ NATIVE_COPIES = {"csrc/mpeg2intra.cpp": "native/mpeg2intra.cpp",
 # that reach the JAX package (the 4:2:2 intra reconstruction and the
 # native decode loop), and its numpy field helpers; the jax-free parts of
 # io/mpeg2enc.py (numpy, the macroblock modes, the alternate scan, the
-# D-picture math, TM5 rate control)
-RANGE_COPIES = {"io/mpeg2host.py": ("io/mpeg2codec.py",
+# D-picture math, TM5 rate control); io/mpeg4dec.py without its unused
+# import of io/dvdec.py (line 56)
+RANGE_COPIES = {"io/mpeg4dec.py": ("io/mpeg4dec.py",
+                                   ((1, 55), (57, 2791))),
+                "io/mpeg2host.py": ("io/mpeg2codec.py",
                                     ((1, 946), (983, 1069), (1880, 2031))),
                 "io/mpeg2rc.py": ("io/mpeg2enc.py",
                                   ((31, 31), (37, 40), (43, 49),

@@ -247,14 +247,20 @@ def jax_avi(tmp_path_factory, jax_native):
 
 
 def test_x_auto_refuses_an_avi_naming_its_module(jax_avi, tmp_path):
+    """-x auto takes an AVI to the port's avi import module; a video
+    track it cannot decode (the JAX CLI's I420 AVI with its fourcc made
+    MJPG) is refused naming what the port lacks."""
     from tcforge_tpu.io.probe import sniff_magic as jax_sniff
     from tcforge_tpu.core.codecs import ContainerFormat as JFormat
     assert jax_sniff(str(jax_avi)) == JFormat.AVI
-    job = Job(video_in_file=str(jax_avi),
+    assert engine.video_module(Job(video_in_file=str(jax_avi))) == "avi"
+    mjpg = tmp_path / "mjpg.avi"
+    mjpg.write_bytes(jax_avi.read_bytes().replace(b"I420", b"MJPG"))
+    job = Job(video_in_file=str(mjpg),
               video_out_file=str(tmp_path / "o.y4m"))
-    with pytest.raises(NotImplementedError, match="the avi import module"):
+    with pytest.raises(NotImplementedError, match="Motion-JPEG"):
         engine.Pipeline(job, CPU)
-    assert port_cli(["-i", str(jax_avi), "-o",
+    assert port_cli(["-i", str(mjpg), "-o",
                      str(tmp_path / "o.y4m")]) == 1
 
 

@@ -226,7 +226,8 @@ def test_the_multiplexor_follows_the_extension_as_in_jax(ext):
     want = jregistry.find_mux_module_for_path("out" + ext)
     assert registry.jax_mux_module_for_path("out" + ext) == want
     got = registry.find_mux_module_for_path("out" + ext)
-    assert got == (want if want in ("y4m", "wav", "raw", "mpg") else None)
+    assert got == (want if want in ("y4m", "wav", "raw", "mpg", "avi")
+                   else None)
 
 
 @pytest.mark.parametrize("name", ["raw", "null", "copy", "yuv4mpeg",
@@ -240,7 +241,7 @@ def test_encoders_match_the_jax_registry(name):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["-o", "{tmp}/o.avi", "-y", "mpeg2"], "avi multiplexor"),
+    (["-o", "{tmp}/o.ogg", "-y", "mpeg2"], "ogg multiplexor"),
     (["-o", "{tmp}/o.m2v", "-y", "xvid"], "xvid"),
     (["-o", "{tmp}/o.m2v", "-y", "mpeg2", "-F", "gop_n=6:gop_m=3", "-V",
       "yuv422p"], "4:2:2"),
