@@ -44,7 +44,9 @@ Lanczos3 zoom, ``-J hqdn3d=luma=4.0`` (which runs after the zoom, at
   the audio chain is plain torch and the host stage's numpy), and
   audio_only, a 60 s WAV to WAV, once through ``-E 44100 -J
   normalize,lowpass,astat`` and once through the jitted step's form,
-  ``-J normalize=algo=2,aclip,detectsilence,cpaudio``;
+  ``-J normalize=algo=2,aclip,detectsilence,cpaudio``; and normalize's
+  CUDA graph capture (``ops/graphs.py``) held against a captured graph
+  that becomes garbage in the middle of it;
 - the DVD path: ``tests/data/mpeg2/dvd.vob`` (NTSC DVD video, 720x480
   at 29.97 fps, 48 frames of MPEG-2 MP@ML frame pictures, GOP N=15 M=3,
   6000 kbit/s, a video-only program stream) through ``-x mpeg -J
@@ -74,7 +76,14 @@ Lanczos3 zoom, ``-J hqdn3d=luma=4.0`` (which runs after the zoom, at
   the host parse of each chunk (the pinned numpy parse), each VOP
   reconstructed on the card in one launch (``mpeg4_idct_intra`` for an
   I-VOP, ``mpeg4_recon`` for a P or B VOP), hqdn3d's scans, and the avi
-  multiplexor writing I420 frames and the PCM track.
+  multiplexor writing I420 frames and the PCM track;
+- the DVD-to-DivX path, divxenc: ``tests/data/mpeg2/dvd.vob`` through
+  ``-x mpeg -Z 640x480 -J hqdn3d=luma=4.0 -y xvid,raw,avi -F
+  keyint=12:bframes=2:four_mv=1 -w 1500`` (cfg10's encoder settings) to
+  a 640x480 XVID AVI: the DVD path's decode kernels, the zoom and
+  hqdn3d's scans, then the MPEG-4 encoder's (``mpeg4_enc_me`` a P-VOP,
+  ``mpeg4_enc_bme`` a B-VOP, ``mpeg4_enc_blocks`` every VOP), each VOP's
+  bits written on the host from its records under TM5 rate control.
 
 Phases, each of which raises on failure:
 
@@ -117,7 +126,12 @@ Phases, each of which raises on failure:
    in-tree encoder's stream) and on 24 VOPs of random records off the
    path (coefficients in [-2048, 2047], vectors far outside the frame,
    rounding 0 and 1, 1MV and 4MV, every mask, I-VOPs, grids of one
-   macroblock to 720x576's), timed on divx.avi's VOPs; with ``--parent DIR``, the unsharp,
+   macroblock to 720x576's), timed on divx.avi's VOPs; the three MPEG-4
+   encoder kernels on every call of the divxenc path and off it
+   (``MPEG4ENC_CASES``: I, P with and without 4MV, B with co-located
+   skips, 200x136, one macroblock, q 1 and 31, rate control), timed
+   on the path's calls, their operation bounds from the SADs that the
+   plain decisions' searches visit; with ``--parent DIR``, the unsharp,
    TomsMoComp and temporal kernels of the checkout in DIR are built
    too, called through DIR's own wrappers and timed in turns with this
    tree's on the same inputs;
@@ -142,9 +156,10 @@ Phases, each of which raises on failure:
    versions on the card, byte for byte, and read back by the port's
    MPEG importer: every frame at 720x480, the WAV's samples in the LPCM
    track), divx (one reconstruction launch a VOP; its AVI against the
-   CPU run's, byte for byte, and its chunks at ``--batch 3``), and the
-   engine at every ``--prefetch`` 1, 2, 4 and ``--batch`` 1, 3,
-   16;
+   CPU run's, byte for byte, and its chunks at ``--batch 3``), divxenc
+   (one block coder launch a VOP, one decision launch a P or B VOP; its
+   AVI against the CPU run's, byte for byte), and the engine at every
+   ``--prefetch`` 1, 2, 4 and ``--batch`` 1, 3, 16;
 5. the small cases whose SHA-256 ``tests/test_torch_cli.py`` pins
    against the JAX CLI, run on the card: same digests; and the MPEG
    goldens (``MPEG_GOLDEN``: dvd.vob and the field-picture stream at full
@@ -159,7 +174,15 @@ Phases, each of which raises on failure:
    divx at full width, the small MPEG-4 streams with PCM, a batch
    boundary inside a B run, drop-frame and packed chunks, the in-tree
    encoder's stream at ``--batch 1``, divxkey, ``-c``, YUY2 and LZO2,
-   the lzo encoder after ``-L``, DivX to PAL DVD);
+   the lzo encoder after ``-L``, DivX to PAL DVD), and the MPEG-4 export
+   goldens (``XVID_GOLDEN``: divxenc at full width, the divx.avi
+   re-encode with its PCM track, small DVD, DivX and Y4M cases at
+   constant q, under ``-w`` and rate control, a raw ``.m4v``), with the
+   read-back: the divxenc AVI decoded by the port's own MPEG-4 importer
+   on the card equals its CPU decode, and 12-frame 640x480 encodes
+   decode to the
+   encoder's reconstruction without 4MV (with it the count of frames
+   that drift from the JAX encoder's 4MV skip);
 6. numbers: steady-state chain frames/s on device-resident batches
    (CUDA events) for every path, beside the host's time to queue the
    batches, the step's peak device memory and the device's busy share
@@ -190,9 +213,14 @@ Phases, each of which raises on failure:
    over (96 frames, written by the port's AviWriter): its decode against
    the fixture's repeated, the CLI four runs after an untimed one
    (median and spread), and its serial stages (``avi_stages``: parse,
-   upload, reconstruction, chain, copy back, write).
+   upload, reconstruction, chain, copy back, write); the divxenc CLI on
+   dvd.vob's stream three times over (144 frames), four runs after an
+   untimed one, and its serial stages (``divxenc_stages``: parse, decode,
+   chain, the decisions, the block coder, the records' copy, the syntax
+   writer, the multiplexor).
 
-It prints one JSON object per result, then the kernels' summary and, as
+It prints one JSON object per result (``t``: seconds since it started),
+then the kernels' summary and, as
 its last line, ``{"ok": true, "device": {...}}``.  It imports nothing of
 JAX.  Without a CUDA device it exits non-zero before printing a result.
 """
@@ -857,6 +885,137 @@ AVI_GOLDEN_SHA256 = {
 }
 
 
+def encoder_clip(width: int, height: int, frames: int, seed: int,
+                 kind: str = "wave"):
+    """Seeded YUV420P frames for the MPEG-4 encoder's checks, as numpy
+    (y, u, v) tuples.  ``wave``: moving sine gratings with grain and
+    moving chroma ramps (every macroblock moves: searches, half-pel,
+    4MV, intra in the grain); ``still``: a smooth random texture in which
+    each macroblock's top-left 8x8 quadrant shifts by -1, 0 or 1 sample
+    from frame to frame and the rest stays (4MV macroblocks whose 1MV
+    vector is (0, 0), the JAX encoder's not_coded case, and B-VOPs with
+    co-located skips)."""
+    rng = np.random.default_rng(seed)
+    ch, cw = (height + 1) // 2, (width + 1) // 2
+    out = []
+    if kind == "wave":
+        yy, xx = np.mgrid[0:height, 0:width]
+        cy, cx = np.mgrid[0:ch, 0:cw]
+        for t in range(frames):
+            y = (128 + 60 * np.sin((xx + 3 * t) / 7.0)
+                 + 40 * np.cos((yy - 2 * t) / 5.0)
+                 + rng.normal(0, 6, (height, width)))
+            u = (cy * 4 + t * 3) % 256
+            v = (cx * 6 - t * 5) % 256
+            out.append((y.clip(0, 255).astype(np.uint8), u.astype(np.uint8),
+                        v.astype(np.uint8)))
+        return out
+    base = rng.integers(40, 216, (height + 8, width + 8)).astype(np.int64)
+    base = ((base + np.roll(base, 1, 0) + np.roll(base, 1, 1)) // 3)
+    base = base.astype(np.uint8)
+    for t in range(frames):
+        y = base[4:4 + height, 4:4 + width].copy()
+        for by in range(0, height, 16):
+            for bx in range(0, width, 16):
+                s = (t + bx // 16 + by // 16) % 3 - 1
+                blk = base[4 + by + s:12 + by + s, 4 + bx + s:12 + bx + s]
+                y[by:by + 8, bx:bx + 8] = blk[:max(0, min(8, height - by)),
+                                              :max(0, min(8, width - bx))]
+        u = np.full((ch, cw), 128, np.uint8)
+        out.append((y, u, u.copy()))
+    return out
+
+
+# the DVD-to-DivX path, divxenc: tests/data/mpeg2/dvd.vob (NTSC DVD
+# video, 720x480 at 29.97 fps, 48 frames) zoomed to 640x480 (the 4:3
+# square-pixel size of a DivX rip), hqdn3d, and the MPEG-4 encoder at
+# cfg10's settings (benches/run_configs.py:564-660: GOP 12, two B-VOPs,
+# 4MV, about 1.5 Mbit/s under TM5 rate control) into an XVID AVI; its
+# decisions and block coding on the card, its bits on the host
+DIVXENC_ARGS = ["-x", "mpeg", "-Z", "640x480", "-J", "hqdn3d=luma=4.0",
+                "-y", "xvid,raw,avi", "-F", "keyint=12:bframes=2:four_mv=1",
+                "-w", "1500"]
+DIVXENC_W, DIVXENC_H, DIVXENC_FRAMES = 640, 480, 48
+# the read-back clips: one GOP of cfg10's, with its I, P and B VOPs
+READBACK_FRAMES = 12
+DIVXENC_KERNELS = ("mpeg4_enc_me", "mpeg4_enc_bme", "mpeg4_enc_blocks",
+                   "mpeg2_recon", "mpeg2_idct_intra", "zoom_pass",
+                   "hqdn3d_spatial_scan", "hqdn3d_temporal_scan")
+MPEG4ENC_KERNELS = ("mpeg4_enc_me", "mpeg4_enc_bme", "mpeg4_enc_blocks")
+# the MPEG-4 export goldens: (input, arguments, outputs); the input is a
+# file of the repo or ("y4m", width, height, frames, seed), a
+# write_motion_y4m clip written into the output directory.  The SHA-256
+# of the JAX CLI's outputs (TCFORGE_NATIVE_MPEG4ENC=1, and
+# TCFORGE_NATIVE_MPEG4=1 for an AVI input; --mesh off), made by
+# tests/data/mpeg4/make_xvid_goldens.py; tests/test_torch_xvid.py runs
+# the small cases through both CLIs on the CPU
+XVID_GOLDEN = {
+    "divxenc": ("tests/data/mpeg2/dvd.vob", DIVXENC_ARGS, ("out.avi",)),
+    "divx": ("tests/data/mpeg4/divx.avi",
+             ["-x", "avi", "-y", "xvid,raw,avi", "-F", "keyint=12:bframes=2"],
+             ("out.avi",)),
+    "dvd_small": ("tests/data/mpeg2/dvd.vob",
+                  ["-x", "mpeg", "-Z", "160x112", "-c", "0-0.10", "-J",
+                   "hqdn3d=luma=4.0", "-y", "xvid,raw,avi", "-F",
+                   "keyint=12:bframes=2:four_mv=1", "-w", "1500"],
+                  ("out.avi",)),
+    "divx_small": ("tests/data/mpeg4/divx.avi",
+                   ["-x", "avi", "-Z", "160x112", "--max_frames", "9",
+                    "-y", "xvid,raw,avi", "-F", "keyint=12:bframes=2"],
+                   ("out.avi",)),
+    "y4m_b1": (("y4m", 96, 64, 12, 3), ["-y", "xvid,raw,avi", "-F",
+                                        "quant=4:bframes=1"], ("out.avi",)),
+    "y4m_rc": (("y4m", 96, 64, 12, 4),
+               ["-y", "xvid,raw,avi", "-F", "bitrate=300:four_mv=1:keyint=5",
+                "--batch", "4"], ("out.avi",)),
+    "y4m_default": (("y4m", 96, 64, 9, 5), ["-y", "xvid,raw,avi"],
+                    ("out.avi",)),
+    "y4m_w": (("y4m", 88, 56, 10, 6), ["-y", "xvid", "-w", "400"],
+              ("out.avi",)),
+    "m4v": (("y4m", 88, 56, 11, 7), ["-y", "xvid,raw,raw", "-F",
+                                     "quant=6:bframes=3:four_mv=1",
+                                     "--batch", "5"], ("out.m4v",)),
+}
+XVID_GOLDEN_SHA256 = {
+    "divxenc": (
+        "ab1f726f473a5448ab2374d55d53527d535227babf195bd4cd79ecb48d69e0b7",),
+    "divx": (
+        "52a9ed0fbf34887ccc28270fec72f77a1e38250543514192b2d2f0a2fbc1bdfa",),
+    "dvd_small": (
+        "1848d8511c515c171589f458fcfb99d04e87c1d7d83a8f20c9fe4788d3c2c1d2",),
+    "divx_small": (
+        "63e6129ec1af9d4a6062b6c064bb127052cb4b745a111e3bd8b31c77b42402bb",),
+    "y4m_b1": (
+        "7126efc190635d13c7621b9fab608d336e2b57300db2cb63aef0966fce03d329",),
+    "y4m_rc": (
+        "85c8a838e953f31c0039026f57d9d5d1ccc18edbec69cb9a5713cf4cdcbea2e8",),
+    "y4m_default": (
+        "1fef32ca4963213b22370beaaaebd34c86f0e437480c922c995c8c6a388f39bf",),
+    "y4m_w": (
+        "ae5be1ccdd5cc70eacf33eb468b11438e018eaa84c2da0964811da60f4f3b23d",),
+    "m4v": (
+        "388b10d7811a797ce7015bf0f5431f2f9a51a2b29b405c3842b1a0094b416018",),
+}
+
+
+def xvid_golden_argv(case: str, directory) -> list:
+    """The CLI arguments of an ``XVID_GOLDEN`` case writing into
+    ``directory`` (where a Y4M input is written first)."""
+    src, args, outs = XVID_GOLDEN[case]
+    if isinstance(src, tuple):
+        _, w, h, frames, seed = src
+        path = Path(directory) / "in.y4m"
+        if not path.exists():
+            write_motion_y4m(path, w, h, frames, seed=seed)
+    else:
+        path = ROOT / src
+    return ["-i", str(path), "-o", f"{directory}/{outs[0]}", *args]
+
+
+def xvid_golden_outputs(case: str, directory) -> list:
+    return [Path(directory) / f for f in XVID_GOLDEN[case][2]]
+
+
 def avi_golden_argv(case: str, directory) -> list:
     """The CLI arguments of an ``AVI_GOLDEN`` case writing into
     ``directory``."""
@@ -1061,9 +1220,19 @@ KERNELS = {
                     "tcforge_tpu/io/mpeg4jax.py:140"),
     "mpeg4_idct_intra": ("tcforge_tpu_torch/csrc/mpeg4_recon.cu",
                          "tcforge_tpu/io/mpeg4jax.py:52"),
+    # not TPU kernels: the numpy loops of the JAX package's MPEG-4
+    # encoder (_encode_pvop's and _encode_bvop's decisions, the block
+    # coding of _code_intra_mb and the inter macroblocks)
+    "mpeg4_enc_me": ("tcforge_tpu_torch/csrc/mpeg4_encode.cu",
+                     "tcforge_tpu/io/mpeg4enc.py:647"),
+    "mpeg4_enc_bme": ("tcforge_tpu_torch/csrc/mpeg4_encode.cu",
+                      "tcforge_tpu/io/mpeg4enc.py:858"),
+    "mpeg4_enc_blocks": ("tcforge_tpu_torch/csrc/mpeg4_encode.cu",
+                         "tcforge_tpu/io/mpeg4enc.py:352"),
 }
 LIBS = ("hqdn3d_scan", "zoom_pass", "unsharp", "tomsmocomp", "yuvdenoise",
-        "stabilize", "mpeg2_recon", "mpeg2_encode", "mpeg4_recon")
+        "stabilize", "mpeg2_recon", "mpeg2_encode", "mpeg4_recon",
+        "mpeg4_encode")
 # the host libraries (g++): the MPEG-2 parse and syntax writer
 HOST_LIBS = ("mpeg2intra", "mpeg2encode")
 # each wrapper of ops/kernels.py, whose plain version is <name>_ref
@@ -1072,7 +1241,8 @@ WRAPPERS = ("spatial_scan", "temporal_scan", "zoom_pass", "unsharp_plane",
             "d3_temporal_scan", "yuvdenoise_chroma", "stabilize_field_search",
             "transform_warp", "mpeg2_recon", "mpeg2_idct_intra", "mpeg2_me",
             "mpeg2_enc_pred", "mpeg2_enc_bmode", "mpeg2_enc_blocks",
-            "mpeg4_recon", "mpeg4_idct_intra")
+            "mpeg4_recon", "mpeg4_idct_intra", "mpeg4_enc_me",
+            "mpeg4_enc_bme", "mpeg4_enc_blocks")
 
 
 def write_test_y4m(path, width: int, height: int, frames: int,
@@ -1319,7 +1489,12 @@ def sha256_file(path) -> str:
     return hashlib.sha256(Path(path).read_bytes()).hexdigest()
 
 
+_T0 = time.perf_counter()
+
+
 def emit(**record) -> None:
+    """One JSON line, with ``t``: seconds since the script started."""
+    record.setdefault("t", round(time.perf_counter() - _T0, 3))
     print(json.dumps(record), flush=True)
 
 
@@ -1427,6 +1602,8 @@ def main(argv=()) -> int:
     _check_encode_kernels(torch, kernels, bench)
     torch.cuda.empty_cache()
     _check_mpeg4_kernels(torch, kernels, bench)
+    torch.cuda.empty_cache()
+    _check_mpeg4enc_kernels(torch, kernels, cli, bench)
     torch.cuda.empty_cache()
     _check_ragged(torch, kernels, zoom, hq, bench)
     _check_unsharp_sizes(torch, kernels, bench)
@@ -1607,10 +1784,17 @@ def main(argv=()) -> int:
         # reconstruction launch a VOP, and the AVI goldens
         path_launches["divx"] = _run_divx(torch, cli, kernels, tmp)
         _avi_goldens(cli, tmp)
+        # 4. and 5. for MPEG-4 export: the divxenc path at full width
+        # against its CPU run, the export goldens pinned against the JAX
+        # CLI, and the read-back through the port's own decoder
+        path_launches["divxenc"], divxenc_avi = _run_divxenc(
+            torch, cli, kernels, tmp)
+        _xvid_goldens(torch, cli, tmp, divxenc_avi)
         _run_audio_only(torch, cli, tmp)
         _audio_goldens(cli, tmp)
         emit(phase="audio_chain", batch=MAIN_BATCH,
              **_audio_chain_ms(torch, dev))
+        _graph_capture_vs_collection(torch, dev)
 
         # the internal transforms, the engine's flags and the filters of
         # plain torch ops: the card's output against the CPU's
@@ -1694,6 +1878,10 @@ def main(argv=()) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_divx_") as tmp:
         _divx_rates(torch, dev, cli, Path(tmp))
     torch.cuda.empty_cache()
+    # 6. the divxenc path: its CLI on 144 frames and its serial stages
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_divxenc_") as tmp:
+        _divxenc_rates(torch, dev, cli, Path(tmp))
+    torch.cuda.empty_cache()
 
     # each kernel's launches in the run of the path that carries it
     for name, (src, _) in KERNELS.items():
@@ -1703,6 +1891,8 @@ def main(argv=()) -> int:
             launches[name] = path_launches["dvdauthor"][name]
         elif name in ("mpeg4_recon", "mpeg4_idct_intra"):
             launches[name] = path_launches["divx"][name]
+        elif name in MPEG4ENC_KERNELS:
+            launches[name] = path_launches["divxenc"][name]
         elif name not in MAIN_KERNELS:
             owner = next(p for p, spec in (*PATHS.items(),
                                            *CLEAN_PATHS.items(),
@@ -1715,6 +1905,8 @@ def main(argv=()) -> int:
         k: path_launches["dvdauthor"][k] for k in AUTHOR_KERNELS})
     emit(phase="launches", path="divx", launches={
         k: path_launches["divx"][k] for k in AVI_KERNELS})
+    emit(phase="launches", path="divxenc", launches={
+        k: path_launches["divxenc"][k] for k in DIVXENC_KERNELS})
     if bench.parent:
         emit(phase="parent_summary", per_batch=bench.versus_sums)
     print(json.dumps({"kernels": [
@@ -3428,6 +3620,53 @@ def _audio_goldens(cli, tmp):
                                         "digest")
 
 
+def _graph_capture_vs_collection(torch, dev):
+    """A CUDA graph freed while another is being captured ends that
+    capture, and the cyclic garbage collector frees a finished session's
+    normalize filter, its graph with it, at whatever allocation it runs
+    on.  ``GraphScan`` keeps the collector off while it captures: here a
+    step lets go of the last hold on a captured scan in the middle of its
+    own capture, with the collector due at almost every allocation, and
+    the new scan's replay must equal the same steps run eagerly."""
+    import gc
+    from tcforge_tpu_torch.ops.graphs import GraphScan
+
+    def step(x, a):
+        return (a * 0.5 + x.sum(),)
+    x = torch.zeros((2,), dtype=torch.float32, device=dev)
+    a = torch.ones((), dtype=torch.float32, device=dev)
+    old = GraphScan(step)
+    old.prepare(x, (a,))
+    hold = [old]
+    del old
+
+    def capturing(x, a):
+        if hold and torch.cuda.is_current_stream_capturing():
+            garbage = [hold.pop()]          # the last hold, in a cycle
+            garbage.append(garbage)
+            del garbage
+            [[] for _ in range(64)]         # a collection's turn
+        return step(x, a)
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        scan = GraphScan(capturing)
+        scan.prepare(x, (a,))
+    finally:
+        gc.set_threshold(*thresholds)
+    xs = torch.arange(12, dtype=torch.float32, device=dev).reshape(6, 2)
+    ys, _ = scan(xs, (a,))
+    want, carry = [], a
+    for row in xs:
+        carry = step(row, carry)[0]
+        want.append(carry)
+    same = torch.equal(ys, torch.stack(want))
+    emit(phase="graph_capture", garbage_dropped_mid_capture=not hold,
+         identical=same)
+    check(not hold and same, "GraphScan: the replay after a capture with "
+                             "garbage pending differs from the eager steps")
+
+
 def _audio_chain_ms(torch, dev, batches: int = 10, warmup: int = 4):
     """The audio chain of the av path alone, per batch of MAIN_BATCH
     frames of 1602 stereo samples handed over in host memory, as the
@@ -5028,6 +5267,473 @@ def _divx_rates(torch, dev, cli, tmp):
          median_fps=float(np.median(fps)), min_fps=min(fps),
          max_fps=max(fps),
          stages=avi_stages(torch, dev, src, tmp / "stages.avi", job))
+    for f in (src, out, tmp / "stages.avi"):
+        f.unlink()
+
+
+# ---------------------------------------------------------------------- #
+# MPEG-4 export, the divxenc path: dvd.vob -x mpeg -Z 640x480 -J hqdn3d
+# -y xvid,raw,avi at cfg10's encoder settings
+
+_ENC4_WRAPPERS = {k: k for k in MPEG4ENC_KERNELS}
+# off the path: (width, height, frames, content, encoder settings)
+MPEG4ENC_CASES = (
+    (320, 240, 4, "wave", dict(qscale=5)),                       # I, 1MV P
+    (320, 240, 5, "wave", dict(qscale=5, four_mv=True, bframes=1)),
+    (640, 480, 5, "still", dict(qscale=8, four_mv=True, bframes=2)),
+    (200, 136, 6, "wave", dict(qscale=1, four_mv=True, bframes=2)),
+    (200, 136, 6, "still", dict(qscale=31, four_mv=True, bframes=3)),
+    (176, 144, 9, "wave", dict(bitrate_kbps=300, gop=4, bframes=2,
+                               search_range=4)),
+    (16, 16, 4, "wave", dict(qscale=2, bframes=1, four_mv=True)),
+)
+# the decisions' work a macroblock beside their searches, in byte
+# operations: a P macroblock's mean and its deviation from it; a B
+# macroblock's direct and interpolated predictions, an average and a SAD
+# each
+ME_FIXED_MB = 2 * 256
+BME_FIXED_MB = 4 * 256
+# the block coder's float64 FMAs a macroblock: two 8-term chains for each
+# of its 384 coefficients
+BLOCK_FMAS_MB = 384 * 16
+# a record's decision fields (MODE to BCMV), read by the block coder
+REC_HEAD = 32
+
+
+@contextlib.contextmanager
+def counted_searches(D):
+    """While it holds, the plain decisions (module ``D``,
+    ``io/mpeg4encdev.py``) count the byte SADs their searches need:
+    every 8x8 luma block at every integer offset it visits once, however
+    many times the three-step search, the two seeds and the 4MV search
+    come back to it (a 16x16 SAD is four of them), and every sample of
+    each half-pel candidate.  Yields a function that gives the count."""
+    seen, half = set(), [0]
+    search_mv, search_mv4, sads = D.search_mv, D.search_mv4, D.HalfPel.sads
+
+    def blocks(hp, y, x, size, ix, iy):
+        for by in range(y // 8, (y + size) // 8):
+            for bx in range(x // 8, (x + size) // 8):
+                seen.add((id(hp), by, bx, ix, iy))
+
+    def mv(sad16, hp, cur, x0, y0, pred, lim):
+        def sad(ix, iy):
+            blocks(hp, y0, x0, 16, ix, iy)
+            return sad16(ix, iy)
+        return search_mv(sad, hp, cur, x0, y0, pred, lim)
+
+    def mv4(t8, hp, cur_y, x0, y0, mx, my):
+        def sad(k, nx, ny):
+            blocks(hp, y0 + 8 * (k >> 1), x0 + 8 * (k & 1), 8, nx, ny)
+            return t8(k, nx, ny)
+        return search_mv4(sad, hp, cur_y, x0, y0, mx, my)
+
+    def halfpel(hp, cur, y, x, cands):
+        size = cur.shape[0]
+        for mx, my in cands:
+            if (mx | my) & 1:
+                half[0] += size * size
+            else:
+                blocks(hp, y, x, size, mx >> 1, my >> 1)
+        return sads(hp, cur, y, x, cands)
+    D.search_mv, D.search_mv4, D.HalfPel.sads = mv, mv4, halfpel
+    try:
+        yield lambda: 64 * len(seen) + half[0]
+    finally:
+        D.search_mv, D.search_mv4, D.HalfPel.sads = search_mv, search_mv4, \
+            sads
+
+
+def _enc_bytes(args, got, kernel) -> int:
+    """What one encoder kernel call must move, each byte once.  The
+    decisions: the luma planes they search (and the chroma that the 4MV
+    not_coded test codes, of each 4MV macroblock whose 1MV vector is
+    (0, 0)), a B-VOP's co-located vectors and skips, the records out.
+    The block coder: its planes, the decision fields of the records in
+    (none for an I-VOP), the records out and the reconstruction."""
+    from tcforge_tpu_torch.io import mpeg4encdev as D
+    if kernel == "mpeg4_enc_blocks":
+        rec_in, cur, fwd, bwd = args[:4]
+        nmb = cur[0].numel() // 256
+        px = sum(p.numel() for ps in (cur, fwd, bwd) if ps is not None
+                 for p in ps)
+        recon = cur[0].numel() * 3 // 2 if args[-1] else 0
+        return (px + (0 if rec_in is None else 2 * REC_HEAD * nmb)
+                + 2 * D.REC * nmb + recon)
+    nmb = args[0][0].numel() // 256
+    out = 2 * D.REC * nmb
+    if kernel == "mpeg4_enc_bme":
+        return sum(a[0].numel() for a in args[:3]) + 2 * 9 * nmb + out
+    quirk = int(((got[:, D.MODE] == D.MODE_INTER4) & (got[:, D.MX] == 0)
+                 & (got[:, D.MY] == 0)).sum())
+    return args[0][0].numel() + args[1][0].numel() + quirk * 4 * 64 + out
+
+
+def _enc_ops(args, got, kernel, sads) -> float:
+    """What one call's data needs: the decisions' byte operations (four
+    to an operation), their searches' SADs (``counted_searches`` on the
+    call's plain version) and the work of each macroblock that searched
+    (not a co-located skip); the block coder's FDCT FMAs."""
+    from tcforge_tpu_torch.io import mpeg4encdev as D
+    if kernel == "mpeg4_enc_blocks":
+        return BLOCK_FMAS_MB * got[0].shape[0]
+    if kernel == "mpeg4_enc_bme":
+        fixed = BME_FIXED_MB * int((got[:, D.MODE] != D.MODE_COSKIP).sum())
+    else:
+        fixed = ME_FIXED_MB * got.shape[0]
+    return (sads + fixed) / SADS_PER_OP
+
+
+def _check_mpeg4enc_kernels(torch, kernels, cli, bench):
+    """Phase 3 for the MPEG-4 encoder: every call of ``mpeg4_enc_me``,
+    ``mpeg4_enc_bme`` and ``mpeg4_enc_blocks`` while the divxenc path
+    runs through the CLI (its 48 VOPs) held against the plain versions on
+    the same inputs, the decisions' plain versions counting the SADs
+    their searches need; then off the path (``MPEG4ENC_CASES``: I-VOPs,
+    P-VOPs with and without 4MV, B-VOPs with co-located skips, 200x136,
+    one macroblock, q 1 and 31, rate control, search range 4) against
+    the plain versions call by call; then each timed on the path's calls
+    beside its plain version and its bound, the block coder also beside
+    float64 ``torch.matmul`` of its forward DCT (no PyTorch call makes
+    the decisions: library none)."""
+    from tcforge_tpu_torch.io import mpeg4encdev as D
+    from tcforge_tpu_torch.io.mpeg4enc import Mpeg4Encoder
+    dev = bench.dev
+    captured = {k: [] for k in MPEG4ENC_KERNELS}
+    searched = {k: [] for k in MPEG4ENC_KERNELS}
+    saved = {k: getattr(kernels, k) for k in MPEG4ENC_KERNELS}
+    refs = {k: getattr(kernels, k + "_ref") for k in MPEG4ENC_KERNELS}
+
+    def keeping(k):
+        def call(*a):
+            got = saved[k](*a)
+            captured[k].append((a, got))
+            return got
+        return call
+
+    def counting(k):
+        def call(*a):
+            with counted_searches(D) as count:
+                got = refs[k](*a)
+            searched[k].append(count())
+            return got
+        return call
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_enc4_") as tmp:
+        try:
+            for k in MPEG4ENC_KERNELS:
+                setattr(kernels, k, keeping(k))
+                setattr(kernels, k + "_ref", counting(k))
+            with checked_kernels(kernels, bench, "divxenc path",
+                                 _ENC4_WRAPPERS) as counts:
+                rc = cli.main([*divxenc_argv(f"{tmp}/enc.avi"),
+                               "--device", "cuda"])
+                path_counts = dict(counts)
+        finally:
+            for k in MPEG4ENC_KERNELS:
+                setattr(kernels, k, saved[k])
+                setattr(kernels, k + "_ref", refs[k])
+    check(rc == 0, f"divxenc with checked kernels: exit code {rc}")
+    check(path_counts["mpeg4_enc_blocks"] == DIVXENC_FRAMES,
+          f"divxenc: {path_counts} kernel calls for {DIVXENC_FRAMES} VOPs")
+    check(all(len(searched[k]) == len(captured[k]) for k in searched),
+          "divxenc: a kernel call without its plain version's count")
+    emit(phase="kernel_sweep_path", path="divxenc", calls=path_counts)
+    cases = dict.fromkeys(MPEG4ENC_KERNELS, 0)
+    for w, h, n, kind, cfg in MPEG4ENC_CASES:
+        frames = encoder_clip(w, h, n, seed=w + n, kind=kind)
+        with checked_kernels(kernels, bench, f"{w}x{h} {kind} {cfg}",
+                             _ENC4_WRAPPERS) as counts:
+            enc = Mpeg4Encoder(w, h, **cfg)
+            for f in frames:
+                enc.push(*(torch.from_numpy(p).to(dev) for p in f))
+            enc.flush()
+            for k in counts:
+                cases[k] += counts[k]
+    for k in MPEG4ENC_KERNELS:
+        emit(phase="kernel_sweep", kernel=k, path_calls=path_counts[k],
+             off_path=cases[k], max_abs_err=0)
+    vops = DIVXENC_FRAMES / MAIN_BATCH
+    dct = torch.from_numpy(np.kron(D._DCTM, D._DCTM).T.copy()).to(dev)
+    for k in MPEG4ENC_KERNELS:
+        calls = captured[k]
+        inputs = [a for a, _ in calls]
+        while _nbytes(*_flat_tensors(inputs)) < L2_BYTES:
+            inputs = inputs + [a for a, _ in calls]
+        library = None
+        if k == "mpeg4_enc_blocks":
+            library = (lambda b: torch.matmul(b, dct),
+                       [(D._mb_blocks(a[1], a[1][0].shape[1] // 16)
+                         .reshape(-1, 64).to(torch.float64),)
+                        for a in inputs[:16]])
+        bench.record(k, "divxenc 640x480 VOPs", len(calls) / vops,
+                     getattr(kernels, k), getattr(kernels, k + "_ref"),
+                     inputs,
+                     nbytes=sum(_enc_bytes(a, g, k) for a, g in calls)
+                     / len(calls),
+                     ops=sum(_enc_ops(a, g, k, n) for (a, g), n
+                             in zip(calls, searched[k])) / len(calls),
+                     ops_per_s=(F64_FMA_PER_S if k == "mpeg4_enc_blocks"
+                                else INT32_OPS_PER_S),
+                     library=library, reps=10, plain_reps=1)
+        if k != "mpeg4_enc_blocks":
+            emit(phase="mpeg4_enc_searched", kernel=k,
+                 byte_sads_per_mb=sum(searched[k]) / sum(
+                     a[0][0].numel() // 256 for a, _ in calls))
+    # the wavefront's dependent steps: one macroblock each
+    emit(phase="mpeg4_enc_me_wavefront", steps=40 + 2 * (30 - 1),
+         ms=bench.stats["mpeg4_enc_me"]["ms"] / max(1, len(
+             captured["mpeg4_enc_me"]) / vops))
+
+
+def _run_divxenc(torch, cli, kernels, tmp):
+    """Phase 4 for the divxenc path: dvd.vob through the port's CLI to a
+    640x480 XVID AVI with the launch counts set to 0 just before and read
+    just after (every kernel of the path launched; one block coder launch
+    a VOP, one decision launch a P or B VOP), against the same CLI with
+    --device cpu (the plain versions), byte for byte.  Returns the
+    launches and the AVI."""
+    from tcforge_tpu_torch.io.avi import AviReader
+    out = tmp / "divxenc.avi"
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main([*divxenc_argv(out), "--device", "cuda"])
+    torch.cuda.synchronize()
+    e2e_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    check(rc == 0, f"divxenc: CLI exit code {rc}")
+    with AviReader(str(out)) as r:
+        check((r.video.fourcc, r.video.width, r.video.height,
+               r.video_frames) == ("XVID", DIVXENC_W, DIVXENC_H,
+                                   DIVXENC_FRAMES),
+              f"divxenc: {r.video.fourcc} {r.video.width}x{r.video.height}"
+              f" {r.video_frames} frames")
+    emit(phase="path", path="divxenc", frames=DIVXENC_FRAMES,
+         seconds=e2e_s, e2e_fps=DIVXENC_FRAMES / e2e_s,
+         launches={k: launches[k] for k in DIVXENC_KERNELS})
+    for name in DIVXENC_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched by the "
+                                  "divxenc path")
+    check(launches["mpeg4_enc_blocks"] == DIVXENC_FRAMES
+          and launches["mpeg4_enc_me"] + launches["mpeg4_enc_bme"]
+          < DIVXENC_FRAMES,
+          f"divxenc: launches {launches} for {DIVXENC_FRAMES} VOPs")
+    want = out.read_bytes()
+    path = tmp / "divxenc_cpu.avi"
+    t0 = time.perf_counter()
+    rc = cli.main([*divxenc_argv(path), "--device", "cpu"])
+    same = rc == 0 and path.read_bytes() == want
+    emit(phase="path_vs_cpu", path="divxenc", identical=same,
+         sha256=hashlib.sha256(want).hexdigest(),
+         cpu_seconds=time.perf_counter() - t0)
+    check(same, "divxenc: the card's output differs from the CPU's")
+    path.unlink()
+    return launches, out
+
+
+def divxenc_argv(out) -> list:
+    return ["-i", str(MPEG_DATA / "dvd.vob"), *DIVXENC_ARGS, "-o", str(out),
+            "--batch", str(MAIN_BATCH), "--progress_off", "-q"]
+
+
+def _decode_avi(path, dev):
+    imp = _avi_importer(path, dev)
+    out = []
+    while (b := imp.read_video_batch(MAIN_BATCH)) is not None:
+        out += [tuple(b[k][i].cpu().numpy() for k in "yuv")
+                for i in range(len(b["y"]))]
+    imp.close()
+    return out
+
+
+def _xvid_goldens(torch, cli, tmp, divxenc_avi):
+    """Phase 5 for MPEG-4 export: every ``XVID_GOLDEN`` case on the card
+    (divxenc from phase 4's run), its outputs' SHA-256 against the JAX
+    CLI's pinned digests; then the read-back: the divxenc AVI decoded by
+    the port's own MPEG-4 importer on the card equals its decode on the
+    CPU, and 640x480 encodes at cfg10's settings written to AVIs and
+    decoded on the card equal the encoder's reconstruction without 4MV,
+    and with 4MV drift where the JAX encoder's 4MV skip keeps a
+    reconstruction that no decoder makes (a count, reported)."""
+    from tcforge_tpu_torch.io.avi import AviVideoStream, AviWriter
+    from tcforge_tpu_torch.io.mpeg4enc import Mpeg4Encoder
+    dev = torch.device("cuda")
+    for case in XVID_GOLDEN:
+        if case == "divxenc":
+            digests = [sha256_file(divxenc_avi)]
+            rc = 0
+        else:
+            d = tmp / f"xvid_golden_{case}"
+            d.mkdir()
+            rc = cli.main([*xvid_golden_argv(case, d), "--device", "cuda",
+                           "--progress_off", "-q"])
+            digests = [sha256_file(f) if f.exists() else None
+                       for f in xvid_golden_outputs(case, d)]
+        emit(phase="golden", path=f"xvid_{case}", sha256=digests,
+             pinned=list(XVID_GOLDEN_SHA256[case]))
+        check(rc == 0 and digests == list(XVID_GOLDEN_SHA256[case]),
+              f"xvid {case} golden output differs from the JAX-pinned "
+              "digest")
+    card = _decode_avi(divxenc_avi, dev)
+    host = _decode_avi(divxenc_avi, torch.device("cpu"))
+    same = len(card) == DIVXENC_FRAMES and all(
+        all(np.array_equal(a, b) for a, b in zip(x, y))
+        for x, y in zip(card, host))
+    emit(phase="readback", path="divxenc", frames=len(card),
+         card_equals_cpu=same)
+    check(same, "divxenc read-back: the card's decode differs from the "
+                "CPU's")
+    for kind, four_mv in (("wave", False), ("still", False),
+                          ("wave", True), ("still", True)):
+        frames = encoder_clip(DIVXENC_W, DIVXENC_H, READBACK_FRAMES,
+                              seed=21, kind=kind)
+        enc = Mpeg4Encoder(DIVXENC_W, DIVXENC_H, fps=29.97, gop=12,
+                           bframes=2, four_mv=four_mv, bitrate_kbps=1500,
+                           keep_recon_log=True)
+        chunks = []
+        for f in frames:
+            chunks += enc.push(*(torch.from_numpy(p).to(dev) for p in f))
+        chunks += enc.flush()
+        path = tmp / f"readback_{kind}_{int(four_mv)}.avi"
+        w = AviWriter(str(path), AviVideoStream(fourcc="XVID",
+                                                width=DIVXENC_W,
+                                                height=DIVXENC_H, fps=29.97))
+        for c, key in chunks:
+            w.write_video_frame(c, key)
+        w.close()
+        got = _decode_avi(path, dev)
+        drift = [i for i, g in enumerate(got) if not all(
+            np.array_equal(a, b.cpu().numpy())
+            for a, b in zip(g, enc.recon_log[i]))]
+        emit(phase="readback", clip=kind, four_mv=four_mv, frames=len(got),
+             drift_frames=len(drift))
+        check(len(got) == READBACK_FRAMES,
+              f"read-back {kind}: {len(got)} frames")
+        if not four_mv:
+            check(not drift, f"read-back {kind} without 4MV: frames "
+                             f"{drift} differ from the encoder's "
+                             "reconstruction")
+        path.unlink()
+
+
+def divxenc_stages(torch, dev, src, out, batch: int = MAIN_BATCH) -> dict:
+    """The divxenc path's stages serially on the card, each timed alone
+    with the card synchronized after it: the host parse and plan, the
+    decode, the chain (zoom and hqdn3d), the encoder's decisions
+    (``mpeg4_enc_me``, ``mpeg4_enc_bme``) and block coder, the records'
+    copy to the host, the syntax writer and the AVI multiplexor.  Returns
+    ms per batch of each, their sum and the frames/s of the sum and of
+    the slowest stage."""
+    from tcforge_tpu_torch.core.formats import ImageFormat
+    from tcforge_tpu_torch.core.frame import FrameBatch
+    from tcforge_tpu_torch.core.job import FilterSpec, Job
+    from tcforge_tpu_torch.io.avi import AviVideoStream, AviWriter
+    from tcforge_tpu_torch.io.mpeg4enc import Mpeg4Encoder
+    from tcforge_tpu_torch.ops import kernels
+    from tcforge_tpu_torch.pipeline.chain import VideoChain
+    ms = dict.fromkeys(("parse", "decode", "chain", "me", "blocks",
+                        "records", "writer", "mux"), 0.0)
+    saved = {k: getattr(kernels, k) for k in MPEG4ENC_KERNELS}
+
+    def timed(key, fn):
+        def call(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = fn(*a)
+            torch.cuda.synchronize()
+            ms[key] += (time.perf_counter() - t0) * 1e3
+            return got
+        return call
+    job = Job(zoom_width=DIVXENC_W, zoom_height=DIVXENC_H,
+              filters=[FilterSpec("hqdn3d", "luma=4.0")])
+    imp = _mpeg_importer(src, dev)
+    chain = VideoChain(job, ImageFormat.YUV420P, imp.width, imp.height)
+    states = chain.initial_states(dev)
+    enc = Mpeg4Encoder(DIVXENC_W, DIVXENC_H, fps=29.97, gop=12, bframes=2,
+                       four_mv=True, bitrate_kbps=1500)
+    w = AviWriter(str(out), AviVideoStream(fourcc="XVID", width=DIVXENC_W,
+                                           height=DIVXENC_H, fps=29.97))
+    enc._records = timed("records", enc._records)
+    for name in ("_write_ivop", "_write_pvop", "_write_bvop"):
+        setattr(enc, name, timed("writer", getattr(enc, name)))
+    frames = batches = 0
+    for k in MPEG4ENC_KERNELS:
+        setattr(kernels, k, timed("blocks" if k == "mpeg4_enc_blocks"
+                                  else "me", saved[k]))
+    try:
+        torch.cuda.synchronize()
+        while True:
+            t0 = time.perf_counter()
+            plan = imp.plan_batch(batch)
+            t1 = time.perf_counter()
+            if plan is None:
+                break
+            planes = imp.execute(plan)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            n = planes["y"].shape[0]
+            fb = FrameBatch(format=ImageFormat.YUV420P, y=planes["y"],
+                            u=planes["u"], v=planes["v"],
+                            attrs=torch.zeros((n,), dtype=torch.int32,
+                                              device=dev),
+                            frame_ids=torch.arange(frames, frames + n,
+                                                   dtype=torch.int32,
+                                                   device=dev), fps=29.97)
+            result, states = chain(fb, states)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            chunks = []
+            for i in range(n):
+                chunks += enc.push(result.y[i], result.u[i], result.v[i])
+            if frames + n >= 3 * DIVXENC_FRAMES:
+                chunks += enc.flush()
+            t4 = time.perf_counter()
+            for c, key in chunks:
+                w.write_video_frame(c, key)
+            t5 = time.perf_counter()
+            for key, a, b in (("parse", t0, t1), ("decode", t1, t2),
+                              ("chain", t2, t3), ("mux", t4, t5)):
+                ms[key] += (b - a) * 1e3
+            frames += n
+            batches += 1
+    finally:
+        for k, fn in saved.items():
+            setattr(kernels, k, fn)
+        w.close()
+        imp.close()
+    per_batch = {k: v / batches for k, v in ms.items()}
+    total = sum(per_batch.values())
+    return {"frames": frames, "ms_per_batch": per_batch,
+            "sum_ms_per_batch": total,
+            "serial_fps": frames / (total * batches / 1e3),
+            "overlapped_fps": frames / (max(per_batch.values())
+                                        * batches / 1e3)}
+
+
+def _divxenc_rates(torch, dev, cli, tmp):
+    """Phase 6 for the divxenc path, on dvd.vob's stream three times over
+    (144 frames, nine batches): the CLI, wall clock to the last byte,
+    four runs after an untimed one (median and spread), then
+    ``divxenc_stages``."""
+    src = _dvd_long_es(tmp)
+    frames = 3 * DIVXENC_FRAMES
+    out = tmp / "divxenc_long.avi"
+    fps = []
+    for r in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli.main(["-i", str(src), "-o", str(out), *DIVXENC_ARGS,
+                       "--batch", str(MAIN_BATCH), "--device", "cuda",
+                       "--progress_off", "-q"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check(rc == 0, f"divxenc CLI: exit code {rc}")
+        if r:
+            fps.append(frames / seconds)
+    emit(phase="cli", path="divxenc", frames=frames, fps=fps,
+         median_fps=float(np.median(fps)), min_fps=min(fps),
+         max_fps=max(fps),
+         stages=divxenc_stages(torch, dev, src, tmp / "stages.avi"))
     for f in (src, out, tmp / "stages.avi"):
         f.unlink()
 

@@ -30,14 +30,15 @@ title and a directory given to ``-i`` plays its files in turn.  An AVI
 (DivX/Xvid) video and a PCM track; MPEG-4 is parsed on the host and
 reconstructed on the card.  The export stage takes the JAX CLI's ``-y
 venc[,aenc[,mux]]`` (encoders ``raw``, ``null``, ``copy``,
-``yuv4mpeg``, ``mpeg2`` and ``lzo``; multiplexors ``raw``, ``null``,
+``yuv4mpeg``, ``mpeg2``, ``lzo`` and ``xvid``; multiplexors ``raw``, ``null``,
 ``y4m``, ``wav``, ``mpg`` and ``avi``, ``auto`` by the output's
 extension), ``--avi_comments``, ``-F`` (the video encoder's options,
 ``k=v:...``, or the AVI's fourcc), ``-w``,
 ``--video_max_bitrate``, ``--quantizers``, ``--encode_fields`` and
 ``--pulldown``; the MPEG-2 encoder's motion search, prediction and block
 coding run on the card, its syntax writer on the host, and ``mpg`` writes
-a program stream with the audio track as DVD LPCM:
+a program stream with the audio track as DVD LPCM; so do the MPEG-4
+(``xvid``) encoder's decisions and block coding, into an AVI:
 
     python -m tcforge_tpu_torch.cli -i in.y4m -I 5 -Z 1280x720 \\
         -J hqdn3d=luma=4.0 -o out.y4m [--batch 16] [--device cuda]
@@ -72,6 +73,9 @@ a program stream with the audio track as DVD LPCM:
         -F gop_n=12:gop_m=1:qscale=5 -o out.m2v
     python -m tcforge_tpu_torch.cli -i divx.avi -x avi \\
         -J hqdn3d=luma=4.0 -y raw,raw,avi -o out.avi
+    python -m tcforge_tpu_torch.cli -i dvd.vob -x mpeg -Z 640x480 \\
+        -J hqdn3d=luma=4.0 -y xvid,raw,avi \\
+        -F keyint=12:bframes=2:four_mv=1 -w 1500 -o out.avi
 
 and refuses every other flag of the JAX CLI with an error that names
 it, and any audio file but WAV.  ``--device cuda`` (the default) with
@@ -136,8 +140,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-y", "--export_with", dest="ex_modules",
                    default="raw,raw,auto",
                    help="export modules venc[,aenc[,mux]] (video: raw, "
-                        "null, copy, yuv4mpeg, mpeg2; mux: auto, raw, "
-                        "null, y4m, wav, mpg; name=options)")
+                        "null, copy, yuv4mpeg, mpeg2, lzo, xvid; mux: auto, "
+                        "raw, null, y4m, wav, mpg, avi; name=options)")
     p.add_argument("-F", "--export_param", dest="ex_v_fcc", default="",
                    help="video encoder option string (module-specific, "
                         "e.g. gop_n=12:gop_m=3)")

@@ -1,13 +1,14 @@
 """The port's module system.  Importing this package registers the
 built-in filters, the WAV, MPEG, AVI and framegen importers, the WAV,
 Y4M, AVI, raw, null and mpg multiplexors and the raw, null, copy,
-yuv4mpeg, mpeg2 and lzo encoders, as importing ``tcforge_tpu.modules``
+yuv4mpeg, mpeg2, lzo and xvid encoders, as importing ``tcforge_tpu.modules``
 does."""
 
 from tcforge_tpu_torch.modules.encoders import basic as _encoders  # noqa: F401
 from tcforge_tpu_torch.modules.encoders import image_enc  # noqa: F401
 from tcforge_tpu_torch.modules.encoders import lzo_enc  # noqa: F401
 from tcforge_tpu_torch.modules.encoders import mpeg2  # noqa: F401
+from tcforge_tpu_torch.modules.encoders import xvid  # noqa: F401
 from tcforge_tpu_torch.modules.importers import avi_import  # noqa: F401
 from tcforge_tpu_torch.modules.importers import framegen  # noqa: F401
 from tcforge_tpu_torch.modules.importers import dvd_import  # noqa: F401

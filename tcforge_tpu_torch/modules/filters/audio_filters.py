@@ -83,10 +83,16 @@ class NormalizeFilter(AudioFilter):
                    device: torch.device) -> Any:
         """(mul, lastavg, the (avg, len) ring, the ring index): float32
         tensors on ``device`` and a host int."""
-        return (torch.ones((), dtype=torch.float32, device=device),
-                torch.zeros((), dtype=torch.float32, device=device),
-                torch.zeros((NSAMPLES, 2), dtype=torch.float32,
-                            device=device), 0)
+        state = (torch.ones((), dtype=torch.float32, device=device),
+                 torch.zeros((), dtype=torch.float32, device=device),
+                 torch.zeros((NSAMPLES, 2), dtype=torch.float32,
+                             device=device), 0)
+        # on a card the frame's step is captured here, before the
+        # engine's threads start (``GraphScan.prepare``)
+        self._scan.prepare(
+            torch.zeros((2,), dtype=torch.float32, device=device),
+            (*state[:3], torch.zeros((), dtype=torch.int64, device=device)))
+        return state
 
     def __init__(self, job, options: str = ""):
         super().__init__(job, options)

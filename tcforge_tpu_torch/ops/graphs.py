@@ -3,18 +3,27 @@
 A carry run frame after frame (normalize's gain, a ``lax.scan`` in the
 JAX filter) is some forty operations on 0-d tensors a frame; on a card
 the host's time to queue them, not the card's, is its cost.
-``GraphScan`` runs the first step it is given on a card eagerly (which
-also loads the step's kernels), captures the step once on static
-tensors and from then on replays it: per step, one copy in, one replay
-and one copy out, whatever the batch's shape.  The step must be made of
-tensor operations alone (no read-back, no value that depends on the
-tensors' contents on the host), and its inputs and carry keep their
-shapes from step to step.  Capture runs on a stream of its own and
-waits for nothing but its inputs (no device synchronize).
+``GraphScan`` runs one step on a card eagerly (which also loads the
+step's kernels), captures the step once on static tensors and from then
+on replays it: per step, one copy in, one replay and one copy out,
+whatever the batch's shape.  The step must be made of tensor operations
+alone (no read-back, no value that depends on the tensors' contents on
+the host), and its inputs and carry keep their shapes from step to
+step.  Capture runs on a stream of its own and waits for nothing but
+its inputs (no device synchronize).
+
+A capture is broken by what another thread or a finalizer does on the
+card meanwhile: a CUDA graph destroyed during it (the cyclic garbage
+collector frees a finished session's filters, and their graphs, at
+whatever allocation it runs on), another thread's pinned-memory traffic
+or a device synchronize.  So ``prepare`` captures when the session's
+state is made, before the engine starts its threads, and the garbage
+collector stays off for the length of a capture.
 """
 
 from __future__ import annotations
 
+import gc
 from typing import Callable, List, Sequence, Tuple
 
 import torch
@@ -31,6 +40,16 @@ class GraphScan:
         self._x: torch.Tensor = None
         self._carry: List[torch.Tensor] = []
 
+    def prepare(self, x: torch.Tensor, carry: Sequence[torch.Tensor]
+                ) -> None:
+        """Capture now, from a step's input ``x`` and a carry of the
+        shapes the scan will be given (their values do not matter), so
+        that no other thread of a session runs while it does.  Nothing
+        on the CPU, or once captured."""
+        if x.device.type != "cuda" or self._graph is not None:
+            return
+        self._capture(x, list(self.step(x, *carry)))
+
     def __call__(self, xs: torch.Tensor, carry: Sequence[torch.Tensor]
                  ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         carry = list(carry)
@@ -40,19 +59,12 @@ class GraphScan:
                 carry = list(self.step(x, *carry))
                 ys.append(carry[0])
             return torch.stack(ys), carry
+        self.prepare(xs[0], carry)
         ys = torch.empty((len(xs),) + carry[0].shape, dtype=carry[0].dtype,
                          device=xs.device)
-        first = 0
-        if self._graph is None:
-            carry = list(self.step(xs[0], *carry))
-            ys[0].copy_(carry[0])
-            first = 1
-            self._capture(xs[0], carry)
-        if first == len(xs):
-            return ys, carry
         for dst, src in zip(self._carry, carry):
             dst.copy_(src)
-        for k in range(first, len(xs)):
+        for k in range(len(xs)):
             self._x.copy_(xs[k])
             self._graph.replay()
             ys[k].copy_(self._carry[0])
@@ -69,13 +81,19 @@ class GraphScan:
         stream = torch.cuda.Stream(device)
         stream.wait_stream(current)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(stream):
-            graph.capture_begin(capture_error_mode="thread_local")
-            try:
-                new = self.step(self._x, *self._carry)
-                for dst, src in zip(self._carry, new):
-                    dst.copy_(src)
-            finally:
-                graph.capture_end()
+        collecting = gc.isenabled()
+        gc.disable()          # no collection frees a graph mid-capture
+        try:
+            with torch.cuda.stream(stream):
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    new = self.step(self._x, *self._carry)
+                    for dst, src in zip(self._carry, new):
+                        dst.copy_(src)
+                finally:
+                    graph.capture_end()
+        finally:
+            if collecting:
+                gc.enable()
         current.wait_stream(stream)
         self._graph = graph

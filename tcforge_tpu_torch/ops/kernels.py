@@ -66,6 +66,18 @@ wrapper                    CUDA source                 replaces (tcforge_tpu)
 ``mpeg4_idct_intra``       ``csrc/mpeg4_recon.cu``     io/mpeg4jax.py
                                                        ``xvid_idct_jax`` of
                                                        an I-VOP (XLA ops)
+``mpeg4_enc_me``           ``csrc/mpeg4_encode.cu``    io/mpeg4enc.py
+                                                       ``_encode_pvop``'s
+                                                       decisions (numpy
+                                                       loops, no device
+                                                       form)
+``mpeg4_enc_bme``          ``csrc/mpeg4_encode.cu``    io/mpeg4enc.py
+                                                       ``_encode_bvop``'s
+                                                       decisions (numpy)
+``mpeg4_enc_blocks``       ``csrc/mpeg4_encode.cu``    io/mpeg4enc.py
+                                                       ``_code_intra_mb``
+                                                       and the inter block
+                                                       coding (numpy)
 =========================  ==========================  =====================
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
@@ -108,7 +120,10 @@ launches: Dict[str, int] = {"hqdn3d_spatial_scan": 0,
                             "mpeg2_enc_bmode": 0,
                             "mpeg2_enc_blocks": 0,
                             "mpeg4_recon": 0,
-                            "mpeg4_idct_intra": 0}
+                            "mpeg4_idct_intra": 0,
+                            "mpeg4_enc_me": 0,
+                            "mpeg4_enc_bme": 0,
+                            "mpeg4_enc_blocks": 0}
 
 
 def reset_launches() -> None:
@@ -174,6 +189,11 @@ _SIGNATURES = {
     "mpeg4_recon": {
         "tc_mpeg4_recon": (_P, _P),
         "tc_mpeg4_idct_intra": (_P, _P),
+    },
+    "mpeg4_encode": {
+        "tc_mpeg4_enc_me": (_P, _P, _P),
+        "tc_mpeg4_enc_bme": (_P, _P),
+        "tc_mpeg4_enc_blocks": (_P, _P, _P),
     },
     "zoom_pass": {
         "tc_zoom_pass": (_P, _P, _P, _P, _P, _I, _P, _I, _I, _LL, _LL, _LL,
@@ -1394,3 +1414,189 @@ def mpeg4_idct_intra(vop: torch.Tensor, mbw: int):
     _call("mpeg4_recon", "tc_mpeg4_idct_intra", ptr, _stream(vop))
     launches["mpeg4_idct_intra"] += 1
     return out
+
+
+# --------------------------------------------------------------------- #
+# Kernel VI: the MPEG-4 part 2 encoder's decisions and block coding (not
+# TPU kernels: the JAX package's encoder is numpy loops,
+# io/mpeg4enc.py; csrc/mpeg4_encode.cu)
+
+def _enc_planes(planes, what: str, mbh: int = 0, mbw: int = 0):
+    """(y, u, v) uint8 contiguous planes of the coded grid: the luma
+    sides multiples of 16, the chroma half of each."""
+    planes = list(planes) if planes is not None else []
+    if len(planes) != 3:
+        raise ValueError(f"{what}: expected (y, u, v) planes")
+    for p in planes:
+        _check(p, what, (torch.uint8,), 2)
+    h, w = planes[0].shape
+    if h % 16 or w % 16 or h == 0 or w == 0:
+        raise ValueError(f"{what}: {w}x{h} is not a whole number of "
+                         "macroblocks")
+    if mbh and (h, w) != (16 * mbh, 16 * mbw):
+        raise ValueError(f"{what}: {w}x{h}, expected the coded grid "
+                         f"{16 * mbw}x{16 * mbh}")
+    for p in planes[1:]:
+        if tuple(p.shape) != (h // 2, w // 2):
+            raise ValueError(f"{what}: chroma {tuple(p.shape)}, expected "
+                             f"{(h // 2, w // 2)}")
+    return planes, h // 16, w // 16
+
+
+def _enc_records(rec: torch.Tensor, nmb: int, what: str = "rec") -> None:
+    from tcforge_tpu_torch.io.mpeg4encdev import REC
+    _check(rec, what, (torch.int16,), 2)
+    if tuple(rec.shape) != (nmb, REC):
+        raise ValueError(f"{what}: shape {tuple(rec.shape)}, expected "
+                         f"{(nmb, REC)}")
+
+
+def _check_search(q: int, search: int) -> None:
+    from tcforge_tpu_torch.io.mpeg4encdev import MAX_SEARCH
+    if not 1 <= int(q) <= 31:
+        raise ValueError(f"q {q}: 1..31")
+    if not 1 <= int(search) <= MAX_SEARCH:
+        raise ValueError(f"search {search}: 1..{MAX_SEARCH}")
+
+
+def _plane_ptrs(planes) -> list:
+    return [p.data_ptr() for p in planes]
+
+
+def mpeg4_enc_me_ref(cur, ref, q: int, four_mv: bool, search: int):
+    """Plain version of ``mpeg4_enc_me`` (io/mpeg4encdev.py)."""
+    from tcforge_tpu_torch.io import mpeg4encdev
+    return mpeg4encdev.mpeg4_enc_me_ref(cur, ref, q, four_mv, search)
+
+
+def mpeg4_enc_me(cur, ref, q: int, four_mv: bool, search: int):
+    """A P-VOP's decisions (``_encode_pvop``'s) from the coded-grid
+    planes of the frame ``cur`` and of the previous anchor's
+    reconstruction ``ref``: per macroblock in raster order the median
+    predictor, the three-step search from its seed and (0, 0) within
+    +-``search``, the half-pel refine, intra where the mean-removed SAD
+    is below the SAD less 500, with ``four_mv`` the per-block search and
+    4MV where it saves more than 300, and the 4MV skip's grid at quantizer
+    ``q``.  Returns int16 (nmb, ``REC``) records (io/mpeg4encdev.py)
+    with the mode and vectors set; the block coder fills the rest."""
+    cur, mbh, mbw = _enc_planes(cur, "cur")
+    ref, _, _ = _enc_planes(ref, "ref", mbh, mbw)
+    _check_search(q, search)
+    if not _on_cuda(*cur, *ref):
+        return mpeg4_enc_me_ref(cur, ref, q, four_mv, search)
+    from tcforge_tpu_torch.io.mpeg4encdev import REC
+    dev = cur[0].device
+    rec = torch.empty((mbh * mbw, REC), dtype=torch.int16, device=dev)
+    # the median predictor's grid and each row's progress (the wavefront)
+    grid = torch.empty((2 * mbh, 2 * mbw, 2), dtype=torch.int32, device=dev)
+    sync = torch.zeros((mbh + 1,), dtype=torch.int32, device=dev)
+    meta = [rec.data_ptr(), *_plane_ptrs(cur), *_plane_ptrs(ref), mbw, mbh,
+            int(q), int(bool(four_mv)), int(search), grid.data_ptr(),
+            sync.data_ptr()]
+    ptr, _keep = _meta(meta)
+    _call("mpeg4_encode", "tc_mpeg4_enc_me", ptr,
+          ctypes.cast(_mpeg4_basis(), _P), _stream(rec))
+    launches["mpeg4_enc_me"] += 1
+    return rec
+
+
+def mpeg4_enc_bme_ref(cur, fwd, bwd, co, trb: int, trd: int, search: int):
+    """Plain version of ``mpeg4_enc_bme`` (io/mpeg4encdev.py)."""
+    from tcforge_tpu_torch.io import mpeg4encdev
+    return mpeg4encdev.mpeg4_enc_bme_ref(cur, fwd, bwd, co, trb, trd, search)
+
+
+def mpeg4_enc_bme(cur, fwd, bwd, co: torch.Tensor, trb: int, trd: int,
+                  search: int):
+    """A B-VOP's decisions (``_encode_bvop``'s) from the frame ``cur``,
+    the older anchor ``fwd`` and the newer ``bwd`` (coded-grid planes)
+    and the newer anchor's records ``co``: per macroblock the direct
+    prediction (the co-located vectors scaled by ``trb`` / ``trd``, 0
+    where it was skipped), no bits where the co-located macroblock was
+    skipped, else the forward and backward searches from the row's
+    predictors and the cheapest of direct, forward, backward and
+    interpolated, ties to the first of (direct, interpolated, backward,
+    forward).  Returns int16 (nmb, ``REC``) records with the mode and
+    vectors set."""
+    cur, mbh, mbw = _enc_planes(cur, "cur")
+    fwd, _, _ = _enc_planes(fwd, "fwd", mbh, mbw)
+    bwd, _, _ = _enc_planes(bwd, "bwd", mbh, mbw)
+    _enc_records(co, mbh * mbw, "co")
+    _check_search(1, search)
+    if not 0 < int(trb) < int(trd):
+        raise ValueError(f"trb {trb}, trd {trd}: 0 < trb < trd")
+    if not _on_cuda(*cur, *fwd, *bwd, co):
+        return mpeg4_enc_bme_ref(cur, fwd, bwd, co, trb, trd, search)
+    from tcforge_tpu_torch.io.mpeg4encdev import REC
+    rec = torch.empty((mbh * mbw, REC), dtype=torch.int16,
+                      device=cur[0].device)
+    meta = [rec.data_ptr(), *_plane_ptrs(cur), *_plane_ptrs(fwd),
+            *_plane_ptrs(bwd), co.data_ptr(), mbw, mbh, int(trb), int(trd),
+            int(search)]
+    ptr, _keep = _meta(meta)
+    _call("mpeg4_encode", "tc_mpeg4_enc_bme", ptr, _stream(rec))
+    launches["mpeg4_enc_bme"] += 1
+    return rec
+
+
+@lru_cache(maxsize=None)
+def _mpeg4_basis():
+    """The forward DCT's float64 basis (the JAX encoder's ``_DCTM``)."""
+    from tcforge_tpu_torch.io.mpeg4syntax import _DCTM
+    return (ctypes.c_double * 64)(*_DCTM.reshape(-1).tolist())
+
+
+def mpeg4_enc_blocks_ref(rec, cur, fwd, bwd, q: int, vop_type: int,
+                         recon: bool):
+    """Plain version of ``mpeg4_enc_blocks`` (io/mpeg4encdev.py)."""
+    from tcforge_tpu_torch.io import mpeg4encdev
+    return mpeg4encdev.mpeg4_enc_blocks_ref(rec, cur, fwd, bwd, q, vop_type,
+                                            recon)
+
+
+def mpeg4_enc_blocks(rec, cur, fwd, bwd, q: int, vop_type: int,
+                     recon: bool):
+    """The block coder of a VOP, every macroblock at once: an I-VOP
+    (``vop_type`` 0, ``rec`` None) codes every macroblock intra; a P (1)
+    or B (2) VOP takes the modes and vectors of its decisions' records
+    ``rec``.  Per macroblock the prediction from ``fwd`` and ``bwd``
+    (half-pel, rounding 0, the records' per-block and chroma vectors),
+    per block the float64 forward DCT of the source or the residual (two
+    fused multiply-add chains, as numpy's), the H.263 quantizer at ``q``
+    (intra: the DC ``floor(F00 / scale + 0.5)``, the AC truncated), the
+    dequantizer, the XVID integer IDCT and the clipped reconstruction.
+    Returns (new records: the decisions with the levels, the coded block
+    pattern and the skip flag; the reconstructed (y, u, v) planes, or
+    None without ``recon``)."""
+    from tcforge_tpu_torch.io.mpeg4encdev import REC, VOP_B, VOP_I, VOP_P
+    cur, mbh, mbw = _enc_planes(cur, "cur")
+    if vop_type not in (VOP_I, VOP_P, VOP_B):
+        raise ValueError(f"vop_type {vop_type}")
+    _check_search(q, 1)
+    tensors = list(cur)
+    if vop_type != VOP_I:
+        _enc_records(rec, mbh * mbw)
+        fwd, _, _ = _enc_planes(fwd, "fwd", mbh, mbw)
+        tensors += [rec, *fwd]
+    elif rec is not None:
+        raise ValueError("an I-VOP takes no records")
+    if vop_type == VOP_B:
+        bwd, _, _ = _enc_planes(bwd, "bwd", mbh, mbw)
+        tensors += bwd
+    if not _on_cuda(*tensors):
+        return mpeg4_enc_blocks_ref(rec, cur, fwd, bwd, q, vop_type, recon)
+    dev = cur[0].device
+    out = torch.empty((mbh * mbw, REC), dtype=torch.int16, device=dev)
+    planes = (tuple(torch.empty(p.shape, dtype=torch.uint8, device=dev)
+                    for p in cur) if recon else None)
+    meta = [rec.data_ptr() if rec is not None else 0, out.data_ptr(),
+            *_plane_ptrs(cur),
+            *(_plane_ptrs(fwd) if vop_type != VOP_I else [0, 0, 0]),
+            *(_plane_ptrs(bwd) if vop_type == VOP_B else [0, 0, 0]),
+            *(_plane_ptrs(planes) if recon else [0, 0, 0]), mbw, mbh,
+            int(q), int(vop_type)]
+    ptr, _keep = _meta(meta)
+    _call("mpeg4_encode", "tc_mpeg4_enc_blocks", ptr,
+          ctypes.cast(_mpeg4_basis(), _P), _stream(out))
+    launches["mpeg4_enc_blocks"] += 1
+    return out, planes

@@ -65,8 +65,8 @@ The export stage beyond the Y4M writer (``-y venc[,aenc[,mux]]``, the
 JAX engine's): the frames to write (-c, --frame_interval, the skipped
 and broken ones out) go to the video encoder on the main thread, after
 the batch's chain, as the JAX engine selects before it encodes; the
-MPEG-2 encoder takes them on the device and waits for it once a picture
-(``io/mpeg2enc.py``).  Its payloads, and the audio encoder's, go to the
+MPEG-2 and MPEG-4 encoders take them on the device and wait for it once a
+picture, for its records (``io/mpeg2enc.py``, ``io/mpeg4enc.py``).  Its payloads, and the audio encoder's, go to the
 writer thread's multiplexor, which opens at the first batch that gives
 payloads (or at the end of the stream) and holds the audio given before;
 at the end of the stream the encoder's tail (its delayed pictures and

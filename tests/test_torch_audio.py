@@ -21,6 +21,7 @@ JAX filters are built once per option set and jitted once per shape
 from __future__ import annotations
 
 import functools
+import gc
 
 import jax
 import jax.numpy as jnp
@@ -41,6 +42,7 @@ from tcforge_tpu_torch.core.job import FilterSpec, Job
 from tcforge_tpu_torch.io.wav import WavInfo, WavReader, WavWriter
 from tcforge_tpu_torch.modules import registry
 from tcforge_tpu_torch.ops import audio
+from tcforge_tpu_torch.ops.graphs import GraphScan
 from tcforge_tpu_torch.ops.fp32 import tree_sum
 from tcforge_tpu_torch.pipeline import synchronizer
 from tcforge_tpu_torch.pipeline.chain import AudioChain
@@ -293,9 +295,9 @@ def test_normalize_on_silence_and_loud_input(level):
 @pytest.mark.cuda
 @pytest.mark.parametrize("options", ["", "algo=2", "smoothlast=0.5"])
 def test_normalize_graph_replay_matches_the_cpu_on_cuda(options):
-    """On a card normalize replays its frame step as a CUDA graph after
-    the first frame: batches of two shapes in turn, each output and the
-    carry equal to the CPU's."""
+    """On a card normalize replays its frame step as a CUDA graph,
+    captured when its state is made: batches of two shapes in turn, each
+    output and the carry equal to the CPU's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dev = torch.device("cuda")
@@ -315,6 +317,69 @@ def test_normalize_graph_replay_matches_the_cpu_on_cuda(options):
     for g, w in zip(interop.states_to_numpy(st["cuda"]),
                     interop.states_to_numpy(st["cpu"])):
         np.testing.assert_array_equal(g, w)
+
+
+def _scan_step(x, a):
+    return (a * 0.5 + x.sum(),)
+
+
+def _eager_scan(xs, a):
+    out = []
+    for row in xs:
+        a = _scan_step(row, a)[0]
+        out.append(a)
+    return torch.stack(out)
+
+
+def test_graph_scan_prepare_on_the_cpu_captures_nothing():
+    """``GraphScan.prepare`` is a no-op for CPU tensors: the scan keeps no
+    graph and runs its steps eagerly."""
+    scan = GraphScan(_scan_step)
+    a = torch.ones((), dtype=torch.float32)
+    scan.prepare(torch.zeros((2,), dtype=torch.float32), (a,))
+    assert scan._graph is None
+    xs = torch.arange(12, dtype=torch.float32).reshape(6, 2)
+    ys, carry = scan(xs, (a,))
+    assert torch.equal(ys, _eager_scan(xs, a))
+    assert torch.equal(carry[0], ys[-1])
+
+
+@pytest.mark.cuda
+def test_graph_capture_survives_pending_garbage_on_cuda():
+    """A CUDA graph freed while another is captured ends that capture;
+    the garbage collector frees a finished session's graph wherever it
+    runs.  A step lets go of the last hold on a captured scan in the
+    middle of its own capture, with a collection due at almost every
+    allocation: the capture must hold and the replay equal the eager
+    steps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    x = torch.zeros((2,), dtype=torch.float32, device=dev)
+    a = torch.ones((), dtype=torch.float32, device=dev)
+    old = GraphScan(_scan_step)
+    old.prepare(x, (a,))
+    hold = [old]
+    del old
+
+    def capturing(x, a):
+        if hold and torch.cuda.is_current_stream_capturing():
+            garbage = [hold.pop()]
+            garbage.append(garbage)
+            del garbage
+            [[] for _ in range(64)]
+        return _scan_step(x, a)
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        scan = GraphScan(capturing)
+        scan.prepare(x, (a,))
+    finally:
+        gc.set_threshold(*thresholds)
+    assert not hold
+    xs = torch.arange(12, dtype=torch.float32, device=dev).reshape(6, 2)
+    ys, _ = scan(xs, (a,))
+    assert torch.equal(ys, _eager_scan(xs, a))
 
 
 def test_detectsilence_reports_across_a_batch_boundary(caplog):

@@ -66,14 +66,24 @@ NATIVE_COPIES = {"csrc/mpeg2intra.cpp": "native/mpeg2intra.cpp",
 # native decode loop), and its numpy field helpers; the jax-free parts of
 # io/mpeg2enc.py (numpy, the macroblock modes, the alternate scan, the
 # D-picture math, TM5 rate control); io/mpeg4dec.py without its unused
-# import of io/dvdec.py (line 56)
+# import of io/dvdec.py (line 56); the MPEG-4 encoder's syntax writer
+# (the bit writer, VLC tables and block, vector and DC coding, the FDCT
+# basis and quantizers, the stream and VOP headers, the intra
+# macroblock's writer, the B mb_type codes and the vector wrap);
+# split_extra_options of the encoder cfg tier
 RANGE_COPIES = {"io/mpeg4dec.py": ("io/mpeg4dec.py",
                                    ((1, 55), (57, 2791))),
                 "io/mpeg2host.py": ("io/mpeg2codec.py",
                                     ((1, 946), (983, 1069), (1880, 2031))),
                 "io/mpeg2rc.py": ("io/mpeg2enc.py",
                                   ((31, 31), (37, 40), (43, 49),
-                                   (1192, 1316)))}
+                                   (1192, 1316))),
+                "io/mpeg4syntax.py": ("io/mpeg4enc.py",
+                                      ((1, 205), (211, 216), (278, 347),
+                                       (390, 406), (783, 786), (838, 844))),
+                "modules/encoders/encoder_cfg.py": (
+                    "modules/encoders/encoder_cfg.py",
+                    ((18, 21), (24, 24), (40, 57)))}
 
 
 def _rewrite(src: str) -> str:

@@ -231,7 +231,7 @@ def test_the_multiplexor_follows_the_extension_as_in_jax(ext):
 
 
 @pytest.mark.parametrize("name", ["raw", "null", "copy", "yuv4mpeg",
-                                  "mpeg2"])
+                                  "mpeg2", "xvid"])
 def test_encoders_match_the_jax_registry(name):
     ours = registry.lookup(registry.ModuleKind.ENCODER, name)
     ref = jregistry.lookup(jregistry.ModuleKind.ENCODER, name)
@@ -242,7 +242,7 @@ def test_encoders_match_the_jax_registry(name):
 
 @pytest.mark.parametrize("argv,message", [
     (["-o", "{tmp}/o.ogg", "-y", "mpeg2"], "ogg multiplexor"),
-    (["-o", "{tmp}/o.m2v", "-y", "xvid"], "xvid"),
+    (["-o", "{tmp}/o.m2v", "-y", "x264"], "x264"),
     (["-o", "{tmp}/o.m2v", "-y", "mpeg2", "-F", "gop_n=6:gop_m=3", "-V",
       "yuv422p"], "4:2:2"),
     (["-o", "{tmp}/o.m2v", "-R", "1"], "-R 1"),
