@@ -83,7 +83,16 @@ Lanczos3 zoom, ``-J hqdn3d=luma=4.0`` (which runs after the zoom, at
   a 640x480 XVID AVI: the DVD path's decode kernels, the zoom and
   hqdn3d's scans, then the MPEG-4 encoder's (``mpeg4_enc_me`` a P-VOP,
   ``mpeg4_enc_bme`` a B-VOP, ``mpeg4_enc_blocks`` every VOP), each VOP's
-  bits written on the host from its records under TM5 rate control.
+  bits written on the host from its records under TM5 rate control;
+- the quarter-sample and interlaced DivX paths (``ASP_PATHS``):
+  divx_qpel, ``tests/data/mpeg4/divx_qpel.avi`` (640x480 at 25 fps,
+  cfg10's settings with quarter-sample: Xvid's Advanced Simple Profile)
+  through divx's arguments, each P or B VOP one ``mpeg4_recon_qpel``
+  launch; divx_il, ``tests/data/mpeg4/divx_il.avi`` (an NTSC capture kept
+  interlaced, 720x480 at 29.97 fps, field DCT and field motion) through
+  ``-x avi -I 5 -J hqdn3d=luma=4.0 -y raw,raw,avi``, each P or B VOP one
+  ``mpeg4_recon_field`` launch and each I-VOP an ``mpeg4_idct_intra``
+  with field DCT; the host parse is the port's ``io/mpeg4plan.py``.
 
 Phases, each of which raises on failure:
 
@@ -131,7 +140,13 @@ Phases, each of which raises on failure:
    (``MPEG4ENC_CASES``: I, P with and without 4MV, B with co-located
    skips, 200x136, one macroblock, q 1 and 31, rate control), timed
    on the path's calls, their operation bounds from the SADs that the
-   plain decisions' searches visit; with ``--parent DIR``, the unsharp,
+   plain decisions' searches visit; the quarter-sample and interlaced
+   reconstruction on every call while six streams decode
+   (``ASP_STREAMS``) and on random records (every quarter phase at
+   filter blocks of 16 and 8, rounding 0 and 1, field macroblocks on the
+   top and bottom rows, field DCT), timed on divx_qpel's and divx_il's
+   VOPs (``mpeg4_recon_qpel`` beside float32 ``F.conv2d`` of its
+   filter); with ``--parent DIR``, the unsharp,
    TomsMoComp and temporal kernels of the checkout in DIR are built
    too, called through DIR's own wrappers and timed in turns with this
    tree's on the same inputs;
@@ -158,7 +173,10 @@ Phases, each of which raises on failure:
    track), divx (one reconstruction launch a VOP; its AVI against the
    CPU run's, byte for byte, and its chunks at ``--batch 3``), divxenc
    (one block coder launch a VOP, one decision launch a P or B VOP; its
-   AVI against the CPU run's, byte for byte), and the engine at every
+   AVI against the CPU run's, byte for byte), divx_qpel and divx_il (one
+   reconstruction launch a VOP; each AVI against the CPU run's and in
+   chunks at ``--batch 3``) and quarter-sample field prediction refused
+   (``qpel_il.avi``, exit 1), and the engine at every
    ``--prefetch`` 1, 2, 4 and ``--batch`` 1, 3, 16;
 5. the small cases whose SHA-256 ``tests/test_torch_cli.py`` pins
    against the JAX CLI, run on the card: same digests; and the MPEG
@@ -174,7 +192,9 @@ Phases, each of which raises on failure:
    divx at full width, the small MPEG-4 streams with PCM, a batch
    boundary inside a B run, drop-frame and packed chunks, the in-tree
    encoder's stream at ``--batch 1``, divxkey, ``-c``, YUY2 and LZO2,
-   the lzo encoder after ``-L``, DivX to PAL DVD), and the MPEG-4 export
+   the lzo encoder after ``-L``, DivX to PAL DVD, and ``ASP_GOLDEN``:
+   divx_qpel and divx_il at full width, the small quarter-sample and
+   interlaced streams with and without ``-I 5``), and the MPEG-4 export
    goldens (``XVID_GOLDEN``: divxenc at full width, the divx.avi
    re-encode with its PCM track, small DVD, DivX and Y4M cases at
    constant q, under ``-w`` and rate control, a raw ``.m4v``), with the
@@ -217,7 +237,9 @@ Phases, each of which raises on failure:
    dvd.vob's stream three times over (144 frames), four runs after an
    untimed one, and its serial stages (``divxenc_stages``: parse, decode,
    chain, the decisions, the block coder, the records' copy, the syntax
-   writer, the multiplexor).
+   writer, the multiplexor); divx_qpel and divx_il on their fixtures
+   twice over (24 frames), three CLI runs after an untimed one and
+   ``avi_stages``.
 
 It prints one JSON object per result (``t``: seconds since it started),
 then the kernels' summary and, as
@@ -830,6 +852,26 @@ DIVX_ARGS = ["-x", "avi", "-J", "hqdn3d=luma=4.0", "-y", "raw,raw,avi"]
 DIVX_W, DIVX_H, DIVX_FRAMES = 640, 480, 24
 AVI_KERNELS = ("mpeg4_recon", "mpeg4_idct_intra", "hqdn3d_spatial_scan",
                "hqdn3d_temporal_scan")
+# the Xvid-ASP path, divx_qpel: tests/data/mpeg4/divx_qpel.avi, cfg10's
+# geometry and settings (640x480 at 25 fps, GOP 12, two B-VOPs, 4MV)
+# with quarter-sample, about 1 Mbit/s, 12 frames; each P or B VOP one
+# mpeg4_recon_qpel launch, through the divx path's arguments
+QPEL_KERNELS = ("mpeg4_recon_qpel", "mpeg4_idct_intra",
+                "hqdn3d_spatial_scan", "hqdn3d_temporal_scan")
+# the interlaced-capture path, divx_il: tests/data/mpeg4/divx_il.avi, an
+# NTSC capture kept interlaced (720x480 at 29.97 fps, 12 field-sampled
+# frames, field DCT and field motion, GOP 12, two B-VOPs, about 1
+# Mbit/s), deinterlaced by -I 5; each P or B VOP one mpeg4_recon_field
+# launch, each I-VOP an mpeg4_idct_intra with field DCT
+DIVX_IL_ARGS = ["-x", "avi", "-I", "5", "-J", "hqdn3d=luma=4.0", "-y",
+                "raw,raw,avi"]
+FIELD_KERNELS = ("mpeg4_recon_field", "mpeg4_idct_intra",
+                 "hqdn3d_spatial_scan", "hqdn3d_temporal_scan")
+# the two paths: (fixture, arguments, frames, kernels, width, height)
+ASP_PATHS = {"divx_qpel": ("divx_qpel.avi", DIVX_ARGS, 12, QPEL_KERNELS, 640,
+                           480),
+             "divx_il": ("divx_il.avi", DIVX_IL_ARGS, 12, FIELD_KERNELS,
+                         720, 480)}
 # the AVI goldens: the port's CLI on a fixture with the arguments ("{dir}"
 # the output directory), its outputs' SHA-256 pinned against the JAX CLI
 # (TCFORGE_NATIVE_MPEG4=1, the numpy decode; --mesh off) by
@@ -855,6 +897,19 @@ AVI_GOLDEN = {
     "pal_dvd": ("divx.avi", ["-Z", "720x576", "-y", "mpeg2,raw,mpg",
                              "--max_frames", "6", "--batch", "3"],
                 ("out.mpg",)),
+    "divx_qpel": ("divx_qpel.avi", DIVX_ARGS + ["--batch", "16"],
+                  ("out.avi",)),
+    "divx_il": ("divx_il.avi", DIVX_IL_ARGS + ["--batch", "16"],
+                ("out.avi",)),
+    # the small ones; a batch of 2 or 5 ends inside a B run
+    "qpel_small": ("qpel_small.avi", ["-y", "raw,raw,avi", "--batch", "2"],
+                   ("out.avi",)),
+    "qpel_small_i5": ("qpel_small.avi", ["-I", "5", "--batch", "4"],
+                      ("out.y4m",)),
+    "il_small": ("il_small.avi", ["-y", "raw,raw,avi", "--batch", "5"],
+                 ("out.avi",)),
+    "il_small_i5": ("il_small.avi", ["-I", "5", "-y", "raw,raw,avi",
+                                     "--batch", "2"], ("out.avi",)),
 }
 AVI_GOLDEN_SHA256 = {
     "divx": (
@@ -882,7 +937,23 @@ AVI_GOLDEN_SHA256 = {
         "96fb2b9e86e8416696def2352c95c8d574a2d15dc9b621343f634ae5a9027d40",),
     "pal_dvd": (
         "71e46118ec59739df0bfe5f74043366382b63c85d10e349a8277028b2304674a",),
+    "divx_qpel": (
+        "306ed96e95ef64bdacb82780adb49d63ef88cb2b0ee4dcb26cf7599f506f5d39",),
+    "divx_il": (
+        "38f2ced0c53272c2b4c8c433932e858b9027b845b8354085ad4b334a770fafc3",),
+    "qpel_small": (
+        "dfa485658d7d1f39222ea7b490a11344bb5867a4ba069cb4f1aecb1f2f942ac3",),
+    "qpel_small_i5": (
+        "18bec79022873d82fa921eb4c1913b33d73a15e21392bc32b2c536bc5905458d",),
+    "il_small": (
+        "a8893a2a6bb4514f0a4c0f7c69e592de0b8c6739fd8253a28a58760c01350336",),
+    "il_small_i5": (
+        "3f4e9f15e09e4ecceb9920aa1d8a29ab5b08437005db57fa12ca33ebd949d010",),
 }
+# the AVI goldens of the quarter-sample and interlaced fixtures, which
+# tests/test_torch_mpeg4_asp.py runs through both CLIs
+ASP_GOLDEN = ("divx_qpel", "divx_il", "qpel_small", "qpel_small_i5",
+              "il_small", "il_small_i5")
 
 
 def encoder_clip(width: int, height: int, frames: int, seed: int,
@@ -1220,6 +1291,13 @@ KERNELS = {
                     "tcforge_tpu/io/mpeg4jax.py:140"),
     "mpeg4_idct_intra": ("tcforge_tpu_torch/csrc/mpeg4_recon.cu",
                          "tcforge_tpu/io/mpeg4jax.py:52"),
+    # not TPU kernels: the numpy decoder's quarter-sample MC
+    # (_mc_block_qpel) and field MC (_field_pred_mb), which the JAX device
+    # form refuses
+    "mpeg4_recon_qpel": ("tcforge_tpu_torch/csrc/mpeg4_recon.cu",
+                         "tcforge_tpu/io/mpeg4dec.py:2074"),
+    "mpeg4_recon_field": ("tcforge_tpu_torch/csrc/mpeg4_recon.cu",
+                          "tcforge_tpu/io/mpeg4dec.py:2007"),
     # not TPU kernels: the numpy loops of the JAX package's MPEG-4
     # encoder (_encode_pvop's and _encode_bvop's decisions, the block
     # coding of _code_intra_mb and the inter macroblocks)
@@ -1241,8 +1319,9 @@ WRAPPERS = ("spatial_scan", "temporal_scan", "zoom_pass", "unsharp_plane",
             "d3_temporal_scan", "yuvdenoise_chroma", "stabilize_field_search",
             "transform_warp", "mpeg2_recon", "mpeg2_idct_intra", "mpeg2_me",
             "mpeg2_enc_pred", "mpeg2_enc_bmode", "mpeg2_enc_blocks",
-            "mpeg4_recon", "mpeg4_idct_intra", "mpeg4_enc_me",
-            "mpeg4_enc_bme", "mpeg4_enc_blocks")
+            "mpeg4_recon", "mpeg4_idct_intra", "mpeg4_recon_qpel",
+            "mpeg4_recon_field", "mpeg4_enc_me", "mpeg4_enc_bme",
+            "mpeg4_enc_blocks")
 
 
 def write_test_y4m(path, width: int, height: int, frames: int,
@@ -1603,6 +1682,8 @@ def main(argv=()) -> int:
     torch.cuda.empty_cache()
     _check_mpeg4_kernels(torch, kernels, bench)
     torch.cuda.empty_cache()
+    _check_asp_kernels(torch, kernels, bench)
+    torch.cuda.empty_cache()
     _check_mpeg4enc_kernels(torch, kernels, cli, bench)
     torch.cuda.empty_cache()
     _check_ragged(torch, kernels, zoom, hq, bench)
@@ -1783,6 +1864,11 @@ def main(argv=()) -> int:
         # 4. and 5. for the DivX path: divx.avi through -x avi, one
         # reconstruction launch a VOP, and the AVI goldens
         path_launches["divx"] = _run_divx(torch, cli, kernels, tmp)
+        # 4. for the quarter-sample and interlaced paths, and the refusal
+        # of quarter-sample field prediction
+        for name in ASP_PATHS:
+            path_launches[name] = _run_asp(torch, cli, kernels, tmp, name)
+        _asp_refusal(cli, tmp)
         _avi_goldens(cli, tmp)
         # 4. and 5. for MPEG-4 export: the divxenc path at full width
         # against its CPU run, the export goldens pinned against the JAX
@@ -1878,6 +1964,12 @@ def main(argv=()) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_divx_") as tmp:
         _divx_rates(torch, dev, cli, Path(tmp))
     torch.cuda.empty_cache()
+    # 6. the quarter-sample and interlaced paths: each CLI on 24 frames
+    # and its serial stages
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_asp_") as tmp:
+        for name in ASP_PATHS:
+            _asp_rates(torch, dev, cli, Path(tmp), name)
+    torch.cuda.empty_cache()
     # 6. the divxenc path: its CLI on 144 frames and its serial stages
     with tempfile.TemporaryDirectory(prefix="chip_smoke_divxenc_") as tmp:
         _divxenc_rates(torch, dev, cli, Path(tmp))
@@ -1891,6 +1983,10 @@ def main(argv=()) -> int:
             launches[name] = path_launches["dvdauthor"][name]
         elif name in ("mpeg4_recon", "mpeg4_idct_intra"):
             launches[name] = path_launches["divx"][name]
+        elif name == "mpeg4_recon_qpel":
+            launches[name] = path_launches["divx_qpel"][name]
+        elif name == "mpeg4_recon_field":
+            launches[name] = path_launches["divx_il"][name]
         elif name in MPEG4ENC_KERNELS:
             launches[name] = path_launches["divxenc"][name]
         elif name not in MAIN_KERNELS:
@@ -1905,6 +2001,9 @@ def main(argv=()) -> int:
         k: path_launches["dvdauthor"][k] for k in AUTHOR_KERNELS})
     emit(phase="launches", path="divx", launches={
         k: path_launches["divx"][k] for k in AVI_KERNELS})
+    for name, spec in ASP_PATHS.items():
+        emit(phase="launches", path=name, launches={
+            k: path_launches[name][k] for k in spec[3]})
     emit(phase="launches", path="divxenc", launches={
         k: path_launches["divxenc"][k] for k in DIVXENC_KERNELS})
     if bench.parent:
@@ -2331,7 +2430,7 @@ class KernelBench:
         return err
 
     def record(self, kernel, case, per_batch, fn, ref, inputs, nbytes, ops,
-               library=None, reps=20, plain_reps=1,
+               library=None, reps=20, plain_reps=1, library_reps=5,
                ops_per_s=INT32_OPS_PER_S):
         """Check ``fn`` against ``ref`` on the first input and time both,
         and ``library`` (a call and its own inputs) where one PyTorch call
@@ -2343,7 +2442,7 @@ class KernelBench:
         err = self.check(kernel, case, fn(*inputs[0]), ref(*inputs[0]))
         ms = self.time(fn, inputs, reps)
         plain_ms = self.time(ref, inputs, plain_reps)
-        lib_ms = self.time(*library, 5) if library else None
+        lib_ms = self.time(*library, library_reps) if library else None
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / ops_per_s * 1e3
         emit(phase="kernel", kernel=kernel, case=case, max_abs_err=err,
@@ -4898,8 +4997,8 @@ def avi_plans(path):
     importer parses them: drop-frame chunks are all-skip P plans once a
     VOP was seen, a packed chunk's placeholder is skipped)."""
     from tcforge_tpu_torch.io.avi import AviReader
-    from tcforge_tpu_torch.io.mpeg4dec import Mpeg4Decoder
-    dec, plans, debt = Mpeg4Decoder(), [], 0
+    from tcforge_tpu_torch.io.mpeg4plan import Mpeg4PlanDecoder
+    dec, plans, debt = Mpeg4PlanDecoder(), [], 0
     with AviReader(str(path)) as r:
         for i in range(r.video_frames):
             raw = r.read_video_frame(i)[0]
@@ -4943,6 +5042,17 @@ def _vop_ops(args) -> int:
     dirs = 0 if len(args) < 5 else int(
         (vop[:, 404] != 0).sum() + (vop[:, 405] != 0).sum())
     return MPEG4_IDCT_OPS * 64 * blocks + MPEG4_MC_OPS * 384 * dirs
+
+
+def _vop_rotation(calls) -> list:
+    """``calls`` and copies of them (every tensor cloned), more than the
+    card's L2 together: timed with a call for each (``reps`` at least
+    their number), each finds its records and anchors in device memory
+    as the path's next VOP would."""
+    inputs = list(calls)
+    while sum(_vop_bytes(a) for a in inputs) < L2_BYTES:
+        inputs += [_tensors_clone(a) for a in calls]
+    return inputs
 
 
 def _random_vop(torch, rng, mbw, mbh, dev, kind):
@@ -5032,20 +5142,32 @@ def _check_mpeg4_kernels(torch, kernels, bench):
           f"divx.avi gave {len(recon)} mpeg4_recon and {len(intra)} "
           "mpeg4_idct_intra calls")
     per = DIVX_FRAMES / MAIN_BATCH
-    inputs = list(recon)
-    while sum(_vop_bytes(a) for a in inputs) < L2_BYTES:
-        inputs = inputs + list(recon)
+    inputs = _vop_rotation(recon)
+    reps = max(20, len(inputs))
     bench.record("mpeg4_recon", "640x480 P and B VOPs", len(recon) / per,
                  kernels.mpeg4_recon, kernels.mpeg4_recon_ref, inputs,
                  nbytes=sum(map(_vop_bytes, recon)) / len(recon),
-                 ops=sum(map(_vop_ops, recon)) / len(recon), plain_reps=2)
-    inputs = list(intra)
-    while sum(_vop_bytes(a) for a in inputs) < L2_BYTES:
-        inputs = inputs + list(intra)
+                 ops=sum(map(_vop_ops, recon)) / len(recon), reps=reps,
+                 plain_reps=2)
+    # the interlaced VOL's kernel takes every form: on divx.avi's records
+    # (all half-pel frame macroblocks) it equals mpeg4_recon, and the two
+    # are timed in turns on the same inputs
+    for a in recon:
+        bench.check("mpeg4_recon_field", "divx.avi VOP against mpeg4_recon",
+                    kernels.mpeg4_recon_field(*a), kernels.mpeg4_recon(*a),
+                    quiet=True)
+    ms = [bench.time(fn, inputs, reps) for fn in (
+        kernels.mpeg4_recon, kernels.mpeg4_recon_field,
+        kernels.mpeg4_recon_field, kernels.mpeg4_recon)]
+    emit(phase="superset", kernel="mpeg4_recon_field",
+         case="divx.avi 640x480 P and B VOPs", ms=ms[1:3],
+         mpeg4_recon_ms=[ms[0], ms[3]], vops=len(recon))
+    inputs = _vop_rotation(intra)
     bench.record("mpeg4_idct_intra", "640x480 I-VOPs", len(intra) / per,
                  kernels.mpeg4_idct_intra, kernels.mpeg4_idct_intra_ref,
                  inputs, nbytes=sum(map(_vop_bytes, intra)) / len(intra),
-                 ops=sum(map(_vop_ops, intra)) / len(intra), plain_reps=2)
+                 ops=sum(map(_vop_ops, intra)) / len(intra),
+                 reps=max(20, len(inputs)), plain_reps=2)
 
 
 
@@ -5127,28 +5249,54 @@ def _avi_goldens(cli, tmp):
 DIVX_COPIES = 4
 
 
-def divx_long(directory, copies: int) -> Path:
-    """divx.avi's chunks and PCM ``copies`` times over (96 frames), in
-    one AVI written by the port's own ``AviWriter``: a longer programme
-    of the same VOPs (each copy starts at its I-VOP and VOL header)."""
+def avi_long(directory, fixture: str, copies: int) -> Path:
+    """An MPEG-4 fixture's chunks (and PCM, where it has a track)
+    ``copies`` times over, in one AVI written by the port's own
+    ``AviWriter``: a longer programme of the same VOPs (each copy starts
+    at its I-VOP and VOL header)."""
     from tcforge_tpu_torch.io.avi import (AviAudioStream, AviReader,
                                           AviVideoStream, AviWriter)
-    with AviReader(str(MPEG4_DATA / "divx.avi")) as r:
-        v, a = r.video, r.audio[0]
+    with AviReader(str(MPEG4_DATA / fixture)) as r:
+        v, tracks = r.video, r.audio[:1]
         video = [r.read_video_frame(i) for i in range(r.video_frames)]
-        pcm = b"".join(r.read_audio_chunks(0))
+        pcm = b"".join(r.read_audio_chunks(0)) if tracks else b""
     spf = len(pcm) // len(video)
-    path = Path(directory) / "divx_long.avi"
+    path = Path(directory) / f"{Path(fixture).stem}_long.avi"
     w = AviWriter(str(path), AviVideoStream(fourcc=v.fourcc, width=v.width,
                                             height=v.height, fps=v.fps),
                   [AviAudioStream(rate=a.rate, channels=a.channels,
-                                  bits=a.bits)])
+                                  bits=a.bits) for a in tracks])
     for _ in range(copies):
         for i, (chunk, key) in enumerate(video):
             w.write_video_frame(chunk, key)
-            w.write_audio(pcm[i * spf:(i + 1) * spf])
+            if tracks:
+                w.write_audio(pcm[i * spf:(i + 1) * spf])
     w.close()
     return path
+
+
+def _check_repeat(torch, dev, fixture: str, src, frames: int, name: str):
+    """``src`` (``avi_long`` of ``fixture``) decodes on the card to the
+    fixture's frames repeated, frame for frame."""
+    one = []
+    imp = _avi_importer(MPEG4_DATA / fixture, dev)
+    while (b := imp.read_video_batch(MAIN_BATCH)) is not None:
+        one += [tuple(b[k][i] for k in "yuv") for i in range(len(b["y"]))]
+    imp.close()
+    imp = _avi_importer(src, dev)
+    seen = 0
+    while (b := imp.read_video_batch(MAIN_BATCH)) is not None:
+        for i in range(len(b["y"])):
+            ref = one[seen % len(one)]
+            check(all(torch.equal(b[k][i], ref[j])
+                      for j, k in enumerate("yuv")),
+                  f"{name}_long: frame {seen} differs from {fixture}'s "
+                  f"frame {seen % len(one)}")
+            seen += 1
+    imp.close()
+    check(seen == frames, f"{name}_long gave {seen} frames")
+    emit(phase="path_vs_repeat", path=f"{name}_long", frames=seen,
+         identical=True)
 
 
 def avi_stages(torch, dev, src, out, job, batch: int = MAIN_BATCH):
@@ -5193,7 +5341,7 @@ def avi_stages(torch, dev, src, out, job, batch: int = MAIN_BATCH):
                                           device=dev),
                         frame_ids=torch.arange(frames, frames + got,
                                                dtype=torch.int32,
-                                               device=dev), fps=25.0)
+                                               device=dev), fps=imp.fps)
         result, states = chain(fb, states)
         torch.cuda.synchronize()
         t4 = time.perf_counter()
@@ -5227,27 +5375,9 @@ def _divx_rates(torch, dev, cli, tmp):
     last byte, four runs after an untimed one (median and spread); then
     ``avi_stages``."""
     from tcforge_tpu_torch.core.job import FilterSpec, Job
-    src = divx_long(tmp, DIVX_COPIES)
-    one = []
-    imp = _avi_importer(MPEG4_DATA / "divx.avi", dev)
-    while (b := imp.read_video_batch(MAIN_BATCH)) is not None:
-        one += [tuple(b[k][i] for k in "yuv") for i in range(len(b["y"]))]
-    imp.close()
-    imp = _avi_importer(src, dev)
-    seen = 0
-    while (b := imp.read_video_batch(MAIN_BATCH)) is not None:
-        for i in range(len(b["y"])):
-            ref = one[seen % len(one)]
-            check(all(torch.equal(b[k][i], ref[j])
-                      for j, k in enumerate("yuv")),
-                  f"divx_long: frame {seen} differs from divx.avi's frame "
-                  f"{seen % len(one)}")
-            seen += 1
-    imp.close()
+    src = avi_long(tmp, "divx.avi", DIVX_COPIES)
     frames = DIVX_COPIES * DIVX_FRAMES
-    check(seen == frames, f"divx_long gave {seen} frames")
-    emit(phase="path_vs_repeat", path="divx_long", frames=seen,
-         identical=True)
+    _check_repeat(torch, dev, "divx.avi", src, frames, "divx")
     out = tmp / "divx_long_out.avi"
     fps = []
     for r in range(5):
@@ -5264,6 +5394,359 @@ def _divx_rates(torch, dev, cli, tmp):
     job = Job(filters=[FilterSpec("hqdn3d", "luma=4.0")],
               im_v_width=DIVX_W, im_v_height=DIVX_H)
     emit(phase="cli", path="divx", frames=frames, fps=fps,
+         median_fps=float(np.median(fps)), min_fps=min(fps),
+         max_fps=max(fps),
+         stages=avi_stages(torch, dev, src, tmp / "stages.avi", job))
+    for f in (src, out, tmp / "stages.avi"):
+        f.unlink()
+
+
+# ---------------------------------------------------------------------- #
+# The quarter-sample and interlaced MPEG-4 paths (ASP_PATHS): divx_qpel
+# (mpeg4_recon_qpel) and divx_il (mpeg4_recon_field, mpeg4_idct_intra
+# with field DCT), each -x avi into hqdn3d and the avi multiplexor
+
+_ASP_WRAPPERS = {k: k for k in ("mpeg4_recon", "mpeg4_recon_qpel",
+                                "mpeg4_recon_field", "mpeg4_idct_intra")}
+# the streams phase 3 decodes with every call checked
+ASP_STREAMS = ("qpel_small.avi", "il_small.avi", "qpel.avi", "ildct.avi",
+               "divx_qpel.avi", "divx_il.avi")
+# off the path: grids (mbw, mbh) of random records, one macroblock row
+# or column among them, and 720x480's
+ASP_GRIDS = ((1, 1), (4, 2), (1, 5), (7, 1), (45, 30))
+# the 8-tap filter's int32 operations an output sample, the fewest the
+# symmetric taps [-1 3 -6 20 20 -6 3 -1] need: four pair sums first,
+# then 20 a (a multiply), -6 b and 3 c (two multiply-adds), minus d,
+# the rounding, the shift and the clip's min and max; a quarter
+# average's (a sum, rounding, shift)
+QPEL_TAP_OPS = 12
+QPEL_AVG_OPS = 3
+# the quarter-sample form's luma: (form, filter block side, blocks)
+QPEL_FORMS = ((1, 16, 1), (2, 8, 4))
+ASP_COPIES = 2
+ASP_RUNS = 3
+
+
+def _qpel_vop(torch, rng, mbw, mbh, dev, kind):
+    """Records off the path for ``mpeg4_recon_qpel``: random coefficients
+    and masks (``_random_vop``), each macroblock of form FORM_QPEL16,
+    FORM_QPEL8 or FORM_HALF; the first 32 macroblocks of a grid cycle
+    through the 16 quarter phases (x & 3, y & 3) at s = 16 and then at
+    s = 8 (four blocks, four phases), the rest random."""
+    from tcforge_tpu_torch.io import mpeg4recon as R
+    vop = _random_vop(torch, rng, mbw, mbh, torch.device("cpu"), kind)
+    rec = vop.numpy()
+    nmb = mbw * mbh
+    form = rng.choice([0, 1, 2], size=nmb, p=[0.2, 0.4, 0.4])
+    form[:32] = np.repeat([1, 2], 16)[:nmb]
+    rec[:, R.FORM] = form
+    for i in range(min(32, nmb)):
+        base = rng.integers(-40, 40, size=(8,)) * 4
+        ph = (i + np.arange(4)) % 16 if form[i] == 2 else np.full(4, i % 16)
+        mv = base.reshape(4, 2) + np.stack([ph & 3, ph >> 2], 1)
+        if form[i] == 1:
+            mv[:] = mv[0]
+        rec[i, R.FMV:R.BMV] = mv.reshape(8)
+        rec[i, R.BMV:R.FCMV] = mv.reshape(8)[::-1]
+    return vop.to(dev)
+
+
+def _field_vop(torch, rng, mbw, mbh, dev, kind):
+    """Records off the path for ``mpeg4_recon_field``: the quarter-sample
+    VOP's, with every macroblock of the top and bottom rows and a third
+    of the rest of form FORM_FIELD (every select pair, odd and even
+    vertical field vectors, small and far past the frame), and dct_type
+    at random."""
+    from tcforge_tpu_torch.io import mpeg4recon as R
+    vop = _qpel_vop(torch, rng, mbw, mbh, torch.device("cpu"), kind)
+    rec = vop.numpy()
+    nmb = mbw * mbh
+    field = rng.random(nmb) < 0.34
+    field[:mbw] = field[-mbw:] = True
+    rec[field, R.FORM] = R.FORM_FIELD
+    n = int(field.sum())
+    reach = rng.choice([3, 40, 600], size=(n, 1))
+    rec[field, R.FSEL:R.FLDMV] = rng.integers(0, 2, (n, 4))
+    rec[field, R.FLDMV:R.FLDCMV + 8] = rng.integers(-reach, reach + 1,
+                                                    (n, 16))
+    rec[:, R.DCT] = rng.integers(0, 2, nmb)
+    return vop.to(dev)
+
+
+def _qpel_ops(args) -> int:
+    """Operations a quarter-sample VOP's records need: ``_vop_ops`` with
+    the filter's instead of the half-pel taps on its quarter-sample
+    macroblocks' luma (each filter block's stages as its phase takes
+    them: the horizontal over s+1 rows where x & 3, the vertical where
+    y & 3, an average where the phase is odd), once a direction."""
+    from tcforge_tpu_torch.io import mpeg4recon as R
+    vop = args[0].cpu().numpy().astype(np.int64)
+    ops = _vop_ops(args)
+    for lo, use in ((R.FMV, R.USE_F), (R.BMV, R.USE_B)):
+        if lo == R.BMV and (len(args) < 5 or args[4] is None):
+            continue
+        for form, s, nb in QPEL_FORMS:
+            sel = (vop[:, R.FORM] == form) & (vop[:, use] != 0)
+            mv = vop[sel, lo:lo + 2 * nb].reshape(-1, 2)
+            hx, hy = mv[:, 0] & 3, mv[:, 1] & 3
+            taps = (np.where(hx != 0, np.where(hy != 0, s + 1, s) * s, 0)
+                    + np.where(hy != 0, s * s, 0))
+            avgs = (np.where(hx & 1, np.where(hy != 0, s + 1, s) * s, 0)
+                    + np.where(hy & 1, s * s, 0))
+            ops += int((QPEL_TAP_OPS * taps + QPEL_AVG_OPS * avgs).sum()
+                       - MPEG4_MC_OPS * 256 * sel.sum())
+    return ops
+
+
+def _qpel_library(torch, rotation):
+    """The library call beside ``mpeg4_recon_qpel`` and its inputs, one
+    for each VOP of ``rotation``: float32 ``F.conv2d`` of the 8-tap
+    filter's two stages, a 1x8 kernel and then an 8x1 one, over the
+    VOP's quarter-sample filter blocks where its records place them (both
+    directions, s = 16 and s = 8).  The horizontal stage runs where
+    x & 3 (over s+1 rows where y & 3 too, else s), the vertical where
+    y & 3.  Each block's window is gathered before the clock starts,
+    each coordinate clamped to its anchor and the columns mirrored by
+    ``_qpel_idx``; the rows are mirrored between the two stages.  The
+    filter's stages alone: no rounding, clip, quarter average, chroma or
+    IDCT (timed only)."""
+    import torch.nn.functional as F
+    from tcforge_tpu_torch.io import mpeg4dec as M
+    from tcforge_tpu_torch.io import mpeg4recon as R
+    dev = rotation[0][0].device
+    taps = torch.tensor(R._QPEL_TAPS, dtype=torch.float32, device=dev) / 32
+    kh, kv = taps.view(1, 1, 1, 8), taps.view(1, 1, 8, 1)
+    # the 8 taps of output j are at j..j+7 of a window s+7 long
+    ext = {s: np.concatenate([M._qpel_idx(s)[:, 0], M._qpel_idx(s)[-1, 1:]])
+           for _f, s, _n in QPEL_FORMS}
+
+    def windows(args):
+        vop, mbw, fwd, bwd = args[0], args[1], args[3], args[4]
+        rec = vop.cpu().numpy().astype(np.int64)
+        groups = {}
+        for lo, use, planes in ((R.FMV, R.USE_F, fwd), (R.BMV, R.USE_B, bwd)):
+            if planes is None:
+                continue
+            y = planes[0].float()
+            h, w = y.shape
+            for form, s, nb in QPEL_FORMS:
+                mb = np.nonzero((rec[:, R.FORM] == form)
+                                & (rec[:, use] != 0))[0]
+                k, side = np.arange(nb), 16 // s
+                mv = rec[mb, lo:lo + 2 * nb].reshape(-1, nb, 2)
+                oy = ((mb // mbw * 16)[:, None] + s * (k // side)
+                      + (mv[..., 1] >> 2)).ravel()
+                ox = ((mb % mbw * 16)[:, None] + s * (k % side)
+                      + (mv[..., 0] >> 2)).ravel()
+                hx = (mv[..., 0] & 3).ravel() != 0
+                hy = (mv[..., 1] & 3).ravel() != 0
+                for hs, vs in ((True, False), (False, True), (True, True)):
+                    sel = (hx == hs) & (hy == vs)
+                    if not sel.any():
+                        continue
+                    rows = np.arange(s + 1 if vs else s)
+                    cols = ext[s] if hs else np.arange(s)
+                    ys = torch.from_numpy(np.clip(
+                        oy[sel, None] + rows, 0, h - 1)).to(dev)
+                    xs = torch.from_numpy(np.clip(
+                        ox[sel, None] + cols, 0, w - 1)).to(dev)
+                    groups.setdefault((s, hs, vs), []).append(
+                        y[ys[:, :, None], xs[:, None, :]])
+        return [(torch.cat(g).unsqueeze(1), hs, vs,
+                 torch.from_numpy(ext[s]).to(dev))
+                for (s, hs, vs), g in sorted(groups.items())]
+
+    def library(groups):
+        out = []
+        for x, hs, vs, rows in groups:
+            if hs:
+                x = F.conv2d(x, kh)
+            if vs:
+                x = F.conv2d(x.index_select(2, rows), kv)
+            out.append(x)
+        return out
+    return library, [(windows(a),) for a in rotation]
+
+
+def _check_asp_kernels(torch, kernels, bench):
+    """Phase 3 for the quarter-sample and interlaced paths: every call of
+    the MPEG-4 reconstruction wrappers while each of ``ASP_STREAMS``
+    decodes on the card (divx_qpel.avi's and divx_il.avi's every VOP, the
+    small streams, the two-frame ones), held against its plain version;
+    then VOPs of random records off the path on ``ASP_GRIDS``: every
+    quarter phase at s = 16 and s = 8 with rounding 0 and 1 (P) and
+    bidirectional (B), field macroblocks on the top and bottom rows with
+    every select pair, dct_type at random, I-VOPs with field DCT; then
+    each timed on its path's VOPs beside its plain version, its bound
+    and, for ``mpeg4_recon_qpel``, ``_qpel_library``.  Returns each
+    kernel's count of checked calls."""
+    dev = bench.dev
+    captured = {"divx_qpel.avi": [], "divx_il.avi": []}
+    cases = dict.fromkeys(_ASP_WRAPPERS, 0)
+    with checked_kernels(kernels, bench, "asp streams",
+                         _ASP_WRAPPERS) as counts:
+        checked = {w: getattr(kernels, w) for w in _ASP_WRAPPERS}
+        for name in ASP_STREAMS:
+            if name in captured:
+                def keeping(w, calls=captured[name]):
+                    def call(*a):
+                        calls.append((w, a))
+                        return checked[w](*a)
+                    return call
+                for w in checked:
+                    setattr(kernels, w, keeping(w))
+            imp = _avi_importer(MPEG4_DATA / name, dev)
+            while imp.read_video_batch(5) is not None:
+                pass
+            imp.close()
+            for w, fn in checked.items():
+                setattr(kernels, w, fn)
+        stream_counts = dict(counts)
+    rng = np.random.default_rng(15)
+    for mbw, mbh in ASP_GRIDS:
+        fwd, bwd = (tuple(torch.from_numpy(rng.integers(
+            0, 256, (mbh * mb, mbw * mb), dtype=np.uint8)).to(dev)
+            for mb in (16, 8, 8)) for _ in range(2))
+        for name, make in (("mpeg4_recon_qpel", _qpel_vop),
+                           ("mpeg4_recon_field", _field_vop)):
+            for kind, rounding in (("P", 0), ("P", 1), ("B", 0)):
+                vop = make(torch, rng, mbw, mbh, dev, kind)
+                args = (vop, mbw, rounding, fwd, bwd if kind == "B" else None)
+                bench.check(name, f"{mbw}x{mbh} MBs {kind} rounding "
+                            f"{rounding}", getattr(kernels, name)(*args),
+                            getattr(kernels, name + "_ref")(*args),
+                            quiet=True)
+                cases[name] += 1
+        vop = _field_vop(torch, rng, mbw, mbh, dev, "I")
+        bench.check("mpeg4_idct_intra", f"{mbw}x{mbh} MBs field DCT",
+                    kernels.mpeg4_idct_intra(vop, mbw),
+                    kernels.mpeg4_idct_intra_ref(vop, mbw), quiet=True)
+        cases["mpeg4_idct_intra"] += 1
+    for kernel, n in stream_counts.items():
+        emit(phase="kernel_sweep", kernel=kernel, cases=n,
+             streams=len(ASP_STREAMS), off_path=cases[kernel],
+             max_abs_err=0)
+    qpel = [a for w, a in captured["divx_qpel.avi"]
+            if w == "mpeg4_recon_qpel"]
+    field = [a for w, a in captured["divx_il.avi"]
+             if w == "mpeg4_recon_field"]
+    intra = [a for w, a in captured["divx_il.avi"]
+             if w == "mpeg4_idct_intra"]
+    check(len(qpel) >= 8 and len(field) >= 8 and intra,
+          f"divx_qpel.avi and divx_il.avi gave {len(qpel)} "
+          f"mpeg4_recon_qpel, {len(field)} mpeg4_recon_field and "
+          f"{len(intra)} mpeg4_idct_intra calls")
+    for kernel, calls, frames, case, ops in (
+            ("mpeg4_recon_qpel", qpel, ASP_PATHS["divx_qpel"][2],
+             "640x480 quarter-sample P and B VOPs", _qpel_ops),
+            ("mpeg4_recon_field", field, ASP_PATHS["divx_il"][2],
+             "720x480 interlaced P and B VOPs", _vop_ops),
+            ("mpeg4_idct_intra", intra, 0, "720x480 I-VOPs, field DCT",
+             _vop_ops)):
+        inputs = _vop_rotation(calls)
+        library = (_qpel_library(torch, inputs)
+                   if kernel == "mpeg4_recon_qpel" else None)
+        fn, ref = getattr(kernels, kernel), getattr(kernels, kernel + "_ref")
+        bench.record(kernel, case, len(calls) / (frames / MAIN_BATCH)
+                     if frames else 0, fn, ref, inputs,
+                     nbytes=sum(map(_vop_bytes, calls)) / len(calls),
+                     ops=sum(map(ops, calls)) / len(calls),
+                     library=library, reps=max(20, len(inputs)),
+                     plain_reps=2, library_reps=len(inputs))
+    return stream_counts
+
+
+def _run_asp(torch, cli, kernels, tmp, name):
+    """Phase 4 for a path of ``ASP_PATHS``: its fixture through the
+    port's CLI with the launch counts set to 0 just before and read just
+    after (an ``mpeg4_idct_intra`` a I-VOP, the path's reconstruction
+    kernel a P or B VOP, hqdn3d's), its AVI equal byte for byte to the
+    same CLI's with --device cpu and, in chunks, at --batch 3 with
+    --prefetch 1.  Returns the launches."""
+    fixture, args, frames, names, _w, _h = ASP_PATHS[name]
+    argv = ["-i", str(MPEG4_DATA / fixture), *args, "--progress_off", "-q"]
+    out = tmp / f"{name}.avi"
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main([*argv, "-o", str(out), "--batch", str(MAIN_BATCH),
+                   "--device", "cuda"])
+    torch.cuda.synchronize()
+    e2e_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    check(rc == 0, f"{name}: CLI exit code {rc}")
+    _dec, plans = avi_plans(MPEG4_DATA / fixture)
+    intra = sum(p["kind"] == "I" for p in plans)
+    emit(phase="path", path=name, frames=frames, seconds=e2e_s,
+         e2e_fps=frames / e2e_s, vops=len(plans), i_vops=intra,
+         field_dct_mbs=int(sum(p["dct_type"].sum() for p in plans)),
+         forms=np.bincount(np.concatenate([p["form"] for p in plans]),
+                           minlength=4).tolist(),
+         launches={k: launches[k] for k in names})
+    for k in names:
+        check(launches[k] > 0, f"kernel {k} was not launched by the {name} "
+                               "path")
+    check(launches["mpeg4_idct_intra"] == intra
+          and launches[names[0]] == len(plans) - intra
+          and launches["mpeg4_recon"] == 0,
+          f"{name}: {launches['mpeg4_idct_intra']} + {launches[names[0]]} "
+          f"launches for {len(plans)} VOPs")
+    want = out.read_bytes()
+    path = tmp / f"{name}_cpu.avi"
+    rc = cli.main([*argv, "-o", str(path), "--device", "cpu"])
+    same = rc == 0 and path.read_bytes() == want
+    emit(phase="path_vs_cpu", path=name, identical=same,
+         sha256=hashlib.sha256(want).hexdigest())
+    check(same, f"{name}: the card's output differs from the CPU's")
+    rc = cli.main([*argv, "-o", str(path), "--device", "cuda", "--batch",
+                   "3", "--prefetch", "1"])
+    same = rc == 0 and _avi_chunks(path) == _avi_chunks(out)
+    emit(phase="engine_vs_batch16", path=name, batch=3, prefetch=1,
+         identical=same)
+    check(same, f"{name} at --batch 3: the chunks differ from --batch 16's")
+    path.unlink()
+    return launches
+
+
+def _asp_refusal(cli, tmp):
+    """What the numpy decoder refuses the port refuses: qpel_il.avi (a
+    field-predicted P macroblock in a quarter-sample VOL) makes the CLI
+    exit 1 on the card."""
+    rc = cli.main(["-i", str(MPEG4_DATA / "qpel_il.avi"), "-o",
+                   str(tmp / "qpel_il.y4m"), "--device", "cuda",
+                   "--progress_off", "-q"])
+    emit(phase="refusal", path="qpel_il", exit_code=rc)
+    check(rc == 1, f"qpel_il.avi: CLI exit code {rc}, not 1")
+
+
+def _asp_rates(torch, dev, cli, tmp, name):
+    """Phase 6 for a path of ``ASP_PATHS``, on its fixture ``ASP_COPIES``
+    times over (``avi_long``): the long file's decode on the card against
+    the fixture's repeated, frame for frame; the CLI, wall clock to the
+    last byte, ``ASP_RUNS`` runs after an untimed one (median and
+    spread); then ``avi_stages``."""
+    from tcforge_tpu_torch.core.job import FilterSpec, Job
+    fixture, args, frames, _names, w, h = ASP_PATHS[name]
+    src = avi_long(tmp, fixture, ASP_COPIES)
+    frames *= ASP_COPIES
+    _check_repeat(torch, dev, fixture, src, frames, name)
+    out = tmp / f"{name}_long_out.avi"
+    fps = []
+    for r in range(ASP_RUNS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli.main(["-i", str(src), "-o", str(out), *args, "--batch",
+                       str(MAIN_BATCH), "--device", "cuda", "--progress_off",
+                       "-q"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check(rc == 0, f"{name} CLI: exit code {rc}")
+        if r:
+            fps.append(frames / seconds)
+    job = Job(deinterlace=5 if "-I" in args else 0,
+              filters=[FilterSpec("hqdn3d", "luma=4.0")], im_v_width=w,
+              im_v_height=h)
+    emit(phase="cli", path=name, frames=frames, fps=fps,
          median_fps=float(np.median(fps)), min_fps=min(fps),
          max_fps=max(fps),
          stages=avi_stages(torch, dev, src, tmp / "stages.avi", job))

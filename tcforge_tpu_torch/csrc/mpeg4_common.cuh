@@ -12,7 +12,9 @@
 //   - the half-pel prediction sample (Mpeg4Decoder._mc_block): two taps
 //     (a + b + 1 - rnd) >> 1, four taps (a + b + c + d + 2 - rnd) >> 2,
 //     the sample's row and column clamped on their own to the plane
-//     (what the numpy coder's edge-padded planes give at any vector).
+//     (what the numpy coder's edge-padded planes give at any vector);
+//     and its field form (_mc_rect over _field_pad), whose rows clamp in
+//     frame space.
 #pragma once
 
 #include <cstdint>
@@ -102,20 +104,41 @@ __device__ __forceinline__ int idct_col(const long long* x, int r) {
   return static_cast<int>(wrap16(v >> 6));
 }
 
-// Half-pel sample at (y, x) of an h x w plane with vector (mx, my).
-__device__ __forceinline__ int mc_sample(const uint8_t* p, int h, int w,
-                                         int y, int x, int mx, int my,
-                                         int rnd) {
-  const int x0 = x + (mx >> 1), y0 = y + (my >> 1);
-  const int hx = mx & 1, hy = my & 1;
-  const int xa = clampi(x0, 0, w - 1), xb = clampi(x0 + 1, 0, w - 1);
-  const int ya = clampi(y0, 0, h - 1), yb = clampi(y0 + 1, 0, h - 1);
+// The half-pel taps of rows ya, yb and columns xa, xb of a plane of
+// width w: hx, hy the half-sample flags.
+__device__ __forceinline__ int mc_taps(const uint8_t* p, int w, int ya,
+                                       int yb, int xa, int xb, int hx,
+                                       int hy, int rnd) {
   const int p00 = __ldg(p + ya * w + xa);
   if (!hx && !hy) return p00;
   if (hx && !hy) return (p00 + __ldg(p + ya * w + xb) + 1 - rnd) >> 1;
   if (hy && !hx) return (p00 + __ldg(p + yb * w + xa) + 1 - rnd) >> 1;
   return (p00 + __ldg(p + ya * w + xb) + __ldg(p + yb * w + xa) +
           __ldg(p + yb * w + xb) + 2 - rnd) >> 2;
+}
+
+// Half-pel sample at (y, x) of an h x w plane with vector (mx, my).
+__device__ __forceinline__ int mc_sample(const uint8_t* p, int h, int w,
+                                         int y, int x, int mx, int my,
+                                         int rnd) {
+  const int x0 = x + (mx >> 1), y0 = y + (my >> 1);
+  return mc_taps(p, w, clampi(y0, 0, h - 1), clampi(y0 + 1, 0, h - 1),
+                 clampi(x0, 0, w - 1), clampi(x0 + 1, 0, w - 1), mx & 1,
+                 my & 1, rnd);
+}
+
+// Half-pel sample at field row fy, column x of field sel (0 top, 1
+// bottom) of an h x w frame plane: field row j is frame row 2j + sel,
+// clamped in frame space (mpeg4dec.py _field_pad: a field read past
+// the frame's edge takes the frame's first or last row).
+__device__ __forceinline__ int mc_sample_field(const uint8_t* p, int h,
+                                               int w, int fy, int x,
+                                               int mx, int my, int sel,
+                                               int rnd) {
+  const int x0 = x + (mx >> 1), y0 = fy + (my >> 1);
+  return mc_taps(p, w, clampi(2 * y0 + sel, 0, h - 1),
+                 clampi(2 * y0 + 2 + sel, 0, h - 1), clampi(x0, 0, w - 1),
+                 clampi(x0 + 1, 0, w - 1), mx & 1, my & 1, rnd);
 }
 
 }  // namespace mpeg4

@@ -13,15 +13,18 @@ routes, by its fourcc:
 - MPEG-4 part 2 (XVID/DIVX/DX50/MP4V/FMP4/M4S2/MP4S): the MPEG
   importer's plan/execute protocol, so that the engine runs the two
   halves on two threads.  ``plan_batch`` (the reader thread) parses
-  each chunk on the host (``io/mpeg4dec.Mpeg4Decoder.parse_plans``, a
-  pinned copy) straight into the records of a ring of host buffers
+  each chunk on the host (``io/mpeg4plan.Mpeg4PlanDecoder.parse_plans``,
+  the pinned ``io/mpeg4dec.py`` with the port's plan stores, which take
+  interlaced and quarter-sample VOLs) straight into the records of a
+  ring of host buffers
   (pinned on a card; ``io/mpeg4recon.stage_plan``) and decides the
   display order by handles: a B-VOP displays at once, an anchor
   displays the anchor before it, the last anchor at the end of the
   stream.  ``execute`` (the main thread) uploads the batch's records in
   one copy and reconstructs each VOP in decode order, one launch each
-  (``mpeg4_idct_intra`` or ``mpeg4_recon``), the anchors kept on the
-  device.  A zero-size chunk pays the debt of a packed P+B chunk (Xvid's
+  (``mpeg4_idct_intra``, or by the VOL ``mpeg4_recon``,
+  ``mpeg4_recon_qpel`` or ``mpeg4_recon_field``), the anchors kept on
+  the device.  A zero-size chunk pays the debt of a packed P+B chunk (Xvid's
   placeholder) or, once a VOP was seen, is a dropped frame: an all-skip
   P plan, which repeats the last anchor (the JAX importer's
   ``_read_mp4_jax``, ``:240-268``).  The frames equal the JAX CLI's
@@ -32,10 +35,11 @@ the JAX importer reads it.  ``seek`` (``-L``) moves the chunk index and
 drops the matching samples, as the JAX importer's does.
 
 Not ported yet, each raising ``NotImplementedError`` that names it: the
-MPEG-4 VOLs the plan form refuses (interlaced, quarter-sample, GMC or
-static sprite, short header / H.263), Motion-JPEG, the other compressed
-fourccs (which the JAX package hands to FFmpeg) and compressed audio
-tracks (MP2, MP3, AC-3: tags 0x50, 0x55, 0x2000).
+MPEG-4 VOLs the plan form refuses (GMC or static sprite, short header /
+H.263), Motion-JPEG, the other compressed fourccs (which the JAX
+package hands to FFmpeg) and compressed audio tracks (MP2, MP3, AC-3:
+tags 0x50, 0x55, 0x2000).  What the JAX package's numpy decoder itself
+refuses raises as there ("mpeg4: quarter-sample field prediction").
 """
 
 from __future__ import annotations
@@ -53,7 +57,7 @@ from tcforge_tpu_torch.core.optstr import ModuleDesc, ParamSpec
 from tcforge_tpu_torch.io import tclzo
 from tcforge_tpu_torch.io.avi import AviReader
 from tcforge_tpu_torch.io.mpeg4recon import (REC, Anchors, crop,
-                                             reconstruct, stage_plan)
+                                             reconstruct, route, stage_plan)
 from tcforge_tpu_torch.io.rawio import unpack_frame
 from tcforge_tpu_torch.modules.registry import (Importer, ModuleInfo,
                                                 ModuleKind, register)
@@ -110,9 +114,10 @@ class _Buffer:
 class Plan:
     """One batch of the MPEG-4 decode, decided on the host
     (``plan_batch``) and run on the device (``execute``): ops are
-    ``(kind, slot, rounding, fwd handle, bwd handle, handle)`` in decode
-    order, frames the handles of the batch's frames in display order,
-    live the handles kept afterwards."""
+    ``(kind, slot, rounding, fwd handle, bwd handle, handle, wrapper)``
+    in decode order (``wrapper`` the P or B VOP's reconstruction,
+    ``io/mpeg4recon.py`` ``route``), frames the handles of the batch's
+    frames in display order, live the handles kept afterwards."""
 
     buffer: Optional[_Buffer]
     used: int
@@ -145,8 +150,8 @@ class AviImporter(Importer):
         if self._lzo:
             self.format = ImageFormat.YUV420P
         elif fcc in MPEG4_FOURCCS:
-            from tcforge_tpu_torch.io.mpeg4dec import Mpeg4Decoder
-            self._mp4 = Mpeg4Decoder()
+            from tcforge_tpu_torch.io.mpeg4plan import Mpeg4PlanDecoder
+            self._mp4 = Mpeg4PlanDecoder()
             self.format = ImageFormat.YUV420P
             self._device: Optional[torch.device] = None
             self._frames: Dict[int, tuple] = {}
@@ -258,10 +263,6 @@ class AviImporter(Importer):
             if len(raw) >= 3 and raw[0] == 0 and raw[1] == 0 \
                     and (raw[2] & 0xFC) == 0x80:
                 what = "short video header (H.263) MPEG-4"
-            elif vol is not None and vol.interlaced:
-                what = "interlaced MPEG-4"
-            elif vol is not None and vol.quarter_sample:
-                what = "quarter-sample MPEG-4"
             elif vol is not None and getattr(vol, "sprite_enable", 0):
                 what = ("GMC" if vol.sprite_enable == 2
                         else "static sprite") + " MPEG-4"
@@ -297,7 +298,8 @@ class AviImporter(Importer):
             plan.used += 1
             h = self._handle()
             fh, bh, shown = self._anchors.add(p["kind"], h)
-            plan.ops.append((p["kind"], k, int(p["rounding"]), fh, bh, h))
+            plan.ops.append((p["kind"], k, int(p["rounding"]), fh, bh, h,
+                             route(p)))
             if shown is not None:
                 frames.append(shown)
 
@@ -386,10 +388,10 @@ class AviImporter(Importer):
             plan.buffer = None
         frames = self._frames
         mbw = (self.width + 15) // 16
-        for kind, k, rounding, fh, bh, h in plan.ops:
+        for kind, k, rounding, fh, bh, h, wrapper in plan.ops:
             vop = flat[k * per:(k + 1) * per].view(nmb, REC)
             frames[h] = reconstruct(vop, kind, rounding, mbw,
-                                    frames.get(fh), frames.get(bh))
+                                    frames.get(fh), frames.get(bh), wrapper)
         out = None
         if plan.frames:
             vol = self._mp4.vol

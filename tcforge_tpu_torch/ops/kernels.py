@@ -63,6 +63,17 @@ wrapper                    CUDA source                 replaces (tcforge_tpu)
                                                        (XLA ops; the JAX
                                                        CLI's route is the
                                                        numpy decoder's)
+``mpeg4_recon_qpel``       ``csrc/mpeg4_recon.cu``     io/mpeg4dec.py
+                                                       ``_mc_block_qpel``
+                                                       (numpy; the JAX
+                                                       device form refuses
+                                                       quarter-sample VOLs)
+``mpeg4_recon_field``      ``csrc/mpeg4_recon.cu``     io/mpeg4dec.py
+                                                       ``_field_pred_mb``
+                                                       and ``_luma_store``
+                                                       (numpy; the JAX
+                                                       device form refuses
+                                                       interlaced VOLs)
 ``mpeg4_idct_intra``       ``csrc/mpeg4_recon.cu``     io/mpeg4jax.py
                                                        ``xvid_idct_jax`` of
                                                        an I-VOP (XLA ops)
@@ -120,6 +131,8 @@ launches: Dict[str, int] = {"hqdn3d_spatial_scan": 0,
                             "mpeg2_enc_bmode": 0,
                             "mpeg2_enc_blocks": 0,
                             "mpeg4_recon": 0,
+                            "mpeg4_recon_qpel": 0,
+                            "mpeg4_recon_field": 0,
                             "mpeg4_idct_intra": 0,
                             "mpeg4_enc_me": 0,
                             "mpeg4_enc_bme": 0,
@@ -188,6 +201,8 @@ _SIGNATURES = {
     },
     "mpeg4_recon": {
         "tc_mpeg4_recon": (_P, _P),
+        "tc_mpeg4_recon_qpel": (_P, _P),
+        "tc_mpeg4_recon_field": (_P, _P),
         "tc_mpeg4_idct_intra": (_P, _P),
     },
     "mpeg4_encode": {
@@ -1358,6 +1373,30 @@ def _vop_out(vop: torch.Tensor, mbh: int, mbw: int):
                              device=vop.device) for mb in (16, 8, 8))
 
 
+def _recon_launch(name: str, vop: torch.Tensor, mbw: int, rounding: int,
+                  fwd, bwd):
+    """Checks a P or B VOP's arguments and runs kernel ``name`` (on the
+    CPU its plain version, ``io/mpeg4recon.py`` ``<name>_ref``)."""
+    if int(rounding) not in (0, 1):
+        raise ValueError(f"rounding {rounding}: 0 or 1")
+    mbh, planes = _vop_args(vop, mbw, (fwd, bwd), ("fwd", "bwd"))
+    if not _on_cuda(vop, *planes):
+        from tcforge_tpu_torch.io import mpeg4recon
+        return getattr(mpeg4recon, f"{name}_ref")(vop, mbw, rounding, fwd,
+                                                  bwd)
+    out = _vop_out(vop, mbh, mbw)
+    if vop.shape[0] == 0:
+        return out
+    meta = [vop.data_ptr(), *(o.data_ptr() for o in out), mbw, mbh,
+            int(rounding)]
+    for ref in (fwd, bwd):
+        meta += [0, 0, 0] if ref is None else [p.data_ptr() for p in ref]
+    ptr, _keep = _meta(meta)
+    _call("mpeg4_recon", f"tc_{name}", ptr, _stream(vop))
+    launches[name] += 1
+    return out
+
+
 def mpeg4_recon_ref(vop, mbw: int, rounding: int, fwd, bwd):
     """Plain version of ``mpeg4_recon`` (io/mpeg4recon.py)."""
     from tcforge_tpu_torch.io import mpeg4recon
@@ -1368,30 +1407,48 @@ def mpeg4_recon(vop: torch.Tensor, mbw: int, rounding: int, fwd, bwd):
     """A P or B VOP's planes: int16 (nmb, ``REC``) macroblock records
     (io/mpeg4recon.py ``stage_plan``: the dequantized blocks, each luma
     block's forward and backward half-pel vectors, the chroma vectors,
-    use_f and use_b), macroblock rows of ``mbw``, the forward anchor
-    ``fwd`` and backward anchor ``bwd`` ((y, u, v) uint8 coded-grid
-    planes, or None: a prediction from None is 0).  Per block the XVID
-    integer IDCT (64-bit, as the numpy decoder), per pixel the half-pel
-    prediction (``rounding`` forward, 0 backward; each sample coordinate
-    clamped to the plane), the average of both where a macroblock uses
-    both, and the clipped sum.  Returns uint8 (16*mbh, 16*mbw) and
-    (8*mbh, 8*mbw) twice."""
-    if int(rounding) not in (0, 1):
-        raise ValueError(f"rounding {rounding}: 0 or 1")
-    mbh, planes = _vop_args(vop, mbw, (fwd, bwd), ("fwd", "bwd"))
-    if not _on_cuda(vop, *planes):
-        return mpeg4_recon_ref(vop, mbw, rounding, fwd, bwd)
-    out = _vop_out(vop, mbh, mbw)
-    if vop.shape[0] == 0:
-        return out
-    meta = [vop.data_ptr(), *(o.data_ptr() for o in out), mbw, mbh,
-            int(rounding)]
-    for ref in (fwd, bwd):
-        meta += [0, 0, 0] if ref is None else [p.data_ptr() for p in ref]
-    ptr, _keep = _meta(meta)
-    _call("mpeg4_recon", "tc_mpeg4_recon", ptr, _stream(vop))
-    launches["mpeg4_recon"] += 1
-    return out
+    use_f, use_b and dct_type), macroblock rows of ``mbw``, the forward
+    anchor ``fwd`` and backward anchor ``bwd`` ((y, u, v) uint8
+    coded-grid planes, or None: a prediction from None is 0).  Per block
+    the XVID integer IDCT (64-bit, as the numpy decoder), per pixel the
+    half-pel prediction (``rounding`` forward, 0 backward; each sample
+    coordinate clamped to the plane), the average of both where a
+    macroblock uses both, and the clipped sum, the luma residual placed
+    by dct_type.  Returns uint8 (16*mbh, 16*mbw) and (8*mbh, 8*mbw)
+    twice."""
+    return _recon_launch("mpeg4_recon", vop, mbw, rounding, fwd, bwd)
+
+
+def mpeg4_recon_qpel_ref(vop, mbw: int, rounding: int, fwd, bwd):
+    """Plain version of ``mpeg4_recon_qpel`` (io/mpeg4recon.py)."""
+    from tcforge_tpu_torch.io import mpeg4recon
+    return mpeg4recon.mpeg4_recon_qpel_ref(vop, mbw, rounding, fwd, bwd)
+
+
+def mpeg4_recon_qpel(vop: torch.Tensor, mbw: int, rounding: int, fwd,
+                     bwd):
+    """``mpeg4_recon`` for a quarter-sample VOL: the luma of a macroblock
+    of form ``FORM_QPEL16`` (one 16x16 filter block) or ``FORM_QPEL8``
+    (four 8x8) predicted from its quarter-sample vectors by the 8-tap
+    filter, mirrored at the filter block's edges (io/mpeg4plan.py); the
+    chroma half-pel from the recorded chroma vectors."""
+    return _recon_launch("mpeg4_recon_qpel", vop, mbw, rounding, fwd, bwd)
+
+
+def mpeg4_recon_field_ref(vop, mbw: int, rounding: int, fwd, bwd):
+    """Plain version of ``mpeg4_recon_field`` (io/mpeg4recon.py)."""
+    from tcforge_tpu_torch.io import mpeg4recon
+    return mpeg4recon.mpeg4_recon_field_ref(vop, mbw, rounding, fwd, bwd)
+
+
+def mpeg4_recon_field(vop: torch.Tensor, mbw: int, rounding: int, fwd,
+                      bwd):
+    """``mpeg4_recon_qpel`` for an interlaced VOL: a macroblock of form
+    ``FORM_FIELD`` predicted field by field (row r from field r & 1's
+    half-pel vector in its reference field, rows clamped in frame
+    space), from the recorded field vectors, selects and chroma
+    vectors."""
+    return _recon_launch("mpeg4_recon_field", vop, mbw, rounding, fwd, bwd)
 
 
 def mpeg4_idct_intra_ref(vop, mbw: int):
@@ -1401,8 +1458,9 @@ def mpeg4_idct_intra_ref(vop, mbw: int):
 
 
 def mpeg4_idct_intra(vop: torch.Tensor, mbw: int):
-    """An I-VOP's planes from its records (the coefficients alone): the
-    XVID integer IDCT of every block, clipped to uint8."""
+    """An I-VOP's planes from its records (the coefficients and
+    dct_type): the XVID integer IDCT of every block, clipped to uint8,
+    the luma placed by dct_type."""
     mbh, _ = _vop_args(vop, mbw, (), ())
     if not _on_cuda(vop):
         return mpeg4_idct_intra_ref(vop, mbw)

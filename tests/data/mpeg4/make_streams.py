@@ -29,7 +29,18 @@ past the frame's edges and the 8x8 blocks of a macroblock differ):
 - ``native.avi``: 176x144, 8 frames from ``Mpeg4NativeEncoder`` (4MV, two B
   frames, GOP 6);
 - ``qpel.avi`` and ``ildct.avi``: 176x144, 2 frames with quarter-sample
-  and interlaced VOLs (the refusals);
+  and interlaced VOLs;
+- ``qpel_small.avi`` and ``il_small.avi``: 176x144, 12 frames, ``bf=2``,
+  toward 250 kbit/s, with ``flags=+qpel+mv4`` (Xvid's Advanced Simple
+  Profile) and with ``flags=+ildct+ilme`` on field-sampled content
+  (``fields``: each frame's two fields from two instants);
+- ``divx_qpel.avi``: 640x480 at 25 fps, 12 frames, cfg10's settings with
+  ``+qpel``, toward 1 Mbit/s;
+- ``divx_il.avi``: 720x480 at 29.97 fps, 12 field-sampled frames,
+  ``+ildct+ilme``, toward 1 Mbit/s (an NTSC capture kept interlaced);
+- ``qpel_il.avi``: 176x144, 2 field-sampled frames with
+  ``+qpel+ildct+ilme``, whose field-predicted P macroblocks in a
+  quarter-sample VOL the numpy decoder refuses;
 - ``yuy2.avi`` (YUY2) and ``lzo.avi`` (LZO2), 64x48, 4 frames, with
   8 kHz PCM.
 
@@ -93,11 +104,28 @@ def pcm(frames: int, seed: int, rate: int = RATE) -> np.ndarray:
     return np.stack([left, right], 1).round().astype(np.int16)
 
 
+def fields(width: int, height: int, frames: int, seed: int):
+    """Field-sampled frames, as an interlaced capture holds them:
+    ``clip`` at twice the frame rate, each frame's top-field rows (even)
+    from one instant and its bottom-field rows (odd) from the next."""
+    out = []
+    src = clip(width, height, 2 * frames, seed)
+    for t in range(frames):
+        first, second = src[2 * t], src[2 * t + 1]
+        frame = []
+        for a, b in zip(first, second):
+            p = a.copy()
+            p[1::2] = b[1::2]
+            frame.append(p)
+        out.append(tuple(frame))
+    return out
+
+
 def lavc(frames, width: int, height: int, opts: dict, gop: int = 12,
-         bitrate: int = 1_500_000):
+         bitrate: int = 1_500_000, fps: float = FPS):
     """libavcodec mpeg4 packets in decode order."""
     from tcforge_tpu.native import av
-    enc = av.AvVideoEncoder("mpeg4", width, height, fps=FPS,
+    enc = av.AvVideoEncoder("mpeg4", width, height, fps=fps,
                             bitrate=bitrate, gop=gop, opts=opts)
     pkts = []
     for f in frames:
@@ -108,7 +136,7 @@ def lavc(frames, width: int, height: int, opts: dict, gop: int = 12,
 
 
 def write_avi(path: Path, fourcc: str, width: int, height: int, chunks,
-              audio=None, rate: int = RATE) -> None:
+              audio=None, rate: int = RATE, fps: float = FPS) -> None:
     """``chunks``: video payloads (b"" a drop-frame chunk); ``audio``:
     int16 (n, 2) PCM at ``rate``, a frame's samples after each video
     chunk."""
@@ -117,7 +145,7 @@ def write_avi(path: Path, fourcc: str, width: int, height: int, chunks,
         if audio is not None else []
     spf = rate // int(FPS)
     w = AviWriter(str(path), AviVideoStream(fourcc=fourcc, width=width,
-                                            height=height, fps=FPS), tracks)
+                                            height=height, fps=fps), tracks)
     for i, c in enumerate(chunks):
         w.write_video_frame(c, keyframe=(i == 0))
         if audio is not None:
@@ -128,6 +156,14 @@ def write_avi(path: Path, fourcc: str, width: int, height: int, chunks,
 
 
 DIVX = {"bf": "2", "flags": "+mv4"}
+# Xvid's Advanced Simple Profile "quality" encode: quarter-sample with 4MV
+QPEL = {"bf": "2", "flags": "+qpel+mv4"}
+# a capture kept interlaced: field DCT and field motion
+ILACE = {"bf": "2", "flags": "+ildct+ilme"}
+# divx_il.avi's rate tolerance, in bits: libavcodec's default lets a
+# 12-frame clip of field-sampled noise overshoot 1 Mbit/s threefold
+ILACE_BT = {**ILACE, "bt": "200000"}
+NTSC = 30000 / 1001
 
 
 def main() -> None:
@@ -179,6 +215,22 @@ def main() -> None:
                        ("ildct.avi", {"flags": "+ildct"})):
         write_avi(HERE / name, "XVID", 176, 144,
                   lavc(small[:2], 176, 144, opts, bitrate=200_000))
+
+    write_avi(HERE / "qpel_small.avi", "XVID", 176, 144,
+              lavc(clip(176, 144, 12, seed=11), 176, 144, QPEL,
+                   bitrate=250_000))
+    write_avi(HERE / "il_small.avi", "XVID", 176, 144,
+              lavc(fields(176, 144, 12, seed=12), 176, 144, ILACE,
+                   bitrate=250_000))
+    write_avi(HERE / "divx_qpel.avi", "XVID", 640, 480,
+              lavc(clip(640, 480, 12, seed=13), 640, 480, QPEL,
+                   bitrate=1_000_000))
+    write_avi(HERE / "divx_il.avi", "XVID", 720, 480,
+              lavc(fields(720, 480, 12, seed=14), 720, 480, ILACE_BT,
+                   bitrate=1_000_000, fps=NTSC), fps=NTSC)
+    write_avi(HERE / "qpel_il.avi", "XVID", 176, 144,
+              lavc(fields(176, 144, 2, seed=15), 176, 144,
+                   {"flags": "+qpel+ildct+ilme"}, bitrate=200_000))
 
     tiny = clip(64, 48, 4, seed=7)
     write_avi(HERE / "yuy2.avi", "YUY2", 64, 48,

@@ -51,8 +51,14 @@ DATA = chip_smoke.MPEG4_DATA
 FIXTURES = {
     "divx.avi":
         "980b0748a3f4cb5c1570cdb42041caa8bab7101560735f57d626acf43d33cde1",
+    "divx_il.avi":
+        "81226f8f9fa8e32dc3f88c6fd536318cb08ce0fc7378619a3d53330ae03c2f0a",
+    "divx_qpel.avi":
+        "8be92df517bf658714196e0d4c14256153b3d255b1b698551340d233cb8de11c",
     "drop.avi":
         "27cf4f5540ec4e5d0e03d6aa9ba6c8bdf18a9209f628506e7d7fdbbd052006b4",
+    "il_small.avi":
+        "3ec614aa0a4365a458ba78a70eb5e09d2725447f8d8dc231becccc35ad289779",
     "ildct.avi":
         "654027885f403e296d8c65f24a68c05efcf3957d907e249797f8608d0953ba28",
     "lzo.avi":
@@ -65,6 +71,10 @@ FIXTURES = {
         "d4da3a97646d7c503ffe2a0c6b48da08c8f46bc84323210486c0a3c7bf3e2f52",
     "qpel.avi":
         "a5d018517c30f8a07a352a934279dc57093a2ca3bc2c87984f95cc8d8bfc7a3a",
+    "qpel_il.avi":
+        "e1a1b48beca3909e9af88922cca9560d1109886201f5e37a069b89687a1c7f29",
+    "qpel_small.avi":
+        "4cf9627e8b97ccee0b0ad491ba247a117c581348fcfef6ac8bcbbbfc410c8807",
     "small.avi":
         "2fa118af66be9b097af15ed5390b0c2f224398c29833353f04481903b165a155",
     "yuy2.avi":
@@ -152,7 +162,7 @@ def test_fixture_is_pinned(name):
 
 
 def test_fixture_directory_stays_small():
-    assert sum(p.stat().st_size for p in DATA.iterdir()) < 600_000
+    assert sum(p.stat().st_size for p in DATA.iterdir()) < 850_000
 
 
 # ------------------------------------------------------------------ #
@@ -323,7 +333,8 @@ def port_cli(argv):
     return run_cli([*argv, "--device", "cpu", "-q", "--progress_off"])
 
 
-@pytest.mark.parametrize("case", sorted(chip_smoke.AVI_GOLDEN))
+@pytest.mark.parametrize("case", sorted(set(chip_smoke.AVI_GOLDEN)
+                                       - set(chip_smoke.ASP_GOLDEN)))
 def test_avi_golden_cli_matches_jax_cli_byte_for_byte(case, tmp_path,
                                                       numpy_route):
     outs = {}
@@ -355,16 +366,13 @@ def _avi(path, fourcc, chunks_, audio=None):
 
 
 @pytest.mark.parametrize("what,match", [
-    ("qpel", "quarter-sample MPEG-4"), ("ildct", "interlaced MPEG-4"),
     ("short", "short video header"), ("mjpg", "Motion-JPEG"),
     ("h264", "fourcc 'H264'"), ("mp3", "MP3, tag 0x0055"),
     ("ac3", "AC-3, tag 0x2000")])
 def test_what_the_port_lacks_is_refused_by_name(what, match, tmp_path):
     """Each raises naming itself (and the CLI exits 1); none decodes on
     the host."""
-    if what in ("qpel", "ildct"):
-        src = DATA / f"{what}.avi"
-    elif what == "short":
+    if what == "short":
         # an H.263-style picture start (00 00 80...) in an XVID track
         src = _avi(tmp_path / "s.avi", "XVID", [b"\x00\x00\x80\x02" + bytes(60)])
     elif what == "mjpg":
@@ -396,7 +404,8 @@ def test_sprite_vols_are_refused_by_name(sprite, match, monkeypatch):
         self.vol = tdec._VOL()
         self.vol.sprite_enable = sprite
         raise NotImplementedError("mpeg4 plan mode")
-    monkeypatch.setattr(tdec.Mpeg4Decoder, "parse_plans", refuse)
+    from tcforge_tpu_torch.io.mpeg4plan import Mpeg4PlanDecoder
+    monkeypatch.setattr(Mpeg4PlanDecoder, "parse_plans", refuse)
     with pytest.raises(NotImplementedError, match=match) as e:
         imp.read_video_batch(4)
     assert "not ported to the torch port yet" in str(e.value)
@@ -488,14 +497,18 @@ def test_an_importer_given_no_device_decodes_on_the_card(monkeypatch):
 
 @pytest.mark.cuda
 def test_mpeg4_kernels_match_their_plain_versions_on_cuda():
-    """The two kernels against their plain versions on the card, on
-    every VOP of the small streams (``chip_smoke.py`` phase 3 does it on
-    every VOP of divx.avi and off the path)."""
+    """The reconstruction kernels against their plain versions on the
+    card, on every VOP of the small streams (``mpeg4_recon``,
+    ``mpeg4_recon_qpel``, ``mpeg4_recon_field`` as ``route`` picks them,
+    and ``mpeg4_idct_intra`` with field DCT; ``chip_smoke.py`` phase 3
+    does it on every VOP of divx.avi, divx_qpel.avi and divx_il.avi and
+    off the path)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    from tcforge_tpu_torch.io.mpeg4plan import Mpeg4PlanDecoder
     dev = torch.device("cuda")
-    for name in ("small.avi", "odd.avi"):
-        dec = tdec.Mpeg4Decoder()
+    for name in ("small.avi", "odd.avi", "qpel_small.avi", "il_small.avi"):
+        dec = Mpeg4PlanDecoder()
         ra = rb = None
         for c in chunks(name):
             for p in dec.parse_plans(bytes(c)):
@@ -507,8 +520,9 @@ def test_mpeg4_kernels_match_their_plain_versions_on_cuda():
                     fwd = ra if p["kind"] == "B" else rb
                     bwd = rb if p["kind"] == "B" else None
                     args = (vop, p["mbw"], p["rounding"], fwd, bwd)
-                    got = kernels.mpeg4_recon(*args)
-                    want = kernels.mpeg4_recon_ref(*args)
+                    wrapper = mpeg4recon.route(p)
+                    got = getattr(kernels, wrapper)(*args)
+                    want = getattr(kernels, wrapper + "_ref")(*args)
                 for g, w in zip(got, want):
                     assert torch.equal(g, w)
                 if p["kind"] != "B":
