@@ -9,7 +9,10 @@
 // backward vectors, the forward and backward chroma vectors, use_f,
 // use_b, dct_type, the prediction form and a field macroblock's
 // reference fields, field vectors and their chroma vectors; every
-// vector worked out on the host, io/mpeg4plan.py).
+// vector worked out on the host, io/mpeg4plan.py).  An S-VOP (GMC) takes
+// two launches: mpeg4_gmc_warp warps the forward anchor's three planes
+// by the VOP's warp record, then the VOP's reconstruction, whose
+// FORM_GMC macroblocks take those planes at their own place.
 //
 // One CTA per macroblock, one thread per output pixel (256 luma, 64 Cb,
 // 64 Cr):
@@ -31,14 +34,30 @@
 //       field MC (mpeg4_recon_field; _field_pred_mb): row r of the
 //       macroblock from field r & 1's vector in its reference field,
 //       rows clamped in frame space (mc_sample_field);
+//       GMC (every instance): the forward prediction is the warped
+//       planes' sample at the pixel (the wrapper passes them exactly
+//       for an S-VOP; a GMC macroblock in a launch without them traps);
 //   - the clipped sum pred + residual, uint8, the luma residual taken by
 //     dct_type: quadrants, or field lines (_luma_store: blocks 0 and 1
 //     the even rows, 2 and 3 the odd).
-// mpeg4_recon predicts every macroblock half-pel whatever its form;
-// mpeg4_recon_qpel adds the quarter-sample forms; mpeg4_recon_field the
-// field form too (a quarter-sample VOL may be interlaced).  The I-VOP
+// mpeg4_recon predicts every macroblock half-pel whatever its form but
+// GMC; mpeg4_recon_qpel adds the quarter-sample forms; mpeg4_recon_field
+// the field form too (a quarter-sample VOL may be interlaced).  The I-VOP
 // entry (tc_mpeg4_idct_intra) is the same kernel without the
 // prediction: the IDCT clipped, stored by dct_type.
+//
+// The GMC warp (tc_mpeg4_gmc_warp; Mpeg4Decoder._gmc_warp_planes and
+// _gmc_bilin) is a kernel of its own, one thread per output sample of
+// the three planes laid end to end (luma, Cb, Cr), so that a warp's
+// writes are coalesced: the sample's coordinate at 1/S precision from
+// the translation (chroma: d * S/4, or (d >> 1) | (d & 1) at S == 2) or
+// the affine record (luma (o + dxx i + dxy j) >> sh, chroma
+// (oc + 4 (dxx i + dxy j)) >> (sh + 2)) in 64 bits, where a 1920x1088
+// plane's terms pass 2^31; its integer part a floor (arithmetic shift),
+// its fraction the low bits; the four samples around it, each
+// coordinate clamped on its own to the coded plane (what the numpy
+// warp's 128-sample edge padding and clips give), blended in 32 bits
+// with S*S/2 - rounding and shifted by 2 log2(S), then clipped.
 
 #include "common.cuh"
 #include "mpeg4_common.cuh"
@@ -50,6 +69,7 @@ constexpr int kFmv = 384, kBmv = 392, kFcmv = 400, kBcmv = 402;
 constexpr int kUseF = 404, kUseB = 405, kDct = 406, kForm = 407;
 constexpr int kFsel = 408, kFldMv = 412, kFldCmv = 420;
 constexpr int kFormQpel16 = 1, kFormQpel8 = 2, kFormField = 3;
+constexpr int kFormGmc = 4;
 constexpr int kThreads = 384;
 // the quarter-sample stage buffers: four 9x9 windows (one 17x17), four
 // 9x8 horizontal stages (one 17x16)
@@ -66,6 +86,7 @@ struct VopArgs {
   uint8_t* out[3];             // y (16*mbh, 16*mbw), u, v (8*mbh, 8*mbw)
   const uint8_t* fwd[3];       // anchors on the coded grid, or null
   const uint8_t* bwd[3];
+  const uint8_t* gmc[3];       // an S-VOP's warped planes, or null
   int mbw, mbh, rounding;
 };
 
@@ -134,6 +155,14 @@ __device__ void qpel_luma(const uint8_t* ref, int h, int w, int mbx,
   __syncthreads();
 }
 
+// The pointer of ``plane`` among three of an argument array, each read
+// at a constant index: indexing the kernel's parameter by a run-time
+// value copies the whole argument struct to each thread's stack.
+template <typename T>
+__device__ __forceinline__ T pick(T p0, T p1, T p2, int plane) {
+  return plane == 0 ? p0 : (plane == 1 ? p1 : p2);
+}
+
 template <bool kIntra, bool kQpel, bool kField>
 __global__ void __launch_bounds__(kThreads)
     vop_kernel(VopArgs a) {
@@ -165,6 +194,8 @@ __global__ void __launch_bounds__(kThreads)
   const int form = rec[kForm];
   const bool qpel = kQpel && (form == kFormQpel16 || form == kFormQpel8);
   const bool field = kField && form == kFormField;
+  const bool gmc = form == kFormGmc;
+  if (gmc && a.gmc[0] == nullptr) __trap();  // records without their warp
   if (qpel) {  // the same for every thread of the CTA
     if (hf)
       qpel_luma(a.fwd[0], a.mbh * 16, a.mbw * 16, mbx, mby, rec + kFmv,
@@ -208,28 +239,36 @@ __global__ void __launch_bounds__(kThreads)
   }
   int pred = 0;
   if (!kIntra) {
+    const uint8_t* fref = pick(a.fwd[0], a.fwd[1], a.fwd[2], plane);
+    const uint8_t* bref = pick(a.bwd[0], a.bwd[1], a.bwd[2], plane);
     int f = 0, b = 0;
     if (qpel && plane == 0) {
       if (hf) f = qpred[t];
       if (hb) b = qpred[256 + t];
+    } else if (gmc) {
+      // the warped forward anchor at this pixel; backward as half-pel
+      if (hf)
+        f = __ldg(pick(a.gmc[0], a.gmc[1], a.gmc[2], plane) + y * w + x);
+      if (hb) b = mc_sample(bref, h, w, y, x, bmx, bmy, 0);
     } else if (field) {
       // field (y & 1)'s vector and reference field, at field row y >> 1
       const int i = y & 1;
       if (hf)
-        f = mc_sample_field(a.fwd[plane], h, w, y >> 1, x, rec[vec + 2 * i],
+        f = mc_sample_field(fref, h, w, y >> 1, x, rec[vec + 2 * i],
                             rec[vec + 2 * i + 1], rec[kFsel + i],
                             a.rounding);
       if (hb)
-        b = mc_sample_field(a.bwd[plane], h, w, y >> 1, x,
+        b = mc_sample_field(bref, h, w, y >> 1, x,
                             rec[vec + 4 + 2 * i], rec[vec + 5 + 2 * i],
                             rec[kFsel + 2 + i], 0);
     } else {
-      if (hf) f = mc_sample(a.fwd[plane], h, w, y, x, fmx, fmy, a.rounding);
-      if (hb) b = mc_sample(a.bwd[plane], h, w, y, x, bmx, bmy, 0);
+      if (hf) f = mc_sample(fref, h, w, y, x, fmx, fmy, a.rounding);
+      if (hb) b = mc_sample(bref, h, w, y, x, bmx, bmy, 0);
     }
     pred = uf && ub ? (f + b + 1) >> 1 : (uf ? f : (ub ? b : 0));
   }
-  a.out[plane][y * w + x] = static_cast<uint8_t>(clampi(pred + residual, 0, 255));
+  pick(a.out[0], a.out[1], a.out[2], plane)[y * w + x] =
+      static_cast<uint8_t>(clampi(pred + residual, 0, 255));
 }
 
 VopArgs read_args(const long long* meta) {
@@ -239,6 +278,7 @@ VopArgs read_args(const long long* meta) {
     a.out[i] = reinterpret_cast<uint8_t*>(meta[1 + i]);
     a.fwd[i] = reinterpret_cast<const uint8_t*>(meta[7 + i]);
     a.bwd[i] = reinterpret_cast<const uint8_t*>(meta[10 + i]);
+    a.gmc[i] = reinterpret_cast<const uint8_t*>(meta[13 + i]);
   }
   a.mbw = static_cast<int>(meta[4]);
   a.mbh = static_cast<int>(meta[5]);
@@ -254,10 +294,76 @@ int launch(const long long* meta, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+struct WarpArgs {
+  const uint8_t* ref[3];       // the forward anchor on the coded grid
+  uint8_t* out[3];
+  int h, w;                    // the luma plane's
+  int s, n, rnd, sh;           // S, points, rounding, the affine shift
+  long long tx, ty;            // one point's translation
+  long long dxx, dxy, dyx, dyy, ox, oy, ocx, ocy;
+};
+
+__device__ __forceinline__ int clampll(long long v, int hi) {
+  return v < 0 ? 0 : (v > hi ? hi : static_cast<int>(v));
+}
+
+__global__ void __launch_bounds__(256) gmc_warp_kernel(WarpArgs a) {
+  const long long luma = static_cast<long long>(a.h) * a.w;
+  long long k = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (k >= luma + luma / 2) return;
+  int plane = 0, h = a.h, w = a.w;
+  if (k >= luma) {
+    k -= luma;
+    plane = 1 + static_cast<int>(k / (luma / 4));
+    k %= luma / 4;
+    h >>= 1;
+    w >>= 1;
+  }
+  const long long j = k / w, i = k % w;
+  const int s = a.s;
+  long long vx, vy;
+  if (a.n == 1) {
+    long long ox, oy;
+    if (plane == 0) {
+      ox = a.tx * (s / 2);
+      oy = a.ty * (s / 2);
+    } else if (s == 2) {
+      ox = (a.tx >> 1) | (a.tx & 1);
+      oy = (a.ty >> 1) | (a.ty & 1);
+    } else {
+      ox = a.tx * (s / 4);
+      oy = a.ty * (s / 4);
+    }
+    vx = i * s + ox;
+    vy = j * s + oy;
+  } else if (plane == 0) {
+    vx = (a.ox + a.dxx * i + a.dxy * j) >> a.sh;
+    vy = (a.oy + a.dyx * i + a.dyy * j) >> a.sh;
+  } else {
+    vx = (a.ocx + 4 * (a.dxx * i + a.dxy * j)) >> (a.sh + 2);
+    vy = (a.ocy + 4 * (a.dyx * i + a.dyy * j)) >> (a.sh + 2);
+  }
+  const int lg = 31 - __clz(s);
+  const long long x0 = vx >> lg, y0 = vy >> lg;
+  const int fx = static_cast<int>(vx & (s - 1));
+  const int fy = static_cast<int>(vy & (s - 1));
+  const int xa = clampll(x0, w - 1), xb = clampll(x0 + 1, w - 1);
+  const int ya = clampll(y0, h - 1), yb = clampll(y0 + 1, h - 1);
+  const uint8_t* p = pick(a.ref[0], a.ref[1], a.ref[2], plane);
+  const int v = ((s - fx) * (s - fy) * __ldg(p + ya * w + xa) +
+                 fx * (s - fy) * __ldg(p + ya * w + xb) +
+                 (s - fx) * fy * __ldg(p + yb * w + xa) +
+                 fx * fy * __ldg(p + yb * w + xb) + s * s / 2 - a.rnd) >>
+                (2 * lg);
+  pick(a.out[0], a.out[1], a.out[2], plane)[k] =
+      static_cast<uint8_t>(clampi(v, 0, 255));
+}
+
 }  // namespace
 
-// meta: vop, out y, u, v, mbw, mbh, rounding, fwd y, u, v, bwd y, u, v
-// (a missing anchor's pointers 0: its prediction is 0).
+// meta: vop, out y, u, v, mbw, mbh, rounding, fwd y, u, v, bwd y, u, v,
+// gmc y, u, v (a missing anchor's pointers 0: its prediction is 0; the
+// warped planes 0 but for an S-VOP).
 TC_API int tc_mpeg4_recon(const long long* meta, cudaStream_t stream) {
   return launch<false, false, false>(meta, stream);
 }
@@ -274,4 +380,35 @@ TC_API int tc_mpeg4_recon_field(const long long* meta,
 // The same meta; rounding and the anchors are ignored.
 TC_API int tc_mpeg4_idct_intra(const long long* meta, cudaStream_t stream) {
   return launch<true, false, false>(meta, stream);
+}
+
+// meta: ref y, u, v, out y, u, v, the luma's h and w, then the warp
+// record (io/mpeg4plan.py warp_record): S, points, rounding, tx, ty,
+// dxx, dxy, dyx, dyy, sh, ox, oy, ocx, ocy.
+TC_API int tc_mpeg4_gmc_warp(const long long* meta, cudaStream_t stream) {
+  WarpArgs a;
+  for (int i = 0; i < 3; ++i) {
+    a.ref[i] = reinterpret_cast<const uint8_t*>(meta[i]);
+    a.out[i] = reinterpret_cast<uint8_t*>(meta[3 + i]);
+  }
+  a.h = static_cast<int>(meta[6]);
+  a.w = static_cast<int>(meta[7]);
+  const long long* v = meta + 8;
+  a.s = static_cast<int>(v[0]);
+  a.n = static_cast<int>(v[1]);
+  a.rnd = static_cast<int>(v[2]);
+  a.tx = v[3];
+  a.ty = v[4];
+  a.dxx = v[5];
+  a.dxy = v[6];
+  a.dyx = v[7];
+  a.dyy = v[8];
+  a.sh = static_cast<int>(v[9]);
+  a.ox = v[10];
+  a.oy = v[11];
+  a.ocx = v[12];
+  a.ocy = v[13];
+  const long long samples = static_cast<long long>(a.h) * a.w * 3 / 2;
+  gmc_warp_kernel<<<tc_blocks(samples, 256), 256, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }

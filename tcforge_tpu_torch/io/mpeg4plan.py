@@ -1,5 +1,6 @@
 """The port's MPEG-4 plan parse: the pinned ``io/mpeg4dec.py`` decoder
-with a plan form that takes interlaced and quarter-sample VOLs.
+with a plan form that takes interlaced, quarter-sample and GMC VOLs and
+short-header (H.263) pictures.
 
 ``Mpeg4PlanDecoder.parse_plans`` records, per VOP, what the card's
 reconstruction needs (``io/mpeg4recon.py`` ``stage_plan``), on top of
@@ -13,9 +14,12 @@ and use_b), per macroblock:
   1MV macroblock, filtered as one 16x16 block), ``FORM_QPEL8`` (a
   quarter-sample 4MV or direct-mode macroblock, four 8x8 filter blocks:
   the 8-tap filter mirrors at the filter block's own edges, so that a
-  1MV macroblock and a 4MV one with four equal vectors differ) or
+  1MV macroblock and a 4MV one with four equal vectors differ),
   ``FORM_FIELD`` (field prediction: two 16x8 luma and two 8x4 chroma
-  blocks per direction from the selected reference fields);
+  blocks per direction from the selected reference fields) or
+  ``FORM_GMC`` (an S-VOP's macroblock that takes the warped reference at
+  its own place: the not_coded "GMC skip" and a coded mcsel macroblock,
+  whose residual is added);
 - for a field macroblock, per direction and field, its half-pel field
   vector (``fmv``), its reference field (``fsel``) and the chroma vector
   ``_field_pred_mb`` derives from it, ``(m >> 1) | (m & 1)`` (``fcmv``);
@@ -23,16 +27,35 @@ and use_b), per macroblock:
   it: ``_qpel_chroma_1mv`` for 1MV, the ``_trunc2`` sums for 4MV and
   direct mode (the pinned direct-mode store records the half-pel rule).
 
+and per VOP:
+
+- ``warp``: an S-VOP's warp record (``warp_record``: ``_gmc_setup``'s
+  values and the VOP's rounding; None for any other VOP), from which
+  the card rebuilds ``_gmc_warp_planes``.  An S-VOP is a P plan with its
+  rounding; each macroblock's average vector (``_gmc_amv``) stays on the
+  host, where it feeds the vector predictor and the co-located vectors
+  as in the numpy decoder;
+- ``short``: 1 for a short-header picture (``decode_short``), which
+  displays at once (no B pictures, no reorder lag).  An I picture is an
+  intra plan of the H.263-dequantized blocks; a P picture's macroblocks
+  are 1MV records (a COD skip a zero vector without residual, an intra
+  macroblock an intra record), rounding 0, the chroma vector
+  ``(m >> 1) | (m & 1)``.  Its references are the numpy decoder's
+  padded by 32, which the per-coordinate clamp equals for H.263's
+  vectors of at most 16 samples.
+
 Every vector is worked out here, on the host.  The methods whose plan
 stores lacked these are copies of their source lines, each under a
 header comment naming them, with lines added for the records and the
-plan form's refusals narrowed to GMC and static sprites (pinned by
-``tests/test_torch_mpeg4_asp.py``); ``_intra_mb`` and ``_b_residual``
-take ``dct_type`` as an argument and are wrapped.  What the numpy
-decoder refuses, this parse refuses the same way: a field-predicted P
-macroblock in a quarter-sample VOL raises "mpeg4: quarter-sample field
-prediction".  A VOL the pinned plan form takes gives the same plans as
-before, the new fields 0.
+plan form's refusals lifted (pinned by ``tests/test_torch_mpeg4_asp.py``);
+``_intra_mb`` and ``_b_residual`` take ``dct_type`` as an argument and are
+wrapped, and ``_gmc_warp_planes`` records the warp instead of warping in
+plan mode.  What the numpy decoder refuses, this parse refuses the same
+way, in its words: a field-predicted P macroblock in a quarter-sample
+VOL ("mpeg4: quarter-sample field prediction"), static sprites, sprite
+brightness change, more than three warping points (a ``ValueError``)
+and an extended PTYPE.  A VOL the pinned plan form takes gives the same
+plans as before, the new fields 0.
 """
 
 from __future__ import annotations
@@ -40,20 +63,43 @@ from __future__ import annotations
 import numpy as np
 
 from tcforge_tpu_torch.io.mpeg4dec import (_ALT_V, _CBPY_LUT, _MBTYPE_B_LUT,
-                                           _MCBPC_P_LUT, _ZIG, Bits,
-                                           Mpeg4Decoder, _dquant,
-                                           _iter_startcodes, _read_lut,
-                                           idct_add_sel)
+                                           _MCBPC_I_LUT, _MCBPC_P_LUT, _VOL,
+                                           _ZIG, Bits, Mpeg4Decoder, _dquant,
+                                           _iter_startcodes, _log2up,
+                                           _read_lut, idct_add_sel, idct_put)
 
 __all__ = ["Mpeg4PlanDecoder", "FORM_HALF", "FORM_QPEL16", "FORM_QPEL8",
-           "FORM_FIELD"]
+           "FORM_FIELD", "FORM_GMC", "WARP", "warp_record"]
 
-FORM_HALF, FORM_QPEL16, FORM_QPEL8, FORM_FIELD = 0, 1, 2, 3
+FORM_HALF, FORM_QPEL16, FORM_QPEL8, FORM_FIELD, FORM_GMC = 0, 1, 2, 3, 4
+
+# an S-VOP's warp record, int64: the sprite's S (2 << accuracy), its
+# warping points, the VOP's rounding, one point's translation (x, y) or
+# the affine form's matrix (dxx, dxy, dyx, dyy), shift and the luma and
+# chroma offsets (``_gmc_setup``)
+WARP = 14
+(W_S, W_N, W_RND, W_TX, W_TY, W_DXX, W_DXY, W_DYX, W_DYY, W_SH, W_OX, W_OY,
+ W_OCX, W_OCY) = range(WARP)
+
+
+def warp_record(P: dict, rounding: int) -> np.ndarray:
+    """``_gmc_setup``'s dict and the VOP's rounding as a ``WARP`` record
+    (the affine fields 0 for one point, the translation 0 for the
+    others)."""
+    rec = np.zeros(WARP, np.int64)
+    rec[W_S], rec[W_N], rec[W_RND] = P["S"], P["n"], rounding
+    if P["n"] == 1:
+        rec[W_TX], rec[W_TY] = P["trans"]
+    else:
+        (rec[W_DXX], rec[W_DXY]), (rec[W_DYX], rec[W_DYY]) = P["D"]
+        rec[W_SH:W_OCY + 1] = (P["sh"], P["ox"], P["oy"], P["ocx"],
+                               P["ocy"])
+    return rec
 
 
 class Mpeg4PlanDecoder(Mpeg4Decoder):
-    """``Mpeg4Decoder`` whose plans carry the interlaced and
-    quarter-sample records (see the module's docstring)."""
+    """``Mpeg4Decoder`` whose plans carry the interlaced, quarter-sample,
+    GMC and short-header records (see the module's docstring)."""
 
     def _plan_new(self, kind: str, rounding: int = 0) -> dict:
         plan = super()._plan_new(kind, rounding)
@@ -66,8 +112,35 @@ class Mpeg4PlanDecoder(Mpeg4Decoder):
             form=np.zeros(nmb, np.uint8),
             fsel=np.zeros((nmb, 2, 2), np.uint8),       # [dir][field]
             fmv=np.zeros((nmb, 2, 2, 2), np.int16),     # [dir][field](x, y)
-            fcmv=np.zeros((nmb, 2, 2, 2), np.int16))
+            fcmv=np.zeros((nmb, 2, 2, 2), np.int16),
+            warp=None,
+            short=int(bool(getattr(vol, "short_header", False))))
         return plan
+
+    def _rec_gmc(self, idx: int) -> None:
+        """Macroblock ``idx`` of an S-VOP predicts from the warped
+        reference at its own place."""
+        self._plan['use_f'][idx] = 1
+        self._plan['form'][idx] = FORM_GMC
+
+    def _rec_1mv(self, idx: int, blocks, mx: int, my: int) -> None:
+        """A short-header P picture's inter macroblock ``idx``: its
+        blocks, its half-pel vector and the chroma vector
+        ``(m >> 1) | (m & 1)`` (``decode_short``)."""
+        pl = self._plan
+        pl['blocks'][idx] = blocks
+        pl['use_f'][idx] = 1
+        pl['mvs4'][idx] = [(mx, my)] * 4
+        pl['cmv'][idx] = ((mx >> 1) | (mx & 1), (my >> 1) | (my & 1))
+
+    def _gmc_warp_planes(self, planes, P, rnd):
+        """In plan mode the S-VOP's warp record (``warp_record``), kept
+        in its plan for the card, in place of the warped planes, which
+        plan mode has no pixels for; else the numpy warp."""
+        if self._plan is None:
+            return super()._gmc_warp_planes(planes, P, rnd)
+        self._plan['warp'] = warp_record(P, rnd)
+        return self._plan['warp']
 
     def _rec_field(self, idx: int, d: int, fmvs, fsels) -> None:
         """Direction ``d`` (0 forward, 1 backward) of field macroblock
@@ -99,35 +172,32 @@ class Mpeg4PlanDecoder(Mpeg4Decoder):
             self._plan['dct_type'][(y0 // 16) * self._mbw + (x0 // 16)] = \
                 dct_type
 
-    # Copy of tcforge_tpu/io/mpeg4dec.py:445-470; interlaced and
-    # quarter-sample VOLs are planned, GMC and static sprites refused.
+    # Copy of tcforge_tpu/io/mpeg4dec.py:445-470; interlaced,
+    # quarter-sample and GMC VOLs and short-header pictures are planned.
     def parse_plans(self, data: bytes) -> list:
         """Parse one container chunk in plan mode, returning the
         decode-order recon plans it yields (no pixel work; see
         io/mpeg4jax.py for the batched device reconstruction).
         Raises NotImplementedError for VOL features the device path
-        does not cover (GMC, static sprites, short headers)."""
+        does not cover, as the numpy decoder refuses them (static
+        sprites, sprite brightness change, extended PTYPE)."""
         self.plan_mode = True
         start = len(self.plans)
         if len(data) >= 3 and data[0] == 0 and data[1] == 0 \
                 and (data[2] & 0xFC) == 0x80:
-            raise NotImplementedError(
-                "mpeg4 plan mode: short-header (H.263) streams "
-                "decode on the numpy path")
+            self.decode_short(data)          # a short-header picture
+            out, self.plans = self.plans[start:], self.plans[:start]
+            return out
         for code, payload in _iter_startcodes(data):
             if 0x20 <= code <= 0x2F:
                 self._parse_vol(Bits(payload))
-                if getattr(self.vol, "sprite_enable", 0):
-                    raise NotImplementedError(
-                        "mpeg4 plan mode: GMC VOLs decode on the numpy "
-                        "path")
             elif code == 0xB6:
                 self._decode_vop(Bits(payload))
         out, self.plans = self.plans[start:], self.plans[:start]
         return out
 
-    # Copy of tcforge_tpu/io/mpeg4dec.py:606-720; the same refusal as
-    # ``parse_plans``.
+    # Copy of tcforge_tpu/io/mpeg4dec.py:606-720; an S-VOP is planned
+    # as a P-VOP with its rounding.
     def _decode_vop(self, b: Bits):
         if self.vol is None:
             raise ValueError("mpeg4: VOP before VOL")
@@ -197,11 +267,8 @@ class Mpeg4PlanDecoder(Mpeg4Decoder):
             if fcode_b == 0:
                 raise ValueError("mpeg4: fcode_b 0")
         if self.plan_mode:
-            if getattr(vol, "sprite_enable", 0):
-                raise NotImplementedError(
-                    "mpeg4 plan mode: GMC VOLs decode on the numpy path")
-            self._plan_new(('I', 'P', 'B')[vop_type],
-                           rounding if vop_type == 1 else 0)
+            self._plan_new(('I', 'P', 'B', 'P')[vop_type],
+                           rounding if vop_type in (1, 3) else 0)
         if vol.data_partitioned and vop_type in (0, 1):
             if vop_type == 1 and self.last is None:
                 raise ValueError("mpeg4: P-VOP before I-VOP")
@@ -243,8 +310,8 @@ class Mpeg4PlanDecoder(Mpeg4Decoder):
             return out
 
     # Copy of tcforge_tpu/io/mpeg4dec.py:2113-2367; the plan store
-    # records dct_type, the prediction form and a field macroblock's
-    # vectors.
+    # records dct_type, the prediction form, a field macroblock's vectors
+    # and an S-VOP's GMC macroblocks.
     def _decode_pvop(self, b, qscale, dc_thr, fcode, rounding,
                      svop_traj=None):
         vol = self.vol
@@ -291,6 +358,12 @@ class Mpeg4PlanDecoder(Mpeg4Decoder):
                 if b.read1():                   # not_coded: skip MB
                     if gw is not None:
                         # S-VOP skip = GMC prediction, no residual
+                        if self._plan is not None:
+                            self._rec_gmc(mby * mbw + mbx)
+                            amv = self._gmc_amv(gmc_P, mbx, mby, fcode)
+                            for k in range(4):
+                                mvgrid[by + (k >> 1)][bx + (k & 1)] = amv
+                            continue
                         for p, (pl, sh) in enumerate(((y, 0),
                                                       (u, 1),
                                                       (v, 1))):
@@ -482,6 +555,8 @@ class Mpeg4PlanDecoder(Mpeg4Decoder):
                     pl['dct_type'][idx] = dct_type
                     if field_mc:
                         self._rec_field(idx, 0, fmvs, fsels)
+                    elif mcsel:
+                        self._rec_gmc(idx)
                     elif qpel:
                         pl['form'][idx] = FORM_QPEL8 if mb_type == 2 \
                             else FORM_QPEL16
@@ -875,3 +950,165 @@ class Mpeg4PlanDecoder(Mpeg4Decoder):
         self._b_residual(b, cbp if read_blocks else 0, qscale,
                          pred_y, pred_u, pred_v, x0, y0, y, u, v,
                          dct_type)
+
+    # Copy of tcforge_tpu/io/mpeg4dec.py:1575-1708; the plan store
+    # records an intra plan of the H.263 blocks or a P plan of 1MV
+    # records (``_rec_1mv``), no pixel work.
+    def decode_short(self, data: bytes):
+        """Decode one short-video-header picture; returns (y, u, v)
+        display planes (no reorder delay — H.263 baseline has no B
+        pictures)."""
+        b = Bits(data)
+        if b.read(22) != 0x20:
+            raise ValueError("h263: bad short_video_start_marker")
+        b.read(8)                    # temporal_reference
+        if b.read1() != 1:
+            raise ValueError("h263: marker bit")
+        if b.read1() != 0:
+            raise ValueError("h263: zero bit")
+        b.read(3)                    # split_screen/doc_camera/freeze
+        fmt = b.read(3)
+        if fmt not in self._SH_FORMATS:
+            raise NotImplementedError(
+                f"h263: source format {fmt} (extended PTYPE) is not "
+                "supported")
+        w, h = self._SH_FORMATS[fmt]
+        ptype = b.read1()            # 0 = I, 1 = P
+        b.read(4)                    # four_reserved_zero_bits
+        q = b.read(5)
+        if q == 0:
+            raise ValueError("h263: quant 0")
+        b.read1()                    # zero bit
+        while b.read1():             # PEI
+            b.read(8)
+        if self.vol is None or self.vol.width != w \
+                or not getattr(self.vol, "short_header", False):
+            vol = _VOL()
+            vol.width, vol.height = w, h
+            vol.time_inc_res = 30000
+            vol.time_inc_bits = _log2up(30000)
+            vol.short_header = True
+            self.vol = vol
+            self._mbw, self._mbh = w // 16, h // 16
+        mbw, mbh = self._mbw, self._mbh
+        y = np.zeros((h, w), np.uint8)
+        u = np.zeros((h // 2, w // 2), np.uint8)
+        v = np.zeros((h // 2, w // 2), np.uint8)
+        prev = self.last
+        if ptype and prev is None:
+            raise ValueError("h263: P picture before I picture")
+        if self.plan_mode:
+            self._plan_new('P' if ptype else 'I')
+        pad = 16 + 16
+        refs = None if not ptype else \
+            [np.pad(pl, pad, mode="edge") for pl in prev]
+        mvgrid = [[(0, 0)] * (2 * mbw) for _ in range(2 * mbh)]
+        for mby in range(mbh):
+            if mby:
+                q = self._sh_gob_header(b, q)
+            for mbx in range(mbw):
+                x0, y0 = 16 * mbx, 16 * mby
+                bx, by = 2 * mbx, 2 * mby
+                if ptype:
+                    if b.read1():            # COD: skip MB
+                        if self._plan is not None:
+                            # inter copy: zero MVs, no residual
+                            self._plan['use_f'][mby * mbw + mbx] = 1
+                            continue
+                        for p_i, (pl, sh) in enumerate(
+                                ((y, 0), (u, 1), (v, 1))):
+                            s = 16 >> sh
+                            px, py = x0 >> sh, y0 >> sh
+                            pl[py:py + s, px:px + s] = \
+                                prev[p_i][py:py + s, px:px + s]
+                        continue
+                    mb_type, cbpc = _read_lut(b, _MCBPC_P_LUT, 13)
+                    while mb_type == -2:     # stuffing
+                        mb_type, cbpc = _read_lut(b, _MCBPC_P_LUT,
+                                                  13)
+                else:
+                    mb_type, cbpc = _read_lut(b, _MCBPC_I_LUT, 9)
+                    while mb_type == -1:
+                        mb_type, cbpc = _read_lut(b, _MCBPC_I_LUT,
+                                                  9)
+                intra = mb_type in (3, 4)
+                cbpy = _read_lut(b, _CBPY_LUT, 6)
+                if not intra:
+                    cbpy ^= 0xF
+                if mb_type in (1, 4):
+                    q = _dquant(b, q)
+                cbp = (cbpy << 2) | cbpc
+                if intra:
+                    blocks = np.zeros((6, 8, 8), np.int64)
+                    for n in range(6):
+                        dcd = b.read(8)
+                        if dcd in (0, 128):
+                            raise ValueError("h263: bad INTRADC")
+                        if dcd == 255:
+                            dcd = 128
+                        lv = np.zeros((8, 8), np.int64)
+                        if (cbp >> (5 - n)) & 1:
+                            lv = self._read_block_sh(b, 1)
+                        blocks[n] = self._dequant_h263(lv, q, dcd)
+                    if self._plan is not None:
+                        idx = mby * mbw + mbx
+                        self._plan['blocks'][idx] = blocks
+                        self._plan['intra'][idx] = 1
+                        for k in range(4):
+                            mvgrid[by + (k >> 1)][bx + (k & 1)] = (0, 0)
+                        continue
+                    out = idct_put(blocks)
+                    self._luma_store(y, x0, y0, out[:4], 0)
+                    u[mby * 8:mby * 8 + 8,
+                      mbx * 8:mbx * 8 + 8] = out[4]
+                    v[mby * 8:mby * 8 + 8,
+                      mbx * 8:mbx * 8 + 8] = out[5]
+                    for k in range(4):
+                        mvgrid[by + (k >> 1)][bx + (k & 1)] = (0, 0)
+                    continue
+                # inter MB: one MV, H.263 predictors == MPEG-4 1MV
+                px_, py_ = self._pred_mv(mvgrid, bx, by, 0)
+                mx = self._decode_mv_component(b, 1, px_)
+                my = self._decode_mv_component(b, 1, py_)
+                for k in range(4):
+                    mvgrid[by + (k >> 1)][bx + (k & 1)] = (mx, my)
+                if self._plan is not None:
+                    blocks = np.zeros((6, 8, 8), np.int64)
+                    for n in range(6):
+                        if (cbp >> (5 - n)) & 1:
+                            lv = self._read_block_sh(b, 0)
+                            blocks[n] = self._dequant_h263(lv, q, 0)
+                    self._rec_1mv(mby * mbw + mbx, blocks, mx, my)
+                    continue
+                pred_y = self._mc_block(refs[0], pad, x0, y0, 16,
+                                        mx, my, 0)
+                cmx = (mx >> 1) | (mx & 1)
+                cmy = (my >> 1) | (my & 1)
+                pred_u = self._mc_block(refs[1], pad, x0 >> 1,
+                                        y0 >> 1, 8, cmx, cmy, 0)
+                pred_v = self._mc_block(refs[2], pad, x0 >> 1,
+                                        y0 >> 1, 8, cmx, cmy, 0)
+                blocks = np.zeros((6, 8, 8), np.int64)
+                for n in range(6):
+                    if (cbp >> (5 - n)) & 1:
+                        lv = self._read_block_sh(b, 0)
+                        blocks[n] = self._dequant_h263(lv, q, 0)
+                pred6 = np.empty((6, 8, 8), np.int32)
+                for k in range(4):
+                    pred6[k] = pred_y[8 * (k >> 1):8 * (k >> 1) + 8,
+                                      8 * (k & 1):8 * (k & 1) + 8]
+                pred6[4] = pred_u
+                pred6[5] = pred_v
+                out = idct_add_sel(
+                    blocks, pred6,
+                    [(cbp >> (5 - n)) & 1 for n in range(6)])
+                self._luma_store(y, x0, y0, out[:4], 0)
+                u[(y0 >> 1):(y0 >> 1) + 8,
+                  (x0 >> 1):(x0 >> 1) + 8] = out[4]
+                v[(y0 >> 1):(y0 >> 1) + 8,
+                  (x0 >> 1):(x0 >> 1) + 8] = out[5]
+        if self._plan is not None:
+            self.plans.append(self._plan)
+            self._plan = None
+        self.last = [y, u, v]
+        return self._crop_planes([y, u, v])

@@ -5,9 +5,10 @@ host parse (``io/mpeg4plan.py`` ``Mpeg4PlanDecoder.parse_plans``, the
 pinned ``io/mpeg4dec.py`` with the port's own plan stores) records each
 VOP's plan (its dequantized coefficient blocks, each 8x8 block's
 forward and backward vectors, the chroma vectors it derived, the
-macroblock masks, and for interlaced and quarter-sample VOLs each
-macroblock's dct_type, prediction form and field vectors), and this
-module rebuilds the planes from it on the device.
+macroblock masks, and for interlaced, quarter-sample and GMC VOLs each
+macroblock's dct_type, prediction form and field vectors, and an
+S-VOP's warp record), and this module rebuilds the planes from it on
+the device.
 
 - ``stage_plan`` packs a plan into one int16 record a macroblock
   (``REC`` values: the six blocks' coefficients, the vectors, the
@@ -19,12 +20,17 @@ module rebuilds the planes from it on the device.
   both anchors, a P-VOP from the newer, an anchor displays the anchor
   before it, the first anchor displays nothing, and ``flush`` gives the
   last anchor at the end of the stream (``run_plans``,
-  ``decode_stream_jax``).
+  ``decode_stream_jax``); a short-header picture displays at once
+  (``decode_frames``' ``decode_short``), and ``flush`` adds nothing
+  after it.
 - ``reconstruct`` runs one VOP in one launch (``mpeg4_idct_intra`` for
   an I-VOP; for a P or B VOP ``mpeg4_recon_field`` in an interlaced
   VOL, ``mpeg4_recon_qpel`` in a quarter-sample one, else
   ``mpeg4_recon``; ``ops/kernels.py``) from the anchors' planes,
-  carried on the device.
+  carried on the device; an S-VOP in two, which the wrapper makes from
+  the VOP's warp record: ``mpeg4_gmc_warp`` of the forward anchor, then
+  the VOP's reconstruction, whose ``FORM_GMC`` macroblocks take the
+  warped planes.
 - ``crop`` cuts a coded (macroblock-aligned) frame to the VOL's size.
 
 The plain versions the wrappers run on the CPU: ``xvid_idct_ref`` (the
@@ -40,7 +46,13 @@ bidirectional average ``(f + b + 1) >> 1`` and the clip, as
 the block's edges, horizontal stage first) and ``mpeg4_recon_field_ref``
 (``_field_pred_mb``: half-pel field MC whose rows clamp in frame space,
 ``_field_pad``'s row ``2j + k`` of field k).  Each stores the residual
-by dct_type (``_luma_store``).  Not ported: the GOP scan
+by dct_type (``_luma_store``).  ``mpeg4_gmc_warp_ref`` is
+``_gmc_warp_planes``: each sample's coordinate from the warp record in
+64 bits (floor shifts; chroma's own offsets and its ``(d >> 1) | (d &
+1)`` translation at S = 2), the bilinear blend of the four samples
+around it, each coordinate clamped on its own to the coded plane (what
+``_gmc_bilin``'s edge padding and clips give), rounded with ``S*S/2 -
+rounding`` and clipped.  Not ported: the GOP scan
 (``_recon_gop_core``) and the shift-select MC, which exist for the
 TPU.
 """
@@ -53,8 +65,12 @@ import numpy as np
 import torch
 
 from tcforge_tpu_torch.io import mpeg4dec as M
-from tcforge_tpu_torch.io.mpeg4plan import (FORM_FIELD, FORM_HALF,
-                                            FORM_QPEL8, FORM_QPEL16)
+from tcforge_tpu_torch.io.mpeg4plan import (FORM_FIELD, FORM_GMC,
+                                            FORM_HALF, FORM_QPEL8,
+                                            FORM_QPEL16, W_DXX, W_DXY,
+                                            W_DYX, W_DYY, W_N, W_OCX, W_OCY,
+                                            W_OX, W_OY, W_RND, W_S, W_SH,
+                                            W_TX, W_TY)
 
 Planes = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -75,7 +91,9 @@ def stage_plan(plan: dict, out: Optional[np.ndarray] = None) -> np.ndarray:
     """A plan's (nmb, ``REC``) int16 records, written into ``out`` when
     given (a slot of a pinned host buffer).  A plan of the pinned
     decoder, which has no dct_type, form or field records, stages them
-    as 0."""
+    as 0.  An S-VOP's warp record (``plan["warp"]``, int64) is not
+    staged: it stays on the host and goes to ``mpeg4_gmc_warp`` as its
+    launch's arguments (``reconstruct``)."""
     nmb = plan["mbw"] * plan["mbh"]
     if out is None:
         out = np.empty((nmb, REC), np.int16)
@@ -340,15 +358,73 @@ def _field_plane(ref: torch.Tensor, vop: torch.Tensor, d: int, lo: int,
                     sel[mb, i])
 
 
+def _gmc_coords(warp, h: int, w: int, chroma: bool, dev):
+    """``_gmc_warp_planes``' sample coordinates (x, y) at S precision,
+    int64 (h, w), of a plane of the warp record ``warp``."""
+    S, n = int(warp[W_S]), int(warp[W_N])
+    i = torch.arange(w, dtype=torch.int64, device=dev).view(1, w)
+    j = torch.arange(h, dtype=torch.int64, device=dev).view(h, 1)
+    if n == 1:
+        dx, dy = int(warp[W_TX]), int(warp[W_TY])
+        if not chroma:
+            ox, oy = dx * (S // 2), dy * (S // 2)
+        elif S == 2:
+            ox, oy = (dx >> 1) | (dx & 1), (dy >> 1) | (dy & 1)
+        else:
+            ox, oy = dx * (S // 4), dy * (S // 4)
+        return (i * S + ox).expand(h, w), (j * S + oy).expand(h, w)
+    dxx, dxy, dyx, dyy = (int(warp[k]) for k in (W_DXX, W_DXY, W_DYX,
+                                                 W_DYY))
+    sh = int(warp[W_SH])
+    if not chroma:
+        return ((int(warp[W_OX]) + dxx * i + dxy * j) >> sh,
+                (int(warp[W_OY]) + dyx * i + dyy * j) >> sh)
+    return ((int(warp[W_OCX]) + 4 * (dxx * i + dxy * j)) >> (sh + 2),
+            (int(warp[W_OCY]) + 4 * (dyx * i + dyy * j)) >> (sh + 2))
+
+
+def mpeg4_gmc_warp_ref(ref: Planes, warp) -> Planes:
+    """Plain version of ``mpeg4_gmc_warp``: the three coded-grid planes
+    of ``ref`` warped by the record ``warp`` (io/mpeg4plan.py
+    ``warp_record``), as ``_gmc_warp_planes`` and ``_gmc_bilin``:
+    ``(S-fx)(S-fy)a + fx(S-fy)b + (S-fx)fy c + fx fy d + S*S/2 -
+    rounding``, shifted by ``2*bit_length(S) - 2`` and clipped, the
+    integer part of each coordinate a floor and each of the four
+    samples' coordinates clamped on its own to the plane."""
+    S, rnd = int(warp[W_S]), int(warp[W_RND])
+    lg = S.bit_length() - 1
+    R, sh2 = S * S // 2 - rnd, 2 * S.bit_length() - 2
+    out = []
+    for p, plane in enumerate(ref):
+        h, w = plane.shape
+        vx, vy = _gmc_coords(warp, h, w, p > 0, plane.device)
+        x0, y0 = vx >> lg, vy >> lg
+        fx, fy = vx & (S - 1), vy & (S - 1)
+        xa, xb = x0.clamp(0, w - 1), (x0 + 1).clamp(0, w - 1)
+        ya, yb = y0.clamp(0, h - 1), (y0 + 1).clamp(0, h - 1)
+        r = plane.to(torch.int64)
+        v = ((S - fx) * (S - fy) * r[ya, xa] + fx * (S - fy) * r[ya, xb]
+             + (S - fx) * fy * r[yb, xa] + fx * fy * r[yb, xb] + R) >> sh2
+        out.append(v.clamp(0, 255).to(torch.uint8))
+    return tuple(out)
+
+
 def _recon_ref(vop: torch.Tensor, mbw: int, rounding: int,
                fwd: Optional[Planes], bwd: Optional[Planes],
-               forms: Tuple[int, ...]) -> Planes:
+               forms: Tuple[int, ...], gmc: Optional[Planes] = None
+               ) -> Planes:
     """A P or B VOP's planes from its records with the prediction forms
-    ``forms`` (any other form is predicted as ``FORM_HALF``)."""
+    ``forms`` (any other form but ``FORM_GMC`` is predicted as
+    ``FORM_HALF``); a ``FORM_GMC`` macroblock's forward prediction is the
+    warped planes ``gmc`` at its own place, and records that hold one
+    without them raise."""
     mbh = _check_vop(vop, mbw)
+    form = vop[:, FORM].to(torch.int64)
+    if gmc is None and bool((form == FORM_GMC).any()):
+        raise ValueError("FORM_GMC macroblocks without the S-VOP's warped "
+                         "planes")
     res = _residuals(vop, mbw)
     use_f, use_b = vop[:, USE_F], vop[:, USE_B]
-    form = vop[:, FORM].to(torch.int64)
     out = []
     for p in range(3):
         px = 16 if p == 0 else 8
@@ -373,6 +449,9 @@ def _recon_ref(vop: torch.Tensor, mbw: int, rounding: int,
                                    FLDMV if p == 0 else FLDCMV, mbw, px, rnd)
                 pred = torch.where(_mb_mask(form == FORM_FIELD, mbh, mbw, px),
                                    fld, pred)
+            if d == 0 and gmc is not None:
+                pred = torch.where(_mb_mask(form == FORM_GMC, mbh, mbw, px),
+                                   gmc[p].to(torch.int64), pred)
             preds.append(pred)
         f, b = preds
         pred = torch.where(uf & ub, (f + b + 1) >> 1,
@@ -383,7 +462,8 @@ def _recon_ref(vop: torch.Tensor, mbw: int, rounding: int,
 
 
 def mpeg4_recon_ref(vop: torch.Tensor, mbw: int, rounding: int,
-                    fwd: Optional[Planes], bwd: Optional[Planes]) -> Planes:
+                    fwd: Optional[Planes], bwd: Optional[Planes],
+                    gmc: Optional[Planes] = None) -> Planes:
     """Plain version of ``mpeg4_recon``: a P or B VOP's planes from its
     records and the two anchors on the coded grid (``_recon_vop_math``
     with gather MC): the forward prediction with ``rounding`` (a
@@ -391,54 +471,61 @@ def mpeg4_recon_ref(vop: torch.Tensor, mbw: int, rounding: int,
     average where a macroblock uses both, 0 where it uses neither (an
     intra macroblock), plus the IDCT stored by dct_type, clipped to
     uint8.  Every macroblock is predicted half-pel from its blocks'
-    vectors, whatever its form."""
-    return _recon_ref(vop, mbw, rounding, fwd, bwd, (FORM_HALF,))
+    vectors, whatever its form, but a ``FORM_GMC`` one, whose forward
+    prediction is the warped planes ``gmc`` (an S-VOP's,
+    ``mpeg4_gmc_warp_ref``) at its place."""
+    return _recon_ref(vop, mbw, rounding, fwd, bwd, (FORM_HALF,), gmc)
 
 
 def mpeg4_recon_qpel_ref(vop: torch.Tensor, mbw: int, rounding: int,
-                         fwd: Optional[Planes], bwd: Optional[Planes]
-                         ) -> Planes:
+                         fwd: Optional[Planes], bwd: Optional[Planes],
+                         gmc: Optional[Planes] = None) -> Planes:
     """Plain version of ``mpeg4_recon_qpel``: ``mpeg4_recon_ref`` with the
     luma of ``FORM_QPEL16`` and ``FORM_QPEL8`` macroblocks predicted by
     ``qpel_blocks`` from their quarter-sample vectors (the chroma stays
     half-pel, from the recorded chroma vectors)."""
     return _recon_ref(vop, mbw, rounding, fwd, bwd,
-                      (FORM_HALF, FORM_QPEL16, FORM_QPEL8))
+                      (FORM_HALF, FORM_QPEL16, FORM_QPEL8), gmc)
 
 
 def mpeg4_recon_field_ref(vop: torch.Tensor, mbw: int, rounding: int,
-                          fwd: Optional[Planes], bwd: Optional[Planes]
-                          ) -> Planes:
+                          fwd: Optional[Planes], bwd: Optional[Planes],
+                          gmc: Optional[Planes] = None) -> Planes:
     """Plain version of ``mpeg4_recon_field``: ``mpeg4_recon_qpel_ref``
     with ``FORM_FIELD`` macroblocks predicted field by field
     (``_field_pred_mb``: each field's half-pel vector in its reference
     field, its rows clamped in frame space; the chroma from the
     recorded per-field chroma vectors)."""
     return _recon_ref(vop, mbw, rounding, fwd, bwd,
-                      (FORM_HALF, FORM_QPEL16, FORM_QPEL8, FORM_FIELD))
+                      (FORM_HALF, FORM_QPEL16, FORM_QPEL8, FORM_FIELD), gmc)
 
 
 class Anchors:
     """The two anchors of the decode order, by handle: ``fwd`` the
-    older, ``bwd`` the newer."""
+    older, ``bwd`` the newer; ``pending`` the anchor not yet displayed."""
 
     def __init__(self):
-        self.fwd = self.bwd = None
+        self.fwd = self.bwd = self.pending = None
 
-    def add(self, kind: str, handle):
+    def add(self, kind: str, handle, at_once: bool = False):
         """A VOP of ``kind`` decoded as ``handle``: the handles it
         predicts from (forward, backward; None for none) and the handle
-        it displays (None for the stream's first anchor)."""
+        it displays (None for the stream's first anchor).  An anchor
+        ``at_once`` (a short-header picture) displays itself and leaves
+        the pending anchor pending, as ``decode_short`` leaves the numpy
+        decoder's."""
         if kind == "B":
             return self.fwd, self.bwd, handle
         refs = (self.bwd if kind == "P" else None), None
-        shown = self.bwd
         self.fwd, self.bwd = self.bwd, handle
+        if at_once:
+            return refs + (handle,)
+        shown, self.pending = self.pending, handle
         return refs + (shown,)
 
     def flush(self):
-        """The last anchor's handle at the end of the stream, once."""
-        shown, self.bwd = self.bwd, None
+        """The pending anchor's handle at the end of the stream, once."""
+        shown, self.pending = self.pending, None
         return shown
 
 
@@ -453,15 +540,19 @@ def route(plan: dict) -> str:
 
 def reconstruct(vop: torch.Tensor, kind: str, rounding: int, mbw: int,
                 fwd: Optional[Planes], bwd: Optional[Planes],
-                wrapper: str = "mpeg4_recon") -> Planes:
+                wrapper: str = "mpeg4_recon", warp=None) -> Planes:
     """One VOP's coded-grid planes, one launch: the IDCT alone for an
     I-VOP, else ``wrapper`` (``route``'s choice) predicting from ``fwd``
-    and ``bwd`` (a B-VOP's rounding is 0) with the IDCT."""
+    and ``bwd`` (a B-VOP's rounding is 0) with the IDCT.  An S-VOP (a P
+    plan with a ``warp`` record) takes two, both made by ``wrapper``:
+    ``mpeg4_gmc_warp`` of ``fwd``, then the reconstruction."""
     from tcforge_tpu_torch.ops import kernels
     if kind == "I":
         return kernels.mpeg4_idct_intra(vop, mbw)
-    return getattr(kernels, wrapper)(vop, mbw, rounding if kind == "P"
-                                     else 0, fwd, bwd)
+    args = (vop, mbw, rounding if kind == "P" else 0, fwd, bwd)
+    if warp is None:
+        return getattr(kernels, wrapper)(*args)
+    return getattr(kernels, wrapper)(*args, warp=warp)
 
 
 def crop(frame: Planes, width: int, height: int) -> Planes:
@@ -479,10 +570,10 @@ def decode_plans(plans: List[dict], device, width: int, height: int
     anchors, frames, shown = Anchors(), {}, []
     for h, plan in enumerate(plans):
         vop = torch.from_numpy(stage_plan(plan)).to(device)
-        fh, bh, show = anchors.add(plan["kind"], h)
+        fh, bh, show = anchors.add(plan["kind"], h, bool(plan.get("short")))
         frames[h] = reconstruct(vop, plan["kind"], int(plan["rounding"]),
                                 plan["mbw"], frames.get(fh), frames.get(bh),
-                                route(plan))
+                                route(plan), plan.get("warp"))
         shown.append(show)
     shown.append(anchors.flush())
     return [crop(frames[h], width, height) for h in shown if h is not None]

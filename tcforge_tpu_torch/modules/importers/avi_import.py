@@ -15,31 +15,36 @@ routes, by its fourcc:
   halves on two threads.  ``plan_batch`` (the reader thread) parses
   each chunk on the host (``io/mpeg4plan.Mpeg4PlanDecoder.parse_plans``,
   the pinned ``io/mpeg4dec.py`` with the port's plan stores, which take
-  interlaced and quarter-sample VOLs) straight into the records of a
-  ring of host buffers
+  interlaced, quarter-sample and GMC VOLs and short-header (H.263)
+  pictures) straight into the records of a ring of host buffers
   (pinned on a card; ``io/mpeg4recon.stage_plan``) and decides the
   display order by handles: a B-VOP displays at once, an anchor
   displays the anchor before it, the last anchor at the end of the
-  stream.  ``execute`` (the main thread) uploads the batch's records in
-  one copy and reconstructs each VOP in decode order, one launch each
-  (``mpeg4_idct_intra``, or by the VOL ``mpeg4_recon``,
-  ``mpeg4_recon_qpel`` or ``mpeg4_recon_field``), the anchors kept on
-  the device.  A zero-size chunk pays the debt of a packed P+B chunk (Xvid's
-  placeholder) or, once a VOP was seen, is a dropped frame: an all-skip
-  P plan, which repeats the last anchor (the JAX importer's
-  ``_read_mp4_jax``, ``:240-268``).  The frames equal the JAX CLI's
-  numpy decode (``decode_frames`` and ``flush``).
+  stream, a short-header picture at once.  ``execute`` (the main
+  thread) uploads the batch's records in one copy and reconstructs each
+  VOP in decode order, one launch each (``mpeg4_idct_intra``, or by the
+  VOL ``mpeg4_recon``, ``mpeg4_recon_qpel`` or ``mpeg4_recon_field``; an
+  S-VOP's warp record goes with it, and the wrapper warps the reference
+  with ``mpeg4_gmc_warp`` first),
+  the anchors kept on the device.  A short-header stream under an
+  MPEG-4 fourcc takes this route, as the JAX importer's numpy decoder
+  takes it (``decode_frames``).  A zero-size chunk pays the debt of a
+  packed P+B chunk (Xvid's placeholder) or, once a VOP was seen, is a
+  dropped frame: an all-skip P plan, which repeats the last anchor (the
+  JAX importer's ``_read_mp4_jax``, ``:240-268``).  The frames equal the
+  JAX CLI's numpy decode (``decode_frames`` and ``flush``).
 
 A PCM track (``-a`` or the ``track`` option) is the session's audio, as
 the JAX importer reads it.  ``seek`` (``-L``) moves the chunk index and
 drops the matching samples, as the JAX importer's does.
 
-Not ported yet, each raising ``NotImplementedError`` that names it: the
-MPEG-4 VOLs the plan form refuses (GMC or static sprite, short header /
-H.263), Motion-JPEG, the other compressed fourccs (which the JAX
-package hands to FFmpeg) and compressed audio tracks (MP2, MP3, AC-3:
-tags 0x50, 0x55, 0x2000).  What the JAX package's numpy decoder itself
-refuses raises as there ("mpeg4: quarter-sample field prediction").
+Not ported yet, each raising ``NotImplementedError`` that names it:
+Motion-JPEG, the other compressed fourccs (``H263`` among them, which
+the JAX package hands to FFmpeg) and compressed audio tracks (MP2, MP3,
+AC-3: tags 0x50, 0x55, 0x2000).  What the JAX package's numpy decoder
+itself refuses raises as there, in its words: static sprites, sprite
+brightness change, more than three warping points (a ``ValueError``),
+an extended PTYPE, quarter-sample field prediction.
 """
 
 from __future__ import annotations
@@ -114,10 +119,11 @@ class _Buffer:
 class Plan:
     """One batch of the MPEG-4 decode, decided on the host
     (``plan_batch``) and run on the device (``execute``): ops are
-    ``(kind, slot, rounding, fwd handle, bwd handle, handle, wrapper)``
-    in decode order (``wrapper`` the P or B VOP's reconstruction,
-    ``io/mpeg4recon.py`` ``route``), frames the handles of the batch's
-    frames in display order, live the handles kept afterwards."""
+    ``(kind, slot, rounding, fwd handle, bwd handle, handle, wrapper,
+    warp)`` in decode order (``wrapper`` the P or B VOP's
+    reconstruction, ``io/mpeg4recon.py`` ``route``; ``warp`` an S-VOP's
+    warp record, else None), frames the handles of the batch's frames in
+    display order, live the handles kept afterwards."""
 
     buffer: Optional[_Buffer]
     used: int
@@ -252,24 +258,6 @@ class AviImporter(Importer):
             buf.event = None
         return buf
 
-    def _parse(self, raw: bytes) -> list:
-        """The chunk's plans; a VOL or VOP the plan form refuses is
-        refused by name."""
-        dec = self._mp4
-        try:
-            return dec.parse_plans(raw)
-        except NotImplementedError:
-            vol = dec.vol
-            if len(raw) >= 3 and raw[0] == 0 and raw[1] == 0 \
-                    and (raw[2] & 0xFC) == 0x80:
-                what = "short video header (H.263) MPEG-4"
-            elif vol is not None and getattr(vol, "sprite_enable", 0):
-                what = ("GMC" if vol.sprite_enable == 2
-                        else "static sprite") + " MPEG-4"
-            else:
-                raise
-            raise _not_ported(what) from None
-
     def _handle(self) -> int:
         self._next_handle += 1
         return self._next_handle
@@ -297,9 +285,10 @@ class AviImporter(Importer):
             stage_plan(p, buf.slot(k))
             plan.used += 1
             h = self._handle()
-            fh, bh, shown = self._anchors.add(p["kind"], h)
+            fh, bh, shown = self._anchors.add(p["kind"], h,
+                                              bool(p.get("short")))
             plan.ops.append((p["kind"], k, int(p["rounding"]), fh, bh, h,
-                             route(p)))
+                             route(p), p.get("warp")))
             if shown is not None:
                 frames.append(shown)
 
@@ -324,7 +313,7 @@ class AviImporter(Importer):
                     self._mp4._plan = None
                     add(p)
                 continue
-            plans = self._parse(bytes(raw))
+            plans = self._mp4.parse_plans(bytes(raw))
             if plans:
                 self._seen_plan = True
                 self._debt += len(plans) - 1
@@ -338,7 +327,8 @@ class AviImporter(Importer):
             self._spill.extend(frames[n:])
             frames = frames[:n]
         plan.frames = frames
-        live = {self._anchors.fwd, self._anchors.bwd, *self._spill}
+        live = {self._anchors.fwd, self._anchors.bwd, self._anchors.pending,
+                *self._spill}
         plan.live = sorted(h for h in live if h is not None)
         if not frames and not plan.ops:
             self._release(plan.buffer)
@@ -388,10 +378,11 @@ class AviImporter(Importer):
             plan.buffer = None
         frames = self._frames
         mbw = (self.width + 15) // 16
-        for kind, k, rounding, fh, bh, h, wrapper in plan.ops:
+        for kind, k, rounding, fh, bh, h, wrapper, warp in plan.ops:
             vop = flat[k * per:(k + 1) * per].view(nmb, REC)
-            frames[h] = reconstruct(vop, kind, rounding, mbw,
-                                    frames.get(fh), frames.get(bh), wrapper)
+            frames[h] = reconstruct(
+                vop, kind, rounding, mbw, frames.get(fh), frames.get(bh),
+                wrapper, warp)
         out = None
         if plan.frames:
             vol = self._mp4.vol

@@ -77,6 +77,12 @@ wrapper                    CUDA source                 replaces (tcforge_tpu)
 ``mpeg4_idct_intra``       ``csrc/mpeg4_recon.cu``     io/mpeg4jax.py
                                                        ``xvid_idct_jax`` of
                                                        an I-VOP (XLA ops)
+``mpeg4_gmc_warp``         ``csrc/mpeg4_recon.cu``     io/mpeg4dec.py
+                                                       ``_gmc_warp_planes``
+                                                       and ``_gmc_bilin``
+                                                       (numpy; the JAX
+                                                       device form refuses
+                                                       GMC VOLs)
 ``mpeg4_enc_me``           ``csrc/mpeg4_encode.cu``    io/mpeg4enc.py
                                                        ``_encode_pvop``'s
                                                        decisions (numpy
@@ -134,6 +140,7 @@ launches: Dict[str, int] = {"hqdn3d_spatial_scan": 0,
                             "mpeg4_recon_qpel": 0,
                             "mpeg4_recon_field": 0,
                             "mpeg4_idct_intra": 0,
+                            "mpeg4_gmc_warp": 0,
                             "mpeg4_enc_me": 0,
                             "mpeg4_enc_bme": 0,
                             "mpeg4_enc_blocks": 0}
@@ -204,6 +211,7 @@ _SIGNATURES = {
         "tc_mpeg4_recon_qpel": (_P, _P),
         "tc_mpeg4_recon_field": (_P, _P),
         "tc_mpeg4_idct_intra": (_P, _P),
+        "tc_mpeg4_gmc_warp": (_P, _P),
     },
     "mpeg4_encode": {
         "tc_mpeg4_enc_me": (_P, _P, _P),
@@ -1374,22 +1382,37 @@ def _vop_out(vop: torch.Tensor, mbh: int, mbw: int):
 
 
 def _recon_launch(name: str, vop: torch.Tensor, mbw: int, rounding: int,
-                  fwd, bwd):
+                  fwd, bwd, warp=None):
     """Checks a P or B VOP's arguments and runs kernel ``name`` (on the
-    CPU its plain version, ``io/mpeg4recon.py`` ``<name>_ref``)."""
+    CPU its plain version, ``io/mpeg4recon.py`` ``<name>_ref``); with an
+    S-VOP's warp record ``warp``, ``mpeg4_gmc_warp`` of ``fwd`` first,
+    whose planes the kernel's ``FORM_GMC`` macroblocks take."""
     if int(rounding) not in (0, 1):
         raise ValueError(f"rounding {rounding}: 0 or 1")
-    mbh, planes = _vop_args(vop, mbw, (fwd, bwd), ("fwd", "bwd"))
-    if not _on_cuda(vop, *planes):
+    _mbh, planes = _vop_args(vop, mbw, (fwd, bwd), ("fwd", "bwd"))
+    if warp is not None and fwd is None:
+        raise ValueError("warp: an S-VOP needs its forward anchor")
+    cuda = _on_cuda(vop, *planes)
+    gmc = None if warp is None else mpeg4_gmc_warp(fwd, warp)
+    if not cuda:
         from tcforge_tpu_torch.io import mpeg4recon
         return getattr(mpeg4recon, f"{name}_ref")(vop, mbw, rounding, fwd,
-                                                  bwd)
+                                                  bwd, gmc)
+    return _recon_kernel(name, vop, mbw, rounding, fwd, bwd, gmc)
+
+
+def _recon_kernel(name: str, vop: torch.Tensor, mbw: int, rounding: int,
+                  fwd, bwd, gmc):
+    """Launches kernel ``name`` on checked arguments, the warped planes
+    ``gmc`` (``mpeg4_gmc_warp``'s) given exactly for an S-VOP: a launch
+    whose records hold a ``FORM_GMC`` macroblock but no planes traps."""
+    mbh = vop.shape[0] // mbw
     out = _vop_out(vop, mbh, mbw)
     if vop.shape[0] == 0:
         return out
     meta = [vop.data_ptr(), *(o.data_ptr() for o in out), mbw, mbh,
             int(rounding)]
-    for ref in (fwd, bwd):
+    for ref in (fwd, bwd, gmc):
         meta += [0, 0, 0] if ref is None else [p.data_ptr() for p in ref]
     ptr, _keep = _meta(meta)
     _call("mpeg4_recon", f"tc_{name}", ptr, _stream(vop))
@@ -1397,13 +1420,22 @@ def _recon_launch(name: str, vop: torch.Tensor, mbw: int, rounding: int,
     return out
 
 
-def mpeg4_recon_ref(vop, mbw: int, rounding: int, fwd, bwd):
-    """Plain version of ``mpeg4_recon`` (io/mpeg4recon.py)."""
+def _recon_plain(name: str, vop, mbw: int, rounding: int, fwd, bwd, warp):
+    """Kernel ``name``'s plain version (io/mpeg4recon.py ``<name>_ref``),
+    an S-VOP's planes warped by ``mpeg4_gmc_warp_ref`` first."""
     from tcforge_tpu_torch.io import mpeg4recon
-    return mpeg4recon.mpeg4_recon_ref(vop, mbw, rounding, fwd, bwd)
+    gmc = None if warp is None else mpeg4_gmc_warp_ref(fwd, warp)
+    return getattr(mpeg4recon, f"{name}_ref")(vop, mbw, rounding, fwd, bwd,
+                                              gmc)
 
 
-def mpeg4_recon(vop: torch.Tensor, mbw: int, rounding: int, fwd, bwd):
+def mpeg4_recon_ref(vop, mbw: int, rounding: int, fwd, bwd, warp=None):
+    """Plain version of ``mpeg4_recon`` (io/mpeg4recon.py)."""
+    return _recon_plain("mpeg4_recon", vop, mbw, rounding, fwd, bwd, warp)
+
+
+def mpeg4_recon(vop: torch.Tensor, mbw: int, rounding: int, fwd, bwd,
+                warp=None):
     """A P or B VOP's planes: int16 (nmb, ``REC``) macroblock records
     (io/mpeg4recon.py ``stage_plan``: the dequantized blocks, each luma
     block's forward and backward half-pel vectors, the chroma vectors,
@@ -1414,41 +1446,48 @@ def mpeg4_recon(vop: torch.Tensor, mbw: int, rounding: int, fwd, bwd):
     half-pel prediction (``rounding`` forward, 0 backward; each sample
     coordinate clamped to the plane), the average of both where a
     macroblock uses both, and the clipped sum, the luma residual placed
-    by dct_type.  Returns uint8 (16*mbh, 16*mbw) and (8*mbh, 8*mbw)
+    by dct_type.  ``warp``: an S-VOP's warp record (io/mpeg4plan.py
+    ``warp_record``, on the host), which ``fwd`` is warped by first
+    (``mpeg4_gmc_warp``, a second launch); its ``FORM_GMC`` macroblocks
+    predict from those planes at their own place, and records that hold
+    one need it.  Returns uint8 (16*mbh, 16*mbw) and (8*mbh, 8*mbw)
     twice."""
-    return _recon_launch("mpeg4_recon", vop, mbw, rounding, fwd, bwd)
+    return _recon_launch("mpeg4_recon", vop, mbw, rounding, fwd, bwd, warp)
 
 
-def mpeg4_recon_qpel_ref(vop, mbw: int, rounding: int, fwd, bwd):
+def mpeg4_recon_qpel_ref(vop, mbw: int, rounding: int, fwd, bwd, warp=None):
     """Plain version of ``mpeg4_recon_qpel`` (io/mpeg4recon.py)."""
-    from tcforge_tpu_torch.io import mpeg4recon
-    return mpeg4recon.mpeg4_recon_qpel_ref(vop, mbw, rounding, fwd, bwd)
+    return _recon_plain("mpeg4_recon_qpel", vop, mbw, rounding, fwd, bwd,
+                        warp)
 
 
 def mpeg4_recon_qpel(vop: torch.Tensor, mbw: int, rounding: int, fwd,
-                     bwd):
+                     bwd, warp=None):
     """``mpeg4_recon`` for a quarter-sample VOL: the luma of a macroblock
     of form ``FORM_QPEL16`` (one 16x16 filter block) or ``FORM_QPEL8``
     (four 8x8) predicted from its quarter-sample vectors by the 8-tap
     filter, mirrored at the filter block's edges (io/mpeg4plan.py); the
-    chroma half-pel from the recorded chroma vectors."""
-    return _recon_launch("mpeg4_recon_qpel", vop, mbw, rounding, fwd, bwd)
+    chroma half-pel from the recorded chroma vectors; ``warp`` and
+    ``FORM_GMC`` as ``mpeg4_recon``."""
+    return _recon_launch("mpeg4_recon_qpel", vop, mbw, rounding, fwd, bwd,
+                         warp)
 
 
-def mpeg4_recon_field_ref(vop, mbw: int, rounding: int, fwd, bwd):
+def mpeg4_recon_field_ref(vop, mbw: int, rounding: int, fwd, bwd, warp=None):
     """Plain version of ``mpeg4_recon_field`` (io/mpeg4recon.py)."""
-    from tcforge_tpu_torch.io import mpeg4recon
-    return mpeg4recon.mpeg4_recon_field_ref(vop, mbw, rounding, fwd, bwd)
+    return _recon_plain("mpeg4_recon_field", vop, mbw, rounding, fwd, bwd,
+                        warp)
 
 
 def mpeg4_recon_field(vop: torch.Tensor, mbw: int, rounding: int, fwd,
-                      bwd):
+                      bwd, warp=None):
     """``mpeg4_recon_qpel`` for an interlaced VOL: a macroblock of form
     ``FORM_FIELD`` predicted field by field (row r from field r & 1's
     half-pel vector in its reference field, rows clamped in frame
     space), from the recorded field vectors, selects and chroma
-    vectors."""
-    return _recon_launch("mpeg4_recon_field", vop, mbw, rounding, fwd, bwd)
+    vectors; ``warp`` and ``FORM_GMC`` as ``mpeg4_recon``."""
+    return _recon_launch("mpeg4_recon_field", vop, mbw, rounding, fwd, bwd,
+                         warp)
 
 
 def mpeg4_idct_intra_ref(vop, mbw: int):
@@ -1472,6 +1511,56 @@ def mpeg4_idct_intra(vop: torch.Tensor, mbw: int):
     _call("mpeg4_recon", "tc_mpeg4_idct_intra", ptr, _stream(vop))
     launches["mpeg4_idct_intra"] += 1
     return out
+
+
+def _warp_values(warp) -> List[int]:
+    """An S-VOP's warp record (io/mpeg4plan.py ``warp_record``: a
+    sequence of ``WARP`` integers, on the host) checked: S a power of two
+    from 2 to 16, 0 to 3 points, rounding 0 or 1, a shift that leaves
+    room for the chroma's two more bits."""
+    from tcforge_tpu_torch.io.mpeg4plan import (W_N, W_RND, W_S, W_SH,
+                                                WARP)
+    values = [int(v) for v in warp]
+    if len(values) != WARP:
+        raise ValueError(f"warp: {len(values)} values, expected {WARP}")
+    if values[W_S] not in (2, 4, 8, 16):
+        raise ValueError(f"warp: S {values[W_S]} is not 2, 4, 8 or 16")
+    if not 0 <= values[W_N] <= 3:
+        raise ValueError(f"warp: {values[W_N]} points, 0 to 3")
+    if values[W_RND] not in (0, 1):
+        raise ValueError(f"warp: rounding {values[W_RND]}: 0 or 1")
+    if values[W_N] != 1 and not 1 <= values[W_SH] <= 60:
+        raise ValueError(f"warp: shift {values[W_SH]} out of range")
+    return values
+
+
+def mpeg4_gmc_warp_ref(ref, warp):
+    """Plain version of ``mpeg4_gmc_warp`` (io/mpeg4recon.py)."""
+    from tcforge_tpu_torch.io import mpeg4recon
+    return mpeg4recon.mpeg4_gmc_warp_ref(ref, _warp_values(warp))
+
+
+def mpeg4_gmc_warp(ref, warp):
+    """An S-VOP's warped reference (``_gmc_warp_planes``): the three
+    coded-grid planes of ``ref`` ((y, u, v) uint8, contiguous, the luma
+    sides multiples of 16, the chroma half of each) sampled through the
+    warp record ``warp`` (io/mpeg4plan.py ``warp_record``, on the host:
+    the sprite's S, its points, the rounding and the translation or the
+    affine form): per output sample its coordinate in 64 bits, the
+    bilinear blend of the four samples around it, each clamped on its
+    own to the plane, rounded with ``S*S/2 - rounding`` and clipped.
+    Returns three new planes of ``ref``'s shapes."""
+    values = _warp_values(warp)
+    ref, mbh, mbw = _enc_planes(ref, "ref")
+    if not _on_cuda(*ref):
+        return mpeg4_gmc_warp_ref(ref, values)
+    out = [torch.empty_like(p) for p in ref]
+    ptr, _keep = _meta([*(p.data_ptr() for p in ref),
+                        *(o.data_ptr() for o in out), 16 * mbh, 16 * mbw,
+                        *values])
+    _call("mpeg4_recon", "tc_mpeg4_gmc_warp", ptr, _stream(ref[0]))
+    launches["mpeg4_gmc_warp"] += 1
+    return tuple(out)
 
 
 # --------------------------------------------------------------------- #

@@ -366,15 +366,18 @@ def _avi(path, fourcc, chunks_, audio=None):
 
 
 @pytest.mark.parametrize("what,match", [
-    ("short", "short video header"), ("mjpg", "Motion-JPEG"),
+    ("h263", "fourcc 'H263'"), ("mjpg", "Motion-JPEG"),
     ("h264", "fourcc 'H264'"), ("mp3", "MP3, tag 0x0055"),
     ("ac3", "AC-3, tag 0x2000")])
 def test_what_the_port_lacks_is_refused_by_name(what, match, tmp_path):
     """Each raises naming itself (and the CLI exits 1); none decodes on
-    the host."""
-    if what == "short":
-        # an H.263-style picture start (00 00 80...) in an XVID track
-        src = _avi(tmp_path / "s.avi", "XVID", [b"\x00\x00\x80\x02" + bytes(60)])
+    the host.  A short-header (H.263) picture under the fourcc H263, which
+    the JAX package hands to FFmpeg, is refused (under an MPEG-4 fourcc the
+    port decodes it, tests/test_torch_h263.py)."""
+    if what == "h263":
+        with AviReader(str(chip_smoke.H263_DATA / "qcif.avi")) as r:
+            pic = r.read_video_frame(0)[0]
+        src = _avi(tmp_path / "s.avi", "H263", [bytes(pic)])
     elif what == "mjpg":
         src = _avi(tmp_path / "m.avi", "MJPG", [b"\xff\xd8" + bytes(60)])
     elif what == "h264":
@@ -393,22 +396,33 @@ def test_what_the_port_lacks_is_refused_by_name(what, match, tmp_path):
     assert port_cli(["-i", str(src), "-o", str(out)]) == 1
 
 
-@pytest.mark.parametrize("sprite,match", [(2, "GMC MPEG-4"),
-                                          (1, "static sprite MPEG-4")])
-def test_sprite_vols_are_refused_by_name(sprite, match, monkeypatch):
-    """A VOL with GMC or a static sprite (sprite_enable 2 or 1), which the
-    plan form refuses at its VOL: the parse's refusal, named."""
-    imp = port_importer("small.avi")
-
-    def refuse(self, data):
-        self.vol = tdec._VOL()
-        self.vol.sprite_enable = sprite
-        raise NotImplementedError("mpeg4 plan mode")
-    from tcforge_tpu_torch.io.mpeg4plan import Mpeg4PlanDecoder
-    monkeypatch.setattr(Mpeg4PlanDecoder, "parse_plans", refuse)
+@pytest.mark.parametrize("sprite,match", [
+    (1, "mpeg4: static sprite VOLs"), (2, "mpeg4: sprite brightness change"),
+    (0, "mpeg4: static sprite VOPs")])
+def test_sprite_vols_are_refused_by_name(sprite, match, tmp_path,
+                                         numpy_route):
+    """What the numpy decoder refuses of sprites, the port refuses in its
+    words (GMC itself decodes, tests/test_torch_mpeg4_gmc.py): a static
+    sprite VOL (sprite_enable 1), a GMC VOL with a sprite brightness
+    change, and an S-VOP in a VOL without sprites (a static sprite VOP);
+    both CLIs stop (the JAX CLI lets the error out, the port's returns
+    1)."""
+    gw = chip_smoke.GmcWriter(176, 144, seed=1)
+    frame = chip_smoke.encoder_clip(176, 144, 1, seed=1)[0]
+    data = [gw.headers(1, sprite=sprite, brightness=int(sprite == 2))
+            + gw.ivop(frame)]
+    if sprite == 0:
+        data.append(gw.svop(frame, 0))
+    src = _avi(tmp_path / "s.avi", "XVID", data)
+    imp = new_module(ModuleKind.DEMULTIPLEXOR, "avi", Job())
+    imp.open(str(src))
+    imp.start(torch.device("cpu"))
     with pytest.raises(NotImplementedError, match=match) as e:
         imp.read_video_batch(4)
-    assert "not ported to the torch port yet" in str(e.value)
+    assert "not ported" not in str(e.value)
+    with pytest.raises(NotImplementedError, match=match):
+        jax_cli(["-i", str(src), "-o", str(tmp_path / "j.y4m")])
+    assert port_cli(["-i", str(src), "-o", str(tmp_path / "p.y4m")]) == 1
 
 
 def test_a_seek_into_an_mpeg4_stream_fails_as_in_jax(tmp_path, numpy_route,

@@ -230,17 +230,21 @@ _PIXEL_ROUTES = ("_mc_", "idct", "np.pad", "_field_pad", "_field_pred_mb",
 
 
 def test_the_plan_parse_copies_six_methods():
+    """The six methods of the quarter-sample and interlaced plan form,
+    and ``decode_short``, copied for the short-header plans."""
     assert sorted(_COPIES) == ["_b_direct", "_b_direct_field",
                                "_decode_bvop", "_decode_pvop", "_decode_vop",
-                               "parse_plans"]
+                               "decode_short", "parse_plans"]
 
 
 @pytest.mark.parametrize("name", sorted(_COPIES))
 def test_plan_copies_keep_their_source_lines(name):
     """Each copied method is the source lines its header names with lines
-    added for the records; the only source lines it drops are the
-    interlaced / quarter-sample refusals (and their docstring), and what
-    it adds calls no pixel route."""
+    added for the records; the only source lines it drops are the plan
+    form's refusals it lifts (interlaced, quarter-sample, GMC, short
+    header: their conditions, ``raise`` lines and messages, and their
+    docstring) and the plan kind's two lines, which an S-VOP's ``P`` plan
+    with its rounding replaces, and what it adds calls no pixel route."""
     fn = vars(Mpeg4PlanDecoder)[name]
     m = re.search(r"tcforge_tpu/io/mpeg4dec\.py:(\d+)-(\d+)",
                   inspect.getcomments(fn))
@@ -257,7 +261,10 @@ def test_plan_copies_keep_their_source_lines(name):
              for ln in ours[j1:j2]]
     assert added
     for ln in dropped:
-        assert re.search(r"interlace|quarter|sprite_enable|GMC|numpy", ln), ln
+        assert re.search(r"interlace|quarter|sprite_enable|GMC|numpy|"
+                         r"short-header|^\s*raise NotImplementedError\($|"
+                         r"_plan_new\(\('I', 'P', 'B'\)\[vop_type\],$|"
+                         r"rounding if vop_type == 1 else 0\)$", ln), ln
     for ln in added:
         assert not any(r in ln for r in _PIXEL_ROUTES), ln
 
