@@ -106,14 +106,24 @@ Lanczos3 zoom, ``-J hqdn3d=luma=4.0`` (which runs after the zoom, at
   ``tests/data/h263/h263.avi`` (a CIF short-header stream, 48 frames at
   25 fps, GOP 12, about 400 kbit/s, fourcc FMP4) through divx's
   arguments, each P picture one ``mpeg4_recon`` launch (1MV records), each
-  I picture an ``mpeg4_idct_intra``.
+  I picture an ``mpeg4_idct_intra``;
+- the Motion-JPEG path, mjpeg: ``tests/data/mjpeg/legacy.avi`` (the
+  README's legacy AVI, written by the JAX CLI with ``-y movjpeg,lame,avi
+  -F MJPG``: 8 frames of dvd.vob at 640x480, a camcorder's VGA movie
+  mode, 29.97 fps, baseline 4:2:0 JPEG at quality 90, 48 kHz stereo MP3)
+  through ``-x avi -J hqdn3d=luma=4.0`` to a Y4M and its decoded track
+  through ``-m`` to a WAV: the host's Huffman decode (a g++ build of
+  ``csrc/jpeg_entropy.cpp``), ``jpeg_idct`` and ``jpeg_color`` once each
+  a batch, the RGB24 entry conversion and hqdn3d's scans, the MP3 decode
+  in its worker process.
 
 Phases, each of which raises on failure:
 
 1. a CUDA card is present; print its name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``tcforge_tpu_torch/csrc`` (one nvcc per
-   source, all started together; sm_90a) and the MPEG-2 parse library
-   (g++) beside them;
+   source, all started together; sm_90a) and the host libraries (g++:
+   the MPEG-2 parse and syntax writer, the JPEG entropy decode) beside
+   them;
 3. each kernel against its plain torch version on the card, tolerance 0
    (all of it is integer arithmetic): at its paths' shapes, and off the
    paths at ragged shapes and a band wider than the zoom's unrolled
@@ -168,7 +178,14 @@ Phases, each of which raises on failure:
    accuracy 0 to 3, display sizes that are not multiples of 16,
    trajectories far outside 1080p planes), the warp timed on divx_gmc's
    S-VOPs and on 1080p planes beside float32 ``F.grid_sample``, the GMC
-   form on divx_gmc's S-VOPs; with ``--parent DIR``, the unsharp,
+   form on divx_gmc's S-VOPs; the two JPEG kernels on every call while
+   every fixture of ``tests/data/mjpeg`` decodes (``MJPEG_FILES``: every
+   sampling, gray, Adobe RGB, restart intervals, odd sizes, AVI1
+   fields, no DHT, the MOV samples) and on random coefficient records
+   (int16 over their range, 16-bit tables: the range limit wraps) and
+   samples over ``JPEG_RANDOM_GEOMS``, timed on a 16-frame batch of
+   legacy.avi's frames (``jpeg_idct`` beside float64 ``torch.matmul`` of
+   its IDCT); with ``--parent DIR``, the unsharp,
    TomsMoComp and temporal kernels of the checkout in DIR are built
    too, called through DIR's own wrappers and timed in turns with this
    tree's on the same inputs;
@@ -202,7 +219,9 @@ Phases, each of which raises on failure:
    chunks at ``--batch 3``) and quarter-sample field prediction refused
    (``qpel_il.avi``, exit 1), divx_gmc and h263 (an ``mpeg4_gmc_warp``
    and an ``mpeg4_recon`` an S-VOP, an ``mpeg4_recon`` a P picture; each
-   AVI against the CPU run's and in chunks at ``--batch 3``), and the
+   AVI against the CPU run's and in chunks at ``--batch 3``), mjpeg (one
+   ``jpeg_idct`` and one ``jpeg_color`` a batch; its Y4M and WAV against
+   the CPU run's and at ``--batch 3``), and the
    engine at every
    ``--prefetch`` 1, 2, 4 and ``--batch`` 1, 3, 16;
 5. the small cases whose SHA-256 ``tests/test_torch_cli.py`` pins
@@ -225,7 +244,10 @@ Phases, each of which raises on failure:
    (``GMC_GOLDEN``: divx_gmc and h263 at full width, small GMC streams
    at accuracy 2 and 1, one 200x136 with ``-I 5``, QCIF with drop-frame
    chunks and a short last batch, sub-QCIF with GOB headers at
-   ``--batch 1``), and the MPEG-4 export
+   ``--batch 1``), the JPEG goldens (``MJPEG_GOLDEN``: mjpeg at full
+   width, the small AVIs of every sampling, odd sizes, AVI1 fields, no
+   DHT, MP2 and AC-3 tracks, ``-L``, the MOV files with ``jpeg`` and
+   ``mjpa`` samples), and the MPEG-4 export
    goldens (``XVID_GOLDEN``: divxenc at full width, the divx.avi
    re-encode with its PCM track, small DVD, DivX and Y4M cases at
    constant q, under ``-w`` and rate control, a raw ``.m4v``), with the
@@ -270,7 +292,11 @@ Phases, each of which raises on failure:
    chain, the decisions, the block coder, the records' copy, the syntax
    writer, the multiplexor); divx_qpel and divx_il on their fixtures
    twice over (24 frames), three CLI runs after an untimed one and
-   ``avi_stages``; divx_gmc and h263 on their 48 frames the same way.
+   ``avi_stages``; divx_gmc and h263 on their 48 frames the same way;
+   mjpeg on legacy.avi's chunks repeated to 48 frames, three CLI runs
+   after an untimed one (with the MP3 decoder's seconds in its process)
+   and ``avi_stages`` with the track (entropy decode, upload, the two
+   kernels, chain, copy back, write, the audio's read and its decode).
 
 It prints one JSON object per result (``t``: seconds since it started),
 then the kernels' summary and, as
@@ -1398,6 +1424,129 @@ def gmc_golden_outputs(case: str, directory) -> list:
     return [Path(directory) / f for f in GMC_GOLDEN[case][2]]
 
 
+# the Motion-JPEG path, mjpeg: tests/data/mjpeg/legacy.avi, the README's
+# legacy AVI (written by the JAX CLI with the README's -y
+# movjpeg,lame,avi -F MJPG: 8 frames of dvd.vob zoomed to 640x480, a
+# camcorder's VGA movie mode, at 29.97 fps, baseline 4:2:0 JPEG at
+# quality 90, with 48 kHz stereo MP3) through -x avi -J hqdn3d=luma=4.0
+# to a Y4M and the decoded track as a WAV: the host's Huffman decode,
+# jpeg_idct and jpeg_color once each a batch, the RGB24 entry conversion
+# and hqdn3d's scans; the MP3 decode in its worker process.  (-y
+# raw,raw,avi keeps an RGB source RGB into the AVI, where hqdn3d refuses
+# it in both CLIs.)
+MJPEG_DATA = ROOT / "tests" / "data" / "mjpeg"
+MJPEG_ARGS = ["-x", "avi", "-J", "hqdn3d=luma=4.0"]
+MJPEG_W, MJPEG_H, MJPEG_FRAMES = 640, 480, 8
+MJPEG_KERNELS = ("jpeg_idct", "jpeg_color", "hqdn3d_spatial_scan",
+                 "hqdn3d_temporal_scan")
+# every JPEG fixture, decoded on the card in phase 3
+MJPEG_FILES = ("legacy.avi", "small.avi", "mixed.avi", "odd.avi",
+               "narrow.avi", "dot.avi", "fields.avi", "nodht.avi",
+               "mp2.avi", "ac3.avi", "jpeg.mov", "mjpa.mov")
+# the JPEG goldens: (fixture, arguments, outputs) as AVI_GOLDEN's, pinned
+# against the JAX CLI by tests/test_torch_mjpeg.py, test_torch_avi_audio.py
+# and test_torch_mov.py (the JAX CLI's compressed audio through the in-tree
+# decoders, its route without the FFmpeg bridge)
+MJPEG_GOLDEN = {
+    "mjpeg": ("legacy.avi", MJPEG_ARGS + ["--batch", "16", "-m",
+                                          "{dir}/out.wav"],
+              ("out.y4m", "out.wav")),
+    "small_avi": ("small.avi", ["-y", "raw,raw,avi"], ("out.avi",)),
+    "small_b4": ("small.avi", ["-J", "hqdn3d", "--batch", "4", "-m",
+                               "{dir}/out.wav"], ("out.y4m", "out.wav")),
+    "mixed": ("mixed.avi", ["-y", "raw,raw,avi", "--batch", "5"],
+              ("out.avi",)),
+    "odd": ("odd.avi", ["-y", "raw,raw,avi", "--batch", "1"], ("out.avi",)),
+    "narrow": ("narrow.avi", ["-y", "raw,raw,avi"], ("out.avi",)),
+    "dot": ("dot.avi", ["-y", "raw,raw,avi"], ("out.avi",)),
+    "fields": ("fields.avi", ["-J", "hqdn3d", "--batch", "2"],
+               ("out.y4m",)),
+    "nodht": ("nodht.avi", ["-y", "raw,raw,avi"], ("out.avi",)),
+    "mp2": ("mp2.avi", ["-J", "hqdn3d", "--batch", "4", "-m",
+                        "{dir}/out.wav"], ("out.y4m", "out.wav")),
+    "ac3_seek": ("ac3.avi", ["-y", "raw,raw,avi", "-L", "2"], ("out.avi",)),
+    "mov_jpeg": ("jpeg.mov", ["-m", "{dir}/out.wav"], ("out.y4m",
+                                                       "out.wav")),
+    "mov_mjpa": ("mjpa.mov", ["-J", "hqdn3d"], ("out.y4m",)),
+    "mov_seek": ("jpeg.mov", ["-x", "mov", "-y", "raw,raw,avi", "-L", "2",
+                              "--batch", "2"], ("out.avi",)),
+}
+MJPEG_GOLDEN_SHA256 = {
+    "mjpeg": (
+        "3c22426184c448584f72020b1e4f219131a706e52902d588731ec3ccb1de7f97",
+        "e08277a92aaddbd76470e3fe742ba634ce71b62e9bcc2d05a8dccbb83e3cc363",),
+    "small_avi": (
+        "d0c3444b1c9ad11749d29af44f1af74dd3fa91c76550eb1430ebaccb2246ea47",),
+    "small_b4": (
+        "47cc819fdc3beaefc37aaf43e37ba62fa3d01181d2f263db737d8d2fba20623e",
+        "11dee29a105ec4bfe9878ae01f0ebfdd6657984e10a34243432ef04b5812fda0",),
+    "mixed": (
+        "29d71a91288c11f74a0d18cb10871b73fd74b4aed412fcbd4d3c6e4eeb708749",),
+    "odd": (
+        "444df73f22bdcf87be016549efbca230ae5abf30a14773bfc61c16a8fda5da16",),
+    "narrow": (
+        "4748417add2a46bb226da264b8df108006ed61493f0ccec0fb95469a6512c7ac",),
+    "dot": (
+        "2eff4cf77d862e7c0532f08725f677266e2740c9c618f9ddbfa4bad02ba55fcd",),
+    "fields": (
+        "13c71bd2d1696871e7642b4fca1bab2a31f464990158a399ad89955cfe1c705f",),
+    "nodht": (
+        "8c9452c3ccfab6c128c67c29d1a08a01ef38f7698baa908fdcb1612d42f26fa1",),
+    "mp2": (
+        "47cc819fdc3beaefc37aaf43e37ba62fa3d01181d2f263db737d8d2fba20623e",
+        "9d09710911e9fc37dffbfb4d7b883e403e48edd301e9808da3bb0d5d930d6578",),
+    "ac3_seek": (
+        "d11526933c0c6f455872dc2646370e34412e6d1bdb19f154b742316c5ef8ba42",),
+    "mov_jpeg": (
+        "713ae61c9693a24126244ed642918351caaf1e0f96511724df7e2c139653439f",
+        "3b524367db1165e430fb8b1bce08eb78dae82f515d994d4b7aaf7d8c43abd098",),
+    "mov_mjpa": (
+        "13c71bd2d1696871e7642b4fca1bab2a31f464990158a399ad89955cfe1c705f",),
+    "mov_seek": (
+        "f02be894f05897725e28f62d8e1076eeb176781dad85a92869e8ed4c05333e20",),
+}
+# phase 6: legacy.avi's chunks repeated to this many frames
+MJPEG_RATE_FRAMES = 48
+MJPEG_RUNS = 3
+# the fewest int32 operations the two kernels' work needs: jpeg_idct a
+# block, 16 one-dimensional passes of 56 (14 products, 32 sums, the
+# rounding added once each to tmp0 and tmp1, whose sums all 8 outputs
+# take, and 8 shifts), 64 dequantizing products and 4 a sample for the
+# range limit; jpeg_color a pixel, 20 for ycc_rgb_convert (four
+# products, four sums with the rounding, the -128 offsets folded into
+# it, three shifts, three sums and six clamps), and by a component's
+# upsampling: h2v1 and h1v2 4 (3a + b, the bias, the shift), h2v2 8,
+# the others none
+JPEG_IDCT_OPS = 16 * 56 + 64 + 4 * 64
+JPEG_YCC_OPS = 20
+JPEG_UP_OPS = (0, 4, 4, 8, 0)
+# phase 3 off the path: (width, height, colour, sampling) of random
+# coefficient records and random samples
+JPEG_RANDOM_GEOMS = (
+    (640, 480, 0, ((2, 2), (1, 1), (1, 1))),
+    (13, 7, 0, ((2, 2), (1, 1), (1, 1))),
+    (4, 9, 0, ((2, 1), (1, 1), (1, 1))),
+    (33, 17, 0, ((1, 2), (1, 1), (1, 1))),
+    (47, 5, 0, ((4, 1), (1, 1), (1, 1))),
+    (1, 1, 0, ((2, 2), (1, 1), (1, 1))),
+    (40, 24, 2, ((1, 1),)),
+    (24, 40, 1, ((1, 1), (1, 1), (1, 1))),
+    (48, 32, 0, ((2, 1), (2, 1), (2, 1))),
+    (720, 480, 0, ((2, 1), (1, 1), (1, 1))))
+
+
+def mjpeg_golden_argv(case: str, directory) -> list:
+    """The CLI arguments of an ``MJPEG_GOLDEN`` case writing into
+    ``directory``."""
+    name, args, outs = MJPEG_GOLDEN[case]
+    return ["-i", str(MJPEG_DATA / name), "-o", f"{directory}/{outs[0]}",
+            *(a.replace("{dir}", str(directory)) for a in args)]
+
+
+def mjpeg_golden_outputs(case: str, directory) -> list:
+    return [Path(directory) / f for f in MJPEG_GOLDEN[case][2]]
+
+
 # the DVD-to-DivX path, divxenc: tests/data/mpeg2/dvd.vob (NTSC DVD
 # video, 720x480 at 29.97 fps, 48 frames) zoomed to 640x480 (the 4:3
 # square-pixel size of a DivX rip), hqdn3d, and the MPEG-4 encoder at
@@ -1712,12 +1861,19 @@ KERNELS = {
                       "tcforge_tpu/io/mpeg4enc.py:858"),
     "mpeg4_enc_blocks": ("tcforge_tpu_torch/csrc/mpeg4_encode.cu",
                          "tcforge_tpu/io/mpeg4enc.py:352"),
+    # not TPU kernels: the JAX package decodes JPEG through PIL
+    # (Image.open in its avi importer; io/mov.py:342 the same for MOV)
+    "jpeg_idct": ("tcforge_tpu_torch/csrc/jpeg_decode.cu",
+                  "tcforge_tpu/modules/importers/avi_import.py:175"),
+    "jpeg_color": ("tcforge_tpu_torch/csrc/jpeg_decode.cu",
+                   "tcforge_tpu/modules/importers/avi_import.py:175"),
 }
 LIBS = ("hqdn3d_scan", "zoom_pass", "unsharp", "tomsmocomp", "yuvdenoise",
         "stabilize", "mpeg2_recon", "mpeg2_encode", "mpeg4_recon",
-        "mpeg4_encode")
-# the host libraries (g++): the MPEG-2 parse and syntax writer
-HOST_LIBS = ("mpeg2intra", "mpeg2encode")
+        "mpeg4_encode", "jpeg_decode")
+# the host libraries (g++): the MPEG-2 parse and syntax writer, the JPEG
+# entropy decode
+HOST_LIBS = ("mpeg2intra", "mpeg2encode", "jpeg_entropy")
 # each wrapper of ops/kernels.py, whose plain version is <name>_ref
 WRAPPERS = ("spatial_scan", "temporal_scan", "zoom_pass", "unsharp_plane",
             "tomsmocomp_plane", "tomsmocomp_window", "d3_spatial_scan",
@@ -1726,7 +1882,7 @@ WRAPPERS = ("spatial_scan", "temporal_scan", "zoom_pass", "unsharp_plane",
             "mpeg2_enc_pred", "mpeg2_enc_bmode", "mpeg2_enc_blocks",
             "mpeg4_recon", "mpeg4_idct_intra", "mpeg4_recon_qpel",
             "mpeg4_recon_field", "mpeg4_gmc_warp", "mpeg4_enc_me",
-            "mpeg4_enc_bme", "mpeg4_enc_blocks")
+            "mpeg4_enc_bme", "mpeg4_enc_blocks", "jpeg_idct", "jpeg_color")
 
 
 def write_test_y4m(path, width: int, height: int, frames: int,
@@ -2094,6 +2250,8 @@ def main(argv=()) -> int:
     gmc_avi = gmc_path_input("divx_gmc", gmc_dir.name)
     _check_gmc_kernels(torch, kernels, bench, gmc_avi, gmc_dir.name)
     torch.cuda.empty_cache()
+    _check_jpeg_kernels(torch, kernels, bench)
+    torch.cuda.empty_cache()
     divxenc_checked = _check_mpeg4enc_kernels(torch, kernels, cli, bench)
     torch.cuda.empty_cache()
     _check_ragged(torch, kernels, zoom, hq, bench)
@@ -2286,6 +2444,9 @@ def main(argv=()) -> int:
                 torch, cli, kernels, tmp, name,
                 gmc_path_input(name, gmc_dir.name))
         _gmc_goldens(cli, tmp, gmc_avi)
+        # 4. and 5. for the Motion-JPEG path and the JPEG goldens
+        path_launches["mjpeg"] = _run_mjpeg(torch, cli, kernels, tmp)
+        _mjpeg_goldens(cli, tmp)
         # 4. and 5. for MPEG-4 export: the divxenc path at full width
         # against phase 3's checked run, the export goldens pinned against the JAX
         # CLI, and the read-back through the port's own decoder
@@ -2394,6 +2555,10 @@ def main(argv=()) -> int:
                        gmc_path_input(name, gmc_dir.name))
     gmc_dir.cleanup()
     torch.cuda.empty_cache()
+    # 6. the mjpeg path: its CLI on 48 frames and its serial stages
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mjpeg_") as tmp:
+        _mjpeg_rates(torch, dev, cli, Path(tmp))
+    torch.cuda.empty_cache()
     # 6. the divxenc path: its CLI on 144 frames and its serial stages
     with tempfile.TemporaryDirectory(prefix="chip_smoke_divxenc_") as tmp:
         _divxenc_rates(torch, dev, cli, Path(tmp))
@@ -2415,6 +2580,8 @@ def main(argv=()) -> int:
             launches[name] = path_launches["divx_gmc"][name]
         elif name in MPEG4ENC_KERNELS:
             launches[name] = path_launches["divxenc"][name]
+        elif name in _JPEG_WRAPPERS:
+            launches[name] = path_launches["mjpeg"][name]
         elif name not in MAIN_KERNELS:
             owner = next(p for p, spec in (*PATHS.items(),
                                            *CLEAN_PATHS.items(),
@@ -2432,6 +2599,8 @@ def main(argv=()) -> int:
             k: path_launches[name][k] for k in spec[3]})
     emit(phase="launches", path="divxenc", launches={
         k: path_launches["divxenc"][k] for k in DIVXENC_KERNELS})
+    emit(phase="launches", path="mjpeg", launches={
+        k: path_launches["mjpeg"][k] for k in MJPEG_KERNELS})
     if bench.parent:
         emit(phase="parent_summary", per_batch=bench.versus_sums)
     print(json.dumps({"kernels": [
@@ -5443,9 +5612,12 @@ def avi_plans(path):
 
 
 def _avi_importer(path, dev, buffers: int = 2):
+    """The AVI (or, for a ``.mov``, the MOV) import module of ``path``,
+    started on ``dev``."""
     from tcforge_tpu_torch.core.job import Job
     from tcforge_tpu_torch.modules.registry import ModuleKind, new_module
-    imp = new_module(ModuleKind.DEMULTIPLEXOR, "avi", Job())
+    kind = "mov" if Path(path).suffix == ".mov" else "avi"
+    imp = new_module(ModuleKind.DEMULTIPLEXOR, kind, Job())
     imp.open(str(path))
     imp.start(dev, buffers)
     return imp
@@ -5735,24 +5907,32 @@ def _check_repeat(torch, dev, fixture: str, src, frames: int, name: str):
          identical=True)
 
 
-def avi_stages(torch, dev, src, out, job, batch: int = MAIN_BATCH):
-    """The serial engine's stages for an MPEG-4 AVI on the card, each
-    timed alone with the card synchronized after it: the host parse and
-    plan, the upload of the plan's records (the same bytes copied alone),
-    the decode (upload and reconstruction; the reconstruction is the
-    difference), the chain, the copy back and the AVI write.  Returns ms
-    per batch of each, their sum and the frames/s of the sum and of the
-    slowest stage."""
-    from tcforge_tpu_torch.core.formats import ImageFormat
+def avi_stages(torch, dev, src, out, job, batch: int = MAIN_BATCH,
+               audio: bool = False, warmup: int = 0):
+    """The serial engine's stages for an MPEG-4 or Motion-JPEG AVI on the
+    card, each timed alone with the card synchronized after it: the host
+    parse and plan (Motion-JPEG: the entropy decode), the upload of the
+    plan's records (the same bytes copied alone), the decode (upload and
+    reconstruction, or the two JPEG kernels: the difference), the chain,
+    the copy back and the AVI write; with ``audio``, the batch's samples
+    of the compressed track (``audio_read``, the host's wall time) and
+    the decoder's own time in its worker process (``audio_decode``).
+    The first ``warmup`` batches run untimed (the worker process's start,
+    the filters' tables).  Returns ms per batch of each, their sum and
+    the frames/s of the sum and of the slowest stage."""
     from tcforge_tpu_torch.core.frame import FrameBatch
+    from tcforge_tpu_torch.io import adec_worker
     from tcforge_tpu_torch.io.avi import AviVideoStream, AviWriter
     from tcforge_tpu_torch.pipeline.chain import VideoChain
     imp = _avi_importer(src, dev)
-    chain = VideoChain(job, ImageFormat.YUV420P, imp.width, imp.height)
+    jpeg = imp.format.is_rgb
+    chain = VideoChain(job, imp.format, imp.width, imp.height)
     states = chain.initial_states(dev)
-    ms = dict.fromkeys(("parse", "upload", "reconstruction", "chain",
-                        "to_host", "write"), 0.0)
-    frames = batches = 0
+    keys = ["parse", "upload", "reconstruction", "chain", "to_host",
+            "write"] + (["audio_read", "audio_decode"] if audio else [])
+    ms = dict.fromkeys(keys, 0.0)
+    spf = int(round(imp.audio_rate / imp.fps)) if audio else 0
+    frames = timed = batches = 0
     w = AviWriter(str(out), AviVideoStream(width=imp.width,
                                            height=imp.height, fps=imp.fps))
     torch.cuda.synchronize()
@@ -5762,7 +5942,7 @@ def avi_stages(torch, dev, src, out, job, batch: int = MAIN_BATCH):
         t1 = time.perf_counter()
         if plan is None:
             break
-        n = plan.used * plan.buffer.per_slot if plan.buffer else 0
+        n = plan.upload_elements
         if n:
             plan.buffer.flat[:n].to(dev, non_blocking=True)
         torch.cuda.synchronize()
@@ -5770,9 +5950,10 @@ def avi_stages(torch, dev, src, out, job, batch: int = MAIN_BATCH):
         planes = imp.execute(plan)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
-        got = planes["y"].shape[0]
-        fb = FrameBatch(format=ImageFormat.YUV420P, y=planes["y"],
-                        u=planes["u"], v=planes["v"],
+        got = next(iter(planes.values())).shape[0]
+        fb = FrameBatch(format=imp.format, y=planes.get("y"),
+                        u=planes.get("u"), v=planes.get("v"),
+                        rgb=planes.get("rgb"),
                         attrs=torch.zeros((got,), dtype=torch.int32,
                                           device=dev),
                         frame_ids=torch.arange(frames, frames + got,
@@ -5786,22 +5967,36 @@ def avi_stages(torch, dev, src, out, job, batch: int = MAIN_BATCH):
         for i in range(got):
             w.write_video_frame(b"".join(p[i].tobytes() for p in host))
         t6 = time.perf_counter()
+        d0 = adec_worker.decode_seconds()
+        if audio:
+            imp.read_audio_batch(spf * got)
+        t7 = time.perf_counter()
+        frames += got
+        if frames <= warmup * batch:
+            continue
         for key, a, b in (("parse", t0, t1), ("upload", t1, t2),
                           ("chain", t3, t4), ("to_host", t4, t5),
                           ("write", t5, t6)):
             ms[key] += (b - a) * 1e3
         ms["reconstruction"] += ((t3 - t2) - (t2 - t1)) * 1e3
-        frames += got
+        if audio:
+            ms["audio_read"] += (t7 - t6) * 1e3
+            ms["audio_decode"] += (adec_worker.decode_seconds() - d0) * 1e3
+        timed += got
         batches += 1
     w.close()
     imp.close()
     per_batch = {k: v / batches for k, v in ms.items()}
-    total = sum(per_batch.values())
-    return {"frames": frames, "ms_per_batch": per_batch,
+    if jpeg:
+        per_batch["entropy_decode"] = per_batch.pop("parse")
+        per_batch["kernels"] = per_batch.pop("reconstruction")
+    # the decoder's time runs in its own process, beside the others
+    total = sum(v for k, v in per_batch.items() if k != "audio_decode")
+    return {"frames": timed, "ms_per_batch": per_batch,
             "sum_ms_per_batch": total,
-            "serial_fps": frames / (total * batches / 1e3),
-            "overlapped_fps": frames / (max(per_batch.values())
-                                        * batches / 1e3)}
+            "serial_fps": timed / (total * batches / 1e3),
+            "overlapped_fps": timed / (max(per_batch.values())
+                                       * batches / 1e3)}
 
 
 def _divx_rates(torch, dev, cli, tmp):
@@ -6977,6 +7172,284 @@ def _divxenc_rates(torch, dev, cli, tmp):
          max_fps=max(fps),
          stages=divxenc_stages(torch, dev, src, tmp / "stages.avi"))
     for f in (src, out, tmp / "stages.avi"):
+        f.unlink()
+
+
+# ---------------------------------------------------------------------- #
+# The Motion-JPEG path (mjpeg): legacy.avi through -x avi, jpeg_idct and
+# jpeg_color once each a batch; the JPEG fixtures and goldens
+
+_JPEG_WRAPPERS = {"jpeg_idct": "jpeg_idct", "jpeg_color": "jpeg_color"}
+
+
+def _idct_bytes(args) -> int:
+    """What one ``jpeg_idct`` call must move: its coefficients and
+    quantizers in, a byte a coefficient out."""
+    coef, qt, _geom = args
+    return _nbytes(coef, qt) + coef.shape[0] * 64
+
+
+def _color_bytes(args) -> int:
+    """What one ``jpeg_color`` call must move: the samples in, three
+    bytes a pixel out."""
+    samples, geom = args
+    frames = samples.shape[0] // geom.blocks
+    return _nbytes(samples) + frames * geom.width * geom.height * 3
+
+
+def _color_ops(args) -> int:
+    samples, geom = args
+    frames = samples.shape[0] // geom.blocks
+    per_pixel = ((JPEG_YCC_OPS if geom.color == 0 else 0)
+                 + sum(JPEG_UP_OPS[c.up] for c in geom.comps))
+    return per_pixel * frames * geom.width * geom.height
+
+
+def _idct_library(torch, coef, qt, geom):
+    """The yardstick of ``jpeg_idct``: every block's 8x8 IDCT as one
+    float64 ``torch.matmul`` of the dequantized coefficients (computed
+    beforehand, not timed) with the 64x64 basis; a product, not libjpeg's
+    integer arithmetic, so timed only."""
+    from tcforge_tpu_torch.io import jpeg
+    k, n = np.mgrid[0:8, 0:8]
+    c = np.cos((2 * n + 1) * k * np.pi / 16) * np.sqrt(2 / 8)
+    c[0] /= np.sqrt(2)
+    basis = torch.from_numpy(np.kron(c, c)).to(coef.device)
+    q = (qt.reshape(-1, 64).to(torch.int32) & 0xFFFF)[
+        jpeg._block_comps(geom, coef.shape[0], coef.device)]
+    deq = (coef.to(torch.float64) * q.to(torch.float64))
+    return torch.matmul, [(deq, basis)]
+
+
+def _check_jpeg_kernels(torch, kernels, bench):
+    """Phase 3 for the JPEG kernels: every call of ``jpeg_idct`` and
+    ``jpeg_color`` while every fixture of tests/data/mjpeg decodes on
+    the card (``MJPEG_FILES``: legacy.avi's 640x480 4:2:0 batch, 4:4:4,
+    4:2:2, 4:4:0, 4:1:1, gray, non-interleaved scans, 16-bit tables,
+    Adobe RGB, RGB by component ids, restart intervals, odd sizes,
+    chroma 1 and 2 samples wide, AVI1 fields, no DHT, the MOV samples),
+    held against the plain versions at tolerance 0; then random records
+    off the path (``JPEG_RANDOM_GEOMS``: int16 coefficients over their
+    whole range and 16-bit quantizers, whose products send pass 2 far
+    past the range-limit table's [-512, 512) so that it wraps, and
+    random samples through every upsampling form); then each timed on a
+    16-frame batch of legacy.avi's frames over inputs past L2, beside
+    its plain version, its bound and, for ``jpeg_idct``,
+    ``_idct_library`` (no PyTorch call upsamples and converts JPEG
+    colour: ``jpeg_color``'s library is none)."""
+    from tcforge_tpu_torch.io import jpeg
+    dev = bench.dev
+    captured = []
+    with checked_kernels(kernels, bench, "jpeg fixtures",
+                         _JPEG_WRAPPERS) as counts:
+        checked = kernels.jpeg_idct
+
+        def keep(coef, qt, geom):
+            captured.append((coef.clone(), qt.clone(), geom))
+            return checked(coef, qt, geom)
+        seen = {}
+        for name in MJPEG_FILES:
+            if name == "legacy.avi":
+                kernels.jpeg_idct = keep
+            imp = _avi_importer(MJPEG_DATA / name, dev)
+            seen[name] = 0
+            while (b := imp.read_video_batch(MAIN_BATCH)) is not None:
+                seen[name] += b["rgb"].shape[0]
+            imp.close()
+            kernels.jpeg_idct = checked
+        stream_counts = dict(counts)
+    rng = np.random.default_rng(17)
+    for w, h, color, sampling in JPEG_RANDOM_GEOMS:
+        geom = jpeg.geometry(w, h, color, list(sampling))
+        frames = 1 if w * h > 100000 else 3
+        coef = torch.from_numpy(rng.integers(
+            -32768, 32768, (frames * geom.blocks, 64)).astype(np.int16)
+        ).to(dev)
+        qt = torch.from_numpy(rng.integers(
+            0, 65536, (frames, 4, 64)).astype(np.uint16).view(np.int16)
+        ).to(dev)
+        label = f"random {w}x{h} {sampling}"
+        bench.check("jpeg_idct", label, kernels.jpeg_idct(coef, qt, geom),
+                    kernels.jpeg_idct_ref(coef, qt, geom), quiet=True)
+        samples = torch.from_numpy(rng.integers(
+            0, 256, (frames * geom.blocks, 64), dtype=np.uint8)).to(dev)
+        bench.check("jpeg_color", label, kernels.jpeg_color(samples, geom),
+                    kernels.jpeg_color_ref(samples, geom), quiet=True)
+    for kernel, n in stream_counts.items():
+        emit(phase="kernel_sweep", kernel=kernel, cases=n,
+             files=len(MJPEG_FILES), frames=sum(seen.values()),
+             off_path=len(JPEG_RANDOM_GEOMS), max_abs_err=0)
+    check(len(captured) == 1 and seen["legacy.avi"] == MJPEG_FRAMES,
+          f"legacy.avi gave {len(captured)} jpeg_idct calls for "
+          f"{seen['legacy.avi']} frames")
+    coef8, qt8, geom = captured[0]
+
+    def batch16():
+        return (torch.cat([coef8, coef8]), torch.cat([qt8, qt8]), geom)
+    inputs = bench.rotation(batch16)
+    nblocks = 2 * coef8.shape[0]
+    case = f"{MJPEG_W}x{MJPEG_H} 4:2:0, a batch of {2 * MJPEG_FRAMES}"
+    bench.record("jpeg_idct", case, 1, kernels.jpeg_idct,
+                 kernels.jpeg_idct_ref, inputs, nbytes=_idct_bytes(inputs[0]),
+                 ops=JPEG_IDCT_OPS * nblocks,
+                 library=_idct_library(torch, *inputs[0]),
+                 reps=max(20, len(inputs)), plain_reps=2)
+    samples = bench.rotation(lambda: (kernels.jpeg_idct(*batch16()), geom))
+    bench.record("jpeg_color", case, 1, kernels.jpeg_color,
+                 kernels.jpeg_color_ref, samples,
+                 nbytes=_color_bytes(samples[0]), ops=_color_ops(samples[0]),
+                 reps=max(20, len(samples)), plain_reps=2)
+
+
+def mjpeg_argv(out_dir) -> list:
+    """The mjpeg path's CLI arguments, its Y4M and WAV in ``out_dir``."""
+    return ["-i", str(MJPEG_DATA / "legacy.avi"), *MJPEG_ARGS, "-o",
+            f"{out_dir}/out.y4m", "-m", f"{out_dir}/out.wav",
+            "--progress_off", "-q"]
+
+
+def _mjpeg_outputs(out_dir) -> list:
+    return [(Path(out_dir) / f).read_bytes() for f in ("out.y4m", "out.wav")]
+
+
+def _run_mjpeg(torch, cli, kernels, tmp):
+    """Phase 4 for the mjpeg path: legacy.avi through the port's CLI with
+    the launch counts set to 0 just before and read just after (one
+    ``jpeg_idct`` and one ``jpeg_color`` a batch, hqdn3d's), its Y4M and
+    WAV equal byte for byte to the same CLI's with --device cpu and at
+    --batch 3 with --prefetch 1 (three batches: three launches of each).
+    Returns the launches."""
+    runs = {}
+    for key, extra in (("cuda", ["--batch", str(MAIN_BATCH)]),
+                       ("cpu", []), ("b3", ["--batch", "3", "--prefetch",
+                                            "1"])):
+        d = tmp / f"mjpeg_{key}"
+        d.mkdir()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rc = cli.main([*mjpeg_argv(d), *extra, "--device",
+                       "cpu" if key == "cpu" else "cuda"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check(rc == 0, f"mjpeg ({key}): CLI exit code {rc}")
+        runs[key] = (dict(kernels.launches), _mjpeg_outputs(d), seconds)
+    launches, want, seconds = runs["cuda"]
+    emit(phase="path", path="mjpeg", frames=MJPEG_FRAMES, seconds=seconds,
+         e2e_fps=MJPEG_FRAMES / seconds,
+         launches={k: launches[k] for k in MJPEG_KERNELS},
+         launches_b3={k: runs["b3"][0][k] for k in _JPEG_WRAPPERS})
+    for name in MJPEG_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched by the "
+                                  "mjpeg path")
+    batches = -(-MJPEG_FRAMES // MAIN_BATCH)
+    for key, n in (("cuda", batches), ("b3", -(-MJPEG_FRAMES // 3))):
+        got = runs[key][0]
+        check(got["jpeg_idct"] == got["jpeg_color"] == n,
+              f"mjpeg ({key}): {got['jpeg_idct']} jpeg_idct and "
+              f"{got['jpeg_color']} jpeg_color launches for {n} batches")
+    for key in ("cpu", "b3"):
+        same = runs[key][1] == want
+        emit(phase="path_vs_cpu" if key == "cpu" else "engine_vs_batch16",
+             path="mjpeg", identical=same,
+             sha256=[hashlib.sha256(b).hexdigest() for b in want])
+        check(same, f"mjpeg: the card's output differs from the {key} run's")
+    return launches
+
+
+def _mjpeg_goldens(cli, tmp):
+    """Phase 5 for the JPEG import: every ``MJPEG_GOLDEN`` case on the
+    card, its outputs' SHA-256 against the JAX CLI's pinned digests."""
+    for case in MJPEG_GOLDEN:
+        d = tmp / f"mjpeg_golden_{case}"
+        d.mkdir()
+        rc = cli.main([*mjpeg_golden_argv(case, d), "--device", "cuda",
+                       "--progress_off", "-q"])
+        digests = [sha256_file(f) if f.exists() else None
+                   for f in mjpeg_golden_outputs(case, d)]
+        emit(phase="golden", path=f"mjpeg_{case}", sha256=digests,
+             pinned=list(MJPEG_GOLDEN_SHA256[case]))
+        check(rc == 0 and digests == list(MJPEG_GOLDEN_SHA256[case]),
+              f"mjpeg {case} golden output differs from the JAX-pinned "
+              "digest")
+
+
+def mjpeg_long(directory, copies: int) -> Path:
+    """legacy.avi's video chunks and MP3 frames ``copies`` times over, in
+    one AVI written by the port's own ``AviWriter``."""
+    from tcforge_tpu_torch.io.avi import (AviAudioStream, AviReader,
+                                          AviVideoStream, AviWriter)
+    with AviReader(str(MJPEG_DATA / "legacy.avi")) as r:
+        v, a = r.video, r.audio[0]
+        video = [r.read_video_frame(i)[0] for i in range(r.video_frames)]
+        audio = list(r.read_audio_chunks(0))
+    path = Path(directory) / "legacy_long.avi"
+    w = AviWriter(str(path), AviVideoStream(fourcc=v.fourcc, width=v.width,
+                                            height=v.height, fps=v.fps),
+                  [AviAudioStream(format_tag=a.format_tag,
+                                  channels=a.channels, rate=a.rate,
+                                  bits=a.bits, byte_rate=a.byte_rate)])
+    per = -(-len(audio) // len(video))
+    for _ in range(copies):
+        for i, chunk in enumerate(video):
+            w.write_video_frame(chunk)
+            for payload in audio[i * per:(i + 1) * per]:
+                w.write_audio(payload)
+    w.close()
+    return path
+
+
+def _mjpeg_rates(torch, dev, cli, tmp):
+    """Phase 6 for the mjpeg path, on legacy.avi's chunks repeated to
+    ``MJPEG_RATE_FRAMES`` frames (``mjpeg_long``): its decode on the card
+    against the fixture's frames repeated, frame for frame; the CLI,
+    wall clock to the last byte, ``MJPEG_RUNS`` runs after an untimed
+    one (median and spread), the MP3 decoder's own seconds in its
+    process beside each; then ``avi_stages`` with the audio track, its
+    first batch untimed (the worker's start, hqdn3d's tables)."""
+    from tcforge_tpu_torch.core.job import FilterSpec, Job
+    from tcforge_tpu_torch.io import adec_worker
+    copies = MJPEG_RATE_FRAMES // MJPEG_FRAMES
+    src = mjpeg_long(tmp, copies)
+    one = []
+    imp = _avi_importer(MJPEG_DATA / "legacy.avi", dev)
+    while (b := imp.read_video_batch(MAIN_BATCH)) is not None:
+        one += list(b["rgb"])
+    imp.close()
+    imp = _avi_importer(src, dev)
+    seen = 0
+    while (b := imp.read_video_batch(MAIN_BATCH)) is not None:
+        for frame in b["rgb"]:
+            check(torch.equal(frame, one[seen % len(one)]),
+                  f"legacy_long: frame {seen} differs from legacy.avi's")
+            seen += 1
+    imp.close()
+    check(seen == MJPEG_RATE_FRAMES, f"legacy_long gave {seen} frames")
+    emit(phase="path_vs_repeat", path="mjpeg_long", frames=seen,
+         identical=True)
+    fps, decode_s = [], []
+    for r in range(MJPEG_RUNS + 1):
+        d0 = adec_worker.decode_seconds()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli.main(["-i", str(src), *MJPEG_ARGS, "-o",
+                       str(tmp / "long.y4m"), "-m", str(tmp / "long.wav"),
+                       "--batch", str(MAIN_BATCH), "--device", "cuda",
+                       "--progress_off", "-q"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check(rc == 0, f"mjpeg CLI: exit code {rc}")
+        if r:
+            fps.append(MJPEG_RATE_FRAMES / seconds)
+            decode_s.append(adec_worker.decode_seconds() - d0)
+    job = Job(filters=[FilterSpec("hqdn3d", "luma=4.0")],
+              im_v_width=MJPEG_W, im_v_height=MJPEG_H)
+    emit(phase="cli", path="mjpeg", frames=MJPEG_RATE_FRAMES, fps=fps,
+         median_fps=float(np.median(fps)), min_fps=min(fps),
+         max_fps=max(fps), mp3_decode_s=decode_s,
+         stages=avi_stages(torch, dev, src, tmp / "stages.avi", job,
+                           audio=True, warmup=1))
+    for f in (src, tmp / "long.y4m", tmp / "long.wav", tmp / "stages.avi"):
         f.unlink()
 
 

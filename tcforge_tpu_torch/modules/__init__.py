@@ -1,5 +1,5 @@
 """The port's module system.  Importing this package registers the
-built-in filters, the WAV, MPEG, AVI and framegen importers, the WAV,
+built-in filters, the WAV, MPEG, AVI, MOV and framegen importers, the WAV,
 Y4M, AVI, raw, null and mpg multiplexors and the raw, null, copy,
 yuv4mpeg, mpeg2, lzo and xvid encoders, as importing ``tcforge_tpu.modules``
 does."""
@@ -12,6 +12,7 @@ from tcforge_tpu_torch.modules.encoders import xvid  # noqa: F401
 from tcforge_tpu_torch.modules.importers import avi_import  # noqa: F401
 from tcforge_tpu_torch.modules.importers import framegen  # noqa: F401
 from tcforge_tpu_torch.modules.importers import dvd_import  # noqa: F401
+from tcforge_tpu_torch.modules.importers import mov_import  # noqa: F401
 from tcforge_tpu_torch.modules.importers import mpeg_import  # noqa: F401
 from tcforge_tpu_torch.modules.importers import multi  # noqa: F401
 from tcforge_tpu_torch.modules.importers import wav_import  # noqa: F401

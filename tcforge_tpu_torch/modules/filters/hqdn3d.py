@@ -127,27 +127,30 @@ class Hqdn3dFilter(VideoFilter):
             raise ValueError("hqdn3d only supports YUV420P "
                              "(filter_hqdn3d.c:200)")
         # FrameAnt is seeded from the first frame on the first batch
+        # (``init``, a host bool, says whether that batch has run)
         def zeros(h, w):
             return torch.zeros((h, w), dtype=torch.int32, device=device)
-        return {"init": torch.zeros((), dtype=torch.bool, device=device),
+        return {"init": False,
                 "y": zeros(height, width),
                 "u": zeros(height // 2, width // 2),
                 "v": zeros(height // 2, width // 2)}
 
     def apply(self, fb: FrameBatch, state: Any) -> Tuple[FrameBatch, Any]:
         ls, lt, cs, ct = self.luts(fb.device)
+        seed = not state["init"]
 
         def run(planes, ant, spatial, temporal):
             # reference seeds FrameAnt = first_frame << 8
-            # (filter_hqdn3d.c:70-77) when no history exists yet
-            ant = torch.where(state["init"], ant,
-                              planes[0].to(torch.int32) << 8)
+            # (filter_hqdn3d.c:70-77) when no history exists yet, at the
+            # frames' own size (a Motion-JPEG chunk's first field image
+            # is not the header's), as the JAX engine's host path does;
+            # a history of another size raises (temporal_scan)
+            if seed:
+                ant = planes[0].to(torch.int32) << 8
             return denoise_plane(planes, ant, spatial, temporal)
 
         y, ant_y = run(fb.y, state["y"], ls, lt)
         u, ant_u = run(fb.u, state["u"], cs, ct)
         v, ant_v = run(fb.v, state["v"], cs, ct)
-        new_state = {"init": torch.ones((), dtype=torch.bool,
-                                        device=fb.device),
-                     "y": ant_y, "u": ant_u, "v": ant_v}
+        new_state = {"init": True, "y": ant_y, "u": ant_u, "v": ant_v}
         return fb.with_planes(y=y, u=u, v=v), new_state

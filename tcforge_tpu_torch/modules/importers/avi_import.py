@@ -33,18 +33,33 @@ routes, by its fourcc:
   dropped frame: an all-skip P plan, which repeats the last anchor (the
   JAX importer's ``_read_mp4_jax``, ``:240-268``).  The frames equal the
   JAX CLI's numpy decode (``decode_frames`` and ``flush``).
+- Motion-JPEG (MJPG/JPEG/AVDJ/DMB1): the same protocol through
+  ``io/jpeg.JpegStream``: the reader thread runs each chunk's Huffman
+  decode on the host into a pinned buffer, the main thread uploads a
+  batch in one copy and runs ``jpeg_idct`` and ``jpeg_color`` once
+  each; RGB24 frames, PIL's bytes (the JAX importer's ``Image.open``),
+  a zero-size chunk skipped, a chunk's first image taken.
 
-A PCM track (``-a`` or the ``track`` option) is the session's audio, as
-the JAX importer reads it.  ``seek`` (``-L``) moves the chunk index and
-drops the matching samples, as the JAX importer's does.
+The audio track (``-a`` or the ``track`` option) is the session's
+audio, as the JAX importer reads it: PCM as it is; MP2 and MP3 (tags
+0x50, 0x55) and AC-3 (0x2000) decoded by the in-tree decoders in a
+worker process (``io/adec_worker.py``: the ``mp2`` kind, whose
+``StreamDecoder`` hands Layer III to ``mp3dec``, and ``ac3``), the
+chunks fed in file order and the decoder flushed at the track's end;
+``audio_channels`` follows the decoder.  The JAX importer decodes
+these through its FFmpeg bridge where it has one: its in-tree decoders,
+which the port runs, are its route without the bridge.  ``seek``
+(``-L``) moves the chunk index and drops the matching samples, as the
+JAX importer's does.
 
-Not ported yet, each raising ``NotImplementedError`` that names it:
-Motion-JPEG, the other compressed fourccs (``H263`` among them, which
-the JAX package hands to FFmpeg) and compressed audio tracks (MP2, MP3,
-AC-3: tags 0x50, 0x55, 0x2000).  What the JAX package's numpy decoder
-itself refuses raises as there, in its words: static sprites, sprite
-brightness change, more than three warping points (a ``ValueError``),
-an extended PTYPE, quarter-sample field prediction.
+Not ported yet, each raising ``NotImplementedError`` that names it: the
+other compressed fourccs (``H263`` among them, which the JAX package
+hands to FFmpeg).  What the JAX package's numpy decoder itself refuses
+raises as there, in its words: static sprites, sprite brightness
+change, more than three warping points (a ``ValueError``), an extended
+PTYPE, quarter-sample field prediction; and what the port's JPEG decode
+does not take, by name (``io/jpeg.py``: progressive, lossless,
+hierarchical and arithmetic-coded JPEG, 12-bit samples, CMYK).
 """
 
 from __future__ import annotations
@@ -60,10 +75,13 @@ from tcforge_tpu_torch.core.codecs import Codec, ContainerFormat
 from tcforge_tpu_torch.core.formats import ImageFormat
 from tcforge_tpu_torch.core.optstr import ModuleDesc, ParamSpec
 from tcforge_tpu_torch.io import tclzo
+from tcforge_tpu_torch.io.adec_worker import Decoder
 from tcforge_tpu_torch.io.avi import AviReader
+from tcforge_tpu_torch.io.jpeg import JpegStream
 from tcforge_tpu_torch.io.mpeg4recon import (REC, Anchors, crop,
                                              reconstruct, route, stage_plan)
 from tcforge_tpu_torch.io.rawio import unpack_frame
+from tcforge_tpu_torch.modules.importers import start_on_the_card
 from tcforge_tpu_torch.modules.registry import (Importer, ModuleInfo,
                                                 ModuleKind, register)
 
@@ -74,8 +92,11 @@ _FOURCC_FMT = {
     "RGB": ImageFormat.RGB24, "DIB": ImageFormat.BGR24, "": ImageFormat.BGR24,
 }
 MPEG4_FOURCCS = ("XVID", "DIVX", "DX50", "MP4V", "FMP4", "M4S2", "MP4S")
-_JPEG_FOURCCS = ("MJPG", "JPEG", "AVDJ", "DMB1")
-_AUDIO_CODECS = {0x50: "MP2", 0x55: "MP3", 0x2000: "AC-3"}
+JPEG_FOURCCS = ("MJPG", "JPEG", "AVDJ", "DMB1")
+# the worker's decoder kind of each compressed audio tag
+AUDIO_KINDS = {0x50: "mp2", 0x55: "mp2", 0x2000: "ac3"}
+# decode requests a compressed track keeps in flight
+_AUDIO_AHEAD = 8
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -131,6 +152,12 @@ class Plan:
     frames: List[int] = field(default_factory=list)   # handles, display
     live: List[int] = field(default_factory=list)     # kept afterwards
 
+    @property
+    def upload_elements(self) -> int:
+        """The int16 values ``execute`` uploads: the used slots' records
+        (none once the buffer is given back)."""
+        return 0 if self.buffer is None else self.used * self.buffer.per_slot
+
 
 @register
 class AviImporter(Importer):
@@ -151,15 +178,17 @@ class AviImporter(Importer):
         fcc = v.fourcc.strip().upper()
         self._lzo = fcc == "LZO2"
         self._mp4 = None
-        if fcc in _JPEG_FOURCCS:
-            raise _not_ported(f"Motion-JPEG video (fourcc {fcc!r})")
-        if self._lzo:
+        self._jpeg: Optional[JpegStream] = None
+        self._device: Optional[torch.device] = None
+        if fcc in JPEG_FOURCCS:
+            self._jpeg = JpegStream()
+            self.format = ImageFormat.RGB24
+        elif self._lzo:
             self.format = ImageFormat.YUV420P
         elif fcc in MPEG4_FOURCCS:
             from tcforge_tpu_torch.io.mpeg4plan import Mpeg4PlanDecoder
             self._mp4 = Mpeg4PlanDecoder()
             self.format = ImageFormat.YUV420P
-            self._device: Optional[torch.device] = None
             self._frames: Dict[int, tuple] = {}
             self._reset_decoder()
         elif fcc not in _FOURCC_FMT:
@@ -171,24 +200,25 @@ class AviImporter(Importer):
         self._pos = 0
         track = self.options.get("track", 0) or self.job.a_track
         self._audio_iter = None
+        self._audio_kind: Optional[str] = None
+        self._audio_dec: Optional[Decoder] = None
+        self._audio_fed = False
         self._audio_buf = np.zeros((0, 2), np.int16)
         if track < len(self._r.audio):
             a = self._r.audio[track]
             self.audio_rate = a.rate
             self.audio_channels = a.channels
             self._audio_iter = self._r.read_audio_chunks(track)
-            fmt = getattr(a, "format_tag", 1)
-            if fmt in _AUDIO_CODECS and self.demux_audio:
-                raise _not_ported(f"a compressed audio track ("
-                                  f"{_AUDIO_CODECS[fmt]}, tag 0x{fmt:04x})")
+            self._audio_kind = AUDIO_KINDS.get(getattr(a, "format_tag", 1))
             self._audio_dtype = np.int16 if a.bits == 16 else np.uint8
             self._audio_buf = np.zeros((0, a.channels), self._audio_dtype)
 
     @property
     def planned(self) -> bool:
         """True when the video decodes through ``plan_batch`` and
-        ``execute`` on the device (MPEG-4), False for host planes."""
-        return self._mp4 is not None
+        ``execute`` on the device (MPEG-4, Motion-JPEG), False for host
+        planes."""
+        return self._mp4 is not None or self._jpeg is not None
 
     # -- raw and LZO2 video: host planes ------------------------------- #
 
@@ -230,20 +260,14 @@ class AviImporter(Importer):
         (pinned on a card): ``plan_batch`` takes one, ``execute`` gives
         it back once its upload is queued."""
         self._device = torch.device(device)
+        if self._jpeg is not None:
+            self._jpeg.start(self._device, buffers)
+            return
         nmb = ((self.width + 15) // 16) * ((self.height + 15) // 16)
         pinned = self._device.type == "cuda"
         self.buffer_pool: "queue.Queue[_Buffer]" = queue.Queue()
         for _ in range(buffers):
             self.buffer_pool.put(_Buffer(nmb, 16, pinned))
-
-    def _start_on_the_card(self) -> None:
-        if self._device is not None:
-            return
-        if not torch.cuda.is_available():
-            raise RuntimeError("AviImporter: no CUDA device is available "
-                               "(call start(torch.device('cpu')) to decode "
-                               "with the plain versions)")
-        self.start(torch.device("cuda"))
 
     def _take_buffer(self, alive) -> Optional[_Buffer]:
         while True:
@@ -269,6 +293,8 @@ class AviImporter(Importer):
         the consumer still runs."""
         if self._device is None:
             raise RuntimeError("AviImporter.start() was not called")
+        if self._jpeg is not None:
+            return self._jpeg.plan(self._next_chunk, n, alive)
         frames: List[int] = []
         while self._spill and len(frames) < n:
             frames.append(self._spill.pop(0))
@@ -339,24 +365,38 @@ class AviImporter(Importer):
         if buf is not None:
             self.buffer_pool.put(buf)
 
-    def release(self, plan: Plan) -> None:
+    def release(self, plan) -> None:
         """Give back a plan's buffer without running it."""
+        if self._jpeg is not None:
+            self._jpeg.release(plan)
+            return
         self._release(plan.buffer)
         plan.buffer = None
 
+    def _next_chunk(self) -> Optional[bytes]:
+        """The next Motion-JPEG chunk that is not empty, None at the end
+        (a zero-size chunk gives no frame, as in the JAX importer)."""
+        while self._pos < self.total_frames:
+            raw, _key = self._r.read_video_frame(self._pos)
+            self._pos += 1
+            if raw:
+                return bytes(raw)
+        return None
+
     # -- MPEG-4: the device half --------------------------------------- #
 
-    def execute(self, plan: Plan, copy_stream=None
+    def execute(self, plan, copy_stream=None
                 ) -> Optional[Dict[str, torch.Tensor]]:
         """Run ``plan`` on the device: its batch of planes, uint8
         (N, H, W) on the device and cropped to the VOL's size, or None
-        when it displays nothing.  On a card the upload goes on
-        ``copy_stream`` (when given), which the current stream waits
-        for."""
+        when it displays nothing (Motion-JPEG: ``rgb``, (N, H, W, 3)).
+        On a card the upload goes on ``copy_stream`` (when given), which
+        the current stream waits for."""
+        if self._jpeg is not None:
+            return self._jpeg.execute(plan, copy_stream)
         dev = self._device
-        buf = plan.buffer
-        if buf is not None and plan.used:
-            n = plan.used * buf.per_slot
+        buf, n = plan.buffer, plan.upload_elements
+        if n:
             if dev.type == "cuda":
                 compute = torch.cuda.current_stream(dev)
                 stream = copy_stream or compute
@@ -400,12 +440,12 @@ class AviImporter(Importer):
 
     def read_video_batch(self, n: int):
         """Up to ``n`` frames: host numpy planes for raw and LZO2 video;
-        for MPEG-4, planned and run in the calling thread, planes on the
-        device (on the card unless ``start`` chose another device).
-        None at the end of the file."""
-        if self._mp4 is None:
+        for MPEG-4 and Motion-JPEG, planned and run in the calling
+        thread, on the device (on the card unless ``start`` chose another
+        device).  None at the end of the file."""
+        if not self.planned:
             return self._read_host_batch(n)
-        self._start_on_the_card()
+        start_on_the_card(self)
         while True:
             plan = self.plan_batch(n)
             if plan is None:
@@ -414,16 +454,43 @@ class AviImporter(Importer):
             if out is not None:
                 return out
 
+    def _decoded(self, n_samples: int) -> None:
+        """Decode the compressed track until ``n_samples`` samples are
+        buffered or it ended: the chunks go to the worker in file order,
+        a few requests ahead, then a flush; the results come back in the
+        same order (the JAX importer's feed, read and flush)."""
+        dec = self._audio_dec
+        if dec is None:
+            dec = self._audio_dec = Decoder(self._audio_kind)
+        while self._audio_buf.shape[0] < n_samples:
+            while dec.pending < _AUDIO_AHEAD and not self._audio_fed:
+                chunk = next(self._audio_iter, None)
+                if chunk is None:
+                    dec.submit("flush")
+                    self._audio_fed = True
+                else:
+                    dec.submit("feed", bytes(chunk))
+            if not dec.pending:
+                return
+            got, _rate = dec.result()
+            if got is not None and len(got):
+                self.audio_channels = got.shape[1]
+                self._audio_buf = (got if not len(self._audio_buf) else
+                                   np.concatenate([self._audio_buf, got]))
+
     def read_audio_batch(self, n_samples: int) -> Optional[np.ndarray]:
         if self._audio_iter is None:
             return None
-        while self._audio_buf.shape[0] < n_samples:
-            chunk = next(self._audio_iter, None)
-            if chunk is None:
-                break
-            a = np.frombuffer(chunk, self._audio_dtype).reshape(
-                -1, max(1, self.audio_channels))
-            self._audio_buf = np.concatenate([self._audio_buf, a])
+        if self._audio_kind is not None:
+            self._decoded(n_samples)
+        else:
+            while self._audio_buf.shape[0] < n_samples:
+                chunk = next(self._audio_iter, None)
+                if chunk is None:
+                    break
+                a = np.frombuffer(chunk, self._audio_dtype).reshape(
+                    -1, max(1, self.audio_channels))
+                self._audio_buf = np.concatenate([self._audio_buf, a])
         if self._audio_buf.shape[0] == 0:
             return None
         out = self._audio_buf[:n_samples]
@@ -440,5 +507,8 @@ class AviImporter(Importer):
 
     def close(self) -> None:
         self._r.close()
+        if self._audio_dec is not None:
+            self._audio_dec.close()
+            self._audio_dec = None
         if self._mp4 is not None:
             self._frames = {}

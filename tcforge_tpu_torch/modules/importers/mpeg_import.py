@@ -69,6 +69,7 @@ from tcforge_tpu_torch.io.mpeg2host import MBF_FIELD_DCT
 from tcforge_tpu_torch.io.mpeg2parse import (NEED_DATA, Mpeg2Bitstream,
                                              coef_shapes)
 from tcforge_tpu_torch.io.probe import sniff_magic
+from tcforge_tpu_torch.modules.importers import start_on_the_card
 from tcforge_tpu_torch.modules.registry import (Importer, ModuleInfo,
                                                 ModuleKind, register)
 
@@ -510,17 +511,6 @@ class MpegImporter(Importer):
         for _ in range(buffers):
             self.buffer_pool.put(_Buffer(shapes, 16, pinned))
 
-    def _start_on_the_card(self) -> None:
-        """``start`` on the card where the caller chose no device; raises
-        when there is none, as the CLI's ``--device cuda`` does."""
-        if self._device is not None:
-            return
-        if not torch.cuda.is_available():
-            raise RuntimeError("MpegImporter: no CUDA device is available "
-                               "(call start(torch.device('cpu')) to decode "
-                               "with the plain versions)")
-        self.start(torch.device("cuda"))
-
     def _take_buffer(self, alive) -> Optional[_Buffer]:
         """A free host buffer, once its last upload is done; None when
         ``alive()`` turns false while it waits."""
@@ -776,7 +766,7 @@ class MpegImporter(Importer):
     def set_references(self, ref_fwd, ref_bwd) -> None:
         """Replace the two anchors by (y, u, v) coded-grid planes (or
         None), moved to the device the importer decodes onto."""
-        self._start_on_the_card()
+        start_on_the_card(self)
         handles = []
         for ref in (ref_fwd, ref_bwd):
             if ref is None:
@@ -793,7 +783,7 @@ class MpegImporter(Importer):
         """Plan and run one batch in the calling thread: up to ``n``
         frames' planes on the device, or None at the end of the stream
         (decoding on the card unless ``start`` chose another device)."""
-        self._start_on_the_card()
+        start_on_the_card(self)
         while True:
             plan = self.plan_batch(n)
             if plan is None:

@@ -95,6 +95,12 @@ wrapper                    CUDA source                 replaces (tcforge_tpu)
                                                        ``_code_intra_mb``
                                                        and the inter block
                                                        coding (numpy)
+``jpeg_idct``              ``csrc/jpeg_decode.cu``     modules/importers/
+                                                       avi_import.py and
+                                                       io/mov.py: PIL's
+                                                       ``Image.open`` (no
+                                                       JAX form)
+``jpeg_color``             ``csrc/jpeg_decode.cu``     the same
 =========================  ==========================  =====================
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
@@ -143,7 +149,9 @@ launches: Dict[str, int] = {"hqdn3d_spatial_scan": 0,
                             "mpeg4_gmc_warp": 0,
                             "mpeg4_enc_me": 0,
                             "mpeg4_enc_bme": 0,
-                            "mpeg4_enc_blocks": 0}
+                            "mpeg4_enc_blocks": 0,
+                            "jpeg_idct": 0,
+                            "jpeg_color": 0}
 
 
 def reset_launches() -> None:
@@ -212,6 +220,10 @@ _SIGNATURES = {
         "tc_mpeg4_recon_field": (_P, _P),
         "tc_mpeg4_idct_intra": (_P, _P),
         "tc_mpeg4_gmc_warp": (_P, _P),
+    },
+    "jpeg_decode": {
+        "tc_jpeg_idct": (_P, _P),
+        "tc_jpeg_color": (_P, _P),
     },
     "mpeg4_encode": {
         "tc_mpeg4_enc_me": (_P, _P, _P),
@@ -1747,3 +1759,100 @@ def mpeg4_enc_blocks(rec, cur, fwd, bwd, q: int, vop_type: int,
           ctypes.cast(_mpeg4_basis(), _P), _stream(out))
     launches["mpeg4_enc_blocks"] += 1
     return out, planes
+
+
+# --------------------------------------------------------------------- #
+# Kernel VII: baseline JPEG (Motion-JPEG and photo-JPEG video) on the
+# card (not TPU kernels: the JAX package decodes JPEG through PIL);
+# csrc/jpeg_decode.cu, the plain versions in io/jpeg.py
+
+JPEG_MAX_COMPS = 3       # csrc/jpeg_decode.cu kMaxComps
+
+
+def _jpeg_geometry(geom) -> None:
+    from tcforge_tpu_torch.io.jpeg import Geometry
+    if not isinstance(geom, Geometry):
+        raise TypeError("geom: expected an io/jpeg.py Geometry")
+    if not 1 <= len(geom.comps) <= JPEG_MAX_COMPS or geom.blocks <= 0:
+        raise ValueError(f"geom: {len(geom.comps)} components, "
+                         f"{geom.blocks} blocks a frame")
+
+
+def jpeg_idct_ref(coef: torch.Tensor, qt: torch.Tensor, geom):
+    """Plain version of ``jpeg_idct`` (io/jpeg.py ``idct_ref``)."""
+    from tcforge_tpu_torch.io import jpeg
+    return jpeg.idct_ref(coef, qt, geom)
+
+
+def jpeg_idct(coef: torch.Tensor, qt: torch.Tensor, geom) -> torch.Tensor:
+    """The samples of a batch of JPEG frames of one geometry ``geom``
+    (io/jpeg.py ``Geometry``): int16 (blocks, 64) natural-order
+    coefficients, the frames' blocks one after the other, dequantized by
+    their frame's table of their component (``qt``: int16 (frames, 4,
+    64), each value's low 16 bits), then libjpeg's ``jpeg_idct_islow``
+    (CONST_BITS 13, PASS1_BITS 2, int32 arithmetic that wraps) and its
+    range-limit table at ``x & 1023`` (out-of-range values wrap, as
+    there).  Returns uint8 (blocks, 64), each block's samples in rows."""
+    _jpeg_geometry(geom)
+    _check(coef, "coef", (torch.int16,), 2)
+    _check(qt, "qt", (torch.int16,), 3)
+    if coef.shape[1] != 64 or coef.shape[0] % geom.blocks:
+        raise ValueError(f"coef: {tuple(coef.shape)} is not frames of "
+                         f"{geom.blocks} blocks of 64")
+    frames = coef.shape[0] // geom.blocks
+    if tuple(qt.shape) != (frames, 4, 64):
+        raise ValueError(f"qt: {tuple(qt.shape)}, expected "
+                         f"({frames}, 4, 64)")
+    if not _on_cuda(coef, qt):
+        return jpeg_idct_ref(coef, qt, geom)
+    out = torch.empty((coef.shape[0], 64), dtype=torch.uint8,
+                      device=coef.device)
+    if frames == 0:
+        return out
+    offs = [c.off for c in geom.comps]
+    offs += [geom.blocks] * (JPEG_MAX_COMPS - len(offs))
+    ptr, _keep = _meta([coef.data_ptr(), qt.data_ptr(), out.data_ptr(),
+                        coef.shape[0], geom.blocks, *offs[1:]])
+    _call("jpeg_decode", "tc_jpeg_idct", ptr, _stream(coef))
+    launches["jpeg_idct"] += 1
+    return out
+
+
+def jpeg_color_ref(samples: torch.Tensor, geom):
+    """Plain version of ``jpeg_color`` (io/jpeg.py ``color_ref``)."""
+    from tcforge_tpu_torch.io import jpeg
+    return jpeg.color_ref(samples, geom)
+
+
+def jpeg_color(samples: torch.Tensor, geom) -> torch.Tensor:
+    """The RGB24 pixels of a batch of JPEG frames of one geometry: from
+    ``jpeg_idct``'s uint8 (blocks, 64) samples, each output pixel's
+    component samples upsampled as libjpeg-turbo's ``jdsample.c`` does
+    (fancy h2v1 and h2v2 where the component is wider than 2 samples,
+    fancy h1v2, else replication; the neighbours those of the
+    component's real size, the rows above and below the image its first
+    and last), then ``jdcolor.c`` ``ycc_rgb_convert`` (SCALEBITS 16,
+    clamped), RGB as it is, gray to all three.  Returns uint8 (frames,
+    height, width, 3)."""
+    _jpeg_geometry(geom)
+    _check(samples, "samples", (torch.uint8,), 2)
+    if samples.shape[1] != 64 or samples.shape[0] % geom.blocks:
+        raise ValueError(f"samples: {tuple(samples.shape)} is not frames "
+                         f"of {geom.blocks} blocks of 64")
+    if not _on_cuda(samples):
+        return jpeg_color_ref(samples, geom)
+    frames = samples.shape[0] // geom.blocks
+    out = torch.empty((frames, geom.height, geom.width, 3),
+                      dtype=torch.uint8, device=samples.device)
+    if frames == 0:
+        return out
+    comps = []
+    for c in geom.comps:
+        comps += [c.off, c.bw, c.dw, c.dh, c.hf, c.vf, c.up]
+    comps += [0] * (7 * (JPEG_MAX_COMPS - len(geom.comps)))
+    ptr, _keep = _meta([samples.data_ptr(), out.data_ptr(), frames,
+                        geom.width, geom.height, geom.blocks, geom.color,
+                        len(geom.comps), *comps])
+    _call("jpeg_decode", "tc_jpeg_color", ptr, _stream(samples))
+    launches["jpeg_color"] += 1
+    return out

@@ -222,8 +222,8 @@ def video_module(job: Job) -> str:
     """The import module of ``job``'s ``-i``: from ``-x`` or, with ``-x
     auto``, ``multi`` for a directory and otherwise by the file's magic:
     ``wav``, ``mpeg`` (a program or elementary stream; TS and CDXA too,
-    which ``mpeg`` refuses by name), ``avi`` or ``y4m`` (also where the
-    magic is unknown, as the JAX engine falls back to it).  A container the JAX
+    which ``mpeg`` refuses by name), ``avi``, ``mov`` or ``y4m`` (also
+    where the magic is unknown, as the JAX engine falls back to it).  A container the JAX
     package imports with a module the port lacks is refused, naming the
     module."""
     name = job.im_v_module or "auto"
@@ -243,7 +243,7 @@ def video_module(job: Job) -> str:
     from tcforge_tpu_torch.io.probe import sniff_magic
     fmt = sniff_magic(vin)
     module = JAX_IMPORT_MODULES.get(fmt, "y4m")
-    if module in ("y4m", "mpeg", "avi"):
+    if module in ("y4m", "mpeg", "avi", "mov"):
         return module
     raise NotImplementedError(
         f"{vin}: {fmt.value} input (the {module} import module) is not "
@@ -256,6 +256,9 @@ _MPEG_MODULES = ("mpeg", "multi", "dvd")
 # import modules that hand over host planes (``read_video_batch``): the
 # synthetic source, cfg6's input
 _HOST_MODULES = ("framegen",)
+# the AVI and QuickTime containers: host planes or, for a compressed
+# video track, the plan/execute protocol (``planned``)
+_CONTAINER_MODULES = ("avi", "mov")
 
 
 def probe(job: Job) -> Optional[Y4MHeader]:
@@ -267,9 +270,10 @@ def probe(job: Job) -> Optional[Y4MHeader]:
     ``probe_file``) and gives None.  A directory or a title (``multi``,
     ``dvd``) probes its first file, as the JAX CLI does, where a probe
     that fails sets nothing, and several files leave ``--max_frames``
-    unset.  An AVI sets the size, rate, chunk count (``--max_frames``),
-    a packed YUV layout (the job's colorspace) and its first track's
-    rate and channels from its headers, as the JAX CLI's probe does."""
+    unset.  An AVI or a MOV sets the size, rate, chunk count
+    (``--max_frames``), a packed YUV layout (the job's colorspace) and
+    its first track's rate and channels from its headers, as the JAX
+    CLI's probe does."""
     kind = video_module(job)
     if kind in _HOST_MODULES:
         return None                 # the module sets them at open
@@ -278,7 +282,7 @@ def probe(job: Job) -> Optional[Y4MHeader]:
             job.a_rate, job.a_chan = r.info.rate, r.info.channels
             job.a_bits = r.info.bits
         return None
-    if kind in _MPEG_MODULES or kind == "avi":
+    if kind in _MPEG_MODULES or kind in _CONTAINER_MODULES:
         from tcforge_tpu_torch.io.probe import probe_file, probe_to_job
         from tcforge_tpu_torch.modules.importers.multi import expand_sources
         max_frames = job.max_frames
@@ -288,7 +292,7 @@ def probe(job: Job) -> Optional[Y4MHeader]:
             if len(srcs) > 1 and not max_frames:
                 job.max_frames = None   # the first file's length
         except Exception as e:          # as the JAX CLI's probe
-            if kind in ("mpeg", "avi"):
+            if kind == "mpeg" or kind in _CONTAINER_MODULES:
                 raise
             _log.warning("[probe] probe failed (%s); relying on the "
                          "import module", e)
@@ -651,7 +655,8 @@ class Pipeline:
         self.audio_importer: Optional[Importer] = None
         self.host_importer: Optional[Importer] = None
         imp: Optional[Importer] = None
-        if kind in _HOST_MODULES or kind in _MPEG_MODULES or kind == "avi":
+        if (kind in _HOST_MODULES or kind in _MPEG_MODULES
+                or kind in _CONTAINER_MODULES):
             imp = new_module(ModuleKind.DEMULTIPLEXOR, kind, job,
                              job.im_v_string)
             # the source's own track is the session's audio only with -m
@@ -659,7 +664,8 @@ class Pipeline:
             # (the JAX engine drops it otherwise): without, it is not
             # demuxed (the video decodes the same)
             imp.demux_audio = not audio_in and bool(
-                job.audio_out_file or (kind == "avi" and _muxes_audio(job)))
+                job.audio_out_file or (kind in _CONTAINER_MODULES
+                                       and _muxes_audio(job)))
             imp.open(job.video_in_file)
             # the MPEG importers and an MPEG-4 AVI decode on the device
             # (plan/execute); the others give host planes
@@ -1111,8 +1117,8 @@ class Pipeline:
                 return None
             dev = self.device
             return FrameBatch(
-                format=self.in_format, y=planes["y"], u=planes["u"],
-                v=planes["v"],
+                format=self.in_format, y=planes.get("y"), u=planes.get("u"),
+                v=planes.get("v"), rgb=planes.get("rgb"),
                 attrs=torch.zeros((got,), dtype=torch.int32, device=dev),
                 frame_ids=torch.arange(first_id, first_id + got,
                                        dtype=torch.int32, device=dev),
@@ -1240,7 +1246,7 @@ class Pipeline:
                 got = mpeg_in.read_video_batch(min(left, job.batch_size))
                 if got is None:
                     break
-                left -= got["y"].shape[0]
+                left -= next(iter(got.values())).shape[0]
             if spf and not (seeked and self.audio_importer is mpeg_in):
                 self.audio_importer.read_audio_batch(spf * skip)
 

@@ -70,7 +70,8 @@ NATIVE_COPIES = {"csrc/mpeg2intra.cpp": "native/mpeg2intra.cpp",
 # (the bit writer, VLC tables and block, vector and DC coding, the FDCT
 # basis and quantizers, the stream and VOP headers, the intra
 # macroblock's writer, the B mb_type codes and the vector wrap);
-# split_extra_options of the encoder cfg tier
+# split_extra_options of the encoder cfg tier; the MOV reader without its
+# photo-JPEG branch (the port's own, io/jpeg.py) or its writer
 RANGE_COPIES = {"io/mpeg4dec.py": ("io/mpeg4dec.py",
                                    ((1, 55), (57, 2791))),
                 "io/mpeg2host.py": ("io/mpeg2codec.py",
@@ -83,7 +84,8 @@ RANGE_COPIES = {"io/mpeg4dec.py": ("io/mpeg4dec.py",
                                        (390, 406), (783, 786), (838, 844))),
                 "modules/encoders/encoder_cfg.py": (
                     "modules/encoders/encoder_cfg.py",
-                    ((18, 21), (24, 24), (40, 57)))}
+                    ((18, 21), (24, 24), (40, 57))),
+                "io/mov.py": ("io/mov.py", ((1, 339), (344, 365)))}
 
 
 def _rewrite(src: str) -> str:

@@ -249,18 +249,19 @@ def jax_avi(tmp_path_factory, jax_native):
 def test_x_auto_refuses_an_avi_naming_its_module(jax_avi, tmp_path):
     """-x auto takes an AVI to the port's avi import module; a video
     track it cannot decode (the JAX CLI's I420 AVI with its fourcc made
-    MJPG) is refused naming what the port lacks."""
+    H264, which the JAX package hands to FFmpeg) is refused naming what
+    the port lacks."""
     from tcforge_tpu.io.probe import sniff_magic as jax_sniff
     from tcforge_tpu.core.codecs import ContainerFormat as JFormat
     assert jax_sniff(str(jax_avi)) == JFormat.AVI
     assert engine.video_module(Job(video_in_file=str(jax_avi))) == "avi"
-    mjpg = tmp_path / "mjpg.avi"
-    mjpg.write_bytes(jax_avi.read_bytes().replace(b"I420", b"MJPG"))
-    job = Job(video_in_file=str(mjpg),
+    h264 = tmp_path / "h264.avi"
+    h264.write_bytes(jax_avi.read_bytes().replace(b"I420", b"H264"))
+    job = Job(video_in_file=str(h264),
               video_out_file=str(tmp_path / "o.y4m"))
-    with pytest.raises(NotImplementedError, match="Motion-JPEG"):
+    with pytest.raises(NotImplementedError, match="fourcc 'H264'"):
         engine.Pipeline(job, CPU)
-    assert port_cli(["-i", str(mjpg), "-o",
+    assert port_cli(["-i", str(h264), "-o",
                      str(tmp_path / "o.y4m")]) == 1
 
 

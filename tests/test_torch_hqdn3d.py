@@ -152,9 +152,57 @@ def test_filter_apply_matches_jax_over_two_batches():
         jout, jstate = ref.apply(JFrameBatch.from_numpy(y, u, v), jstate)
         for got, want in zip(pout.to_numpy(), jout.planes):
             np.testing.assert_array_equal(got, np.asarray(want))
-        for key in ("init", "y", "u", "v"):
+        assert pstate["init"] is bool(jstate["init"])
+        for key in ("y", "u", "v"):
             np.testing.assert_array_equal(pstate[key].numpy(),
                                           np.asarray(jstate[key]))
+
+
+def test_first_batch_seeds_at_the_frames_size():
+    """A first state made at another size than the frames' (an AVI
+    header's, a Motion-JPEG chunk's first field image) is seeded from
+    the frames, as the JAX filter's host path does, and carried on."""
+    rng = np.random.default_rng(22)
+    port = thq.Hqdn3dFilter(Job(), "luma=4.0")
+    ref = jhq.Hqdn3dFilter(JJob(), "luma=4.0")
+    pstate = port.init_state(20, 12, ImageFormat.YUV420P, CPU)
+    from tcforge_tpu.core.formats import ImageFormat as JImageFormat
+    jstate = ref.init_state(20, 12, JImageFormat.YUV420P)
+    for n in (2, 3):
+        y, u, v = (rand_u8(rng, n, 6, 20), rand_u8(rng, n, 3, 10),
+                   rand_u8(rng, n, 3, 10))
+        pout, pstate = port.apply(
+            FrameBatch.from_numpy(y, u, v, device=CPU), pstate)
+        jout, jstate = ref.apply_host(JFrameBatch.from_numpy(y, u, v),
+                                      jstate)
+        for got, want in zip(pout.to_numpy(), jout.planes):
+            np.testing.assert_array_equal(got, np.asarray(want))
+        for key in ("y", "u", "v"):
+            np.testing.assert_array_equal(pstate[key].numpy(),
+                                          np.asarray(jstate[key]))
+
+
+def test_size_change_after_the_first_batch_raises():
+    """Frames of another size than the carried FrameAnt raise after the
+    first batch, as the JAX filter's apply does: the history is not
+    silently dropped."""
+    rng = np.random.default_rng(23)
+    port = thq.Hqdn3dFilter(Job(), "luma=4.0")
+    ref = jhq.Hqdn3dFilter(JJob(), "luma=4.0")
+    pstate = port.init_state(20, 12, ImageFormat.YUV420P, CPU)
+    from tcforge_tpu.core.formats import ImageFormat as JImageFormat
+    jstate = ref.init_state(20, 12, JImageFormat.YUV420P)
+    first = (rand_u8(rng, 2, 12, 20), rand_u8(rng, 2, 6, 10),
+             rand_u8(rng, 2, 6, 10))
+    _, pstate = port.apply(FrameBatch.from_numpy(*first, device=CPU),
+                           pstate)
+    _, jstate = ref.apply(JFrameBatch.from_numpy(*first), jstate)
+    other = (rand_u8(rng, 2, 6, 20), rand_u8(rng, 2, 3, 10),
+             rand_u8(rng, 2, 3, 10))
+    with pytest.raises(ValueError):
+        ref.apply(JFrameBatch.from_numpy(*other), jstate)
+    with pytest.raises(ValueError, match="ant shape"):
+        port.apply(FrameBatch.from_numpy(*other, device=CPU), pstate)
 
 
 def test_rejects_non_420():

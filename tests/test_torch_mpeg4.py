@@ -366,27 +366,28 @@ def _avi(path, fourcc, chunks_, audio=None):
 
 
 @pytest.mark.parametrize("what,match", [
-    ("h263", "fourcc 'H263'"), ("mjpg", "Motion-JPEG"),
-    ("h264", "fourcc 'H264'"), ("mp3", "MP3, tag 0x0055"),
-    ("ac3", "AC-3, tag 0x2000")])
+    ("h263", "fourcc 'H263'"), ("mjpg", "progressive JPEG \\(SOF2\\)"),
+    ("h264", "fourcc 'H264'"), ("mjpg_cmyk", "four-component"),
+    ("mjpg_arith", "arithmetic-coded JPEG \\(SOF9\\)")])
 def test_what_the_port_lacks_is_refused_by_name(what, match, tmp_path):
     """Each raises naming itself (and the CLI exits 1); none decodes on
     the host.  A short-header (H.263) picture under the fourcc H263, which
     the JAX package hands to FFmpeg, is refused (under an MPEG-4 fourcc the
-    port decodes it, tests/test_torch_h263.py)."""
+    port decodes it, tests/test_torch_h263.py); so are the JPEG forms the
+    port's Motion-JPEG decode does not take (tests/test_torch_mjpeg.py
+    covers the baseline ones, and every refusal of io/jpeg.py)."""
+    from test_torch_mjpeg import _refused
     if what == "h263":
         with AviReader(str(chip_smoke.H263_DATA / "qcif.avi")) as r:
             pic = r.read_video_frame(0)[0]
         src = _avi(tmp_path / "s.avi", "H263", [bytes(pic)])
-    elif what == "mjpg":
-        src = _avi(tmp_path / "m.avi", "MJPG", [b"\xff\xd8" + bytes(60)])
     elif what == "h264":
         src = _avi(tmp_path / "h.avi", "H264", [bytes(64)])
     else:
-        tag = 0x55 if what == "mp3" else 0x2000
-        src = _avi(tmp_path / "a.avi", "I420", [bytes(176 * 144 * 3 // 2)],
-                   AviAudioStream(format_tag=tag, byte_rate=16000))
-    out = tmp_path / ("o.avi" if what in ("mp3", "ac3") else "o.y4m")
+        kind = {"mjpg": "progressive", "mjpg_cmyk": "cmyk",
+                "mjpg_arith": "arithmetic"}[what]
+        src = _avi(tmp_path / "m.avi", "MJPG", [_refused(kind)])
+    out = tmp_path / "o.y4m"
     imp = new_module(ModuleKind.DEMULTIPLEXOR, "avi", Job())
     with pytest.raises(NotImplementedError, match=match) as e:
         imp.open(str(src))

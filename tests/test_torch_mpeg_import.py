@@ -253,8 +253,8 @@ def test_pieces_out_of_this_slice_raise(what, tmp_path):
         job["audio_out_file"] = str(tmp_path / "a.mp3")
         match = "writes audio as WAV only"
     else:
-        job["im_v_module"] = "mov"
-        match = "-x mov"
+        job["im_v_module"] = "nuv"
+        match = "-x nuv"
     with pytest.raises(NotImplementedError, match=match):
         engine.Pipeline(Job(**job), torch.device("cpu"))
 
