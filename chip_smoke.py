@@ -115,15 +115,23 @@ Lanczos3 zoom, ``-J hqdn3d=luma=4.0`` (which runs after the zoom, at
   through ``-m`` to a WAV: the host's Huffman decode (a g++ build of
   ``csrc/jpeg_entropy.cpp``), ``jpeg_idct`` and ``jpeg_color`` once each
   a batch, the RGB24 entry conversion and hqdn3d's scans, the MP3 decode
-  in its worker process.
+  in its worker process;
+- the legacy-AVI export path, mjpegenc: the dvdauthor path's 1080i with
+  its WAV through ``-I 5 -Z 640x480 -J hqdn3d=luma=4.0 -y
+  movjpeg,lame,avi -F MJPG`` (the README's legacy AVI, at legacy.avi's
+  640x480): the zoom and hqdn3d kernels, the RGB24 conversion,
+  ``jpeg_ycc_down`` and ``jpeg_fdct_quant`` once each a batch, one
+  download of the coefficients, the Huffman coder on the host (a g++
+  build of ``csrc/jpeg_huffenc.cpp``), the in-tree MP3 encoder at 128
+  kbit/s on the writer thread and the avi multiplexor.
 
 Phases, each of which raises on failure:
 
 1. a CUDA card is present; print its name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``tcforge_tpu_torch/csrc`` (one nvcc per
    source, all started together; sm_90a) and the host libraries (g++:
-   the MPEG-2 parse and syntax writer, the JPEG entropy decode) beside
-   them;
+   the MPEG-2 parse and syntax writer, the JPEG entropy decode and
+   Huffman encode) beside them;
 3. each kernel against its plain torch version on the card, tolerance 0
    (all of it is integer arithmetic): at its paths' shapes, and off the
    paths at ragged shapes and a band wider than the zoom's unrolled
@@ -185,7 +193,11 @@ Phases, each of which raises on failure:
    (int16 over their range, 16-bit tables: the range limit wraps) and
    samples over ``JPEG_RANDOM_GEOMS``, timed on a 16-frame batch of
    legacy.avi's frames (``jpeg_idct`` beside float64 ``torch.matmul`` of
-   its IDCT); with ``--parent DIR``, the unsharp,
+   its IDCT); the two JPEG encode kernels on the mjpegenc path's
+   640x480 batch of 16 and off it (``JPEGENC_SHAPES``: 720x480, odd
+   sizes, widths of 16 and less, 1x1) at qualities 10, 50, 90 and 100,
+   timed on the path's batch (``jpeg_fdct_quant`` beside float64
+   ``torch.matmul`` of its DCT); with ``--parent DIR``, the unsharp,
    TomsMoComp and temporal kernels of the checkout in DIR are built
    too, called through DIR's own wrappers and timed in turns with this
    tree's on the same inputs;
@@ -221,7 +233,12 @@ Phases, each of which raises on failure:
    and an ``mpeg4_recon`` an S-VOP, an ``mpeg4_recon`` a P picture; each
    AVI against the CPU run's and in chunks at ``--batch 3``), mjpeg (one
    ``jpeg_idct`` and one ``jpeg_color`` a batch; its Y4M and WAV against
-   the CPU run's and at ``--batch 3``), and the
+   the CPU run's and at ``--batch 3``), mjpegenc (one
+   ``jpeg_ycc_down`` and one ``jpeg_fdct_quant`` a batch; its AVI equal
+   to the same CLI's with every JPEG kernel call held to its plain
+   version, and read back by the port's Motion-JPEG importer: 48 frames
+   at 640x480 and the WAV's length of MP3 audio, the same on the card
+   and the CPU), and the
    engine at every
    ``--prefetch`` 1, 2, 4 and ``--batch`` 1, 3, 16;
 5. the small cases whose SHA-256 ``tests/test_torch_cli.py`` pins
@@ -247,7 +264,11 @@ Phases, each of which raises on failure:
    ``--batch 1``), the JPEG goldens (``MJPEG_GOLDEN``: mjpeg at full
    width, the small AVIs of every sampling, odd sizes, AVI1 fields, no
    DHT, MP2 and AC-3 tracks, ``-L``, the MOV files with ``jpeg`` and
-   ``mjpa`` samples), and the MPEG-4 export
+   ``mjpa`` samples), the legacy-AVI and DVD-audio export goldens
+   (``MJPEGENC_GOLDEN``: movjpeg and lame into an MJPG AVI, a DVD-style
+   VOB with ac3enc, MP2 in a program stream and in an AVI, AC-3 in an
+   AVI, MP3 at 44.1 kHz, and the mov multiplexor with photo-JPEG, YV12
+   and RGB), and the MPEG-4 export
    goldens (``XVID_GOLDEN``: divxenc at full width, the divx.avi
    re-encode with its PCM track, small DVD, DivX and Y4M cases at
    constant q, under ``-w`` and rate control, a raw ``.m4v``), with the
@@ -276,14 +297,14 @@ Phases, each of which raises on failure:
    the CLI on that stream and on dvd.vob, six runs of each in turns,
    and its serial stages (``mpeg_stages``); the DVD rip's CLI on a
    448-frame title with its track, with its track and a film's count of
-   subtitle units (``film_vobsub``), and without ``-m``, six runs of
+   subtitle units (``film_vobsub``), and without ``-m``, four runs of
    each in turns, and its serial stages with the audio decode
    (``dvdrip_stages``), with each of the two subtitle files; the
    authoring CLI on 160 frames of 1080i with its WAV, six timed runs
    (median and spread), and the encoder's stages a batch
    (``encode_stages``: queueing, device, the levels' download, the
-   syntax writer, the multiplexor); the DivX path on divx.avi four times
-   over (96 frames, written by the port's AviWriter): its decode against
+   syntax writer, the multiplexor); the DivX path on divx.avi twice
+   over (48 frames, written by the port's AviWriter): its decode against
    the fixture's repeated, the CLI four runs after an untimed one
    (median and spread), and its serial stages (``avi_stages``: parse,
    upload, reconstruction, chain, copy back, write); the divxenc CLI on
@@ -296,7 +317,11 @@ Phases, each of which raises on failure:
    mjpeg on legacy.avi's chunks repeated to 48 frames, three CLI runs
    after an untimed one (with the MP3 decoder's seconds in its process)
    and ``avi_stages`` with the track (entropy decode, upload, the two
-   kernels, chain, copy back, write, the audio's read and its decode).
+   kernels, chain, copy back, write, the audio's read and its decode);
+   mjpegenc on its 48 frames, three CLI runs after an untimed one and
+   ``mjpegenc_stages`` (the wait for the chain and the kernels, the
+   coefficients' download, the Huffman coder, the MP3 encoder, the
+   multiplexor; the device's kernels by name).
 
 It prints one JSON object per result (``t``: seconds since it started),
 then the kernels' summary and, as
@@ -1547,6 +1572,107 @@ def mjpeg_golden_outputs(case: str, directory) -> list:
     return [Path(directory) / f for f in MJPEG_GOLDEN[case][2]]
 
 
+# the legacy-AVI export path, mjpegenc: the main path's 1080i at 29.97 fps
+# with its 48 kHz stereo WAV (write_author_inputs), -I 5, zoomed to
+# 640x480 (legacy.avi's VGA movie-mode size), hqdn3d, then README's
+# legacy AVI: the movjpeg encoder at quality 90 (jpeg_ycc_down and
+# jpeg_fdct_quant on the card, the Huffman coder on the host) and lame at
+# 128 kbit/s (the in-tree MP3 encoder) into an MJPG AVI
+MJPEGENC_ARGS = ["-I", "5", "-Z", "640x480", "-J", "hqdn3d=luma=4.0", "-y",
+                 "movjpeg,lame,avi", "-F", "MJPG"]
+MJPEGENC_W, MJPEGENC_H, MJPEGENC_FRAMES = 640, 480, 48
+MJPEGENC_KERNELS = ("jpeg_ycc_down", "jpeg_fdct_quant", "zoom_pass",
+                    "hqdn3d_spatial_scan", "hqdn3d_temporal_scan")
+MJPEGENC_RUNS = 3
+# phase 3 off the path: (width, height, frames) of random RGB24 batches,
+# each at JPEGENC_QUALITIES
+JPEGENC_SHAPES = ((720, 480, 4), (1, 1, 3), (7, 5, 3), (15, 17, 2),
+                  (16, 16, 2), (17, 33, 2), (33, 31, 2), (13, 1, 3),
+                  (1, 29, 2), (176, 144, 3))
+JPEGENC_QUALITIES = (10, 50, 90, 100)
+# the fewest int32 operations a block of jpeg_fdct_quant needs: 16
+# one-dimensional passes of 12 products, 32 sums and 8 shifts, with the
+# descale's rounding added once to z1 (which o2 and o6 take) and once to
+# z5 (o7, o5, o3 and o1 each take one of z3 and z4, which both hold it):
+# 54 a row pass; a column pass also descales o0 and o4, with one more
+# rounding added to tmp10: 55; the samples' -128 offsets cancel in every
+# output but the DC and fold into column 0's rounding constant, so they
+# cost none; then 64 quantizations of 5 (the magnitude, the correction,
+# the product, the shift and the sign);
+# jpeg_ycc_down a chroma sample: 4 pixels of Y (three products, three
+# sums, the shift) and Cb and Cr (three products, three sums, the
+# shift), the two 2x2 sums, the biases and the shifts
+JPEG_FDCT_OPS = 8 * 54 + 8 * 55 + 64 * 5
+JPEG_YCC_DOWN_OPS = 4 * 7 + 4 * 14 + 2 * 5
+# the export goldens that tests/test_torch_jpeg_encode.py,
+# test_torch_audio_encode.py and test_torch_mov_export.py hold against the
+# JAX CLI (its audio encoders switched to the in-tree ones, as the port's
+# are): the arguments ({wav} the WAV of write_author_inputs at
+# MJPEGENC_GOLDEN_W x MJPEGENC_GOLDEN_H) and the output's name
+MJPEGENC_GOLDEN_W, MJPEGENC_GOLDEN_H = 176, 144
+MJPEGENC_GOLDEN_FRAMES = 20
+MJPEGENC_GOLDEN = {
+    "mjpegenc": (["-p", "{wav}", "-I", "5", "-Z", "128x96", "-J",
+                  "hqdn3d=luma=4.0", "-y", "movjpeg,lame,avi", "-F", "MJPG"],
+                 "out.avi"),
+    "dvdauthor_ac3": (["-p", "{wav}", "-I", "5", "-Z", "96x64", "-J",
+                       "hqdn3d=luma=4.0", "-y", "mpeg2,ac3enc,mpg", "-F",
+                       "gop_n=15:gop_m=3:rc=1:bitrate=6000"], "out.mpg"),
+    "mp2_mpg": (["-p", "{wav}", "-Z", "96x64", "-y", "mpeg2,mp2enc,mpg",
+                 "-F", "gop_n=6:gop_m=3"], "out.mpg"),
+    "ac3_avi": (["-p", "{wav}", "-Z", "96x64", "-y", "raw,ac3enc,avi"],
+                "out.avi"),
+    "toolame_avi": (["-p", "{wav}", "-Z", "96x64", "-y",
+                     "raw,toolame=bitrate=128,avi", "-d", "1"], "out.avi"),
+    "lame_44k": (["-p", "{wav}", "-Z", "96x64", "-E", "44100", "-b", "96",
+                  "-y", "raw,lame,avi"], "out.avi"),
+    "mov_q50": (["-p", "{wav}", "-Z", "96x64", "-y",
+                 "movjpeg=quality=50,raw,mov"], "out.mov"),
+    "mov_raw": (["-p", "{wav}", "-Z", "96x64", "-y", "raw,raw,mov"],
+                "out.mov"),
+    "mov_rgb": (["-Z", "96x64", "-V", "rgb24", "-y", "raw,raw,mov"],
+                "out.mov"),
+}
+MJPEGENC_GOLDEN_SHA256 = {
+    "mjpegenc": ("f760cca858e2f953fe14db1c205e8131"
+                  "e806babb1d73cf2286657f81ba9d16ee"),
+    "dvdauthor_ac3": ("93ec7db653955a3a706516342c413f2b"
+                       "ec9cb0458b99466d97f453628c31af63"),
+    "mp2_mpg": ("208695e0f70ae7e03918e4720bb004ca"
+                 "d85e7ecf7a584e810d873b231273e83a"),
+    "ac3_avi": ("1ed9da0309190557a48758a4c8df12c2"
+                 "346b7fe5a26d7d0300d72f56a407a7a0"),
+    "toolame_avi": ("73d2ac3fcd0a21223c6cc547b30cf0bf"
+                     "86e631b2d6ddec9e314506497bf3cacd"),
+    "lame_44k": ("aecc355eee1ff76a3181bf9d3d97b032"
+                  "0f1dcf9f6fd94e8471f55f4bafdd92a7"),
+    "mov_q50": ("44710e2c389028e2c6a0209370dbd0e9"
+                 "dbf5c07e6d73202fb720ef118eb1ef0e"),
+    "mov_raw": ("355c4cab72f6b4f83d68c884703f58eb"
+                 "2ff670c93060752bc8a26de14c8c40fd"),
+    "mov_rgb": ("6a5d3f4efce6ecb65b1114bb9ca157f7"
+                 "269d8d8275e3f63b2d5b75398aa997f2"),
+}
+
+
+def mjpegenc_golden_argv(case: str, directory) -> list:
+    """The CLI arguments of an ``MJPEGENC_GOLDEN`` case writing into
+    ``directory``, its inputs written there first."""
+    args, out = MJPEGENC_GOLDEN[case]
+    src = Path(directory) / "mjpegenc_golden_in.y4m"
+    wav = Path(directory) / "mjpegenc_golden_in.wav"
+    if not src.exists():
+        write_author_inputs(directory, MJPEGENC_GOLDEN_W, MJPEGENC_GOLDEN_H,
+                            MJPEGENC_GOLDEN_FRAMES,
+                            name="mjpegenc_golden_in")
+    return ["-i", str(src), "-o", f"{directory}/{out}",
+            *(a.replace("{wav}", str(wav)) for a in args)]
+
+
+def mjpegenc_golden_output(case: str, directory) -> Path:
+    return Path(directory) / MJPEGENC_GOLDEN[case][1]
+
+
 # the DVD-to-DivX path, divxenc: tests/data/mpeg2/dvd.vob (NTSC DVD
 # video, 720x480 at 29.97 fps, 48 frames) zoomed to 640x480 (the 4:3
 # square-pixel size of a DivX rip), hqdn3d, and the MPEG-4 encoder at
@@ -1867,13 +1993,19 @@ KERNELS = {
                   "tcforge_tpu/modules/importers/avi_import.py:175"),
     "jpeg_color": ("tcforge_tpu_torch/csrc/jpeg_decode.cu",
                    "tcforge_tpu/modules/importers/avi_import.py:175"),
+    # not TPU kernels: the JAX package encodes JPEG through PIL
+    # (Image.save in its movjpeg encoder)
+    "jpeg_ycc_down": ("tcforge_tpu_torch/csrc/jpeg_encode.cu",
+                      "tcforge_tpu/modules/importers/mov_import.py:141"),
+    "jpeg_fdct_quant": ("tcforge_tpu_torch/csrc/jpeg_encode.cu",
+                        "tcforge_tpu/modules/importers/mov_import.py:141"),
 }
 LIBS = ("hqdn3d_scan", "zoom_pass", "unsharp", "tomsmocomp", "yuvdenoise",
         "stabilize", "mpeg2_recon", "mpeg2_encode", "mpeg4_recon",
-        "mpeg4_encode", "jpeg_decode")
+        "mpeg4_encode", "jpeg_decode", "jpeg_encode")
 # the host libraries (g++): the MPEG-2 parse and syntax writer, the JPEG
-# entropy decode
-HOST_LIBS = ("mpeg2intra", "mpeg2encode", "jpeg_entropy")
+# entropy decode and Huffman encode
+HOST_LIBS = ("mpeg2intra", "mpeg2encode", "jpeg_entropy", "jpeg_huffenc")
 # each wrapper of ops/kernels.py, whose plain version is <name>_ref
 WRAPPERS = ("spatial_scan", "temporal_scan", "zoom_pass", "unsharp_plane",
             "tomsmocomp_plane", "tomsmocomp_window", "d3_spatial_scan",
@@ -1882,7 +2014,8 @@ WRAPPERS = ("spatial_scan", "temporal_scan", "zoom_pass", "unsharp_plane",
             "mpeg2_enc_pred", "mpeg2_enc_bmode", "mpeg2_enc_blocks",
             "mpeg4_recon", "mpeg4_idct_intra", "mpeg4_recon_qpel",
             "mpeg4_recon_field", "mpeg4_gmc_warp", "mpeg4_enc_me",
-            "mpeg4_enc_bme", "mpeg4_enc_blocks", "jpeg_idct", "jpeg_color")
+            "mpeg4_enc_bme", "mpeg4_enc_blocks", "jpeg_idct", "jpeg_color",
+            "jpeg_ycc_down", "jpeg_fdct_quant")
 
 
 def write_test_y4m(path, width: int, height: int, frames: int,
@@ -2249,8 +2382,12 @@ def main(argv=()) -> int:
     gmc_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_gmc_")
     gmc_avi = gmc_path_input("divx_gmc", gmc_dir.name)
     _check_gmc_kernels(torch, kernels, bench, gmc_avi, gmc_dir.name)
+    # the mjpegenc path's inputs, written in phase 4 for phases 4 and 6
+    mjpegenc_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_mjpegenc_")
     torch.cuda.empty_cache()
     _check_jpeg_kernels(torch, kernels, bench)
+    torch.cuda.empty_cache()
+    _check_jpegenc_kernels(torch, kernels, bench)
     torch.cuda.empty_cache()
     divxenc_checked = _check_mpeg4enc_kernels(torch, kernels, cli, bench)
     torch.cuda.empty_cache()
@@ -2447,6 +2584,11 @@ def main(argv=()) -> int:
         # 4. and 5. for the Motion-JPEG path and the JPEG goldens
         path_launches["mjpeg"] = _run_mjpeg(torch, cli, kernels, tmp)
         _mjpeg_goldens(cli, tmp)
+        # 4. and 5. for the legacy-AVI export (kept for phase 6) and the
+        # export goldens with MP3, MP2 and AC-3 and the mov multiplexor
+        path_launches["mjpegenc"] = _run_mjpegenc(torch, cli, kernels, bench,
+                                                  mjpegenc_dir.name)
+        _mjpegenc_goldens(cli, tmp)
         # 4. and 5. for MPEG-4 export: the divxenc path at full width
         # against phase 3's checked run, the export goldens pinned against the JAX
         # CLI, and the read-back through the port's own decoder
@@ -2559,6 +2701,10 @@ def main(argv=()) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mjpeg_") as tmp:
         _mjpeg_rates(torch, dev, cli, Path(tmp))
     torch.cuda.empty_cache()
+    # 6. the mjpegenc path: its CLI on 48 frames and its stages
+    _mjpegenc_rates(torch, cli, mjpegenc_dir.name)
+    mjpegenc_dir.cleanup()
+    torch.cuda.empty_cache()
     # 6. the divxenc path: its CLI on 144 frames and its serial stages
     with tempfile.TemporaryDirectory(prefix="chip_smoke_divxenc_") as tmp:
         _divxenc_rates(torch, dev, cli, Path(tmp))
@@ -2582,6 +2728,8 @@ def main(argv=()) -> int:
             launches[name] = path_launches["divxenc"][name]
         elif name in _JPEG_WRAPPERS:
             launches[name] = path_launches["mjpeg"][name]
+        elif name in _JPEGENC_WRAPPERS:
+            launches[name] = path_launches["mjpegenc"][name]
         elif name not in MAIN_KERNELS:
             owner = next(p for p, spec in (*PATHS.items(),
                                            *CLEAN_PATHS.items(),
@@ -2601,6 +2749,8 @@ def main(argv=()) -> int:
         k: path_launches["divxenc"][k] for k in DIVXENC_KERNELS})
     emit(phase="launches", path="mjpeg", launches={
         k: path_launches["mjpeg"][k] for k in MJPEG_KERNELS})
+    emit(phase="launches", path="mjpegenc", launches={
+        k: path_launches["mjpegenc"][k] for k in MJPEGENC_KERNELS})
     if bench.parent:
         emit(phase="parent_summary", per_batch=bench.versus_sums)
     print(json.dumps({"kernels": [
@@ -7451,6 +7601,293 @@ def _mjpeg_rates(torch, dev, cli, tmp):
                            audio=True, warmup=1))
     for f in (src, tmp / "long.y4m", tmp / "long.wav", tmp / "stages.avi"):
         f.unlink()
+
+
+# ---------------------------------------------------------------------- #
+# The legacy-AVI export path, mjpegenc: 1080i with its WAV through -I 5,
+# the zoom to 640x480 and hqdn3d into movjpeg (jpeg_ycc_down and
+# jpeg_fdct_quant on the card, the Huffman coder on the host), lame (the
+# in-tree MP3 encoder) and the avi multiplexor
+
+_JPEGENC_WRAPPERS = {"jpeg_ycc_down": "jpeg_ycc_down",
+                     "jpeg_fdct_quant": "jpeg_fdct_quant"}
+
+
+def _ycc_down_bytes(args) -> int:
+    """What one ``jpeg_ycc_down`` call must move: the RGB24 pixels in,
+    the padded planes out."""
+    rgb, geom = args
+    return _nbytes(rgb) + rgb.shape[0] * geom.plane_bytes
+
+
+def _fdct_bytes(args) -> int:
+    """What one ``jpeg_fdct_quant`` call must move: the planes and the
+    divisors in, two bytes a coefficient out."""
+    planes, div, geom = args
+    return _nbytes(planes, div) + planes.shape[0] * geom.blocks * 128
+
+
+def _fdct_library(torch, planes, div, geom):
+    """The yardstick of ``jpeg_fdct_quant``: every block's 8x8 DCT as one
+    float64 ``torch.matmul`` of the blocks' samples less 128 (gathered
+    beforehand, not timed) with the 64x64 basis; a product, not libjpeg's
+    integer arithmetic and no quantization, so timed only."""
+    from tcforge_tpu_torch.io import jpegenc
+    k, n = np.mgrid[0:8, 0:8]
+    c = np.cos((2 * n + 1) * k * np.pi / 16) * np.sqrt(2 / 8)
+    c[0] /= np.sqrt(2)
+    basis = torch.from_numpy(np.kron(c, c).T.copy()).to(planes.device)
+    offs, strides, _tabs, _dummies = jpegenc.block_sources(geom)
+    r8 = torch.arange(8, device=planes.device)
+    idx = (torch.from_numpy(offs).to(planes.device)[:, None, None]
+           + r8[None, :, None] * torch.from_numpy(strides).to(
+               planes.device)[:, None, None] + r8[None, None, :])
+    blocks = (planes[:, idx].to(torch.float64) - 128).reshape(-1, 64)
+    return torch.matmul, [(blocks, basis)]
+
+
+def _check_jpegenc_kernels(torch, kernels, bench):
+    """Phase 3 for the JPEG encode kernels: ``jpeg_ycc_down`` and
+    ``jpeg_fdct_quant`` against their plain versions at tolerance 0 on
+    the mjpegenc path's 640x480 batch of 16, and off the path on random
+    RGB24 batches of ``JPEGENC_SHAPES`` (720x480, odd sizes, widths of 16
+    and less, 1x1), each at ``JPEGENC_QUALITIES``; then each timed on the
+    path's batch over inputs past L2, beside its plain version, its bound
+    and, for ``jpeg_fdct_quant``, ``_fdct_library`` (no PyTorch call
+    converts and downsamples as libjpeg does: ``jpeg_ycc_down``'s library
+    is none)."""
+    from tcforge_tpu_torch.io import jpegenc
+    dev = bench.dev
+    cases = 0
+    for w, h, n in ((MJPEGENC_W, MJPEGENC_H, MAIN_BATCH), *JPEGENC_SHAPES):
+        geom = jpegenc.enc_geometry(w, h)
+        for q in JPEGENC_QUALITIES:
+            rgb = bench.u8(n, h, w, 3)
+            div = torch.from_numpy(jpegenc.divisors(
+                jpegenc.quant_tables(q))).to(dev)
+            label = f"{w}x{h}x{n} q{q}"
+            planes = kernels.jpeg_ycc_down(rgb, geom)
+            bench.check("jpeg_ycc_down", label, planes,
+                        kernels.jpeg_ycc_down_ref(rgb, geom), quiet=True)
+            bench.check("jpeg_fdct_quant", label,
+                        kernels.jpeg_fdct_quant(planes, div, geom),
+                        kernels.jpeg_fdct_quant_ref(planes, div, geom),
+                        quiet=True)
+            cases += 1
+    for kernel in _JPEGENC_WRAPPERS:
+        emit(phase="kernel_sweep", kernel=kernel, cases=cases,
+             shapes=1 + len(JPEGENC_SHAPES),
+             qualities=list(JPEGENC_QUALITIES), max_abs_err=0)
+    geom = jpegenc.enc_geometry(MJPEGENC_W, MJPEGENC_H)
+    div = torch.from_numpy(jpegenc.divisors(jpegenc.quant_tables(90))).to(
+        dev)
+    case = f"{MJPEGENC_W}x{MJPEGENC_H}, a batch of {MAIN_BATCH}, q90"
+    rgbs = bench.rotation(lambda: (bench.u8(MAIN_BATCH, MJPEGENC_H,
+                                            MJPEGENC_W, 3), geom))
+    bench.record("jpeg_ycc_down", case, 1, kernels.jpeg_ycc_down,
+                 kernels.jpeg_ycc_down_ref, rgbs,
+                 nbytes=_ycc_down_bytes(rgbs[0]),
+                 ops=JPEG_YCC_DOWN_OPS * MAIN_BATCH * 64 * geom.mcux
+                 * geom.mcuy, reps=max(20, len(rgbs)), plain_reps=2)
+    planes = [(kernels.jpeg_ycc_down(*a), div, geom) for a in rgbs]
+    bench.record("jpeg_fdct_quant", case, 1, kernels.jpeg_fdct_quant,
+                 kernels.jpeg_fdct_quant_ref, planes,
+                 nbytes=_fdct_bytes(planes[0]),
+                 ops=JPEG_FDCT_OPS * MAIN_BATCH * geom.blocks,
+                 library=_fdct_library(torch, *planes[0]),
+                 reps=max(20, len(planes)), plain_reps=2)
+
+
+def mjpegenc_argv(src, wav, out, device: str = "cuda") -> list:
+    return ["-i", str(src), "-p", str(wav), *MJPEGENC_ARGS, "-o", str(out),
+            "--batch", str(MAIN_BATCH), "--device", device, "--progress_off",
+            "-q"]
+
+
+def _run_mjpegenc(torch, cli, kernels, bench, directory):
+    """Phase 4 for the mjpegenc path: 1080i with its WAV through the
+    port's CLI to a 640x480 MJPG AVI with its MP3 track, the launch
+    counts set to 0 just before and read just after (one launch of each
+    JPEG kernel a batch, the zoom's and hqdn3d's); the same CLI with
+    every JPEG kernel call held against its plain version (max abs err
+    0), byte for byte; the AVI read back through the port's Motion-JPEG
+    importer on the card and on the CPU, the same frames and samples,
+    every frame at 640x480 and as many samples as the WAV's in whole MP3
+    frames.  Returns the launches."""
+    from tcforge_tpu_torch.io.wav import WavReader
+    src, wav = write_author_inputs(directory, MAIN_W, MAIN_H,
+                                   MJPEGENC_FRAMES)
+    out = Path(directory) / "mjpegenc.avi"
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main(mjpegenc_argv(src, wav, out))
+    torch.cuda.synchronize()
+    e2e_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    check(rc == 0, f"mjpegenc: CLI exit code {rc}")
+    emit(phase="path", path="mjpegenc", frames=MJPEGENC_FRAMES,
+         seconds=e2e_s, e2e_fps=MJPEGENC_FRAMES / e2e_s,
+         bytes=out.stat().st_size,
+         launches={k: launches[k] for k in MJPEGENC_KERNELS})
+    for name in MJPEGENC_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched by the "
+                                  "mjpegenc path")
+    batches = -(-MJPEGENC_FRAMES // MAIN_BATCH)
+    check(launches["jpeg_ycc_down"] == launches["jpeg_fdct_quant"]
+          == batches, f"mjpegenc: {launches['jpeg_ycc_down']} and "
+          f"{launches['jpeg_fdct_quant']} JPEG launches for {batches} "
+          "batches")
+    checked = Path(directory) / "mjpegenc_checked.avi"
+    with checked_kernels(kernels, bench, "mjpegenc path",
+                         _JPEGENC_WRAPPERS) as counts:
+        rc = cli.main(mjpegenc_argv(src, wav, checked))
+    check(rc == 0, f"mjpegenc with checked kernels: exit code {rc}")
+    same = checked.read_bytes() == out.read_bytes()
+    emit(phase="path_vs_plain", path="mjpegenc", identical=same,
+         checked_calls=dict(counts), sha256=sha256_file(out))
+    check(same and all(v == batches for v in counts.values()),
+          "mjpegenc: the AVI with every JPEG kernel call checked differs")
+    back = {}
+    for device in ("cuda", "cpu"):
+        y4m = Path(directory) / f"mjpegenc_back_{device}.y4m"
+        back_wav = Path(directory) / f"mjpegenc_back_{device}.wav"
+        rc = cli.main(["-i", str(out), "-x", "avi", "-o", str(y4m), "-m",
+                       str(back_wav), "--device", device, "--progress_off",
+                       "-q"])
+        check(rc == 0, f"mjpegenc read back on {device}: exit code {rc}")
+        back[device] = (y4m.read_bytes(), back_wav.read_bytes())
+        y4m.unlink()
+    with WavReader(str(wav)) as r:
+        want_samples = r.total_samples
+    with WavReader(str(Path(directory) / "mjpegenc_back_cuda.wav")) as r:
+        got = r.read_samples(r.total_samples)
+    header = back["cuda"][0].split(b"\n", 1)[0]
+    ok = (back["cuda"] == back["cpu"]
+          and f" W{MJPEGENC_W} H{MJPEGENC_H} ".encode() in header
+          and back["cuda"][0].count(b"FRAME\n") == MJPEGENC_FRAMES
+          and got.shape[1] == 2
+          and 0 <= got.shape[0] - want_samples < 1152
+          and int(np.abs(got.astype(np.int32)).max()) > 1000)
+    emit(phase="mjpegenc_read_back", card_vs_cpu=back["cuda"] == back["cpu"],
+         header=header.decode(), frames=back["cuda"][0].count(b"FRAME\n"),
+         mp3_samples=int(got.shape[0]), wav_samples=want_samples)
+    check(ok, "mjpegenc: the AVI does not read back as 48 frames at "
+              "640x480 with the WAV's length of audio, the same on the "
+              "card and the CPU")
+    for f in (checked, *Path(directory).glob("mjpegenc_back_*")):
+        f.unlink()
+    return launches
+
+
+def _mjpegenc_goldens(cli, tmp):
+    """Phase 5 for the legacy-AVI and DVD-audio export: every
+    ``MJPEGENC_GOLDEN`` case on the card, its SHA-256 against the JAX
+    CLI's pinned digest (the JAX CLI on its in-tree audio encoders)."""
+    for case in MJPEGENC_GOLDEN:
+        d = tmp / f"mjpegenc_golden_{case}"
+        d.mkdir()
+        rc = cli.main([*mjpegenc_golden_argv(case, d), "--device", "cuda",
+                       "--progress_off", "-q"])
+        out = mjpegenc_golden_output(case, d)
+        digest = sha256_file(out) if out.exists() else None
+        emit(phase="golden", path=f"mjpegenc_{case}", sha256=digest,
+             pinned=MJPEGENC_GOLDEN_SHA256[case])
+        check(rc == 0 and digest == MJPEGENC_GOLDEN_SHA256[case],
+              f"mjpegenc {case} golden output differs from the JAX-pinned "
+              "digest")
+
+
+def mjpegenc_stages(torch, cli, src, wav, out, frames: int) -> dict:
+    """The mjpegenc CLI twice more, per 16-frame batch.  First with host
+    clocks around the export's calls: the wait for the batch's device
+    work before the coefficients' download (the chain and the two
+    kernels), the download itself, the Huffman coder, the MP3 encoder
+    (on the writer thread) and the AVI multiplexor (also there).  Then
+    under torch.profiler: the device's busy time, and the device time of
+    the chain's kernels (zoom, hqdn3d) and of each JPEG kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tcforge_tpu_torch.io import jpegenc
+    from tcforge_tpu_torch.modules.encoders import audio_enc
+    from tcforge_tpu_torch.modules.muxers import basic
+    ms = dict.fromkeys(("wait", "download", "huffman", "mp3", "mux"), 0.0)
+
+    def timed(fn, key):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                ms[key] += (time.perf_counter() - t0) * 1e3
+        return call
+
+    download = jpegenc.download
+
+    def waited(coef):
+        t0 = time.perf_counter()
+        torch.cuda.current_stream(coef.device).synchronize()
+        ms["wait"] += (time.perf_counter() - t0) * 1e3
+        return download(coef)
+
+    patched = [(jpegenc, "entropy_code", "huffman"),
+               (audio_enc.LameEncoder, "encode_audio", "mp3"),
+               (audio_enc.LameEncoder, "flush", "mp3"),
+               (basic.AviMuxer, "write_video", "mux"),
+               (basic.AviMuxer, "write_audio", "mux")]
+    saved = [getattr(owner, name) for owner, name, _ in patched]
+    for owner, name, key in patched:
+        setattr(owner, name, timed(getattr(owner, name), key))
+    jpegenc.download = timed(waited, "download")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli.main(mjpegenc_argv(src, wav, out))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        for (owner, name, _), fn in zip(patched, saved):
+            setattr(owner, name, fn)
+        jpegenc.download = download
+    check(rc == 0, f"mjpegenc_stages: exit code {rc}")
+    ms["download"] -= ms["wait"]
+    batches = frames / MAIN_BATCH
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        rc = cli.main(mjpegenc_argv(src, wav, out))
+        torch.cuda.synchronize()
+    check(rc == 0, f"mjpegenc_stages under the profiler: exit code {rc}")
+    busy = _device_busy(prof, batches, ("zoom_", "scan_", "ycc_kernel",
+                                        "fdct_kernel"))
+    return {"frames": frames, "fps": frames / seconds,
+            "ms_per_batch": {k: v / batches for k, v in ms.items()},
+            "device_busy_ms_per_batch": busy["busy_ms_per_batch"],
+            "named_kernels_ms_per_batch": busy["named_ms_per_batch"],
+            "device_kernels_ms_per_batch": busy["kernels_ms_per_batch"]}
+
+
+def _mjpegenc_rates(torch, cli, directory):
+    """Phase 6 for the mjpegenc path: its CLI on phase 4's 48 frames of
+    1080i with the WAV, wall clock to the last byte, ``MJPEGENC_RUNS``
+    runs after an untimed one (median and spread); then
+    ``mjpegenc_stages``."""
+    src = Path(directory) / "author_in.y4m"
+    wav = Path(directory) / "author_in.wav"
+    out = Path(directory) / "mjpegenc_rate.avi"
+    fps = []
+    for r in range(MJPEGENC_RUNS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli.main(mjpegenc_argv(src, wav, out))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check(rc == 0, f"mjpegenc CLI: exit code {rc}")
+        if r:
+            fps.append(MJPEGENC_FRAMES / seconds)
+    emit(phase="cli", path="mjpegenc", frames=MJPEGENC_FRAMES, fps=fps,
+         median_fps=float(np.median(fps)), min_fps=min(fps),
+         max_fps=max(fps))
+    emit(phase="stages", path="mjpegenc",
+         **mjpegenc_stages(torch, cli, src, wav, out, MJPEGENC_FRAMES))
 
 
 if __name__ == "__main__":

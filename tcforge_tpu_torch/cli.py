@@ -140,8 +140,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-y", "--export_with", dest="ex_modules",
                    default="raw,raw,auto",
                    help="export modules venc[,aenc[,mux]] (video: raw, "
-                        "null, copy, yuv4mpeg, mpeg2, lzo, xvid; mux: auto, "
-                        "raw, null, y4m, wav, mpg, avi; name=options)")
+                        "null, copy, yuv4mpeg, mpeg2, lzo, xvid, movjpeg; "
+                        "audio: raw, null, copy, lame, mp2enc, toolame, "
+                        "ac3enc; mux: auto, raw, null, y4m, wav, mpg, avi, "
+                        "mov; name=options)")
     p.add_argument("-F", "--export_param", dest="ex_v_fcc", default="",
                    help="video encoder option string (module-specific, "
                         "e.g. gop_n=12:gop_m=3)")
@@ -172,6 +174,8 @@ def build_parser() -> argparse.ArgumentParser:
                    default=1.0, help="volume scale")
     p.add_argument("-E", dest="resample", default="0",
                    help="audio output rate[,bits[,channels]]")
+    p.add_argument("-b", dest="abitrate", default="",
+                   help="audio encoder bitrate kbps (lame, mp2enc, ac3enc)")
     p.add_argument("-d", "--audio_swap", dest="channels", type=int,
                    default=0, help="output channels")
     p.add_argument("-D", "--sync_frame", dest="av_offset", type=int,
@@ -337,6 +341,10 @@ def args_to_job(args: argparse.Namespace) -> Job:
         job.dm_bits = int(eparts[1])
     if len(eparts) > 2 and eparts[2]:
         job.dm_chan = int(eparts[2])
+    if args.abitrate:
+        # the in-tree encoders take the bitrate alone, as in the JAX
+        # package
+        job.mp3bitrate = int(args.abitrate.split(",")[0])
     job.av_offset = args.av_offset
     job.sync_method = args.sync_method
     job.resync_margin = args.resync_margin

@@ -1,4 +1,4 @@
-# Copied from tcforge_tpu/io/mov.py lines 1-339 and 344-365; the reader, without the photo-JPEG branch (modules/importers/mov_import.py) or the writer
+# Copied from tcforge_tpu/io/mov.py lines 1-339 and 344-404 and 423-546; the reader without its photo-JPEG branch (modules/importers/mov_import.py) and the writer without write_video_frame (the mov multiplexor writes encoded samples)
 """QuickTime/MOV container reader and writer (import_mov.c /
 probe_mov.c analogues, self-contained where the reference delegated to
 libquicktime).
@@ -360,3 +360,166 @@ def decode_audio_bytes(fourcc: str, data: bytes, channels: int,
     pcm = pcm.astype(np.int16)
     n = len(pcm) // max(1, channels) * max(1, channels)
     return pcm[:n].reshape(-1, max(1, channels))
+
+
+# --------------------------------------------------------------------- #
+# writer
+
+
+def _atom(typ: str, payload: bytes) -> bytes:
+    return _be32.pack(8 + len(payload)) + typ.encode("latin-1") + payload
+
+
+def _full(typ: str, payload: bytes, version: int = 0) -> bytes:
+    return _atom(typ, bytes([version, 0, 0, 0]) + payload)
+
+
+class MovWriter:
+    """Streaming writer: mdat grows as samples arrive, moov written on
+    close (single video track + optional PCM audio track)."""
+
+    def __init__(self, path: str, width: int, height: int, fps: float,
+                 fourcc: str = "jpeg", audio_rate: int = 0,
+                 audio_channels: int = 2, jpeg_quality: int = 90):
+        self._f = open(path, "wb")
+        self.width, self.height, self.fps = width, height, fps
+        self.fourcc = fourcc
+        self.audio_rate = audio_rate
+        self.audio_channels = audio_channels
+        self.jpeg_quality = jpeg_quality
+        self._vsamples: List[Tuple[int, int]] = []   # (offset, size)
+        self._achunks: List[Tuple[int, int]] = []    # (offset, frames)
+        self._f.write(_atom("ftyp", b"qt  \x00\x00\x02\x00qt  "))
+        self._mdat_pos = self._f.tell()
+        self._f.write(_be32.pack(0) + b"mdat")
+
+    # -- samples -------------------------------------------------------
+    def write_video_sample(self, data: bytes) -> None:
+        off = self._f.tell()
+        self._f.write(data)
+        self._vsamples.append((off, len(data)))
+
+    def write_audio(self, pcm: np.ndarray) -> None:
+        """Interleaved int16 (n, channels) PCM frames (sowt)."""
+        off = self._f.tell()
+        data = np.ascontiguousarray(pcm, "<i2").tobytes()
+        self._f.write(data)
+        self._achunks.append((off, len(pcm)))
+
+    # -- moov ----------------------------------------------------------
+    def _video_trak(self, track_id: int) -> bytes:
+        w, h = self.width, self.height
+        timescale = 90000
+        delta = int(round(timescale / max(self.fps, 1e-6)))
+        n = len(self._vsamples)
+        duration = n * delta
+        stsd_body = (_be32.pack(1)
+                     + _atom(self.fourcc,
+                             b"\x00" * 6 + struct.pack(">H", 1)
+                             + b"\x00" * 16
+                             + struct.pack(">HH", w, h)
+                             + struct.pack(">II", 0x00480000,
+                                           0x00480000)
+                             + _be32.pack(0) + struct.pack(">H", 1)
+                             + b"\x00" * 32
+                             + struct.pack(">Hh", 24, -1)))
+        stts = _full("stts", _be32.pack(1)
+                     + struct.pack(">II", n, delta))
+        stsc = _full("stsc", _be32.pack(1)
+                     + struct.pack(">III", 1, 1, 1))
+        stsz = _full("stsz", _be32.pack(0) + _be32.pack(n)
+                     + b"".join(_be32.pack(sz)
+                                for _, sz in self._vsamples))
+        stco = _full("stco", _be32.pack(n)
+                     + b"".join(_be32.pack(off)
+                                for off, _ in self._vsamples))
+        stbl = _atom("stbl", _full("stsd", stsd_body) + stts + stsc
+                     + stsz + stco)
+        vmhd = _full("vmhd", struct.pack(">HHHH", 0, 0, 0, 0),
+                     version=0)
+        vmhd = vmhd[:11] + b"\x01" + vmhd[12:]      # flags = 1
+        # dref: one self-referencing url entry
+        dinf = _atom("dinf", _full(
+            "dref", _be32.pack(1)
+            + _be32.pack(12) + b"url " + b"\x00\x00\x00\x01"))
+        minf = _atom("minf", vmhd + dinf + stbl)
+        hdlr = _full("hdlr", b"mhlr" + b"vide" + b"\x00" * 12 + b"\x00")
+        mdhd = _full("mdhd", struct.pack(">IIIIHH", 0, 0, timescale,
+                                         duration, 0, 0))
+        mdia = _atom("mdia", mdhd + hdlr + minf)
+        tkhd = _full("tkhd", struct.pack(">IIIII", 0, 0, track_id, 0,
+                                         duration)
+                     + b"\x00" * 8 + struct.pack(">HHHH", 0, 0, 0, 0)
+                     + _matrix()
+                     + struct.pack(">II", w << 16, h << 16))
+        tkhd = tkhd[:11] + b"\x0f" + tkhd[12:]      # flags: enabled
+        return _atom("trak", tkhd + mdia)
+
+    def _audio_trak(self, track_id: int) -> bytes:
+        rate, ch = self.audio_rate, self.audio_channels
+        frames = sum(nf for _, nf in self._achunks)
+        fsize = 2 * ch
+        stsd_body = (_be32.pack(1)
+                     + _atom("sowt",
+                             b"\x00" * 6 + struct.pack(">H", 1)
+                             + struct.pack(">HH", 0, 0) + _be32.pack(0)
+                             + struct.pack(">HHHH", ch, 16, 0, 0)
+                             + struct.pack(">I", rate << 16)))
+        stts = _full("stts", _be32.pack(1)
+                     + struct.pack(">II", frames, 1))
+        stsc_entries = []
+        prev_nf = None
+        for i, (_, nf) in enumerate(self._achunks):
+            if nf != prev_nf:
+                stsc_entries.append((i + 1, nf))
+                prev_nf = nf
+        stsc = _full("stsc", _be32.pack(len(stsc_entries))
+                     + b"".join(struct.pack(">III", first, nf, 1)
+                                for first, nf in stsc_entries))
+        stsz = _full("stsz", _be32.pack(fsize) + _be32.pack(frames))
+        stco = _full("stco", _be32.pack(len(self._achunks))
+                     + b"".join(_be32.pack(off)
+                                for off, _ in self._achunks))
+        stbl = _atom("stbl", _full("stsd", stsd_body) + stts + stsc
+                     + stsz + stco)
+        smhd = _full("smhd", struct.pack(">HH", 0, 0))
+        dinf = _atom("dinf", _full(
+            "dref", _be32.pack(1)
+            + _be32.pack(12) + b"url " + b"\x00\x00\x00\x01"))
+        minf = _atom("minf", smhd + dinf + stbl)
+        hdlr = _full("hdlr", b"mhlr" + b"soun" + b"\x00" * 12 + b"\x00")
+        mdhd = _full("mdhd", struct.pack(">IIIIHH", 0, 0, rate, frames,
+                                         0, 0))
+        mdia = _atom("mdia", mdhd + hdlr + minf)
+        tkhd = _full("tkhd", struct.pack(">IIIII", 0, 0, track_id, 0,
+                                         frames)
+                     + b"\x00" * 8 + struct.pack(">HHHH", 0, 0, 0x100,
+                                                 0)
+                     + _matrix() + struct.pack(">II", 0, 0))
+        tkhd = tkhd[:11] + b"\x0f" + tkhd[12:]
+        return _atom("trak", tkhd + mdia)
+
+    def close(self) -> None:
+        end = self._f.tell()
+        self._f.seek(self._mdat_pos)
+        self._f.write(_be32.pack(end - self._mdat_pos))
+        self._f.seek(end)
+        timescale = 90000
+        n = len(self._vsamples)
+        delta = int(round(timescale / max(self.fps, 1e-6)))
+        traks = self._video_trak(1)
+        next_id = 2
+        if self._achunks:
+            traks += self._audio_trak(next_id)
+            next_id += 1
+        mvhd = _full("mvhd", struct.pack(
+            ">IIIII", 0, 0, timescale, n * delta, 0x00010000)
+            + struct.pack(">HH", 0x0100, 0) + b"\x00" * 8 + _matrix()
+            + b"\x00" * 24 + _be32.pack(next_id))
+        self._f.write(_atom("moov", mvhd + traks))
+        self._f.close()
+
+
+def _matrix() -> bytes:
+    return struct.pack(">9I", 0x00010000, 0, 0, 0, 0x00010000, 0, 0, 0,
+                       0x40000000)

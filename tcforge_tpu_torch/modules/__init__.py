@@ -1,12 +1,14 @@
 """The port's module system.  Importing this package registers the
 built-in filters, the WAV, MPEG, AVI, MOV and framegen importers, the WAV,
-Y4M, AVI, raw, null and mpg multiplexors and the raw, null, copy,
-yuv4mpeg, mpeg2, lzo and xvid encoders, as importing ``tcforge_tpu.modules``
-does."""
+Y4M, AVI, raw, null, mpg and mov multiplexors and the raw, null, copy,
+yuv4mpeg, mpeg2, lzo, xvid, movjpeg, lame, mp2enc and ac3enc encoders, as
+importing ``tcforge_tpu.modules`` does."""
 
+from tcforge_tpu_torch.modules.encoders import audio_enc  # noqa: F401
 from tcforge_tpu_torch.modules.encoders import basic as _encoders  # noqa: F401
 from tcforge_tpu_torch.modules.encoders import image_enc  # noqa: F401
 from tcforge_tpu_torch.modules.encoders import lzo_enc  # noqa: F401
+from tcforge_tpu_torch.modules.encoders import movjpeg  # noqa: F401
 from tcforge_tpu_torch.modules.encoders import mpeg2  # noqa: F401
 from tcforge_tpu_torch.modules.encoders import xvid  # noqa: F401
 from tcforge_tpu_torch.modules.importers import avi_import  # noqa: F401
@@ -17,6 +19,7 @@ from tcforge_tpu_torch.modules.importers import mpeg_import  # noqa: F401
 from tcforge_tpu_torch.modules.importers import multi  # noqa: F401
 from tcforge_tpu_torch.modules.importers import wav_import  # noqa: F401
 from tcforge_tpu_torch.modules.muxers import basic as _muxers  # noqa: F401
+from tcforge_tpu_torch.modules.muxers import mov_mux  # noqa: F401
 from tcforge_tpu_torch.modules.muxers import ps_mux  # noqa: F401
 
 from tcforge_tpu_torch.modules.filters import (  # noqa: F401

@@ -8,9 +8,11 @@ packed planar frames behind ``FRAME`` lines (an RGB session's frames
 converted to YUV420P).  ``avi``: the pinned ``io/avi.AviWriter``
 (AVI 1.0 with OpenDML segments); the video fourcc is the ``fourcc``
 option, else ``-F`` when it is a fourcc, else the encoder's (``mpeg2``
-gives ``mpg2``), else the colorspace's (``I420``); a PCM track when the
-job has audio and no ``-m``; ``--avi_comments``' ``TAG text`` lines as
-LIST INFO.  ``raw``: the payloads as they come, audio to a
+gives ``mpg2``, ``movjpeg`` ``MJPG``), else the colorspace's (``I420``);
+an audio track when the job has audio and no ``-m``, tagged by its
+encoder (``lame`` 0x55, ``mp2enc`` 0x50, with the byte rate the encoder
+set) or PCM (1, with no byte rate; ``ac3enc``'s AC-3 too, as the JAX
+module tags it); ``--avi_comments``' ``TAG text`` lines as LIST INFO.  ``raw``: the payloads as they come, audio to a
 sibling ``<name>.aud`` (the main file in an audio-only session).
 ``null``: counts and discards.  The engine writes the default
 ``raw,raw,auto`` route to a ``.y4m`` with its own Y4M writer; ``y4m``
@@ -18,6 +20,8 @@ serves the other encoders.
 """
 
 from __future__ import annotations
+
+import struct
 
 import numpy as np
 
@@ -126,6 +130,8 @@ class AviMuxer(Muxer):
     # stream by strf biCompression, like the wFormatTag below)
     _ENC_FOURCC = {"x264": "H264", "xvid": "XVID", "mpeg2": "mpg2",
                    "dv": "dvsd", "movjpeg": "MJPG", "theora": "theo"}
+    # the audio encoders' wFormatTag (MPEG layer 3 0x55, layer 1/2 0x50)
+    _ENC_FORMAT_TAG = {"lame": 0x55, "mp2enc": 0x50, "toolame": 0x50}
 
     def open(self, path: str) -> None:
         from tcforge_tpu_torch.io.avi import (AviAudioStream, AviVideoStream,
@@ -144,9 +150,16 @@ class AviMuxer(Muxer):
                                fps=job.out_fps)
         tracks = []
         if job.audio_out_file is None and job.a_rate:
-            # the audio encoders the port has write PCM (format tag 1)
+            # compressed audio encoders stamp their wFormatTag, and the
+            # byte rate their module set; every other encoder's track is
+            # tagged PCM (1), ac3enc's too, as in the JAX module
+            tag = self._ENC_FORMAT_TAG.get(job.ex_a_module, 1)
+            byte_rate = 0
+            if tag != 1:
+                blob = job.extradata.get("audio_byte_rate")
+                byte_rate = struct.unpack("<I", blob)[0] if blob else 16000
             tracks.append(AviAudioStream(
-                format_tag=1, byte_rate=0,
+                format_tag=tag, byte_rate=byte_rate,
                 rate=(job.mp3frequency or job.a_rate),
                 channels=job.dm_chan, bits=job.dm_bits))
         comments = None

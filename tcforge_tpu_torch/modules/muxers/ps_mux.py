@@ -1,9 +1,10 @@
 """The MPEG program stream multiplexor (``tcforge_tpu/modules/muxers/
 ps_mux.py``, the multiplex_lavf.c mpeg role): .mpg/.vob program streams
-from the MPEG-1/2 video encoder's payloads, with DVD LPCM audio (private
-stream 1) from PCM payloads, through ``io/psmux.py`` (a pinned copy).
-The JAX module also takes the MP2 and AC-3 encoders' byte streams; the
-port has neither encoder yet, so its audio is LPCM at a DVD rate."""
+from the MPEG-1/2 video encoder's payloads through ``io/psmux.py`` (a
+pinned copy), with the audio encoder's: ``mp2enc``, ``toolame`` and
+``lame`` frames as MPEG audio PES 0xC0 (VCD/SVCD), ``ac3enc``'s as
+private stream 1, sub-stream 0x80 (DVD), and PCM as DVD LPCM (private
+stream 1, at a DVD rate only)."""
 
 from __future__ import annotations
 
@@ -34,7 +35,12 @@ class MpegPsMuxer(Muxer):
         job = self.job
         rate = job.mp3frequency or job.a_rate
         self._audio = bool(getattr(job, "dm_chan", 0) and rate)
-        if self._audio and rate not in _LPCM_RATES:
+        # the compressed encoders' self-framing byte streams: (stream
+        # id, sub-stream id)
+        self._aes = {"mp2enc": (0xC0, None), "toolame": (0xC0, None),
+                     "lame": (0xC0, None),
+                     "ac3enc": (0xBD, 0x80)}.get(job.ex_a_module)
+        if self._audio and self._aes is None and rate not in _LPCM_RATES:
             raise ValueError(
                 f"mpg: LPCM audio needs a DVD rate {_LPCM_RATES}, "
                 f"got {rate} — resample with -E or drop audio")
@@ -52,6 +58,9 @@ class MpegPsMuxer(Muxer):
     def write_audio(self, payload: bytes, track: int = 0) -> int:
         if not self._audio or not payload:
             return 0
+        if self._aes is not None:
+            sid, sub = self._aes
+            return self._w.write_audio_es(payload, sid, sub)
         samples = np.frombuffer(payload, "<i2")
         n = (samples.shape[0] // self._chan) * self._chan
         return self._w.write_audio_pcm(samples[:n].reshape(-1, self._chan))

@@ -213,9 +213,11 @@ def register(cls: Type[Module]) -> Type[Module]:
 
 # reference module names that map onto one implementation (the JAX
 # registry's aliases, cut to the modules the port has): import_mpeg2.c,
-# import_mpg.c and import_vob.c all walk the same PS/ES demux
+# import_mpg.c and import_vob.c all walk the same PS/ES demux; toolame
+# is the MP2 encoder
 _ALIASES = {ModuleKind.DEMULTIPLEXOR: {"mpeg2": "mpeg", "mpg": "mpeg",
-                                       "vob": "mpeg"}}
+                                       "vob": "mpeg"},
+            ModuleKind.ENCODER: {"toolame": "mp2enc"}}
 
 
 def lookup(kind: ModuleKind, name: str) -> Type[Module]:

@@ -101,6 +101,12 @@ wrapper                    CUDA source                 replaces (tcforge_tpu)
                                                        ``Image.open`` (no
                                                        JAX form)
 ``jpeg_color``             ``csrc/jpeg_decode.cu``     the same
+``jpeg_ycc_down``          ``csrc/jpeg_encode.cu``     modules/importers/
+                                                       mov_import.py
+                                                       ``MovJpegEncoder``:
+                                                       PIL's ``Image.save``
+                                                       (no JAX form)
+``jpeg_fdct_quant``        ``csrc/jpeg_encode.cu``     the same
 =========================  ==========================  =====================
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
@@ -151,7 +157,9 @@ launches: Dict[str, int] = {"hqdn3d_spatial_scan": 0,
                             "mpeg4_enc_bme": 0,
                             "mpeg4_enc_blocks": 0,
                             "jpeg_idct": 0,
-                            "jpeg_color": 0}
+                            "jpeg_color": 0,
+                            "jpeg_ycc_down": 0,
+                            "jpeg_fdct_quant": 0}
 
 
 def reset_launches() -> None:
@@ -224,6 +232,10 @@ _SIGNATURES = {
     "jpeg_decode": {
         "tc_jpeg_idct": (_P, _P),
         "tc_jpeg_color": (_P, _P),
+    },
+    "jpeg_encode": {
+        "tc_jpeg_ycc_down": (_P, _P),
+        "tc_jpeg_fdct_quant": (_P, _P),
     },
     "mpeg4_encode": {
         "tc_mpeg4_enc_me": (_P, _P, _P),
@@ -1855,4 +1867,88 @@ def jpeg_color(samples: torch.Tensor, geom) -> torch.Tensor:
                         len(geom.comps), *comps])
     _call("jpeg_decode", "tc_jpeg_color", ptr, _stream(samples))
     launches["jpeg_color"] += 1
+    return out
+
+
+# --------------------------------------------------------------------- #
+# Kernel VIII: baseline JPEG encode (the movjpeg encoder) on the card (not
+# TPU kernels: the JAX package encodes JPEG through PIL);
+# csrc/jpeg_encode.cu, the plain versions in io/jpegenc.py
+
+
+def _jpeg_enc_geometry(geom) -> None:
+    from tcforge_tpu_torch.io.jpegenc import EncGeometry
+    if not isinstance(geom, EncGeometry):
+        raise TypeError("geom: expected an io/jpegenc.py EncGeometry")
+
+
+def jpeg_ycc_down_ref(rgb: torch.Tensor, geom):
+    """Plain version of ``jpeg_ycc_down`` (io/jpegenc.py
+    ``ycc_down_ref``)."""
+    from tcforge_tpu_torch.io import jpegenc
+    return jpegenc.ycc_down_ref(rgb, geom)
+
+
+def jpeg_ycc_down(rgb: torch.Tensor, geom) -> torch.Tensor:
+    """The padded YCbCr planes of a batch of RGB24 frames of one size
+    ``geom`` (io/jpegenc.py ``EncGeometry``): uint8 (frames, height,
+    width, 3) to uint8 (frames, plane_bytes), the Y plane (16 mcuy x 16
+    mcux), then Cb and Cr (8 mcuy x 8 mcux each): libjpeg-turbo's
+    ``rgb_ycc_convert`` and ``h2v2_downsample``, the last column and row
+    repeated past the image."""
+    _jpeg_enc_geometry(geom)
+    _check(rgb, "rgb", (torch.uint8,), 4)
+    if tuple(rgb.shape[1:]) != (geom.height, geom.width, 3):
+        raise ValueError(f"rgb: {tuple(rgb.shape)}, expected (frames, "
+                         f"{geom.height}, {geom.width}, 3)")
+    if not _on_cuda(rgb):
+        return jpeg_ycc_down_ref(rgb, geom)
+    frames = rgb.shape[0]
+    out = torch.empty((frames, geom.plane_bytes), dtype=torch.uint8,
+                      device=rgb.device)
+    if frames == 0:
+        return out
+    ptr, _keep = _meta([rgb.data_ptr(), out.data_ptr(), frames, geom.width,
+                        geom.height, 8 * geom.mcux, 8 * geom.mcuy])
+    _call("jpeg_encode", "tc_jpeg_ycc_down", ptr, _stream(rgb))
+    launches["jpeg_ycc_down"] += 1
+    return out
+
+
+def jpeg_fdct_quant_ref(planes: torch.Tensor, div: torch.Tensor, geom):
+    """Plain version of ``jpeg_fdct_quant`` (io/jpegenc.py
+    ``fdct_quant_ref``)."""
+    from tcforge_tpu_torch.io import jpegenc
+    return jpegenc.fdct_quant_ref(planes, div, geom)
+
+
+def jpeg_fdct_quant(planes: torch.Tensor, div: torch.Tensor,
+                    geom) -> torch.Tensor:
+    """The quantized coefficients of a batch of frames from
+    ``jpeg_ycc_down``'s planes: libjpeg's ``jpeg_fdct_islow`` on each
+    block, quantized through the int32 (2, 3, 64) divisors (io/jpegenc.py
+    ``divisors``: reciprocal, correction and shift of each natural-order
+    entry, luminance then chrominance).  Returns int16 (frames, blocks,
+    64): MCU after MCU (four Y blocks, Cb, Cr), zigzag order in a block,
+    the blocks past the image's edges ``compress_data``'s dummies (the DC
+    of the block before them, zero AC)."""
+    _jpeg_enc_geometry(geom)
+    _check(planes, "planes", (torch.uint8,), 2)
+    _check(div, "div", (torch.int32,), 3)
+    if planes.shape[1] != geom.plane_bytes:
+        raise ValueError(f"planes: {tuple(planes.shape)}, expected "
+                         f"(frames, {geom.plane_bytes})")
+    if tuple(div.shape) != (2, 3, 64):
+        raise ValueError(f"div: {tuple(div.shape)}, expected (2, 3, 64)")
+    if not _on_cuda(planes, div):
+        return jpeg_fdct_quant_ref(planes, div, geom)
+    frames = planes.shape[0]
+    out = torch.empty((frames, geom.blocks, 64), dtype=torch.int16,
+                      device=planes.device)
+    if frames == 0:
+        return out
+    ptr, _keep = _meta([planes.data_ptr(), div.data_ptr(), out.data_ptr(),
+                        frames, geom.mcux, geom.mcuy, geom.yw, geom.yh])
+    _call("jpeg_encode", "tc_jpeg_fdct_quant", ptr, _stream(planes))
+    launches["jpeg_fdct_quant"] += 1
     return out

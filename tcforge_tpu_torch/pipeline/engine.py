@@ -864,6 +864,7 @@ class Pipeline:
                 # WAV without samples, as the JAX engine writes it
                 empty_wav = _AudioOut(job, job.audio_out_file)
         spf = self._samples_per_frame() if self.achain is not None else 0
+        mux_sized = False
 
         def audio_host_stage(pcm: np.ndarray, frames: Optional[int]):
             """A batch's samples through the audio chain's host stage
@@ -1052,6 +1053,9 @@ class Pipeline:
                     if item[0] == "a":
                         write_audio(*item[1:])
                         continue
+                    if item[0] == "f":          # the audio encoder's tail
+                        write_payloads(self.a_encoder.flush())
+                        continue
                     if item[0] == "e":          # encoded frames
                         mux_out.video(item[1])
                         continue
@@ -1084,7 +1088,11 @@ class Pipeline:
                 audio_out.open_now()
                 if empty_wav is not None:
                     empty_wav.open_now()
-            payloads = self.a_encoder.encode_audio(AudioBatch(pcm=pcm))
+            write_payloads(self.a_encoder.encode_audio(AudioBatch(pcm=pcm)))
+
+        def write_payloads(payloads) -> None:
+            if not payloads:
+                return
             if mux_out is not None:
                 mux_out.audio(payloads)
             else:
@@ -1218,12 +1226,18 @@ class Pipeline:
                    else np.arange(first_id, first_id + out.batch))
             attrs = (out.attrs.cpu().numpy() if out.attrs is not None
                      else np.zeros(out.batch, np.int32))
+            nonlocal mux_sized
             keep = np.flatnonzero(self._kept(ids, attrs))
+            if not mux_sized:
+                # the multiplexor opens at the size of the output batches,
+                # as the JAX engine sets it until the first payloads
+                job.ex_v_width, job.ex_v_height = out.width, out.height
             if len(keep) < out.batch:
                 out = _select_frames(out, keep)
             payloads = self.encoder.encode_video(out) if len(keep) else []
             self.counters.written += len(keep)
             to_writer(("e", payloads))
+            mux_sized = mux_sized or bool(payloads)
 
         def run_audio(prepared) -> None:
             """A batch's prepared samples through the audio chain's
@@ -1292,6 +1306,10 @@ class Pipeline:
                         tail, astates = self.achain.flush(astates)
                         if tail is not None:
                             to_writer(audio_to_host(tail))
+                    if job.encoder_flush:
+                        # the audio encoder's last frames (its writer
+                        # thread flushes it after the samples before)
+                        to_writer(("f",))
                     completed = True
                     break
                 if isinstance(item, Exception):

@@ -55,7 +55,26 @@ COPIES = ["core/formats.py", "core/optstr.py", "core/codecs.py",
           "io/mp2dec.py", "io/mp3dec.py", "io/vag.py", "io/ifo.py",
           "io/spu.py", "io/vobsub.py", "io/mp3.py", "io/psmux.py",
           "modules/importers/framegen.py", "io/avi.py", "io/rawio.py",
-          "io/tclzo.py", "io/_mp4tables.py", "io/mpeg4.py"]
+          "io/tclzo.py", "io/_mp4tables.py", "io/mpeg4.py", "io/mpaenc.py",
+          "io/mp3enc.py", "io/a52enc.py"]
+# lines a whole-file copy changes: the audio encoders take their BitWriter
+# from io/mpeg2host.py, the jax-free copy of io/mpeg2codec.py's head
+# (which pins the class to its source), and the MP3 encoder's _emit skips
+# a region coded with table 0, all zeros in no bits, where the source
+# looks up the table's codes and raises
+COPY_CHANGES = {
+    rel: {"from .mpeg2codec import BitWriter\n":
+          "from .mpeg2host import BitWriter\n"}
+    for rel in ("io/mpaenc.py", "io/mp3enc.py", "io/a52enc.py")}
+COPY_CHANGES["io/mp3enc.py"][
+    "            vidx, linbits, _mx = _TSEL[tsel]\n"
+    "            codes, lens = _VTABS[vidx]\n"] = (
+    "            vidx, linbits, _mx = _TSEL[tsel]\n"
+    "            if vidx == 0:\n"
+    "                # table 0 codes an all-zero region in no bits (the JAX\n"
+    "                # source looks its codes up and raises)\n"
+    "                continue\n"
+    "            codes, lens = _VTABS[vidx]\n")
 # C++ sources copied whole from native/ (the MPEG-2 host parse)
 NATIVE_COPIES = {"csrc/mpeg2intra.cpp": "native/mpeg2intra.cpp",
                  "csrc/mpeg2tables.h": "native/mpeg2tables.h",
@@ -71,7 +90,8 @@ NATIVE_COPIES = {"csrc/mpeg2intra.cpp": "native/mpeg2intra.cpp",
 # basis and quantizers, the stream and VOP headers, the intra
 # macroblock's writer, the B mb_type codes and the vector wrap);
 # split_extra_options of the encoder cfg tier; the MOV reader without its
-# photo-JPEG branch (the port's own, io/jpeg.py) or its writer
+# photo-JPEG branch (the port's own, io/jpeg.py) and the writer without
+# write_video_frame (PIL's photo-JPEG: the port's is io/jpegenc.py)
 RANGE_COPIES = {"io/mpeg4dec.py": ("io/mpeg4dec.py",
                                    ((1, 55), (57, 2791))),
                 "io/mpeg2host.py": ("io/mpeg2codec.py",
@@ -85,7 +105,7 @@ RANGE_COPIES = {"io/mpeg4dec.py": ("io/mpeg4dec.py",
                 "modules/encoders/encoder_cfg.py": (
                     "modules/encoders/encoder_cfg.py",
                     ((18, 21), (24, 24), (40, 57))),
-                "io/mov.py": ("io/mov.py", ((1, 339), (344, 365)))}
+                "io/mov.py": ("io/mov.py", ((1, 339), (344, 404), (423, 546)))}
 
 
 def _rewrite(src: str) -> str:
@@ -119,6 +139,9 @@ def test_copies_match_their_sources(rel):
     ours = (PORT / rel).read_text().splitlines(keepends=True)
     assert ours[0].startswith(f"# Copied from tcforge_tpu/{rel};")
     src = (REPO / "tcforge_tpu" / rel).read_text()
+    for old, new in COPY_CHANGES.get(rel, {}).items():
+        assert src.count(old) == 1, (rel, old)
+        src = src.replace(old, new)
     assert "".join(ours[1:]) == _rewrite(src)
 
 

@@ -226,7 +226,8 @@ def test_the_multiplexor_follows_the_extension_as_in_jax(ext):
     want = jregistry.find_mux_module_for_path("out" + ext)
     assert registry.jax_mux_module_for_path("out" + ext) == want
     got = registry.find_mux_module_for_path("out" + ext)
-    assert got == (want if want in ("y4m", "wav", "raw", "mpg", "avi")
+    assert got == (want if want in ("y4m", "wav", "raw", "mpg", "avi",
+                                    "mov")
                    else None)
 
 
