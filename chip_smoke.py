@@ -123,7 +123,16 @@ Lanczos3 zoom, ``-J hqdn3d=luma=4.0`` (which runs after the zoom, at
   ``jpeg_ycc_down`` and ``jpeg_fdct_quant`` once each a batch, one
   download of the coefficients, the Huffman coder on the host (a g++
   build of ``csrc/jpeg_huffenc.cpp``), the in-tree MP3 encoder at 128
-  kbit/s on the writer thread and the avi multiplexor.
+  kbit/s on the writer thread and the avi multiplexor;
+- the 4:2:2 path, mpeg422 (422P@ML, a studio's contribution encode):
+  1080i 4:2:2 at 25 fps through ``-V yuv422p -I 5 -Z 720x576 -J
+  denoise3d -y mpeg2,raw,raw -F gop_n=12:gop_m=3:rc=1:bitrate=15000``
+  (the zoom and d3 scans, the search, the 4:2:2 forms of the prediction
+  and the block coder, the B modes), its first frames again as field
+  pictures and as the ``-R 1`` / ``-R 2`` pair, then the stream read
+  back kept at 4:2:2 (``-x mpeg -V yuv422p -J denoise3d``) and decimated
+  to 4:2:0 (``-x mpeg -J hqdn3d=luma=4.0``): the 4:2:2 forms of
+  ``mpeg2_recon`` and ``mpeg2_idct_intra``.
 
 Phases, each of which raises on failure:
 
@@ -197,7 +206,10 @@ Phases, each of which raises on failure:
    640x480 batch of 16 and off it (``JPEGENC_SHAPES``: 720x480, odd
    sizes, widths of 16 and less, 1x1) at qualities 10, 50, 90 and 100,
    timed on the path's batch (``jpeg_fdct_quant`` beside float64
-   ``torch.matmul`` of its DCT); with ``--parent DIR``, the unsharp,
+   ``torch.matmul`` of its DCT); the four 4:2:2 forms on random records
+   and grids from one macroblock to 45x36 and on every call of a
+   16-frame 720x576 4:2:2 encode and its read-back, timed on those
+   calls; with ``--parent DIR``, the unsharp,
    TomsMoComp and temporal kernels of the checkout in DIR are built
    too, called through DIR's own wrappers and timed in turns with this
    tree's on the same inputs;
@@ -238,7 +250,10 @@ Phases, each of which raises on failure:
    to the same CLI's with every JPEG kernel call held to its plain
    version, and read back by the port's Motion-JPEG importer: 48 frames
    at 640x480 and the WAV's length of MP3 audio, the same on the card
-   and the CPU), and the
+   and the CPU), mpeg422 (each of its seven CLIs against the same CLI
+   on the plain versions on the card, byte for byte, pass 1's log too;
+   every decoded frame 720x576 in C422 or C420 and in its count; pass 2
+   read the log), and the
    engine at every
    ``--prefetch`` 1, 2, 4 and ``--batch`` 1, 3, 16;
 5. the small cases whose SHA-256 ``tests/test_torch_cli.py`` pins
@@ -321,7 +336,10 @@ Phases, each of which raises on failure:
    mjpegenc on its 48 frames, three CLI runs after an untimed one and
    ``mjpegenc_stages`` (the wait for the chain and the kernels, the
    coefficients' download, the Huffman coder, the MP3 encoder, the
-   multiplexor; the device's kernels by name).
+   multiplexor; the device's kernels by name); mpeg422's encode and
+   two read-backs on 48 frames, three CLI runs each after an untimed
+   one, ``encode_stages`` and each read-back's ``mpeg_stages`` and
+   device busy time.
 
 It prints one JSON object per result (``t``: seconds since it started),
 then the kernels' summary and, as
@@ -1846,6 +1864,96 @@ AUTHOR_GOLDEN_SHA256 = {
     "raw_yuv": ("2c06301549718a072b34a738b3d78821"
                 "6e22aba20837e374dac33e6bffcddc1c"),
 }
+# the 4:2:2 path (422P@ML, the studio's and broadcast contribution's
+# long GOP at 15-50 Mbit/s): 1080i 4:2:2 at 25 fps, -I 5, the zoom to
+# 720x576 and denoise3d into a 422P I/B/B/P elementary stream (GOP 12/3,
+# TM5 toward 15 Mbit/s); the same on its first frames as field pictures,
+# and as the -R 1 / -R 2 pair; then the stream read back by the port's
+# MPEG importer kept at 4:2:2 (-V yuv422p, denoise3d) and decimated to
+# 4:2:0 (hqdn3d)
+MPEG422_W, MPEG422_H = 720, 576
+MPEG422_FPS = (25, 1)
+MPEG422_FRAMES = 48
+MPEG422_SHORT_FRAMES = 16          # the field and two-pass variants
+MPEG422_GOP = "gop_n=12:gop_m=3:rc=1:bitrate=15000"
+MPEG422_ENC = ["-V", "yuv422p", "-I", "5", "-Z",
+               f"{MPEG422_W}x{MPEG422_H}", "-J", "denoise3d", "-y",
+               "mpeg2,raw,raw", "-F", MPEG422_GOP]
+MPEG422_KEEP = ["-x", "mpeg", "-V", "yuv422p", "-J", "denoise3d"]
+MPEG422_DECIMATE = ["-x", "mpeg", "-J", "hqdn3d=luma=4.0"]
+MPEG422_KERNELS = {
+    "encode": (*ENCODE_KERNELS, "zoom_pass", "d3_spatial_scan",
+               "d3_temporal_scan"),
+    "keep": ("mpeg2_recon", "mpeg2_idct_intra", "d3_spatial_scan",
+             "d3_temporal_scan"),
+    "decimate": ("mpeg2_recon", "mpeg2_idct_intra", "hqdn3d_spatial_scan",
+                 "hqdn3d_temporal_scan")}
+# the kernels line's rows of the 4:2:2 forms, each of the kernel it is a
+# form of (the launches: the mpeg422 path's, which runs only 4:2:2 forms)
+FORMS_422 = {"mpeg2_recon_422": "mpeg2_recon",
+             "mpeg2_idct_intra_422": "mpeg2_idct_intra",
+             "mpeg2_enc_pred_422": "mpeg2_enc_pred",
+             "mpeg2_enc_blocks_422": "mpeg2_enc_blocks"}
+# the small cases that tests/test_torch_mpeg422_cli.py holds against the
+# JAX CLI, in order (a decode reads an earlier case's stream, pass 2 the
+# log of pass 1): case -> (the case whose .m2v is the input, or None for
+# write_motion_y4m's 4:2:2 clip at MPEG422_GOLDEN_W x MPEG422_GOLDEN_H,
+# arguments, output suffix); {log} is the pass log
+MPEG422_GOLDEN_W, MPEG422_GOLDEN_H, MPEG422_GOLDEN_FRAMES = 128, 96, 12
+MPEG422_GOLDEN_GOP = "gop_n=6:gop_m=3:rc=1:bitrate=3000"
+_M422_SMALL = ["-V", "yuv422p", "-I", "5", "-Z", "96x64", "-J", "denoise3d"]
+MPEG422_GOLDEN = {
+    "enc": (None, [*_M422_SMALL, "-y", "mpeg2,raw,raw", "-F",
+                   MPEG422_GOLDEN_GOP], ".m2v"),
+    "enc_fields": (None, [*_M422_SMALL, "-y", "mpeg2,raw,raw", "-F",
+                          MPEG422_GOLDEN_GOP + ":fields=1"], ".m2v"),
+    "pass1": (None, [*_M422_SMALL, "-y", "mpeg2,raw,raw", "-F",
+                     MPEG422_GOLDEN_GOP, "-R", "1,{log}"], ".m2v"),
+    "pass2": (None, [*_M422_SMALL, "-N", "mpeg2video", "-F",
+                     MPEG422_GOLDEN_GOP, "-R", "2,{log}"], ".m2v"),
+    "keep": ("enc", MPEG422_KEEP, ".y4m"),
+    "keep_fields": ("enc_fields", MPEG422_KEEP, ".y4m"),
+    "decimate": ("enc", MPEG422_DECIMATE, ".y4m"),
+}
+MPEG422_GOLDEN_SHA256 = {
+    "enc": ("967d182a56dead435bb6e8463f849a22"
+            "9f1f7cb17d9fc1a8213d0f8a5ec3a698"),
+    "enc_fields": ("0932f3349f22ad40c22902ab47b8d8a4"
+                   "015f1cd35bac7f1b2f4364f1a732b98a"),
+    "pass1": ("967d182a56dead435bb6e8463f849a22"
+              "9f1f7cb17d9fc1a8213d0f8a5ec3a698"),
+    "pass2": ("eef6a0ff3526489164db6a5b5e13d20d"
+              "e276788b4c5140170dd6b893caa8142a"),
+    "keep": ("1c58a525ffbab1682adb8bab5f2d7b80"
+             "0cf584176c0c8fe5cdb3fdd8666d75ba"),
+    "keep_fields": ("ed898d36db928788460f51bcbb5faae5"
+                    "f3e51d04590cef7016cf9163372f7d6a"),
+    "decimate": ("cba7305b3065ecc01bbf6357e46493f3"
+                 "5b718ede1f379c7ca15c5d87a960a0c3"),
+}
+
+
+def mpeg422_golden_argv(case: str, directory, side: str) -> list:
+    """The CLI arguments of an ``MPEG422_GOLDEN`` case run by ``side``
+    (one name per CLI): its input (written into ``directory``, or the
+    earlier case's output of the same side), its output
+    ``mpeg422_<case>_<side><suffix>`` and the side's pass log there."""
+    directory = Path(directory)
+    src_case, args, suffix = MPEG422_GOLDEN[case]
+    if src_case is None:
+        src = directory / "mpeg422_golden_in.y4m"
+        if not src.exists():
+            write_motion_y4m(src, MPEG422_GOLDEN_W, MPEG422_GOLDEN_H,
+                             MPEG422_GOLDEN_FRAMES, seed=19,
+                             fps=MPEG422_FPS, chroma=422)
+    else:
+        src = directory / f"mpeg422_{src_case}_{side}.m2v"
+    log = directory / f"mpeg422_{side}.log"
+    return ["-i", str(src), "-o",
+            str(directory / f"mpeg422_{case}_{side}{suffix}"),
+            *(a.replace("{log}", str(log)) for a in args)]
+
+
 # cfg1: YUV420P -> RGB24 -> YUV420P, then the zoom
 CFG1_W, CFG1_H, CFG1_ZOOM = 640, 480, (512, 384)
 
@@ -1961,6 +2069,18 @@ KERNELS = {
                         "tcforge_tpu/io/mpeg2enc.py:1110"),
     "mpeg2_enc_blocks": ("tcforge_tpu_torch/csrc/mpeg2_encode.cu",
                          "tcforge_tpu/io/mpeg2enc.py:606"),
+    # the 4:2:2 forms of four of them (FORMS_422): _recon_picture_math and
+    # _recon_field_core with chroma=2, reconstruct_intra_422's native
+    # IDCT, and the encoder's 4:2:2 layout (_chroma_mv_half_422,
+    # _chroma_params, _enc_layout)
+    "mpeg2_recon_422": ("tcforge_tpu_torch/csrc/mpeg2_recon.cu",
+                        "tcforge_tpu/io/mpeg2codec.py:1527"),
+    "mpeg2_idct_intra_422": ("tcforge_tpu_torch/csrc/mpeg2_recon.cu",
+                             "tcforge_tpu/io/mpeg2codec.py:947"),
+    "mpeg2_enc_pred_422": ("tcforge_tpu_torch/csrc/mpeg2_encode.cu",
+                           "tcforge_tpu/io/mpeg2enc.py:530"),
+    "mpeg2_enc_blocks_422": ("tcforge_tpu_torch/csrc/mpeg2_encode.cu",
+                             "tcforge_tpu/io/mpeg2enc.py:653"),
     # not TPU kernels: the XLA ops of _recon_vop_math and, for an I-VOP,
     # xvid_idct_jax (the JAX CLI's route is the numpy decoder's)
     "mpeg4_recon": ("tcforge_tpu_torch/csrc/mpeg4_recon.cu",
@@ -2107,18 +2227,22 @@ def write_telecine_y4m(path, width: int, height: int, frames: int,
 
 def write_motion_y4m(path, width: int, height: int, frames: int, seed: int,
                      fps=(30000, 1001), repeat_every: int = 0,
-                     grain: int = 1, impulses: float = 0.0) -> None:
-    """A seeded interlaced YUV420P Y4M: a fixed noise background with a
-    noise block a quarter of the frame wide that moves 4 pixels right
-    and 2 down a frame, its bottom field half a step ahead of its top
-    field, and one hard cut (a new background and block) at the middle
-    frame; +-``grain`` of grain on every frame, and with ``impulses`` = p
-    that share of each plane's samples set to 0 or 255 (a capture's
-    impulse noise).  With ``repeat_every`` = k, every k-th frame repeats
-    the one before it (with its own grain): a near-duplicate for modfps
-    to skip."""
+                     grain: int = 1, impulses: float = 0.0,
+                     chroma: int = 420) -> None:
+    """A seeded interlaced Y4M, YUV420P (or YUV422P with ``chroma`` 422,
+    whose chroma moves as far down as the luma): a fixed noise
+    background with a noise block a quarter of the frame wide that moves
+    4 pixels right and 2 down a frame, its bottom field half a step
+    ahead of its top field, and one hard cut (a new background and
+    block) at the middle frame; +-``grain`` of grain on every frame, and
+    with ``impulses`` = p that share of each plane's samples set to 0 or
+    255 (a capture's impulse noise).  With ``repeat_every`` = k, every
+    k-th frame repeats the one before it (with its own grain): a
+    near-duplicate for modfps to skip."""
+    from tcforge_tpu_torch.core.formats import ImageFormat
     from tcforge_tpu_torch.io.y4m import Y4MHeader, Y4MWriter
     rng = np.random.default_rng(seed)
+    ch = height if chroma == 422 else height // 2
 
     def scene(h, w):
         bg = rng.integers(16, 236, (h, w), dtype=np.int16)
@@ -2135,10 +2259,12 @@ def write_motion_y4m(path, width: int, height: int, frames: int, seed: int,
             out[y0:y0 + bh, x0:x0 + bw][rows] = block[rows]
         return out
 
-    scenes = [[scene(height, width), scene(height // 2, width // 2),
-               scene(height // 2, width // 2)] for _ in range(2)]
+    scenes = [[scene(height, width), scene(ch, width // 2),
+               scene(ch, width // 2)] for _ in range(2)]
     hdr = Y4MHeader(width=width, height=height, fps_num=fps[0],
-                    fps_den=fps[1], interlacing="t")
+                    fps_den=fps[1], interlacing="t",
+                    format=(ImageFormat.YUV422P if chroma == 422
+                            else ImageFormat.YUV420P))
     t = 0
     with Y4MWriter(str(path), hdr) as wr:
         for k in range(frames):
@@ -2147,7 +2273,8 @@ def write_motion_y4m(path, width: int, height: int, frames: int, seed: int,
             planes = []
             for i, (bg, block) in enumerate(scenes[2 * k >= frames]):
                 s = 2 if i == 0 else 1       # chroma moves half as far
-                p = draw(bg, block, 2 * s * t, s * t, s) + rng.integers(
+                sy = 2 if i == 0 or chroma == 422 else 1
+                p = draw(bg, block, 2 * s * t, sy * t, s) + rng.integers(
                     -grain, grain + 1, bg.shape, dtype=np.int16)
                 if impulses:
                     hit = rng.random(bg.shape) < impulses
@@ -2374,6 +2501,9 @@ def main(argv=()) -> int:
     torch.cuda.empty_cache()
     _check_encode_kernels(torch, kernels, bench)
     torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_m422_") as tmp:
+        _check_mpeg422_kernels(torch, kernels, bench, tmp)
+    torch.cuda.empty_cache()
     _check_mpeg4_kernels(torch, kernels, bench)
     torch.cuda.empty_cache()
     _check_asp_kernels(torch, kernels, bench)
@@ -2566,6 +2696,14 @@ def main(argv=()) -> int:
         path_launches["dvdauthor"] = _run_dvdauthor(torch, cli, kernels,
                                                     tmp)
         _author_goldens(cli, tmp)
+        # 4. and 5. for the 4:2:2 path: the 422P encode (and its field and
+        # two-pass variants) and its read-back kept at 4:2:2 and decimated,
+        # and the 4:2:2 goldens pinned against the JAX CLI
+        m422 = _run_mpeg422(torch, cli, kernels, tmp)
+        path_launches["mpeg422"] = {
+            **{k: m422["encode"][k] for k in MPEG422_KERNELS["encode"]},
+            **{k: m422["keep"][k] for k in MPEG422_KERNELS["keep"]}}
+        _mpeg422_goldens(cli, tmp)
         # 4. and 5. for the DivX path: divx.avi through -x avi, one
         # reconstruction launch a VOP, and the AVI goldens
         path_launches["divx"] = _run_divx(torch, cli, kernels, tmp)
@@ -2679,7 +2817,11 @@ def main(argv=()) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_author_") as tmp:
         _author_rates(torch, cli, Path(tmp))
     torch.cuda.empty_cache()
-    # 6. the DivX path: its CLI on 96 frames and its serial stages
+    # 6. the 4:2:2 path: the encode's and the read-backs' CLIs and stages
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_m422_") as tmp:
+        _mpeg422_rates(torch, dev, cli, Path(tmp))
+    torch.cuda.empty_cache()
+    # 6. the DivX path: its CLI on 48 frames and its serial stages
     with tempfile.TemporaryDirectory(prefix="chip_smoke_divx_") as tmp:
         _divx_rates(torch, dev, cli, Path(tmp))
     torch.cuda.empty_cache()
@@ -2712,7 +2854,9 @@ def main(argv=()) -> int:
 
     # each kernel's launches in the run of the path that carries it
     for name, (src, _) in KERNELS.items():
-        if name in ("mpeg2_recon", "mpeg2_idct_intra"):
+        if name in FORMS_422:
+            launches[name] = path_launches["mpeg422"][FORMS_422[name]]
+        elif name in ("mpeg2_recon", "mpeg2_idct_intra"):
             launches[name] = path_launches["dvd"][name]
         elif name in ENCODE_KERNELS:
             launches[name] = path_launches["dvdauthor"][name]
@@ -2740,6 +2884,9 @@ def main(argv=()) -> int:
         k: path_launches["dvdrip"][k] for k in RIP_KERNELS})
     emit(phase="launches", path="dvdauthor", launches={
         k: path_launches["dvdauthor"][k] for k in AUTHOR_KERNELS})
+    emit(phase="launches", path="mpeg422", launches={
+        run: {k: m422[run][k] for k in names}
+        for run, names in MPEG422_KERNELS.items()})
     emit(phase="launches", path="divx", launches={
         k: path_launches["divx"][k] for k in AVI_KERNELS})
     for name, spec in (*ASP_PATHS.items(), *GMC_PATHS.items()):
@@ -4569,10 +4716,12 @@ def _audio_chain_ms(torch, dev, batches: int = 10, warmup: int = 4):
 # The DVD path: MPEG-1/2 import (host parse, reconstruction kernels) into
 # hqdn3d
 
-def _mpeg_importer(path, dev, buffers: int = 2, options: str = ""):
+def _mpeg_importer(path, dev, buffers: int = 2, options: str = "",
+                   job=None):
     from tcforge_tpu_torch.core.job import Job
     from tcforge_tpu_torch.modules.registry import ModuleKind, new_module
-    imp = new_module(ModuleKind.DEMULTIPLEXOR, "mpeg", Job(), options)
+    imp = new_module(ModuleKind.DEMULTIPLEXOR, "mpeg", job or Job(),
+                     options)
     imp.open(str(path))
     imp.start(dev, buffers)
     return imp
@@ -4584,8 +4733,8 @@ def _recon_bytes(args) -> int:
     its three planes out."""
     yc, uc, vc, mbinfo, fwd, bwd = args[:6]
     refs = [p for planes in (fwd, bwd) if planes is not None for p in planes]
-    return (_nbytes(yc, uc, vc, mbinfo, *refs)
-            + yc.shape[0] * yc.shape[1] * 64 * 3 // 2)
+    # one output sample for each coefficient (4:2:0 and 4:2:2 alike)
+    return _nbytes(yc, uc, vc, mbinfo, *refs) + yc.numel() + 2 * uc.numel()
 
 
 def _check_mpeg2_kernels(torch, kernels, bench):
@@ -4889,19 +5038,20 @@ def mpeg_stages(torch, dev, src, out, job, batch: int = MAIN_BATCH):
     timed alone with the card synchronized after it: the host parse and
     plan, the decode (upload and reconstruction), the chain, the copy
     back and the Y4M write.  Returns ms per batch of each, their sum and
-    the frames/s of the sum and of the slowest stage."""
-    from tcforge_tpu_torch.core.formats import ImageFormat
+    the frames/s of the sum and of the slowest stage.  The importer takes
+    ``job`` too (a 4:2:2 stream stays 4:2:2 under its -V yuv422p)."""
     from tcforge_tpu_torch.core.frame import FrameBatch
     from tcforge_tpu_torch.io.y4m import Y4MHeader, Y4MWriter
     from tcforge_tpu_torch.pipeline.chain import VideoChain
-    imp = _mpeg_importer(src, dev)
-    chain = VideoChain(job, ImageFormat.YUV420P, imp.width, imp.height)
+    imp = _mpeg_importer(src, dev, job=job)
+    fmt = imp.format
+    chain = VideoChain(job, fmt, imp.width, imp.height)
     states = chain.initial_states(dev)
     ms = dict.fromkeys(("parse", "decode", "chain", "to_host", "write"), 0.0)
     frames = batches = 0
     with Y4MWriter(str(out), Y4MHeader(width=imp.width, height=imp.height,
                                        fps_num=30000, fps_den=1001,
-                                       format=ImageFormat.YUV420P)) as wr:
+                                       format=fmt)) as wr:
         torch.cuda.synchronize()
         while True:
             t0 = time.perf_counter()
@@ -4913,7 +5063,7 @@ def mpeg_stages(torch, dev, src, out, job, batch: int = MAIN_BATCH):
             torch.cuda.synchronize()
             t2 = time.perf_counter()
             n = planes["y"].shape[0]
-            fb = FrameBatch(format=ImageFormat.YUV420P, y=planes["y"],
+            fb = FrameBatch(format=fmt, y=planes["y"],
                             u=planes["u"], v=planes["v"],
                             attrs=torch.zeros((n,), dtype=torch.int32,
                                               device=dev),
@@ -4952,6 +5102,9 @@ RIP_KERNELS = MPEG_KERNELS
 # the long title of the CLI timings: two VOB files, each the title's
 # sectors eight times over (448 frames; a disc's VOB file holds a GB)
 RIP_LONG_REPEAT = 8
+# phase 6's CLI runs of each rip variant (cut from six to keep the script
+# inside its time limit)
+RIP_RUNS = 4
 # a feature film's VobSub: about 1,500 units over two hours
 FILM_UNITS, FILM_STEP_MS = 1500, 4800
 
@@ -5122,7 +5275,7 @@ def _dvd_goldens(cli, tmp):
 def _dvdrip_rates(torch, dev, cli, tmp):
     """Phase 6 for the DVD rip, on a title of two VOB files that each
     hold the fixture title ``RIP_LONG_REPEAT`` times: the CLI, wall
-    clock, six runs of each variant in turns: the rip with its track,
+    clock, RIP_RUNS runs of each variant in turns: the rip with its track,
     the same with a film's VobSub (``film_vobsub``), and without -m (no
     track demuxed); then the serial stages a batch (``dvdrip_stages``)
     with each subtitle file."""
@@ -5133,7 +5286,7 @@ def _dvdrip_rates(torch, dev, cli, tmp):
                 ("video_only", False, None)]
     fps = {name: [] for name, _, _ in variants}
     frames = {}
-    for r in range(6):
+    for r in range(RIP_RUNS):
         k = r % len(variants)
         for name, audio, subs in variants[k:] + variants[:k]:
             t0 = time.perf_counter()
@@ -5628,10 +5781,10 @@ def _author_goldens(cli, tmp):
               "digest")
 
 
-def encode_stages(torch, cli, src, wav, out, frames: int) -> dict:
-    """The authoring CLI twice more, per 16-frame batch.  First with the
-    encoder's and the multiplexor's calls timed inside it (host clocks,
-    wrappers around the module's functions): queueing each picture's
+def encode_stages(torch, cli, argv, frames: int) -> dict:
+    """An encoding CLI (``argv``) twice more, per 16-frame batch.  First
+    with the encoder's and the multiplexor's calls timed inside it (host
+    clocks, wrappers around the module's functions): queueing each picture's
     kernels and torch ops (``encode_*_math``), the syntax writer
     (``m2e_picture``), the wait for and the copy of the picture's levels
     and records with the rate controller's arithmetic (the rest of
@@ -5665,7 +5818,7 @@ def encode_stages(torch, cli, src, wav, out, frames: int) -> dict:
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        rc = cli.main(_author_argv(src, wav, out))
+        rc = cli.main(argv)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     finally:
@@ -5674,7 +5827,7 @@ def encode_stages(torch, cli, src, wav, out, frames: int) -> dict:
     check(rc == 0, f"encode_stages: exit code {rc}")
     batches = frames / MAIN_BATCH
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        rc = cli.main(_author_argv(src, wav, out))
+        rc = cli.main(argv)
         torch.cuda.synchronize()
     check(rc == 0, f"encode_stages under the profiler: exit code {rc}")
     busy = _device_busy(prof, batches, ("me_kernel", "pred_kernel",
@@ -5711,10 +5864,491 @@ def _author_rates(torch, cli, tmp):
          median_fps=float(np.median(fps)), min_fps=min(fps),
          max_fps=max(fps))
     emit(phase="stages", path="dvdauthor",
-         **encode_stages(torch, cli, src, wav, out, AUTHOR_RATE_FRAMES))
+         **encode_stages(torch, cli, _author_argv(src, wav, out),
+                         AUTHOR_RATE_FRAMES))
     for f in (src, wav, out):
         f.unlink()
 
+
+
+# ---------------------------------------------------------------------- #
+# The 4:2:2 path: the 422P encode, whose encoder kernels run their 4:2:2
+# forms, and its read-back, whose reconstruction kernels run theirs
+
+# phase 3 off the path: macroblock grids (mb_w, mb_h), among them
+# 720x576's coded grid and grids of one macroblock row or column
+M422_GRIDS = ((1, 1), (3, 5), (7, 1), (1, 3), (45, 36))
+# phase 3 on the path: frames of the path's content encoded and read back
+# with every kernel call checked
+M422_CHECK_FRAMES = 16
+
+
+def _records_422(rng, nmb: int, field: bool) -> np.ndarray:
+    """Random macroblock records (int32 (nmb, 12)) of a picture: every mix
+    of the intra, forward, backward, field-DCT, field-MV (frame pictures)
+    or 16x8 (field pictures) and dual-prime flags, vectors near and far
+    past every edge of a 720x576 picture, random field selects; dual
+    prime's differential vectors in -1..1."""
+    info = np.zeros((nmb, 12), np.int32)
+    flags = np.zeros(nmb, np.int32)
+    for bit in ((1, 2, 4, 64, 128) if field else (1, 2, 4, 16, 32, 64)):
+        flags |= np.where(rng.random(nmb) < 0.4, bit, 0).astype(np.int32)
+    info[:, 0] = flags
+    far = rng.integers(-1600, 1601, (nmb, 8))
+    near = rng.integers(-40, 41, (nmb, 8))
+    info[:, 1:9] = np.where(rng.random((nmb, 8)) < 0.3, far, near)
+    dual = (flags & 64) != 0
+    info[dual, 3:5] = rng.integers(-1, 2, (int(dual.sum()), 2))
+    info[:, 9] = rng.integers(0, 16, nmb)
+    return info
+
+
+def _sparse_coefs(torch, rng, dev, *shape):
+    """Random int32 coefficient grids, about 30 % of them nonzero."""
+    c = rng.integers(-60, 61, shape).astype(np.int32)
+    c[rng.random(shape) < 0.7] = 0
+    return torch.from_numpy(c).to(dev)
+
+
+def _check_422_off_path(torch, kernels, bench, rng) -> dict:
+    """The four 4:2:2 forms against their plain versions on random inputs
+    at ``M422_GRIDS``: ``mpeg2_recon`` in frame pictures (forward, both
+    and no reference, either field first) and field pictures (either
+    parity, reference fields of other heights read in place as a
+    frame's lines of one parity), ``mpeg2_idct_intra`` with random
+    field-DCT macroblocks (one picture and three), ``mpeg2_enc_pred``
+    in P and B form with vectors past every edge, ``mpeg2_enc_blocks``
+    in its three modes (P with an intra mask) at qs 1, 8 and 31 with and
+    without alternate scan.  Returns the cases by form."""
+    dev = bench.dev
+    cases = dict.fromkeys(FORMS_422, 0)
+
+    def u8planes(rows, cols):
+        return (bench.u8(rows, cols), bench.u8(rows, cols // 2),
+                bench.u8(rows, cols // 2))
+
+    def fields(rows, cols):
+        fr = u8planes(rows, cols)
+        return (tuple(p[0::2] for p in fr), tuple(p[1::2] for p in fr))
+
+    for mb_w, mb_h in M422_GRIDS:
+        grid = f"{mb_w}x{mb_h}"
+        h, w = 16 * mb_h, 16 * mb_w
+        yc = _sparse_coefs(torch, rng, dev, 2 * mb_h, 2 * mb_w, 64)
+        uc = _sparse_coefs(torch, rng, dev, 2 * mb_h, mb_w, 64)
+        vc = _sparse_coefs(torch, rng, dev, 2 * mb_h, mb_w, 64)
+        for field in (False, True):
+            mbinfo = torch.from_numpy(
+                _records_422(rng, mb_h * mb_w, field)).to(dev)
+            if field:
+                forms = [(fields(2 * h, w), None, p, True) for p in (0, 1)]
+                forms.append((fields(2 * h + 6, w), fields(2 * h - 2, w),
+                              1, True))
+            else:
+                forms = [(u8planes(h, w), None, None, tff)
+                         for tff in (True, False)]
+                forms += [(u8planes(h, w), u8planes(h, w), None, False),
+                          (None, None, None, True)]
+            for fwd, bwd, parity, tff in forms:
+                args = (yc, uc, vc, mbinfo, fwd, bwd, tff)
+                kw = dict(field_parity=parity, chroma=2)
+                bench.check("mpeg2_recon_422",
+                            f"{grid} {'field' if field else 'frame'}",
+                            kernels.mpeg2_recon(*args, **kw),
+                            kernels.mpeg2_recon_ref(*args, **kw),
+                            quiet=True)
+                cases["mpeg2_recon_422"] += 1
+        for n in (1, 3):
+            fd = torch.from_numpy(rng.random((n, mb_h, mb_w)) < 0.5).to(dev)
+            for bw in (2 * mb_w, mb_w):
+                coef = _sparse_coefs(torch, rng, dev, n, 2 * mb_h, bw, 64)
+                bench.check("mpeg2_idct_intra_422", f"{grid} n{n} bw{bw}",
+                            kernels.mpeg2_idct_intra(coef, field_dct=fd),
+                            kernels.mpeg2_idct_intra_ref(coef, field_dct=fd),
+                            quiet=True)
+                cases["mpeg2_idct_intra_422"] += 1
+        fwd, bwd = u8planes(h, w), u8planes(h, w)
+
+        def vectors():
+            far = rng.integers(-4 * h - 64, 4 * h + 65, (mb_h, mb_w, 2))
+            near = rng.integers(-33, 34, (mb_h, mb_w, 2))
+            return torch.from_numpy(np.where(rng.random((mb_h, mb_w, 1))
+                                             < 0.3, far, near)
+                                    .astype(np.int32)).to(dev)
+
+        mode = torch.from_numpy(rng.integers(0, 3, (mb_h, mb_w))
+                                .astype(np.int32)).to(dev)
+        for args in ((fwd, vectors()),
+                     (fwd, vectors(), bwd, vectors(), mode)):
+            bench.check("mpeg2_enc_pred_422", f"{grid} {len(args)} args",
+                        kernels.mpeg2_enc_pred(*args),
+                        kernels.mpeg2_enc_pred_ref(*args), quiet=True)
+            cases["mpeg2_enc_pred_422"] += 1
+        cur, pred = u8planes(h, w), u8planes(h, w)
+        intra_mb = torch.from_numpy(rng.random((mb_h, mb_w)) < 0.3).to(dev)
+        for qs in (1, 8, 31):
+            for alt in (False, True):
+                for args in ((0, cur, None, qs, alt, False),
+                             (1, cur, pred, qs, alt, False, intra_mb),
+                             (1, cur, pred, qs, alt, False),
+                             (2, cur, pred, qs, alt, False)):
+                    bench.check("mpeg2_enc_blocks_422",
+                                f"{grid} mode {args[0]} q{qs}",
+                                kernels.mpeg2_enc_blocks(*args),
+                                kernels.mpeg2_enc_blocks_ref(*args),
+                                quiet=True)
+                    cases["mpeg2_enc_blocks_422"] += 1
+    return cases
+
+
+def _check_mpeg422_kernels(torch, kernels, bench, tmp):
+    """Phase 3 for the 4:2:2 forms: ``_check_422_off_path``; then
+    ``M422_CHECK_FRAMES`` frames of the path's content at 720x576 4:2:2
+    through ``Mpeg2FullEncoder`` at the path's settings and the stream
+    read back by the importer on the card, every call of the four
+    kernels held against its plain version on the same inputs (the
+    search and the B modes too, which see luma only); then each 4:2:2
+    form timed at the path's shapes beside its plain version, its bound
+    and ``torch.matmul`` of its IDCT or DCT part."""
+    from tcforge_tpu_torch.io import mpeg2enc
+    from tcforge_tpu_torch.io.mpeg2codec import dct_basis, idct_kron
+    from tcforge_tpu_torch.io.y4m import Y4MReader
+    dev = bench.dev
+    rng = np.random.default_rng(29)
+    cases = _check_422_off_path(torch, kernels, bench, rng)
+
+    # on the path: the encode, then its read-back, every call checked
+    form_of = {"mpeg2_enc_pred": "mpeg2_enc_pred_422",
+               "mpeg2_enc_blocks": "mpeg2_enc_blocks_422",
+               "mpeg2_recon": "mpeg2_recon_422",
+               "mpeg2_idct_intra": "mpeg2_idct_intra_422"}
+    wrappers = (*ENCODE_KERNELS, "mpeg2_recon", "mpeg2_idct_intra")
+    saved = {w: getattr(kernels, w) for w in wrappers}
+    captured = {w: [] for w in wrappers}
+
+    def checked(wrapper):
+        fn, ref = saved[wrapper], getattr(kernels, wrapper + "_ref")
+
+        def call(*a, **kw):
+            got = fn(*a, **kw)
+            bench.check(form_of.get(wrapper, wrapper), "720x576 4:2:2 path",
+                        got, ref(*a, **kw), quiet=True)
+            captured[wrapper].append((a, kw, got))
+            return got
+        return call
+
+    src = Path(tmp) / "m422_check.y4m"
+    write_motion_y4m(src, MPEG422_W, MPEG422_H, M422_CHECK_FRAMES, seed=9,
+                     fps=MPEG422_FPS, chroma=422)
+    planes = [torch.from_numpy(p).to(dev) for p in _read_y4m(Y4MReader, src)]
+    stream = Path(tmp) / "m422_check.m2v"
+    enc = mpeg2enc.Mpeg2FullEncoder(MPEG422_W, MPEG422_H, 25.0, gop_n=12,
+                                    gop_m=3, rate_control=True,
+                                    bitrate_kbps=15000, chroma=422)
+    try:
+        for w in wrappers:
+            setattr(kernels, w, checked(w))
+        with open(stream, "wb") as f:
+            for i in range(M422_CHECK_FRAMES):
+                f.write(enc.push_frame(planes[0][i], planes[1][i],
+                                       planes[2][i]))
+            f.write(enc.flush())
+        from tcforge_tpu_torch.core.formats import ImageFormat
+        from tcforge_tpu_torch.core.job import Job
+        imp = _mpeg_importer(stream, dev,
+                             job=Job(im_colorspace=ImageFormat.YUV422P))
+        frames = 0
+        while True:
+            got = imp.read_video_batch(MAIN_BATCH)
+            if got is None:
+                break
+            frames += got["y"].shape[0]
+        imp.close()
+    finally:
+        for w, fn in saved.items():
+            setattr(kernels, w, fn)
+    check(frames == M422_CHECK_FRAMES,
+          f"the 4:2:2 check stream read back {frames} frames")
+    emit(phase="kernel_sweep", kernel="4:2:2 forms", off_path=cases,
+         on_path={w: len(c) for w, c in captured.items()}, max_abs_err=0)
+    for w in wrappers:
+        check(bool(captured[w]), f"the 4:2:2 check made no {w} call")
+
+    # timed at the path's shapes: its calls in turn (more than L2 together)
+    def rotation(calls):
+        inputs = [(a, kw) for a, kw, _ in calls]
+        while sum(_nbytes(*_flat_tensors(a)) for a, _ in inputs) < L2_BYTES:
+            inputs = inputs + [(_tensors_clone(a), kw) for a, kw in inputs]
+        return [(*a, kw) for a, kw in inputs]
+
+    def with_kw(fn):
+        return lambda *a: fn(*a[:-1], **a[-1])
+
+    batches = M422_CHECK_FRAMES / MAIN_BATCH
+    kmat = torch.from_numpy(idct_kron()).to(dev)
+    calls = captured["mpeg2_recon"]
+    inter = [c for c in calls if c[0][4] is not None]
+    check(len(inter) >= 4, f"the 4:2:2 stream gave {len(inter)} P and B "
+                           "reconstructions")
+    bench.record("mpeg2_recon_422", "720x576 P and B pictures",
+                 len(calls) / batches,
+                 with_kw(kernels.mpeg2_recon), with_kw(kernels.mpeg2_recon_ref),
+                 rotation(inter),
+                 nbytes=sum(_recon_bytes(a) for a, _, _ in inter) / len(inter),
+                 ops=sum(64 * int(sum(int((c != 0).sum()) for c in a[:3]))
+                         for a, _, _ in inter) / len(inter),
+                 library=(lambda c: torch.matmul(c, kmat),
+                          [(torch.cat([c.reshape(-1, 64) for c in a[:3]])
+                            .to(torch.float32),) for a, _, _ in inter]),
+                 plain_reps=2, ops_per_s=F32_FMA_PER_S)
+    calls = captured["mpeg2_idct_intra"]
+    kmat64 = kmat.to(torch.float64)
+    for label, group in (("720x576 intra Y", calls[0::3]),
+                         ("360x576 intra U, V", calls[1::3] + calls[2::3])):
+        ins = rotation(group)
+        c0 = ins[0][0]
+        blocks = c0.numel() // 64
+        bench.record("mpeg2_idct_intra_422", label,
+                     len(group) / batches, with_kw(kernels.mpeg2_idct_intra),
+                     with_kw(kernels.mpeg2_idct_intra_ref), ins,
+                     nbytes=_nbytes(*_flat_tensors(ins[0][:-1]),
+                                    *_flat_tensors(list(ins[0][-1].values())))
+                     + blocks * 64,
+                     ops=1024 * blocks,
+                     library=(lambda c: torch.matmul(c, kmat64),
+                              [(a[0].reshape(-1, 64).to(torch.float64),)
+                               for a in ins]),
+                     plain_reps=2, ops_per_s=F64_FMA_PER_S)
+    for bi, label in ((False, "P"), (True, "B")):
+        group = [c for c in captured["mpeg2_enc_pred"]
+                 if (len(c[0]) > 2) == bi]
+        check(bool(group), f"no 4:2:2 {label} prediction was captured")
+        bench.record("mpeg2_enc_pred_422", f"720x576 {label}",
+                     len(group) / batches, with_kw(kernels.mpeg2_enc_pred),
+                     with_kw(kernels.mpeg2_enc_pred_ref), rotation(group),
+                     nbytes=_nbytes(*_flat_tensors((group[0][0],
+                                                    group[0][2]))), ops=0)
+    kmat_enc = torch.from_numpy(np.kron(dct_basis(), dct_basis())).to(dev)
+    for mode, label in ((0, "I"), (1, "P"), (2, "B")):
+        group = [c for c in captured["mpeg2_enc_blocks"] if c[0][0] == mode]
+        check(bool(group), f"no 4:2:2 {label} block coding was captured")
+        ins = rotation(group)
+        levels = group[0][2][0]
+        blocks = levels.shape[0] * levels.shape[1]
+        coded = int((levels != 0).any(dim=2).sum())
+        recon = 0 if mode == 2 else blocks if mode == 0 else coded
+        bench.record("mpeg2_enc_blocks_422", f"720x576 {label}",
+                     len(group) / batches, with_kw(kernels.mpeg2_enc_blocks),
+                     with_kw(kernels.mpeg2_enc_blocks_ref), ins,
+                     nbytes=_nbytes(*_flat_tensors((group[0][0],
+                                                    group[0][2]))),
+                     ops=1024 * (blocks + recon),
+                     library=(lambda c: torch.matmul(c, kmat_enc),
+                              [(torch.cat([p.reshape(-1, 64) for p in
+                                           _flat_tensors(a[1])])
+                                .to(torch.float64),) for a in ins]),
+                     ops_per_s=F64_FMA_PER_S)
+    stream.unlink()
+    src.unlink()
+
+
+def mpeg422_input(directory, seed: int = 21):
+    """The 4:2:2 path's source in ``directory``: MPEG422_FRAMES frames of
+    1080i 4:2:2 at 25 fps (``write_motion_y4m`` with ``chroma`` 422)."""
+    frames = MPEG422_FRAMES
+    src = Path(directory) / f"m422_in_{frames}.y4m"
+    if not src.exists():
+        write_motion_y4m(src, MAIN_W, MAIN_H, frames, seed, fps=MPEG422_FPS,
+                         chroma=422)
+    return src
+
+
+def _m422_argv(src, out, args) -> list:
+    return ["-i", str(src), "-o", str(out), *args, "--batch",
+            str(MAIN_BATCH), "--device", "cuda", "--progress_off", "-q"]
+
+
+def _pass_logs_read(mpeg2enc):
+    """A context that records the complexities each rate controller the
+    encoder builds was given (pass 2 reads them from the log)."""
+    got = []
+    real = mpeg2enc.RateController
+
+    def spy(*a, **kw):
+        got.append(kw.get("complexities"))
+        return real(*a, **kw)
+
+    @contextlib.contextmanager
+    def ctx():
+        mpeg2enc.RateController = spy
+        try:
+            yield got
+        finally:
+            mpeg2enc.RateController = real
+    return ctx()
+
+
+def _run_mpeg422(torch, cli, kernels, tmp):
+    """Phase 4 for the 4:2:2 path: the encode of MPEG422_FRAMES frames of
+    1080i 4:2:2 through the port's CLI, then its read-back kept at 4:2:2
+    and decimated to 4:2:0, each with the launch counts set to 0 just
+    before and read just after; the field-picture encode and the -R 1 /
+    -R 2 pair on the first MPEG422_SHORT_FRAMES frames, and the field
+    stream's read-back; every CLI's bytes (and the pass log) equal to the
+    same CLI's on the plain versions on the card; every decoded frame
+    720x576 in the right format and count, and pass 2's log read.
+    Returns the launches of the encode, and of the decodes."""
+    from tcforge_tpu_torch.io import mpeg2enc
+    tmp = Path(tmp)
+    src = mpeg422_input(tmp)
+    short = ["--max_frames", str(MPEG422_SHORT_FRAMES)]
+    log = tmp / "m422_pass.log"
+    runs = [  # name, input, arguments, frames out, kernels counted
+        ("encode", src, MPEG422_ENC, MPEG422_FRAMES, "encode"),
+        ("keep", "encode", MPEG422_KEEP, MPEG422_FRAMES, "keep"),
+        ("decimate", "encode", MPEG422_DECIMATE, MPEG422_FRAMES, "decimate"),
+        ("fields", src, [*MPEG422_ENC[:-1], MPEG422_GOP + ":fields=1",
+                         *short], MPEG422_SHORT_FRAMES, None),
+        ("keep_fields", "fields", MPEG422_KEEP, MPEG422_SHORT_FRAMES, None),
+        ("pass1", src, [*MPEG422_ENC, *short, "-R", f"1,{log}"],
+         MPEG422_SHORT_FRAMES, None),
+        ("pass2", src, [*MPEG422_ENC, *short, "-R", f"2,{log}"],
+         MPEG422_SHORT_FRAMES, None)]
+    launches, outs = {}, {}
+    for name, inp, args, frames, counted in runs:
+        if not isinstance(inp, Path):
+            inp = outs[inp]["kernels"]
+        suffix = ".m2v" if inp == src else ".y4m"
+        got = {}
+        for label, ctx in (("kernels", contextlib.nullcontext()),
+                           ("plain", plain_versions(kernels))):
+            out = tmp / f"m422_{name}_{label}{suffix}"
+            with ctx, _pass_logs_read(mpeg2enc) as rcs:
+                torch.cuda.synchronize()
+                kernels.reset_launches()
+                t0 = time.perf_counter()
+                rc = cli.main(_m422_argv(inp, out, args))
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+            check(rc == 0, f"mpeg422 {name} on the {label}: exit code {rc}")
+            got[label] = out
+            if name == "pass1":
+                got[label + "_log"] = log.read_bytes()
+            if name == "pass2":
+                read = [c for c in rcs if c is not None]
+                want = len(log.read_text().splitlines())
+                emit(phase="mpeg422_pass2_log", versions=label,
+                     complexities=[len(c) for c in read], log_lines=want)
+                check(len(read) == 1 and len(read[0]) == want > 0,
+                      "mpeg422 pass 2 did not read pass 1's log")
+            if label == "kernels":
+                counts = dict(kernels.launches)
+                emit(phase="path", path=f"mpeg422_{name}", frames=frames,
+                     seconds=seconds, e2e_fps=frames / seconds,
+                     bytes=out.stat().st_size,
+                     launches={k: counts[k] for k in
+                               MPEG422_KERNELS[counted or
+                                               ("encode" if suffix == ".m2v"
+                                                else "keep")]})
+                if counted:
+                    launches[counted] = counts
+                    for k in MPEG422_KERNELS[counted]:
+                        check(counts[k] > 0, f"kernel {k} was not launched "
+                                             f"by the mpeg422 {name} run")
+        outs[name] = got
+        same = (got["kernels"].read_bytes() == got["plain"].read_bytes()
+                and got.get("kernels_log") == got.get("plain_log"))
+        emit(phase="path_vs_plain", path=f"mpeg422_{name}", identical=same,
+             sha256=sha256_file(got["kernels"]))
+        check(same, f"mpeg422 {name}: the kernels' output differs from the "
+                    "plain versions' on the card")
+        if suffix == ".y4m":
+            with open(got["kernels"], "rb") as f:
+                header = f.readline()
+                count = f.read().count(b"FRAME\n")
+            csp = b" C422" if name.startswith("keep") else b" C420"
+            ok = (f" W{MPEG422_W} H{MPEG422_H} ".encode() in header
+                  and csp in header and count == frames)
+            emit(phase="mpeg422_read_back", path=name, frames=count,
+                 header=header.decode().strip(), ok=ok)
+            check(ok, f"mpeg422 {name}: {count} frames, header {header!r}")
+    for got in outs.values():
+        for f in got.values():
+            if isinstance(f, Path):
+                f.unlink()
+    return launches
+
+
+def _mpeg422_goldens(cli, tmp):
+    """Phase 5 for the 4:2:2 path: every ``MPEG422_GOLDEN`` case on the
+    card, in order, its SHA-256 against the JAX CLI's pinned digest."""
+    for case in MPEG422_GOLDEN:
+        argv = mpeg422_golden_argv(case, tmp, "card")
+        rc = cli.main([*argv, "--device", "cuda", "--progress_off", "-q"])
+        digest = sha256_file(argv[argv.index("-o") + 1])
+        emit(phase="golden", path=f"mpeg422_{case}", sha256=digest,
+             pinned=MPEG422_GOLDEN_SHA256[case])
+        check(rc == 0 and digest == MPEG422_GOLDEN_SHA256[case],
+              f"mpeg422 {case} golden output differs from the JAX-pinned "
+              "digest")
+
+
+def _mpeg422_rates(torch, dev, cli, tmp, runs: int = 3):
+    """Phase 6 for the 4:2:2 path: the encode CLI and the two read-back
+    CLIs on MPEG422_FRAMES frames, wall clock to the last byte, after one
+    untimed run, ``runs`` runs each in turns (median, min and max); then
+    the encode's stages (``encode_stages``: queueing, the wait and copy
+    of each picture's levels, the writer; the device's busy time and
+    the encoder kernels' share), each read-back's serial stages
+    (``mpeg_stages``) and, under torch.profiler, the device's busy time
+    in a read-back CLI run and the reconstruction kernels' share."""
+    from torch.profiler import ProfilerActivity, profile
+    from tcforge_tpu_torch.core.formats import ImageFormat
+    from tcforge_tpu_torch.core.job import FilterSpec, Job
+    tmp = Path(tmp)
+    src = mpeg422_input(tmp)
+    stream = tmp / "m422_rate.m2v"
+    argvs = {"encode": _m422_argv(src, stream, MPEG422_ENC),
+             "keep": _m422_argv(stream, tmp / "m422_keep.y4m",
+                                MPEG422_KEEP),
+             "decimate": _m422_argv(stream, tmp / "m422_dec.y4m",
+                                    MPEG422_DECIMATE)}
+    fps = {name: [] for name in argvs}
+    for r in range(runs + 1):
+        for name, argv in argvs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc = cli.main(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            check(rc == 0, f"mpeg422 {name} CLI: exit code {rc}")
+            if r:
+                fps[name].append(MPEG422_FRAMES / seconds)
+    for name, got in fps.items():
+        emit(phase="cli", path=f"mpeg422_{name}", frames=MPEG422_FRAMES,
+             fps=got, median_fps=float(np.median(got)), min_fps=min(got),
+             max_fps=max(got))
+    emit(phase="stages", path="mpeg422_encode",
+         **encode_stages(torch, cli, argvs["encode"], MPEG422_FRAMES))
+    batches = MPEG422_FRAMES / MAIN_BATCH
+    for name, job in (
+            ("keep", Job(filters=[FilterSpec("denoise3d", "")],
+                         im_colorspace=ImageFormat.YUV422P)),
+            ("decimate", Job(filters=[FilterSpec("hqdn3d", "luma=4.0")]))):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            rc = cli.main(argvs[name])
+            torch.cuda.synchronize()
+        check(rc == 0, f"mpeg422 {name} under the profiler: exit code {rc}")
+        busy = _device_busy(prof, batches, ("recon_kernel",
+                                            "idct_intra_kernel"))
+        emit(phase="stages", path=f"mpeg422_{name}",
+             device_busy_ms_per_batch=busy["busy_ms_per_batch"],
+             decode_kernels_ms_per_batch=busy["named_ms_per_batch"],
+             device_kernels_ms_per_batch=busy["kernels_ms_per_batch"],
+             serial=mpeg_stages(torch, dev, stream, tmp / "m422_stages.y4m",
+                                job))
+    for f in tmp.glob("m422_*"):
+        f.unlink()
 
 
 # ---------------------------------------------------------------------- #
@@ -6004,7 +6638,9 @@ def _avi_goldens(cli, tmp):
               "digest")
 
 
-DIVX_COPIES = 4
+# phase 6's divx input: divx.avi this many times over (48 frames; cut
+# from 96 to keep the script inside its time limit)
+DIVX_COPIES = 2
 
 
 def avi_long(directory, fixture: str, copies: int) -> Path:
@@ -6150,8 +6786,8 @@ def avi_stages(torch, dev, src, out, job, batch: int = MAIN_BATCH,
 
 
 def _divx_rates(torch, dev, cli, tmp):
-    """Phase 6 for the DivX path, on divx.avi four times over (96 frames,
-    six batches): the long file's decode on the card against the
+    """Phase 6 for the DivX path, on divx.avi twice over (48 frames,
+    three batches): the long file's decode on the card against the
     fixture's decode repeated, frame for frame; the CLI, wall clock to the
     last byte, four runs after an untimed one (median and spread); then
     ``avi_stages``."""

@@ -18,10 +18,11 @@ invert, levels, deinterlace, mask, testframe, extsub and null
 ``--resync_margin``, ``--resync_interval`` and ``--no_audio_adjust``,
 with the audio filters normalize, astat, lowpass, detectsilence,
 resample, aclip and cpaudio in the same ``-J`` list; a WAV given to
-``-i`` makes an audio-only session.  MPEG-1/2 4:2:0 video (a DVD's VOB,
+``-i`` makes an audio-only session.  MPEG-1/2 video (a DVD's VOB,
 a program stream, an elementary stream) is read with ``-x mpeg`` (or
 its aliases ``mpeg2``, ``mpg`` and ``vob``), or found by its magic with
-the default ``-x auto``; its size and rate come from the sequence
+the default ``-x auto`` (a 4:2:2 stream stays 4:2:2 under ``-V
+yuv422p``, else its chroma is decimated to 4:2:0); its size and rate come from the sequence
 header, the host parses it and the card reconstructs it.  A program
 stream's LPCM, MPEG audio or AC-3 track (``-a`` picks it) goes to ``-m``;
 ``-x dvd -T title[,chapter[-chapter]]`` reads a decrypted ``VIDEO_TS``
@@ -34,8 +35,11 @@ venc[,aenc[,mux]]`` (encoders ``raw``, ``null``, ``copy``,
 ``y4m``, ``wav``, ``mpg`` and ``avi``, ``auto`` by the output's
 extension), ``--avi_comments``, ``-F`` (the video encoder's options,
 ``k=v:...``, or the AVI's fourcc), ``-w``,
-``--video_max_bitrate``, ``--quantizers``, ``--encode_fields`` and
-``--pulldown``; the MPEG-2 encoder's motion search, prediction and block
+``--video_max_bitrate``, ``--quantizers``, ``--encode_fields``,
+``--pulldown``, ``-R n[,logfile]`` (two-pass rate control: pass 1 writes
+the log, ``divx4.log`` by default, pass 2 reads it) and ``-N
+vformat[,aformat]`` (the encoders by format name where ``-y`` is not
+given); the MPEG-2 encoder's motion search, prediction and block
 coding run on the card, its syntax writer on the host, and ``mpg`` writes
 a program stream with the audio track as DVD LPCM; so do the MPEG-4
 (``xvid``) encoder's decisions and block coding, into an AVI:
@@ -71,6 +75,11 @@ a program stream with the audio track as DVD LPCM; so do the MPEG-4
         -F gop_n=15:gop_m=3:rc=1:bitrate=6000 -o out.mpg
     python -m tcforge_tpu_torch.cli -i dvd.vob -y mpeg2,raw,raw \\
         -F gop_n=12:gop_m=1:qscale=5 -o out.m2v
+    python -m tcforge_tpu_torch.cli -i in1080i422.y4m -V yuv422p -I 5 \\
+        -Z 720x576 -J denoise3d -y mpeg2,raw,raw \\
+        -F gop_n=12:gop_m=3:rc=1:bitrate=15000 -R 1,pass.log -o out.m2v
+    python -m tcforge_tpu_torch.cli -i out.m2v -x mpeg -V yuv422p \\
+        -J denoise3d -o out422.y4m
     python -m tcforge_tpu_torch.cli -i divx.avi -x avi \\
         -J hqdn3d=luma=4.0 -y raw,raw,avi -o out.avi
     python -m tcforge_tpu_torch.cli -i dvd.vob -x mpeg -Z 640x480 \\
@@ -147,6 +156,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-F", "--export_param", dest="ex_v_fcc", default="",
                    help="video encoder option string (module-specific, "
                         "e.g. gop_n=12:gop_m=3)")
+    p.add_argument("-N", dest="export_codec", default="",
+                   help="export codecs vformat[,aformat] (selects "
+                        "encoder modules by format name)")
     p.add_argument("-w", dest="bitrate",
                    help="video bitrate kbps[,keyframes] (enables rate "
                         "control)")
@@ -160,6 +172,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(bottom-first), p (progressive), u (unknown)")
     p.add_argument("--pulldown", action="store_true",
                    help="set MPEG 3:2 pulldown flags on export")
+    p.add_argument("-R", dest="multipass",
+                   help="multipass mode n[,logfile] (1=analyze 2=encode)")
     p.add_argument("--avi_comments", dest="avi_comments",
                    help="file of 'TAG text' lines -> AVI LIST INFO")
     p.add_argument("-T", dest="dvd_title", default="",
@@ -296,6 +310,16 @@ def args_to_job(args: argparse.Namespace) -> Job:
             raise ValueError("--encode_fields takes t, b, p or u")
         job.encode_fields = codes[args.encode_fields]
     job.pulldown = args.pulldown
+    job.ex_codec_names = args.export_codec
+    if args.multipass:
+        parts = args.multipass.split(",")
+        job.divxmultipass = int(parts[0])
+        if len(parts) > 1 and parts[1]:
+            job.divxlogfile = parts[1]
+        elif job.divxmultipass:
+            job.divxlogfile = "divx4.log"
+    if job.ex_codec_names and args.ex_modules == "raw,raw,auto":
+        _select_encoders(job)
     if args.export_fps:
         job.ex_fps = args.export_fps
     if args.pre_clip:
@@ -366,6 +390,22 @@ def args_to_job(args: argparse.Namespace) -> Job:
         if len(parts) > 2 and parts[2]:
             job.dvd_angle = int(parts[2])
     return job
+
+
+def _select_encoders(job: Job) -> None:
+    """-N vformat[,aformat] with -y left at its default: the encoders by
+    format name (tcforge_tpu/cli.py:625-641)."""
+    from tcforge_tpu_torch.modules.registry import encoder_for_format
+    names = job.ex_codec_names.split(",")
+    vmod = encoder_for_format(names[0])
+    if vmod is None:
+        raise ValueError(f"-N: no encoder for format {names[0]!r}")
+    job.ex_v_module = vmod
+    if len(names) > 1 and names[1]:
+        amod = encoder_for_format(names[1])
+        if amod is None and names[1].lower() != "pcm":
+            raise ValueError(f"-N: no encoder for format {names[1]!r}")
+        job.ex_a_module = amod or "raw"
 
 
 def _parse(argv: Optional[List[str]]) -> argparse.Namespace:

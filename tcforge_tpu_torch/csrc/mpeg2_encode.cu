@@ -30,8 +30,11 @@
 // thread per predicted sample, the three planes in one launch; the
 // half-pel average of the 1, 2 or 4 neighbours, each coordinate
 // clamped into the plane on its own; chroma vectors are the luma vectors
-// halved toward 0; in a B picture the macroblock's mode picks the
-// forward, the backward or their average (f + b + 1) >> 1.
+// halved toward 0 over 8x8 tiles, or at 4:2:2 (chroma planes of the
+// luma's height, tcforge_tpu/io/mpeg2enc.py:530-542) the horizontal
+// component alone over 8-wide, 16-tall tiles; in a B picture the
+// macroblock's mode picks the forward, the backward or their average
+// (f + b + 1) >> 1.
 // tc_mpeg2_enc_bmode (tc_bisad :1638 of two predictions): one block per
 // macroblock, the bi-average SAD, then the first minimum of (fsad, bsad,
 // bisad - 256).  Bound by bytes.
@@ -49,11 +52,13 @@
 // block whose levels are all zero reconstructs to its prediction), and
 // the levels in scan order at lv_index's macroblock-interleaved slots.
 // A P picture's intra macroblocks (a mask) are coded intra in the same
-// launch, as tc_enc_intra_sel recodes them.  Intra pictures may be 4:2:2
-// (chroma planes of the luma's height): eight blocks a macroblock, each
-// chroma plane's two stacked blocks at slots 4 + 2 * row + plane, as the
-// intra-only encoder writes them.  Bound by float64 operations
-// (2 x 1024 fused multiply-adds a block).
+// launch, as tc_enc_intra_sel recodes them.  Pictures may be 4:2:2
+// (chroma planes of the luma's height), intra or inter: eight blocks a
+// macroblock, each chroma plane's two stacked blocks at slots
+// 4 + 2 * row + plane (Cb4 Cr5 Cb6 Cr7, tcforge_tpu/io/mpeg2enc.py:653-667
+// lv_index -3, 14, 15), and a P picture's intra macroblock covers both
+// of a chroma plane's blocks.  Bound by float64 operations (2 x 1024
+// fused multiply-adds a block).
 //
 // Every entry point reads its arguments from an array of 64-bit values
 // on the host (pointers, strides, sizes) and returns cudaGetLastError()
@@ -310,11 +315,22 @@ struct PredPlane {
 struct PredArgs {
   PredPlane pl[3];
   int nplanes, mbw;
+  int c422;            // chroma planes of the luma's height
   const int* fmv;      // (mbh, mbw, 2) luma half-pel vectors
   const int* bmv;
   const int* mode;     // (mbh, mbw) or null: forward only
   long long start[4];  // first sample of each plane in the launch
 };
+
+// plane k's vector (vy, vx) from a luma one: chroma halves both
+// components toward 0 (C division by the constant 2) at 4:2:0, the
+// horizontal one alone at 4:2:2
+__device__ __forceinline__ void chroma_vec(int k, int c422, int& vy,
+                                           int& vx) {
+  if (k == 0) return;
+  vx /= 2;
+  if (!c422) vy /= 2;
+}
 
 __global__ void __launch_bounds__(kThreads) pred_kernel(PredArgs a) {
   const long long e = static_cast<long long>(blockIdx.x) * kThreads
@@ -325,21 +341,23 @@ __global__ void __launch_bounds__(kThreads) pred_kernel(PredArgs a) {
   const PredPlane& P = a.pl[k];
   const long long off = e - a.start[k];
   const int y = static_cast<int>(off / P.w), x = static_cast<int>(off % P.w);
-  const int mb = k == 0 ? 16 : 8;
-  const int i = (y / mb) * a.mbw + x / mb;
+  // the macroblock: 16x16 luma tiles, 8x8 chroma (8 wide, 16 tall at
+  // 4:2:2); y and x are not negative, so shifts divide
+  const int ty = k == 0 || a.c422 ? 4 : 3, tx = k == 0 ? 4 : 3;
+  const int i = (y >> ty) * a.mbw + (x >> tx);
   int fy = a.fmv[i * 2], fx = a.fmv[i * 2 + 1];
-  if (k) { fy /= 2; fx /= 2; }        // C division: toward 0
+  chroma_vec(k, a.c422, fy, fx);
   const int m = a.mode ? a.mode[i] : 0;
   int p;
   if (m == 1) {
     int by_ = a.bmv[i * 2], bx_ = a.bmv[i * 2 + 1];
-    if (k) { by_ /= 2; bx_ /= 2; }
+    chroma_vec(k, a.c422, by_, bx_);
     p = half_pel(P.b, P.bs, P.h, P.w, y, x, by_, bx_);
   } else {
     p = half_pel(P.f, P.fs, P.h, P.w, y, x, fy, fx);
     if (m == 2) {
       int by_ = a.bmv[i * 2], bx_ = a.bmv[i * 2 + 1];
-      if (k) { by_ /= 2; bx_ /= 2; }
+      chroma_vec(k, a.c422, by_, bx_);
       p = (p + half_pel(P.b, P.bs, P.h, P.w, y, x, by_, bx_) + 1) >> 1;
     }
   }
@@ -431,7 +449,9 @@ __global__ void __launch_bounds__(kThreads) blocks_kernel(BlockArgs a) {
   const int y = by * 8 + i, x = bx * 8 + j;
   bool intra = MODE == kIntra;
   if (MODE == kInter && a.intra_mb != nullptr && live) {
-    const int mi = k == 0 ? (by >> 1) * a.mbw + (bx >> 1) : by * a.mbw + bx;
+    const int mi = k == 0     ? (by >> 1) * a.mbw + (bx >> 1)
+                   : a.nb == 8 ? (by >> 1) * a.mbw + bx
+                               : by * a.mbw + bx;
     intra = a.intra_mb[mi];
   }
   int pred = 0;
@@ -585,6 +605,7 @@ TC_API int tc_mpeg2_enc_pred(const long long* m, cudaStream_t stream) {
     a.start[k + 1] = a.start[k]
                      + (k < a.nplanes ? q[5] * q[6] : 0);
   }
+  a.c422 = a.nplanes == 3 && a.pl[1].h == a.pl[0].h;
   pred_kernel<<<tc_blocks(a.start[3], kThreads), kThreads, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -635,7 +656,6 @@ TC_API int tc_mpeg2_enc_blocks(const long long* m, const double* basis,
     a.start[k + 1] = a.start[k] + (q[5] / 8) * (q[6] / 8);
   }
   a.nb = a.pl[1].h == a.pl[0].h ? 8 : 6;
-  if (a.nb == 8 && a.mode != kIntra) return 1;
   for (int i = 0; i < 64; ++i) {
     a.basis[i] = basis[i];
     a.scan[i] = ints[i];

@@ -1,4 +1,4 @@
-// MPEG-1/2 4:2:0 picture reconstruction for Hopper (sm_90a).
+// MPEG-1/2 picture reconstruction for Hopper (sm_90a), 4:2:0 and 4:2:2.
 //
 // Not TPU kernels: the JAX package leaves this to XLA
 // (tcforge_tpu/io/mpeg2codec.py).  Done in plain torch it would be some
@@ -16,16 +16,21 @@
 //     skipped: fmaf(0, K, acc) is acc.  Every operation of the chain is
 //     an explicit __fmaf_rn, which nvcc's --fmad never rewrites;
 //   - in a frame picture, the field-DCT row deinterleave of a luma
-//     macroblock (coded row r/2 for even r, 8 + r/2 for odd r);
+//     macroblock (coded row r/2 for even r, 8 + r/2 for odd r), and at
+//     4:2:2 of a chroma macroblock too;
 //   - the prediction: frame or field half-pel gathers from the forward
 //     and/or backward reference, (p + 1) >> 1 when both, or dual prime,
 //     each sample coordinate clipped on its own (field prediction clips
-//     the field line); chroma vectors are sign(mv) * (|mv| / 2), dual
+//     the field line); chroma vectors are sign(mv) * (|mv| / 2), at
+//     4:2:2 the horizontal component alone (13818-2 7.6.3.7), dual
 //     prime's derived on the luma vector, then halved;
 //   - intra: the IDCT alone; else prediction + IDCT; clipped to uint8.
 //   A field picture predicts from reference fields of any height (the
 //   anchor frame's lines of one parity, or the frame's first field),
-//   each clipped to its own size.
+//   each clipped to its own size.  A chroma macroblock is 8x8 at 4:2:0
+//   (mpeg2codec.py:1564) and 8 wide by 16 tall at 4:2:2, whose
+//   chroma planes have the luma's rows (in a field picture the field's:
+//   :2164 mby = 16 if chroma == 2).
 //
 // tc_mpeg2_idct_intra (the JAX package's CPU IDCT of intra runs,
 // native/tcforge_host.cpp:496-524 tc_idct_block_avx512): the float64
@@ -33,7 +38,10 @@
 // column pass o[i][j] = fma(B[k][i], t[k][j], o) for k = 0..7 from 0,
 // rint (half to even), clipped.  One thread per column of a block: it
 // computes that column of t for all eight rows, then the eight pixels
-// of that column.
+// of that column.  A 4:2:2 intra frame picture (reconstruct_intra_422,
+// mpeg2codec.py:947-981) passes its field-DCT flags: the rows of those
+// 16-row macroblocks (16 pixels wide for luma, 8 for chroma) are stored
+// deinterleaved, coded row r to 2r for r < 8 and 2(r - 8) + 1 after.
 //
 // The basis B arrives from the host as 64 doubles in the launch's
 // parameters (the same table as the JAX package's, pinned by a test).
@@ -59,6 +67,7 @@ struct ReconArgs {
   int mb_w, mb_rows;
   int has_fwd, has_bwd, tff;
   int field, parity;           // a field picture, and its parity
+  int chroma;                  // 1: 4:2:0, 2: 4:2:2
   double basis[64];
 };
 
@@ -77,6 +86,13 @@ __device__ __forceinline__ int chroma_mv(int v) {
 }
 
 __device__ __forceinline__ int div2(int v) { return (v + (v > 0)) >> 1; }
+
+// a luma vector's chroma form: both components halved at 4:2:0, the
+// horizontal one alone at 4:2:2
+__device__ __forceinline__ void chroma_vec(int chroma, int& vx, int& vy) {
+  vx = chroma_mv(vx);
+  if (chroma == 1) vy = chroma_mv(vy);
+}
 
 // the half-pel combination of the four samples
 __device__ __forceinline__ int halfpel(int a, int b, int c, int d, int hx,
@@ -135,20 +151,20 @@ recon_kernel(const ReconArgs a, long long luma_px, long long chroma_px) {
       pi = 2;
     }
   }
-  const int mb = pi ? 8 : 16;
-  const int w = a.mb_w * mb;
+  const int mbx = pi ? 8 : 16, mby = pi ? 8 * a.chroma : 16;
+  const int w = a.mb_w * mbx;
   const int y = static_cast<int>(t / w), x = static_cast<int>(t % w);
-  const int* info = a.mbinfo + ((y / mb) * a.mb_w + x / mb) * 12;
+  const int* info = a.mbinfo + ((y / mby) * a.mb_w + x / mbx) * 12;
   const int flags = info[0];
 
-  // the IDCT value of this pixel (a frame picture's field-DCT luma
-  // macroblock reads its coded rows deinterleaved)
+  // the IDCT value of this pixel (a frame picture's field-DCT macroblock
+  // reads its coded rows deinterleaved: luma, and 4:2:2 chroma)
   int sy = y;
-  if (pi == 0 && !a.field && (flags & kFieldDct)) {
+  if (mby == 16 && !a.field && (flags & kFieldDct)) {
     const int r = y & 15;
     sy = (y & ~15) + ((r & 1) ? 8 + (r >> 1) : (r >> 1));
   }
-  const int bw = a.mb_w * mb / 8;
+  const int bw = a.mb_w * mbx / 8;
   const int* c = a.coef[pi] + (static_cast<long long>(sy >> 3) * bw +
                                (x >> 3)) * 64;
   const int n = (sy & 7) * 8 + (x & 7);
@@ -174,21 +190,15 @@ recon_kernel(const ReconArgs a, long long luma_px, long long chroma_px) {
       const int shift = 2 * dir;
       int p;
       if (a.field) {
-        const bool lower = (flags & kMv16x8) && (y % mb) >= mb / 2;
+        const bool lower = (flags & kMv16x8) && (y % mby) >= mby / 2;
         int vx = lower ? mv[2] : mv[0], vy = lower ? mv[3] : mv[1];
-        if (pi) {
-          vx = chroma_mv(vx);
-          vy = chroma_mv(vy);
-        }
+        if (pi) chroma_vec(a.chroma, vx, vy);
         const int sel = (fieldsel >> (shift + (lower ? 1 : 0))) & 1;
         p = frame_pred(a.ref[dir * 6 + sel * 3 + pi], y, x, vx, vy);
       } else {
         const bool odd = (flags & kFieldMv) && (y & 1);
         int vx = odd ? mv[2] : mv[0], vy = odd ? mv[3] : mv[1];
-        if (pi) {
-          vx = chroma_mv(vx);
-          vy = chroma_mv(vy);
-        }
+        if (pi) chroma_vec(a.chroma, vx, vy);
         const RefPlane& r = a.ref[dir * 6 + pi];
         if (flags & kFieldMv) {
           const int fs = (fieldsel >> shift) & 3;
@@ -207,10 +217,7 @@ recon_kernel(const ReconArgs a, long long luma_px, long long chroma_px) {
       if (a.field) {
         // the opposite-parity field, one field period away
         int vx = div2(mx) + dx, vy = div2(my) + dy + (a.parity ? 1 : -1);
-        if (pi) {
-          vx = chroma_mv(vx);
-          vy = chroma_mv(vy);
-        }
+        if (pi) chroma_vec(a.chroma, vx, vy);
         const int opp = frame_pred(a.ref[(1 - a.parity) * 3 + pi], y, x, vx,
                                    vy);
         pred = (pred + opp + 1) >> 1;
@@ -223,10 +230,8 @@ recon_kernel(const ReconArgs a, long long luma_px, long long chroma_px) {
         int oy = div2(my * m) + dy + (parity == 0 ? -1 : 1);
         int sx = mx, sy2 = my;
         if (pi) {
-          ox = chroma_mv(ox);
-          oy = chroma_mv(oy);
-          sx = chroma_mv(sx);
-          sy2 = chroma_mv(sy2);
+          chroma_vec(a.chroma, ox, oy);
+          chroma_vec(a.chroma, sx, sy2);
         }
         const RefPlane& r = a.ref[pi];
         const int same = field_pred(r, y, x, sx, sy2, parity);
@@ -245,7 +250,9 @@ struct IdctBasis {
 
 __global__ void __launch_bounds__(kThreads)
 idct_intra_kernel(const int* __restrict__ coef, uint8_t* __restrict__ out,
-                  long long columns, int bh, int bw, const IdctBasis basis) {
+                  long long columns, int bh, int bw,
+                  const bool* __restrict__ field_dct, int mb_w,
+                  const IdctBasis basis) {
   const long long t = blockIdx.x * static_cast<long long>(blockDim.x) +
                       threadIdx.x;
   if (t >= columns) return;
@@ -267,7 +274,15 @@ idct_intra_kernel(const int* __restrict__ coef, uint8_t* __restrict__ out,
     col[i] = acc;
   }
   const long long row_stride = static_cast<long long>(bw) * 8;
-  uint8_t* o = out + (n * bh * 8 + static_cast<long long>(by) * 8) *
+  // a field-DCT macroblock's block row (by & 1) holds one field: its row
+  // i lands on 2i + (by & 1) of the macroblock's 16
+  int row0 = by * 8, step = 1;
+  if (field_dct != nullptr &&
+      field_dct[(n * (bh / 2) + (by >> 1)) * mb_w + bx * mb_w / bw]) {
+    row0 = (by & ~1) * 8 + (by & 1);
+    step = 2;
+  }
+  uint8_t* o = out + (n * bh * 8 + static_cast<long long>(row0)) *
                          row_stride + bx * 8 + j;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -275,7 +290,7 @@ idct_intra_kernel(const int* __restrict__ coef, uint8_t* __restrict__ out,
 #pragma unroll
     for (int k = 0; k < 8; ++k) acc = __fma_rn(B[k * 8 + i], col[k], acc);
     const double v = fmin(fmax(rint(acc), 0.0), 255.0);
-    o[i * row_stride] = static_cast<uint8_t>(v);
+    o[i * step * row_stride] = static_cast<uint8_t>(v);
   }
 }
 
@@ -285,7 +300,8 @@ idct_intra_kernel(const int* __restrict__ coef, uint8_t* __restrict__ out,
 // [6] mbinfo pointer, [7] mb_w, [8] macroblock rows, [9] has_fwd,
 // [10] has_bwd, [11] top_field_first, [12] field picture, [13] its
 // parity, then 12 reference planes of (pointer, h, w, row stride):
-// [direction][field (frame pictures: 0)][plane].  basis: 64 doubles.
+// [direction][field (frame pictures: 0)][plane], then [62] chroma (1:
+// 4:2:0, 2: 4:2:2).  basis: 64 doubles.
 TC_API int tc_mpeg2_recon(const long long* meta, const double* basis,
                           cudaStream_t stream) {
   ReconArgs a;
@@ -308,21 +324,27 @@ TC_API int tc_mpeg2_recon(const long long* meta, const double* basis,
     a.ref[r].w = static_cast<int>(m[2]);
     a.ref[r].stride = m[3];
   }
+  a.chroma = static_cast<int>(meta[14 + 4 * kRefs]);
+  if (a.chroma != 1 && a.chroma != 2) return 1;
   for (int i = 0; i < 64; ++i) a.basis[i] = basis[i];
   const long long luma = static_cast<long long>(a.mb_rows) * a.mb_w * 256;
-  const long long chroma = luma / 4;
+  const long long chroma = luma / 4 * a.chroma;
   recon_kernel<<<tc_blocks(luma + 2 * chroma, kThreads), kThreads, 0,
                  stream>>>(a, luma, chroma);
   return static_cast<int>(cudaGetLastError());
 }
 
+// field_dct: null, or bool (n, bh / 2, mb_w) field-DCT flags of 16-row
+// macroblocks bw * 8 / mb_w pixels wide
 TC_API int tc_mpeg2_idct_intra(const int* coef, uint8_t* out, long long n,
-                               int bh, int bw, const double* basis,
+                               int bh, int bw, const bool* field_dct,
+                               int mb_w, const double* basis,
                                cudaStream_t stream) {
+  if (field_dct != nullptr && (bh % 2 || mb_w < 1 || bw % mb_w)) return 1;
   IdctBasis b;
   for (int i = 0; i < 64; ++i) b.b[i] = basis[i];
   const long long columns = n * bh * bw * 8;
   idct_intra_kernel<<<tc_blocks(columns, kThreads), kThreads, 0, stream>>>(
-      coef, out, columns, bh, bw, b);
+      coef, out, columns, bh, bw, field_dct, mb_w, b);
   return static_cast<int>(cudaGetLastError());
 }

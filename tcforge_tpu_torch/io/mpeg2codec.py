@@ -1,4 +1,4 @@
-"""MPEG-1/2 4:2:0 picture reconstruction in torch.
+"""MPEG-1/2 picture reconstruction in torch, 4:2:0 and 4:2:2.
 
 The port of the JAX package's ``io/mpeg2codec.py`` device half
 (``:1193-1880``, ``:2033-2249``) as its CPU path takes it: the host
@@ -21,6 +21,13 @@ planes from them.
 - Field pictures: ``decode_field_step`` and ``reconstruct_field_picture``
   predict from reference fields (views of the anchor frames, or the
   frame's first field), and ``weave_to_frame`` pairs two fields.
+- 4:2:2 (``chroma=2``, the 422P profile): chroma macroblocks are 8 wide
+  and 16 tall, chroma vectors halve the horizontal component alone
+  (13818-2 7.6.3.7, ``chroma_mv_422``) and a frame picture's field DCT
+  covers chroma too.  Intra frame pictures take the float64 IDCT one by
+  one with the field-DCT deinterleave folded in
+  (``reconstruct_intra_422``); ``chroma_422_to_420`` decimates a
+  decoded picture's chroma for the 4:2:0 chain.
 
 The plain torch functions below (``recon_picture_math``,
 ``recon_field_math``, ``idct_intra_f64``) are the kernels' plain
@@ -147,6 +154,12 @@ def _rep(a: torch.Tensor, mby: int, mbx: int, h: int, w: int):
     return a.repeat_interleave(mby, 0).repeat_interleave(mbx, 1)[:h, :w]
 
 
+def mb_tile(mb) -> Tuple[int, int]:
+    """A macroblock's (rows, columns) on a plane: ``mb`` square or a
+    (rows, columns) pair (4:2:2 chroma: (16, 8))."""
+    return (mb, mb) if isinstance(mb, int) else tuple(mb)
+
+
 def _halfpel(r: torch.Tensor, y0, y1, x0, x1, hx, hy) -> torch.Tensor:
     a = r[y0, x0]
     b = r[y0, x1]
@@ -185,14 +198,15 @@ def _grid(h: int, w: int, device):
     return yy, xx
 
 
-def mc_plane(ref, mv1, mv2, field_mv, fieldsel, mb: int) -> torch.Tensor:
+def mc_plane(ref, mv1, mv2, field_mv, fieldsel, mb) -> torch.Tensor:
     """Frame-picture MC of one plane: frame or field half-pel
     prediction per macroblock (``_mc_plane_jax``)."""
     h, w = ref.shape
     yy, xx = _grid(h, w, ref.device)
+    mby, mbx = mb_tile(mb)
 
     def rep(a):
-        return _rep(a, mb, mb, h, w)
+        return _rep(a, mby, mbx, h, w)
 
     fmv = rep(field_mv)
     parity = yy & 1
@@ -214,6 +228,21 @@ def mc_plane(ref, mv1, mv2, field_mv, fieldsel, mb: int) -> torch.Tensor:
 def chroma_mv(mv: torch.Tensor) -> torch.Tensor:
     """4:2:0 chroma vectors: ``sign(mv) * (|mv| // 2)``."""
     return torch.sign(mv) * (mv.abs() // 2)
+
+
+def chroma_mv_422(mv: torch.Tensor) -> torch.Tensor:
+    """4:2:2 chroma vectors (``_chroma_mv_422_jax``): the horizontal
+    component (index 0 of a decoder record's vector) halved toward 0, the
+    vertical kept: 4:2:2 chroma has the luma's rows."""
+    return torch.stack([chroma_mv(mv[..., 0]), mv[..., 1]], -1)
+
+
+def _chroma_form(chroma: int):
+    """(chroma vector map, chroma macroblock tile) of 4:2:0 (1) or 4:2:2
+    (2)."""
+    if chroma not in (1, 2):
+        raise ValueError(f"chroma {chroma}: 1 (4:2:0) or 2 (4:2:2)")
+    return (chroma_mv, 8) if chroma == 1 else (chroma_mv_422, (16, 8))
 
 
 def deinterleave_field_dct(plane: torch.Tensor, field_dct: torch.Tensor,
@@ -245,15 +274,16 @@ def dual_prime_vectors(mv, dmv, top_field_first: bool):
     return torch.stack([tx, ty], -1), torch.stack([bx, by], -1)
 
 
-def dual_prime_plane(ref, mv, vec_t, vec_b, mb: int) -> torch.Tensor:
+def dual_prime_plane(ref, mv, vec_t, vec_b, mb) -> torch.Tensor:
     """The same-parity and the derived opposite-parity field
     predictions, averaged (``_dual_prime_plane_jax``)."""
     h, w = ref.shape
     yy, xx = _grid(h, w, ref.device)
     parity = yy & 1
+    mby, mbx = mb_tile(mb)
 
     def rep(a):
-        return _rep(a, mb, mb, h, w)
+        return _rep(a, mby, mbx, h, w)
 
     def fpred(vx, vy, sel):
         return field_pred(ref, xx + (vx >> 1), (yy >> 1) + (vy >> 1),
@@ -274,9 +304,13 @@ def _mb_fields(mbinfo: torch.Tensor, rows: int, mb_w: int):
 
 
 def recon_picture_math(ycoef, ucoef, vcoef, mbinfo, fwd: Optional[Planes],
-                       bwd: Optional[Planes], tff: bool) -> Planes:
+                       bwd: Optional[Planes], tff: bool,
+                       chroma: int = 1) -> Planes:
     """One frame picture, plain torch (``_recon_picture_math`` with the
-    gather MC): the coded-grid uint8 planes."""
+    gather MC): the coded-grid uint8 planes.  ``chroma`` 2: 4:2:2 grids
+    (chroma (mb_h*2, mb_w, 64)), whose field-DCT macroblocks deinterleave
+    their chroma rows too."""
+    c_mv, c_mb = _chroma_form(chroma)
     mb_h, mb_w = ycoef.shape[0] // 2, ycoef.shape[1] // 2
     flags, fieldsel, fmv1, fmv2, bmv1, bmv2 = _mb_fields(mbinfo, mb_h, mb_w)
     intra = (flags & MBF_INTRA) != 0
@@ -286,14 +320,18 @@ def recon_picture_math(ycoef, ucoef, vcoef, mbinfo, fwd: Optional[Planes],
     field_mv = (flags & MBF_FIELD_MV) != 0
     field_dct = (flags & MBF_FIELD_DCT) != 0
     sp_y = deinterleave_field_dct(idct_spatial(ycoef), field_dct)
-    sps = (sp_y, idct_spatial(ucoef), idct_spatial(vcoef))
+    sp_u, sp_v = idct_spatial(ucoef), idct_spatial(vcoef)
+    if chroma == 2:
+        sp_u = deinterleave_field_dct(sp_u, field_dct, 8)
+        sp_v = deinterleave_field_dct(sp_v, field_dct, 8)
     out = []
-    for pi, sp in enumerate(sps):
+    for pi, sp in enumerate((sp_y, sp_u, sp_v)):
         h, w = sp.shape
-        mb = 16 if pi == 0 else 8
+        mb = 16 if pi == 0 else c_mb
+        mby, mbx = mb_tile(mb)
 
         def rep(a):
-            return _rep(a, mb, mb, h, w)
+            return _rep(a, mby, mbx, h, w)
 
         pred = torch.zeros((h, w), dtype=torch.int32, device=sp.device)
         nref = torch.zeros((h, w), dtype=torch.int32, device=sp.device)
@@ -301,8 +339,8 @@ def recon_picture_math(ycoef, ucoef, vcoef, mbinfo, fwd: Optional[Planes],
                                            (bwd, has_b, bmv1, bmv2, 2)):
             if refs is None:
                 continue
-            m1 = mv1 if pi == 0 else chroma_mv(mv1)
-            m2 = mv2 if pi == 0 else chroma_mv(mv2)
+            m1 = mv1 if pi == 0 else c_mv(mv1)
+            m2 = mv2 if pi == 0 else c_mv(mv2)
             p = mc_plane(refs[pi], m1, m2, field_mv, (fieldsel >> shift) & 3,
                          mb)
             mask = rep(has)
@@ -313,8 +351,8 @@ def recon_picture_math(ycoef, ucoef, vcoef, mbinfo, fwd: Optional[Planes],
             # derive on the luma vector, then halve for chroma
             vt, vb = dual_prime_vectors(fmv1, fmv2, tff)
             if pi:
-                vt, vb = chroma_mv(vt), chroma_mv(vb)
-            dmv1 = fmv1 if pi == 0 else chroma_mv(fmv1)
+                vt, vb = c_mv(vt), c_mv(vb)
+            dmv1 = fmv1 if pi == 0 else c_mv(fmv1)
             dp = dual_prime_plane(fwd[pi], dmv1, vt, vb, mb)
             pred = torch.where(rep(dual), dp, pred)
         recon = torch.where(rep(intra), sp, pred + sp)
@@ -341,9 +379,13 @@ FieldRefs = Tuple[Planes, Planes]     # (top field planes, bottom field planes)
 
 
 def recon_field_math(ycoef, ucoef, vcoef, mbinfo, fwd: Optional[FieldRefs],
-                     bwd: Optional[FieldRefs], cur_parity: int) -> Planes:
+                     bwd: Optional[FieldRefs], cur_parity: int,
+                     chroma: int = 1) -> Planes:
     """One field picture, plain torch (``_recon_field_core``): the
-    coefficient grids and records hold the field's macroblock rows."""
+    coefficient grids and records hold the field's macroblock rows.  At
+    4:2:2 (``chroma`` 2) a chroma field has as many lines as the luma
+    field and its macroblocks are 16 lines tall."""
+    c_mv, _c_mb = _chroma_form(chroma)
     mb_rows, mb_w = ycoef.shape[0] // 2, ycoef.shape[1] // 2
     flags, fieldsel, fmv1, fmv2, bmv1, bmv2 = _mb_fields(mbinfo, mb_rows,
                                                          mb_w)
@@ -356,21 +398,22 @@ def recon_field_math(ycoef, ucoef, vcoef, mbinfo, fwd: Optional[FieldRefs],
     out = []
     for pi, sp in enumerate(sps):
         h, w = sp.shape
-        mb = 16 if pi == 0 else 8
+        mby = 16 if (pi == 0 or chroma == 2) else 8
+        mbx = 16 if pi == 0 else 8
         yy = torch.arange(h, dtype=torch.int32, device=sp.device)[:, None]
 
         def rep(a):
-            return _rep(a, mb, mb, h, w)
+            return _rep(a, mby, mbx, h, w)
 
-        lower = rep(is168) & ((yy % mb) >= mb // 2)
+        lower = rep(is168) & ((yy % mby) >= mby // 2)
         pred = torch.zeros((h, w), dtype=torch.int32, device=sp.device)
         nref = torch.zeros((h, w), dtype=torch.int32, device=sp.device)
         for refs, has, mv1, mv2, shift in ((fwd, has_f, fmv1, fmv2, 0),
                                            (bwd, has_b, bmv1, bmv2, 2)):
             if refs is None:
                 continue
-            m1 = mv1 if pi == 0 else chroma_mv(mv1)
-            m2 = mv2 if pi == 0 else chroma_mv(mv2)
+            m1 = mv1 if pi == 0 else c_mv(mv1)
+            m2 = mv2 if pi == 0 else c_mv(mv2)
             vx = torch.where(lower, rep(m2[..., 0]), rep(m1[..., 0]))
             vy = torch.where(lower, rep(m2[..., 1]), rep(m1[..., 1]))
             sel = torch.where(lower, rep((fieldsel >> (shift + 1)) & 1),
@@ -388,13 +431,24 @@ def recon_field_math(ycoef, ucoef, vcoef, mbinfo, fwd: Optional[FieldRefs],
             dv = torch.stack([_div2(fmv1[..., 0]) + fmv2[..., 0],
                               _div2(fmv1[..., 1]) + fmv2[..., 1] + e], -1)
             if pi:
-                dv = chroma_mv(dv)
+                dv = c_mv(dv)
             opp = field_halfpel(fwd[1 - cur_parity][pi], rep(dv[..., 0]),
                                 rep(dv[..., 1]))
             pred = torch.where(rep(dual), (pred + opp + 1) >> 1, pred)
         recon = torch.where(rep(intra), sp, pred + sp)
         out.append(recon.clamp(0, 255).to(torch.uint8))
     return tuple(out)
+
+
+def chroma_422_to_420(plane: torch.Tensor) -> torch.Tensor:
+    """A 4:2:2 chroma plane's rows averaged in pairs, ``(a + b + 1) >> 1``,
+    the last row repeated at an odd height (``chroma_422_to_420``); a
+    batch (..., h, w) too."""
+    a = plane[..., 0::2, :].to(torch.int16)
+    b = plane[..., 1::2, :]
+    if plane.shape[-2] % 2:
+        b = torch.cat([b, plane[..., -1:, :]], dim=-2)
+    return ((a + b.to(torch.int16) + 1) >> 1).to(torch.uint8)
 
 
 # ------------------------------------------------------------------ #
@@ -408,28 +462,32 @@ def _kernels():
 def reconstruct_picture(ycoef, ucoef, vcoef, mbinfo,
                         fwd: Optional[Planes] = None,
                         bwd: Optional[Planes] = None,
-                        top_field_first: bool = True) -> Planes:
+                        top_field_first: bool = True,
+                        chroma: int = 1) -> Planes:
     """One frame picture through ``kernels.mpeg2_recon`` (the JAX
     package's ``reconstruct_picture_jax``): int32 coefficient grids
-    (mb_h*2, mb_w*2, 64) and (mb_h, mb_w, 64), int32 records
+    (mb_h*2, mb_w*2, 64) and (mb_h*chroma, mb_w, 64), int32 records
     (mb_h*mb_w, 12), reference planes or None; the coded-grid planes."""
     return _kernels().mpeg2_recon(ycoef, ucoef, vcoef, mbinfo, fwd, bwd,
-                                  bool(top_field_first))
+                                  bool(top_field_first), chroma=chroma)
 
 
 def reconstruct_field_picture(ycoef, ucoef, vcoef, mbinfo, mb_rows: int,
                               fwd: Optional[FieldRefs] = None,
                               bwd: Optional[FieldRefs] = None,
-                              cur_parity: int = 0) -> Planes:
+                              cur_parity: int = 0,
+                              chroma: int = 1) -> Planes:
     """One field picture through ``kernels.mpeg2_recon`` (the JAX
     package's ``reconstruct_field_picture_jax``): the top ``mb_rows``
     macroblock rows of the frame-sized parse output hold the field;
     ``fwd``/``bwd`` are (top, bottom) reference field planes of any
-    height.  Returns the field's planes (mb_rows*16 rows)."""
+    height.  Returns the field's planes (mb_rows*16 rows, chroma
+    mb_rows*8*chroma)."""
     mb_w = ycoef.shape[1] // 2
     return _kernels().mpeg2_recon(
-        ycoef[:mb_rows * 2], ucoef[:mb_rows], vcoef[:mb_rows],
-        mbinfo[:mb_rows * mb_w], fwd, bwd, True, field_parity=cur_parity)
+        ycoef[:mb_rows * 2], ucoef[:mb_rows * chroma],
+        vcoef[:mb_rows * chroma], mbinfo[:mb_rows * mb_w], fwd, bwd, True,
+        field_parity=cur_parity, chroma=chroma)
 
 
 def reconstruct_intra_batch(ycoefs, ucoefs, vcoefs) -> Planes:
@@ -440,6 +498,18 @@ def reconstruct_intra_batch(ycoefs, ucoefs, vcoefs) -> Planes:
             k.mpeg2_idct_intra(vcoefs))
 
 
+def reconstruct_intra_422(ycoef, ucoef, vcoef, mbinfo) -> Planes:
+    """One 4:2:2 intra frame picture (``reconstruct_intra_422``): the
+    float64 IDCT of each grid through ``kernels.mpeg2_idct_intra`` with
+    the field-DCT row deinterleave of luma and chroma macroblocks folded
+    into its store; (y (H, W), u (H, W/2), v (H, W/2)) uint8."""
+    k = _kernels()
+    mb_h, mb_w = ycoef.shape[0] // 2, ycoef.shape[1] // 2
+    fd = ((mbinfo[:, 0] & MBF_FIELD_DCT) != 0).reshape(1, mb_h, mb_w)
+    return tuple(k.mpeg2_idct_intra(c[None], field_dct=fd)[0]
+                 for c in (ycoef, ucoef, vcoef))
+
+
 def split_fields(frame: Sequence[torch.Tensor]) -> FieldRefs:
     """(y, u, v) frame planes -> (top field views, bottom field views)."""
     return (tuple(p[0::2] for p in frame), tuple(p[1::2] for p in frame))
@@ -447,7 +517,7 @@ def split_fields(frame: Sequence[torch.Tensor]) -> FieldRefs:
 
 def decode_field_step(ptype: int, picture_structure: int, yc, uc, vc,
                       mbinfo, mb_rows: int, pending, ref_fwd_frame,
-                      ref_bwd_frame):
+                      ref_bwd_frame, chroma: int = 1):
     """Reconstruct one field picture inside the decode loop (the JAX
     package's ``decode_field_step``).  ``pending``: (parity, planes,
     ptype) of the frame's first field when this is the second, else
@@ -459,8 +529,8 @@ def decode_field_step(ptype: int, picture_structure: int, yc, uc, vc,
         # an intra field: the float64 IDCT of the coded field grid, as
         # the JAX package's CPU path takes it
         y, u, v = reconstruct_intra_batch(yc[None, :mb_rows * 2],
-                                          uc[None, :mb_rows],
-                                          vc[None, :mb_rows])
+                                          uc[None, :mb_rows * chroma],
+                                          vc[None, :mb_rows * chroma])
         return (y[0], u[0], v[0]), parity
     fwd = bwd = None
     if ptype == 2:
@@ -485,11 +555,13 @@ def decode_field_step(ptype: int, picture_structure: int, yc, uc, vc,
         bwd = split_fields(ref_bwd_frame) if ref_bwd_frame is not None \
             else None
     planes = reconstruct_field_picture(yc, uc, vc, mbinfo, mb_rows, fwd=fwd,
-                                       bwd=bwd, cur_parity=parity)
+                                       bwd=bwd, cur_parity=parity,
+                                       chroma=chroma)
     return planes, parity
 
 
-def weave_to_frame(pending, planes, parity: int, mb_h: int) -> Planes:
+def weave_to_frame(pending, planes, parity: int, mb_h: int,
+                   chroma: int = 1) -> Planes:
     """The frame's first field and its second woven into one frame,
     cropped to the frame-coded grid (later frame pictures reference
     it)."""
@@ -497,7 +569,8 @@ def weave_to_frame(pending, planes, parity: int, mb_h: int) -> Planes:
     top = pl1 if p1 == 0 else planes
     bot = pl1 if p1 == 1 else planes
     out = []
-    for t, b, rows in zip(top, bot, (mb_h * 16, mb_h * 8, mb_h * 8)):
+    for t, b, rows in zip(top, bot, (mb_h * 16, mb_h * 8 * chroma,
+                                     mb_h * 8 * chroma)):
         fr = torch.empty((t.shape[0] * 2, t.shape[1]), dtype=t.dtype,
                          device=t.device)
         fr[0::2] = t

@@ -20,7 +20,9 @@ A picture's device math runs through three kernels (``ops/kernels.py``):
   dy-major then dx order, and a candidate outside the picture scores
   ``1 << 30``;
 - ``mpeg2_enc_pred``: the half-pel prediction of each macroblock, each
-  sample coordinate clamped on its own, chroma vectors halved toward 0;
+  sample coordinate clamped on its own, chroma vectors halved toward 0
+  (at 4:2:2 the horizontal component alone, over 8-wide, 16-tall chroma
+  tiles: ``_chroma_mv_half_422``, ``_chroma_params``);
   in a B picture from the reference(s) its mode uses, and the mode
   itself (``mpeg2_enc_bmode``: the bi-average SAD, then the first minimum
   of ``(fsad, bsad, bisad - 256)``);
@@ -30,7 +32,8 @@ A picture's device math runs through three kernels (``ops/kernels.py``):
   the float64 IDCT and the clipped reconstruction; intra, inter with
   reconstruction (a P picture's intra macroblocks, chosen where ``sad >
   mb_act + 512``, coded intra in the same launch), or inter levels
-  alone (B).
+  alone (B).  At 4:2:2 a macroblock has eight blocks, the chroma ones in
+  the order Cb4 Cr5 Cb6 Cr7 (``_enc_layout``).
 
 The plain torch functions below are the kernels' plain versions; the
 wrappers run them for tensors on the CPU.  ``mb_act``, the mode and cbp
@@ -53,7 +56,7 @@ import numpy as np
 import torch
 
 from tcforge_tpu_torch.io.m2e import m2e_picture
-from tcforge_tpu_torch.io.mpeg2codec import dct_basis, fma64
+from tcforge_tpu_torch.io.mpeg2codec import dct_basis, fma64, mb_tile
 from tcforge_tpu_torch.io.mpeg2host import (DEFAULT_INTRA_MATRIX, ZIGZAG,
                                             Mpeg2Encoder)
 from tcforge_tpu_torch.io.mpeg2rc import (MB_BACKWARD, MB_FORWARD, MB_INTRA,
@@ -83,6 +86,21 @@ def intra_weights() -> np.ndarray:
 def trunc_div2(mv: torch.Tensor) -> torch.Tensor:
     """Chroma vectors of 4:2:0: each component halved toward 0."""
     return torch.div(mv, 2, rounding_mode="trunc")
+
+
+def chroma_mv_half_422(mv: torch.Tensor) -> torch.Tensor:
+    """Chroma vectors of 4:2:2 (``_chroma_mv_half_422``): the horizontal
+    component (index 1 of the encoder's (y, x) vectors) halved toward 0,
+    the vertical kept."""
+    return torch.stack([mv[..., 0], trunc_div2(mv[..., 1])], -1)
+
+
+def chroma_params(y: torch.Tensor, u: torch.Tensor):
+    """(chroma vector map, chroma macroblock tile) from the planes'
+    shapes (``_chroma_params``): full-height chroma is 4:2:2."""
+    if u.shape[0] == y.shape[0]:
+        return chroma_mv_half_422, (16, 8)
+    return trunc_div2, (8, 8)
 
 
 # ------------------------------------------------------------------ #
@@ -256,14 +274,15 @@ def enc_blocks_math(mode: int, cur: Sequence[torch.Tensor],
                     pred: Optional[Sequence[torch.Tensor]], qs: int,
                     alt: bool, m1: bool,
                     intra_mb: Optional[torch.Tensor] = None):
-    """Plain version of ``mpeg2_enc_blocks``: the three 4:2:0 planes of a
-    picture coded block by block.  ``mode`` ENC_INTRA (no prediction),
+    """Plain version of ``mpeg2_enc_blocks``: the three planes of a
+    picture (4:2:0, or 4:2:2 with chroma of the luma's height) coded
+    block by block.  ``mode`` ENC_INTRA (no prediction),
     ENC_INTER (with reconstruction; the blocks of the macroblocks where
     ``intra_mb`` (mbh, mbw) is set are coded intra, as ``tc_enc_intra_sel``
     recodes them) or ENC_LEVELS (inter, no reconstruction).  Returns
     (levels (nmb, 6, 64) int16 in scan order, macroblock-interleaved, or
-    (nmb, 8, 64) for 4:2:2 intra planes; the reconstructed planes, or None
-    for ENC_LEVELS)."""
+    (nmb, 8, 64) for 4:2:2 planes; the reconstructed planes, or None for
+    ENC_LEVELS)."""
     y = cur[0]
     dev = y.device
     h, w = y.shape
@@ -286,9 +305,10 @@ def enc_blocks_math(mode: int, cur: Sequence[torch.Tensor],
             lv, rec = inter_blocks(blk, pblk, qs, m1, scan, basis,
                                    recon=mode == ENC_INTER)
             if intra_mb is not None and bool(intra_mb.any()):
-                f = 2 if k == 0 else 1
-                sel = intra_mb.repeat_interleave(f, 0).repeat_interleave(
-                    f, 1).reshape(-1)
+                fy = 2 if k == 0 or nb == 8 else 1
+                fx = 2 if k == 0 else 1
+                sel = intra_mb.repeat_interleave(fy, 0).repeat_interleave(
+                    fx, 1).reshape(-1)
                 ilv, irec = intra_blocks(blk[sel], qs, m1, scan, weights,
                                          basis)
                 lv[sel] = ilv
@@ -441,15 +461,16 @@ def mb_act(plane: torch.Tensor) -> torch.Tensor:
 # ------------------------------------------------------------------ #
 # Prediction (plain versions of mpeg2_enc_pred and mpeg2_enc_bmode)
 
-def mc_pred(ref: torch.Tensor, mvh: torch.Tensor, mb: int) -> torch.Tensor:
-    """``tc_mc_pred_half``: each mb x mb tile of a plane predicted at its
-    half-pel vector (y, x), every sample coordinate clamped into the
-    plane on its own; (a+b+1)>>1 and (a+b+c+d+2)>>2 at the half
-    positions."""
+def mc_pred(ref: torch.Tensor, mvh: torch.Tensor, mb) -> torch.Tensor:
+    """``tc_mc_pred_half``: each mb x mb tile of a plane (or (rows,
+    columns) tile) predicted at its half-pel vector (y, x), every sample
+    coordinate clamped into the plane on its own; (a+b+1)>>1 and
+    (a+b+c+d+2)>>2 at the half positions."""
     h, w = ref.shape
     dev = ref.device
-    vy = mvh[..., 0].repeat_interleave(mb, 0).repeat_interleave(mb, 1)
-    vx = mvh[..., 1].repeat_interleave(mb, 0).repeat_interleave(mb, 1)
+    mby, mbx = mb_tile(mb)
+    vy = mvh[..., 0].repeat_interleave(mby, 0).repeat_interleave(mbx, 1)
+    vx = mvh[..., 1].repeat_interleave(mby, 0).repeat_interleave(mbx, 1)
     yy = torch.arange(h, device=dev)[:, None] + (vy >> 1)
     xx = torch.arange(w, device=dev)[None, :] + (vx >> 1)
     hy, hx = (vy & 1) == 1, (vx & 1) == 1
@@ -464,10 +485,11 @@ def mc_pred(ref: torch.Tensor, mvh: torch.Tensor, mb: int) -> torch.Tensor:
 
 
 def b_select(fp: torch.Tensor, bp: torch.Tensor, mode: torch.Tensor,
-             mb: int) -> torch.Tensor:
+             mb) -> torch.Tensor:
     """``tc_b_select_pred``: per macroblock the forward (0), backward (1)
     or the average ``(f + b + 1) >> 1`` (2) prediction."""
-    m = mode.repeat_interleave(mb, 0).repeat_interleave(mb, 1)
+    mby, mbx = mb_tile(mb)
+    m = mode.repeat_interleave(mby, 0).repeat_interleave(mbx, 1)
     bi = ((fp.to(torch.int32) + bp.to(torch.int32) + 1) >> 1).to(torch.uint8)
     return torch.where(m == 0, fp, torch.where(m == 1, bp, bi))
 
@@ -496,19 +518,22 @@ def enc_pred_math(fwd: Sequence[torch.Tensor], fmv: torch.Tensor,
                   bmv: Optional[torch.Tensor] = None,
                   mode: Optional[torch.Tensor] = None) -> Tuple:
     """Plain version of ``mpeg2_enc_pred``: the prediction of each of the
-    planes of ``fwd`` (luma first, then 4:2:0 chroma with the halved
-    vectors).  With ``mode`` (mbh, mbw) each macroblock is predicted from
-    the reference(s) its mode uses, as ``tc_b_mc_sel_pred2`` (the same
-    values as ``tc_b_select_pred`` on two whole predictions)."""
+    planes of ``fwd`` (luma first, then chroma at the chroma vectors of
+    ``chroma_params``).  With ``mode`` (mbh, mbw) each macroblock is
+    predicted from the reference(s) its mode uses, as
+    ``tc_b_mc_sel_pred2`` (the same values as ``tc_b_select_pred`` on two
+    whole predictions)."""
+    c_mv, c_mb = (chroma_params(fwd[0], fwd[1]) if len(fwd) > 1
+                  else (None, None))
     out = []
     for k, f in enumerate(fwd):
-        mb = 16 if k == 0 else 8
-        fm = fmv if k == 0 else trunc_div2(fmv)
+        mb = 16 if k == 0 else c_mb
+        fm = fmv if k == 0 else c_mv(fmv)
         fp = mc_pred(f, fm, mb)
         if mode is None:
             out.append(fp)
             continue
-        bm = bmv if k == 0 else trunc_div2(bmv)
+        bm = bmv if k == 0 else c_mv(bmv)
         out.append(b_select(fp, mc_pred(bwd[k], bm, mb), mode, mb))
     return tuple(out)
 
@@ -532,14 +557,17 @@ def _kernels():
 
 
 def _cbp(levels: torch.Tensor) -> torch.Tensor:
+    """The coded block pattern of (nmb, 6 or 8, 64) levels, the first
+    block in the highest bit."""
+    nb = levels.shape[1]
     nz = (levels != 0).any(dim=2).to(torch.int32)
-    weights = (1 << torch.arange(5, -1, -1, device=levels.device)).to(
+    weights = (1 << torch.arange(nb - 1, -1, -1, device=levels.device)).to(
         torch.int32)
     return (nz * weights).sum(dim=1, dtype=torch.int32)
 
 
 def encode_intra_math(y, u, v, qs: int, alt: bool = False, m1: bool = False):
-    """I picture: (levels (nmb, 6, 64) int16, recon y, u, v)."""
+    """I picture: (levels (nmb, 6 or 8, 64) int16, recon y, u, v)."""
     levels, rec = _kernels().mpeg2_enc_blocks(ENC_INTRA, (y, u, v), None,
                                               qs, alt, m1)
     return (levels, *rec)
@@ -686,13 +714,14 @@ class Mpeg2FullEncoder:
     toward ``bitrate_kbps`` (else constant ``qscale``), ``fields`` two
     field pictures a frame (16x16 same-parity field prediction),
     ``pulldown`` the 3:2 flags by display index, ``alt_scan``, ``mpeg1``
-    (11172-2 syntax, a GOP header per I picture) and ``dpict`` (MPEG-1
-    D-pictures alone).  ``push_frame`` takes a display-order frame's
-    uint8 planes, on the device that does the block math, and returns the
-    bytes coded so far; ``flush`` codes the frames still waiting as P
-    pictures and ends the sequence.  4:2:2 is not ported; the pass log
-    of ``-R`` is written (pass 1) and read (pass 2) as in the JAX
-    encoder."""
+    (11172-2 syntax, a GOP header per I picture), ``dpict`` (MPEG-1
+    D-pictures alone) and ``chroma`` 420 or 422 (the 422P profile: chroma
+    planes of the luma's height, eight blocks a macroblock; MPEG-2 only).
+    ``push_frame`` takes a display-order frame's uint8 planes, on the
+    device that does the block math, and returns the bytes coded so far;
+    ``flush`` codes the frames still waiting as P pictures and ends the
+    sequence.  The pass log of ``-R`` is written (pass 1) and read (pass
+    2) as in the JAX encoder."""
 
     def __init__(self, width: int, height: int, fps: float = 25.0,
                  qscale: int = 8, gop_n: int = 12, gop_m: int = 1,
@@ -706,13 +735,12 @@ class Mpeg2FullEncoder:
                  chroma: int = 420):
         if width % 16 or height % 16:
             raise ValueError("mpeg2enc: geometry must be multiple of 16")
-        if chroma == 422:
-            raise NotImplementedError(
-                "mpeg2enc: the 4:2:2 encode (-V yuv422p: 8-block "
-                "macroblocks, horizontal-only chroma vectors) is not "
-                "ported to the torch port yet")
-        if chroma != 420:
+        if chroma not in (420, 422):
             raise ValueError("mpeg2enc: chroma must be 420 or 422")
+        if chroma == 422 and (mpeg1 or dpict):
+            raise ValueError("mpeg2enc: 4:2:2 is MPEG-2-only "
+                             "(no mpeg1/dpict)")
+        self.chroma = chroma
         if mpeg1 and (fields or alt_scan or pulldown):
             raise ValueError("mpeg1: field pictures / alternate scan "
                              "/ pulldown flags are MPEG-2 syntax")
@@ -784,7 +812,8 @@ class Mpeg2FullEncoder:
                 data += self._seq.gop_header(gop_first_disp,
                                              closed=gop_closed)
         flags = (8 if self.alt_scan else 0) | (ps << 4) \
-            | (64 if self.mpeg1 else 0)
+            | (64 if self.mpeg1 else 0) \
+            | (128 if self.chroma == 422 else 0)
         if self.pulldown and not ps:
             tff, rff = ((1, 1), (0, 0), (0, 1), (1, 0))[temporal_ref % 4]
             flags |= tff | (rff << 1)
@@ -902,13 +931,14 @@ class Mpeg2FullEncoder:
                    v: torch.Tensor) -> bytes:
         """Feed one display-order frame; the coded bytes ready so far
         (empty while B frames wait for their anchor)."""
+        ch = self.height if self.chroma == 422 else self.height // 2
         if (tuple(y.shape) != (self.height, self.width)
-                or tuple(u.shape) != (self.height // 2, self.width // 2)
-                or tuple(v.shape) != (self.height // 2, self.width // 2)):
+                or tuple(u.shape) != (ch, self.width // 2)
+                or tuple(v.shape) != (ch, self.width // 2)):
             raise ValueError(
                 f"push_frame: plane shapes {tuple(y.shape)}/"
                 f"{tuple(u.shape)} do not match {self.width}x"
-                f"{self.height} chroma 420")
+                f"{self.height} chroma {self.chroma}")
         idx = self._frame_no
         self._frame_no += 1
         if self.dpict:

@@ -1,6 +1,6 @@
 """The MPEG PS/ES import module (``import_mpeg2``/``import_vob``): the
-port of ``tcforge_tpu/modules/importers/mpeg_import.py`` for 4:2:0
-MPEG-1 and MPEG-2 video and a program stream's audio track.
+port of ``tcforge_tpu/modules/importers/mpeg_import.py`` for MPEG-1 and
+MPEG-2 video, 4:2:0 and 4:2:2, and a program stream's audio track.
 
 The decode is split in two halves, so that the engine can run them on
 two threads:
@@ -32,6 +32,18 @@ the float32 reconstruction, field pictures through ``decode_field_step``
 and pair into frames.  A picture the parse refuses ends the stream with
 a warning.
 
+A 4:2:2 stream (the 422P profile, any size) follows the JAX importer's
+``_read_batch_422`` on the CPU: every intra frame picture alone through
+the float64 IDCT with its field-DCT deinterleave
+(``reconstruct_intra_422``), other frame pictures through the float32
+reconstruction and field pictures through ``decode_field_step``, all
+with ``chroma=2``, and the same display order, end-of-stream flush and
+field pairing.  Under ``-V yuv422p`` the frames stay 4:2:2 (format
+YUV422P); otherwise each frame's chroma is decimated into the 4:2:0
+chain on the device (``chroma_422_to_420``).  The JAX importer reads a
+4:2:2 file whole; this one keeps its windowed reader, with the same
+frames in the same order.
+
 The windowed reader is the default; ``-L`` (``vob_offset``) opens the
 whole elementary stream instead, and ``seek`` cuts it at the last
 sequence header before the frame and decodes and drops the rest.
@@ -46,8 +58,8 @@ decoded at open, under ``-L``).  The AC-3 and MPEG audio decoders are
 pinned copies of the JAX package's in-tree ones, run in a worker
 process (``io/adec_worker.py``) while the reader thread parses on; LPCM
 and VAG decode inline.  Not ported yet, each raising
-``NotImplementedError``: the 4:2:2 profile, TS and CDXA input and PSU
-navigation (``-S``, ``--psu_mode``).
+``NotImplementedError``: TS and CDXA input and PSU navigation (``-S``,
+``--psu_mode``).
 """
 
 from __future__ import annotations
@@ -74,21 +86,6 @@ from tcforge_tpu_torch.modules.registry import (Importer, ModuleInfo,
                                                 ModuleKind, register)
 
 _log = logging.getLogger("tcforge_tpu_torch")
-
-
-def _sniff_422(path: str) -> bool:
-    """True when the first window carries a 4:2:2 sequence extension
-    (chroma_format 2)."""
-    with open(path, "rb") as f:
-        head = f.read(1 << 16)
-    i = 0
-    while True:
-        i = head.find(b"\x00\x00\x01\xb5", i)
-        if i < 0 or i + 6 > len(head):
-            return False
-        if (head[i + 4] >> 4) == 1:        # sequence extension
-            return ((head[i + 5] >> 1) & 3) == 2
-        i += 4
 
 
 class _Track:
@@ -368,10 +365,6 @@ class MpegImporter(Importer):
             raise NotImplementedError(
                 "PSU navigation (-S, --psu_mode) is not ported to the "
                 "torch port yet")
-        if _sniff_422(path):
-            raise NotImplementedError(
-                f"{path}: the MPEG-2 4:2:2 profile is not ported to the "
-                "torch port yet")
         seq = mpeg.find_sequence_header(path)
         if seq:
             self.width, self.height, _aspect, self.fps = seq
@@ -406,11 +399,13 @@ class MpegImporter(Importer):
         if self._bs.width:
             self.width, self.height = self._bs.width, self._bs.height
             self.fps = self._bs.fps
-        if self._bs.chroma == 2:
-            raise NotImplementedError(
-                f"{path}: the MPEG-2 4:2:2 profile is not ported to the "
-                "torch port yet")
-        self.format = ImageFormat.YUV420P
+        # 1: 4:2:0, 2: 4:2:2; -V yuv422p sessions keep 4:2:2 sources at
+        # full vertical chroma (no decimation and upsampling round trip)
+        self.chroma = 2 if self._bs.chroma == 2 else 1
+        self.format = (ImageFormat.YUV422P
+                       if self.chroma == 2
+                       and job.im_colorspace == ImageFormat.YUV422P
+                       else ImageFormat.YUV420P)
         self._reset_decoder()
         self._device: Optional[torch.device] = None
         self._frames: Dict[int, Tuple[torch.Tensor, ...]] = {}
@@ -502,14 +497,14 @@ class MpegImporter(Importer):
         importer of the same size that this one shares
         (``buffer_pool``)."""
         self._device = torch.device(device)
+        self._shapes = coef_shapes(self.width, self.height, self.chroma)
         if pool is not None:
             self.buffer_pool = pool
             return
-        shapes = coef_shapes(self.width, self.height)
         pinned = self._device.type == "cuda"
         self.buffer_pool: "queue.Queue[_Buffer]" = queue.Queue()
         for _ in range(buffers):
-            self.buffer_pool.put(_Buffer(shapes, 16, pinned))
+            self.buffer_pool.put(_Buffer(self._shapes, 16, pinned))
 
     def _take_buffer(self, alive) -> Optional[_Buffer]:
         """A free host buffer, once its last upload is done; None when
@@ -524,6 +519,10 @@ class MpegImporter(Importer):
         if buf.event is not None:
             buf.event.synchronize()
             buf.event = None
+        if buf.shapes != self._shapes:
+            self.buffer_pool.put(buf)
+            raise ValueError("a shared buffer ring holds another coded "
+                             "size or chroma format than this stream's")
         return buf
 
     def plan_batch(self, n: int, alive=None) -> Optional[Plan]:
@@ -612,7 +611,15 @@ class MpegImporter(Importer):
                 else:
                     emit(fh)
                 continue
-            if ptype in (1, 4) and not (slot[3][:, 0] & MBF_FIELD_DCT).any():
+            if self.chroma == 2 and ptype == 1:
+                # a 4:2:2 intra frame picture: alone, through the float64
+                # IDCT with its field-DCT deinterleave
+                h = self._handle()
+                plan.ops.append(("intra422", k, h))
+                advance_ref(h)
+                continue
+            if (self.chroma == 1 and ptype in (1, 4)
+                    and not (slot[3][:, 0] & MBF_FIELD_DCT).any()):
                 # an intra run (MPEG-1 D-pictures too) goes to the
                 # batched float64 IDCT; field-DCT intra pictures need the
                 # row deinterleave of the per-picture reconstruction
@@ -710,6 +717,7 @@ class MpegImporter(Importer):
             return out
 
         frames = self._frames
+        chroma = self.chroma
         for op in plan.ops:
             kind = op[0]
             if kind == "intra":
@@ -726,7 +734,10 @@ class MpegImporter(Importer):
                     yc, uc, vc, mbinfo,
                     fwd=None if fh is None else frames[fh],
                     bwd=None if bh is None else frames[bh],
-                    top_field_first=tff)
+                    top_field_first=tff, chroma=chroma)
+            elif kind == "intra422":
+                _, k, h = op
+                frames[h] = mpeg2codec.reconstruct_intra_422(*slot(k))
             elif kind == "field":
                 _, k, ptype, ps, mb_rows, pend, fh, bh, h = op
                 yc, uc, vc, mbinfo = slot(k)
@@ -735,20 +746,25 @@ class MpegImporter(Importer):
                 planes, _parity = mpeg2codec.decode_field_step(
                     ptype, ps, yc, uc, vc, mbinfo, mb_rows, pending,
                     None if fh is None else frames[fh],
-                    None if bh is None else frames[bh])
+                    None if bh is None else frames[bh], chroma)
                 frames[h] = planes
             else:                         # "weave"
                 _, pend, h, parity, mb_h, fh = op
                 frames[fh] = mpeg2codec.weave_to_frame(
                     (pend[0], frames[pend[1]], None), frames[h], parity,
-                    mb_h)
+                    mb_h, chroma)
         out = None
         if plan.frames:
             hh, ww = self.height, self.width
-            sizes = ((hh, ww), (hh // 2, ww // 2), (hh // 2, ww // 2))
+            ch = hh if chroma == 2 else hh // 2
+            sizes = ((hh, ww), (ch, ww // 2), (ch, ww // 2))
             out = {key: torch.stack([frames[h][i][:s[0], :s[1]]
                                      for h in plan.frames])
                    for i, (key, s) in enumerate(zip("yuv", sizes))}
+            if chroma == 2 and self.format != ImageFormat.YUV422P:
+                # into the 4:2:0 chain: row pairs averaged
+                for key in "uv":
+                    out[key] = mpeg2codec.chroma_422_to_420(out[key])
         keep = set(plan.live)
         for h in list(frames):
             if h not in keep:

@@ -258,3 +258,32 @@ def find_mux_module_for_path(path: str) -> Optional[str]:
     """The port's multiplexor for a file name, by its extension."""
     name = jax_mux_module_for_path(path)
     return name if name in _REGISTRIES[ModuleKind.MULTIPLEXOR] else None
+
+
+# -N's export format names -> encoders, in order of preference (the JAX
+# package's _FORMAT_MAP "encoder" rows, tcforge_tpu/modules/registry.py:
+# 346-364)
+ENCODER_BY_FORMAT: Dict[str, Tuple[str, ...]] = {
+    "yuv420p": ("raw",), "rgb24": ("raw",), "pcm": ("raw",),
+    "mpeg2video": ("mpeg2",), "mpeg1": ("mpeg2",), "mpeg2": ("mpeg2",),
+    "mpeg1video": ("mpeg2",), "mjpeg": ("movjpeg",), "rtjpeg": ("nuvrtj",),
+    "mpeg4video": ("xvid", "lavc"), "h264": ("x264", "lavc"),
+    "theora": ("theora",), "dvvideo": ("dv",), "mp3": ("lame",),
+    "mp2": ("mp2enc",), "ac3": ("ac3enc",), "vorbis": ("vorbis",),
+    "aac": ("faac",)}
+
+
+def encoder_for_format(fmt: str) -> Optional[str]:
+    """-N: the first encoder for an export format name that the port has
+    (``module_name_for_format("encoder", fmt)``); None for a name the JAX
+    package does not know either.  A format whose encoders the port
+    lacks raises ``NotImplementedError`` naming the JAX module."""
+    names = ENCODER_BY_FORMAT.get(fmt.lower())
+    if names is None:
+        return None
+    for name in names:
+        if name in _REGISTRIES[ModuleKind.ENCODER]:
+            return name
+    raise NotImplementedError(
+        f"-N {fmt}: the {names[0]} encoder module is not ported to the "
+        "torch port yet")

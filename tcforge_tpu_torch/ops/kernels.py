@@ -214,7 +214,7 @@ _SIGNATURES = {
     },
     "mpeg2_recon": {
         "tc_mpeg2_recon": (_P, _P, _P),
-        "tc_mpeg2_idct_intra": (_P, _P, _LL, _I, _I, _P, _P),
+        "tc_mpeg2_idct_intra": (_P, _P, _LL, _I, _I, _P, _I, _P, _P),
     },
     "mpeg2_encode": {
         "tc_mpeg2_me": (_P, _P),
@@ -989,25 +989,28 @@ def _refs_list(refs, field: bool, what: str) -> List[torch.Tensor]:
 
 
 def mpeg2_recon_ref(ycoef, ucoef, vcoef, mbinfo, fwd, bwd, tff: bool,
-                    field_parity=None):
+                    field_parity=None, chroma: int = 1):
     """Plain version of ``mpeg2_recon``: ``recon_picture_math`` or, for a
     field picture, ``recon_field_math`` (io/mpeg2codec.py)."""
     from tcforge_tpu_torch.io import mpeg2codec
     if field_parity is None:
         return mpeg2codec.recon_picture_math(ycoef, ucoef, vcoef, mbinfo,
-                                             fwd, bwd, tff)
+                                             fwd, bwd, tff, chroma)
     return mpeg2codec.recon_field_math(ycoef, ucoef, vcoef, mbinfo, fwd, bwd,
-                                       field_parity)
+                                       field_parity, chroma)
 
 
 def mpeg2_recon(ycoef: torch.Tensor, ucoef: torch.Tensor,
                 vcoef: torch.Tensor, mbinfo: torch.Tensor, fwd, bwd,
-                tff: bool, field_parity=None
+                tff: bool, field_parity=None, chroma: int = 1
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One 4:2:0 picture's planes from its parse output: int32 natural-
-    order coefficient grids (rows*2, mb_w*2, 64) and (rows, mb_w, 64)
+    """One picture's planes from its parse output: int32 natural-order
+    coefficient grids (rows*2, mb_w*2, 64) and (rows*chroma, mb_w, 64)
     twice, int32 macroblock records (rows*mb_w, 12) (flags, forward and
-    backward vectors, field selects).  A frame picture
+    backward vectors, field selects).  ``chroma`` 1 is 4:2:0; 2 is 4:2:2,
+    whose chroma macroblocks are 8 wide and 16 tall, whose chroma vectors
+    halve the horizontal component alone, and whose frame pictures'
+    field-DCT macroblocks deinterleave chroma rows too.  A frame picture
     (``field_parity`` None) predicts from ``fwd`` / ``bwd`` = (y, u, v)
     uint8 frames or None, a field picture from (top, bottom) pairs of
     (y, u, v) field planes of any height (rows need not be adjacent in
@@ -1016,37 +1019,40 @@ def mpeg2_recon(ycoef: torch.Tensor, ucoef: torch.Tensor,
     coefficients), a frame picture's field-DCT deinterleave, the frame,
     field or dual-prime half-pel prediction (``tff``: top field first)
     and the clipped sum.  Returns uint8 (rows*16, mb_w*16) and
-    (rows*8, mb_w*8) twice."""
+    (rows*8*chroma, mb_w*8) twice."""
     for t, what in ((ycoef, "ycoef"), (ucoef, "ucoef"), (vcoef, "vcoef")):
         _check(t, what, (torch.int32,), 3)
     _check(mbinfo, "mbinfo", (torch.int32,), 2)
+    if chroma not in (1, 2):
+        raise ValueError(f"chroma {chroma}: 1 (4:2:0) or 2 (4:2:2)")
     rows, mb_w = ycoef.shape[0] // 2, ycoef.shape[1] // 2
     if (tuple(ycoef.shape) != (2 * rows, 2 * mb_w, 64)
-            or tuple(ucoef.shape) != (rows, mb_w, 64)
-            or tuple(vcoef.shape) != (rows, mb_w, 64)
+            or tuple(ucoef.shape) != (rows * chroma, mb_w, 64)
+            or tuple(vcoef.shape) != (rows * chroma, mb_w, 64)
             or tuple(mbinfo.shape) != (rows * mb_w, 12)):
         raise ValueError(f"grids {tuple(ycoef.shape)} {tuple(ucoef.shape)} "
                          f"{tuple(vcoef.shape)} {tuple(mbinfo.shape)} do not "
-                         "make one 4:2:0 macroblock grid")
+                         f"make one {('4:2:0', '4:2:2')[chroma - 1]} "
+                         "macroblock grid")
     field = field_parity is not None
     if field and field_parity not in (0, 1):
         raise ValueError(f"field_parity {field_parity}")
     fplanes = _refs_list(fwd, field, "fwd")
     bplanes = _refs_list(bwd, field, "bwd")
+    sizes = ((rows * 16, mb_w * 16), (rows * 8 * chroma, mb_w * 8),
+             (rows * 8 * chroma, mb_w * 8))
     if not field:
         for planes, what in ((fplanes, "fwd"), (bplanes, "bwd")):
-            for p, mb in zip(planes, (16, 8, 8)):
-                if tuple(p.shape) != (rows * mb, mb_w * mb):
+            for p, size in zip(planes, sizes):
+                if tuple(p.shape) != size:
                     raise ValueError(f"{what}: plane {tuple(p.shape)} is "
                                      "not the coded grid")
     if not _on_cuda(ycoef, ucoef, vcoef, mbinfo, *fplanes, *bplanes):
         return mpeg2_recon_ref(ycoef, ucoef, vcoef, mbinfo, fwd, bwd, tff,
-                               field_parity)
+                               field_parity, chroma)
     dev = ycoef.device
-    out = (torch.empty((rows * 16, mb_w * 16), dtype=torch.uint8,
-                       device=dev),
-           torch.empty((rows * 8, mb_w * 8), dtype=torch.uint8, device=dev),
-           torch.empty((rows * 8, mb_w * 8), dtype=torch.uint8, device=dev))
+    out = tuple(torch.empty(size, dtype=torch.uint8, device=dev)
+                for size in sizes)
     if rows == 0 or mb_w == 0:
         return out
     meta = [ycoef.data_ptr(), ucoef.data_ptr(), vcoef.data_ptr(),
@@ -1060,6 +1066,7 @@ def mpeg2_recon(ycoef: torch.Tensor, ucoef: torch.Tensor,
                 meta += [p.data_ptr(), p.shape[0], p.shape[1], p.stride(0)]
             else:
                 meta += [0, 0, 0, 0]
+    meta.append(chroma)
     arr = (ctypes.c_longlong * len(meta))(*meta)
     _call("mpeg2_recon", "tc_mpeg2_recon", ctypes.cast(arr, _P),
           ctypes.cast(_basis_host(), _P), _stream(ycoef))
@@ -1067,32 +1074,62 @@ def mpeg2_recon(ycoef: torch.Tensor, ucoef: torch.Tensor,
     return out
 
 
-def mpeg2_idct_intra_ref(coef: torch.Tensor) -> torch.Tensor:
+def _field_dct_mb(coef: torch.Tensor, field_dct) -> int:
+    """Checks ``field_dct`` (bool (N, mb_h, mb_w)) against the grids
+    (N, bh, bw, 64): 16-row macroblocks, each 16 (luma) or 8 (4:2:2
+    chroma) pixels wide.  Returns that width, or 0 without it."""
+    if field_dct is None:
+        return 0
+    _check(field_dct, "field_dct", (torch.bool,), 3)
+    n, bh, bw = coef.shape[:3]
+    mbh, mbw = field_dct.shape[1:]
+    if (field_dct.shape[0] != n or bh != 2 * mbh or mbw == 0
+            or (bw * 8) % mbw or (bw * 8) // mbw not in (8, 16)):
+        raise ValueError(f"field_dct {tuple(field_dct.shape)} does not "
+                         f"tile the grids {tuple(coef.shape)}")
+    return (bw * 8) // mbw
+
+
+def mpeg2_idct_intra_ref(coef: torch.Tensor,
+                         field_dct=None) -> torch.Tensor:
     """Plain version of ``mpeg2_idct_intra``: ``idct_intra_f64``
-    (io/mpeg2codec.py) with an exact float64 fused multiply-add."""
+    (io/mpeg2codec.py) with an exact float64 fused multiply-add, then
+    ``deinterleave_field_dct`` of each picture."""
     from tcforge_tpu_torch.io import mpeg2codec
-    return mpeg2codec.idct_intra_f64(coef, _basis(coef.device))
+    out = mpeg2codec.idct_intra_f64(coef, _basis(coef.device))
+    if field_dct is None:
+        return out
+    mb_px = _field_dct_mb(coef, field_dct)
+    return torch.stack([mpeg2codec.deinterleave_field_dct(p, fd, mb_px)
+                        for p, fd in zip(out, field_dct)])
 
 
-def mpeg2_idct_intra(coef: torch.Tensor) -> torch.Tensor:
+def mpeg2_idct_intra(coef: torch.Tensor, field_dct=None) -> torch.Tensor:
     """The float64 IDCT of intra pictures: int32 (N, bh, bw, 64)
     natural-order coefficient grids -> uint8 (N, bh*8, bw*8), per block
     ``t = C B`` then ``o = B^T t`` with every sum a sequential fused
     multiply-add over k = 0..7 from 0, rounded half to even and
-    clipped."""
+    clipped.  With ``field_dct`` (bool (N, mb_h, mb_w), a 4:2:2 frame
+    picture's field-DCT macroblocks: 16 rows, 16 pixels wide for luma
+    and 8 for chroma) the rows of those macroblocks are stored
+    deinterleaved: coded row r of 16 goes to 2r (r < 8) or 2(r-8)+1."""
     _check(coef, "coef", (torch.int32,), 4)
     if coef.shape[3] != 64:
         raise ValueError(f"coef: expected 64 coefficients a block, got "
                          f"{tuple(coef.shape)}")
-    if not _on_cuda(coef):
-        return mpeg2_idct_intra_ref(coef)
+    mb_px = _field_dct_mb(coef, field_dct)
+    tensors = (coef,) if field_dct is None else (coef, field_dct)
+    if not _on_cuda(*tensors):
+        return mpeg2_idct_intra_ref(coef, field_dct)
     n, bh, bw = coef.shape[:3]
     out = torch.empty((n, bh * 8, bw * 8), dtype=torch.uint8,
                       device=coef.device)
     if out.numel() == 0:
         return out
     _call("mpeg2_recon", "tc_mpeg2_idct_intra", coef.data_ptr(),
-          out.data_ptr(), n, bh, bw, ctypes.cast(_basis_host(), _P),
+          out.data_ptr(), n, bh, bw,
+          field_dct.data_ptr() if mb_px else 0,
+          (bw * 8) // mb_px if mb_px else 0, ctypes.cast(_basis_host(), _P),
           _stream(coef))
     launches["mpeg2_idct_intra"] += 1
     return out
@@ -1125,15 +1162,25 @@ def _check_mb_planes(planes, what: str, shape=None) -> Tuple[int, int]:
     return tuple(shape)
 
 
-def _check_420(planes, what: str) -> Tuple[int, int]:
+def _check_yuv(planes, what: str) -> Tuple[int, int]:
+    """(y,) or (y, u, v) planes of a whole number of macroblocks, chroma
+    of 4:2:0 (h/2, w/2) or of 4:2:2 (h, w/2): (h, w)."""
     if len(planes) not in (1, 3):
         raise ValueError(f"{what}: expected (y,) or (y, u, v) planes")
     h, w = _check_mb_planes(planes[:1], what)
     if h % 16 or w % 16 or h == 0 or w == 0:
         raise ValueError(f"{what}: {w}x{h} is not a whole number of "
                          "macroblocks")
-    _check_mb_planes(planes[1:], what, (h // 2, w // 2))
+    _check_mb_planes(planes[1:], what, (_chroma_rows(planes, h), w // 2))
     return h, w
+
+
+def _chroma_rows(planes, h: int) -> int:
+    """The chroma planes' rows: h at 4:2:2 (full-height chroma, as the
+    JAX encoder's ``_chroma_params`` tells the two apart), else h/2."""
+    if len(planes) > 1 and planes[1].dim() == 2 and planes[1].shape[0] == h:
+        return h
+    return h // 2
 
 
 def _check_mvs(mv: torch.Tensor, what: str, mbh: int, mbw: int) -> None:
@@ -1170,7 +1217,7 @@ def mpeg2_me(refs, cur: torch.Tensor, r: int):
     refs = list(refs)
     if not 1 <= len(refs) <= 2:
         raise ValueError("mpeg2_me: one or two reference planes")
-    h, w = _check_420([cur], "cur")
+    h, w = _check_yuv([cur], "cur")
     _check_mb_planes(refs, "refs", (h, w))
     _check_range(r)
     if not _on_cuda(cur, *refs):
@@ -1200,15 +1247,18 @@ def mpeg2_enc_pred_ref(fwd, fmv, bwd=None, bmv=None, mode=None):
 
 def mpeg2_enc_pred(fwd, fmv: torch.Tensor, bwd=None, bmv=None, mode=None):
     """The half-pel prediction of a picture's planes, (y,) or (y, u, v) of
-    4:2:0: per macroblock from ``fwd`` at int32 (mbh, mbw, 2) half-pel
-    vectors ``fmv`` (chroma at the vectors halved toward 0), each sample
-    coordinate clamped into its plane on its own (``tc_mc_pred_half``).
+    4:2:0 or 4:2:2: per macroblock from ``fwd`` at int32 (mbh, mbw, 2)
+    half-pel (y, x) vectors ``fmv`` (4:2:0 chroma at the vectors halved
+    toward 0 over 8x8 tiles; 4:2:2 chroma, planes of the luma's height,
+    at the horizontal component alone halved, over 8-wide, 16-tall
+    tiles), each sample coordinate clamped into its plane on its own
+    (``tc_mc_pred_half``).
     With ``mode`` (int32 (mbh, mbw): 0 forward, 1 backward, 2 the
     average ``(f + b + 1) >> 1``) each macroblock is predicted from the
     reference(s) its mode uses, ``bwd`` at ``bmv`` for the backward one
     (``tc_b_mc_sel_pred2``).  Returns contiguous uint8 planes."""
     fwd = list(fwd)
-    h, w = _check_420(fwd, "fwd")
+    h, w = _check_yuv(fwd, "fwd")
     mbh, mbw = h // 16, w // 16
     _check_mvs(fmv, "fmv", mbh, mbw)
     bplanes = []
@@ -1216,8 +1266,9 @@ def mpeg2_enc_pred(fwd, fmv: torch.Tensor, bwd=None, bmv=None, mode=None):
         bplanes = list(bwd)
         if len(bplanes) != len(fwd):
             raise ValueError("bwd: one plane for each of fwd's")
-        _check_420(bplanes, "bwd")
-        _check_mb_planes(bplanes[:1], "bwd", (h, w))
+        _check_yuv(bplanes, "bwd")
+        for b, f in zip(bplanes, fwd):
+            _check_mb_planes([b], "bwd", f.shape)
         _check_mvs(bmv, "bmv", mbh, mbw)
         _check(mode, "mode", (torch.int32,), 2)
         if tuple(mode.shape) != (mbh, mbw):
@@ -1260,7 +1311,7 @@ def mpeg2_enc_bmode(fy: torch.Tensor, by: torch.Tensor, fmv: torch.Tensor,
     its forward and backward luma predictions (``tc_bisad`` of two
     ``tc_mc_pred_half``), then the first minimum of ``(fsad, bsad, bisad -
     256)``: int32 (mbh, mbw), 0 forward, 1 backward, 2 both."""
-    h, w = _check_420([cur], "cur")
+    h, w = _check_yuv([cur], "cur")
     _check_mb_planes([fy, by], "refs", (h, w))
     mbh, mbw = h // 16, w // 16
     for mv, what in ((fmv, "fmv"), (bmv, "bmv")):
@@ -1309,13 +1360,13 @@ def mpeg2_enc_blocks(mode: int, cur, pred, qs: int, alt: bool, m1: bool,
     levels with ``m1``), the dequantiser (oddification with ``m1``, else
     the 13818-2 mismatch control), the float64 IDCT and the clipped
     reconstruction, the levels in scan order (alternate with ``alt``)
-    written to a macroblock-interleaved int16 (nmb, 6, 64) array.
-    ``mode`` 0: intra (``pred`` None), of 4:2:0 or of 4:2:2 planes (chroma
-    of the luma's height: (nmb, 8, 64) levels, the chroma blocks of a
-    macroblock Cb Cr Cb Cr); 1: inter from the uint8 prediction
-    planes ``pred``, with reconstruction (an all-zero block reconstructs
-    to its prediction), the blocks of the macroblocks set in ``intra_mb``
-    (bool (mbh, mbw)) coded intra instead; 2: inter levels alone.  Returns
+    written to a macroblock-interleaved int16 (nmb, 6, 64) array, or
+    (nmb, 8, 64) for 4:2:2 planes (chroma of the luma's height, the
+    chroma blocks of a macroblock Cb Cr Cb Cr).  ``mode`` 0: intra
+    (``pred`` None); 1: inter from the uint8 prediction planes ``pred``,
+    with reconstruction (an all-zero block reconstructs to its
+    prediction), the blocks of the macroblocks set in ``intra_mb`` (bool
+    (mbh, mbw)) coded intra instead; 2: inter levels alone.  Returns
     (levels, (rec y, u, v) or None for mode 2) (``tc_enc_intra_plane``,
     ``tc_enc_inter_plane`` with ``tc_enc_intra_sel``,
     ``tc_enc_inter_levels``)."""
@@ -1326,9 +1377,8 @@ def mpeg2_enc_blocks(mode: int, cur, pred, qs: int, alt: bool, m1: bool,
     cur = list(cur)
     if len(cur) != 3:
         raise ValueError("cur: expected (y, u, v)")
-    h, w = _check_420(cur[:1], "cur")
-    c422 = mode == 0 and cur[1].dim() == 2 and cur[1].shape[0] == h
-    _check_mb_planes(cur[1:], "cur", (h if c422 else h // 2, w // 2))
+    h, w = _check_yuv(cur, "cur")
+    ch = _chroma_rows(cur, h)
     mbh, mbw = h // 16, w // 16
     tensors = list(cur)
     if mode == 0:
@@ -1339,7 +1389,7 @@ def mpeg2_enc_blocks(mode: int, cur, pred, qs: int, alt: bool, m1: bool,
         if len(pred) != 3:
             raise ValueError("pred: expected (y, u, v)")
         _check_mb_planes(pred[:1], "pred", (h, w))
-        _check_mb_planes(pred[1:], "pred", (h // 2, w // 2))
+        _check_mb_planes(pred[1:], "pred", (ch, w // 2))
         tensors += pred
     if intra_mb is not None:
         if mode != 1:
@@ -1351,7 +1401,7 @@ def mpeg2_enc_blocks(mode: int, cur, pred, qs: int, alt: bool, m1: bool,
     if not _on_cuda(*tensors):
         return mpeg2_enc_blocks_ref(mode, cur, pred, qs, alt, m1, intra_mb)
     dev = cur[0].device
-    levels = torch.empty((mbh * mbw, 8 if c422 else 6, 64),
+    levels = torch.empty((mbh * mbw, 8 if ch == h else 6, 64),
                          dtype=torch.int16, device=dev)
     rec = (tuple(torch.empty(p.shape, dtype=torch.uint8, device=dev)
                  for p in cur) if mode != 2 else None)

@@ -243,11 +243,7 @@ def test_encoders_match_the_jax_registry(name):
 
 @pytest.mark.parametrize("argv,message", [
     (["-o", "{tmp}/o.ogg", "-y", "mpeg2"], "ogg multiplexor"),
-    (["-o", "{tmp}/o.m2v", "-y", "x264"], "x264"),
-    (["-o", "{tmp}/o.m2v", "-y", "mpeg2", "-F", "gop_n=6:gop_m=3", "-V",
-      "yuv422p"], "4:2:2"),
-    (["-o", "{tmp}/o.m2v", "-R", "1"], "-R 1"),
-    (["-o", "{tmp}/o.m2v", "-N", "mpeg2video"], "-N mpeg2video")])
+    (["-o", "{tmp}/o.m2v", "-y", "x264"], "x264")])
 def test_what_the_port_lacks_is_refused_by_name(argv, message, tmp_path,
                                                 capsys):
     src = tmp_path / "in.y4m"

@@ -534,8 +534,13 @@ def test_full_encoder_matches_the_jax_class(case, jax_native):
 
 
 def test_4_2_2_is_refused_by_name():
-    with pytest.raises(NotImplementedError, match="4:2:2"):
-        Mpeg2FullEncoder(64, 48, chroma=422)
+    """4:2:2 is MPEG-2 syntax: with MPEG-1 or D-pictures both classes
+    refuse it, naming it (the 4:2:2 encode itself is
+    tests/test_torch_mpeg422_cli.py's)."""
+    for kw in (dict(mpeg1=True), dict(mpeg1=True, dpict=True)):
+        for cls in (JEncoder, Mpeg2FullEncoder):
+            with pytest.raises(ValueError, match="4:2:2"):
+                cls(64, 48, chroma=422, **kw)
 
 
 @pytest.mark.parametrize("kw,message", [
@@ -669,8 +674,8 @@ def planes_u8(*shape):
                                           planes_u8(32, 16),
                                           planes_u8(32, 16)),
                                       (planes_u8(32, 32),
-                                       planes_u8(32, 16),
-                                       planes_u8(32, 16)), 5, False, False),
+                                       planes_u8(16, 16),
+                                       planes_u8(16, 16)), 5, False, False),
      "shape")])
 def test_wrappers_refuse_what_the_kernels_do_not_take(call, message):
     with pytest.raises(ValueError, match=message):

@@ -221,17 +221,7 @@ def _ts_file(path: Path) -> Path:
     return path
 
 
-def _422_file(path: Path) -> Path:
-    """small.m2v with its sequence extension's chroma_format set to 4:2:2."""
-    data = bytearray((DATA / "small.m2v").read_bytes())
-    i = data.find(b"\x00\x00\x01\xb5")
-    assert data[i + 4] >> 4 == 1
-    data[i + 5] = (data[i + 5] & ~0x06) | (2 << 1)
-    path.write_bytes(bytes(data))
-    return path
-
-
-@pytest.mark.parametrize("what", ["ts", "422", "psu", "audio_in_not_wav",
+@pytest.mark.parametrize("what", ["ts", "psu", "audio_in_not_wav",
                                   "audio_out_not_wav", "module"])
 def test_pieces_out_of_this_slice_raise(what, tmp_path):
     """Each names what the port lacks; nothing decodes in silence."""
@@ -240,9 +230,6 @@ def test_pieces_out_of_this_slice_raise(what, tmp_path):
     if what == "ts":
         job["video_in_file"] = str(_ts_file(tmp_path / "in.ts"))
         match = "transport stream"
-    elif what == "422":
-        job["video_in_file"] = str(_422_file(tmp_path / "in.m2v"))
-        match = "4:2:2"
     elif what == "psu":
         job["psu_unit"] = 1
         match = "PSU"
