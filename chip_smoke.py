@@ -132,7 +132,20 @@ Lanczos3 zoom, ``-J hqdn3d=luma=4.0`` (which runs after the zoom, at
   pictures and as the ``-R 1`` / ``-R 2`` pair, then the stream read
   back kept at 4:2:2 (``-x mpeg -V yuv422p -J denoise3d``) and decimated
   to 4:2:0 (``-x mpeg -J hqdn3d=luma=4.0``): the 4:2:2 forms of
-  ``mpeg2_recon`` and ``mpeg2_idct_intra``.
+  ``mpeg2_recon`` and ``mpeg2_idct_intra``;
+- the ATSC capture path, ts1080: a transport stream (``mux_ts``: PAT, a
+  PMT of stream types 0x02 and 0x81, the video's PCR in adaptation
+  fields, PCR-only and null packets) of 1920x1080 top-field-first
+  MPEG-2 at 15 Mbit/s (GOP 15/3, the port's own encode of
+  ``write_motion_y4m``) and AC-3 at 192 kbit/s, through ``-x auto -I 5
+  -Z 1280x720 -J hqdn3d=luma=4.0 -m``: the TS demux and the host parse
+  on the reader thread, the AC-3 decode in the worker process,
+  ``mpeg2_recon`` and ``mpeg2_idct_intra`` at 1920x1088, then the main
+  path's chain; beside it a VideoCD track (``cdxa.wrap_ps`` of dvd.vob),
+  PSU mode on three units, and the ``TS_GOLDEN`` cases (transport
+  streams with MP2, AC-3, AAC and no audio, ``--ts_pid``, a mid-PES
+  start, CDXA, PSU, ``-S``, ``-W``, ``-p`` of MP3, MP2, AC-3, FLAC and
+  AAC files).
 
 Phases, each of which raises on failure:
 
@@ -253,7 +266,13 @@ Phases, each of which raises on failure:
    and the CPU), mpeg422 (each of its seven CLIs against the same CLI
    on the plain versions on the card, byte for byte, pass 1's log too;
    every decoded frame 720x576 in C422 or C420 and in its count; pass 2
-   read the log), and the
+   read the log), ts1080 (its Y4M and WAV against the same CLI with
+   every kernel call held to its plain version and on the plain
+   versions, its Y4M against the CLI on the ``.m2v`` the TS wraps, its
+   WAV's samples against an audio-only session of the AC-3 it wraps; a
+   VideoCD track of dvd.vob against dvd.vob; ``--psu_mode`` on three
+   units against the CPU, file by file; the 1920x1088 reconstruction
+   calls timed beside their plain versions), and the
    engine at every
    ``--prefetch`` 1, 2, 4 and ``--batch`` 1, 3, 16;
 5. the small cases whose SHA-256 ``tests/test_torch_cli.py`` pins
@@ -283,7 +302,7 @@ Phases, each of which raises on failure:
    (``MJPEGENC_GOLDEN``: movjpeg and lame into an MJPG AVI, a DVD-style
    VOB with ac3enc, MP2 in a program stream and in an AVI, AC-3 in an
    AVI, MP3 at 44.1 kHz, and the mov multiplexor with photo-JPEG, YV12
-   and RGB), and the MPEG-4 export
+   and RGB), the TS goldens (``TS_GOLDEN``), and the MPEG-4 export
    goldens (``XVID_GOLDEN``: divxenc at full width, the divx.avi
    re-encode with its PCM track, small DVD, DivX and Y4M cases at
    constant q, under ``-w`` and rate control, a raw ``.m4v``), with the
@@ -339,7 +358,11 @@ Phases, each of which raises on failure:
    multiplexor; the device's kernels by name); mpeg422's encode and
    two read-backs on 48 frames, three CLI runs each after an untimed
    one, ``encode_stages`` and each read-back's ``mpeg_stages`` and
-   device busy time.
+   device busy time; ts1080 on its 48 frames, four CLI runs after an
+   untimed one, its ``mpeg_stages`` (the video and audio PIDs' demux,
+   the parse, the audio wait and the AC-3 decoder's own time,
+   reconstruction, chain, copy back, write, and the importer's open)
+   and the device's busy share of one CLI run.
 
 It prints one JSON object per result (``t``: seconds since it started),
 then the kernels' summary and, as
@@ -359,6 +382,7 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -1954,6 +1978,386 @@ def mpeg422_golden_argv(case: str, directory, side: str) -> list:
             *(a.replace("{log}", str(log)) for a in args)]
 
 
+# ------------------------------------------------------------------ #
+# Transport streams, VideoCD tracks, PSU navigation, compressed audio
+
+# the elementary streams of tests/data/ts (make_streams.py there): MPEG-2
+# video at 176x144, 15 frames in five program stream units, and 0.6 s of
+# MP2, MP3, AC-3, ADTS AAC and FLAC; the transport streams and the
+# VideoCD track are muxed from them at run time (``ts_input``)
+TS_DATA = ROOT / "tests" / "data" / "ts"
+TS_PACKET = 188
+TS_NULL_PID = 0x1FFF
+# mux_ts's layout: PES payload bytes of a video and an audio PES, and the
+# packets between two repeats of the PAT and PMTs, two PCR-only packets
+# and two null packets
+TS_VIDEO_PES = 9000
+TS_AUDIO_PES = 1500
+TS_PSI_EVERY = 64
+TS_PCR_ONLY_EVERY = 53
+TS_NULL_EVERY = 17
+# a stream of a transport stream: its PID, PMT stream type, PES stream id
+# and elementary stream file of tests/data/ts ("video.m2v:N" its first N
+# bytes)
+TS_VIDEO = (0x100, 0x02, 0xE0, "video.m2v")
+TS_AUDIO = {"mp2": (0x101, 0x03, 0xC0, "a.mp2"),
+            "mp3": (0x101, 0x04, 0xC0, "a.mp3"),
+            "ac3": (0x101, 0x81, 0xBD, "a.ac3"),
+            "aac": (0x101, 0x0F, 0xC0, "a.aac")}
+# the inputs: programs (program number, PMT PID, streams) and the muxer's
+# options; two.ts's first program holds the video's first three units and
+# AC-3, its second the whole video (PID 0x200) and MP2, whose PID sorts
+# first among the audio streams; midpes.ts is mp2.ts without its first
+# 37 packets (the file starts inside a PES of each stream)
+TS_INPUTS = {
+    **{f"{k}.ts": dict(programs=[(1, 0x30, [TS_VIDEO, a])])
+       for k, a in TS_AUDIO.items()},
+    "none.ts": dict(programs=[(1, 0x30, [TS_VIDEO])]),
+    "two.ts": dict(programs=[
+        (1, 0x30, [(0x100, 0x02, 0xE0, "video.m2v:8532"),
+                   (0x102, 0x81, 0xBD, "a.ac3")]),
+        (2, 0x40, [(0x200, 0x02, 0xE0, "video.m2v"), TS_AUDIO["mp2"]])]),
+    "midpes.ts": dict(programs=[(1, 0x30, [TS_VIDEO, TS_AUDIO["mp2"]])],
+                      skip=37),
+}
+TS_NAV_PICTURES = 15
+# the goldens: (input, arguments) through the port's CLI, writing
+# ts_<case>.y4m and ts_<case>.wav (``ts_golden_outputs``); {nav} is a
+# tcdemux nav file of TS_NAV_PICTURES pictures, {y4m} a seeded 64x48 Y4M
+# of 8 frames, a name of tests/data/ts that file; SHA-256 pinned against
+# the JAX CLI (--mesh off; its FFmpeg bridge's decoders replaced by its
+# in-tree ones) by tests/test_torch_ts.py, test_torch_mpeg_nav.py and
+# test_torch_audio_import.py on the CPU, and checked again on the card
+TS_GOLDEN = {
+    "ts_mp2": ("mp2.ts", ["-J", "hqdn3d=luma=4.0", "--batch", "5"]),
+    "ts_ac3": ("ac3.ts", ["--batch", "16"]),
+    "ts_aac": ("aac.ts", ["--batch", "7"]),
+    "ts_none": ("none.ts", ["--batch", "4"]),
+    "ts_pid": ("two.ts", ["--ts_pid", "200", "--batch", "6"]),
+    "ts_auto": ("two.ts", ["--batch", "6"]),
+    "ts_whole": ("ac3.ts", ["-x", "mpeg=stream=0", "--batch", "16"]),
+    "ts_seek": ("ac3.ts", ["-L", "5", "--batch", "4"]),
+    "ts_midpes": ("midpes.ts", ["--batch", "5"]),
+    "cdxa": ("vcd.dat", ["-J", "hqdn3d=luma=4.0", "--batch", "5"]),
+    "psu": ("mp2.ts", ["--psu_mode", "--batch", "4"]),
+    "psu_range": ("video.m2v", ["--psu_mode", "--psu_first", "1",
+                                "--psu_last", "3"]),
+    "psu_chunks": ("video.m2v", ["--psu_chunks", "2-4", "--batch", "3"]),
+    "no_split": ("mp2.ts", ["--psu_mode", "--no_split", "--psu_first", "1",
+                            "--batch", "5"]),
+    "chunks_no_split": ("video.m2v", ["--psu_chunks", "1-2", "--no_split"]),
+    "seek_unit": ("mp2.ts", ["-S", "2,5", "--batch", "5"]),
+    "w_nav": ("mp2.ts", ["-W", "1,3,{nav}", "--batch", "5"]),
+    "w_pct": ("video.m2v", ["-W", "25,50,{nav}", "--cluster_percentage"]),
+    "w_chunks": ("video.m2v", ["-W", "0,4", "--nav_seek", "{nav}",
+                               "--cluster_chunks", "1-3"]),
+    "p_mp3": ("{y4m}", ["-p", "a.mp3"]),
+    "p_mp2": ("{y4m}", ["-p", "a.mp2"]),
+    "p_ac3": ("{y4m}", ["-p", "a.ac3"]),
+    "p_flac": ("{y4m}", ["-p", "a.flac"]),
+    "p_aac": ("{y4m}", ["-p", "a.aac"]),
+    "audio_only": ("a.ac3", []),
+}
+TS_GOLDEN_SHA256 = {
+    "ts_mp2": (
+        "431194510a82320093c19dcac6f6db98fbd2fec366b9d5b1b0e5514f5a364bd5",
+        "6cdaa42a0c087ceb35cb6239ad98dc3ca6dd12b976c7ffaa1737f1d379753096"),
+    "ts_ac3": (
+        "baa6f11a98df7419c97f6b322bc5e33858119470160a552e72108d308c1138a9",
+        "7fa56ef6a3a143f1605e25eb1ca7dae2fcfb040bd120c19b9a6e77cc96c79e3b"),
+    "ts_aac": (
+        "baa6f11a98df7419c97f6b322bc5e33858119470160a552e72108d308c1138a9",
+        "46a468ecf28481ea3078fc2a23e8c476bdf6c00b9d6f1e6f9252b27fca02552c"),
+    "ts_none": (
+        "baa6f11a98df7419c97f6b322bc5e33858119470160a552e72108d308c1138a9",
+        "4872b61c768dff943f9e021453d816f06e35adc8edd88ef183301f03e31b94a5"),
+    "ts_pid": (
+        "baa6f11a98df7419c97f6b322bc5e33858119470160a552e72108d308c1138a9",
+        "6cdaa42a0c087ceb35cb6239ad98dc3ca6dd12b976c7ffaa1737f1d379753096"),
+    "ts_auto": (
+        "e1393bf64790046f1759004b01cb0572989a3f932fd333c4cbd9d3cb14e75301",
+        "0ecb68e4dbab8a60d4c95a7c25a9bbf77734dff4e08369eba03be99808dc73d2"),
+    "ts_whole": (
+        "baa6f11a98df7419c97f6b322bc5e33858119470160a552e72108d308c1138a9",
+        "7fa56ef6a3a143f1605e25eb1ca7dae2fcfb040bd120c19b9a6e77cc96c79e3b"),
+    "ts_seek": (
+        "f27ebae0675bfbd0149b25bb7651e1fd827e6a1ce04d1a466388fd7bb6fd6838",
+        "453db107ce4bd3df496ed01c0d88fc3d01baa1315fb66b655f961ddbd7bbf7c2"),
+    "ts_midpes": (
+        "7d72b972539d74a6677d60f1cf7c9fcbae312483b92876e08f45a60dc9da5893",
+        "693f2f7eef2bc3a6411d4aab1cf87ecd13ec66036a20f32672d45ca1a6892244"),
+    "cdxa": (
+        "431194510a82320093c19dcac6f6db98fbd2fec366b9d5b1b0e5514f5a364bd5",
+        "6cdaa42a0c087ceb35cb6239ad98dc3ca6dd12b976c7ffaa1737f1d379753096"),
+    "psu": (
+        "7cc738061e13b7e34ccbec897ee3fb600719132bec9464d93908422f07b26244",
+        "1419042b40a2c7c54edd18aabb60fcf0e1d8e846f23f4e3c5773fa7e6f79b916",
+        "c4d55712d6e43116a63fdde5d2cf096319243e014cf1bbecf9053c4678b9366a",
+        "1f8c9e1faee698cc14004415946ffff9cf3ce5ff2815c671b12677baee3da82d",
+        "39100286863a3a05840bb076126f22958fe0c0ff027e090e2fbec0e49f5250c5",
+        "778e182b0defa34210560a834c99a2c0758976bcf1825f6e608bbcd90f96a935"),
+    "psu_range": (
+        "1419042b40a2c7c54edd18aabb60fcf0e1d8e846f23f4e3c5773fa7e6f79b916",
+        "c4d55712d6e43116a63fdde5d2cf096319243e014cf1bbecf9053c4678b9366a",
+        "4872b61c768dff943f9e021453d816f06e35adc8edd88ef183301f03e31b94a5"),
+    "psu_chunks": (
+        "c4d55712d6e43116a63fdde5d2cf096319243e014cf1bbecf9053c4678b9366a",
+        "1f8c9e1faee698cc14004415946ffff9cf3ce5ff2815c671b12677baee3da82d",
+        "4872b61c768dff943f9e021453d816f06e35adc8edd88ef183301f03e31b94a5"),
+    "no_split": (
+        "85ac2e285a761a190183be61b96cc1449c23015227786a89820937f9d1aaf3a0",
+        "2dc7e2e32f0bafbe425ea57199f7b7aa1d726059533ad29bbf6c8783937a03c2"),
+    "chunks_no_split": (
+        "baa6f11a98df7419c97f6b322bc5e33858119470160a552e72108d308c1138a9",
+        "4872b61c768dff943f9e021453d816f06e35adc8edd88ef183301f03e31b94a5"),
+    "seek_unit": (
+        "c3217dc67a96b806946518da5e568ed023d72d1019ee78989b6225a84d3f2147",
+        "ea59bbfe930b6687b0ccd03e0c16bbf1fad7bab48dceb0b72432c08329b09e1b"),
+    "w_nav": (
+        "810c597af8e9624d0b56c7cb863afae2bc1ef7c8e57e4f961878cc22601924dd",
+        "1c707cdaaacd8f18447c0636f0acea0b16093acb67968387ce1ecc766d2cbec0"),
+    "w_pct": (
+        "bc8a6acd44762811bfaff72d475aba8a6ec59b132585d2f5ef704ec1b25ece03",
+        "4872b61c768dff943f9e021453d816f06e35adc8edd88ef183301f03e31b94a5"),
+    "w_chunks": (
+        "bc8a6acd44762811bfaff72d475aba8a6ec59b132585d2f5ef704ec1b25ece03",
+        "4872b61c768dff943f9e021453d816f06e35adc8edd88ef183301f03e31b94a5"),
+    "p_mp3": (
+        "5a823df14198bb66880611293700a43a08c78ec58b76dfbb721c4ebc9c49e051",
+        "83afd9f78886614c1207838d960b7304a65ed4cdcf3946cf42a36862e5e6af24"),
+    "p_mp2": (
+        "5a823df14198bb66880611293700a43a08c78ec58b76dfbb721c4ebc9c49e051",
+        "37953c2edc7414976eb0703acecbbf58d4b28841bd310f3d8c6574baf9a28dff"),
+    "p_ac3": (
+        "5a823df14198bb66880611293700a43a08c78ec58b76dfbb721c4ebc9c49e051",
+        "664d8b3a6453e4355837388b3f2782e8a83387f8c9be25d537fbfa988e49adc2"),
+    "p_flac": (
+        "5a823df14198bb66880611293700a43a08c78ec58b76dfbb721c4ebc9c49e051",
+        "79c833e7bb542be7b39a1703a37c727e8f624e3732593b36c0cb91bd0b5897d2"),
+    "p_aac": (
+        "5a823df14198bb66880611293700a43a08c78ec58b76dfbb721c4ebc9c49e051",
+        "f0e23c161efffe3df9c622b7567c26b8e2b32ab78b565d39b737fee4ecdfb36f"),
+    "audio_only": (
+        "22158316a806880b89b386fc23d151a740df1fba6d28d3728a970b10407aac44",),
+}
+
+
+def _crc32_mpeg(data: bytes) -> int:
+    """CRC-32/MPEG-2 of a PSI section."""
+    crc = 0xFFFFFFFF
+    for b in data:
+        crc ^= b << 24
+        for _ in range(8):
+            crc = ((crc << 1) ^ 0x04C11DB7 if crc & 0x80000000
+                   else crc << 1) & 0xFFFFFFFF
+    return crc
+
+
+def _psi_section(table_id: int, ext: int, body: bytes) -> bytes:
+    s = (bytes([table_id]) + (0xB000 | (len(body) + 9)).to_bytes(2, "big")
+         + ext.to_bytes(2, "big") + bytes([0xC1, 0, 0]) + body)
+    return s + _crc32_mpeg(s).to_bytes(4, "big")
+
+
+def _pcr_bytes(ticks: int) -> bytes:
+    """A PCR of ``ticks`` 27 MHz ticks: its 33-bit base and 9-bit
+    extension."""
+    base, ext = (ticks // 300) & ((1 << 33) - 1), ticks % 300
+    return bytes([base >> 25 & 0xFF, base >> 17 & 0xFF, base >> 9 & 0xFF,
+                  base >> 1 & 0xFF, (base & 1) << 7 | 0x7E | ext >> 8,
+                  ext & 0xFF])
+
+
+def ts_packet(pid: int, cc: int, payload: bytes = b"", pusi: bool = False,
+              pcr: Optional[int] = None) -> bytes:
+    """One 188-byte transport packet: an adaptation field where it has a
+    PCR or its payload is short (stuffed with 0xFF), none without a
+    payload (a PCR-only packet)."""
+    room = TS_PACKET - 4 - len(payload)
+    af = b""
+    if pcr is not None or room:
+        body = bytes([0x10]) + _pcr_bytes(pcr) if pcr is not None else b""
+        if room == 1 and not body:
+            af = b"\x00"
+        else:
+            if not body:
+                body = b"\x00"
+            af = bytes([room - 1]) + body + b"\xff" * (room - 1 - len(body))
+    afc = (2 if af else 0) | (1 if payload else 0)
+    head = bytes([0x47, (0x40 if pusi else 0) | pid >> 8, pid & 0xFF,
+                  afc << 4 | (cc & 15)])
+    out = head + af + payload
+    assert len(out) == TS_PACKET, (pid, len(af), len(payload))
+    return out
+
+
+def _pes(sid: int, payload: bytes, pts: int) -> bytes:
+    """A PES packet with a PTS; length 0 (unbounded) for video."""
+    head = bytes([0x80, 0x80, 5, 0x21 | (pts >> 29 & 0x0E),
+                  pts >> 22 & 0xFF, 0x01 | (pts >> 14 & 0xFE),
+                  pts >> 7 & 0xFF, 0x01 | (pts << 1 & 0xFE)])
+    size = 0 if 0xE0 <= sid <= 0xEF else len(head) + len(payload)
+    return b"\x00\x00\x01" + bytes([sid]) + size.to_bytes(2, "big") + \
+        head + payload
+
+
+def mux_ts(programs, skip: int = 0) -> bytes:
+    """A broadcast-like transport stream: ``programs`` is a list of
+    (program number, PMT PID, [(PID, stream type, PES stream id,
+    elementary stream bytes)]); the first stream of each program is its
+    PCR PID.  Each elementary stream goes into PES packets of
+    ``TS_VIDEO_PES`` or ``TS_AUDIO_PES`` bytes, split into transport
+    packets whose streams interleave in proportion to their length; the
+    PAT and every PMT open the stream and repeat every ``TS_PSI_EVERY``
+    packets, the first packet of each PES of a PCR PID carries a PCR in
+    its adaptation field, a PCR-only packet (adaptation field, no
+    payload) follows every ``TS_PCR_ONLY_EVERY`` packets and a null
+    packet (PID 0x1FFF) every ``TS_NULL_EVERY``; every PID counts its
+    packets with payload in its continuity counter.  The first ``skip``
+    packets are dropped (a capture that starts inside a PES)."""
+    cc: dict = {}
+
+    def packet(pid, payload=b"", pusi=False, pcr=None):
+        c = cc.get(pid, 0)
+        if payload:
+            cc[pid] = (c + 1) & 15
+        return ts_packet(pid, c, payload, pusi, pcr)
+
+    pat = _psi_section(0x00, 1, b"".join(
+        n.to_bytes(2, "big") + (0xE000 | pmt).to_bytes(2, "big")
+        for n, pmt, _ in programs))
+    pmts = [(pmt, _psi_section(0x02, n, (0xE000 | streams[0][0]).to_bytes(
+        2, "big") + b"\xf0\x00" + b"".join(
+            bytes([st]) + (0xE000 | pid).to_bytes(2, "big") + b"\xf0\x00"
+            for pid, st, _, _ in streams)))
+        for n, pmt, streams in programs]
+
+    def psi():
+        out = [packet(0, (b"\x00" + pat).ljust(184, b"\xff"), True)]
+        for pmt, sec in pmts:
+            out.append(packet(pmt, (b"\x00" + sec).ljust(184, b"\xff"),
+                              True))
+        return out
+
+    pcr_pids = {streams[0][0] for _, _, streams in programs}
+    lanes = []
+    for _, _, streams in programs:
+        for pid, _st, sid, es in streams:
+            step = TS_VIDEO_PES if 0xE0 <= sid <= 0xEF else TS_AUDIO_PES
+            units = []
+            for k, off in enumerate(range(0, len(es), step)):
+                pes = _pes(sid, es[off:off + step], 90000 + 3600 * k)
+                pos, first = 0, True
+                while pos < len(pes):
+                    pcr = (None if not (first and pid in pcr_pids)
+                           else 27000000 + 300 * 3600 * k)
+                    take = 184 - (8 if pcr is not None else 0)
+                    units.append((pes[pos:pos + take], first, pcr))
+                    pos += take
+                    first = False
+            lanes.append([pid, units, 0, len(es)])
+    out = psi()
+    while any(lane[2] < len(lane[1]) for lane in lanes):
+        lane = min((ln for ln in lanes if ln[2] < len(ln[1])),
+                   key=lambda ln: ln[2] / len(ln[1]))
+        payload, first, pcr = lane[1][lane[2]]
+        lane[2] += 1
+        out.append(packet(lane[0], payload, first, pcr))
+        n = len(out)
+        if n % TS_PSI_EVERY == 0:
+            out.extend(psi())
+        if n % TS_PCR_ONLY_EVERY == 0:
+            out.append(packet(min(pcr_pids), pcr=27000000 + 1000 * n))
+        if n % TS_NULL_EVERY == 0:
+            out.append(ts_packet(TS_NULL_PID, 0, b"\xff" * 184))
+    return b"".join(out[skip:])
+
+
+def _ts_es(spec: str) -> bytes:
+    name, _, cut = spec.partition(":")
+    data = (TS_DATA / name).read_bytes()
+    return data[:int(cut)] if cut else data
+
+
+def write_vcd(path, video: bytes, audio: bytes) -> None:
+    """A VideoCD track (RIFF/CDXA, form-2 sectors) of a program stream
+    whose packs carry the video (PES 0xE0) and MPEG audio (PES 0xC0) in
+    proportion to their length."""
+    from tcforge_tpu_torch.io.cdxa import wrap_ps
+    from tcforge_tpu_torch.io.psmux import pack_header, pes_packet
+    ps = bytearray()
+    parts = [(0xE0, video, 2000), (0xC0, audio, 1000)]
+    pos = [0, 0]
+    scr = 0
+    while pos[0] < len(video) or pos[1] < len(audio):
+        k = min((i for i in (0, 1) if pos[i] < len(parts[i][1])),
+                key=lambda i: pos[i] / len(parts[i][1]))
+        sid, data, step = parts[k]
+        ps += pack_header(scr) + pes_packet(sid, data[pos[k]:pos[k] + step])
+        pos[k] += step
+        scr += 1800
+    ps += b"\x00\x00\x01\xb9"
+    Path(path).write_bytes(wrap_ps(bytes(ps)))
+
+
+def ts_input(name: str, directory) -> Path:
+    """An input of the TS goldens, written into ``directory`` once: a
+    transport stream of ``TS_INPUTS``, ``vcd.dat`` (``write_vcd`` of
+    video.m2v and a.mp2), or a file of tests/data/ts."""
+    if name not in TS_INPUTS and name != "vcd.dat":
+        return TS_DATA / name
+    out = Path(directory) / name
+    if out.exists():
+        return out
+    if name == "vcd.dat":
+        write_vcd(out, _ts_es("video.m2v"), _ts_es("a.mp2"))
+        return out
+    spec = TS_INPUTS[name]
+    programs = [(n, pmt, [(pid, st, sid, _ts_es(f))
+                          for pid, st, sid, f in streams])
+                for n, pmt, streams in spec["programs"]]
+    out.write_bytes(mux_ts(programs, skip=spec.get("skip", 0)))
+    return out
+
+
+def ts_golden_argv(case: str, directory) -> list:
+    """The CLI arguments of a ``TS_GOLDEN`` case, its inputs written into
+    ``directory`` and its outputs ``ts_<case>`` there (``%d`` in PSU
+    mode)."""
+    directory = Path(directory)
+    src, args = TS_GOLDEN[case]
+    names = {"nav": str(directory / "ts_nav.json"),
+             "y4m": str(directory / "ts_in.y4m")}
+    if not Path(names["nav"]).exists():
+        Path(names["nav"]).write_text(json.dumps(
+            {"total_pictures": TS_NAV_PICTURES}))
+    if not Path(names["y4m"]).exists():
+        write_test_y4m(names["y4m"], 64, 48, 8, seed=23)
+    src = names["y4m"] if src == "{y4m}" else str(ts_input(src, directory))
+    out = directory / f"ts_{case}"
+    psu = ("--psu_mode" in args or "--psu_chunks" in args) \
+        and "--no_split" not in args
+    argv = ["-i", src, "-o", f"{out}%d.y4m" if psu else f"{out}.y4m",
+            "-m", f"{out}.wav"]
+    if case == "audio_only":
+        argv = ["-i", src, "-o", f"{out}.wav"]
+    for a in args:
+        a = a.format(**names)
+        argv.append(str(TS_DATA / a) if (TS_DATA / a).is_file() else a)
+    return argv
+
+
+def ts_golden_outputs(case: str, directory) -> list:
+    """The files a ``TS_GOLDEN`` case writes, in order: each PSU's .y4m,
+    or the .y4m, then the .wav."""
+    directory = Path(directory)
+    out = directory / f"ts_{case}"
+    units = sorted(directory.glob(f"ts_{case}[0-9]*.y4m"),
+                   key=lambda p: int(p.stem[len(out.name):]))
+    videos = units or ([Path(f"{out}.y4m")] if case != "audio_only" else [])
+    return [*videos, Path(f"{out}.wav")]
+
+
 # cfg1: YUV420P -> RGB24 -> YUV420P, then the zoom
 CFG1_W, CFG1_H, CFG1_ZOOM = 640, 480, (512, 384)
 
@@ -2514,6 +2918,8 @@ def main(argv=()) -> int:
     _check_gmc_kernels(torch, kernels, bench, gmc_avi, gmc_dir.name)
     # the mjpegenc path's inputs, written in phase 4 for phases 4 and 6
     mjpegenc_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_mjpegenc_")
+    # the ts1080 path's capture, written in phase 4 for phases 4 and 6
+    ts_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_ts1080_")
     torch.cuda.empty_cache()
     _check_jpeg_kernels(torch, kernels, bench)
     torch.cuda.empty_cache()
@@ -2691,6 +3097,12 @@ def main(argv=()) -> int:
         path_launches["dvdrip"] = _run_dvdrip(torch, cli, kernels, bench,
                                               tmp)
         _dvd_goldens(cli, tmp)
+        # 4. and 5. for the ts1080 path: the ATSC capture to 720p with its
+        # AC-3 track, a VideoCD track, PSU mode; the TS, VideoCD, PSU and
+        # compressed-audio goldens
+        path_launches["ts1080"] = _run_ts1080(torch, cli, kernels, bench,
+                                              tmp, ts_dir.name)
+        _ts_goldens(cli, tmp)
         # 4. and 5. for MPEG-2 export: the DVD authoring path at full
         # width, and the export goldens pinned against the JAX CLI
         path_launches["dvdauthor"] = _run_dvdauthor(torch, cli, kernels,
@@ -2813,6 +3225,10 @@ def main(argv=()) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_rip_") as tmp:
         _dvdrip_rates(torch, dev, cli, Path(tmp))
     torch.cuda.empty_cache()
+    # 6. the ts1080 path: its CLI, its serial stages, the device's share
+    _ts1080_rates(torch, dev, cli, Path(ts_dir.name))
+    ts_dir.cleanup()
+    torch.cuda.empty_cache()
     # 6. the DVD authoring path: its CLI and the encoder's stages
     with tempfile.TemporaryDirectory(prefix="chip_smoke_author_") as tmp:
         _author_rates(torch, cli, Path(tmp))
@@ -2882,6 +3298,8 @@ def main(argv=()) -> int:
             launches[name] = path_launches[owner][name]
     emit(phase="launches", path="dvdrip", launches={
         k: path_launches["dvdrip"][k] for k in RIP_KERNELS})
+    emit(phase="launches", path="ts1080", launches={
+        k: path_launches["ts1080"][k] for k in TS1080_KERNELS})
     emit(phase="launches", path="dvdauthor", launches={
         k: path_launches["dvdauthor"][k] for k in AUTHOR_KERNELS})
     emit(phase="launches", path="mpeg422", launches={
@@ -5033,64 +5451,134 @@ def _dvd_rates(torch, dev, cli, tmp):
          stages=mpeg_stages(torch, dev, src, Path(tmp) / "stages.y4m", job))
 
 
-def mpeg_stages(torch, dev, src, out, job, batch: int = MAIN_BATCH):
+def mpeg_stages(torch, dev, src, out, job, batch: int = MAIN_BATCH,
+                audio: bool = False):
     """The serial engine's stages for an MPEG input on the card, each
     timed alone with the card synchronized after it: the host parse and
-    plan, the decode (upload and reconstruction), the chain, the copy
-    back and the Y4M write.  Returns ms per batch of each, their sum and
-    the frames/s of the sum and of the slowest stage.  The importer takes
-    ``job`` too (a 4:2:2 stream stays 4:2:2 under its -V yuv422p)."""
+    plan, with ``audio`` the wait for the batch's samples of the
+    importer's audio track, the decode (upload and reconstruction), the
+    chain, the copy back and the Y4M write.  A transport stream's demux
+    (``tsio.iter_video_es``: one PID's packets to elementary stream
+    pieces) is timed wherever it runs and taken out of the stage it ran
+    in: ``demux`` the video PID's, ``audio_demux`` the audio PID's.
+    Apart from the sum: ``audio_decode``, the audio decoder's own time in
+    its process; ``open_ms``, the importer's open, of which
+    ``demux_at_open_ms`` demuxed; ``audio_demux_ms_per_piece``, the audio
+    PID's demux time over the pieces it gave, at open or later.  Returns
+    ms per batch of each stage, their sum and the frames/s of the sum
+    and of the slowest stage.  The importer takes ``job`` too (a 4:2:2
+    stream stays 4:2:2 under its -V yuv422p)."""
     from tcforge_tpu_torch.core.frame import FrameBatch
+    from tcforge_tpu_torch.io import ts as tsio
+    from tcforge_tpu_torch.io.adec_worker import decode_seconds
     from tcforge_tpu_torch.io.y4m import Y4MHeader, Y4MWriter
+    from tcforge_tpu_torch.modules.importers.mpeg_import import _TS_AUDIO
     from tcforge_tpu_torch.pipeline.chain import VideoChain
-    imp = _mpeg_importer(src, dev, job=job)
-    fmt = imp.format
-    chain = VideoChain(job, fmt, imp.width, imp.height)
-    states = chain.initial_states(dev)
-    ms = dict.fromkeys(("parse", "decode", "chain", "to_host", "write"), 0.0)
-    frames = batches = 0
-    with Y4MWriter(str(out), Y4MHeader(width=imp.width, height=imp.height,
-                                       fps_num=30000, fps_den=1001,
-                                       format=fmt)) as wr:
+    with open(src, "rb") as f:
+        is_ts = f.read(1) == b"\x47"
+    apids = ({p for p, st in tsio.scan_programs(str(src)).items()
+              if st in _TS_AUDIO} if is_ts else set())
+    spent = {"demux": 0.0, "audio_demux": 0.0}
+    audio_pieces = [0]
+    iter_es = tsio.iter_video_es
+
+    def timed_es(path, pid=None, **kw):
+        key = "audio_demux" if pid in apids else "demux"
+        pieces = iter_es(path, pid=pid, **kw)
+        while True:
+            t = time.perf_counter()
+            piece = next(pieces, None)
+            spent[key] += time.perf_counter() - t
+            if piece is None:
+                return
+            audio_pieces[0] += key == "audio_demux"
+            yield piece
+
+    def host_stage(key, a, b, before):
+        ran = {k: v - before[k] for k, v in spent.items()}
+        ms[key] += ((b - a) - sum(ran.values())) * 1e3
+        for k, v in ran.items():
+            ms[k] += v * 1e3
+
+    ms = dict.fromkeys(("demux", "parse", "audio_demux", "audio", "decode",
+                        "chain", "to_host", "write"), 0.0)
+    tsio.iter_video_es = timed_es
+    try:
+        t0 = time.perf_counter()
+        imp = _mpeg_importer(src, dev, job=job)
+        open_ms = (time.perf_counter() - t0) * 1e3
+        demux_at_open_ms = sum(spent.values()) * 1e3
+        fmt = imp.format
+        spf = imp.audio_rate * 1001 / 30000
+        chain = VideoChain(job, fmt, imp.width, imp.height)
+        states = chain.initial_states(dev)
+        audio_decode = 0.0
+        frames = batches = 0
+        wr = None
         torch.cuda.synchronize()
         while True:
+            before, dec0 = dict(spent), decode_seconds()
             t0 = time.perf_counter()
             plan = imp.plan_batch(batch)
             t1 = time.perf_counter()
             if plan is None:
                 break
+            host_stage("parse", t0, t1, before)
+            n = len(plan.frames)
+            before = dict(spent)
+            if audio and n:
+                imp.read_audio_batch(int(round(spf * (frames + n)))
+                                     - int(round(spf * frames)))
+            t2 = time.perf_counter()
+            host_stage("audio", t1, t2, before)
+            audio_decode += (decode_seconds() - dec0) * 1e3
             planes = imp.execute(plan)
             torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            n = planes["y"].shape[0]
+            t3 = time.perf_counter()
+            if planes is None:
+                continue
             fb = FrameBatch(format=fmt, y=planes["y"],
                             u=planes["u"], v=planes["v"],
                             attrs=torch.zeros((n,), dtype=torch.int32,
                                               device=dev),
                             frame_ids=torch.arange(frames, frames + n,
                                                    dtype=torch.int32,
-                                                   device=dev), fps=29.97)
+                                                   device=dev), fps=29.97,
+                            id_range=(frames, frames + n))
             result, states = chain(fb, states)
             torch.cuda.synchronize()
-            t3 = time.perf_counter()
-            host = result.to_numpy()
             t4 = time.perf_counter()
-            wr.write_batch(*host)
+            host = result.to_numpy()
             t5 = time.perf_counter()
-            for key, a, b in (("parse", t0, t1), ("decode", t1, t2),
-                              ("chain", t2, t3), ("to_host", t3, t4),
-                              ("write", t4, t5)):
+            if wr is None:
+                wr = Y4MWriter(str(out), Y4MHeader(
+                    width=result.width, height=result.height,
+                    fps_num=30000, fps_den=1001, format=result.format))
+            wr.write_batch(*host)
+            t6 = time.perf_counter()
+            for key, a, b in (("decode", t2, t3), ("chain", t3, t4),
+                              ("to_host", t4, t5), ("write", t5, t6)):
                 ms[key] += (b - a) * 1e3
             frames += n
             batches += 1
-    imp.close()
+        imp.close()
+    finally:
+        tsio.iter_video_es = iter_es
+        if wr is not None:
+            wr.close()
     per_batch = {k: v / batches for k, v in ms.items()}
     total = sum(per_batch.values())
     return {"frames": frames, "ms_per_batch": per_batch,
             "sum_ms_per_batch": total,
             "serial_fps": frames / (total * batches / 1e3),
             "overlapped_fps": frames / (max(per_batch.values())
-                                        * batches / 1e3)}
+                                        * batches / 1e3),
+            "audio_decode_ms_per_batch": audio_decode / batches,
+            "open_ms": open_ms, "demux_at_open_ms": demux_at_open_ms,
+            "audio_pieces": audio_pieces[0],
+            "audio_demux_ms_per_piece": (
+                spent["audio_demux"] * 1e3 / audio_pieces[0]
+                if audio_pieces[0] else None)}
 
 
 
@@ -8524,6 +9012,355 @@ def _mjpegenc_rates(torch, cli, directory):
          max_fps=max(fps))
     emit(phase="stages", path="mjpegenc",
          **mjpegenc_stages(torch, cli, src, wav, out, MJPEGENC_FRAMES))
+
+
+# ---------------------------------------------------------------------- #
+# The ts1080 path: an ATSC HDTV capture (1080i MPEG-2 and AC-3 in a
+# transport stream) brought down to 720p, the main path's chain behind the
+# MPEG-2 decode
+
+TS1080_FPS = (30000, 1001)
+TS1080_FRAMES = 48
+# the encoder's settings: ATSC's 19.39 Mbit/s holds 15 Mbit/s of video
+TS1080_GOP = "gop_n=15:gop_m=3:rc=1:bitrate=15000"
+TS1080_AC3_KBPS = 192
+# an ATSC station's PIDs: video 0x31, AC-3 0x34, the PMT 0x30
+TS1080_PIDS = (0x30, 0x31, 0x34)
+TS1080_ARGS = ["-x", "auto", "-I", "5", "-Z", "1280x720", "-J",
+               "hqdn3d=luma=4.0"]
+TS1080_KERNELS = ("mpeg2_recon", "mpeg2_idct_intra", "zoom_pass",
+                  "hqdn3d_spatial_scan", "hqdn3d_temporal_scan")
+_TS1080_WRAPPERS = {**_RIP_WRAPPERS, "zoom_pass": "zoom_pass"}
+TS1080_RUNS = 4
+# phase 4's PSU check: the first three units of tests/data/ts/video.m2v
+PSU3_BYTES = 8532
+
+
+def ts1080_inputs(cli, directory, device: str = "cuda"):
+    """The ts1080 path's capture in ``directory``: ``write_programme_y4m``
+    at 1920x1088, 29.97 fps, top field first, encoded by the port's CLI
+    (``-y mpeg2,raw,raw``, ``TS1080_GOP``) to ``ts1080.m2v`` and its
+    display height set to 1080 (``atsc_display_height``); a seeded
+    48 kHz stereo WAV of the same length through the port's AC-3 encoder
+    to ``ts1080.ac3``; the two muxed by ``mux_ts`` into ``ts1080.ts``
+    (PAT, a PMT with stream types 0x02 and 0x81, the video's PCR, null
+    and PCR-only packets).  Returns the three paths."""
+    from tcforge_tpu_torch.io.a52enc import NativeAc3Encoder
+    from tcforge_tpu_torch.io.wav import WavReader
+    d = Path(directory)
+    y4m, wav = d / "ts1080_in.y4m", d / "ts1080_in.wav"
+    m2v, ac3, ts = d / "ts1080.m2v", d / "ts1080.ac3", d / "ts1080.ts"
+    coded = -(-MAIN_H // 16) * 16
+    write_programme_y4m(y4m, MAIN_W, coded, TS1080_FRAMES, seed=29)
+    rc = cli.main(["-i", str(y4m), "-o", str(m2v), "-y", "mpeg2,raw,raw",
+                   "-F", TS1080_GOP, "--device", device, "--progress_off",
+                   "-q"])
+    check(rc == 0, f"ts1080: the encode's exit code {rc}")
+    y4m.unlink()
+    m2v.write_bytes(atsc_display_height(m2v.read_bytes(), MAIN_H))
+    samples = TS1080_FRAMES * 48000 * TS1080_FPS[1] // TS1080_FPS[0] + 1
+    write_test_wav(wav, samples, seed=31)
+    with WavReader(str(wav)) as r:
+        pcm = r.read_samples(samples)
+    enc = NativeAc3Encoder(48000, 2, TS1080_AC3_KBPS * 1000)
+    enc.feed(pcm)
+    enc.flush()
+    ac3.write_bytes(b"".join(enc.read_packets()))
+    pmt, vpid, apid = TS1080_PIDS
+    ts.write_bytes(mux_ts([(1, pmt, [(vpid, 0x02, 0xE0, m2v.read_bytes()),
+                                     (apid, 0x81, 0xBD, ac3.read_bytes())])]))
+    return ts, m2v, ac3
+
+
+def write_programme_y4m(path, width: int, height: int, frames: int,
+                        seed: int, fps=TS1080_FPS) -> None:
+    """A seeded interlaced YUV420P Y4M that compresses like a programme,
+    not like noise (``tests/data/mpeg2/make_streams.clip_y4m``'s
+    content): a smooth gradient that drifts down, two textured blocks
+    moving across it, and half a level of grain."""
+    from tcforge_tpu_torch.io.y4m import Y4MHeader, Y4MWriter
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float32)
+    cy, cx = yy[::2, ::2] / 2, xx[::2, ::2] / 2
+    tex = rng.integers(40, 220, (max(2, height // 3), max(2, width // 4)))
+    hdr = Y4MHeader(width=width, height=height, fps_num=fps[0],
+                    fps_den=fps[1], interlacing="t")
+    with Y4MWriter(str(path), hdr) as wr:
+        for k in range(frames):
+            y = 60 + 80 * (xx / width) + 50 * np.sin((yy + 3 * k) / 23.0)
+            for bx, by, vx, vy in ((0.1, 0.2, 5, 2), (0.6, 0.5, -3, 3)):
+                th, tw = tex.shape
+                x0 = int(bx * width + vx * k) % max(1, width - tw)
+                y0 = int(by * height + vy * k) % max(1, height - th)
+                y[y0:y0 + th, x0:x0 + tw] = tex
+            y += rng.normal(0, 0.5, y.shape).astype(np.float32)
+            u = 128 + 30 * np.cos((cx + 2 * k) / 17.0)
+            v = 128 + 30 * np.sin((cy - k) / 13.0)
+            wr.write_frame(*(np.clip(np.round(p), 0, 255).astype(np.uint8)
+                             for p in (y, u, v)))
+
+
+def atsc_display_height(es: bytes, height: int) -> bytes:
+    """``es`` with every sequence header's vertical size set to
+    ``height``: the encoder takes sizes that are multiples of 16, and an
+    ATSC 1080i stream codes 1088 lines and displays 1080 (the decoder
+    crops the macroblock rows' last lines)."""
+    out = bytearray(es)
+    pos = out.find(b"\x00\x00\x01\xb3")
+    while pos >= 0:
+        out[pos + 5] = (out[pos + 5] & 0xF0) | (height >> 8)
+        out[pos + 6] = height & 0xFF
+        pos = out.find(b"\x00\x00\x01\xb3", pos + 4)
+    return bytes(out)
+
+
+def ts1080_argv(src, out, device: str = "cuda") -> list:
+    """The ts1080 CLI on ``src``, writing ``out``.y4m and ``out``.wav."""
+    return ["-i", str(src), *TS1080_ARGS, "-o", f"{out}.y4m", "-m",
+            f"{out}.wav", "--device", device, "--progress_off", "-q"]
+
+
+def ts1080_job():
+    """The job of ``TS1080_ARGS`` (for the importer and chain driven
+    without the CLI)."""
+    from tcforge_tpu_torch.core.job import FilterSpec, Job
+    return Job(deinterlace=5, zoom_width=1280, zoom_height=720,
+               fps=TS1080_FPS[0] / TS1080_FPS[1],
+               filters=[FilterSpec("hqdn3d", "luma=4.0")])
+
+
+def _wav_pcm(path):
+    from tcforge_tpu_torch.io.wav import WavReader
+    with WavReader(str(path)) as r:
+        return r.info, r.read_samples(1 << 30)
+
+
+def _run_ts1080(torch, cli, kernels, bench, tmp, inputs):
+    """Phase 4 for the ts1080 path: the capture through the port's CLI
+    with the launch counts set to 0 just before and read just after
+    (every kernel of the path launched); the same CLI with every kernel
+    call held against its plain version (max abs err 0), the 1920x1088
+    calls kept for their timing, and on the plain versions alone, byte
+    for byte; its .y4m against the same CLI on the elementary stream the
+    TS wraps and its .wav's samples against an audio-only session of the
+    AC-3 stream it wraps; a VideoCD track (``cdxa.wrap_ps`` of dvd.vob)
+    against dvd.vob; --psu_mode over three units on the card against the
+    CPU, file by file.  The capture is written into ``inputs`` (kept for
+    phase 6).  Returns the launches."""
+    from tcforge_tpu_torch.io.cdxa import wrap_ps
+    ts, m2v, ac3 = ts1080_inputs(cli, inputs)
+    out = tmp / "ts1080"
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main(ts1080_argv(ts, out))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    check(rc == 0, f"ts1080: CLI exit code {rc}")
+    frames = Path(f"{out}.y4m").read_bytes().count(b"FRAME\n")
+    emit(phase="path", path="ts1080", frames=frames, seconds=seconds,
+         e2e_fps=frames / seconds, ts_bytes=ts.stat().st_size,
+         launches={k: launches[k] for k in TS1080_KERNELS})
+    check(frames == TS1080_FRAMES, f"ts1080 wrote {frames} frames")
+    for name in TS1080_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched by the "
+                                  "ts1080 path")
+    want = [Path(f"{out}.{ext}").read_bytes() for ext in ("y4m", "wav")]
+    captured = {"recon": [], "idct": []}
+    for label in ("checked", "plain"):
+        path = tmp / f"ts1080_{label}"
+        ctx = (checked_kernels(kernels, bench, "ts1080", _TS1080_WRAPPERS)
+               if label == "checked" else plain_versions(kernels))
+        with ctx as counts:
+            if label == "checked":
+                recon, idct = kernels.mpeg2_recon, kernels.mpeg2_idct_intra
+
+                def kept_recon(*a, **k):
+                    if k.get("chroma", 1) == 1 and len(k) <= 1:
+                        captured["recon"].append(a)   # a frame picture
+                    return recon(*a, **k)
+
+                def kept_idct(coef, *a, **k):
+                    if not a and not k:   # a batched intra run's plane
+                        captured["idct"].append(coef)
+                    return idct(coef, *a, **k)
+                kernels.mpeg2_recon = kept_recon
+                kernels.mpeg2_idct_intra = kept_idct
+            rc = cli.main(ts1080_argv(ts, path))
+        check(rc == 0, f"ts1080 on the {label}: CLI exit code {rc}")
+        got = [Path(f"{path}.{ext}").read_bytes() for ext in ("y4m", "wav")]
+        same = got == want
+        emit(phase="path_vs_plain", path="ts1080", run=label,
+             identical=same, checked_calls=counts)
+        check(same, f"ts1080 on the {label}: the output differs")
+        for ext in ("y4m", "wav"):
+            Path(f"{path}.{ext}").unlink()
+    # the elementary stream the TS wraps, and its AC-3 stream alone
+    rc = cli.main(ts1080_argv(m2v, tmp / "ts1080_es"))
+    check(rc == 0, f"ts1080 on the .m2v: CLI exit code {rc}")
+    same = (tmp / "ts1080_es.y4m").read_bytes() == want[0]
+    emit(phase="ts_vs_es", path="ts1080", identical=same)
+    check(same, "ts1080: the TS's .y4m differs from its .m2v's")
+    (tmp / "ts1080_es.y4m").unlink()
+    rc = cli.main(["-i", str(ac3), "-o", str(tmp / "ts1080_ac3.wav"),
+                   "--device", "cuda", "--progress_off", "-q"])
+    check(rc == 0, f"ts1080's AC-3 alone: CLI exit code {rc}")
+    info, pcm = _wav_pcm(f"{out}.wav")
+    ainfo, apcm = _wav_pcm(tmp / "ts1080_ac3.wav")
+    n = pcm.shape[0]
+    same = (info == ainfo and n >= TS1080_FRAMES * 1601
+            and np.array_equal(pcm, apcm[:n]))
+    emit(phase="ts_audio_vs_ac3", path="ts1080", samples=n,
+         ac3_samples=int(apcm.shape[0]), rate=info.rate,
+         channels=info.channels, identical=same)
+    check(same, "ts1080: the TS's audio differs from its AC-3 stream's")
+    # a VideoCD track against the program stream it wraps
+    dat = tmp / "dvd.dat"
+    dat.write_bytes(wrap_ps((MPEG_DATA / "dvd.vob").read_bytes()))
+    got = {}
+    for name, src in (("vob", MPEG_DATA / "dvd.vob"), ("dat", dat)):
+        o = tmp / f"cdxa_{name}"
+        rc = cli.main(["-i", str(src), "-J", "hqdn3d=luma=4.0", "-o",
+                       f"{o}.y4m", "-m", f"{o}.wav", "--device", "cuda",
+                       "--progress_off", "-q"])
+        check(rc == 0, f"cdxa {name}: CLI exit code {rc}")
+        got[name] = [Path(f"{o}.{ext}").read_bytes() for ext in ("y4m", "wav")]
+    same = got["vob"] == got["dat"]
+    emit(phase="cdxa_vs_ps", path="dvd.vob", identical=same,
+         frames=got["dat"][0].count(b"FRAME\n"))
+    check(same, "the VideoCD track's output differs from its PS's")
+    dat.unlink()
+    # PSU mode: three units, the card against the CPU
+    psu = tmp / "psu3.m2v"
+    psu.write_bytes((TS_DATA / "video.m2v").read_bytes()[:PSU3_BYTES])
+    files = {}
+    for device in ("cuda", "cpu"):
+        d = tmp / f"psu_{device}"
+        d.mkdir()
+        rc = cli.main(["-i", str(psu), "--psu_mode", "-J", "hqdn3d=luma=4.0",
+                       "-o", str(d / "unit%d.y4m"), "--device", device,
+                       "--progress_off", "-q"])
+        check(rc == 0, f"psu on {device}: CLI exit code {rc}")
+        files[device] = {f.name: f.read_bytes() for f in d.iterdir()}
+    same = files["cuda"] == files["cpu"] and len(files["cuda"]) == 3
+    emit(phase="psu_vs_cpu", units=sorted(files["cuda"]), identical=same)
+    check(same, "psu mode: the card's units differ from the CPU's")
+    _time_recon_1080(torch, kernels, bench, captured)
+    return launches
+
+
+def _time_recon_1080(torch, kernels, bench, captured):
+    """The ts1080 path's 1920x1088 reconstruction calls timed as phase 3
+    times dvd.vob's (beside the plain versions, the bound and the IDCT's
+    ``torch.matmul``), each line's ``per_batch`` 0 so the summary keeps
+    the dvd path's rows, the path's calls a batch in the case's name."""
+    from tcforge_tpu_torch.io.mpeg2codec import idct_kron
+    dev = bench.dev
+    calls, planes = captured["recon"], captured["idct"]
+    check(len(calls) >= 8 and len(planes) >= 3,
+          f"ts1080 gave {len(calls)} recon calls, {len(planes)} intra planes")
+    kmat = torch.from_numpy(idct_kron()).to(dev)
+    batches = TS1080_FRAMES / MAIN_BATCH
+
+    def fmas(args):
+        return 64 * int(sum(int((c != 0).sum()) for c in args[:3]))
+
+    bench.record("mpeg2_recon",
+                 f"1920x1088 P and B pictures (ts1080, "
+                 f"{len(calls) / batches:g} a batch)", 0,
+                 lambda *a: kernels.mpeg2_recon(*a),
+                 lambda *a: kernels.mpeg2_recon_ref(*a), calls,
+                 nbytes=sum(map(_recon_bytes, calls)) / len(calls),
+                 ops=sum(map(fmas, calls)) / len(calls),
+                 library=(lambda c: torch.matmul(c, kmat),
+                          [(torch.cat([c.reshape(-1, 64) for c in a[:3]])
+                            .to(torch.float32),) for a in calls]),
+                 plain_reps=2, ops_per_s=F32_FMA_PER_S)
+    kmat64 = kmat.to(torch.float64)
+    for label, group in (("1920x1088 intra Y", planes[0::3]),
+                         ("960x544 intra U, V", planes[1::3] + planes[2::3])):
+        inputs = [(c,) for c in group]
+        while sum(_nbytes(c) for (c,) in inputs) < L2_BYTES:
+            inputs = inputs + [(c.clone(),) for (c,) in inputs]
+        c0 = inputs[0][0]
+        blocks = c0.numel() // 64
+        bench.record("mpeg2_idct_intra",
+                     f"{label} (ts1080, {len(group) / batches:g} a batch)",
+                     0, kernels.mpeg2_idct_intra,
+                     kernels.mpeg2_idct_intra_ref, inputs,
+                     nbytes=_nbytes(c0) + blocks * 64, ops=1024 * blocks,
+                     library=(lambda c: torch.matmul(c, kmat64),
+                              [(c.reshape(-1, 64).to(torch.float64),)
+                               for (c,) in inputs]),
+                     plain_reps=2, ops_per_s=F64_FMA_PER_S)
+    calls.clear()
+    planes.clear()
+
+
+def _ts_goldens(cli, tmp):
+    """Phase 5 for TS, VideoCD, PSU navigation and the audio importers:
+    every ``TS_GOLDEN`` case on the card, each output's SHA-256 against
+    the JAX CLI's pinned digests."""
+    for case in TS_GOLDEN:
+        d = tmp / f"ts_golden_{case}"
+        d.mkdir()
+        rc = cli.main([*ts_golden_argv(case, d), "--device", "cuda",
+                       "--progress_off", "-q"])
+        digest = tuple(sha256_file(f) for f in ts_golden_outputs(case, d))
+        emit(phase="golden", path=case, sha256=list(digest),
+             pinned=list(TS_GOLDEN_SHA256[case]))
+        check(rc == 0 and digest == TS_GOLDEN_SHA256[case],
+              f"{case} golden output differs from the JAX-pinned digests")
+
+
+def _ts1080_rates(torch, dev, cli, tmp):
+    """Phase 6 for the ts1080 path: its CLI on phase 4's 48-frame capture
+    (in ``tmp``), wall clock to the last byte, ``TS1080_RUNS`` runs after
+    an untimed one (median and spread); its serial stages
+    (``mpeg_stages``); under torch.profiler, one CLI run's device busy time
+    a batch and the decode kernels' share."""
+    from torch.profiler import ProfilerActivity, profile
+    ts = tmp / "ts1080.ts"
+    out = tmp / "ts1080_rate"
+    fps = []
+    for r in range(TS1080_RUNS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli.main(ts1080_argv(ts, out))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check(rc == 0, f"ts1080 CLI: exit code {rc}")
+        if r:
+            fps.append(TS1080_FRAMES / seconds)
+    emit(phase="cli", path="ts1080", frames=TS1080_FRAMES, fps=fps,
+         median_fps=float(np.median(fps)), min_fps=min(fps),
+         max_fps=max(fps))
+    emit(phase="stages", path="ts1080",
+         **mpeg_stages(torch, dev, ts, tmp / "ts1080_stages.y4m",
+                       ts1080_job(), audio=True))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rc = cli.main(ts1080_argv(ts, out))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    check(rc == 0, f"ts1080 under the profiler: exit code {rc}")
+    t0 = time.perf_counter()
+    busy = _device_busy(prof, TS1080_FRAMES / MAIN_BATCH,
+                        ("recon_kernel", "idct_intra_kernel"))
+    busy_ms = busy["busy_ms_per_batch"]
+    emit(phase="stages", path="ts1080_device",
+         cli_seconds=wall,
+         busy_share_of_cli=(None if busy_ms is None else
+                            busy_ms * TS1080_FRAMES / MAIN_BATCH / 1e3
+                            / wall),
+         busy_share_of_window=(None if busy_ms is None else
+                               busy_ms / busy["profiled_ms_per_batch"]),
+         device_busy_ms_per_batch=busy_ms,
+         profiled_ms_per_batch=busy["profiled_ms_per_batch"],
+         decode_kernels_ms_per_batch=busy["named_ms_per_batch"],
+         device_kernels_ms_per_batch=busy["kernels_ms_per_batch"],
+         trace_seconds=time.perf_counter() - t0)
 
 
 if __name__ == "__main__":

@@ -25,6 +25,16 @@ the default ``-x auto`` (a 4:2:2 stream stays 4:2:2 under ``-V
 yuv422p``, else its chroma is decimated to 4:2:0); its size and rate come from the sequence
 header, the host parses it and the card reconstructs it.  A program
 stream's LPCM, MPEG audio or AC-3 track (``-a`` picks it) goes to ``-m``;
+a transport stream (``--ts_pid`` picks the video PID, else its PAT and
+PMT do; its audio is the PMT's first MPEG audio, AC-3 or AAC stream) and
+a VideoCD track (RIFF/CDXA ``.DAT``) take the same route; ``-S
+unit[,chunks]`` starts at a program stream unit, ``--psu_mode`` runs one
+pipeline a unit into ``-o``'s ``%d`` (``--psu_first``, ``--psu_last``,
+``--psu_chunks a-b``; ``--no_split`` writes the units into one file), and
+``-W n,m[,navfile]`` (``--cluster_chunks``, ``--cluster_percentage``,
+``--nav_seek``) takes chunk n of m as ``-L`` and ``--max_frames``; ``-p``
+and an audio-only ``-i`` take WAV, MP3 (Layers I to III), AC-3, FLAC and
+ADTS AAC files;
 ``-x dvd -T title[,chapter[-chapter]]`` reads a decrypted ``VIDEO_TS``
 title and a directory given to ``-i`` plays its files in turn.  An AVI
 (``-x avi``, or found by its magic) brings raw, LZO2 or MPEG-4 part 2
@@ -80,6 +90,13 @@ a program stream with the audio track as DVD LPCM; so do the MPEG-4
         -F gop_n=12:gop_m=3:rc=1:bitrate=15000 -R 1,pass.log -o out.m2v
     python -m tcforge_tpu_torch.cli -i out.m2v -x mpeg -V yuv422p \\
         -J denoise3d -o out422.y4m
+    python -m tcforge_tpu_torch.cli -i cap.ts -I 5 -Z 1280x720 \\
+        -J hqdn3d=luma=4.0 -o out.y4m -m out.wav
+    python -m tcforge_tpu_torch.cli -i avseq01.dat -J hqdn3d=luma=4.0 \\
+        -o out.y4m -m out.wav
+    python -m tcforge_tpu_torch.cli -i dvd.vob --psu_mode -o unit%d.y4m
+    python -m tcforge_tpu_torch.cli -i in.y4m -p in.ac3 -o out.y4m \\
+        -m out.wav
     python -m tcforge_tpu_torch.cli -i divx.avi -x avi \\
         -J hqdn3d=luma=4.0 -y raw,raw,avi -o out.avi
     python -m tcforge_tpu_torch.cli -i dvd.vob -x mpeg -Z 640x480 \\
@@ -87,13 +104,16 @@ a program stream with the audio track as DVD LPCM; so do the MPEG-4
         -F keyint=12:bframes=2:four_mv=1 -w 1500 -o out.avi
 
 and refuses every other flag of the JAX CLI with an error that names
-it, and any audio file but WAV.  ``--device cuda`` (the default) with
-no card raises: the CLI never drops to the CPU quietly.
+it, and any other audio file, naming the JAX module that reads it.
+``--device cuda`` (the default) with no card raises: the CLI never drops
+to the CPU quietly.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import sys
 from typing import List, Optional
 
@@ -248,6 +268,32 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_frames", type=int, help="stop after N frames")
     p.add_argument("-L", "--vob_seek", dest="vob_offset", type=int,
                    default=0, help="seek: skip the first N source frames")
+    # MPEG navigation (the JAX CLI's flags and parsing)
+    p.add_argument("-S", dest="seek_unit", default=None,
+                   help="seek unit[,chunks] (program-stream units)")
+    p.add_argument("--nav_seek", dest="nav_seek",
+                   help="tcdemux nav index file for frame-exact "
+                        "MPEG seeking")
+    p.add_argument("-W", dest="autosplit", default="",
+                   help="autosplit: process chunk n of m "
+                        "(n,m[,navfile])")
+    p.add_argument("--cluster_chunks", default="",
+                   help="process chunk range a-b instead of one chunk")
+    p.add_argument("--cluster_percentage", action="store_true",
+                   help="-W values are percentages")
+    p.add_argument("--psu_mode", action="store_true",
+                   help="process MPEG program stream units separately "
+                        "(-o needs %%d)")
+    p.add_argument("--psu_first", type=int, default=0,
+                   help="first PSU to process")
+    p.add_argument("--psu_last", type=int, default=-1,
+                   help="last PSU to process (exclusive; -1 = all)")
+    p.add_argument("--psu_chunks", default="",
+                   help="process only units a-b in PSU mode")
+    p.add_argument("--no_split", action="store_true",
+                   help="encode to a single file in chapter/PSU mode")
+    p.add_argument("--ts_pid", default="",
+                   help="transport stream video pid (hex)")
     p.add_argument("--export_fps", dest="export_fps", type=float,
                    default=0.0, help="output fps (for fps/modfps filters)")
     p.add_argument("--batch", type=int, default=16,
@@ -378,6 +424,12 @@ def args_to_job(args: argparse.Namespace) -> Job:
         job.dm_chan = args.channels
     job.av_fine_ms = args.av_fine_ms
     job.a_track = args.a_track
+    if args.seek_unit:
+        job.seek_unit = int(args.seek_unit.split(",")[0])
+    if args.nav_seek:
+        job.nav_seek_file = args.nav_seek
+    if args.ts_pid:
+        job.ts_pid1 = int(args.ts_pid, 16)
     if args.dvd_title:
         # -T t[,c[-d][,a]] (cmdline_def.h:340)
         parts = args.dvd_title.split(",")
@@ -417,13 +469,52 @@ def _parse(argv: Optional[List[str]]) -> argparse.Namespace:
     return args
 
 
+def _autosplit(args: argparse.Namespace, job: Job) -> None:
+    """-W n,m[,navfile]: chunk n of m of the stream as -L and
+    --max_frames (tcforge_tpu/cli.py:644-685); the stream's length is
+    the nav file's ``total_pictures`` (JSON, as tcdemux writes it), else
+    --max_frames or the probe's frame count.  --cluster_chunks a-b takes
+    chunks a to b, --cluster_percentage reads n and m as percentages."""
+    parts = args.autosplit.split(",")
+    if len(parts) < 2:
+        raise ValueError("-W needs n,m[,navfile]")
+    job.vob_chunk = int(parts[0])
+    job.vob_chunk_max = int(parts[1])
+    job.vob_percentage = args.cluster_percentage
+    navf = parts[2] if len(parts) > 2 and parts[2] else args.nav_seek
+    total = 0
+    if navf and os.path.exists(navf):
+        with open(navf) as f:
+            total = int(json.load(f).get("total_pictures", 0))
+    if not total:
+        total = job.max_frames or 0
+    if not total:
+        raise ValueError("-W: unknown stream length; provide a tcdemux nav "
+                         "file (-W n,m,navfile)")
+    startc, chunks = job.vob_chunk, 1
+    if args.cluster_chunks:
+        a, b = args.cluster_chunks.split("-")
+        job.vob_chunk_num1, job.vob_chunk_num2 = int(a), int(b)
+        startc, chunks = int(a), int(b) - int(a)
+    if args.cluster_percentage:
+        start = total * job.vob_chunk // 100
+        end = total * min(100, job.vob_chunk + job.vob_chunk_max) // 100
+    else:
+        start = total * startc // job.vob_chunk_max
+        end = total * (startc + chunks) // job.vob_chunk_max
+    job.vob_offset += start
+    job.max_frames = end - start
+
+
 def _probed_job(args: argparse.Namespace) -> Job:
-    """The job with the input's size and rate from its header, and the
-    -c ranges parsed at that rate (the JAX CLI parses them after its
-    probe)."""
+    """The job with the input's size and rate from its header, -W's
+    chunk, and the -c ranges parsed at that rate (the JAX CLI maps -W and
+    parses the ranges after its probe)."""
     from tcforge_tpu_torch.pipeline.engine import probe
     job = args_to_job(args)
     probe(job)
+    if args.autosplit:
+        _autosplit(args, job)
     if args.ranges:
         job.ranges = parse_ranges(args.ranges, job.fps)
     return job
@@ -434,21 +525,73 @@ def job_from_argv(argv: List[str]) -> Job:
     return _probed_job(_parse(argv))
 
 
-def main(argv: Optional[List[str]] = None) -> int:
-    args = _parse(argv)
-    from tcforge_tpu_torch.pipeline.engine import Pipeline
+def _psu_units(args: argparse.Namespace) -> None:
+    """--psu_chunks a-b sets the first and last unit, and PSU mode unless
+    --no_split is given (then neither changes: the whole stream runs, as
+    in the JAX CLI)."""
+    if args.psu_chunks:
+        ab = args.psu_chunks.split("-")
+        args.psu_first = int(ab[0])
+        args.psu_last = int(ab[1])
+        if not args.psu_mode and not args.no_split:
+            args.psu_mode = True
 
-    device = _device(args.device)
-    try:
-        pipe = Pipeline(_probed_job(args), device)
-        counters = pipe.run(progress=not (args.progress_off or args.quiet))
-    except (OSError, ValueError, KeyError, NotImplementedError) as e:
-        print(f"[torch] the pipeline failed: {e}", file=sys.stderr)
-        return 1
+
+def _run(args: argparse.Namespace, job: Job, device: torch.device) -> int:
+    """One pipeline of ``job``: its frame count (the summary printed
+    unless -q)."""
+    from tcforge_tpu_torch.pipeline.engine import Pipeline
+    pipe = Pipeline(job, device)
+    counters = pipe.run(progress=not (args.progress_off or args.quiet))
     if not args.quiet:
         print(f"[torch] {counters.summary()} on {pipe.device}",
               file=sys.stderr)
-    return 0 if counters.frames > 0 else 1
+    return counters.frames
+
+
+def _psu_mode(args: argparse.Namespace, job: Job,
+              device: torch.device) -> int:
+    """--psu_mode: one pipeline a program stream unit, each writing the
+    -o name with the unit's number for its %d (tcforge_tpu/cli.py:705-
+    732); 1 where -o has no %d, a unit fails or no frame was read."""
+    from tcforge_tpu_torch.io.mpeg import count_psus
+    if "%d" not in (job.video_out_file or ""):
+        print("[torch] --psu_mode needs %d in -o", file=sys.stderr)
+        return 1
+    n_units = count_psus(job.video_in_file)
+    last = args.psu_last if args.psu_last >= 0 else n_units
+    out_tpl = job.video_out_file
+    frames = 0
+    for unit in range(args.psu_first, min(last, n_units)):
+        job.psu_unit = unit
+        job.video_out_file = out_tpl % unit
+        try:
+            frames += _run(args, job, device)
+        except (OSError, ValueError, KeyError, NotImplementedError) as e:
+            print(f"[torch] PSU {unit} failed: {e}", file=sys.stderr)
+            return 1
+    return 0 if frames > 0 else 1
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = _parse(argv)
+    device = _device(args.device)
+    try:
+        job = _probed_job(args)
+        _psu_units(args)
+        if args.psu_mode and args.no_split:
+            # the units from the first up to the last in one output
+            from tcforge_tpu_torch.io.mpeg import count_psus
+            job.psu_unit = args.psu_first
+            job.psu_unit_end = (args.psu_last if args.psu_last >= 0
+                                else count_psus(job.video_in_file))
+        elif args.psu_mode:
+            return _psu_mode(args, job, device)
+        frames = _run(args, job, device)
+    except (OSError, ValueError, KeyError, NotImplementedError) as e:
+        print(f"[torch] the pipeline failed: {e}", file=sys.stderr)
+        return 1
+    return 0 if frames > 0 else 1
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""A program stream's compressed audio decoded away from the demux.
+"""A stream's compressed audio decoded away from the demux.
 
 The MPEG importer's demux runs on the engine's reader thread, beside the
 host parse of the video.  The in-tree AC-3 and MPEG audio decoders
@@ -22,8 +22,9 @@ a process whose decoder closed serves the next one of its kind, so that
 a title's VOB files do not start one each); its result is ``(pcm,
 rate)``: the samples that the decoder gave back, (S, C) int16 or None,
 and the decoder's rate after it; ``decode_seconds`` sums the decoders'
-own time over the results taken.  A decoder that raises hands its error to
-the caller of ``result``, which raises it there.
+own time over the results taken.  A decoder that raises hands its error,
+with the samples it gave back before it, to the caller of ``result``,
+which raises it there (``outcome`` returns both).
 """
 
 from __future__ import annotations
@@ -45,14 +46,87 @@ import numpy as np
 _ROOT = Path(__file__).resolve().parent.parent.parent
 
 
+class AdtsStreamDecoder:
+    """ADTS AAC in the shape of the other stream decoders (``feed``,
+    ``flush``, ``read``, ``rate``, ``channels``) over ``io/aacdec.py``:
+    each whole frame decodes as it arrives, with the resync, the frames
+    skipped and the rounding of ``decode_adts_stream``, so the samples
+    of a stream fed in any pieces are that function's on the whole
+    stream; a stream with no decodable frame raises its error at
+    ``flush``."""
+
+    def __init__(self):
+        from tcforge_tpu_torch.io.aacdec import AacDecoder
+        self._dec = AacDecoder()
+        self._buf = b""
+        self._out: List[np.ndarray] = []
+        self._frames = 0
+        self.rate = 0
+        self.channels = 0
+
+    def feed(self, data: bytes) -> None:
+        self._buf += data
+        self._drain(final=False)
+
+    def flush(self) -> None:
+        self._drain(final=True)
+        if not self._frames:
+            raise ValueError("aac: no decodable ADTS frames")
+
+    def _drain(self, final: bool) -> None:
+        from tcforge_tpu_torch.io.aacdec import parse_adts_header
+        buf, pos, n = self._buf, 0, len(self._buf)
+        while pos + 7 <= n:
+            h = parse_adts_header(buf[pos:pos + 9])
+            if h is None:
+                pos += 1
+                continue
+            if pos + h["frame_length"] > n:
+                if not final:
+                    break                # the rest of the frame to come
+                pos += 1
+                continue
+            if h["profile"] != 1:        # 1 = LC in ADTS coding
+                raise NotImplementedError(
+                    f"aac: ADTS profile {h['profile']} (only LC)")
+            payload = buf[pos + h["header_bytes"]:pos + h["frame_length"]]
+            try:
+                pcm = self._dec.decode_raw(payload, h["sfi"],
+                                           h["channels"])
+            except (ValueError, EOFError):
+                pos += 1
+                continue
+            if not self._frames:
+                self.channels = pcm.shape[1]
+            self._frames += 1
+            self.rate = self._dec.sample_rate
+            self._out.append(np.clip(np.rint(pcm), -32768,
+                                     32767).astype(np.int16))
+            pos += h["frame_length"]
+        self._buf = buf[pos:]
+
+    def read(self) -> Optional[np.ndarray]:
+        if not self._out:
+            return None
+        out = (self._out[0] if len(self._out) == 1
+               else np.concatenate(self._out))
+        self._out = []
+        return out
+
+
 def new_stream_decoder(kind: str):
-    """The JAX importer's in-tree fallback decoder for ``kind``."""
+    """The in-tree decoder for ``kind``: the JAX importers' fallback
+    decoder (``ac3``; ``mp2`` and ``mp3``, one ``StreamDecoder`` that
+    hands Layer III frames to ``io/mp3dec.py``), or ``aac``, ADTS frames
+    through ``io/aacdec.py``."""
     if kind == "ac3":
         from tcforge_tpu_torch.io.a52dec import StreamDecoder
         return StreamDecoder()
-    if kind == "mp2":
+    if kind in ("mp2", "mp3"):
         from tcforge_tpu_torch.io.mp2dec import StreamDecoder
         return StreamDecoder()
+    if kind == "aac":
+        return AdtsStreamDecoder()
     raise ValueError(f"no audio decoder for {kind!r}")
 
 
@@ -171,15 +245,27 @@ class Decoder:
 
     def result(self) -> Tuple[Optional[np.ndarray], int]:
         """The oldest request's ``(pcm, rate)``, waiting for it."""
+        pcm, rate, error = self.outcome()
+        if error is not None:
+            raise error
+        return pcm, rate
+
+    def outcome(self) -> Tuple[Optional[np.ndarray], int,
+                               Optional[BaseException]]:
+        """The oldest request's ``(pcm, rate, error)``, waiting for it:
+        ``error`` is what the decoder raised on it (then pcm holds the
+        samples it gave back before that, or None), else None.  A worker
+        process that ended raises."""
         if self.pending <= 0:
             raise RuntimeError("no audio decode request is pending")
         self.pending -= 1
         ok, value = self._worker.take()
         if not ok:
-            raise value
+            error, pcm, rate = value
+            return pcm, rate, error
         pcm, rate, seconds = value
         _SECONDS[0] += seconds
-        return pcm, rate
+        return pcm, rate, None
 
     def close(self) -> None:
         """Drop the results not taken; the worker, once it answered them
@@ -196,6 +282,77 @@ class Decoder:
             return
         with _IDLE_LOCK:
             _IDLE.setdefault(self.kind, []).append(worker)
+
+
+class SampleFifo:
+    """Decoded samples in order, taken from the front."""
+
+    def __init__(self):
+        self.fifo: List[np.ndarray] = []
+        self.have = 0                    # samples in the fifo
+
+    def put(self, pcm: np.ndarray) -> None:
+        self.fifo.append(pcm)
+        self.have += pcm.shape[0]
+
+    def take(self, n: int) -> Optional[np.ndarray]:
+        """Up to ``n`` samples from the front, or None when none waits."""
+        if not self.fifo:
+            return None
+        cat = (self.fifo[0] if len(self.fifo) == 1
+               else np.concatenate(self.fifo))
+        take, rest = cat[:n], cat[n:]
+        self.fifo = [rest] if rest.shape[0] else []
+        self.have = rest.shape[0]
+        return take if take.shape[0] else None
+
+
+class StreamSamples(SampleFifo):
+    """A stream of ``kind`` decoded in a worker process a few pieces
+    ahead of the samples taken: ``pieces`` (bytes) go to a ``Decoder``
+    at most ``ahead`` requests ahead of the results taken, then a flush;
+    ``rate`` and ``channels`` are the first decoded frame's."""
+
+    def __init__(self, kind: str, pieces, ahead: int = 4):
+        super().__init__()
+        self.dec = Decoder(kind)
+        self.pieces = pieces
+        self.ahead = ahead
+        self.fed = False
+        self.rate = 0
+        self.channels = 0
+
+    def fill(self, n: int, errors: bool = False
+             ) -> Optional[BaseException]:
+        """Take results until ``n`` samples wait or none is left.  An
+        error of the decoder, once the samples decoded before it wait,
+        raises, or with ``errors`` is returned; a worker process that
+        ended raises."""
+        while self.have < n:
+            while self.dec.pending < self.ahead and not self.fed:
+                piece = next(self.pieces, None)
+                if piece is None:
+                    self.dec.submit("flush")
+                    self.fed = True
+                else:
+                    self.dec.submit("feed", piece)
+            if not self.dec.pending:
+                break
+            pcm, rate, error = self.dec.outcome()
+            if pcm is not None and len(pcm):
+                if not self.rate:
+                    self.rate, self.channels = rate, pcm.shape[1]
+                self.put(pcm)
+            if error is not None:
+                if errors:
+                    return error
+                raise error
+        return None
+
+    def close(self) -> None:
+        if self.dec is not None:
+            self.dec.close()
+            self.dec = None
 
 
 def _send(f, obj) -> None:
@@ -228,7 +385,7 @@ def serve(kind: str) -> int:
             else:
                 out = (True, _run(dec, *item))
         except Exception as e:
-            out = (False, e)
+            out = (False, (e, dec.read(), dec.rate))
         _send(wr, out)
 
 

@@ -11,7 +11,10 @@ for the call.
 ``Mpeg2Bitstream`` takes a whole elementary stream, or, with
 ``streaming=True``, windows of one: ``feed`` more when
 ``next_picture_full`` returns ``NEED_DATA`` and ``set_eos`` at the end of
-the input.  Only the unparsed tail of the window is kept.
+the input.  Only the unparsed tail of the window is kept.  A picture
+whose parse reaches the window's end before the start code that ends it
+is parsed again with the next window, so the pictures do not depend on
+where the windows end.
 """
 
 from __future__ import annotations
@@ -120,9 +123,21 @@ class Mpeg2Bitstream:
                     else None)
         ycoef, ucoef, vcoef, mbinfo = out
         meta = np.zeros(4, np.int32)
+        entry = int(self._lib.tc_m2d_tell(self._h))
         rc = self._lib.tc_m2d_next2(self._h, ycoef.reshape(-1),
                                     ucoef.reshape(-1), vcoef.reshape(-1),
                                     mbinfo.reshape(-1), meta)
+        if (rc == _OK and self.streaming and not self._eos_in
+                and int(self._lib.tc_m2d_tell(self._h)) + 4
+                > len(self._buf)):
+            # the picture ran to the window's end, not to the start code
+            # that ends it: the parse takes the end of the data for the
+            # end of the picture, so a window that ends between two of its
+            # macroblocks would cut it; parse it again with the next
+            # window (the JAX importer keeps the cut picture)
+            self._buf = np.frombuffer(self._buf[entry:].tobytes(), np.uint8)
+            self._lib.tc_m2d_feed(self._h, self._buf, len(self._buf))
+            return NEED_DATA
         if rc == _OK:
             self._geometry()
             self.last_picture_structure = int(meta[2])

@@ -1,8 +1,9 @@
 """The port's module system.  Importing this package registers the
-built-in filters, the WAV, MPEG, AVI, MOV and framegen importers, the WAV,
-Y4M, AVI, raw, null, mpg and mov multiplexors and the raw, null, copy,
-yuv4mpeg, mpeg2, lzo, xvid, movjpeg, lame, mp2enc and ac3enc encoders, as
-importing ``tcforge_tpu.modules`` does."""
+built-in filters, the WAV, MP3, AC-3, FLAC, AAC, MPEG, AVI, MOV and
+framegen importers, the WAV, Y4M, AVI, raw, null, mpg and mov
+multiplexors and the raw, null, copy, yuv4mpeg, mpeg2, lzo, xvid,
+movjpeg, lame, mp2enc and ac3enc encoders, as importing
+``tcforge_tpu.modules`` does."""
 
 from tcforge_tpu_torch.modules.encoders import audio_enc  # noqa: F401
 from tcforge_tpu_torch.modules.encoders import basic as _encoders  # noqa: F401
@@ -11,6 +12,7 @@ from tcforge_tpu_torch.modules.encoders import lzo_enc  # noqa: F401
 from tcforge_tpu_torch.modules.encoders import movjpeg  # noqa: F401
 from tcforge_tpu_torch.modules.encoders import mpeg2  # noqa: F401
 from tcforge_tpu_torch.modules.encoders import xvid  # noqa: F401
+from tcforge_tpu_torch.modules.importers import audio_import  # noqa: F401
 from tcforge_tpu_torch.modules.importers import avi_import  # noqa: F401
 from tcforge_tpu_torch.modules.importers import framegen  # noqa: F401
 from tcforge_tpu_torch.modules.importers import dvd_import  # noqa: F401

@@ -57,15 +57,25 @@ budget of two pumps decides whether the engine sees a track, and
 decoded at open, under ``-L``).  The AC-3 and MPEG audio decoders are
 pinned copies of the JAX package's in-tree ones, run in a worker
 process (``io/adec_worker.py``) while the reader thread parses on; LPCM
-and VAG decode inline.  Not ported yet, each raising
-``NotImplementedError``: TS and CDXA input and PSU navigation (``-S``,
-``--psu_mode``).
+and VAG decode inline.
+
+A transport stream's video is the PID of ``--ts_pid``, or the one its
+PAT and PMT name (``io/ts.py``), demuxed in 256 KB pieces into the same
+windowed parse; its audio is the PMT's first MPEG audio, AC-3 or AAC
+stream (``_TsTrack``).  A VideoCD track (RIFF/CDXA) is unwrapped to a
+program stream in a temporary file, removed at ``close`` or when
+``open`` fails, and plays as one.  PSU navigation (``psu_unit``,
+``psu_unit_end``, ``seek_unit``: ``--psu_mode``, ``--no_split``, ``-S``)
+cuts the whole elementary stream at its sequence headers; each unit's
+audio starts at the track's first sample, as in the JAX importer.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import queue
+import tempfile
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Dict, Iterator, List, Optional, Tuple
@@ -77,6 +87,9 @@ from tcforge_tpu_torch.core.codecs import Codec, ContainerFormat
 from tcforge_tpu_torch.core.formats import ImageFormat
 from tcforge_tpu_torch.core.optstr import ModuleDesc, ParamSpec
 from tcforge_tpu_torch.io import mpeg
+from tcforge_tpu_torch.io import ts as tsio
+from tcforge_tpu_torch.io.adec_worker import SampleFifo, StreamSamples
+from tcforge_tpu_torch.io.cdxa import cdxa_to_ps
 from tcforge_tpu_torch.io.mpeg2host import MBF_FIELD_DCT
 from tcforge_tpu_torch.io.mpeg2parse import (NEED_DATA, Mpeg2Bitstream,
                                              coef_shapes)
@@ -88,7 +101,7 @@ from tcforge_tpu_torch.modules.registry import (Importer, ModuleInfo,
 _log = logging.getLogger("tcforge_tpu_torch")
 
 
-class _Track:
+class _Track(SampleFifo):
     """A program stream's audio track as the demux finds it: the JAX
     importer's choice of track and decoder (the first kind found wins,
     ``-a`` picks the sub-stream) and its fifo of samples, with the
@@ -105,14 +118,13 @@ class _Track:
     taking its rate (the decoders' flush, VAG's tail)."""
 
     def __init__(self, a_track: int):
+        super().__init__()                # the resolved samples
         self.a_track = a_track
         self.kind: Optional[str] = None
         self.dec = None                   # io.adec_worker.Decoder
         self.vag = None                   # io.vag.VagStreamDecoder
         self.entries: deque = deque()     # ("pcm", pcm, rate, quiet)
         #                                   or ("dec", quiet)
-        self.fifo: List[np.ndarray] = []  # resolved samples
-        self.have = 0                     # samples in the fifo
         self.seen = False
         self.rate = 0
         self.channels = 0
@@ -234,8 +246,7 @@ class _Track:
             pcm, rate = self.dec.result()
             if pcm is None:
                 return True
-        self.fifo.append(pcm)
-        self.have += pcm.shape[0]
+        self.put(pcm)
         if not quiet:
             self.seen = True
             self.rate = rate
@@ -258,23 +269,85 @@ class _Track:
             pass
         return self.have >= n
 
-    def take(self, n: int) -> Optional[np.ndarray]:
-        """Up to ``n`` samples from the front of the fifo (after
-        ``enough``)."""
-        if not self.fifo:
-            return None
-        cat = (self.fifo[0] if len(self.fifo) == 1
-               else np.concatenate(self.fifo))
-        take, rest = cat[:n], cat[n:]
-        self.fifo = [rest] if rest.shape[0] else []
-        self.have = rest.shape[0]
-        return take if take.shape[0] else None
-
     def close(self) -> None:
         if self.dec is not None:
             self.dec.close()
             self.dec = None
         self.entries.clear()
+
+
+# a transport stream's audio stream types and the decoder kind of each
+# (the JAX importer's _ts_audio: MPEG audio, AC-3, ADTS AAC)
+_TS_AUDIO = {0x03: "mp3", 0x04: "mp3", 0x81: "ac3", 0x0F: "aac"}
+# the audio elementary stream goes to the decoder in pieces of this many
+# bytes
+_TS_AUDIO_CHUNK = 1 << 14
+
+
+class _TsTrack:
+    """A transport stream's audio track, as the JAX importer's
+    ``_ts_audio`` chooses and decodes it: the PMT's first audio stream by
+    PID (``-a`` does not apply), its elementary stream decoded by the
+    in-tree decoder of its kind in a worker process
+    (``io/adec_worker.py``) a few pieces ahead of what the session reads.
+    The samples are those of the whole elementary stream decoded at once,
+    whatever the pieces.  ``open`` takes the results up to the first
+    samples, which give the rate and channels, and gives None, with a
+    warning, where the JAX importer has no track: no audio stream in the
+    PMT, or a decoder that fails, or a stream that ends, before the
+    first samples are taken.  A decoder that fails later ends the track
+    there, with a warning: the session keeps every sample decoded before
+    the failure, where the JAX importer, which decodes the whole track at
+    open, drops the track.  A worker process that ends raises."""
+
+    def __init__(self, samples: StreamSamples, path: str):
+        self.samples = samples
+        self.path = path
+        self.ended = False
+        self.rate, self.channels = samples.rate, samples.channels
+
+    @classmethod
+    def open(cls, path: str) -> Optional["_TsTrack"]:
+        streams = tsio.scan_programs(path)
+        apid = next((p for p, st in sorted(streams.items())
+                     if st in _TS_AUDIO), None)
+        if apid is None:
+            _log.warning("[mpeg] %s: no MPEG audio, AC-3 or AAC stream in "
+                         "the PMT: the session has no audio track", path)
+            return None
+        samples = StreamSamples(_TS_AUDIO[streams[apid]], tsio.iter_video_es(
+            path, pid=apid, chunk=_TS_AUDIO_CHUNK))
+        try:
+            error = samples.fill(1, errors=True)
+        except BaseException:
+            samples.close()
+            raise
+        if error is not None or not samples.have:
+            samples.close()
+            why = (f"it fails to decode within its first samples ({error})"
+                   if samples.have else "no decodable frame "
+                   f"({error or 'the stream ended'})")
+            _log.warning("[mpeg] %s: audio PID 0x%x: %s: the session has "
+                         "no audio track", path, apid, why)
+            return None
+        return cls(samples, path)
+
+    def enough(self, n: int) -> bool:
+        if not self.ended:
+            error = self.samples.fill(n, errors=True)
+            if error is not None:
+                self.ended = True
+                self.samples.close()
+                _log.warning("[mpeg] %s: the audio failed to decode part-"
+                             "way (%s): the track ends there", self.path,
+                             error)
+        return self.samples.have >= n
+
+    def take(self, n: int) -> Optional[np.ndarray]:
+        return self.samples.take(n)
+
+    def close(self) -> None:
+        self.samples.close()
 
 
 class _Buffer:
@@ -333,7 +406,8 @@ class MpegImporter(Importer):
                       media="both",
                       codecs_out=(Codec.MPEG2, Codec.AC3, Codec.PCM),
                       formats_in=(ContainerFormat.MPEG_PS,
-                                  ContainerFormat.MPEG_ES))
+                                  ContainerFormat.MPEG_ES,
+                                  ContainerFormat.MPEG_TS))
     desc = ModuleDesc(name="mpeg",
                       comment="MPEG PS/ES demultiplexor (scan_pes)",
                       params=[ParamSpec("track", "video PES id offset",
@@ -347,31 +421,50 @@ class MpegImporter(Importer):
     demux_audio = True
 
     def open(self, path: Optional[str]) -> None:
+        self._cdxa_tmp: Optional[str] = None
+        self._track = None
+        self._bs = None
+        try:
+            self._open(path)
+        except BaseException:
+            self.close_host()
+            self._remove_cdxa_tmp()
+            raise
+
+    def _open(self, path: str) -> None:
         job = self.job
         magic = sniff_magic(path)
-        if magic == ContainerFormat.MPEG_TS:
-            raise NotImplementedError(
-                f"{path}: MPEG transport stream input (io/ts.py) is not "
-                "ported to the torch port yet")
         if magic == ContainerFormat.CDXA:
-            raise NotImplementedError(
-                f"{path}: VideoCD (CDXA) input (io/cdxa.py) is not "
-                "ported to the torch port yet")
-        if magic not in (ContainerFormat.MPEG_PS, ContainerFormat.MPEG_ES):
-            raise ValueError(f"{path}: not an MPEG program or elementary "
-                             f"stream ({magic.value})")
-        unit = getattr(job, "psu_unit", -1)
-        if (unit is not None and unit >= 0) or getattr(job, "seek_unit", 0):
-            raise NotImplementedError(
-                "PSU navigation (-S, --psu_mode) is not ported to the "
-                "torch port yet")
+            # a VideoCD track: the sectors' user data to a program stream
+            # in a temporary file, which then plays as any other
+            fd, tmp = tempfile.mkstemp(suffix=".mpg")
+            self._cdxa_tmp = tmp
+            with os.fdopen(fd, "wb") as f:
+                f.write(cdxa_to_ps(path))
+            path, magic = tmp, ContainerFormat.MPEG_PS
+        if magic not in (ContainerFormat.MPEG_PS, ContainerFormat.MPEG_ES,
+                         ContainerFormat.MPEG_TS):
+            raise ValueError(f"{path}: not an MPEG program, transport or "
+                             f"elementary stream ({magic.value})")
         seq = mpeg.find_sequence_header(path)
         if seq:
             self.width, self.height, _aspect, self.fps = seq
+        # PSU navigation and -L slice the whole elementary stream by its
+        # byte ranges: they take the whole-stream reader
+        unit = getattr(job, "psu_unit", -1)
         self._streaming = bool(self.options.get("stream", 1)
+                               and (unit is None or unit < 0)
+                               and not getattr(job, "seek_unit", 0)
                                and not getattr(job, "vob_offset", 0))
+        ts = magic == ContainerFormat.MPEG_TS
         self._track = (_Track(getattr(job, "a_track", 0))
-                       if self.demux_audio else None)
+                       if self.demux_audio and not ts else None)
+        self._ts_track: Optional[_TsTrack] = None
+        if self.demux_audio and ts:
+            self._ts_track = _TsTrack.open(path)
+            if self._ts_track is not None:
+                self.audio_rate = self._ts_track.rate
+                self.audio_channels = self._ts_track.channels
         self._apcm: Optional[np.ndarray] = None
         self._apos = 0
         if self._streaming:
@@ -380,9 +473,13 @@ class MpegImporter(Importer):
             # the discovery budget: a program stream's audio shows up
             # within its first packs; an elementary stream has none
             self._audio_probe = 2 if magic == ContainerFormat.MPEG_PS else 0
-            self._src = (self._ps_video_chunks(path)
-                         if magic == ContainerFormat.MPEG_PS
-                         else self._file_chunks(path))
+            if magic == ContainerFormat.MPEG_PS:
+                self._src = self._ps_video_chunks(path)
+            elif ts:
+                self._src = tsio.iter_video_es(
+                    path, pid=getattr(job, "ts_pid1", 0) or None)
+            else:
+                self._src = self._file_chunks(path)
             self._bs = Mpeg2Bitstream(next(self._src, b""), streaming=True)
             # pump until the sequence header is in the window
             while not self._bs.width and self._pump_stream():
@@ -394,7 +491,7 @@ class MpegImporter(Importer):
                     self.audio_rate = self._track.rate
                     self.audio_channels = self._track.channels
         else:
-            self._es = self._whole_es(path, magic)
+            self._es = self._units(self._whole_es(path, magic))
             self._bs = Mpeg2Bitstream(self._es)
         if self._bs.width:
             self.width, self.height = self._bs.width, self._bs.height
@@ -416,6 +513,9 @@ class MpegImporter(Importer):
     def _whole_es(self, path: str, magic) -> bytes:
         """The whole video elementary stream; a program stream's audio
         track decoded whole beside it (``_apcm``)."""
+        if magic == ContainerFormat.MPEG_TS:
+            return b"".join(tsio.iter_video_es(
+                path, pid=getattr(self.job, "ts_pid1", 0) or None))
         if magic != ContainerFormat.MPEG_PS:
             with open(path, "rb") as f:
                 return f.read()
@@ -435,6 +535,33 @@ class MpegImporter(Importer):
         if self._apcm is not None:
             self.audio_channels = self._apcm.shape[1]
         return bytes(es)
+
+    def _units(self, es: bytes) -> bytes:
+        """The stream as PSU navigation cuts it (the JAX importer's
+        ``open``): ``psu_unit`` keeps one program stream unit (a run of
+        the stream between two sequence headers), or with ``psu_unit_end``
+        (``--no_split``) the units up to it; ``seek_unit`` (``-S``) starts
+        at a unit and runs to the end."""
+        job = self.job
+        unit = getattr(job, "psu_unit", -1)
+        if unit is not None and unit >= 0:
+            ranges = mpeg.es_unit_ranges(es)
+            if unit >= len(ranges):
+                raise ValueError(f"mpeg: PSU {unit} out of range "
+                                 f"({len(ranges)} units)")
+            a, b = ranges[unit]
+            end_unit = getattr(job, "psu_unit_end", -1) or -1
+            if end_unit > unit:
+                b = ranges[min(end_unit, len(ranges)) - 1][1]
+            return es[a:b]
+        su = getattr(job, "seek_unit", 0)
+        if su > 0:
+            ranges = mpeg.es_unit_ranges(es)
+            if su >= len(ranges):
+                raise ValueError(f"mpeg: -S unit {su} out of range "
+                                 f"({len(ranges)} units)")
+            return es[ranges[su][0]:]
+        return es
 
     def _file_chunks(self, path: str) -> Iterator[bytes]:
         with open(path, "rb") as f:
@@ -813,6 +940,9 @@ class MpegImporter(Importer):
         at its end, or None (no track, or none seen yet: the JAX
         importer's discovery budget of two pumps, after which a track
         shows only as the video's pumps meet it)."""
+        if self._ts_track is not None:
+            self._ts_track.enough(n_samples)
+            return self._ts_track.take(n_samples)
         if not self._streaming:
             if self._apcm is None:
                 return None
@@ -876,6 +1006,11 @@ class MpegImporter(Importer):
         if self._apcm is not None and self.fps:
             self._apos = min(self._apcm.shape[0],
                              int(round(frame * self.audio_rate / self.fps)))
+        elif self._ts_track is not None and self.fps:
+            # the same cut as the whole track's, or its end
+            drop = int(round(frame * self.audio_rate / self.fps))
+            self._ts_track.enough(drop)
+            self._ts_track.take(drop)
         left = frame - best_count
         while left > 0:
             got = self.read_video_batch(min(left, 16))
@@ -890,11 +1025,22 @@ class MpegImporter(Importer):
         if getattr(self, "_bs", None) is not None:
             self._bs.close()
             self._bs = None
-        if getattr(self, "_track", None) is not None:
-            self._track.close()
-            self._track = None
+        for name in ("_track", "_ts_track"):
+            track = getattr(self, name, None)
+            if track is not None:
+                track.close()
+                setattr(self, name, None)
+
+    def _remove_cdxa_tmp(self) -> None:
+        if getattr(self, "_cdxa_tmp", None):
+            try:
+                os.unlink(self._cdxa_tmp)
+            except OSError:
+                pass
+            self._cdxa_tmp = None
 
     def close(self) -> None:
         self.close_host()
+        self._remove_cdxa_tmp()
         self._frames = {}
 

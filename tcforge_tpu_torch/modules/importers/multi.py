@@ -2,9 +2,9 @@
 ``tcforge_tpu/modules/importers/multi.py`` over the MPEG importer's
 plan/execute protocol.
 
-Several program or elementary streams play as one: each file opens with
-a fresh MPEG importer when the one before has no frame left, its size
-and colorspace checked against the first's.  A directory expands to its
+Several program, transport or elementary streams or VideoCD tracks play
+as one: each file opens with a fresh MPEG importer when the one before
+has no frame left, its size and colorspace checked against the first's.  A directory expands to its
 files, sorted.  As in the JAX package, nothing carries over between two
 files' decoders: a GOP cut at a file boundary decodes as far as each
 file alone holds it.  The old file's audio that the session has not read
@@ -102,7 +102,8 @@ class MultiSourceImporter(Importer):
                        ContainerFormat.MPEG_TS, ContainerFormat.CDXA):
             raise NotImplementedError(
                 f"multi: {path} is {fmt.value}; the torch port plays MPEG "
-                "program and elementary streams one after the other only")
+                "program, transport and elementary streams and VideoCD "
+                "tracks one after the other only")
         imp = new_module(ModuleKind.DEMULTIPLEXOR, "mpeg", self.job)
         imp.demux_audio = self.demux_audio
         imp.open(path)

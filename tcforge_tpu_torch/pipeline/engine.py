@@ -218,13 +218,18 @@ JAX_IMPORT_MODULES = {
     ContainerFormat.SGI_IMAGE: "im", ContainerFormat.SUNAU: "au"}
 
 
+# the audio import modules: an audio-only -i, or -p
+_AUDIO_MODULES = ("wav", "mp3", "ac3", "flac", "aac")
+
+
 def video_module(job: Job) -> str:
     """The import module of ``job``'s ``-i``: from ``-x`` or, with ``-x
     auto``, ``multi`` for a directory and otherwise by the file's magic:
-    ``wav``, ``mpeg`` (a program or elementary stream; TS and CDXA too,
-    which ``mpeg`` refuses by name), ``avi``, ``mov`` or ``y4m`` (also
-    where the magic is unknown, as the JAX engine falls back to it).  A container the JAX
-    package imports with a module the port lacks is refused, naming the
+    ``wav``, ``mp3``, ``ac3``, ``flac`` or ``aac`` (an audio-only session),
+    ``mpeg`` (a program, transport or elementary stream, or a VideoCD
+    track), ``avi``, ``mov`` or ``y4m`` (also where the magic is unknown,
+    as the JAX engine falls back to it).  A container the JAX package
+    imports with a module the port lacks is refused, naming the
     module."""
     name = job.im_v_module or "auto"
     if name in _Y4M_MODULES:
@@ -243,11 +248,26 @@ def video_module(job: Job) -> str:
     from tcforge_tpu_torch.io.probe import sniff_magic
     fmt = sniff_magic(vin)
     module = JAX_IMPORT_MODULES.get(fmt, "y4m")
-    if module in ("y4m", "mpeg", "avi", "mov"):
+    if module in ("y4m", "mpeg", "avi", "mov", *_AUDIO_MODULES):
         return module
     raise NotImplementedError(
         f"{vin}: {fmt.value} input (the {module} import module) is not "
         "ported to the torch port yet")
+
+
+def audio_module(path: str) -> str:
+    """The import module of ``-p``'s file, by its magic as the JAX engine
+    picks it (``wav`` where the magic names no module); one the port
+    lacks as an audio source is refused, naming the module."""
+    from tcforge_tpu_torch.io.probe import sniff_magic
+    fmt = sniff_magic(path)             # probe_file's magic
+    module = JAX_IMPORT_MODULES.get(fmt) or "wav"
+    if module in _AUDIO_MODULES:
+        return module
+    raise NotImplementedError(
+        f"-p {path}: {fmt.value} audio (the {module} import module) is not "
+        "ported to the torch port yet; it imports WAV, MP3, AC-3, FLAC "
+        "and AAC audio")
 
 
 # the import modules that decode on the device through the MPEG
@@ -273,7 +293,8 @@ def probe(job: Job) -> Optional[Y4MHeader]:
     unset.  An AVI or a MOV sets the size, rate, chunk count
     (``--max_frames``), a packed YUV layout (the job's colorspace) and
     its first track's rate and channels from its headers, as the JAX
-    CLI's probe does."""
+    CLI's probe does; so does a compressed audio file (an audio-only
+    session), where a probe that fails sets nothing."""
     kind = video_module(job)
     if kind in _HOST_MODULES:
         return None                 # the module sets them at open
@@ -282,7 +303,8 @@ def probe(job: Job) -> Optional[Y4MHeader]:
             job.a_rate, job.a_chan = r.info.rate, r.info.channels
             job.a_bits = r.info.bits
         return None
-    if kind in _MPEG_MODULES or kind in _CONTAINER_MODULES:
+    if (kind in _MPEG_MODULES or kind in _CONTAINER_MODULES
+            or kind in _AUDIO_MODULES):
         from tcforge_tpu_torch.io.probe import probe_file, probe_to_job
         from tcforge_tpu_torch.modules.importers.multi import expand_sources
         max_frames = job.max_frames
@@ -641,13 +663,12 @@ class Pipeline:
         kind = video_module(job)
         hdr = probe(job)
         job.validate()
-        self.audio_only = kind == "wav"
+        self.audio_only = kind in _AUDIO_MODULES
         self.video_importer: Optional[Importer] = None
         audio_in = (job.video_in_file if self.audio_only
                     else job.audio_in_file)
-        if audio_in and not is_wav(audio_in):
-            raise NotImplementedError(
-                f"-p {audio_in}: the torch port imports WAV audio only")
+        a_kind = (kind if self.audio_only
+                  else audio_module(audio_in) if audio_in else None)
         if job.audio_out_file:
             _wav_path("-m", job.audio_out_file)
         if self.audio_only:
@@ -681,8 +702,9 @@ class Pipeline:
                 job.a_rate = imp.audio_rate
                 job.a_chan = imp.audio_channels or job.a_chan
         if audio_in:
-            self.audio_importer = new_module(ModuleKind.DEMULTIPLEXOR,
-                                             "wav", job)
+            self.audio_importer = new_module(
+                ModuleKind.DEMULTIPLEXOR, a_kind, job,
+                job.im_v_string if self.audio_only else job.im_a_string)
             self.audio_importer.open(audio_in)
             job.a_rate = self.audio_importer.audio_rate
             job.a_chan = self.audio_importer.audio_channels or job.a_chan

@@ -56,16 +56,18 @@ COPIES = ["core/formats.py", "core/optstr.py", "core/codecs.py",
           "io/spu.py", "io/vobsub.py", "io/mp3.py", "io/psmux.py",
           "modules/importers/framegen.py", "io/avi.py", "io/rawio.py",
           "io/tclzo.py", "io/_mp4tables.py", "io/mpeg4.py", "io/mpaenc.py",
-          "io/mp3enc.py", "io/a52enc.py"]
-# lines a whole-file copy changes: the audio encoders take their BitWriter
-# from io/mpeg2host.py, the jax-free copy of io/mpeg2codec.py's head
+          "io/mp3enc.py", "io/a52enc.py", "io/cdxa.py", "io/aacdec.py",
+          "io/flac.py"]
+# lines a whole-file copy changes: the audio encoders and FLAC take their
+# BitWriter from io/mpeg2host.py, the jax-free copy of io/mpeg2codec.py's head
 # (which pins the class to its source), and the MP3 encoder's _emit skips
 # a region coded with table 0, all zeros in no bits, where the source
 # looks up the table's codes and raises
 COPY_CHANGES = {
     rel: {"from .mpeg2codec import BitWriter\n":
           "from .mpeg2host import BitWriter\n"}
-    for rel in ("io/mpaenc.py", "io/mp3enc.py", "io/a52enc.py")}
+    for rel in ("io/mpaenc.py", "io/mp3enc.py", "io/a52enc.py",
+                "io/flac.py")}
 COPY_CHANGES["io/mp3enc.py"][
     "            vidx, linbits, _mx = _TSEL[tsel]\n"
     "            codes, lens = _VTABS[vidx]\n"] = (

@@ -17,7 +17,7 @@ against the JAX package, on the CPU.
 - ``-N``: the encoders by format name as the JAX CLI chooses them from
   the JAX registry's table; a format whose encoder the port lacks is
   refused naming the JAX module; ``-y`` given wins.  ``-R`` parses as in
-  the JAX CLI.  TS, CDXA and PSU navigation stay refused by name.
+  the JAX CLI.
 """
 
 from __future__ import annotations
@@ -34,10 +34,8 @@ from tcforge_tpu.cli import build_parser as jax_build_parser
 from tcforge_tpu.io.mpeg2enc import Mpeg2FullEncoder as JEncoder
 from tcforge_tpu.modules import registry as jregistry
 from tcforge_tpu_torch import cli
-from tcforge_tpu_torch.core.job import Job
 from tcforge_tpu_torch.io import mpeg2enc
 from tcforge_tpu_torch.io.mpeg2enc import Mpeg2FullEncoder
-from tcforge_tpu_torch.pipeline import engine
 from test_torch_engine import run_cli
 from test_torch_mpeg_import import jax_cli, jax_native  # noqa: F401
 
@@ -322,22 +320,3 @@ def test_4_2_2_with_mpeg1_is_refused_as_in_jax(tmp_path, capsys):
     assert "4:2:2" in capsys.readouterr().err
     with pytest.raises(ValueError, match="4:2:2"):
         mpeg2enc.Mpeg2FullEncoder(64, 48, chroma=422, mpeg1=True)
-
-
-@pytest.mark.parametrize("what", ["ts", "cdxa", "psu"])
-def test_ts_cdxa_and_psu_stay_refused_by_name(what, tmp_path):
-    src = chip_smoke.MPEG_DATA / "small.mpg"
-    job = dict(video_in_file=str(src), video_out_file=str(tmp_path / "o"))
-    if what == "ts":
-        ts = tmp_path / "in.ts"
-        ts.write_bytes((b"\x47\x40\x00\x10" + bytes(184)) * 8)
-        job["video_in_file"], match = str(ts), "transport stream"
-    elif what == "cdxa":
-        cd = tmp_path / "in.dat"
-        cd.write_bytes(b"RIFF" + (2400).to_bytes(4, "little") + b"CDXAfmt "
-                       + bytes(2400))
-        job["video_in_file"], match = str(cd), "CDXA"
-    else:
-        job["psu_unit"], match = 1, "PSU"
-    with pytest.raises(NotImplementedError, match=match):
-        engine.Pipeline(Job(**job), torch.device("cpu"))
