@@ -145,7 +145,18 @@ Lanczos3 zoom, ``-J hqdn3d=luma=4.0`` (which runs after the zoom, at
   PSU mode on three units, and the ``TS_GOLDEN`` cases (transport
   streams with MP2, AC-3, AAC and no audio, ``--ts_pid``, a mid-PES
   start, CDXA, PSU, ``-S``, ``-W``, ``-p`` of MP3, MP2, AC-3, FLAC and
-  AAC files).
+  AAC files);
+- the DivX-era rip to OGM, ogm: the DVD rip's title through ``-x dvd -T
+  1 -Z 640x480 -J hqdn3d=luma=4.0 -y xvid,vorbis,ogg=fourcc=XVID -F
+  keyint=12:bframes=2:four_mv=1 -w 1500`` with its own AC-3 track and
+  no ``-m``: the dvd path's decode, the zoom and hqdn3d kernels, the
+  three MPEG-4 encoder kernels, the numpy Vorbis encoder and the ``ogg``
+  multiplexor; its Vorbis track read back by the ``ogg`` importer as
+  ``-p``; beside it transcode's flagship job, the title through ``-y
+  xvid,lame,avi`` without ``-m`` (its AVI holds the title's track), and
+  the ``ROUTE_GOLDEN`` cases (a source's own track without ``-m``,
+  audio-only sessions through the encoders and multiplexors, Ogg both
+  ways, ``-m`` through the multiplexors, ``-p`` from the containers).
 
 Phases, each of which raises on failure:
 
@@ -302,7 +313,8 @@ Phases, each of which raises on failure:
    (``MJPEGENC_GOLDEN``: movjpeg and lame into an MJPG AVI, a DVD-style
    VOB with ac3enc, MP2 in a program stream and in an AVI, AC-3 in an
    AVI, MP3 at 44.1 kHz, and the mov multiplexor with photo-JPEG, YV12
-   and RGB), the TS goldens (``TS_GOLDEN``), and the MPEG-4 export
+   and RGB), the TS goldens (``TS_GOLDEN``), the audio-route goldens
+   (``ROUTE_GOLDEN``), and the MPEG-4 export
    goldens (``XVID_GOLDEN``: divxenc at full width, the divx.avi
    re-encode with its PCM track, small DVD, DivX and Y4M cases at
    constant q, under ``-w`` and rate control, a raw ``.m4v``), with the
@@ -330,7 +342,7 @@ Phases, each of which raises on failure:
    the card (events, host queueing, device busy and time by kernel),
    the CLI on that stream and on dvd.vob, six runs of each in turns,
    and its serial stages (``mpeg_stages``); the DVD rip's CLI on a
-   448-frame title with its track, with its track and a film's count of
+   224-frame title with its track, with its track and a film's count of
    subtitle units (``film_vobsub``), and without ``-m``, four runs of
    each in turns, and its serial stages with the audio decode
    (``dvdrip_stages``), with each of the two subtitle files; the
@@ -362,7 +374,11 @@ Phases, each of which raises on failure:
    untimed one, its ``mpeg_stages`` (the video and audio PIDs' demux,
    the parse, the audio wait and the AC-3 decoder's own time,
    reconstruction, chain, copy back, write, and the importer's open)
-   and the device's busy share of one CLI run.
+   and the device's busy share of one CLI run; ogm on the title twice
+   over (56 frames), two CLI runs with host clocks around its stages
+   (``_ogm_clock``: the parse, the decode, the chain, the MPEG-4
+   encoder, the Vorbis encoder apart, the multiplexor) and one under
+   torch.profiler (the device's busy time and kernels by name).
 
 It prints one JSON object per result (``t``: seconds since it started),
 then the kernels' summary and, as
@@ -376,6 +392,7 @@ import contextlib
 import hashlib
 import json
 import math
+import struct
 import subprocess
 import sys
 import tempfile
@@ -2358,6 +2375,280 @@ def ts_golden_outputs(case: str, directory) -> list:
     return [*videos, Path(f"{out}.wav")]
 
 
+# The audio half of the export: a source's own track without -m, -m and
+# audio-only sessions through the encoders and multiplexors, Ogg/OGM
+# with Vorbis both ways, faac, flac, au, vag and null.  The goldens:
+# (input, arguments, outputs, exit code) through the port's CLI in a
+# directory of their own, in order ("{ogm}" reads the OGM that
+# vob_vorbis_ogg wrote); the first output is -o, "{d}" the case's
+# directory; an input is a file of tests/data/dvd or tests/data/ts, a
+# stream of ``ts_input``, or one written by ``route_input``: {y4m} a
+# seeded 64x48 Y4M of 8 frames, {au} and {ulaw} seeded AU files,
+# {vag} a seeded VAGp file, {late} a program stream whose MP2 track
+# starts after its video (``write_late_track_ps``: the windowed reader
+# of 4 KB windows meets it after its discovery budget, and both
+# engines drop it).  SHA-256 pinned against the JAX CLI (--mesh off; its
+# FFmpeg bridge's decoders replaced by its in-tree ones and its encoders
+# forced to theirs) by tests/test_torch_audio_routes.py and
+# tests/test_torch_ogg.py on the CPU, and checked again on the card
+ROUTE_GOLDEN = {
+    # the source's own track into a multiplexor that takes audio
+    "lpcm_avi": ("lpcm.vob", ["-y", "raw,raw,avi"], ["o.avi"], 0),
+    "mp2_mpg": ("mp2.vob", ["-y", "mpeg2,mp2enc,mpg"], ["o.mpg"], 0),
+    "ac3_lame_avi": ("ac3.vob", ["-y", "raw,lame,avi"], ["o.avi"], 0),
+    "mp2_seek_mpg": ("mp2.vob", ["-L", "2", "-y", "mpeg2,mp2enc,mpg"],
+                     ["o.mpg"], 0),
+    "title_ac3enc": ("VIDEO_TS", ["-x", "dvd", "-T", "1", "-r", "4", "-y",
+                                  "mpeg2,ac3enc,mpg"], ["o.mpg"], 0),
+    "ts_mpg": ("mp2.ts", ["-y", "mpeg2,mp2enc,mpg"], ["o.mpg"], 0),
+    "ts_whole_mpg": ("mp2.ts", ["-x", "mpeg=stream=0", "-y",
+                                "mpeg2,mp2enc,mpg"], ["o.mpg"], 0),
+    "ts_psu_mpg": ("mp2.ts", ["--psu_mode", "-y", "mpeg2,mp2enc,mpg"],
+                   ["o%d.mpg", "o0.mpg", "o1.mpg", "o2.mpg"], 0),
+    "ts_ac3_avi": ("ac3.ts", ["-y", "raw,raw,avi"], ["o.avi"], 0),
+    "ts_midpes_avi": ("midpes.ts", ["-y", "movjpeg,lame,avi"], ["o.avi"],
+                      0),
+    "ts_multi_raw": ("mp2.ts", ["-x", "multi", "-y", "mpeg2,raw,raw"],
+                     ["o.m2v", "o.m2v.aud"], 0),
+    "ts_422_raw": ("mp2.ts", ["-V", "yuv422p", "-y", "mpeg2,raw,raw"],
+                   ["o.m2v", "o.m2v.aud"], 0),
+    "vcd_xvid_avi": ("vcd.dat", ["-y", "xvid,lame,avi"], ["o.avi"], 0),
+    "vcd_mpg": ("vcd.dat", ["-y", "mpeg2,mp2enc,mpg"], ["o.mpg"], 0),
+    "late_track": ("{late}", ["-x", "mpeg=window=4", "-y",
+                              "mpeg2,mp2enc,mpg"], ["o.mpg"], 0),
+    # audio-only sessions through -y's encoder and multiplexor
+    "aac_lame_avi": ("a.aac", ["-y", "null,lame,avi"], ["o.avi"], 0),
+    "flac_vorbis_ogg": ("a.flac", ["-y", "null,vorbis,ogg"], ["o.ogg"], 0),
+    "mp3_faac_raw": ("a.mp3", ["-y", "null,faac,raw"], ["o.raw"], 0),
+    "ac3_flac_raw": ("a.ac3", ["-y", "null,flac,raw"], ["o.raw"], 0),
+    "au_wav": ("{au}", [], ["o.wav"], 0),
+    "ulaw_vorbis_ogg": ("{ulaw}", ["-y", "raw,vorbis,ogg=fourcc=XVID"],
+                        ["o.ogg"], 0),
+    "vag_mp2": ("{vag}", ["-y", "null,mp2enc,raw"], ["o.mp2"], 0),
+    "au_m_ogg": ("{au}", ["-m", "{d}/m.ogg"], ["o.wav", "m.ogg"], 0),
+    "au_y4m_m": ("{au}", ["-m", "{d}/a.wav"], ["o.y4m", "a.wav"], 0),
+    "null_e": ("a.ac3", ["-x", "null", "-e", "22050,16,1"], ["o.wav"], 1),
+    # Ogg/OGM both ways, -m through the multiplexors, -p from containers
+    "vob_vorbis_ogg": ("ac3.vob", ["-y", "raw,vorbis,ogg"], ["o.ogg"], 0),
+    "ogm_in": ("{ogm}", ["-m", "{d}/o.wav"], ["o.y4m", "o.wav"], 0),
+    "ogm_p": ("{y4m}", ["-p", "{ogm}", "-m", "{d}/o.wav"],
+              ["o.y4m", "o.wav"], 0),
+    "pcm_ogm": ("{y4m}", ["-p", "{au}"], ["o.ogm"], 0),
+    "m_ogg": ("vcd.dat", ["-y", "xvid,lame,avi", "-m", "{d}/x.ogg"],
+              ["o.avi", "x.ogg"], 0),
+    "m_mp3": ("{y4m}", ["-p", "{au}", "-y", "xvid,lame,avi", "-m",
+                        "{d}/a.mp3"], ["o.avi", "a.mp3"], 1),
+    "p_vob": ("{y4m}", ["-p", "ac3.vob", "-m", "{d}/o.wav"],
+              ["o.y4m", "o.wav"], 0),
+    "p_ts": ("{y4m}", ["-p", "ac3.ts", "-m", "{d}/o.wav"],
+             ["o.y4m", "o.wav"], 0),
+    "p_avi": ("{y4m}", ["-p", "legacy.avi", "-m", "{d}/o.wav"],
+              ["o.y4m", "o.wav"], 0),
+    "p_au": ("{y4m}", ["-p", "{au}", "-y", "raw,flac,raw"],
+             ["o.raw", "o.raw.aud"], 0),
+}
+ROUTE_GOLDEN_SHA256 = {
+    "lpcm_avi": (
+        "2f9c429d6a519b16a155a1152cd9eddb6d00b53e2aa0c3bbf6f756198798308a",),
+    "mp2_mpg": (
+        "8c5f554ef8c0e6e5b7fb343a7ba4202793ebab25dabdf901dbe9945e8f453a66",),
+    "ac3_lame_avi": (
+        "8793d06f82728cecd17cc148c2fa4002a1372426dfd842680fc7fa639198fdce",),
+    "mp2_seek_mpg": (
+        "a97ead0f7df958ddf0044f0810c60b7c23ab1c0a4b26a68385910284b015d78a",),
+    "title_ac3enc": (
+        "e6b663220adbb3211f176a63187cb62dead248f710209f2f3b563f12979ee323",),
+    "ts_mpg": (
+        "a66cc5c87af8cd46c19cde227ae94a3d75d44c68b1786f73e7c892b138c4aa45",),
+    "ts_whole_mpg": (
+        "a66cc5c87af8cd46c19cde227ae94a3d75d44c68b1786f73e7c892b138c4aa45",),
+    "ts_psu_mpg": (
+        "9ceb44aba181d467c24a06a463eb7b146a624fa2e18ef9728611d666244000ab",
+        "9426d343639f3633362c321a9298ea29fabc35ac3e72a617511296c3015df333",
+        "69354a73bca7b186ba9be60b49754c509038377ab1233c76fe47aac40629e47f"),
+    "ts_ac3_avi": (
+        "a6dd52b59a0a66e6f368f4e0e7c89e687a82fd051f7f54f8e9c6aafe2f7916ab",),
+    "ts_midpes_avi": (
+        "39ceb664132f678536f75329cd3c0a1c4405f47aa6105940c5fa4a4312c04913",),
+    "ts_multi_raw": (
+        "51ba9c22ce3b6090a70ca809dd79e65c7bde9fc4f82c828e43f9355a9d006510",
+        "69578f0e155d540b4a30f76e5db4ba070a6dd11d2d462d120a9576b0939b651d"),
+    "ts_422_raw": (
+        "6d80f371c03ea471417f5f5f1c95a7cc5689ca3e3cd44728e8c5f3c7b9b0b559",
+        "69578f0e155d540b4a30f76e5db4ba070a6dd11d2d462d120a9576b0939b651d"),
+    "vcd_xvid_avi": (
+        "10286c165e3aea823eb6b4ffa573c818cc613ab9646e0d363eee03df2065e340",),
+    "vcd_mpg": (
+        "a66cc5c87af8cd46c19cde227ae94a3d75d44c68b1786f73e7c892b138c4aa45",),
+    "late_track": (
+        "013527b373f34b51dd48c5acb872649a30f09ddf40b75e3001397ecb30e95884",),
+    "aac_lame_avi": (
+        "7eca1c7c2d1c6ac76f7204cc6a3072fc9585c79b9fd5e9b6867b0ef210baa469",),
+    "flac_vorbis_ogg": (
+        "bf8ca8190a6c361e0e6619aa1ee2cf31f2579f398c690dbf73d88d0d14b1e192",),
+    "mp3_faac_raw": (
+        "470ef42c5a9112fe6c86f5d459a8e540e1c8e53836f04d52e9ff1eb74a1e0ee2",),
+    "ac3_flac_raw": (
+        "258318e114f57fe4bab9ad6fdbfdcea66857232cbb1a0fbf5b73a4eaebdbbd8a",),
+    "au_wav": (
+        "a0dc5b44b4ebb9864af65ce7c84f2d443776815672898c13518d0169feade9de",),
+    "ulaw_vorbis_ogg": (
+        "0a9658c51a6c1df2d3850b098a5e82676b8c250e89fa48a6a7e4d0c79f861b64",),
+    "vag_mp2": (
+        "3b63359018568225df9ef63155ffbf85c80c300f579816dcec348928064e5f5a",),
+    "au_m_ogg": (
+        "991cd2a53281fab26a26b23f2b3d7a020e277b83978ea36796679e0952ae7575",
+        "e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855"),
+    "au_y4m_m": (
+        "54902bfbda0cce8b0aae27ad9c4ce499a59de970213aac463709a30f396baf28",
+        "a0dc5b44b4ebb9864af65ce7c84f2d443776815672898c13518d0169feade9de"),
+    "null_e": (
+        "24d5db4ca2d256752cd049a330cb406196c05f4cfe8036beb309e0e4533d21de",),
+    "vob_vorbis_ogg": (
+        "537655d6317ef16bacd42ad99ce4b00047bdbb79c83e415f2992d0646a9346aa",),
+    "ogm_in": (
+        "00aea5eee3a3cec4c6e9438904a77d2c5c973a96fcadf37cd864d01bdfcc8481",
+        "7c7b0bacdefc350abc932a9819a14dd6bdd4953da873b08e1d0af6e3bbb95aaa"),
+    "ogm_p": (
+        "5a823df14198bb66880611293700a43a08c78ec58b76dfbb721c4ebc9c49e051",
+        "56e9e8aaaa436caf648738181ade45ef6e5cc6fb8bd693dc9434c2f3e45b4b90"),
+    "pcm_ogm": (
+        "afa8501e1448ca2df9439e1a70e1767096c2aab5ad67ed829ff87c05ba7faaa5",),
+    "m_ogg": (
+        "6eaa97b3dab6439c05fdddf7a0736c2ce33c5e5ffc21c9f16f24de794e5a9644",
+        "9674731da4c8850c2af38b392e61491bce3da7236cd00c910b2cd5c5123e7aad"),
+    "m_mp3": (
+        "67502515b8080fa75b25b97091388d12f8fa7e2ae857b4361b882c8c8cf588f7",
+        "991cd2a53281fab26a26b23f2b3d7a020e277b83978ea36796679e0952ae7575"),
+    "p_vob": (
+        "5a823df14198bb66880611293700a43a08c78ec58b76dfbb721c4ebc9c49e051",
+        "9eeaecab2352b940884bd4bec37fc4dcdf2017f9d3547123553046f0c142bc0c"),
+    "p_ts": (
+        "5a823df14198bb66880611293700a43a08c78ec58b76dfbb721c4ebc9c49e051",
+        "664d8b3a6453e4355837388b3f2782e8a83387f8c9be25d537fbfa988e49adc2"),
+    "p_avi": (
+        "5a823df14198bb66880611293700a43a08c78ec58b76dfbb721c4ebc9c49e051",
+        "cd73ab7653fae8032c818bf6fce247eab01f60571d7066da61113c7889f541c3"),
+    "p_au": (
+        "402281047240064a785f837ed8277b0fa9b4cfda02c3023786f0e2e173e1d9a6",
+        "f10eb2d705b2273f991ae1553c224f3019e5f9caf745c0bd4651d2af0fd72ad9"),
+}
+
+
+def write_au(path, pcm, rate: int, ulaw: bool = False) -> None:
+    """A Sun .au file of int16 ``pcm`` (samples, channels): 16-bit
+    big-endian linear (encoding 3), or G.711 μ-law (encoding 1)."""
+    pcm = np.asarray(pcm, np.int16).reshape(len(pcm), -1)
+    if ulaw:
+        x = pcm.astype(np.int32)
+        sign = np.where(x < 0, 0x80, 0)
+        mag = np.minimum(np.abs(x), 32635) + 0x84
+        exp = np.floor(np.log2(mag)).astype(np.int32) - 7
+        mant = (mag >> (exp + 3)) & 0x0F
+        body = (~(sign | exp << 4 | mant) & 0xFF).astype(np.uint8).tobytes()
+        enc = 1
+    else:
+        body = pcm.astype(">i2").tobytes()
+        enc = 3
+    Path(path).write_bytes(b".snd" + struct.pack(
+        ">IIIII", 24, len(body), enc, rate, pcm.shape[1]) + body)
+
+
+def write_vag(path, seed: int, blocks: int, rate: int = 22050) -> None:
+    """A mono VAGp file of ``blocks`` seeded SPU ADPCM blocks (28 samples
+    each; predictors 0-4, shifts 0-12)."""
+    rng = np.random.default_rng(seed)
+    body = bytearray()
+    for _ in range(blocks):
+        body += bytes([int(rng.integers(0, 5)) << 4
+                       | int(rng.integers(0, 13)), 0])
+        body += rng.integers(0, 256, 14, dtype=np.uint8).tobytes()
+    head = bytearray(0x30)
+    head[0:4] = b"VAGp"
+    head[4:8] = struct.pack(">I", 0x20)
+    head[0x0C:0x10] = struct.pack(">I", len(body))
+    head[0x10:0x14] = struct.pack(">I", rate)
+    Path(path).write_bytes(bytes(head) + bytes(body))
+
+
+def write_late_track_ps(path) -> None:
+    """A program stream of video.m2v in 2000-byte video PES packets and
+    then a.mp2 in 1000-byte audio packets: its track starts after the
+    whole video."""
+    from tcforge_tpu_torch.io.psmux import pack_header, pes_packet
+    ps = bytearray()
+    scr = 0
+    for sid, data, step in ((0xE0, _ts_es("video.m2v"), 2000),
+                            (0xC0, _ts_es("a.mp2"), 1000)):
+        for at in range(0, len(data), step):
+            ps += pack_header(scr) + pes_packet(sid, data[at:at + step])
+            scr += 1800
+    ps += b"\x00\x00\x01\xb9"
+    Path(path).write_bytes(bytes(ps))
+
+
+def route_input(name: str, directory) -> Path:
+    """An input of the route goldens, written into ``directory`` once
+    (see ``ROUTE_GOLDEN``)."""
+    directory = Path(directory)
+    if name == "VIDEO_TS" or (DVD_DATA / name).is_file():
+        return DVD_DATA / name
+    if (MJPEG_DATA / name).is_file():
+        return MJPEG_DATA / name
+    if not name.startswith("{"):
+        return ts_input(name, directory)
+    out = directory / {"{y4m}": "route_in.y4m", "{au}": "a.au",
+                       "{ulaw}": "ulaw.au", "{vag}": "a.vag",
+                       "{late}": "late.mpg"}[name]
+    if out.exists():
+        return out
+    rng = np.random.default_rng(29)
+    if name == "{y4m}":
+        write_test_y4m(out, 64, 48, 8, seed=23)
+    elif name == "{au}":
+        write_au(out, np.clip(rng.standard_normal((12000, 2)) * 3000,
+                              -32768, 32767).astype(np.int16), 44100)
+    elif name == "{ulaw}":
+        t = np.arange(8000) / 16000.0
+        tone = 9000 * np.sin(2 * np.pi * 440 * t)
+        write_au(out, np.rint(tone).astype(np.int16)[:, None], 16000,
+                 ulaw=True)
+    elif name == "{vag}":
+        write_vag(out, 31, 300)
+    else:
+        write_late_track_ps(out)
+    return out
+
+
+def route_golden_argv(case: str, directory, inputs) -> list:
+    """The CLI arguments of a ``ROUTE_GOLDEN`` case: its inputs written
+    into (or read from) ``inputs``, its outputs in ``directory``; "{ogm}"
+    is vob_vorbis_ogg's OGM in ``directory``'s parent's
+    ``vob_vorbis_ogg`` directory."""
+    directory = Path(directory)
+    src, args, outs, _rc = ROUTE_GOLDEN[case]
+    ogm = str(directory.parent / "vob_vorbis_ogg" / "o.ogg")
+
+    def fill(a):
+        if "{d}" in a:
+            return a.replace("{d}", str(directory))
+        if a == "{ogm}":
+            return ogm
+        if a.startswith("{") or a.endswith((".vob", ".ts", ".avi")):
+            return str(route_input(a, inputs))
+        return a
+    src = ogm if src == "{ogm}" else str(route_input(src, inputs))
+    return ["-i", src, "-o", str(directory / outs[0]),
+            *(fill(a) for a in args)]
+
+
+def route_golden_outputs(case: str, directory) -> list:
+    """The files a ``ROUTE_GOLDEN`` case writes, in order (a PSU case's
+    units, not its ``%d`` name)."""
+    outs = ROUTE_GOLDEN[case][2]
+    return [Path(directory) / f for f in outs if "%d" not in f]
+
+
 # cfg1: YUV420P -> RGB24 -> YUV420P, then the zoom
 CFG1_W, CFG1_H, CFG1_ZOOM = 640, 480, (512, 384)
 
@@ -3147,6 +3438,12 @@ def main(argv=()) -> int:
         _xvid_goldens(torch, cli, tmp, divxenc_avi)
         _run_audio_only(torch, cli, tmp)
         _audio_goldens(cli, tmp)
+        # 4. and 5. for the audio half of the export: the ogm path (a DVD
+        # title to XVID + Vorbis), the flagship xvid,lame,avi job without
+        # -m, and the route goldens pinned against the JAX CLI
+        path_launches["ogm"] = _run_ogm(torch, cli, kernels, tmp)
+        path_launches["flagship"] = _run_flagship(torch, cli, kernels, tmp)
+        _route_goldens(cli, tmp)
         emit(phase="audio_chain", batch=MAIN_BATCH,
              **_audio_chain_ms(torch, dev))
         _graph_capture_vs_collection(torch, dev)
@@ -3267,6 +3564,10 @@ def main(argv=()) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_divxenc_") as tmp:
         _divxenc_rates(torch, dev, cli, Path(tmp))
     torch.cuda.empty_cache()
+    # 6. the ogm path: its CLI on the title twice over and its stages
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ogm_") as tmp:
+        _ogm_rates(torch, cli, Path(tmp))
+    torch.cuda.empty_cache()
 
     # each kernel's launches in the run of the path that carries it
     for name, (src, _) in KERNELS.items():
@@ -3316,6 +3617,10 @@ def main(argv=()) -> int:
         k: path_launches["mjpeg"][k] for k in MJPEG_KERNELS})
     emit(phase="launches", path="mjpegenc", launches={
         k: path_launches["mjpegenc"][k] for k in MJPEGENC_KERNELS})
+    emit(phase="launches", path="ogm", launches={
+        k: path_launches["ogm"][k] for k in OGM_KERNELS})
+    emit(phase="launches", path="flagship", launches={
+        k: path_launches["flagship"][k] for k in FLAGSHIP_KERNELS})
     if bench.parent:
         emit(phase="parent_summary", per_batch=bench.versus_sums)
     print(json.dumps({"kernels": [
@@ -5588,8 +5893,9 @@ def mpeg_stages(torch, dev, src, out, job, batch: int = MAIN_BATCH,
 
 RIP_KERNELS = MPEG_KERNELS
 # the long title of the CLI timings: two VOB files, each the title's
-# sectors eight times over (448 frames; a disc's VOB file holds a GB)
-RIP_LONG_REPEAT = 8
+# sectors four times over (224 frames; a disc's VOB file holds a GB; cut
+# from eight to keep the script inside its time limit)
+RIP_LONG_REPEAT = 4
 # phase 6's CLI runs of each rip variant (cut from six to keep the script
 # inside its time limit)
 RIP_RUNS = 4
@@ -9362,6 +9668,248 @@ def _ts1080_rates(torch, dev, cli, tmp):
          device_kernels_ms_per_batch=busy["kernels_ms_per_batch"],
          trace_seconds=time.perf_counter() - t0)
 
+
+
+# ---------------------------------------------------------------------- #
+# The ogm path: the DivX-era rip of a DVD title into an OGM file, MPEG-4
+# video and Vorbis sound (the title's own AC-3 track, no -m); the
+# flagship -y xvid,lame,avi job without -m; the route goldens
+
+OGM_ARGS = ["-x", "dvd", "-T", "1", "-Z", "640x480", "-J",
+            "hqdn3d=luma=4.0", "-y", "xvid,vorbis,ogg=fourcc=XVID", "-F",
+            "keyint=12:bframes=2:four_mv=1", "-w", "1500"]
+OGM_KERNELS = DIVXENC_KERNELS
+OGM_FRAMES = 28                 # the fixture title's
+OGM_RUNS = 2                    # phase 6's timed runs, after an untimed one
+FLAGSHIP_ARGS = ["-x", "dvd", "-T", "1", "-y", "xvid,lame,avi"]
+FLAGSHIP_KERNELS = ("mpeg4_enc_me", "mpeg4_enc_blocks", "mpeg2_recon",
+                    "mpeg2_idct_intra")
+# the SHA-256 of the ogm path's OGM and the flagship job's AVI from the
+# port's own CLI with --device cpu (the plain versions), as
+# ``cpu_digests`` computes them: python3 -c "import chip_smoke as c;
+# print(c.cpu_digests())" (about a minute on a CPU)
+OGM_CPU_SHA256 = (
+    "ee835e5f684ee185865570fa45cb359088c68245e4900dc4ca0c4c55357b0934")
+FLAGSHIP_CPU_SHA256 = (
+    "12d215832d6caf6f887a3e81427ae65e8bd295a46ff982fcf25ada89c88b8433")
+
+
+def ogm_argv(title, out) -> list:
+    return ["-i", str(title), *OGM_ARGS, "-o", str(out), "--batch",
+            str(MAIN_BATCH), "--progress_off", "-q"]
+
+
+def flagship_argv(title, out) -> list:
+    return ["-i", str(title), *FLAGSHIP_ARGS, "-o", str(out), "--batch",
+            str(MAIN_BATCH), "--progress_off", "-q"]
+
+
+def cpu_digests() -> dict:
+    """The ogm path's and the flagship job's outputs on the title from the
+    port's CLI with --device cpu: their SHA-256 (``OGM_CPU_SHA256``,
+    ``FLAGSHIP_CPU_SHA256``)."""
+    sys.path.insert(0, str(ROOT))
+    from tcforge_tpu_torch import cli
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cpu_") as tmp:
+        tmp = Path(tmp)
+        title = dvdrip_title(tmp)
+        out = {}
+        for name, argv in (("ogm", ogm_argv(title, tmp / "film.ogm")),
+                           ("flagship",
+                            flagship_argv(title, tmp / "film.avi"))):
+            check(cli.main([*argv, "--device", "cpu"]) == 0,
+                  f"{name} on the CPU")
+            out[name] = sha256_file(argv[argv.index("-o") + 1])
+    return out
+
+
+def _launched_run(torch, cli, kernels, argv, names, label):
+    """The CLI on ``argv`` on the card with the launch counts set to 0
+    just before and read just after: (seconds, launches), every kernel
+    of ``names`` launched."""
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main([*argv, "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    check(rc == 0, f"{label}: CLI exit code {rc}")
+    for name in names:
+        check(launches[name] > 0, f"kernel {name} was not launched by the "
+                                  f"{label} path")
+    return seconds, launches
+
+
+def _run_ogm(torch, cli, kernels, tmp):
+    """Phases 4 and 5 for the ogm path: the title through the port's CLI
+    to a 640x480 XVID + Vorbis OGM, launches counted, byte for byte the
+    port's own --device cpu run (``OGM_CPU_SHA256``); the OGM's streams;
+    its Vorbis track read back by the port's ogg importer as -p beside a
+    Y4M of as many frames, the WAV's digest printed.  Returns the
+    launches."""
+    from tcforge_tpu_torch.io.ogg import identify_streams
+    d = tmp / "ogm"
+    d.mkdir()
+    title = dvdrip_title(d)
+    out = d / "film.ogm"
+    seconds, launches = _launched_run(torch, cli, kernels,
+                                      ogm_argv(title, out), OGM_KERNELS,
+                                      "ogm")
+    emit(phase="path", path="ogm", frames=OGM_FRAMES, seconds=seconds,
+         e2e_fps=OGM_FRAMES / seconds,
+         launches={k: launches[k] for k in OGM_KERNELS})
+    digest = sha256_file(out)
+    emit(phase="path_vs_cpu", path="ogm", identical=digest == OGM_CPU_SHA256,
+         sha256=digest, pinned=OGM_CPU_SHA256)
+    check(digest == OGM_CPU_SHA256, "ogm: the card's OGM differs from the "
+                                    "CPU run's")
+    with open(out, "rb") as f:
+        streams = [(s.kind, s.codec, s.width, s.height, s.samplerate,
+                    s.channels) for s in identify_streams(f)]
+    check(streams == [("video", "XVID", 640, 480, 0, 0),
+                      ("audio", "vorbis", 0, 0, 48000, 2)],
+          f"ogm: the OGM's streams {streams}")
+    y4m, back = d / "frames.y4m", d / "back.wav"
+    write_test_y4m(y4m, 64, 48, OGM_FRAMES, seed=5, fps=(30000, 1001))
+    rc = cli.main(["-i", str(y4m), "-p", str(out), "-o",
+                   str(d / "back.y4m"), "-m", str(back), "--device", "cuda",
+                   "--progress_off", "-q"])
+    samples = (back.stat().st_size - 44) // 4 if back.exists() else 0
+    emit(phase="readback", path="ogm", sha256=sha256_file(back),
+         samples=samples)
+    check(rc == 0 and samples == 1602 * OGM_FRAMES,
+          f"ogm: the Vorbis read-back gave {samples} samples")
+    return launches
+
+
+def _run_flagship(torch, cli, kernels, tmp):
+    """transcode's flagship job, -i VIDEO_TS -y xvid,lame,avi without -m:
+    the AVI holds the title's own track as MP3 (tag 0x55), launches
+    counted, and equals the port's own --device cpu run byte for byte
+    (``FLAGSHIP_CPU_SHA256``).  Returns the launches."""
+    from tcforge_tpu_torch.io.avi import AviReader
+    d = tmp / "flagship"
+    d.mkdir()
+    title = dvdrip_title(d)
+    out = d / "film.avi"
+    seconds, launches = _launched_run(torch, cli, kernels,
+                                      flagship_argv(title, out),
+                                      FLAGSHIP_KERNELS, "flagship")
+    with AviReader(str(out)) as r:
+        audio = [(a.format_tag, a.rate, a.channels) for a in r.audio]
+        audio_bytes = sum(len(c) for c in r.read_audio_chunks(0)) \
+            if r.audio else 0
+        video = (r.video.fourcc, r.video.width, r.video.height,
+                 r.video_frames)
+    emit(phase="path", path="flagship", frames=OGM_FRAMES, seconds=seconds,
+         launches={k: launches[k] for k in FLAGSHIP_KERNELS}, video=video,
+         audio=audio, audio_bytes=audio_bytes)
+    check(video == ("XVID", 720, 480, OGM_FRAMES)
+          and audio == [(0x55, 48000, 2)] and audio_bytes > 0,
+          f"flagship: video {video}, audio {audio} ({audio_bytes} bytes)")
+    digest = sha256_file(out)
+    emit(phase="path_vs_cpu", path="flagship",
+         identical=digest == FLAGSHIP_CPU_SHA256, sha256=digest,
+         pinned=FLAGSHIP_CPU_SHA256)
+    check(digest == FLAGSHIP_CPU_SHA256, "flagship: the card's AVI differs "
+                                         "from the CPU run's")
+    return launches
+
+
+def _route_goldens(cli, tmp):
+    """Phase 5 for the audio routes: every ``ROUTE_GOLDEN`` case on the
+    card, in order, its exit code and its files' SHA-256 against the JAX
+    CLI's pinned digests."""
+    inputs = tmp / "route_inputs"
+    inputs.mkdir()
+    for case, (_src, _args, _outs, want_rc) in ROUTE_GOLDEN.items():
+        d = tmp / "routes" / case
+        d.mkdir(parents=True)
+        rc = cli.main([*route_golden_argv(case, d, inputs), "--device",
+                       "cuda", "--progress_off", "-q"])
+        digest = tuple(sha256_file(f) if f.exists() else None
+                       for f in route_golden_outputs(case, d))
+        emit(phase="golden", path=f"route_{case}", rc=rc,
+             sha256=list(digest), pinned=list(ROUTE_GOLDEN_SHA256[case]))
+        check(rc == want_rc and digest == ROUTE_GOLDEN_SHA256[case],
+              f"route {case} golden output differs from the JAX-pinned "
+              "digests")
+
+
+def _ogm_clock() -> "_StageClock":
+    """Host clocks around the ogm CLI's stages: the importer's plan (the
+    host parse) and execute (the upload and the reconstruction kernels),
+    the chain, the MPEG-4 encoder (its decisions and block coding on the
+    card, its records' copy and syntax writer on the host), the Vorbis
+    encoder and the Ogg multiplexor (the writer thread)."""
+    from tcforge_tpu_torch.modules.encoders.vorbis_enc import \
+        VorbisAudioEncoder
+    from tcforge_tpu_torch.modules.encoders.xvid import XvidEncoder
+    from tcforge_tpu_torch.modules.importers.mpeg_import import MpegImporter
+    from tcforge_tpu_torch.modules.muxers.ogg_mux import OggMuxer
+    from tcforge_tpu_torch.pipeline.chain import VideoChain
+    clock = _StageClock()
+    for owner, name, label in (
+            (MpegImporter, "plan_batch", "parse"),
+            (MpegImporter, "execute", "decode"),
+            (VideoChain, "__call__", "chain"),
+            (XvidEncoder, "encode_video", "mpeg4_encoder"),
+            (XvidEncoder, "flush", "mpeg4_encoder"),
+            (VorbisAudioEncoder, "encode_audio", "vorbis_encoder"),
+            (VorbisAudioEncoder, "flush", "vorbis_encoder"),
+            (OggMuxer, "write_video", "ogg_mux"),
+            (OggMuxer, "write_audio", "ogg_mux")):
+        clock.wrap(owner, name, label)
+    return clock
+
+
+def _ogm_rates(torch, cli, tmp):
+    """Phase 6 for the ogm path, on the title twice over (56 frames; its
+    kernels and tables warm from phase 4): the CLI, wall clock to the
+    last byte, ``OGM_RUNS`` runs (median and spread) with host clocks
+    around its stages (``_ogm_clock``, ms a 16-frame batch, the Vorbis
+    encoder's apart); then the title once under torch.profiler: the
+    device's busy time a batch and the named kernels'."""
+    from torch.profiler import ProfilerActivity, profile
+    title = dvdrip_title(tmp, 2)
+    frames = 2 * OGM_FRAMES
+    argv = [*ogm_argv(title, tmp / "ogm_rate.ogm"), "--device", "cuda"]
+    batches = frames / MAIN_BATCH
+    fps = []
+    clock = _ogm_clock()
+    try:
+        for _ in range(OGM_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc = cli.main(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            check(rc == 0, f"ogm CLI: exit code {rc}")
+            fps.append(frames / seconds)
+    finally:
+        clock.restore()
+    # the device's share on the title once (28 frames, two batches)
+    short = [*ogm_argv(dvdrip_title(tmp), tmp / "ogm_prof.ogm"),
+             "--device", "cuda"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        rc = cli.main(short)
+        torch.cuda.synchronize()
+    check(rc == 0, f"ogm under the profiler: exit code {rc}")
+    busy = _device_busy(prof, OGM_FRAMES / MAIN_BATCH,
+                        ("recon_kernel", "zoom_", "scan_", "mpeg4_me_",
+                         "mpeg4_bme_", "mpeg4_blocks_"))
+    per_run = batches * OGM_RUNS
+    wall = {k: 1e3 * v / per_run for k, v in clock.wall.items()}
+    emit(phase="cli", path="ogm", frames=frames, fps=fps,
+         median_fps=float(np.median(fps)), min_fps=min(fps),
+         max_fps=max(fps), vorbis_ms_per_batch=wall["vorbis_encoder"],
+         host_wall_ms_per_batch=wall,
+         host_cpu_ms_per_batch={k: 1e3 * v / per_run
+                                for k, v in clock.cpu.items()},
+         device_busy_ms_per_batch=busy["busy_ms_per_batch"],
+         named_kernels_ms_per_batch=busy["named_ms_per_batch"],
+         device_kernels_ms_per_batch=busy["kernels_ms_per_batch"])
 
 if __name__ == "__main__":
     sys.exit(main(sys.argv[1:]))

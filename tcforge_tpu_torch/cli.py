@@ -13,12 +13,16 @@ tomsmocomp, denoise3d, ivtc, 32detect, decimate, 32drop, smartdeinter,
 smartyuv, doublefps, smartbob, barrel, fps, skip, slowmo, modfps,
 invert, levels, deinterlace, mask, testframe, extsub and null
 (comma-separated, run in their slots' order), and the audio track:
-``-p`` (a WAV) and ``-m`` (a ``.wav``), ``-s``, ``-d``,
+``-p`` and ``-m`` (below), ``-s``, ``-d``,
 ``-E rate[,bits[,channels]]``, ``-D``, ``--av_fine_ms``, ``--sync``,
 ``--resync_margin``, ``--resync_interval`` and ``--no_audio_adjust``,
 with the audio filters normalize, astat, lowpass, detectsilence,
-resample, aclip and cpaudio in the same ``-J`` list; a WAV given to
-``-i`` makes an audio-only session.  MPEG-1/2 video (a DVD's VOB,
+resample, aclip and cpaudio in the same ``-J`` list, ``-e
+rate[,bits[,channels]]`` (which wins over the probe), ``-n``, ``-A``,
+``-M`` and ``--a52_demux``, ``--a52_drc_off`` and ``--a52_dolby_off``
+(accepted and gated, as in the JAX CLI); an audio file given to ``-i``
+makes an audio-only session through ``-y``'s audio encoder and
+multiplexor, and so does ``-x null`` with ``-p``.  MPEG-1/2 video (a DVD's VOB,
 a program stream, an elementary stream) is read with ``-x mpeg`` (or
 its aliases ``mpeg2``, ``mpg`` and ``vob``), or found by its magic with
 the default ``-x auto`` (a 4:2:2 stream stays 4:2:2 under ``-V
@@ -27,14 +31,19 @@ header, the host parses it and the card reconstructs it.  A program
 stream's LPCM, MPEG audio or AC-3 track (``-a`` picks it) goes to ``-m``;
 a transport stream (``--ts_pid`` picks the video PID, else its PAT and
 PMT do; its audio is the PMT's first MPEG audio, AC-3 or AAC stream) and
-a VideoCD track (RIFF/CDXA ``.DAT``) take the same route; ``-S
+a VideoCD track (RIFF/CDXA ``.DAT``) take the same route, and without
+``-p`` the source's own track goes into a multiplexor that takes audio;
+``-S
 unit[,chunks]`` starts at a program stream unit, ``--psu_mode`` runs one
 pipeline a unit into ``-o``'s ``%d`` (``--psu_first``, ``--psu_last``,
 ``--psu_chunks a-b``; ``--no_split`` writes the units into one file), and
 ``-W n,m[,navfile]`` (``--cluster_chunks``, ``--cluster_percentage``,
 ``--nav_seek``) takes chunk n of m as ``-L`` and ``--max_frames``; ``-p``
-and an audio-only ``-i`` take WAV, MP3 (Layers I to III), AC-3, FLAC and
-ADTS AAC files;
+and an audio-only ``-i`` take WAV, MP3 (Layers I to III), AC-3, FLAC,
+ADTS AAC, Sun AU and PlayStation VAG files, and ``-p`` the track of any
+MPEG, AVI, MOV or Ogg file the port imports; an Ogg/OGM file (``-x
+ogg``, or found by its magic) brings OGM raw I420/YV12 video and PCM or
+Vorbis audio;
 ``-x dvd -T title[,chapter[-chapter]]`` reads a decrypted ``VIDEO_TS``
 title and a directory given to ``-i`` plays its files in turn.  An AVI
 (``-x avi``, or found by its magic) brings raw, LZO2 or MPEG-4 part 2
@@ -52,7 +61,13 @@ vformat[,aformat]`` (the encoders by format name where ``-y`` is not
 given); the MPEG-2 encoder's motion search, prediction and block
 coding run on the card, its syntax writer on the host, and ``mpg`` writes
 a program stream with the audio track as DVD LPCM; so do the MPEG-4
-(``xvid``) encoder's decisions and block coding, into an AVI:
+(``xvid``) encoder's decisions and block coding, into an AVI or an
+OGM.  The audio encoders are ``raw``, ``null``, ``copy``, ``lame``,
+``mp2enc``/``toolame``, ``ac3enc``, ``faac``, ``flac`` and ``vorbis``
+(the JAX package's in-tree coders), into any multiplexor that takes
+audio (``ogg``: OGM PCM, or the native Vorbis stream); ``-m`` writes the
+audio into the multiplexor its extension names (``wav`` where it names
+none):
 
     python -m tcforge_tpu_torch.cli -i in.y4m -I 5 -Z 1280x720 \\
         -J hqdn3d=luma=4.0 -o out.y4m [--batch 16] [--device cuda]
@@ -102,6 +117,12 @@ a program stream with the audio track as DVD LPCM; so do the MPEG-4
     python -m tcforge_tpu_torch.cli -i dvd.vob -x mpeg -Z 640x480 \\
         -J hqdn3d=luma=4.0 -y xvid,raw,avi \\
         -F keyint=12:bframes=2:four_mv=1 -w 1500 -o out.avi
+    python -m tcforge_tpu_torch.cli -i VIDEO_TS -x dvd -T 1 -Z 640x480 \\
+        -J hqdn3d=luma=4.0 -y xvid,vorbis,ogg=fourcc=XVID \\
+        -F keyint=12:bframes=2:four_mv=1 -w 1500 -o film.ogm
+    python -m tcforge_tpu_torch.cli -i VIDEO_TS -x dvd -T 1 \\
+        -y xvid,lame,avi -o film.avi
+    python -m tcforge_tpu_torch.cli -i a.flac -y null,vorbis,ogg -o a.ogg
 
 and refuses every other flag of the JAX CLI with an error that names
 it, and any other audio file, naming the JAX module that reads it.
@@ -150,17 +171,18 @@ def _resize_units(spec: str):
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="tcforge_tpu_torch", allow_abbrev=False,
-        description="tcforge on PyTorch/CUDA: Y4M, MPEG-1/2 or AVI video "
-                    "(and WAV) in, filter chain, Y4M, MPEG-2, AVI or raw "
-                    "(and WAV) out")
+        description="tcforge on PyTorch/CUDA: Y4M, MPEG-1/2, AVI, MOV or "
+                    "Ogg video (and audio) in, filter chain, Y4M, MPEG-2, "
+                    "AVI, MOV, OGM or raw (and audio) out")
     p.add_argument("-i", dest="video_in", required=True,
                    help="input file (YUV4MPEG2, an MPEG-1/2 program or "
                         "elementary stream, a directory of them, a "
-                        "VIDEO_TS directory with -x dvd, or WAV for an "
-                        "audio-only session)")
+                        "VIDEO_TS directory with -x dvd, an AVI, MOV or "
+                        "Ogg file, or an audio file for an audio-only "
+                        "session)")
     p.add_argument("-o", dest="video_out", required=True,
-                   help="output file (YUV4MPEG2, WAV for an audio-only "
-                        "session, or the -y multiplexor's)")
+                   help="output file (YUV4MPEG2, or the -y "
+                        "multiplexor's)")
     p.add_argument("-x", "--import_with", dest="im_modules",
                    default="auto,auto",
                    help="import modules video[,audio] (video: auto, y4m, "
@@ -171,8 +193,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="export modules venc[,aenc[,mux]] (video: raw, "
                         "null, copy, yuv4mpeg, mpeg2, lzo, xvid, movjpeg; "
                         "audio: raw, null, copy, lame, mp2enc, toolame, "
-                        "ac3enc; mux: auto, raw, null, y4m, wav, mpg, avi, "
-                        "mov; name=options)")
+                        "ac3enc, faac, flac, vorbis; mux: auto, raw, null, "
+                        "y4m, wav, mpg, avi, mov, ogg; name=options)")
     p.add_argument("-F", "--export_param", dest="ex_v_fcc", default="",
                    help="video encoder option string (module-specific, "
                         "e.g. gop_n=12:gop_m=3)")
@@ -201,15 +223,35 @@ def build_parser() -> argparse.ArgumentParser:
                         "VIDEO_TS directory (-x dvd)")
     p.add_argument("-a", dest="a_track", type=int, default=0,
                    help="audio track to extract")
-    p.add_argument("-p", dest="audio_in", help="audio input file (WAV)")
-    p.add_argument("-m", dest="audio_out", help="audio output file (WAV)")
+    p.add_argument("-p", dest="audio_in",
+                   help="audio input file (an audio file, or the track of "
+                        "an MPEG, AVI, MOV or Ogg file)")
+    p.add_argument("-m", dest="audio_out",
+                   help="audio output file (its multiplexor by its "
+                        "extension, WAV where it names none)")
     # audio (the JAX CLI's flags and parsing)
     p.add_argument("-s", "--audio_scale", dest="volume", type=float,
                    default=1.0, help="volume scale")
     p.add_argument("-E", dest="resample", default="0",
                    help="audio output rate[,bits[,channels]]")
+    p.add_argument("-e", dest="import_afmt", default="",
+                   help="import audio rate[,bits[,channels]] "
+                   "[48000,16,2]")
+    p.add_argument("-n", dest="import_codec", default="",
+                   help="import audio codec id (hex, e.g. 0x2000)")
     p.add_argument("-b", dest="abitrate", default="",
-                   help="audio encoder bitrate kbps (lame, mp2enc, ac3enc)")
+                   help="audio encoder bitrate kbps (lame, mp2enc, ac3enc, "
+                        "faac)")
+    p.add_argument("-A", dest="audio_use_ac3", action="store_true",
+                   help="use AC3 as internal audio codec")
+    p.add_argument("-M", dest="demuxer_sync", type=int, default=1,
+                   help="demuxer sync mode (accepted for parity)")
+    p.add_argument("--a52_demux", action="store_true",
+                   help="(gated) demux AC3/A52 to separate channels")
+    p.add_argument("--a52_drc_off", action="store_true",
+                   help="(gated) disable AC3 dynamic range compression")
+    p.add_argument("--a52_dolby_off", action="store_true",
+                   help="(gated) disable AC3 Dolby surround")
     p.add_argument("-d", "--audio_swap", dest="channels", type=int,
                    default=0, help="output channels")
     p.add_argument("-D", "--sync_frame", dest="av_offset", type=int,
@@ -411,10 +453,20 @@ def args_to_job(args: argparse.Namespace) -> Job:
         job.dm_bits = int(eparts[1])
     if len(eparts) > 2 and eparts[2]:
         job.dm_chan = int(eparts[2])
+    _import_afmt(args, job)
+    if args.import_codec:
+        job.a_codec_flag = int(args.import_codec, 16)
     if args.abitrate:
         # the in-tree encoders take the bitrate alone, as in the JAX
         # package
         job.mp3bitrate = int(args.abitrate.split(",")[0])
+    if args.audio_use_ac3:
+        from tcforge_tpu_torch.core.codecs import Codec
+        job.im_a_codec = Codec.AC3
+    # the --a52_* bits: no decoder reads them, as in the JAX package
+    job.a52_mode = ((1 if args.a52_demux else 0)
+                    | (2 if args.a52_drc_off else 0)
+                    | (4 if args.a52_dolby_off else 0))
     job.av_offset = args.av_offset
     job.sync_method = args.sync_method
     job.resync_margin = args.resync_margin
@@ -442,6 +494,19 @@ def args_to_job(args: argparse.Namespace) -> Job:
         if len(parts) > 2 and parts[2]:
             job.dvd_angle = int(parts[2])
     return job
+
+
+def _import_afmt(args: argparse.Namespace, job: Job) -> None:
+    """-e rate[,bits[,channels]] (import_afmt, cmdline_def.h:556): the
+    job's audio rate, bits and channels, which the null importer's
+    session and the multiplexors read."""
+    if args.import_afmt:
+        parts = args.import_afmt.split(",")
+        job.a_rate = int(parts[0])
+        if len(parts) > 1 and parts[1]:
+            job.a_bits = int(parts[1])
+        if len(parts) > 2 and parts[2]:
+            job.a_chan = int(parts[2])
 
 
 def _select_encoders(job: Job) -> None:
@@ -513,6 +578,8 @@ def _probed_job(args: argparse.Namespace) -> Job:
     from tcforge_tpu_torch.pipeline.engine import probe
     job = args_to_job(args)
     probe(job)
+    # -e wins over the probe, as in the JAX CLI
+    _import_afmt(args, job)
     if args.autosplit:
         _autosplit(args, job)
     if args.ranges:

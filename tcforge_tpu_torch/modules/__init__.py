@@ -1,8 +1,9 @@
 """The port's module system.  Importing this package registers the
-built-in filters, the WAV, MP3, AC-3, FLAC, AAC, MPEG, AVI, MOV and
-framegen importers, the WAV, Y4M, AVI, raw, null, mpg and mov
-multiplexors and the raw, null, copy, yuv4mpeg, mpeg2, lzo, xvid,
-movjpeg, lame, mp2enc and ac3enc encoders, as importing
+built-in filters, the WAV, MP3, AC-3, FLAC, AAC, AU, VAG, null, MPEG,
+AVI, MOV, Ogg and framegen importers, the WAV, Y4M, AVI, raw, null,
+mpg, mov and ogg multiplexors and the raw, null, copy, yuv4mpeg, mpeg2,
+lzo, xvid, movjpeg, lame, mp2enc, ac3enc, faac, flac and vorbis
+encoders, as importing
 ``tcforge_tpu.modules`` does."""
 
 from tcforge_tpu_torch.modules.encoders import audio_enc  # noqa: F401
@@ -11,6 +12,7 @@ from tcforge_tpu_torch.modules.encoders import image_enc  # noqa: F401
 from tcforge_tpu_torch.modules.encoders import lzo_enc  # noqa: F401
 from tcforge_tpu_torch.modules.encoders import movjpeg  # noqa: F401
 from tcforge_tpu_torch.modules.encoders import mpeg2  # noqa: F401
+from tcforge_tpu_torch.modules.encoders import vorbis_enc  # noqa: F401
 from tcforge_tpu_torch.modules.encoders import xvid  # noqa: F401
 from tcforge_tpu_torch.modules.importers import audio_import  # noqa: F401
 from tcforge_tpu_torch.modules.importers import avi_import  # noqa: F401
@@ -19,9 +21,11 @@ from tcforge_tpu_torch.modules.importers import dvd_import  # noqa: F401
 from tcforge_tpu_torch.modules.importers import mov_import  # noqa: F401
 from tcforge_tpu_torch.modules.importers import mpeg_import  # noqa: F401
 from tcforge_tpu_torch.modules.importers import multi  # noqa: F401
+from tcforge_tpu_torch.modules.importers import ogg_import  # noqa: F401
 from tcforge_tpu_torch.modules.importers import wav_import  # noqa: F401
 from tcforge_tpu_torch.modules.muxers import basic as _muxers  # noqa: F401
 from tcforge_tpu_torch.modules.muxers import mov_mux  # noqa: F401
+from tcforge_tpu_torch.modules.muxers import ogg_mux  # noqa: F401
 from tcforge_tpu_torch.modules.muxers import ps_mux  # noqa: F401
 
 from tcforge_tpu_torch.modules.filters import (  # noqa: F401

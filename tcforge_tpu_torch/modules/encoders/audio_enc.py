@@ -1,23 +1,27 @@
-"""The compressed-audio encoders ``lame``, ``mp2enc`` (alias ``toolame``)
-and ``ac3enc`` (``tcforge_tpu/modules/encoders/av_audio_enc.py``).
+"""The compressed-audio encoders ``lame``, ``mp2enc`` (alias ``toolame``),
+``ac3enc``, ``faac`` and ``flac`` (``tcforge_tpu/modules/encoders/
+av_audio_enc.py``).
 
 The JAX modules encode through the FFmpeg bridge where it is built, and
 through the in-tree spec encoders where it is not (or where
-``TCFORGE_NATIVE_MP3ENC``, ``_MP2ENC`` or ``_AC3ENC`` is 1).  The port
-carries no FFmpeg, so it always takes the in-tree encoders, as pinned
-copies: ``io/mp3enc.py`` (``NativeMp3Encoder``), ``io/mpaenc.py``
-(``NativeAudioEncoder``) and ``io/a52enc.py`` (``NativeAc3Encoder``).
-The bridge's libmp3lame, twolame and AC-3 bytes are not the port's.
+``TCFORGE_NATIVE_MP3ENC``, ``_MP2ENC``, ``_AC3ENC``, ``_AACENC`` or
+``_FLAC`` is 1).  The port carries no FFmpeg, so it always takes the
+in-tree encoders, as pinned copies: ``io/mp3enc.py``
+(``NativeMp3Encoder``), ``io/mpaenc.py`` (``NativeAudioEncoder``),
+``io/a52enc.py`` (``NativeAc3Encoder``), ``io/aacenc.py``
+(``NativeAacEncoder``, ADTS AAC-LC) and ``io/flac.py``
+(``NativeFlacEncoder``).  The bridge's libmp3lame, twolame, AC-3, AAC
+and FLAC bytes are not the port's.
 
 PCM batches in, framed output: one payload a coded frame (1152 or 576
-samples of MP3, 1152 of MP2, 1536 of AC-3), which keeps the multiplexors'
-timelines exact.  The rate is ``-E``'s (``mp3frequency``) or the input's,
+samples of MP3, 1152 of MP2, 1536 of AC-3, 1024 of AAC, a FLAC frame),
+which keeps the multiplexors' timelines exact.  The rate is ``-E``'s (``mp3frequency``) or the input's,
 the channels ``dm_chan``, the bitrate the ``bitrate`` option, else
 ``-b`` (``mp3bitrate``) where set, else the module's default;
 ``job.extradata`` gets ``audio_byte_rate`` (the AVI multiplexor's
 stream header) and ``audio_frame_size``, as the JAX module sets them.
-The engine runs the encoder on its writer thread.  ``faac``, ``flac``
-and ``vorbis`` are not ported: their names are refused.
+The engine runs the encoder on its writer thread.  ``vorbis`` is
+``vorbis_enc.py``.
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ from tcforge_tpu_torch.core.codecs import Codec
 from tcforge_tpu_torch.core.frame import AudioBatch
 from tcforge_tpu_torch.core.optstr import ModuleDesc, ParamSpec
 from tcforge_tpu_torch.io.a52enc import NativeAc3Encoder
+from tcforge_tpu_torch.io.aacenc import NativeAacEncoder
+from tcforge_tpu_torch.io.flac import NativeFlacEncoder
 from tcforge_tpu_torch.io.mp3enc import NativeMp3Encoder
 from tcforge_tpu_torch.io.mpaenc import NativeAudioEncoder
 from tcforge_tpu_torch.modules.registry import (Encoder, ModuleInfo,
@@ -112,3 +118,29 @@ class Ac3Encoder(_InTreeAudioEncoder):
         "muxer's private sub-stream)",
         params=[ParamSpec("bitrate", "bitrate kbps", "d", 0, 0, 640)])
     codec = NativeAc3Encoder
+
+
+@register
+class FaacEncoder(_InTreeAudioEncoder):
+    info = ModuleInfo(name="faac", kind=ModuleKind.ENCODER,
+                      media="audio", codecs_in=(Codec.PCM,),
+                      codecs_out=(Codec.AAC,))
+    desc = ModuleDesc(
+        name="faac", comment="AAC audio encoder (the in-tree "
+        "io/aacenc.py LC encoder; the encode_faac.c role)",
+        params=[ParamSpec("bitrate", "bitrate kbps", "d", 0, 0, 320)])
+    default_kbps = 128
+    codec = NativeAacEncoder
+
+
+@register
+class FlacEncoder(_InTreeAudioEncoder):
+    info = ModuleInfo(name="flac", kind=ModuleKind.ENCODER,
+                      media="audio", codecs_in=(Codec.PCM,),
+                      codecs_out=(Codec.FLAC,))
+    desc = ModuleDesc(
+        name="flac", comment="FLAC lossless audio encoder (the in-tree "
+        "io/flac.py spec encoder)",
+        params=[ParamSpec("bitrate", "ignored (lossless)", "d", 0, 0, 0)])
+    default_kbps = 0
+    codec = NativeFlacEncoder

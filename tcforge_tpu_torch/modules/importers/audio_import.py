@@ -1,5 +1,6 @@
-"""The compressed-audio import modules ``mp3``, ``ac3``, ``flac`` and
-``aac``: the port of ``tcforge_tpu/modules/importers/audio_import.py``.
+"""The audio import modules ``mp3``, ``ac3``, ``flac`` and ``aac`` (the
+port of ``tcforge_tpu/modules/importers/audio_import.py``), and ``au``,
+``vag`` and ``null``.
 
 Each serves as the ``-p`` audio beside any video, or as an audio-only
 ``-i``.  The JAX modules decode through the FFmpeg bridge where it is
@@ -23,7 +24,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from tcforge_tpu_torch.core.codecs import Codec, ContainerFormat
-from tcforge_tpu_torch.core.optstr import ModuleDesc
+from tcforge_tpu_torch.core.optstr import ModuleDesc, ParamSpec
 from tcforge_tpu_torch.modules.registry import (Importer, ModuleInfo,
                                                 ModuleKind, register)
 
@@ -138,3 +139,81 @@ class AacImporter(_WholeAudioImporter):
     def _decode(self, data: bytes):
         from tcforge_tpu_torch.io.aacdec import decode_adts_stream
         return decode_adts_stream(data)
+
+
+@register
+class AuImporter(Importer):
+    """A Sun/NeXT ``.au`` file (``tcforge_tpu/modules/importers/
+    au_import.py``): μ-law, A-law, 8-bit and 16-bit big-endian linear
+    samples to int16 through the pinned ``io/au.py``."""
+
+    info = ModuleInfo(name="au", kind=ModuleKind.DEMULTIPLEXOR,
+                      media="audio", codecs_out=(Codec.PCM,),
+                      formats_in=(ContainerFormat.SUNAU,))
+    desc = ModuleDesc(name="au", comment="Sun/NeXT .au audio reader "
+                      "(mu-law + linear)")
+
+    def open(self, path: Optional[str]) -> None:
+        from tcforge_tpu_torch.io.au import AuReader
+        self._r = AuReader(path)
+        self.audio_rate = self._r.rate
+        self.audio_channels = self._r.channels
+
+    def read_video_batch(self, n: int) -> Optional[Dict[str, np.ndarray]]:
+        return None
+
+    def read_audio_batch(self, n_samples: int) -> Optional[np.ndarray]:
+        return self._r.read_samples(n_samples)
+
+    def close(self) -> None:
+        self._r.close()
+
+
+@register
+class VagImporter(Importer):
+    """PlayStation VAG ADPCM (``tcforge_tpu/modules/importers/
+    vag_import.py``): VAGp mono and SShd/SSbd stereo-blocked files, and
+    SShd raw PCM, through the pinned ``io/vag.py``."""
+
+    info = ModuleInfo(name="vag", kind=ModuleKind.DEMULTIPLEXOR,
+                      media="audio", codecs_out=(Codec.PCM,),
+                      formats_in=(ContainerFormat.VAG,))
+    desc = ModuleDesc(
+        name="vag", comment="PlayStation VAG ADPCM audio",
+        params=[ParamSpec("blocksize", "stereo interleave override",
+                          "d", 0, 0, 0x1000)])
+
+    def open(self, path: Optional[str]) -> None:
+        from tcforge_tpu_torch.io.vag import VagReader
+        self._r = VagReader(path)
+        override = int(self.options.get("blocksize", 0) or 0)
+        if override:
+            self._r.info.block = override
+        self.audio_rate = self._r.info.rate
+        self.audio_channels = self._r.info.channels
+
+    def read_video_batch(self, n: int) -> Optional[Dict[str, np.ndarray]]:
+        return None
+
+    def read_audio_batch(self, samples: int) -> Optional[np.ndarray]:
+        return self._r.read(samples)
+
+
+@register
+class NullAudioImporter(Importer):
+    """import_null.c (``tcforge_tpu/modules/importers/device_import.py``):
+    a source of nothing.  Its session takes its shape from the job: ``-g``
+    for the video, ``-e`` for the audio."""
+
+    info = ModuleInfo(name="null", kind=ModuleKind.DEMULTIPLEXOR,
+                      media="both", codecs_out=())
+    desc = ModuleDesc(name="null", comment="null source (no frames)")
+
+    def open(self, path: Optional[str]) -> None:
+        pass
+
+    def read_video_batch(self, n: int) -> Optional[Dict[str, np.ndarray]]:
+        return None
+
+    def read_audio_batch(self, samples: int) -> Optional[np.ndarray]:
+        return None

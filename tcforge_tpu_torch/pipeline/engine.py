@@ -2,10 +2,11 @@
 device -> Y4M writer thread (or an encoder and a multiplexor), with an
 audio track beside it.
 
-The port of ``tcforge_tpu/pipeline/engine.py`` for a Y4M-to-Y4M
-session, with a WAV audio track (``-p`` in, ``-m`` out), for an MPEG-1/2
-video import (``-x mpeg``, or found by its magic: a program or
-elementary stream) to Y4M, and for an audio-only WAV-to-WAV session:
+The port of ``tcforge_tpu/pipeline/engine.py``: a video session from a
+Y4M file or an import module (MPEG-1/2, AVI, MOV, Ogg, the synthetic
+source) with an audio track beside it (``-p`` from any file the port
+imports audio from, or the source's own), and an audio-only session from
+an audio file:
 
 - a reader thread reads ``job.batch_size`` frames at a time straight
   into host buffers (one ``preadv`` a batch) and fills a queue of at
@@ -34,7 +35,7 @@ elementary stream) to Y4M, and for an audio-only WAV-to-WAV session:
   counters: each frame lands in exactly one.  It writes the audio
   payloads (the raw encoder's int16 frames) to the WAV multiplexor,
   which opens once a batch has written a frame (or at the end of the
-  stream); audio made before that is held;
+  stream); audio made before that is held (``_MuxOut``);
 - at the end of the stream ``AudioChain.flush`` drains ``-E``'s
   resampler, and ``finalize`` runs on every filter once, video and
   audio, after the last ``collect``, also when the run fails.
@@ -48,18 +49,28 @@ the display order); the main thread uploads the buffer on the copy
 stream and runs the reconstruction kernels, which write the chain's
 input batch on the device.  Its ``-L`` cuts the stream at a sequence
 header and decodes and drops the rest (``multi``: decodes and drops),
-before the threads start.  The program stream's own audio track is the
-session's audio source where it has one and no ``-p`` is given; the
-reader thread reads a batch's samples after its plan and runs the
-synchronizer on them and on the plan's frame handles (a clone repeats
-a handle, a drop leaves one out).  Without ``-m`` the track is not
-demuxed at all.
+before the threads start.
 
-An audio-only session (``-i in.wav -o out.wav``) reads nominal frames
-of ``round(rate/fps)`` samples (``-L`` and ``--max_frames`` count them),
-a batch's worth at a time, and each chunk goes through the audio chain
-as one audio frame, as in the JAX engine; the ``-J`` video filters get
-their initial states and their ``finalize`` and see no frame.
+The source's own audio track (an MPEG stream's, an AVI's, a MOV's, an
+Ogg file's, the synthetic one) is the session's audio where no ``-p`` is
+given and the importer knows its rate at ``open``, as the JAX engine
+takes its importer as its audio source (a program stream's track shows
+within the windowed reader's first packs, or the JAX reader drops it).
+The importer demuxes it only where the session takes it: with ``-m``, or
+into a multiplexor that takes audio; a video-only one drops it with the
+JAX engine's warning.  The reader thread reads a batch's samples after
+its plan and runs the synchronizer on them and on the plan's frame
+handles (a clone repeats a handle, a drop leaves one out).
+
+An audio-only session (an audio file as ``-i``, or an import module
+with no video and an audio source, as ``-x null`` with ``-p``) reads
+nominal frames of ``round(rate/fps)`` samples (``-L`` and
+``--max_frames`` count them), a batch's worth at a time, and each chunk
+goes through the audio chain as one audio frame and ``-y``'s audio
+encoder into ``-y``'s multiplexor (the JAX ``ValueError`` where that is
+video-only and no ``-m`` is given), as in the JAX engine; the ``-J``
+video filters get their initial states and their ``finalize`` and see
+no frame.
 
 The export stage beyond the Y4M writer (``-y venc[,aenc[,mux]]``, the
 JAX engine's): the frames to write (-c, --frame_interval, the skipped
@@ -70,10 +81,15 @@ picture, for its records (``io/mpeg2enc.py``, ``io/mpeg4enc.py``).  Its payloads
 writer thread's multiplexor, which opens at the first batch that gives
 payloads (or at the end of the stream) and holds the audio given before;
 at the end of the stream the encoder's tail (its delayed pictures and
-its end code) is written before the audio chain's.  With ``-m`` the
-audio goes to a WAV beside it, else into the multiplexor where it takes
-audio (``mpg``'s LPCM, ``raw``'s ``.aud``).  The default route, the raw
-encoders to a ``.y4m``, keeps the writer thread's own Y4M writer.  The
+its end code) is written before the audio chain's.  The audio encoder
+(``-y``'s second module) runs on the writer thread.  ``-m`` names a
+multiplexor of its own by its extension (``wav`` where the extension
+names none, as the JAX engine's aux muxer), which opens with the main
+one and takes every audio payload; without it the audio goes into the
+main multiplexor where it takes audio (``mpg``'s LPCM or MPEG audio,
+``raw``'s ``.aud``, ``avi``'s, ``mov``'s or ``ogg``'s track).  The
+default route, the raw encoders to a ``.y4m``, keeps the writer
+thread's own Y4M writer.  The
 synthetic source ``framegen`` hands the reader host planes (and its
 pink noise as the source's own track), as a Y4M file does.
 
@@ -218,19 +234,21 @@ JAX_IMPORT_MODULES = {
     ContainerFormat.SGI_IMAGE: "im", ContainerFormat.SUNAU: "au"}
 
 
-# the audio import modules: an audio-only -i, or -p
-_AUDIO_MODULES = ("wav", "mp3", "ac3", "flac", "aac")
+# the audio file import modules: an audio-only -i, or -p
+_AUDIO_MODULES = ("wav", "mp3", "ac3", "flac", "aac", "au", "vag")
+# the containers whose audio track serves as -p beside their video
+_AV_MODULES = ("mpeg", "avi", "mov", "ogg")
 
 
 def video_module(job: Job) -> str:
     """The import module of ``job``'s ``-i``: from ``-x`` or, with ``-x
     auto``, ``multi`` for a directory and otherwise by the file's magic:
-    ``wav``, ``mp3``, ``ac3``, ``flac`` or ``aac`` (an audio-only session),
-    ``mpeg`` (a program, transport or elementary stream, or a VideoCD
-    track), ``avi``, ``mov`` or ``y4m`` (also where the magic is unknown,
-    as the JAX engine falls back to it).  A container the JAX package
-    imports with a module the port lacks is refused, naming the
-    module."""
+    ``wav``, ``mp3``, ``ac3``, ``flac``, ``aac``, ``au`` or ``vag`` (an
+    audio-only session), ``mpeg`` (a program, transport or elementary
+    stream, or a VideoCD track), ``avi``, ``mov``, ``ogg`` or ``y4m``
+    (also where the magic is unknown, as the JAX engine falls back to
+    it).  A container the JAX package imports with a module the port
+    lacks is refused, naming the module."""
     name = job.im_v_module or "auto"
     if name in _Y4M_MODULES:
         return "y4m"
@@ -248,7 +266,7 @@ def video_module(job: Job) -> str:
     from tcforge_tpu_torch.io.probe import sniff_magic
     fmt = sniff_magic(vin)
     module = JAX_IMPORT_MODULES.get(fmt, "y4m")
-    if module in ("y4m", "mpeg", "avi", "mov", *_AUDIO_MODULES):
+    if module in ("y4m", *_AV_MODULES, *_AUDIO_MODULES):
         return module
     raise NotImplementedError(
         f"{vin}: {fmt.value} input (the {module} import module) is not "
@@ -257,17 +275,20 @@ def video_module(job: Job) -> str:
 
 def audio_module(path: str) -> str:
     """The import module of ``-p``'s file, by its magic as the JAX engine
-    picks it (``wav`` where the magic names no module); one the port
-    lacks as an audio source is refused, naming the module."""
+    picks it (``wav`` where the magic names no module): an audio file's,
+    or a program or transport stream's, a VideoCD track's, an AVI's, a
+    MOV's or an Ogg file's, whose track then serves; one the port lacks
+    is refused, naming the module."""
     from tcforge_tpu_torch.io.probe import sniff_magic
     fmt = sniff_magic(path)             # probe_file's magic
     module = JAX_IMPORT_MODULES.get(fmt) or "wav"
-    if module in _AUDIO_MODULES:
+    if module in _AUDIO_MODULES or module in _AV_MODULES:
         return module
     raise NotImplementedError(
         f"-p {path}: {fmt.value} audio (the {module} import module) is not "
-        "ported to the torch port yet; it imports WAV, MP3, AC-3, FLAC "
-        "and AAC audio")
+        "ported to the torch port yet; it imports WAV, MP3, AC-3, FLAC, "
+        "AAC, AU and VAG files and the tracks of MPEG, AVI, MOV and Ogg "
+        "files")
 
 
 # the import modules that decode on the device through the MPEG
@@ -276,9 +297,6 @@ _MPEG_MODULES = ("mpeg", "multi", "dvd")
 # import modules that hand over host planes (``read_video_batch``): the
 # synthetic source, cfg6's input
 _HOST_MODULES = ("framegen",)
-# the AVI and QuickTime containers: host planes or, for a compressed
-# video track, the plan/execute protocol (``planned``)
-_CONTAINER_MODULES = ("avi", "mov")
 
 
 def probe(job: Job) -> Optional[Y4MHeader]:
@@ -294,17 +312,18 @@ def probe(job: Job) -> Optional[Y4MHeader]:
     (``--max_frames``), a packed YUV layout (the job's colorspace) and
     its first track's rate and channels from its headers, as the JAX
     CLI's probe does; so does a compressed audio file (an audio-only
-    session), where a probe that fails sets nothing."""
+    session), where a probe that fails sets nothing; so do an Ogg file
+    (its raw video's size and rate too), an AU or VAG file and the input
+    of ``-x null``."""
     kind = video_module(job)
     if kind in _HOST_MODULES:
         return None                 # the module sets them at open
-    if kind == "wav":
+    if kind == "wav" and is_wav(job.video_in_file):
         with WavReader(job.video_in_file) as r:
             job.a_rate, job.a_chan = r.info.rate, r.info.channels
             job.a_bits = r.info.bits
         return None
-    if (kind in _MPEG_MODULES or kind in _CONTAINER_MODULES
-            or kind in _AUDIO_MODULES):
+    if kind != "y4m":
         from tcforge_tpu_torch.io.probe import probe_file, probe_to_job
         from tcforge_tpu_torch.modules.importers.multi import expand_sources
         max_frames = job.max_frames
@@ -314,7 +333,7 @@ def probe(job: Job) -> Optional[Y4MHeader]:
             if len(srcs) > 1 and not max_frames:
                 job.max_frames = None   # the first file's length
         except Exception as e:          # as the JAX CLI's probe
-            if kind == "mpeg" or kind in _CONTAINER_MODULES:
+            if kind in ("mpeg", "avi", "mov"):
                 raise
             _log.warning("[probe] probe failed (%s); relying on the "
                          "import module", e)
@@ -528,70 +547,47 @@ def _select_frames(fb: FrameBatch, keep: np.ndarray) -> FrameBatch:
         attrs=pick(fb.attrs), frame_ids=pick(fb.frame_ids))
 
 
-def _wav_path(flag: str, path: str) -> None:
-    """Refuse an audio output the port has no multiplexor for."""
-    if find_mux_module_for_path(path) != "wav":
-        raise NotImplementedError(
-            f"{flag} {path}: the torch port writes audio as WAV only (a "
-            ".wav file); other audio codecs and containers are not "
-            "ported yet")
+def _refuse_lacking_mux(flag: str, path: str) -> Optional[str]:
+    """The port's multiplexor for ``path`` by its extension; None where
+    the JAX package has none either.  One the JAX package would pick and
+    the port lacks is refused by its name."""
+    mux = find_mux_module_for_path(path)
+    if mux is None:
+        jax_name = jax_mux_module_for_path(path)
+        if jax_name is not None:
+            raise NotImplementedError(
+                f"{flag} {path}: the {jax_name} multiplexor is not ported "
+                "to the torch port yet")
+    return mux
 
 
-class _AudioOut:
-    """The WAV multiplexor of a session, owned by the writer thread: it
-    opens at ``open_now`` (the first written frame, or the end of the
-    stream) and holds the payloads given before that."""
-
-    def __init__(self, job: Job, path: str):
-        self.muxer: Muxer = new_module(ModuleKind.MULTIPLEXOR, "wav", job)
-        self.path = path
-        self.is_open = False
-        self._held: List[bytes] = []
-
-    def open_now(self) -> None:
-        if not self.is_open:
-            self.muxer.open(self.path)
-            self.is_open = True
-            for payload in self._held:
-                self.muxer.write_audio(payload)
-            self._held = []
-
-    def write(self, payloads: Sequence[bytes]) -> None:
-        if self.is_open:
-            for payload in payloads:
-                self.muxer.write_audio(payload)
-        else:
-            self._held.extend(payloads)
-
-    def close(self) -> None:
-        if self.is_open:
-            self.muxer.close()
-
-
-def _export_modules(job: Job) -> Optional[Tuple[str, str, str]]:
+def _export_modules(job: Job, audio_only: bool = False
+                    ) -> Optional[Tuple[str, str, str]]:
     """The export stage of ``-y venc[,aenc[,mux]]`` (the JAX engine's):
-    None for the default route to a Y4M file (the raw encoders into the
-    y4m multiplexor, chosen or found by the output's extension, or by no
-    extension the port knows), which the engine writes with its own Y4M
-    writer; else the video encoder, audio encoder and multiplexor, ``auto``
-    resolved by the output's extension.  A multiplexor the JAX package
-    would pick and the port lacks is refused by its name."""
+    None for the default route of a video session to a Y4M file (the raw
+    encoders into the y4m multiplexor, chosen or found by the output's
+    extension, or by no extension the port knows), which the engine
+    writes with its own Y4M writer; else the video encoder, audio encoder
+    and multiplexor, ``auto`` resolved by the output's extension (``null``
+    where it names none, as in the JAX engine).  A multiplexor the JAX
+    package would pick and the port lacks is refused by its name."""
     venc, aenc = job.ex_v_module or "raw", job.ex_a_module or "raw"
     mux = job.ex_m_module or "auto"
     if mux == "auto":
-        path = job.video_out_file or ""
-        mux = find_mux_module_for_path(path)
-        if mux is None:
-            jax_name = jax_mux_module_for_path(path)
-            if jax_name is not None:
-                raise NotImplementedError(
-                    f"-o {path}: the {jax_name} multiplexor is not ported "
-                    "to the torch port yet")
-    if venc == "raw" and aenc == "raw" and mux in (None, "y4m"):
+        mux = _refuse_lacking_mux("-o", job.video_out_file or "")
+    if (not audio_only and venc == "raw" and aenc == "raw"
+            and mux in (None, "y4m")):
         return None
-    if mux is None:
-        mux = "null"                   # as the JAX engine falls back
-    return venc, aenc, mux
+    return venc, aenc, mux or "null"
+
+
+def _aux_module(job: Job) -> Optional[str]:
+    """``-m``'s multiplexor (the JAX engine's aux muxer): by its
+    extension, ``wav`` where the extension names none (an ``.mp3`` too);
+    None without ``-m``."""
+    if not job.audio_out_file:
+        return None
+    return _refuse_lacking_mux("-m", job.audio_out_file) or "wav"
 
 
 def _muxes_audio(job: Job) -> bool:
@@ -602,13 +598,28 @@ def _muxes_audio(job: Job) -> bool:
         ModuleKind.MULTIPLEXOR, route[2]).info.media != "video"
 
 
-class _MuxOut:
-    """The export stage's multiplexor (and ``-m``'s WAV beside it), owned
-    by the writer thread.  It opens at the first batch that gives payloads
-    (or at the end of the stream), as the JAX engine's muxers do, and
-    holds the audio given before that."""
+def _probe_finds_audio(job: Job) -> bool:
+    """True when the probe of ``-i`` (its first file) finds an audio
+    track."""
+    from tcforge_tpu_torch.io.probe import probe_file
+    from tcforge_tpu_torch.modules.importers.multi import expand_sources
+    try:
+        return bool(probe_file(expand_sources(job.video_in_file)[0]).tracks)
+    except Exception:                   # as the CLI's probe: no track
+        return False
 
-    def __init__(self, job: Job, muxer: Muxer, aux: Optional["_AudioOut"]):
+
+class _MuxOut:
+    """The session's multiplexors, owned by the writer thread: the export
+    stage's (None where the engine writes its own Y4M file) and ``-m``'s
+    beside it (``aux``), which takes every audio payload when it is
+    there, as in the JAX engine.  Both open at ``open_now`` (the first
+    batch that gives payloads or writes a frame, the first chunk of an
+    audio-only session, or the end of the stream), and the audio given
+    before that is held."""
+
+    def __init__(self, job: Job, muxer: Optional[Muxer],
+                 aux: Optional[Muxer]):
         self.job = job
         self.muxer = muxer
         self.aux = aux
@@ -618,9 +629,10 @@ class _MuxOut:
     def open_now(self) -> None:
         if self.is_open:
             return
-        self.muxer.open(self.job.video_out_file or "")
+        if self.muxer is not None:
+            self.muxer.open(self.job.video_out_file or "")
         if self.aux is not None:
-            self.aux.open_now()
+            self.aux.open(self.job.audio_out_file)
         self.is_open = True
         held, self._held = self._held, []
         self.audio(held)
@@ -634,25 +646,27 @@ class _MuxOut:
     def audio(self, payloads: Sequence[bytes]) -> None:
         if not self.is_open:
             self._held.extend(payloads)
-        elif self.aux is not None:
-            self.aux.write(payloads)
-        else:
-            for payload in payloads:
-                self.muxer.write_audio(payload)
+            return
+        target = self.aux or self.muxer
+        for payload in payloads:
+            target.write_audio(payload)
 
     def close(self) -> None:
         if self.is_open:
-            self.muxer.close()
-        if self.aux is not None:
-            self.aux.close()
+            if self.muxer is not None:
+                self.muxer.close()
+            if self.aux is not None:
+                self.aux.close()
 
 
 class Pipeline:
-    """Runs ``job`` on ``device``: ``video_in_file`` (Y4M, MPEG, the
-    synthetic source) -> ``video_out_file`` (Y4M, or what the ``-y``
-    encoder and multiplexor write), with ``audio_in_file`` ->
-    ``audio_out_file`` (WAV) beside them, or an audio-only session from a
-    WAV ``video_in_file`` to a WAV ``video_out_file``."""
+    """Runs ``job`` on ``device``: ``video_in_file`` (Y4M, MPEG, AVI,
+    MOV, Ogg, the synthetic source) -> ``video_out_file`` (Y4M, or what
+    the ``-y`` encoders and multiplexor write), with ``audio_in_file``
+    (any file the port imports audio from) -> the multiplexor or
+    ``audio_out_file`` beside them, or an audio-only session from an
+    audio file (or ``-x null`` with ``-p``) through ``-y``'s audio
+    encoder and multiplexor."""
 
     def __init__(self, job: Job, device: torch.device):
         if not job.video_in_file or not job.video_out_file:
@@ -663,37 +677,36 @@ class Pipeline:
         kind = video_module(job)
         hdr = probe(job)
         job.validate()
-        self.audio_only = kind in _AUDIO_MODULES
+        audio_in = job.audio_in_file
+        a_kind = audio_module(audio_in) if audio_in else None
+        # what the export stage takes, refused by name before anything
+        # opens; an audio-only session's default route is -y's modules
+        route = _export_modules(job)
+        aux_name = _aux_module(job)
         self.video_importer: Optional[Importer] = None
-        audio_in = (job.video_in_file if self.audio_only
-                    else job.audio_in_file)
-        a_kind = (kind if self.audio_only
-                  else audio_module(audio_in) if audio_in else None)
-        if job.audio_out_file:
-            _wav_path("-m", job.audio_out_file)
-        if self.audio_only:
-            _wav_path("-o", job.video_out_file)
-        self.audio_importer: Optional[Importer] = None
         self.host_importer: Optional[Importer] = None
+        self.audio_importer: Optional[Importer] = None
+        self._opened: List[Importer] = []
+        try:
+            self._setup(job, kind, hdr, audio_in, a_kind, route, aux_name)
+        except BaseException:
+            for imp in self._opened:
+                imp.close()
+            raise
+
+    def _setup(self, job: Job, kind: str, hdr, audio_in, a_kind, route,
+               aux_name) -> None:
         imp: Optional[Importer] = None
-        if (kind in _HOST_MODULES or kind in _MPEG_MODULES
-                or kind in _CONTAINER_MODULES):
+        if kind != "y4m":
             imp = new_module(ModuleKind.DEMULTIPLEXOR, kind, job,
                              job.im_v_string)
-            # the source's own track is the session's audio only with -m
-            # (an AVI's also in a multiplexor that takes audio) and no -p
-            # (the JAX engine drops it otherwise): without, it is not
-            # demuxed (the video decodes the same)
+            # the source's own track is demuxed where the session takes
+            # it: no -p, and -m or a multiplexor that takes audio (its
+            # video decodes the same without)
             imp.demux_audio = not audio_in and bool(
-                job.audio_out_file or (kind in _CONTAINER_MODULES
-                                       and _muxes_audio(job)))
+                job.audio_out_file or _muxes_audio(job))
             imp.open(job.video_in_file)
-            # the MPEG importers and an MPEG-4 AVI decode on the device
-            # (plan/execute); the others give host planes
-            if kind in _MPEG_MODULES or getattr(imp, "planned", False):
-                self.video_importer = imp
-            else:
-                self.host_importer = imp
+            self._opened.append(imp)
             if not job.im_v_width:
                 job.im_v_width, job.im_v_height = imp.width, imp.height
             if imp.fps and not job.hard_fps:
@@ -702,38 +715,39 @@ class Pipeline:
                 job.a_rate = imp.audio_rate
                 job.a_chan = imp.audio_channels or job.a_chan
         if audio_in:
-            self.audio_importer = new_module(
-                ModuleKind.DEMULTIPLEXOR, a_kind, job,
-                job.im_v_string if self.audio_only else job.im_a_string)
-            self.audio_importer.open(audio_in)
-            job.a_rate = self.audio_importer.audio_rate
-            job.a_chan = self.audio_importer.audio_channels or job.a_chan
-        else:
+            aimp = new_module(ModuleKind.DEMULTIPLEXOR, a_kind, job,
+                              job.im_a_string)
+            aimp.video_wanted = False       # its track alone serves
+            aimp.open(audio_in)
+            self._opened.append(aimp)
+            self.audio_importer = aimp
+            if aimp.audio_rate:
+                job.a_rate = aimp.audio_rate
+                job.a_chan = aimp.audio_channels or job.a_chan
+        elif imp is not None and imp.audio_rate:
             # the source's own track (the JAX engine's importer as the
-            # audio source): a program stream's, the synthetic one's
-            source = self.video_importer or self.host_importer
-            if source is not None and source.audio_rate:
-                self.audio_importer = source
+            # audio source): the JAX readers know its rate at open (a
+            # program stream's within its first packs), or it has none
+            self.audio_importer = imp
         if not job.dm_chan:
             job.dm_chan = job.a_chan or 2
-        route = None if self.audio_only else _export_modules(job)
-        if (self.audio_importer is not None and not self.audio_only
-                and not job.audio_out_file and route is None):
-            # the Y4M output takes no audio and no -m was given: the
-            # audio track is dropped, as in the JAX engine
-            _log.warning("[engine] muxer y4m is video-only and no -m "
-                         "given: audio disabled")
-            if self.audio_importer not in (self.video_importer,
-                                           self.host_importer):
-                self.audio_importer.close()
-            self.audio_importer = None
+        # no video stream and an audio source: an audio-only session
+        self.audio_only = (imp is not None and not imp.width
+                           and self.audio_importer is not None)
+        if imp is not None and not self.audio_only:
+            # the MPEG importers and an MPEG-4 AVI decode on the device
+            # (plan/execute); the others give host planes
+            if kind in _MPEG_MODULES or getattr(imp, "planned", False):
+                self.video_importer = imp
+            else:
+                self.host_importer = imp
+        if self.audio_only:
+            route = _export_modules(job, audio_only=True)
 
         self.sync = new_synchronizer(job)
-        self.achain = (AudioChain(job, self.device)
-                       if self.audio_importer is not None else None)
         self.a_encoder: Encoder = new_module(ModuleKind.ENCODER, "raw", job)
         # the export stage beyond the Y4M writer: the encoder on the main
-        # thread, the multiplexor on the writer's
+        # thread, the multiplexors on the writer's
         self.encoder: Optional[Encoder] = None
         self.muxer: Optional[Muxer] = None
         if route is not None:
@@ -747,15 +761,28 @@ class Pipeline:
                                         job.ex_a_string)
             self.muxer = new_module(ModuleKind.MULTIPLEXOR, mux, job,
                                     job.ex_m_string)
-            if (self.audio_importer is not None and not job.audio_out_file
-                    and self.muxer.info.media == "video"):
+        self.aux: Optional[Muxer] = (
+            new_module(ModuleKind.MULTIPLEXOR, aux_name, job)
+            if aux_name else None)
+        mux_name = route[2] if route is not None else "y4m"
+        video_only = (route is None
+                      or self.muxer.info.media == "video")
+        if not job.audio_out_file and video_only:
+            if self.audio_only:
+                raise ValueError(
+                    f"input {job.video_in_file!r} has no video stream and "
+                    f"muxer {mux_name!r} is video-only — pick an "
+                    "audio-capable output (wav/ogg/avi) or use -m")
+            if self.audio_importer is not None or (
+                    imp is not None and not audio_in
+                    and not imp.demux_audio and _probe_finds_audio(job)):
+                # the track is dropped, as in the JAX engine (the port's
+                # importers then do not demux it at all)
                 _log.warning("[engine] muxer %s is video-only and no -m "
-                             "given: audio disabled", mux)
-                if self.audio_importer not in (self.video_importer,
-                                               self.host_importer):
-                    self.audio_importer.close()
+                             "given: audio disabled", mux_name)
                 self.audio_importer = None
-                self.achain = None
+        self.achain = (AudioChain(job, self.device)
+                       if self.audio_importer is not None else None)
         if self.audio_only:
             # the video filters of -J are built (their names checked)
             # and get no frame
@@ -765,7 +792,8 @@ class Pipeline:
             return
         source = self.video_importer or self.host_importer
         if source is not None:
-            w, h = source.width, source.height
+            w = source.width or job.im_v_width
+            h = source.height or job.im_v_height
             self.in_format = fmt = source.format
             if fmt.is_rgb:
                 # an RGB source stays RGB where the multiplexor takes it
@@ -866,25 +894,9 @@ class Pipeline:
                 free_out.put(_OutputSlot())
         writer_err: List[BaseException] = []
         out_file: List[_FrameWriter] = []
-        audio_out: Optional[_AudioOut] = None
-        empty_wav: Optional[_AudioOut] = None
-        mux_out: Optional[_MuxOut] = None
-        if self.muxer is not None:
-            # -m's WAV opens with the multiplexor, with or without a track
-            mux_out = _MuxOut(job, self.muxer, _AudioOut(
-                job, job.audio_out_file) if job.audio_out_file else None)
-        else:
-            if self.achain is not None:
-                audio_out = _AudioOut(job, job.audio_out_file
-                                      or job.video_out_file)
-            if self.audio_only and job.audio_out_file:
-                # -o and -m both given: the audio goes to -m, and -o gets
-                # a WAV without samples, as the JAX engine writes it
-                empty_wav = _AudioOut(job, job.video_out_file)
-            elif job.audio_out_file and self.achain is None:
-                # -m with no track to write (an MPEG input without one): a
-                # WAV without samples, as the JAX engine writes it
-                empty_wav = _AudioOut(job, job.audio_out_file)
+        # -m's multiplexor opens with the main one, with or without a
+        # track to write
+        mux_out = _MuxOut(job, self.muxer, self.aux)
         spf = self._samples_per_frame() if self.achain is not None else 0
         mux_sized = False
 
@@ -1096,8 +1108,8 @@ class Pipeline:
                                 fps_den=den, format=self.out_format)))
                     out_file[0].write(planes, keep)
                     self.counters.written += len(keep)
-                    if len(keep) and audio_out is not None:
-                        audio_out.open_now()
+                    if len(keep):
+                        mux_out.open_now()
                     if slot is not None:
                         free_out.put(slot)
             except BaseException as e:
@@ -1107,18 +1119,13 @@ class Pipeline:
             if event is not None:
                 event.synchronize()
             if self.audio_only:
-                audio_out.open_now()
-                if empty_wav is not None:
-                    empty_wav.open_now()
+                mux_out.open_now()
             write_payloads(self.a_encoder.encode_audio(AudioBatch(pcm=pcm)))
 
         def write_payloads(payloads) -> None:
             if not payloads:
                 return
-            if mux_out is not None:
-                mux_out.audio(payloads)
-            else:
-                audio_out.write(payloads)
+            mux_out.audio(payloads)
             self.counters.audio_frames += len(payloads)
 
         def to_writer(item) -> None:
@@ -1389,25 +1396,19 @@ class Pipeline:
             if self.achain is not None:
                 for filt, state in zip(self.achain.filters, astates):
                     filt.finalize(state)
-            if self.audio_importer not in (None, mpeg_in,
-                                           self.host_importer):
-                self.audio_importer.close()
-            if mpeg_in is not None:
-                mpeg_in.close()
+            for imp in self._opened:
+                if imp is not self.host_importer:
+                    imp.close()
             for f in out_file:
                 f.close()
-            for wav in (audio_out, empty_wav):
-                if wav is not None:
-                    if completed and not writer_err:
-                        wav.open_now()      # the end of the stream
-                    wav.close()
-            if mux_out is not None:
-                mux_out.close()
+            if completed and not writer_err:
+                mux_out.open_now()          # the end of the stream
+            mux_out.close()
         if writer_err:
             raise writer_err[0]
         if wthread.is_alive() or feeder.is_alive() or rthread.is_alive():
             raise RuntimeError("the engine's threads did not end")
-        if not out_file and not self.audio_only and mux_out is None:
+        if not out_file and not self.audio_only and self.muxer is None:
             # no batch was read: the header alone
             _FrameWriter(job.video_out_file, Y4MHeader(
                 *job.export_size(), fps_num=num, fps_den=den,

@@ -635,7 +635,8 @@ def test_wav_importer_muxer_and_encoder_round_trip(tmp_path):
     with WavReader(str(tmp_path / "b.wav")) as r:
         assert r.total_samples == 3000
     assert registry.find_mux_module_for_path("x/OUT.WAV") == "wav"
-    assert registry.find_mux_module_for_path("out.ogg") is None
+    assert registry.find_mux_module_for_path("out.ogg") == "ogg"
+    assert registry.find_mux_module_for_path("out.mkv") is None
 
 
 def test_audio_batch_numpy_round_trip():

@@ -112,8 +112,8 @@ def test_p_and_x_auto_pick_the_module_by_magic(name):
 
 
 @pytest.mark.parametrize("head,module", [
-    (b"OggS\x00\x02" + bytes(64), "ogg"), (b".snd" + bytes(64), "au"),
-    (b"\x00\x00\x01\xba" + bytes(64), "mpeg")])
+    (b"NuppelVideo" + bytes(64), "nuv"), (b"PV5a" + bytes(64), "pvn"),
+    (b"\x1f\x07\x00" + bytes(64), "dv")])
 def test_p_refuses_what_the_port_lacks_by_the_jax_module(head, module,
                                                          tmp_path):
     path = tmp_path / "a.bin"

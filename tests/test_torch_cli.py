@@ -751,9 +751,11 @@ def test_audio_only_cli_flags_match_jax_cli(argv, audio_inputs, tmp_path):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["-p", "{wav}", "-m", "{tmp}/a.ogg"], "-m {tmp}/a.ogg"),
+    (["-p", "{wav}", "-m", "{tmp}/a.mkv"],
+     "-m {tmp}/a.mkv: the lavf multiplexor"),
     (["-p", "{y4m}", "-m", "{tmp}/a.wav"], "-p {y4m}"),
-    (["-i", "{wav}", "-o", "{tmp}/a.y4m"], "-o {tmp}/a.y4m")])
+    (["-i", "{wav}", "-o", "{tmp}/a.y4m"],
+     "has no video stream and muxer 'y4m' is video-only")])
 def test_audio_outputs_the_port_lacks_are_refused(argv, message,
                                                   audio_inputs, tmp_path,
                                                   capsys):

@@ -57,7 +57,8 @@ COPIES = ["core/formats.py", "core/optstr.py", "core/codecs.py",
           "modules/importers/framegen.py", "io/avi.py", "io/rawio.py",
           "io/tclzo.py", "io/_mp4tables.py", "io/mpeg4.py", "io/mpaenc.py",
           "io/mp3enc.py", "io/a52enc.py", "io/cdxa.py", "io/aacdec.py",
-          "io/flac.py"]
+          "io/flac.py", "io/ogg.py", "io/vorbis.py", "io/vorbisenc.py",
+          "io/au.py", "io/aacenc.py"]
 # lines a whole-file copy changes: the audio encoders and FLAC take their
 # BitWriter from io/mpeg2host.py, the jax-free copy of io/mpeg2codec.py's head
 # (which pins the class to its source), and the MP3 encoder's _emit skips
@@ -67,7 +68,7 @@ COPY_CHANGES = {
     rel: {"from .mpeg2codec import BitWriter\n":
           "from .mpeg2host import BitWriter\n"}
     for rel in ("io/mpaenc.py", "io/mp3enc.py", "io/a52enc.py",
-                "io/flac.py")}
+                "io/flac.py", "io/aacenc.py")}
 COPY_CHANGES["io/mp3enc.py"][
     "            vidx, linbits, _mx = _TSEL[tsel]\n"
     "            codes, lens = _VTABS[vidx]\n"] = (

@@ -273,7 +273,7 @@ def test_x_auto_routes_by_magic(tmp_path, head, kind):
     path = tmp_path / "in"
     path.write_bytes(head + b"\x00" * 4096)
     job = Job(video_in_file=str(path))
-    if kind in ("y4m", "mpeg", "flac"):
+    if kind in ("y4m", "mpeg", "flac", "ogg"):
         assert engine.video_module(job) == kind
     else:
         with pytest.raises(NotImplementedError,

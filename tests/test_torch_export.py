@@ -227,7 +227,7 @@ def test_the_multiplexor_follows_the_extension_as_in_jax(ext):
     assert registry.jax_mux_module_for_path("out" + ext) == want
     got = registry.find_mux_module_for_path("out" + ext)
     assert got == (want if want in ("y4m", "wav", "raw", "mpg", "avi",
-                                    "mov")
+                                    "mov", "ogg")
                    else None)
 
 
@@ -242,7 +242,7 @@ def test_encoders_match_the_jax_registry(name):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["-o", "{tmp}/o.ogg", "-y", "mpeg2"], "ogg multiplexor"),
+    (["-o", "{tmp}/o.mkv", "-y", "mpeg2"], "lavf multiplexor"),
     (["-o", "{tmp}/o.m2v", "-y", "x264"], "x264")])
 def test_what_the_port_lacks_is_refused_by_name(argv, message, tmp_path,
                                                 capsys):

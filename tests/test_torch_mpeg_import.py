@@ -221,14 +221,16 @@ def test_pieces_out_of_this_slice_raise(what, tmp_path):
     src = DATA / "small.mpg"
     job = dict(video_in_file=str(src), video_out_file=str(tmp_path / "o"))
     if what == "audio_in_not_wav":
-        # an Ogg file: the JAX package's ogg import module, not ported
-        ogg = tmp_path / "a.ogg"
-        ogg.write_bytes(b"OggS\x00\x02" + bytes(4096))
-        job["audio_in_file"] = str(ogg)
-        match = "the ogg import module"
+        # a NuppelVideo file: the JAX package's nuv import module, not
+        # ported
+        nuv = tmp_path / "a.nuv"
+        nuv.write_bytes(b"NuppelVideo" + bytes(4096))
+        job["audio_in_file"] = str(nuv)
+        match = "the nuv import module"
     elif what == "audio_out_not_wav":
-        job["audio_out_file"] = str(tmp_path / "a.mp3")
-        match = "writes audio as WAV only"
+        # .mkv: the JAX package's lavf multiplexor, not ported
+        job["audio_out_file"] = str(tmp_path / "a.mkv")
+        match = "the lavf multiplexor"
     else:
         job["im_v_module"] = "nuv"
         match = "-x nuv"
