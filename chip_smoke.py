@@ -156,7 +156,22 @@ Lanczos3 zoom, ``-J hqdn3d=luma=4.0`` (which runs after the zoom, at
   xvid,lame,avi`` without ``-m`` (its AVI holds the title's track), and
   the ``ROUTE_GOLDEN`` cases (a source's own track without ``-m``,
   audio-only sessions through the encoders and multiplexors, Ogg both
-  ways, ``-m`` through the multiplexors, ``-p`` from the containers).
+  ways, ``-m`` through the multiplexors, ``-p`` from the containers);
+- the capture codecs: dv, a PAL DV camcorder clip (720x576 4:2:0, 48
+  kHz stereo AAUX, written on the card by the port's own ``-y dv,raw,dv``
+  and pinned by the JAX CLI's digest) through ``-x dv -J
+  hqdn3d=luma=4.0 -y mpeg2,mp2enc,mpg -F
+  gop_n=12:gop_m=3:rc=1:bitrate=6000`` (``dv_idct``, the hqdn3d scans,
+  the MPEG-2 encoder kernels); dvenc, the main path's 1080i with its
+  WAV through ``-I 5 -Z 720x576 -J hqdn3d=luma=4.0 -y dv,raw,dv``
+  (``dv_fdct_cost`` twice a batch, the zoom and hqdn3d); nuv, a 640x480
+  NuppelVideo capture (RTjpeg 255, 44.1 kHz PCM, written by the port's
+  ``-y nuvrtj,raw,nuv``: ``rtjpeg_fdct_quant``) through ``-x nuv -I 5
+  -J hqdn3d=luma=4.0 -y xvid,lame,avi`` (``rtjpeg_idct``, hqdn3d, the
+  MPEG-4 encoder kernels), and its ``-y nuvrtj,raw,nuv`` re-encode;
+  each output against the port's own --device cpu digest, and the
+  ``CAPTURE_GOLDEN`` cases (NTSC 4:1:1 both ways, the refusals) against
+  the JAX CLI's.
 
 Phases, each of which raises on failure:
 
@@ -164,7 +179,7 @@ Phases, each of which raises on failure:
 2. build the CUDA kernels from ``tcforge_tpu_torch/csrc`` (one nvcc per
    source, all started together; sm_90a) and the host libraries (g++:
    the MPEG-2 parse and syntax writer, the JPEG entropy decode and
-   Huffman encode) beside them;
+   Huffman encode, the DV and RTjpeg coders) beside them;
 3. each kernel against its plain torch version on the card, tolerance 0
    (all of it is integer arithmetic): at its paths' shapes, and off the
    paths at ragged shapes and a band wider than the zoom's unrolled
@@ -342,8 +357,8 @@ Phases, each of which raises on failure:
    the card (events, host queueing, device busy and time by kernel),
    the CLI on that stream and on dvd.vob, six runs of each in turns,
    and its serial stages (``mpeg_stages``); the DVD rip's CLI on a
-   224-frame title with its track, with its track and a film's count of
-   subtitle units (``film_vobsub``), and without ``-m``, four runs of
+   112-frame title with its track, with its track and a film's count of
+   subtitle units (``film_vobsub``), and without ``-m``, two runs of
    each in turns, and its serial stages with the audio decode
    (``dvdrip_stages``), with each of the two subtitle files; the
    authoring CLI on 160 frames of 1080i with its WAV, six timed runs
@@ -351,20 +366,20 @@ Phases, each of which raises on failure:
    (``encode_stages``: queueing, device, the levels' download, the
    syntax writer, the multiplexor); the DivX path on divx.avi twice
    over (48 frames, written by the port's AviWriter): its decode against
-   the fixture's repeated, the CLI four runs after an untimed one
+   the fixture's repeated, the CLI two runs after an untimed one
    (median and spread), and its serial stages (``avi_stages``: parse,
    upload, reconstruction, chain, copy back, write); the divxenc CLI on
-   dvd.vob's stream three times over (144 frames), four runs after an
+   dvd.vob's stream three times over (144 frames), two runs after an
    untimed one, and its serial stages (``divxenc_stages``: parse, decode,
    chain, the decisions, the block coder, the records' copy, the syntax
    writer, the multiplexor); divx_qpel and divx_il on their fixtures
-   twice over (24 frames), three CLI runs after an untimed one and
+   twice over (24 frames), two CLI runs after an untimed one and
    ``avi_stages``; divx_gmc and h263 on their 48 frames the same way;
    mjpeg on legacy.avi's chunks repeated to 48 frames, three CLI runs
    after an untimed one (with the MP3 decoder's seconds in its process)
    and ``avi_stages`` with the track (entropy decode, upload, the two
    kernels, chain, copy back, write, the audio's read and its decode);
-   mjpegenc on its 48 frames, three CLI runs after an untimed one and
+   mjpegenc on its 48 frames, two CLI runs after an untimed one and
    ``mjpegenc_stages`` (the wait for the chain and the kernels, the
    coefficients' download, the Huffman coder, the MP3 encoder, the
    multiplexor; the device's kernels by name); mpeg422's encode and
@@ -374,11 +389,14 @@ Phases, each of which raises on failure:
    untimed one, its ``mpeg_stages`` (the video and audio PIDs' demux,
    the parse, the audio wait and the AC-3 decoder's own time,
    reconstruction, chain, copy back, write, and the importer's open)
-   and the device's busy share of one CLI run; ogm on the title twice
-   over (56 frames), two CLI runs with host clocks around its stages
+   and the device's busy share of one CLI run; ogm on the title (28
+   frames), two CLI runs with host clocks around its stages
    (``_ogm_clock``: the parse, the decode, the chain, the MPEG-4
    encoder, the Vorbis encoder apart, the multiplexor) and one under
-   torch.profiler (the device's busy time and kernels by name).
+   torch.profiler (the device's busy time and kernels by name); dv,
+   dvenc and nuv on 48 frames, two CLI runs after an untimed one with
+   host clocks around their stages (``_capture_rates``) and one under
+   torch.profiler.
 
 It prints one JSON object per result (``t``: seconds since it started),
 then the kernels' summary and, as
@@ -1642,7 +1660,7 @@ MJPEGENC_ARGS = ["-I", "5", "-Z", "640x480", "-J", "hqdn3d=luma=4.0", "-y",
 MJPEGENC_W, MJPEGENC_H, MJPEGENC_FRAMES = 640, 480, 48
 MJPEGENC_KERNELS = ("jpeg_ycc_down", "jpeg_fdct_quant", "zoom_pass",
                     "hqdn3d_spatial_scan", "hqdn3d_temporal_scan")
-MJPEGENC_RUNS = 3
+MJPEGENC_RUNS = 2
 # phase 3 off the path: (width, height, frames) of random RGB24 batches,
 # each at JPEGENC_QUALITIES
 JPEGENC_SHAPES = ((720, 480, 4), (1, 1, 3), (7, 5, 3), (15, 17, 2),
@@ -1748,6 +1766,9 @@ DIVXENC_KERNELS = ("mpeg4_enc_me", "mpeg4_enc_bme", "mpeg4_enc_blocks",
                    "mpeg2_recon", "mpeg2_idct_intra", "zoom_pass",
                    "hqdn3d_spatial_scan", "hqdn3d_temporal_scan")
 MPEG4ENC_KERNELS = ("mpeg4_enc_me", "mpeg4_enc_bme", "mpeg4_enc_blocks")
+# phase 6's timed CLI runs of the divxenc path (cut from four to keep the
+# script inside its time limit)
+DIVXENC_RUNS = 2
 # the MPEG-4 export goldens: (input, arguments, outputs); the input is a
 # file of the repo or ("y4m", width, height, frames, seed), a
 # write_motion_y4m clip written into the output directory.  The SHA-256
@@ -2814,13 +2835,25 @@ KERNELS = {
                       "tcforge_tpu/modules/importers/mov_import.py:141"),
     "jpeg_fdct_quant": ("tcforge_tpu_torch/csrc/jpeg_encode.cu",
                         "tcforge_tpu/modules/importers/mov_import.py:141"),
+    # not TPU kernels: the JAX package's DV codec and RTjpeg are numpy
+    # (the IDCTs and placement of DVDecoder.decode, the transform, modes,
+    # quantizer and bit count of DVEncoder._segment_strings; RTjpeg's
+    # idct_blocks and fdct_blocks with quant_blocks)
+    "dv_idct": ("tcforge_tpu_torch/csrc/dv.cu", "tcforge_tpu/io/dvdec.py:267"),
+    "dv_fdct_cost": ("tcforge_tpu_torch/csrc/dv.cu",
+                     "tcforge_tpu/io/dvenc.py:481"),
+    "rtjpeg_idct": ("tcforge_tpu_torch/csrc/rtjpeg.cu",
+                    "tcforge_tpu/io/rtjpeg.py:206"),
+    "rtjpeg_fdct_quant": ("tcforge_tpu_torch/csrc/rtjpeg.cu",
+                          "tcforge_tpu/io/rtjpeg.py:125"),
 }
 LIBS = ("hqdn3d_scan", "zoom_pass", "unsharp", "tomsmocomp", "yuvdenoise",
         "stabilize", "mpeg2_recon", "mpeg2_encode", "mpeg4_recon",
-        "mpeg4_encode", "jpeg_decode", "jpeg_encode")
+        "mpeg4_encode", "jpeg_decode", "jpeg_encode", "dv", "rtjpeg")
 # the host libraries (g++): the MPEG-2 parse and syntax writer, the JPEG
-# entropy decode and Huffman encode
-HOST_LIBS = ("mpeg2intra", "mpeg2encode", "jpeg_entropy", "jpeg_huffenc")
+# entropy decode and Huffman encode, the DV and RTjpeg coders
+HOST_LIBS = ("mpeg2intra", "mpeg2encode", "jpeg_entropy", "jpeg_huffenc",
+             "dv_host", "rtjpeg_host")
 # each wrapper of ops/kernels.py, whose plain version is <name>_ref
 WRAPPERS = ("spatial_scan", "temporal_scan", "zoom_pass", "unsharp_plane",
             "tomsmocomp_plane", "tomsmocomp_window", "d3_spatial_scan",
@@ -2830,7 +2863,8 @@ WRAPPERS = ("spatial_scan", "temporal_scan", "zoom_pass", "unsharp_plane",
             "mpeg4_recon", "mpeg4_idct_intra", "mpeg4_recon_qpel",
             "mpeg4_recon_field", "mpeg4_gmc_warp", "mpeg4_enc_me",
             "mpeg4_enc_bme", "mpeg4_enc_blocks", "jpeg_idct", "jpeg_color",
-            "jpeg_ycc_down", "jpeg_fdct_quant")
+            "jpeg_ycc_down", "jpeg_fdct_quant", "dv_idct", "dv_fdct_cost",
+            "rtjpeg_idct", "rtjpeg_fdct_quant")
 
 
 def write_test_y4m(path, width: int, height: int, frames: int,
@@ -3218,6 +3252,10 @@ def main(argv=()) -> int:
     torch.cuda.empty_cache()
     divxenc_checked = _check_mpeg4enc_kernels(torch, kernels, cli, bench)
     torch.cuda.empty_cache()
+    _check_capture_kernels(torch, kernels, bench)
+    # the capture paths' inputs, written in phase 4 for phases 4 and 6
+    capture_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_capture_")
+    torch.cuda.empty_cache()
     _check_ragged(torch, kernels, zoom, hq, bench)
     _check_unsharp_sizes(torch, kernels, bench)
     _check_tmc_windows(torch, kernels, bench)
@@ -3444,6 +3482,12 @@ def main(argv=()) -> int:
         path_launches["ogm"] = _run_ogm(torch, cli, kernels, tmp)
         path_launches["flagship"] = _run_flagship(torch, cli, kernels, tmp)
         _route_goldens(cli, tmp)
+        # 4. and 5. for the capture codecs: the dv, dvenc and nuv paths
+        # (and nuvrtj) at full width against their CPU digests, and the
+        # capture goldens (NTSC both ways among them) against the JAX CLI's
+        path_launches.update(_run_capture(torch, cli, kernels, bench,
+                                          capture_dir.name))
+        _capture_goldens(cli, tmp)
         emit(phase="audio_chain", batch=MAIN_BATCH,
              **_audio_chain_ms(torch, dev))
         _graph_capture_vs_collection(torch, dev)
@@ -3564,9 +3608,13 @@ def main(argv=()) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_divxenc_") as tmp:
         _divxenc_rates(torch, dev, cli, Path(tmp))
     torch.cuda.empty_cache()
-    # 6. the ogm path: its CLI on the title twice over and its stages
+    # 6. the ogm path: its CLI on the title and its stages
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ogm_") as tmp:
         _ogm_rates(torch, cli, Path(tmp))
+    torch.cuda.empty_cache()
+    # 6. the capture paths: each CLI on 48 frames and its stages
+    _capture_rates(torch, cli, capture_dir.name)
+    capture_dir.cleanup()
     torch.cuda.empty_cache()
 
     # each kernel's launches in the run of the path that carries it
@@ -3591,6 +3639,10 @@ def main(argv=()) -> int:
             launches[name] = path_launches["mjpeg"][name]
         elif name in _JPEGENC_WRAPPERS:
             launches[name] = path_launches["mjpegenc"][name]
+        elif name in CAPTURE_WRAPPERS:
+            owner = {"dv_idct": "dv", "dv_fdct_cost": "dvenc",
+                     "rtjpeg_idct": "nuv", "rtjpeg_fdct_quant": "nuvrtj"}
+            launches[name] = path_launches[owner[name]][name]
         elif name not in MAIN_KERNELS:
             owner = next(p for p, spec in (*PATHS.items(),
                                            *CLEAN_PATHS.items(),
@@ -3621,6 +3673,10 @@ def main(argv=()) -> int:
         k: path_launches["ogm"][k] for k in OGM_KERNELS})
     emit(phase="launches", path="flagship", launches={
         k: path_launches["flagship"][k] for k in FLAGSHIP_KERNELS})
+    for name, names in (("dv", DV_KERNELS), ("dvenc", DVENC_KERNELS),
+                        ("nuv", NUV_KERNELS), ("nuvrtj", NUVRTJ_KERNELS)):
+        emit(phase="launches", path=name, launches={
+            k: path_launches[name][k] for k in names})
     if bench.parent:
         emit(phase="parent_summary", per_batch=bench.versus_sums)
     print(json.dumps({"kernels": [
@@ -5893,12 +5949,12 @@ def mpeg_stages(torch, dev, src, out, job, batch: int = MAIN_BATCH,
 
 RIP_KERNELS = MPEG_KERNELS
 # the long title of the CLI timings: two VOB files, each the title's
-# sectors four times over (224 frames; a disc's VOB file holds a GB; cut
-# from eight to keep the script inside its time limit)
-RIP_LONG_REPEAT = 4
-# phase 6's CLI runs of each rip variant (cut from six to keep the script
-# inside its time limit)
-RIP_RUNS = 4
+# sectors twice over (112 frames; a disc's VOB file holds a GB; cut from
+# eight, then four, to keep the script inside its time limit)
+RIP_LONG_REPEAT = 2
+# phase 6's CLI runs of each rip variant (cut from six, then four and
+# three, to keep the script inside its time limit)
+RIP_RUNS = 2
 # a feature film's VobSub: about 1,500 units over two hours
 FILM_UNITS, FILM_STEP_MS = 1500, 4800
 
@@ -6356,9 +6412,13 @@ def _check_encode_kernels(torch, kernels, bench):
         cases += 1
         pred = kernels.mpeg2_enc_pred_ref(fwd, fmv)
         intra_mb = torch.from_numpy(rng.random((mbh, mbw)) < 0.3).to(dev)
-        for qs in (1, 2, 8, 31):
+        # every setting at the small shapes; at 480x720 (the path's shape,
+        # checked call by call on the path) the corners alone, to keep
+        # the script inside its time limit
+        full = h < 480
+        for qs in ((1, 2, 8, 31) if full else (1, 31)):
             for alt in (False, True):
-                for m1 in (False, True):
+                for m1 in ((False, True) if full else (alt,)):
                     for args in ((0, (y, u, v), None, qs, alt, m1),
                                  (1, (y, u, v), pred, qs, alt, m1,
                                   intra_mb),
@@ -6671,7 +6731,9 @@ def _author_rates(torch, cli, tmp):
 
 # phase 3 off the path: macroblock grids (mb_w, mb_h), among them
 # 720x576's coded grid and grids of one macroblock row or column
-M422_GRIDS = ((1, 1), (3, 5), (7, 1), (1, 3), (45, 36))
+# (the path's 45x36 grid, 720x576, is checked call by call on the path;
+# off the path it was cut to keep the script inside its time limit)
+M422_GRIDS = ((1, 1), (3, 5), (7, 1), (1, 3))
 # phase 3 on the path: frames of the path's content encoded and read back
 # with every kernel call checked
 M422_CHECK_FRAMES = 16
@@ -7435,6 +7497,9 @@ def _avi_goldens(cli, tmp):
 # phase 6's divx input: divx.avi this many times over (48 frames; cut
 # from 96 to keep the script inside its time limit)
 DIVX_COPIES = 2
+# phase 6's timed CLI runs of the divx path (cut from four to keep the
+# script inside its time limit)
+DIVX_RUNS = 2
 
 
 def avi_long(directory, fixture: str, copies: int) -> Path:
@@ -7583,15 +7648,15 @@ def _divx_rates(torch, dev, cli, tmp):
     """Phase 6 for the DivX path, on divx.avi twice over (48 frames,
     three batches): the long file's decode on the card against the
     fixture's decode repeated, frame for frame; the CLI, wall clock to the
-    last byte, four runs after an untimed one (median and spread); then
-    ``avi_stages``."""
+    last byte, ``DIVX_RUNS`` runs after an untimed one (median and
+    spread); then ``avi_stages``."""
     from tcforge_tpu_torch.core.job import FilterSpec, Job
     src = avi_long(tmp, "divx.avi", DIVX_COPIES)
     frames = DIVX_COPIES * DIVX_FRAMES
     _check_repeat(torch, dev, "divx.avi", src, frames, "divx")
     out = tmp / "divx_long_out.avi"
     fps = []
-    for r in range(5):
+    for r in range(DIVX_RUNS + 1):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rc = cli.main(["-i", str(src), "-o", str(out), *DIVX_ARGS,
@@ -7635,7 +7700,9 @@ QPEL_AVG_OPS = 3
 # the quarter-sample form's luma: (form, filter block side, blocks)
 QPEL_FORMS = ((1, 16, 1), (2, 8, 4))
 ASP_COPIES = 2
-ASP_RUNS = 3
+# phase 6's timed CLI runs of the ASP and GMC paths (cut from three to
+# keep the script inside its time limit)
+ASP_RUNS = 2
 
 
 def _qpel_vop(torch, rng, mbw, mbh, dev, kind):
@@ -8730,13 +8797,13 @@ def divxenc_stages(torch, dev, src, out, batch: int = MAIN_BATCH) -> dict:
 def _divxenc_rates(torch, dev, cli, tmp):
     """Phase 6 for the divxenc path, on dvd.vob's stream three times over
     (144 frames, nine batches): the CLI, wall clock to the last byte,
-    four runs after an untimed one (median and spread), then
+    ``DIVXENC_RUNS`` runs after an untimed one (median and spread), then
     ``divxenc_stages``."""
     src = _dvd_long_es(tmp)
     frames = 3 * DIVXENC_FRAMES
     out = tmp / "divxenc_long.avi"
     fps = []
-    for r in range(5):
+    for r in range(DIVXENC_RUNS + 1):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rc = cli.main(["-i", str(src), "-o", str(out), *DIVXENC_ARGS,
@@ -9321,6 +9388,218 @@ def _mjpegenc_rates(torch, cli, directory):
 
 
 # ---------------------------------------------------------------------- #
+# The capture codecs: DV25 both ways (PAL 4:2:0, NTSC 4:1:1, AAUX audio)
+# and NuppelVideo/RTjpeg: the dv path (a camcorder clip to a PAL DVD
+# programme stream), the dvenc path (1080i broadcast material to DV for
+# editing) and the nuv path (an analog capture to a DivX AVI)
+
+DV_DATA = ROOT / "tests" / "data" / "dv"
+CAPTURE_FRAMES = 48
+CAPTURE_RUNS = 2             # phase 6's timed runs, after an untimed one
+DV_CLIP_FRAMES = 16          # the camcorder clip, three times over
+DV_CLIP_SEED = 43
+DV_ARGS = ["-x", "dv", "-J", "hqdn3d=luma=4.0", "-y", "mpeg2,mp2enc,mpg",
+           "-F", "gop_n=12:gop_m=3:rc=1:bitrate=6000"]
+DVENC_ARGS = ["-I", "5", "-Z", "720x576", "-J", "hqdn3d=luma=4.0", "-y",
+              "dv,raw,dv"]
+NUV_W, NUV_H, NUV_FPS, NUV_RATE = 640, 480, (30000, 1001), 44100
+NUV_ARGS = ["-x", "nuv", "-I", "5", "-J", "hqdn3d=luma=4.0", "-y",
+            "xvid,lame,avi"]
+DV_KERNELS = ("dv_idct", "hqdn3d_spatial_scan", "hqdn3d_temporal_scan",
+              *ENCODE_KERNELS)
+DVENC_KERNELS = ("dv_fdct_cost", "zoom_pass", "hqdn3d_spatial_scan",
+                 "hqdn3d_temporal_scan")
+NUV_KERNELS = ("rtjpeg_idct", "hqdn3d_spatial_scan", "hqdn3d_temporal_scan",
+               "mpeg4_enc_me", "mpeg4_enc_blocks")
+NUVRTJ_KERNELS = ("rtjpeg_fdct_quant",)
+CAPTURE_WRAPPERS = {"dv_idct": "dv_idct", "dv_fdct_cost": "dv_fdct_cost",
+                    "rtjpeg_idct": "rtjpeg_idct",
+                    "rtjpeg_fdct_quant": "rtjpeg_fdct_quant"}
+# the capture inputs the port's encoders write on the card, pinned by the
+# JAX CLI's output on the same source (tests/data/dv/make_capture_goldens.py)
+CAPTURE_INPUT_SHA256 = {
+    "camcorder.dv": "e210e751392c403856f3cfc6cadad01f25533b739b12bfd8277f6672b6d16420",
+    "capture.nuv": "980b7a10ec1346411e52e33b82803109f40ef93ba86324479dbeac5ba12e9788"}
+# each path's output from the port's CLI with --device cpu, equal to the
+# JAX CLI's (tests/data/dv/make_capture_goldens.py)
+CAPTURE_CPU_SHA256 = {
+    "dv": "aef90bc652a8595eb888288450798ca895f796b4175469bd3f3aea550b78b2d2",
+    "dvenc": "822ec0c9e6b5356f89911bb00efe5646d1f4f740b672e5fe8dcb3a080ab7362b",
+    "nuv": "74c899a69fa7409846e5a75b1da6a51f98322aecae088a6b7ec9828f4e0df9e7",
+    "nuvrtj": "fd1e6c1d1c2f4feb4a08b82a651d28c4ea7ca53bd3385f57f7f09d99c9818825"}
+# small cases through both CLIs (tests/test_torch_capture_cli.py): input,
+# arguments, outputs, exit code; run in order (nuv_in reads nuvrtj's file)
+CAPTURE_GOLDEN = {
+    "dv_pal": ("pal.dv", ["-x", "dv", "-m", "o.wav"], ["o.y4m", "o.wav"], 0),
+    "dv_ntsc": ("ntsc.dv", ["-x", "dv"], ["o.y4m"], 0),
+    "dv_auto_hqdn3d": ("pal.dv", ["-J", "hqdn3d=luma=4.0", "--batch", "1"],
+                       ["o.y4m"], 0),
+    "dv_mpg": ("pal.dv", ["-x", "dv", "-y", "mpeg2,mp2enc,mpg"], ["o.mpg"],
+               0),
+    "dvenc_pal": ("pal.y4m", ["-p", "pal.wav", "-y", "dv,raw,dv"], ["o.dv"],
+                  0),
+    "dvenc_ntsc": ("ntsc.y4m", ["-y", "dv,raw,raw"], ["o.dv"], 0),
+    "dv_ntsc_into_dv": ("ntsc.y4m", ["-y", "dv,raw,dv", "--max_frames", "1"],
+                        [], 1),
+    "dv_44k_into_dv": ("pal.y4m", ["-p", "a44.wav", "-y", "dv,raw,dv",
+                                   "--max_frames", "1"], [], 1),
+    "dv_size": ("small.y4m", ["-y", "dv,raw,raw"], [], 1),
+    "nuvrtj": ("cif.y4m", ["-p", "a44.wav", "-y", "nuvrtj=quality=200,raw,"
+                           "nuv"], ["o.nuv"], 0),
+    "nuv_in": ("o.nuv", ["-x", "nuv", "-m", "o.wav"], ["o.y4m", "o.wav"], 0),
+}
+# the JAX CLI's outputs of each case, by file (None: a refusal)
+CAPTURE_GOLDEN_SHA256 = {
+    "dv_pal": ["5b49308a61ef163a814c942161661b956c69ac7b425bb614a4660fb722e87842", "5b03a5fe8bf01bb6d77b37a2180b6eed8c3c3804ed0c539c6f7405a1c7179186"],
+    "dv_ntsc": ["e922f1d050a93c110553df7abb471549e87cfbc753ddf8ddeabcb8f0df2a0fcc"],
+    "dv_auto_hqdn3d": ["91bbddeecf5f2da31213010d5d965397ad1982dc85445aa26f3d323aed4c0d74"],
+    "dv_mpg": ["7fe1e418e15464ba8baa205ae8a8a63d202649fff9a875b1db0127fb5cdbdb9f"],
+    "dvenc_pal": ["a5fae739d58466fdf2685436230e69e126036bc1141b5dbc1d35b1168e585ef5"],
+    "dvenc_ntsc": ["0622f59cd4fb35f7c9a2771d02d09cabe68e701500ac99c1ad86fbcb92d358db"],
+    "dv_ntsc_into_dv": [],
+    "dv_44k_into_dv": [],
+    "dv_size": [],
+    "nuvrtj": ["8bf68bebfdb4eba27082d111a5b7576436ef5c62768cd0d5657b041ad1fd1a1b"],
+    "nuv_in": ["c035605ff0b723f02f1408829ca6e04292faab3f5a747910ba401c50f8e15fe3", "ea0cec836b40b826f4b0df8bde32260df2e9d661f691e4fb6f6b50b0379d05df"],
+}
+# the operations a block's transform takes, for the bounds: dv_idct's
+# 64-bit row and column passes (two int32 operations each), RTjpeg's
+DV_IDCT_OPS = 2 * (8 * 60 + 8 * 60 + 64)
+RTJPEG_OPS = 2 * (8 * 44 + 8 * 44 + 64 * 4)
+
+
+def capture_input(name: str, directory) -> Path:
+    """A ``CAPTURE_GOLDEN`` input in ``directory``: the DV fixtures, or
+    written here (seeded, numpy only): 720x576 and 720x480 motion clips of
+    two frames, a 48 kHz and a 44.1 kHz WAV, a 64x48 clip, a 176x144 clip
+    of ten frames; ``o.nuv`` is the nuvrtj case's output."""
+    d = Path(directory)
+    if name.endswith(".dv"):
+        return DV_DATA / name
+    path = d / name
+    if path.exists() or name == "o.nuv":
+        return path
+    if name == "pal.y4m":
+        write_motion_y4m(path, 720, 576, 2, seed=5, fps=(25, 1))
+    elif name == "ntsc.y4m":
+        write_motion_y4m(path, 720, 480, 2, seed=6)
+    elif name == "small.y4m":
+        write_motion_y4m(path, 64, 48, 2, seed=7, fps=(25, 1))
+    elif name == "cif.y4m":
+        write_motion_y4m(path, 176, 144, 10, seed=8)
+    elif name == "pal.wav":
+        write_test_wav(path, 2 * 1920, seed=9, frame=1920)
+    elif name == "a44.wav":
+        write_test_wav(path, 10 * 1472, seed=10, rate=44100, frame=1472)
+    else:
+        raise KeyError(name)
+    return path
+
+
+def capture_golden_argv(case: str, directory) -> list:
+    """The CLI arguments of a ``CAPTURE_GOLDEN`` case in ``directory``
+    (inputs written there, outputs named there); ``nuv_in`` reads the
+    ``nuvrtj`` case's file from the same directory."""
+    d = Path(directory)
+    src, args, outs, _ = CAPTURE_GOLDEN[case]
+    argv = ["-i", str(capture_input(src, d))]
+    for a in args:
+        if a == "o.wav":                 # -m's output
+            a = str(d / a)
+        elif a.endswith(".wav"):         # -p's input
+            a = str(capture_input(a, d))
+        argv.append(a)
+    main_out = next((o for o in outs if o != "o.wav"), "o.out")
+    return [*argv, "-o", str(d / main_out), "--progress_off", "-q"]
+
+
+def capture_golden_outputs(case: str, directory) -> list:
+    return [Path(directory) / o for o in CAPTURE_GOLDEN[case][2]]
+
+
+def capture_inputs(cli, kernels, directory, device: str = "cuda") -> dict:
+    """The three paths' inputs in ``directory``, written by the port's
+    encoders from seeded sources: ``camcorder.dv`` (DV_CLIP_FRAMES
+    frames of ``write_motion_y4m`` at 720x576 and 25 fps with a 48 kHz
+    stereo WAV, ``-y dv,raw,dv``) and ``camcorder48.dv`` (it three times
+    over); ``broadcast.y4m`` (1920x1080 interlaced, 25 fps) and its WAV;
+    ``capture.nuv`` (640x480 at 29.97 fps, RTjpeg quality 255 with 44.1
+    kHz stereo PCM, ``-y nuvrtj,raw,nuv``).  Returns the paths and the
+    launches of the two encodes."""
+    d = Path(directory)
+    src, wav = d / "camcorder.y4m", d / "camcorder.wav"
+    write_motion_y4m(src, 720, 576, DV_CLIP_FRAMES, seed=DV_CLIP_SEED,
+                     fps=(25, 1))
+    write_test_wav(wav, DV_CLIP_FRAMES * 1920, seed=DV_CLIP_SEED,
+                   frame=1920)
+    clip = d / "camcorder.dv"
+    kernels.reset_launches()
+    rc = cli.main(["-i", str(src), "-p", str(wav), "-y", "dv,raw,dv", "-o",
+                   str(clip), "--device", device, "--progress_off", "-q"])
+    check(rc == 0, f"the camcorder clip's encode: exit code {rc}")
+    dv_launches = dict(kernels.launches)
+    clip48 = d / "camcorder48.dv"
+    clip48.write_bytes(clip.read_bytes() * (CAPTURE_FRAMES // DV_CLIP_FRAMES))
+    bsrc, bwav = d / "broadcast.y4m", d / "broadcast.wav"
+    write_motion_y4m(bsrc, MAIN_W, MAIN_H, CAPTURE_FRAMES, seed=47,
+                     fps=(25, 1))
+    write_test_wav(bwav, CAPTURE_FRAMES * 1920, seed=47, frame=1920)
+    nsrc, nwav = d / "capture.y4m", d / "capture.wav"
+    write_motion_y4m(nsrc, NUV_W, NUV_H, CAPTURE_FRAMES, seed=53,
+                     fps=NUV_FPS)
+    write_test_wav(nwav, CAPTURE_FRAMES * 1472, seed=53, rate=NUV_RATE,
+                   frame=1472)
+    nuv = d / "capture.nuv"
+    kernels.reset_launches()
+    rc = cli.main(["-i", str(nsrc), "-p", str(nwav), "-y", "nuvrtj,raw,nuv",
+                   "-o", str(nuv), "--device", device, "--progress_off",
+                   "-q"])
+    check(rc == 0, f"the capture's encode: exit code {rc}")
+    nuv_launches = dict(kernels.launches)
+    return {"clip": clip, "clip48": clip48, "broadcast": (bsrc, bwav),
+            "nuv": nuv, "nuv_source": (nsrc, nwav),
+            "launches": {"dv_clip": dv_launches, "nuvrtj": nuv_launches}}
+
+
+def capture_argv(name: str, inputs: dict, out, frames=None) -> list:
+    """The CLI arguments of the dv, dvenc, nuv and nuvrtj paths."""
+    if name == "dv":
+        argv = ["-i", str(inputs["clip48"]), *DV_ARGS]
+    elif name == "dvenc":
+        bsrc, bwav = inputs["broadcast"]
+        argv = ["-i", str(bsrc), "-p", str(bwav), *DVENC_ARGS]
+    elif name == "nuv":
+        argv = ["-i", str(inputs["nuv"]), *NUV_ARGS]
+    else:
+        argv = ["-i", str(inputs["nuv"]), "-x", "nuv", "-y",
+                "nuvrtj,raw,nuv"]
+    if frames is not None:
+        argv += ["--max_frames", str(frames)]
+    return [*argv, "-o", str(out), "--batch", str(MAIN_BATCH),
+            "--progress_off", "-q"]
+
+
+def cpu_capture_digests(directory) -> dict:
+    """The capture inputs and each path's output from the port's CLI
+    with --device cpu: their SHA-256 (``CAPTURE_INPUT_SHA256``,
+    ``CAPTURE_CPU_SHA256``)."""
+    sys.path.insert(0, str(ROOT))
+    from tcforge_tpu_torch import cli
+    from tcforge_tpu_torch.ops import kernels
+    d = Path(directory)
+    inputs = capture_inputs(cli, kernels, d, device="cpu")
+    out = {"camcorder.dv": sha256_file(inputs["clip"]),
+           "capture.nuv": sha256_file(inputs["nuv"])}
+    for name, suffix in (("dv", "mpg"), ("dvenc", "dv"), ("nuv", "avi"),
+                         ("nuvrtj", "nuv")):
+        path = d / f"{name}.{suffix}"
+        check(cli.main([*capture_argv(name, inputs, path), "--device",
+                        "cpu"]) == 0, f"{name} on the CPU")
+        out[name] = sha256_file(path)
+    return out
+
+
+# ---------------------------------------------------------------------- #
 # The ts1080 path: an ATSC HDTV capture (1080i MPEG-2 and AC-3 in a
 # transport stream) brought down to 720p, the main path's chain behind the
 # MPEG-2 decode
@@ -9865,15 +10144,16 @@ def _ogm_clock() -> "_StageClock":
 
 
 def _ogm_rates(torch, cli, tmp):
-    """Phase 6 for the ogm path, on the title twice over (56 frames; its
-    kernels and tables warm from phase 4): the CLI, wall clock to the
+    """Phase 6 for the ogm path, on the title (28 frames; its kernels and
+    tables warm from phase 4; twice over before it was cut to keep the
+    script inside its time limit): the CLI, wall clock to the
     last byte, ``OGM_RUNS`` runs (median and spread) with host clocks
     around its stages (``_ogm_clock``, ms a 16-frame batch, the Vorbis
     encoder's apart); then the title once under torch.profiler: the
     device's busy time a batch and the named kernels'."""
     from torch.profiler import ProfilerActivity, profile
-    title = dvdrip_title(tmp, 2)
-    frames = 2 * OGM_FRAMES
+    title = dvdrip_title(tmp)
+    frames = OGM_FRAMES
     argv = [*ogm_argv(title, tmp / "ogm_rate.ogm"), "--device", "cuda"]
     batches = frames / MAIN_BATCH
     fps = []
@@ -9890,7 +10170,7 @@ def _ogm_rates(torch, cli, tmp):
     finally:
         clock.restore()
     # the device's share on the title once (28 frames, two batches)
-    short = [*ogm_argv(dvdrip_title(tmp), tmp / "ogm_prof.ogm"),
+    short = [*ogm_argv(title, tmp / "ogm_prof.ogm"),
              "--device", "cuda"]
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         rc = cli.main(short)
@@ -9910,6 +10190,279 @@ def _ogm_rates(torch, cli, tmp):
          device_busy_ms_per_batch=busy["busy_ms_per_batch"],
          named_kernels_ms_per_batch=busy["named_ms_per_batch"],
          device_kernels_ms_per_batch=busy["kernels_ms_per_batch"])
+
+
+# ---------------------------------------------------------------------- #
+# The capture codecs' phases
+
+
+def _dv_records(frames, pal: bool):
+    """The host parse of DV ``frames`` (bytes): int16 coefficients and
+    uint8 modes as numpy arrays."""
+    from tcforge_tpu_torch.io import dvcodec
+    nb = dvcodec.frame_blocks(pal)
+    coef = np.zeros((len(frames) * nb, 64), np.int16)
+    mode = np.zeros(len(frames) * nb, np.uint8)
+    dvcodec.parse_frames(frames, pal, coef, mode)
+    return coef, mode
+
+
+def _dv_fixture_frames(name: str, count: int) -> list:
+    size = 144000 if name == "pal.dv" else 120000
+    data = (DV_DATA / name).read_bytes()
+    frames = [data[i:i + size] for i in range(0, len(data), size)]
+    return (frames * count)[:count]
+
+
+def _dv_cost_ops(cls) -> int:
+    """The float64 operations of a ``dv_fdct_cost`` launch on its inputs:
+    each block's 64 x 64 FMAs, and one division a coefficient for each
+    class it tried (``cls`` the classes chosen, + 1): at every qno for
+    the table, at the chosen one for the levels."""
+    return int(cls.shape[0]) * 4096 + 63 * int((cls.long() + 1).sum())
+
+
+def _check_capture_kernels(torch, kernels, bench):
+    """Phase 3 for the capture kernels at tolerance 0 against their plain
+    versions: ``dv_idct`` on 16 PAL and 16 NTSC frames of the fixtures
+    (parsed on the host), ``dv_fdct_cost``'s table and levels on those
+    frames' planes (PAL 4:2:0, NTSC 4:1:1; the host's rate fit between),
+    ``rtjpeg_fdct_quant`` and ``rtjpeg_idct`` at 640x480 on random
+    batches of 16 at qualities 16, 128 and 255 (each encode's stream
+    decoded on the host for the IDCT).  Then each timed at the paths'
+    shapes over inputs past L2 beside its plain version, its bound and
+    the library yardstick (a float64 ``torch.matmul`` of the blocks with a
+    64 x 64 basis: the same count of products, not the same function)."""
+    from tcforge_tpu_torch.io import dvcodec, rtjcodec
+    dev = bench.dev
+    basis = torch.from_numpy(dvcodec.basis()[0].copy()).to(dev)
+
+    def yardstick(coef):
+        blocks = coef.reshape(-1, 64).to(torch.float64)
+        return (torch.matmul, [(blocks, basis)])
+    for name, pal in (("pal.dv", True), ("ntsc.dv", False)):
+        label = "PAL" if pal else "NTSC"
+        coef, mode = _dv_records(_dv_fixture_frames(name, MAIN_BATCH), pal)
+        c = torch.from_numpy(coef).to(dev)
+        m = torch.from_numpy(mode).to(dev)
+        inputs = bench.rotation(lambda: (c.clone(), m.clone(), pal))
+        planes = kernels.dv_idct(c, m, pal)
+        out_bytes = _nbytes(*planes)
+        bench.record("dv_idct", f"{label}, a batch of {MAIN_BATCH}",
+                     1 if pal else 0, kernels.dv_idct, kernels.dv_idct_ref,
+                     inputs, nbytes=_nbytes(c, m) + out_bytes,
+                     ops=DV_IDCT_OPS * coef.shape[0],
+                     library=yardstick(c), plain_reps=2)
+        y, u, v = planes
+        table, dc, md = kernels.dv_fdct_cost(y, u, v)
+        want = kernels.dv_fdct_cost_ref(y, u, v)
+        bench.check("dv_fdct_cost", f"{label} table", (table, dc, md), want)
+        qno = torch.from_numpy(dvcodec.rate_fit(table.cpu().numpy())).to(dev)
+        lv = kernels.dv_fdct_cost(y, u, v, qno)
+        bench.check("dv_fdct_cost", f"{label} levels", lv,
+                    kernels.dv_fdct_cost_ref(y, u, v, qno))
+        if not pal:
+            continue
+        rot = bench.rotation(lambda: tuple(p.clone() for p in planes))
+        bench.record("dv_fdct_cost", f"PAL table, a batch of {MAIN_BATCH}",
+                     1, kernels.dv_fdct_cost, kernels.dv_fdct_cost_ref, rot,
+                     nbytes=out_bytes + _nbytes(table, dc, md),
+                     ops=_dv_cost_ops(table[:, :, 0]), library=yardstick(c),
+                     ops_per_s=F64_FMA_PER_S, reps=max(8, len(rot)),
+                     plain_reps=1)
+        rotq = [(*a, qno) for a in rot]
+        bench.record("dv_fdct_cost", f"PAL levels, a batch of {MAIN_BATCH}",
+                     1, kernels.dv_fdct_cost, kernels.dv_fdct_cost_ref, rotq,
+                     nbytes=out_bytes + _nbytes(qno, *lv),
+                     ops=_dv_cost_ops(lv[1]),
+                     ops_per_s=F64_FMA_PER_S, reps=max(8, len(rotq)),
+                     plain_reps=1)
+    w, h = NUV_W, NUV_H
+    nb = rtjcodec.frame_blocks(w, h)
+    for q in (16, 128, 255):
+        qt, lb8, cb8, tables = rtjcodec.compress_tables(q)
+        qt = torch.from_numpy(qt).to(dev)
+        fdct_in = bench.rotation(lambda: (
+            bench.u8(MAIN_BATCH, h, w), bench.u8(MAIN_BATCH, h // 2, w // 2),
+            bench.u8(MAIN_BATCH, h // 2, w // 2), qt))
+        blocks = kernels.rtjpeg_fdct_quant(*fdct_in[0])
+        dq, l2, c2 = rtjcodec.decompress_tables(tables)
+        coef = np.empty((MAIN_BATCH * nb, 64), np.int32)
+        rtjcodec.decompress_frames(rtjcodec.compress_frames(
+            blocks.cpu().numpy(), nb, lb8, cb8), nb, dq, l2, c2, coef)
+        ct = torch.from_numpy(coef).to(dev)
+        idct_in = bench.rotation(lambda: (ct.clone(), w, h))
+        per_batch = 1 if q == 255 else 0
+        label = f"{w}x{h}, a batch of {MAIN_BATCH}, quality {q}"
+        bench.record("rtjpeg_fdct_quant", label, per_batch,
+                     kernels.rtjpeg_fdct_quant,
+                     kernels.rtjpeg_fdct_quant_ref, fdct_in,
+                     nbytes=_nbytes(*fdct_in[0][:3], blocks),
+                     ops=RTJPEG_OPS * MAIN_BATCH * nb,
+                     library=yardstick(blocks), plain_reps=2)
+        planes = kernels.rtjpeg_idct(ct, w, h)
+        bench.record("rtjpeg_idct", label, per_batch, kernels.rtjpeg_idct,
+                     kernels.rtjpeg_idct_ref, idct_in,
+                     nbytes=_nbytes(ct, *planes),
+                     ops=RTJPEG_OPS * MAIN_BATCH * nb,
+                     library=yardstick(ct), plain_reps=2)
+
+
+def _run_capture(torch, cli, kernels, bench, directory) -> dict:
+    """Phases 4 for the capture paths: the inputs written by the port's
+    encoders on the card (``capture_inputs``: the camcorder clip and the
+    capture, each against the JAX CLI's pinned digest), then the dv,
+    dvenc, nuv and nuvrtj paths through the port's CLI with the launch
+    counts set to 0 just before and read just after (every kernel of each
+    path launched; one ``dv_idct``, two ``dv_fdct_cost``, one
+    ``rtjpeg_idct`` or ``rtjpeg_fdct_quant`` launch a batch), each output
+    against the port's own --device cpu run's pinned digest
+    (``CAPTURE_CPU_SHA256``, which equals the JAX CLI's); then each path
+    on its first 16 frames with every capture kernel call held against
+    its plain version.  Returns the launches by path."""
+    d = Path(directory)
+    inputs = capture_inputs(cli, kernels, d)
+    for key, path in (("camcorder.dv", inputs["clip"]),
+                      ("capture.nuv", inputs["nuv"])):
+        digest = sha256_file(path)
+        emit(phase="capture_input", input=key, sha256=digest,
+             pinned=CAPTURE_INPUT_SHA256[key], bytes=path.stat().st_size)
+        check(digest == CAPTURE_INPUT_SHA256[key],
+              f"{key}: the port's encode on the card differs from the JAX "
+              "CLI's")
+    launches = {"nuvrtj": inputs["launches"]["nuvrtj"]}
+    batches = CAPTURE_FRAMES // MAIN_BATCH
+    for name, suffix, names in (("dv", "mpg", DV_KERNELS),
+                                ("dvenc", "dv", DVENC_KERNELS),
+                                ("nuv", "avi", NUV_KERNELS),
+                                ("nuvrtj", "nuv", NUVRTJ_KERNELS)):
+        out = d / f"{name}.{suffix}"
+        seconds, got = _launched_run(torch, cli, kernels,
+                                     capture_argv(name, inputs, out), names,
+                                     name)
+        launches[name] = got
+        digest = sha256_file(out)
+        emit(phase="path", path=name, frames=CAPTURE_FRAMES, seconds=seconds,
+             e2e_fps=CAPTURE_FRAMES / seconds, bytes=out.stat().st_size,
+             launches={k: got[k] for k in names})
+        emit(phase="path_vs_cpu", path=name,
+             identical=digest == CAPTURE_CPU_SHA256[name], sha256=digest,
+             pinned=CAPTURE_CPU_SHA256[name])
+        check(digest == CAPTURE_CPU_SHA256[name],
+              f"{name}: the card's output differs from the CPU's")
+    per_batch = {"dv": ("dv_idct", 1), "dvenc": ("dv_fdct_cost", 2),
+                 "nuv": ("rtjpeg_idct", 1), "nuvrtj": ("rtjpeg_fdct_quant", 1)}
+    for name, (kernel, n) in per_batch.items():
+        check(launches[name][kernel] == n * batches,
+              f"{name}: {launches[name][kernel]} {kernel} launches for "
+              f"{batches} batches")
+    # every capture kernel call held against its plain version
+    for name, suffix in (("dv", "mpg"), ("dvenc", "dv"), ("nuv", "avi"),
+                         ("nuvrtj", "nuv")):
+        out = d / f"{name}_checked.{suffix}"
+        with checked_kernels(kernels, bench, f"{name} path",
+                             CAPTURE_WRAPPERS) as counts:
+            rc = cli.main([*capture_argv(name, inputs, out, MAIN_BATCH),
+                           "--device", "cuda"])
+        check(rc == 0 and sum(counts.values()) > 0,
+              f"{name} with checked kernels: exit code {rc}")
+        emit(phase="path_checked", path=name, frames=MAIN_BATCH,
+             checked_calls={k: v for k, v in counts.items() if v})
+        out.unlink()
+    return launches
+
+
+def _capture_goldens(cli, tmp) -> None:
+    """Phase 5 for the capture codecs: every ``CAPTURE_GOLDEN`` case on
+    the card in one directory, in order, its exit code and outputs
+    against the JAX CLI's pinned digests."""
+    d = tmp / "capture_golden"
+    d.mkdir()
+    for case, (_, _, _, want_rc) in CAPTURE_GOLDEN.items():
+        rc = cli.main([*capture_golden_argv(case, d), "--device", "cuda"])
+        got = [sha256_file(f) if f.exists() else None
+               for f in capture_golden_outputs(case, d)]
+        pinned = CAPTURE_GOLDEN_SHA256[case]
+        emit(phase="golden", path=f"capture_{case}", rc=rc, sha256=got,
+             pinned=pinned)
+        check((rc != 0) == (want_rc != 0) and got == pinned,
+              f"capture {case}: exit code {rc} or outputs differ from the "
+              "JAX-pinned digests")
+
+
+def _capture_rates(torch, cli, directory) -> None:
+    """Phase 6 for the capture paths on phase 4's inputs: each CLI, wall
+    clock to the last byte, ``CAPTURE_RUNS`` runs after an untimed one
+    (median and spread), with host clocks around its stages (ms a
+    16-frame batch: the host parse or pack, the importer's device half
+    or the encoder, the video chain, the multiplexor), then once under
+    torch.profiler: the device's busy time a batch and the named
+    kernels'."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tcforge_tpu_torch.io import dvcodec, rtjcodec
+    from tcforge_tpu_torch.modules.encoders import capture_enc, mpeg2, xvid
+    from tcforge_tpu_torch.modules.importers import dv_import, nuv_import
+    from tcforge_tpu_torch.modules.muxers import capture_mux, ps_mux
+    from tcforge_tpu_torch.pipeline import chain as chain_mod
+    d = Path(directory)
+    inputs = {"clip48": d / "camcorder48.dv",
+              "broadcast": (d / "broadcast.y4m", d / "broadcast.wav"),
+              "nuv": d / "capture.nuv"}
+    stages = {
+        "dv": [(dvcodec, "parse_frames", "host_parse"),
+               (dv_import.DvImporter, "execute", "upload_and_idct"),
+               (mpeg2.Mpeg2VideoEncoder, "encode_video", "mpeg2_encoder"),
+               (ps_mux.MpegPsMuxer, "write_video", "mux")],
+        "dvenc": [(dvcodec, "rate_fit", "host_rate_fit"),
+                  (dvcodec, "pack_frames", "host_pack"),
+                  (capture_enc.DvVideoEncoder, "encode_video", "encoder"),
+                  (capture_mux.DvMuxer, "write_video", "mux"),
+                  (capture_mux.DvMuxer, "write_audio", "mux")],
+        "nuv": [(rtjcodec, "decompress_frames", "host_parse"),
+                (nuv_import.NuvImporter, "execute", "upload_and_idct"),
+                (xvid.XvidEncoder, "encode_video", "xvid_encoder")]}
+    names = {"dv": ("dv_idct_kernel", "scan_", "mpeg2_"),
+             "dvenc": ("dv_cost_kernel", "zoom_", "scan_"),
+             "nuv": ("rtjpeg_idct_kernel", "scan_", "mpeg4_")}
+    batches = CAPTURE_FRAMES / MAIN_BATCH
+    for name, suffix in (("dv", "mpg"), ("dvenc", "dv"), ("nuv", "avi")):
+        argv = [*capture_argv(name, inputs, d / f"{name}_rate.{suffix}"),
+                "--device", "cuda"]
+        check(cli.main(argv) == 0, f"{name} CLI: untimed run")
+        clock = _StageClock()
+        for owner, attr, label in stages[name]:
+            clock.wrap(owner, attr, label)
+        clock.wrap(chain_mod.VideoChain, "__call__", "chain_call")
+        fps = []
+        try:
+            for _ in range(CAPTURE_RUNS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rc = cli.main(argv)
+                torch.cuda.synchronize()
+                check(rc == 0, f"{name} CLI: exit code {rc}")
+                fps.append(CAPTURE_FRAMES / (time.perf_counter() - t0))
+        finally:
+            clock.restore()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            rc = cli.main(argv)
+            torch.cuda.synchronize()
+        check(rc == 0, f"{name} under the profiler: exit code {rc}")
+        busy = _device_busy(prof, batches, names[name])
+        per_run = batches * CAPTURE_RUNS
+        emit(phase="cli", path=name, frames=CAPTURE_FRAMES, fps=fps,
+             median_fps=float(np.median(fps)), min_fps=min(fps),
+             max_fps=max(fps),
+             host_wall_ms_per_batch={k: 1e3 * v / per_run
+                                     for k, v in clock.wall.items()},
+             host_cpu_ms_per_batch={k: 1e3 * v / per_run
+                                    for k, v in clock.cpu.items()},
+             device_busy_ms_per_batch=busy["busy_ms_per_batch"],
+             profiled_ms_per_batch=busy["profiled_ms_per_batch"],
+             named_kernels_ms_per_batch=busy["named_ms_per_batch"],
+             device_kernels_ms_per_batch=busy["kernels_ms_per_batch"])
+
 
 if __name__ == "__main__":
     sys.exit(main(sys.argv[1:]))

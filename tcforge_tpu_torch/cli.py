@@ -252,6 +252,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="(gated) disable AC3 dynamic range compression")
     p.add_argument("--a52_dolby_off", action="store_true",
                    help="(gated) disable AC3 Dolby surround")
+    p.add_argument("--dv_yv12_mode", action="store_true",
+                   help="(gated) force YV12 for PAL DV decode")
+    p.add_argument("--dv_yuy2_mode", action="store_true",
+                   help="(gated) use YUY2 for PAL DV decode")
     p.add_argument("-d", "--audio_swap", dest="channels", type=int,
                    default=0, help="output channels")
     p.add_argument("-D", "--sync_frame", dest="av_offset", type=int,
@@ -467,6 +471,8 @@ def args_to_job(args: argparse.Namespace) -> Job:
     job.a52_mode = ((1 if args.a52_demux else 0)
                     | (2 if args.a52_drc_off else 0)
                     | (4 if args.a52_dolby_off else 0))
+    # stored on the job and read by no decoder, as in the JAX package
+    job.dv_yuy2_mode = args.dv_yuy2_mode and not args.dv_yv12_mode
     job.av_offset = args.av_offset
     job.sync_method = args.sync_method
     job.resync_margin = args.resync_margin

@@ -107,6 +107,29 @@ wrapper                    CUDA source                 replaces (tcforge_tpu)
                                                        PIL's ``Image.save``
                                                        (no JAX form)
 ``jpeg_fdct_quant``        ``csrc/jpeg_encode.cu``     the same
+``dv_idct``                ``csrc/dv.cu``              io/dvdec.py
+                                                       ``idct88``,
+                                                       ``idct248`` and the
+                                                       placement of
+                                                       ``DVDecoder.decode``
+                                                       (numpy, no device
+                                                       form)
+``dv_fdct_cost``           ``csrc/dv.cu``              io/dvenc.py
+                                                       ``_segment_strings``'
+                                                       transform,
+                                                       ``_pick_modes``,
+                                                       ``_quantize`` and
+                                                       ``_ac_cost`` (numpy)
+``rtjpeg_idct``            ``csrc/rtjpeg.cu``          io/rtjpeg.py
+                                                       ``idct_blocks`` and
+                                                       the placement of
+                                                       ``RTjpegDecompressor.
+                                                       decompress`` (numpy)
+``rtjpeg_fdct_quant``      ``csrc/rtjpeg.cu``          io/rtjpeg.py
+                                                       ``_mb_blocks``,
+                                                       ``fdct_blocks`` and
+                                                       ``quant_blocks``
+                                                       (numpy)
 =========================  ==========================  =====================
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
@@ -159,7 +182,11 @@ launches: Dict[str, int] = {"hqdn3d_spatial_scan": 0,
                             "jpeg_idct": 0,
                             "jpeg_color": 0,
                             "jpeg_ycc_down": 0,
-                            "jpeg_fdct_quant": 0}
+                            "jpeg_fdct_quant": 0,
+                            "dv_idct": 0,
+                            "dv_fdct_cost": 0,
+                            "rtjpeg_idct": 0,
+                            "rtjpeg_fdct_quant": 0}
 
 
 def reset_launches() -> None:
@@ -236,6 +263,14 @@ _SIGNATURES = {
     "jpeg_encode": {
         "tc_jpeg_ycc_down": (_P, _P),
         "tc_jpeg_fdct_quant": (_P, _P),
+    },
+    "dv": {
+        "tc_dv_idct": (_P, _P),
+        "tc_dv_fdct_cost": (_P, _P),
+    },
+    "rtjpeg": {
+        "tc_rtjpeg_idct": (_P, _P),
+        "tc_rtjpeg_fdct_quant": (_P, _P),
     },
     "mpeg4_encode": {
         "tc_mpeg4_enc_me": (_P, _P, _P),
@@ -2002,3 +2037,237 @@ def jpeg_fdct_quant(planes: torch.Tensor, div: torch.Tensor,
     _call("jpeg_encode", "tc_jpeg_fdct_quant", ptr, _stream(planes))
     launches["jpeg_fdct_quant"] += 1
     return out
+
+
+# --------------------------------------------------------------------- #
+# Kernel IX: DV25 both ways (the dv import module, encoder and
+# multiplexor) on the card (not TPU kernels: the JAX package's DV codec
+# is numpy); csrc/dv.cu, the plain versions in io/dvcodec.py
+
+
+def _dv_system(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> bool:
+    """True for PAL planes (576x720, 4:2:0 chroma 288x360), False for NTSC
+    (480x720, 4:1:1 chroma 480x180); raises for anything else."""
+    from tcforge_tpu_torch.io import dvcodec
+    for what, t in (("y", y), ("u", u), ("v", v)):
+        _check(t, what, (torch.uint8,), 3)
+    for pal in (True, False):
+        (yh, yw), (ch, cw) = dvcodec.plane_shapes(pal)
+        frames = y.shape[0]
+        if (tuple(y.shape) == (frames, yh, yw)
+                and tuple(u.shape) == (frames, ch, cw)
+                and tuple(v.shape) == (frames, ch, cw)):
+            return pal
+    raise ValueError(f"dv planes: y {tuple(y.shape)}, u {tuple(u.shape)}, "
+                     f"v {tuple(v.shape)} are neither PAL 4:2:0 nor NTSC "
+                     "4:1:1")
+
+
+def _dv_geometry(pal: bool) -> List[int]:
+    from tcforge_tpu_torch.io import dvcodec
+    (yh, yw), (ch, cw) = dvcodec.plane_shapes(pal)
+    return [dvcodec.frame_blocks(pal), yw, yh, cw, ch]
+
+
+@lru_cache(maxsize=None)
+def _dv_tables(device: torch.device, pal: bool):
+    """The kernels' tables on ``device``: placement, the transposed
+    basis, the factors as float64, the scans, the cost table."""
+    from tcforge_tpu_torch.io import dvcodec
+    import numpy as np
+    place = torch.from_numpy(dvcodec.placement(pal)).to(device)
+    basis_t = torch.from_numpy(np.ascontiguousarray(
+        dvcodec.basis().transpose(0, 2, 1))).to(device)
+    fac = torch.from_numpy(dvcodec.factors().astype(np.float64)).to(device)
+    zz = torch.from_numpy(dvcodec.zigzag().astype(np.int32)).to(device)
+    cost = torch.from_numpy(dvcodec.cost_table()).to(device)
+    return place, basis_t, fac, zz, cost
+
+
+def dv_idct_ref(coef: torch.Tensor, mode: torch.Tensor, pal: bool):
+    """Plain version of ``dv_idct`` (io/dvcodec.py ``dv_idct_ref``)."""
+    from tcforge_tpu_torch.io import dvcodec
+    return dvcodec.dv_idct_ref(coef, mode, pal)
+
+
+def dv_idct(coef: torch.Tensor, mode: torch.Tensor, pal: bool):
+    """The planes of a batch of DV frames from their host parse's records
+    (io/dvcodec.py): int16 (frames * blocks, 64) dequantized coefficients
+    in raster order and uint8 (frames * blocks,) DCT modes, the blocks in
+    bitstream order.  Each block's exact integer IDCT (``idct88``, its
+    dc-only rows ``dc << 3``; or ``idct248`` where its mode is 1), clipped
+    to 0..255, into its place in the planes.  Returns uint8 y (frames,
+    576, 720), u and v (frames, 288, 360) for PAL; (frames, 480, 720) and
+    (frames, 480, 180) for NTSC."""
+    from tcforge_tpu_torch.io import dvcodec
+    _check(coef, "coef", (torch.int16,), 2)
+    _check(mode, "mode", (torch.uint8,), 1)
+    nb = dvcodec.frame_blocks(pal)
+    if coef.shape[1] != 64 or coef.shape[0] % nb \
+            or mode.shape[0] != coef.shape[0]:
+        raise ValueError(f"coef {tuple(coef.shape)}, mode "
+                         f"{tuple(mode.shape)}: not frames of {nb} blocks")
+    if not _on_cuda(coef, mode):
+        return dv_idct_ref(coef, mode, pal)
+    frames = coef.shape[0] // nb
+    (yh, yw), (ch, cw) = dvcodec.plane_shapes(pal)
+    dev = coef.device
+    y = torch.empty((frames, yh, yw), dtype=torch.uint8, device=dev)
+    u = torch.empty((frames, ch, cw), dtype=torch.uint8, device=dev)
+    v = torch.empty_like(u)
+    if frames == 0:
+        return y, u, v
+    place = _dv_tables(dev, pal)[0]
+    ptr, _keep = _meta([coef.data_ptr(), mode.data_ptr(), place.data_ptr(),
+                        y.data_ptr(), u.data_ptr(), v.data_ptr(), frames,
+                        *_dv_geometry(pal)])
+    _call("dv", "tc_dv_idct", ptr, _stream(coef))
+    launches["dv_idct"] += 1
+    return y, u, v
+
+
+def dv_fdct_cost_ref(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                     qno=None):
+    """Plain version of ``dv_fdct_cost`` (io/dvcodec.py
+    ``fdct_cost_ref``)."""
+    from tcforge_tpu_torch.io import dvcodec
+    return dvcodec.fdct_cost_ref((y, u, v), _dv_system(y, u, v), qno)
+
+
+def dv_fdct_cost(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                 qno=None):
+    """The device half of the DV25 encoder on a batch of PAL 4:2:0 or NTSC
+    4:1:1 planes: each block (bitstream order) cut from the planes, its
+    mode (``_pick_modes``), its float64 forward transform (the pinned
+    ``_F88``/``_F248`` in OpenBLAS's gemv order) and DC, then without
+    ``qno``: (int16 (n, 16, 2) the class and AC bits at qno 0..15, int16
+    (n,) DC, uint8 (n,) mode), the table the host's rate fit reads; with
+    uint8 ``qno`` (n / 6,), each macroblock's chosen qno: (int16 (n, 64)
+    zigzag levels, uint8 (n,) class)."""
+    from tcforge_tpu_torch.io import dvcodec
+    pal = _dv_system(y, u, v)
+    nblocks = y.shape[0] * dvcodec.frame_blocks(pal)
+    if qno is not None:
+        _check(qno, "qno", (torch.uint8,), 1)
+        if qno.shape[0] * 6 != nblocks:
+            raise ValueError(f"qno: {tuple(qno.shape)}, expected "
+                             f"({nblocks // 6},)")
+        tensors = (y, u, v, qno)
+    else:
+        tensors = (y, u, v)
+    if not _on_cuda(*tensors):
+        return dv_fdct_cost_ref(y, u, v, qno)
+    dev = y.device
+    if qno is None:
+        out = torch.empty((nblocks, dvcodec.QNOS, 2), dtype=torch.int16,
+                          device=dev)
+        dc = torch.empty((nblocks,), dtype=torch.int16, device=dev)
+    else:
+        out = torch.empty((nblocks, 64), dtype=torch.int16, device=dev)
+        dc = None
+    small = torch.empty((nblocks,), dtype=torch.uint8, device=dev)
+    if nblocks == 0:
+        return (out, dc, small) if qno is None else (out, small)
+    place, basis_t, fac, zz, cost = _dv_tables(dev, pal)
+    ptr, _keep = _meta([
+        y.data_ptr(), u.data_ptr(), v.data_ptr(), place.data_ptr(),
+        basis_t.data_ptr(), fac.data_ptr(), zz.data_ptr(), cost.data_ptr(),
+        0 if qno is None else qno.data_ptr(), out.data_ptr(),
+        0 if dc is None else dc.data_ptr(), small.data_ptr(), y.shape[0],
+        *_dv_geometry(pal)])
+    _call("dv", "tc_dv_fdct_cost", ptr, _stream(y))
+    launches["dv_fdct_cost"] += 1
+    return (out, dc, small) if qno is None else (out, small)
+
+
+# --------------------------------------------------------------------- #
+# Kernel X: RTjpeg both ways (the nuv import module and the nuvrtj
+# encoder) on the card (not TPU kernels: the JAX package's RTjpeg is
+# numpy); csrc/rtjpeg.cu, the plain versions in io/rtjcodec.py
+
+
+def _rtjpeg_planes(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor
+                   ) -> Tuple[int, int]:
+    from tcforge_tpu_torch.io import rtjcodec
+    for what, t in (("y", y), ("u", u), ("v", v)):
+        _check(t, what, (torch.uint8,), 3)
+    frames, height, width = y.shape
+    rtjcodec.check_geometry(width, height)
+    half = (frames, height // 2, width // 2)
+    if tuple(u.shape) != half or tuple(v.shape) != half:
+        raise ValueError(f"u {tuple(u.shape)}, v {tuple(v.shape)}: "
+                         f"expected {half}")
+    return width, height
+
+
+def rtjpeg_fdct_quant_ref(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                          qt: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``rtjpeg_fdct_quant`` (io/rtjcodec.py
+    ``fdct_quant_ref``)."""
+    from tcforge_tpu_torch.io import rtjcodec
+    return rtjcodec.fdct_quant_ref(y, u, v, qt)
+
+
+def rtjpeg_fdct_quant(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                      qt: torch.Tensor) -> torch.Tensor:
+    """The quantized blocks of a batch of 4:2:0 frames (a multiple of 16
+    each way) as RTjpeg codes them: each block in stream order
+    (``_mb_blocks``), the AAN integer forward DCT (``fdct_blocks``) and
+    ``quant_blocks`` with the int64 (2, 64) forward quantizers (luma,
+    chroma; io/rtjcodec.py ``compress_tables``).  Returns int16 (frames *
+    blocks, 64) in natural order."""
+    from tcforge_tpu_torch.io import rtjcodec
+    width, height = _rtjpeg_planes(y, u, v)
+    _check(qt, "qt", (torch.int64,), 2)
+    if tuple(qt.shape) != (2, 64):
+        raise ValueError(f"qt: {tuple(qt.shape)}, expected (2, 64)")
+    if not _on_cuda(y, u, v, qt):
+        return rtjpeg_fdct_quant_ref(y, u, v, qt)
+    frames = y.shape[0]
+    out = torch.empty((frames * rtjcodec.frame_blocks(width, height), 64),
+                      dtype=torch.int16, device=y.device)
+    if frames == 0:
+        return out
+    ptr, _keep = _meta([y.data_ptr(), u.data_ptr(), v.data_ptr(),
+                        qt.data_ptr(), out.data_ptr(), frames, width,
+                        height])
+    _call("rtjpeg", "tc_rtjpeg_fdct_quant", ptr, _stream(y))
+    launches["rtjpeg_fdct_quant"] += 1
+    return out
+
+
+def rtjpeg_idct_ref(coef: torch.Tensor, width: int, height: int):
+    """Plain version of ``rtjpeg_idct`` (io/rtjcodec.py ``idct_ref``)."""
+    from tcforge_tpu_torch.io import rtjcodec
+    return rtjcodec.idct_ref(coef, width, height)
+
+
+def rtjpeg_idct(coef: torch.Tensor, width: int, height: int):
+    """The 4:2:0 planes of a batch of RTjpeg frames of ``width`` x
+    ``height`` from the host decoder's int32 (frames * blocks, 64)
+    dequantized coefficients (natural order, stream order of blocks):
+    ``idct_blocks`` (the AAN inverse DCT, 64-bit, range-limited to
+    16..235) into each block's place.  Returns uint8 y (frames, height,
+    width), u and v (frames, height / 2, width / 2)."""
+    from tcforge_tpu_torch.io import rtjcodec
+    rtjcodec.check_geometry(width, height)
+    _check(coef, "coef", (torch.int32,), 2)
+    nb = rtjcodec.frame_blocks(width, height)
+    if coef.shape[1] != 64 or coef.shape[0] % nb:
+        raise ValueError(f"coef {tuple(coef.shape)}: not frames of {nb} "
+                         "blocks of 64")
+    if not _on_cuda(coef):
+        return rtjpeg_idct_ref(coef, width, height)
+    frames = coef.shape[0] // nb
+    dev = coef.device
+    y = torch.empty((frames, height, width), dtype=torch.uint8, device=dev)
+    u = torch.empty((frames, height // 2, width // 2), dtype=torch.uint8,
+                    device=dev)
+    v = torch.empty_like(u)
+    if frames == 0:
+        return y, u, v
+    ptr, _keep = _meta([coef.data_ptr(), y.data_ptr(), u.data_ptr(),
+                        v.data_ptr(), frames, width, height])
+    _call("rtjpeg", "tc_rtjpeg_idct", ptr, _stream(coef))
+    launches["rtjpeg_idct"] += 1
+    return y, u, v

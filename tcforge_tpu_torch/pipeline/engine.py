@@ -237,7 +237,7 @@ JAX_IMPORT_MODULES = {
 # the audio file import modules: an audio-only -i, or -p
 _AUDIO_MODULES = ("wav", "mp3", "ac3", "flac", "aac", "au", "vag")
 # the containers whose audio track serves as -p beside their video
-_AV_MODULES = ("mpeg", "avi", "mov", "ogg")
+_AV_MODULES = ("mpeg", "avi", "mov", "ogg", "dv", "nuv")
 
 
 def video_module(job: Job) -> str:
@@ -245,7 +245,8 @@ def video_module(job: Job) -> str:
     auto``, ``multi`` for a directory and otherwise by the file's magic:
     ``wav``, ``mp3``, ``ac3``, ``flac``, ``aac``, ``au`` or ``vag`` (an
     audio-only session), ``mpeg`` (a program, transport or elementary
-    stream, or a VideoCD track), ``avi``, ``mov``, ``ogg`` or ``y4m``
+    stream, or a VideoCD track), ``avi``, ``mov``, ``ogg``, ``dv``,
+    ``nuv`` or ``y4m``
     (also where the magic is unknown, as the JAX engine falls back to
     it).  A container the JAX package imports with a module the port
     lacks is refused, naming the module."""
@@ -277,7 +278,8 @@ def audio_module(path: str) -> str:
     """The import module of ``-p``'s file, by its magic as the JAX engine
     picks it (``wav`` where the magic names no module): an audio file's,
     or a program or transport stream's, a VideoCD track's, an AVI's, a
-    MOV's or an Ogg file's, whose track then serves; one the port lacks
+    MOV's, an Ogg, DV or NuppelVideo file's, whose track then serves; one
+    the port lacks
     is refused, naming the module."""
     from tcforge_tpu_torch.io.probe import sniff_magic
     fmt = sniff_magic(path)             # probe_file's magic
@@ -287,8 +289,8 @@ def audio_module(path: str) -> str:
     raise NotImplementedError(
         f"-p {path}: {fmt.value} audio (the {module} import module) is not "
         "ported to the torch port yet; it imports WAV, MP3, AC-3, FLAC, "
-        "AAC, AU and VAG files and the tracks of MPEG, AVI, MOV and Ogg "
-        "files")
+        "AAC, AU and VAG files and the tracks of MPEG, AVI, MOV, Ogg, DV "
+        "and NuppelVideo files")
 
 
 # the import modules that decode on the device through the MPEG

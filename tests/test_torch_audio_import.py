@@ -112,8 +112,8 @@ def test_p_and_x_auto_pick_the_module_by_magic(name):
 
 
 @pytest.mark.parametrize("head,module", [
-    (b"NuppelVideo" + bytes(64), "nuv"), (b"PV5a" + bytes(64), "pvn"),
-    (b"\x1f\x07\x00" + bytes(64), "dv")])
+    (b"<?xml version" + bytes(64), "xml"), (b"PV5a" + bytes(64), "pvn"),
+    (b"\x89PNG\r\n\x1a\n" + bytes(64), "im")])
 def test_p_refuses_what_the_port_lacks_by_the_jax_module(head, module,
                                                          tmp_path):
     path = tmp_path / "a.bin"

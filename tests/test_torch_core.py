@@ -58,7 +58,8 @@ COPIES = ["core/formats.py", "core/optstr.py", "core/codecs.py",
           "io/tclzo.py", "io/_mp4tables.py", "io/mpeg4.py", "io/mpaenc.py",
           "io/mp3enc.py", "io/a52enc.py", "io/cdxa.py", "io/aacdec.py",
           "io/flac.py", "io/ogg.py", "io/vorbis.py", "io/vorbisenc.py",
-          "io/au.py", "io/aacenc.py"]
+          "io/au.py", "io/aacenc.py", "io/dv.py", "io/nuv.py", "io/pvn.py",
+          "io/rtjpeg.py"]
 # lines a whole-file copy changes: the audio encoders and FLAC take their
 # BitWriter from io/mpeg2host.py, the jax-free copy of io/mpeg2codec.py's head
 # (which pins the class to its source), and the MP3 encoder's _emit skips
@@ -94,7 +95,10 @@ NATIVE_COPIES = {"csrc/mpeg2intra.cpp": "native/mpeg2intra.cpp",
 # macroblock's writer, the B mb_type codes and the vector wrap);
 # split_extra_options of the encoder cfg tier; the MOV reader without its
 # photo-JPEG branch (the port's own, io/jpeg.py) and the writer without
-# write_video_frame (PIL's photo-JPEG: the port's is io/jpegenc.py)
+# write_video_frame (PIL's photo-JPEG: the port's is io/jpegenc.py); the
+# DV decoder without its docstring and decode and the DV encoder without
+# its docstring, forward transforms, encode and _segment_strings
+# (io/dvcodec.py splits those between the card and the host)
 RANGE_COPIES = {"io/mpeg4dec.py": ("io/mpeg4dec.py",
                                    ((1, 55), (57, 2791))),
                 "io/mpeg2host.py": ("io/mpeg2codec.py",
@@ -108,7 +112,10 @@ RANGE_COPIES = {"io/mpeg4dec.py": ("io/mpeg4dec.py",
                 "modules/encoders/encoder_cfg.py": (
                     "modules/encoders/encoder_cfg.py",
                     ((18, 21), (24, 24), (40, 57))),
-                "io/mov.py": ("io/mov.py", ((1, 339), (344, 404), (423, 546)))}
+                "io/mov.py": ("io/mov.py", ((1, 339), (344, 404), (423, 546))),
+                "io/dvdec.py": ("io/dvdec.py", ((41, 479), (575, 634))),
+                "io/dvenc.py": ("io/dvenc.py", ((27, 130), (240, 383),
+                                                (469, 480), (548, 597)))}
 
 
 def _rewrite(src: str) -> str:

@@ -221,19 +221,18 @@ def test_pieces_out_of_this_slice_raise(what, tmp_path):
     src = DATA / "small.mpg"
     job = dict(video_in_file=str(src), video_out_file=str(tmp_path / "o"))
     if what == "audio_in_not_wav":
-        # a NuppelVideo file: the JAX package's nuv import module, not
-        # ported
-        nuv = tmp_path / "a.nuv"
-        nuv.write_bytes(b"NuppelVideo" + bytes(4096))
-        job["audio_in_file"] = str(nuv)
-        match = "the nuv import module"
+        # a PVN file: the JAX package's pvn import module, not ported
+        pvn = tmp_path / "a.pvn"
+        pvn.write_bytes(b"PV5a" + bytes(4096))
+        job["audio_in_file"] = str(pvn)
+        match = "the pvn import module"
     elif what == "audio_out_not_wav":
         # .mkv: the JAX package's lavf multiplexor, not ported
         job["audio_out_file"] = str(tmp_path / "a.mkv")
         match = "the lavf multiplexor"
     else:
-        job["im_v_module"] = "nuv"
-        match = "-x nuv"
+        job["im_v_module"] = "pvn"
+        match = "-x pvn"
     with pytest.raises(NotImplementedError, match=match):
         engine.Pipeline(Job(**job), torch.device("cpu"))
 
