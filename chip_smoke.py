@@ -2846,14 +2846,26 @@ KERNELS = {
                     "tcforge_tpu/io/rtjpeg.py:206"),
     "rtjpeg_fdct_quant": ("tcforge_tpu_torch/csrc/rtjpeg.cu",
                           "tcforge_tpu/io/rtjpeg.py:125"),
+    # not TPU kernels: the JAX package's Theora is numpy (the decoder's
+    # _reconstruct and _loop_filter, the encoder's _quantize_blocks with
+    # _fdct_blocks and _choose_modes with _search_mv)
+    "theora_recon": ("tcforge_tpu_torch/csrc/theora.cu",
+                     "tcforge_tpu/io/theora.py:1102"),
+    "theora_loop_filter": ("tcforge_tpu_torch/csrc/theora.cu",
+                           "tcforge_tpu/io/theora.py:1256"),
+    "theora_fdct_quant": ("tcforge_tpu_torch/csrc/theora.cu",
+                          "tcforge_tpu/io/theoraenc.py:936"),
+    "theora_me": ("tcforge_tpu_torch/csrc/theora.cu",
+                  "tcforge_tpu/io/theoraenc.py:769"),
 }
 LIBS = ("hqdn3d_scan", "zoom_pass", "unsharp", "tomsmocomp", "yuvdenoise",
         "stabilize", "mpeg2_recon", "mpeg2_encode", "mpeg4_recon",
-        "mpeg4_encode", "jpeg_decode", "jpeg_encode", "dv", "rtjpeg")
+        "mpeg4_encode", "jpeg_decode", "jpeg_encode", "dv", "rtjpeg",
+        "theora")
 # the host libraries (g++): the MPEG-2 parse and syntax writer, the JPEG
-# entropy decode and Huffman encode, the DV and RTjpeg coders
+# entropy decode and Huffman encode, the DV, RTjpeg and Theora coders
 HOST_LIBS = ("mpeg2intra", "mpeg2encode", "jpeg_entropy", "jpeg_huffenc",
-             "dv_host", "rtjpeg_host")
+             "dv_host", "rtjpeg_host", "theora_host")
 # each wrapper of ops/kernels.py, whose plain version is <name>_ref
 WRAPPERS = ("spatial_scan", "temporal_scan", "zoom_pass", "unsharp_plane",
             "tomsmocomp_plane", "tomsmocomp_window", "d3_spatial_scan",
@@ -2864,7 +2876,8 @@ WRAPPERS = ("spatial_scan", "temporal_scan", "zoom_pass", "unsharp_plane",
             "mpeg4_recon_field", "mpeg4_gmc_warp", "mpeg4_enc_me",
             "mpeg4_enc_bme", "mpeg4_enc_blocks", "jpeg_idct", "jpeg_color",
             "jpeg_ycc_down", "jpeg_fdct_quant", "dv_idct", "dv_fdct_cost",
-            "rtjpeg_idct", "rtjpeg_fdct_quant")
+            "rtjpeg_idct", "rtjpeg_fdct_quant", "theora_recon",
+            "theora_loop_filter", "theora_fdct_quant", "theora_me")
 
 
 def write_test_y4m(path, width: int, height: int, frames: int,
@@ -3256,6 +3269,10 @@ def main(argv=()) -> int:
     # the capture paths' inputs, written in phase 4 for phases 4 and 6
     capture_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_capture_")
     torch.cuda.empty_cache()
+    _check_theora_kernels(torch, kernels, bench)
+    # the Theora paths' files, written in phase 4 for phases 4 and 6
+    theora_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_theora_")
+    torch.cuda.empty_cache()
     _check_ragged(torch, kernels, zoom, hq, bench)
     _check_unsharp_sizes(torch, kernels, bench)
     _check_tmc_windows(torch, kernels, bench)
@@ -3488,6 +3505,12 @@ def main(argv=()) -> int:
         path_launches.update(_run_capture(torch, cli, kernels, bench,
                                           capture_dir.name))
         _capture_goldens(cli, tmp)
+        # 4. and 5. for Theora: the ogv path and its read-back at full
+        # width and the fixtures' decodes against their pinned digests,
+        # and the Theora goldens against the JAX CLI's
+        path_launches.update(_run_theora(torch, cli, kernels, bench,
+                                         theora_dir.name))
+        _theora_goldens(cli, tmp)
         emit(phase="audio_chain", batch=MAIN_BATCH,
              **_audio_chain_ms(torch, dev))
         _graph_capture_vs_collection(torch, dev)
@@ -3616,6 +3639,10 @@ def main(argv=()) -> int:
     _capture_rates(torch, cli, capture_dir.name)
     capture_dir.cleanup()
     torch.cuda.empty_cache()
+    # 6. the Theora paths: each CLI on 32 frames and its stages
+    _theora_rates(torch, cli, theora_dir.name)
+    theora_dir.cleanup()
+    torch.cuda.empty_cache()
 
     # each kernel's launches in the run of the path that carries it
     for name, (src, _) in KERNELS.items():
@@ -3639,6 +3666,10 @@ def main(argv=()) -> int:
             launches[name] = path_launches["mjpeg"][name]
         elif name in _JPEGENC_WRAPPERS:
             launches[name] = path_launches["mjpegenc"][name]
+        elif name in THEORA_WRAPPERS:
+            owner = "ogv_dec" if name in ("theora_recon",
+                                          "theora_loop_filter") else "ogv"
+            launches[name] = path_launches[owner][name]
         elif name in CAPTURE_WRAPPERS:
             owner = {"dv_idct": "dv", "dv_fdct_cost": "dvenc",
                      "rtjpeg_idct": "nuv", "rtjpeg_fdct_quant": "nuvrtj"}
@@ -3674,7 +3705,8 @@ def main(argv=()) -> int:
     emit(phase="launches", path="flagship", launches={
         k: path_launches["flagship"][k] for k in FLAGSHIP_KERNELS})
     for name, names in (("dv", DV_KERNELS), ("dvenc", DVENC_KERNELS),
-                        ("nuv", NUV_KERNELS), ("nuvrtj", NUVRTJ_KERNELS)):
+                        ("nuv", NUV_KERNELS), ("nuvrtj", NUVRTJ_KERNELS),
+                        ("ogv", OGV_KERNELS), ("ogv_dec", OGV_DEC_KERNELS)):
         emit(phase="launches", path=name, launches={
             k: path_launches[name][k] for k in names})
     if bench.parent:
@@ -5942,7 +5974,6 @@ def mpeg_stages(torch, dev, src, out, job, batch: int = MAIN_BATCH,
                 if audio_pieces[0] else None)}
 
 
-
 # ---------------------------------------------------------------------- #
 # The DVD rip: -i VIDEO_TS -x dvd -T 1 with its AC-3 track (-m), extsub
 # and hqdn3d
@@ -6724,7 +6755,6 @@ def _author_rates(torch, cli, tmp):
         f.unlink()
 
 
-
 # ---------------------------------------------------------------------- #
 # The 4:2:2 path: the 422P encode, whose encoder kernels run their 4:2:2
 # forms, and its read-back, whose reconstruction kernels run theirs
@@ -7494,9 +7524,9 @@ def _avi_goldens(cli, tmp):
               "digest")
 
 
-# phase 6's divx input: divx.avi this many times over (48 frames; cut
-# from 96 to keep the script inside its time limit)
-DIVX_COPIES = 2
+# phase 6's divx input: divx.avi this many times over (24 frames; cut
+# from 96 and then 48 to keep the script inside its time limit)
+DIVX_COPIES = 1
 # phase 6's timed CLI runs of the divx path (cut from four to keep the
 # script inside its time limit)
 DIVX_RUNS = 2
@@ -7699,7 +7729,9 @@ QPEL_TAP_OPS = 12
 QPEL_AVG_OPS = 3
 # the quarter-sample form's luma: (form, filter block side, blocks)
 QPEL_FORMS = ((1, 16, 1), (2, 8, 4))
-ASP_COPIES = 2
+# phase 6's ASP input: each fixture this many times over (12 frames; cut
+# from two to keep the script inside its time limit)
+ASP_COPIES = 1
 # phase 6's timed CLI runs of the ASP and GMC paths (cut from three to
 # keep the script inside its time limit)
 ASP_RUNS = 2
@@ -9948,7 +9980,6 @@ def _ts1080_rates(torch, dev, cli, tmp):
          trace_seconds=time.perf_counter() - t0)
 
 
-
 # ---------------------------------------------------------------------- #
 # The ogm path: the DivX-era rip of a DVD title into an OGM file, MPEG-4
 # video and Vorbis sound (the title's own AC-3 track, no -m); the
@@ -10452,6 +10483,503 @@ def _capture_rates(torch, cli, directory) -> None:
         busy = _device_busy(prof, batches, names[name])
         per_run = batches * CAPTURE_RUNS
         emit(phase="cli", path=name, frames=CAPTURE_FRAMES, fps=fps,
+             median_fps=float(np.median(fps)), min_fps=min(fps),
+             max_fps=max(fps),
+             host_wall_ms_per_batch={k: 1e3 * v / per_run
+                                     for k, v in clock.wall.items()},
+             host_cpu_ms_per_batch={k: 1e3 * v / per_run
+                                    for k, v in clock.cpu.items()},
+             device_busy_ms_per_batch=busy["busy_ms_per_batch"],
+             profiled_ms_per_batch=busy["profiled_ms_per_batch"],
+             named_kernels_ms_per_batch=busy["named_ms_per_batch"],
+             device_kernels_ms_per_batch=busy["kernels_ms_per_batch"])
+
+
+# ---------------------------------------------------------------------- #
+# Theora both ways: the ogv path (1080i broadcast material to a 720p web
+# OGV, Theora and Vorbis), its read-back (ogv_dec: the OGV with its own
+# Vorbis track to an MPEG-2 programme stream) and the fixtures' decode
+
+THEORA_DATA = ROOT / "tests" / "data" / "theora"
+THEORA_FRAMES = 32
+THEORA_FPS = (30000, 1001)
+THEORA_SEED = 59
+OGV_ARGS = ["-I", "5", "-Z", "1280x720", "-J", "hqdn3d=luma=4.0", "-y",
+            "theora=qi=45:keyint=16,vorbis,ogg"]
+OGV_DEC_ARGS = ["-J", "hqdn3d=luma=4.0", "-y", "mpeg2,mp2enc,mpg"]
+THEORA_KERNELS = ("theora_recon", "theora_loop_filter", "theora_fdct_quant",
+                  "theora_me")
+THEORA_WRAPPERS = {k: k for k in THEORA_KERNELS}
+OGV_KERNELS = (*THEORA_KERNELS, "zoom_pass", "hqdn3d_spatial_scan",
+               "hqdn3d_temporal_scan")
+# the mpeg2 encoder's defaults code intra pictures alone (gop_n 1)
+OGV_DEC_KERNELS = ("theora_recon", "theora_loop_filter",
+                   "hqdn3d_spatial_scan", "hqdn3d_temporal_scan",
+                   "mpeg2_enc_blocks")
+# the fixtures (tests/data/theora/make_streams.py), decoded to Y4M with
+# three frames a batch
+THEORA_FIXTURES = ("yuv420.ogv", "yuv422.ogv", "yuv444.ogv", "cif.ogv",
+                   "lowq.ogv", "cropped.ogv", "dup.ogv")
+# the ogv path's OGV from the JAX CLI (TCFORGE_NATIVE_THEORAENC=1, --mesh
+# off), which the port's must equal (tests/data/theora/make_goldens.py)
+THEORA_INPUT_SHA256 = {
+    "ogv": "783bfbeb8d544fdc43b9c938570f9686949bdfaf5918c3a79b036130935a805c"}
+# each output from the port's CLI with --device cpu, equal to the JAX
+# CLI's (tests/data/theora/make_goldens.py)
+THEORA_CPU_SHA256 = {
+    "ogv_dec": "21cef946183a64c63751bbe9f5ba4fbe708b5d6401c6c6ea65204943e9685165",
+    "yuv420.ogv": "2c897058f9c28ffdd3c0315d50955115912b0def6450b703f8f7dc84941ff3d7",
+    "yuv422.ogv": "7242087042dcb80a62245c1646070e0ffc47cc359d67f3f2e2cfb55a902de11c",
+    "yuv444.ogv": "2d53052450a280423d1540ad9392ffca4305c62a04a94d4a39f5915aaeb60262",
+    "cif.ogv": "bf26661c9b19d765d4ccb54dd67d36ef47d0650244fd4e607eadc144e42dbd36",
+    "lowq.ogv": "e9fd70022797e370fea203ab892e8225956912040b50e713061cfdc988fc65c8",
+    "cropped.ogv": "dd1a8cba691dd14514253437faea9e68bad10b3b0ae0d0ac20d05e02aae22451",
+    "dup.ogv": "dc5425df1d1b5f2791814453642b8da5adbb0b39e07912f3ac97baffd909213f"}
+# small cases through both CLIs (tests/test_torch_theora_cli.py): input,
+# arguments, outputs, exit code; run in order (ogv_in reads ogv_small's)
+THEORA_GOLDEN = {
+    "ogv_small": ("field.y4m", ["-p", "a.wav", "-I", "5", "-J",
+                                "hqdn3d=luma=4.0", "-y",
+                                "theora=qi=45:keyint=8,vorbis,ogg",
+                                "--batch", "5"], ["o.ogv"], 0),
+    "ogv_in": ("o.ogv", ["-x", "ogg", "-m", "o.wav", "--batch", "4"],
+               ["o.y4m", "o.wav"], 0),
+    "theora_avi": ("cif.y4m", ["-y", "theora=qi=30:keyint=4,raw,avi"],
+                   ["o.avi"], 0),
+    "minus_n": ("cif.y4m", ["-N", "theora", "-F", "qi=60"], ["o.ogg"], 0),
+    "yuv422_in": ("yuv422.ogv", ["--batch", "3"], ["o.y4m"], 0),
+    "yuv444_in": ("yuv444.ogv", ["--batch", "3"], ["o.y4m"], 0),
+}
+# the JAX CLI's outputs of each case, by file
+THEORA_GOLDEN_SHA256 = {
+    "ogv_small": ["b6127161f1ae9a59e66b9942c82bd9af19e72152432fc40fd8ca7aeddd1bdfda"],
+    "ogv_in": ["1cb83637c4f819d12edb76ecd1362404ac0a4a7687a3246a67c03356e8ade931", "015ba7e443415ea16a537ab4a5da8413ea38a35a487ab5078100c92ab6e989ba"],
+    "theora_avi": ["b73fc1e68d54b12246ab0a8a4292ab311b93d3c5f079e9a84b1ac5b8f68e910f"],
+    "minus_n": ["ebd50fbb018116ad68631df4c14c4aa2c99ed837e8f60c2d5e8593a5ab7abe73"],
+    "yuv422_in": ["7242087042dcb80a62245c1646070e0ffc47cc359d67f3f2e2cfb55a902de11c"],
+    "yuv444_in": ["2d53052450a280423d1540ad9392ffca4305c62a04a94d4a39f5915aaeb60262"],
+}
+# the operations of the Theora kernels, for the bounds: a coded block's
+# dequantization (64 products), its IDCT (16 1-D passes of 8 points, each
+# 16 products with their shift and 26 adds) and final rounding (2 a
+# sample) and its clip (2 a sample), the prediction counted by
+# ``_theora_recon_ops``; the loop filter's 16 operations a sample on an
+# edge; fdct's 64 x 64 x 3 float64 operations; me's counted by
+# ``_theora_me_ops``
+THEORA_RECON_OPS = 64 + 16 * (16 * 2 + 26) + 64 * 2 + 64 * 2
+THEORA_FILTER_OPS = 16
+THEORA_FDCT_FLOPS = 64 * 64 * 3
+
+
+def theora_input(name: str, directory) -> Path:
+    """A ``THEORA_GOLDEN`` input in ``directory``: the fixtures, or written
+    here (seeded, numpy only): a 176x144 interlaced clip of 12 frames and
+    its 48 kHz WAV, a 176x144 clip of 6 frames; ``o.ogv`` is ogv_small's
+    output."""
+    d = Path(directory)
+    if name.endswith(".ogv") and name != "o.ogv":
+        return THEORA_DATA / name
+    path = d / name
+    if path.exists() or name == "o.ogv":
+        return path
+    if name == "field.y4m":
+        write_programme_y4m(path, 176, 144, 12, seed=61, fps=(25, 1))
+    elif name == "a.wav":
+        write_test_wav(path, 12 * 1920, seed=61, frame=1920)
+    elif name == "cif.y4m":
+        write_motion_y4m(path, 176, 144, 6, seed=62, fps=(25, 1))
+    else:
+        raise KeyError(name)
+    return path
+
+
+def theora_golden_argv(case: str, directory) -> list:
+    """The CLI arguments of a ``THEORA_GOLDEN`` case in ``directory``."""
+    d = Path(directory)
+    src, args, outs, _ = THEORA_GOLDEN[case]
+    argv = ["-i", str(theora_input(src, d))]
+    for a in args:
+        if a == "o.wav":
+            a = str(d / a)
+        elif a.endswith(".wav"):
+            a = str(theora_input(a, d))
+        argv.append(a)
+    main_out = next(o for o in outs if o != "o.wav")
+    return [*argv, "-o", str(d / main_out), "--progress_off", "-q"]
+
+
+def theora_golden_outputs(case: str, directory) -> list:
+    return [Path(directory) / o for o in THEORA_GOLDEN[case][2]]
+
+
+def theora_inputs(directory) -> tuple:
+    """The ogv path's source in ``directory``: ``write_programme_y4m`` at
+    1920x1080, 29.97 fps, top field first, ``THEORA_FRAMES`` frames, and a
+    seeded 48 kHz stereo WAV as long."""
+    d = Path(directory)
+    src, wav = d / "broadcast_ogv.y4m", d / "broadcast_ogv.wav"
+    if not src.exists():
+        write_programme_y4m(src, MAIN_W, MAIN_H, THEORA_FRAMES,
+                            seed=THEORA_SEED, fps=THEORA_FPS)
+        write_test_wav(wav, THEORA_FRAMES * 1602 + 1602, seed=THEORA_SEED)
+    return src, wav
+
+
+def theora_argv(name: str, directory, out) -> list:
+    """The CLI arguments of the ogv and ogv_dec paths (ogv_dec reads the
+    ogv path's ``ogv.ogv`` in ``directory``) and of a fixture's decode."""
+    d = Path(directory)
+    if name == "ogv":
+        src, wav = theora_inputs(d)
+        argv = ["-i", str(src), "-p", str(wav), *OGV_ARGS]
+    elif name == "ogv_dec":
+        argv = ["-i", str(d / "ogv.ogv"), *OGV_DEC_ARGS]
+    else:
+        argv = ["-i", str(THEORA_DATA / name), "-x", "ogg", "--batch", "3"]
+    batch = [] if name in THEORA_FIXTURES else ["--batch", str(MAIN_BATCH)]
+    return [*argv, *batch, "-o", str(out), "--progress_off", "-q"]
+
+
+def theora_outputs() -> list:
+    """(name, output file name) of the ogv path, its read-back and the
+    fixtures' decodes, in the order they run."""
+    return [("ogv", "ogv.ogv"), ("ogv_dec", "ogv_dec.mpg"),
+            *((f, f.replace(".ogv", ".y4m")) for f in THEORA_FIXTURES)]
+
+
+# ---------------------------------------------------------------------- #
+# The Theora phases
+
+THEORA_RUNS = 2             # phase 6's timed runs
+THEORA_CHECK_FRAMES = 4     # phase 4's frames with every call checked
+
+
+@contextlib.contextmanager
+def _kept_calls(kernels, names, store):
+    """Every call of the wrappers ``names`` appends its arguments to
+    ``store[name]`` (None: nothing kept)."""
+    saved = {n: getattr(kernels, n) for n in names}
+
+    def keep(name, fn):
+        def call(*a):
+            store[name].append(a)
+            return fn(*a)
+        return call
+    try:
+        if store is not None:
+            for n in names:
+                setattr(kernels, n, keep(n, saved[n]))
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(kernels, n, fn)
+
+
+def _theora_packets(name: str) -> list:
+    from tcforge_tpu_torch.io.ogg import iter_pages, pages_to_packets
+    with open(THEORA_DATA / name, "rb") as f:
+        return [p for _, p in pages_to_packets(iter_pages(f))]
+
+
+def _filtered_edges(coded, fmt: int, fw: int, fh: int) -> int:
+    """The edges ``theora_loop_filter`` filters for the coded flags."""
+    from tcforge_tpu_torch.io import theoracodec
+    c = coded.bool().cpu().numpy()
+    n, off = 0, 0
+    for h, w in theoracodec.plane_dims(fmt, fw, fh):
+        bh, bw = h // 8, w // 8
+        g = c[off:off + bh * bw].reshape(bh, bw)
+        off += bh * bw
+        n += int(g[:, 1:].sum() + g[1:, :].sum()
+                 + (g[:, :-1] & ~g[:, 1:]).sum() + (g[:-1, :] & ~g[1:, :]).sum())
+    return n
+
+
+def _theora_recon_ops(args) -> int:
+    """The int32 operations ``theora_recon`` needs on ``args``: each
+    coded block's ``THEORA_RECON_OPS`` and its prediction, 1 a sample
+    for an intra block (+128) or a whole-pel vector (+ the residual), 3
+    at a half-pel vector (the average and the residual); an uncoded
+    block only copies."""
+    import torch
+    from tcforge_tpu_torch.io import theora as th
+    from tcforge_tpu_torch.io import theoracodec
+    coded, mbrec, last = args[1].bool(), args[3], args[5]
+    fmt, fw, fh = args[7:10]
+    n = int(coded.sum())
+    if last is None:
+        return n * (THEORA_RECON_OPS + 64)
+    fc = torch.tensor(th.FRAME_CLASS, device=mbrec.device)
+    half = 0
+    off = 0
+    for p, (h, w) in enumerate(theoracodec.plane_dims(fmt, fw, fh)):
+        bh, bw = h // 8, w // 8
+        mode, mx, my = theoracodec.block_motion(mbrec, fmt, p, bh, bw)
+        c = coded[off:off + bh * bw].reshape(bh, bw)
+        half += int((c & (fc[mode] != 0) & (((mx | my) & 1) != 0)).sum())
+        off += bh * bw
+    return n * (THEORA_RECON_OPS + 64) + half * 64 * 2
+
+
+def _theora_me_ops(args) -> int:
+    """The int32 operations ``theora_me`` needs on ``args``, counted on
+    the walk of its plain version: every macroblock's four 8x8 SSEs (3 a
+    sample), a coded macroblock's mean and its SAD from it (4 a sample),
+    and each distinct SAD that the walk asks for once (3 a sample, 5 at a
+    half-pel vector: the average)."""
+    from tcforge_tpu_torch.io import theoracodec
+    src, ref, order, lam, sse_floor = args
+    sse, sad_i = theoracodec.mb_stats_ref(src, ref)
+    table = theoracodec.TableSad(src, ref)
+    seen = set()
+
+    def sad(mb, mx, my):
+        seen.add((int(mb), mx, my))
+        return table(mb, mx, my)
+    rec = theoracodec.choose_modes(sad, sse.cpu().numpy(),
+                                   sad_i.cpu().numpy(), order.cpu().numpy(),
+                                   lam, sse_floor)
+    half = sum(1 for _, mx, my in seen if (mx | my) & 1)
+    return (src.numel() * 3 + int((rec[:, 0] >= 0).sum()) * 256 * 4
+            + (len(seen) - half) * 256 * 3 + half * 256 * 5)
+
+
+def _check_theora_kernels(torch, kernels, bench):
+    """Phase 3 for the Theora kernels at tolerance 0 against their plain
+    versions: the encoder on 1280x720 programme content (a key frame and
+    two inter frames at qi 45, one at qi 0 and 63), then the 4:2:0, 4:2:2, 4:4:4
+    and cropped fixtures' decode, every kernel call checked; then each
+    kernel timed on the qi 45 encode's calls (the key frame's and an inter
+    frame's, ``per_batch`` as the ogv path's batch of 16 holds them) over
+    clones past L2, beside its plain version, its bound and, for the two
+    transforms, the library yardstick (a float64 ``torch.matmul`` of the
+    blocks with a 64 x 64 basis: the same count of products, not the same
+    function)."""
+    from tcforge_tpu_torch.io import theoracodec
+    from tcforge_tpu_torch.io.y4m import Y4MReader
+    dev = bench.dev
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_theora3_") as tmp:
+        src = Path(tmp) / "p.y4m"
+        write_programme_y4m(src, 1280, 720, 3, seed=THEORA_SEED + 1,
+                            fps=(25, 1))
+        ys, us, vs = _read_y4m(Y4MReader, src)
+    kept = {k: [] for k in THEORA_KERNELS}
+    for qi in (0, 45, 63):
+        enc = theoracodec.TheoraDeviceEncoder(1280, 720, qi=qi, gop=16,
+                                              device=dev)
+        case = f"1280x720 encode at qi {qi}"
+        with checked_kernels(kernels, bench, case, THEORA_WRAPPERS) as n, \
+                _kept_calls(kernels, THEORA_KERNELS,
+                            kept if qi == 45 else None):
+            for k in range(3 if qi == 45 else 2):
+                enc.encode(*(torch.from_numpy(p[k]).to(dev)
+                             for p in (ys, us, vs)))
+        emit(phase="kernel_check", kernel="theora", case=case,
+             checked_calls=n, max_abs_err=0)
+    for name in ("yuv420.ogv", "yuv422.ogv", "yuv444.ogv", "cropped.ogv"):
+        pk = _theora_packets(name)
+        dec = theoracodec.TheoraDeviceDecoder(pk[:3], dev)
+        with checked_kernels(kernels, bench, name, THEORA_WRAPPERS) as n:
+            for pkt in pk[3:]:
+                dec.decode(pkt)
+        emit(phase="kernel_check", kernel="theora", case=f"{name} decode",
+             fmt=dec.geo.fmt, checked_calls=n, max_abs_err=0)
+    kmat = torch.from_numpy(np.kron(theoracodec.basis(),
+                                    theoracodec.basis())).to(dev)
+
+    def yardstick(blocks):
+        return (torch.matmul, [(blocks.reshape(-1, 64).to(torch.float64),
+                                kmat)])
+    for label, at, per_batch in (("key frame", 0, 1), ("inter frame", -1, 15)):
+        args = kept["theora_recon"][at]
+        rot = bench.rotation(lambda: _tensors_clone(args))
+        coefs, coded = args[0], args[1]
+        out = kernels.theora_recon(*args)
+        refs = args[5] if args[5] is not None else ()
+        bench.record("theora_recon", f"1280x720 {label}, qi 45", per_batch,
+                     kernels.theora_recon, kernels.theora_recon_ref, rot,
+                     nbytes=_nbytes(coefs, coded, args[2], args[3], *out,
+                                    *refs),
+                     ops=_theora_recon_ops(args),
+                     library=yardstick(coefs), plain_reps=1)
+        args = kept["theora_loop_filter"][at]
+        rot = bench.rotation(lambda: _tensors_clone(args))
+        bench.record("theora_loop_filter", f"1280x720 {label}, qi 45",
+                     per_batch, kernels.theora_loop_filter,
+                     kernels.theora_loop_filter_ref, rot,
+                     nbytes=2 * _nbytes(*args[0]) + _nbytes(args[1]),
+                     ops=THEORA_FILTER_OPS * 8 * _filtered_edges(
+                         args[1], *args[3:]), plain_reps=1, reps=10)
+        args = kept["theora_fdct_quant"][at]
+        rot = bench.rotation(lambda: _tensors_clone(args))
+        n = args[0].shape[0]
+        bench.record("theora_fdct_quant", f"1280x720 {label}, qi 45",
+                     per_batch, kernels.theora_fdct_quant,
+                     kernels.theora_fdct_quant_ref, rot,
+                     nbytes=_nbytes(args[0], args[1]) + n * 64 * 4,
+                     ops=THEORA_FDCT_FLOPS * n, library=yardstick(args[0]),
+                     ops_per_s=F64_FMA_PER_S, plain_reps=1)
+    args = kept["theora_me"][-1]
+    rot = bench.rotation(lambda: _tensors_clone(args))
+    nmb = args[0].numel() // 256
+    bench.record("theora_me", "1280x720 inter frame, qi 45", 15,
+                 kernels.theora_me, kernels.theora_me_ref, rot,
+                 nbytes=_nbytes(args[0], args[1]) + nmb * 7 * 4,
+                 ops=_theora_me_ops(args), plain_reps=1, reps=10)
+
+
+def _run_theora(torch, cli, kernels, bench, directory) -> dict:
+    """Phase 4 for the Theora paths: the ogv path (1080i with its WAV to a
+    720p Theora + Vorbis OGV) through the port's CLI with the launch
+    counts set to 0 just before and read just after (every kernel of the
+    path launched; one ``theora_fdct_quant``, ``theora_recon`` and
+    ``theora_loop_filter`` a frame, one ``theora_me`` an inter frame), its
+    OGV against the JAX CLI's pinned digest (``THEORA_INPUT_SHA256``); the
+    ogv_dec path (that OGV with its own Vorbis track to an MPEG-2
+    programme stream) and every fixture's decode to Y4M (every kernel call
+    held against its plain version), each against the port's --device cpu
+    run's pinned digest (``THEORA_CPU_SHA256``, which equals the JAX
+    CLI's); then both paths on their first
+    ``THEORA_CHECK_FRAMES`` frames with every Theora kernel call held
+    against its plain version.  Returns the launches by path."""
+    d = Path(directory)
+    launches = {}
+    for name, out, names in (("ogv", "ogv.ogv", OGV_KERNELS),
+                             ("ogv_dec", "ogv_dec.mpg", OGV_DEC_KERNELS)):
+        path = d / out
+        seconds, got = _launched_run(torch, cli, kernels,
+                                     theora_argv(name, d, path), names, name)
+        launches[name] = got
+        digest = sha256_file(path)
+        pinned = (THEORA_INPUT_SHA256 if name == "ogv"
+                  else THEORA_CPU_SHA256)[name]
+        emit(phase="path", path=name, frames=THEORA_FRAMES, seconds=seconds,
+             e2e_fps=THEORA_FRAMES / seconds, bytes=path.stat().st_size,
+             launches={k: got[k] for k in names})
+        emit(phase="path_vs_cpu" if name == "ogv_dec" else "path_vs_jax",
+             path=name, identical=digest == pinned, sha256=digest,
+             pinned=pinned)
+        check(digest == pinned, f"{name}: the card's output differs from "
+                                "the pinned digest")
+    keys = -(-THEORA_FRAMES // 16)
+    per = {"theora_fdct_quant": ("ogv", THEORA_FRAMES),
+           "theora_me": ("ogv", THEORA_FRAMES - keys),
+           "theora_recon": ("ogv_dec", THEORA_FRAMES),
+           "theora_loop_filter": ("ogv_dec", THEORA_FRAMES)}
+    for kernel, (name, n) in per.items():
+        check(launches[name][kernel] == n and launches["ogv"]["theora_recon"]
+              == THEORA_FRAMES, f"{name}: {launches[name][kernel]} {kernel} "
+                                f"launches for {THEORA_FRAMES} frames")
+    for name in THEORA_FIXTURES:
+        out = d / name.replace(".ogv", ".y4m")
+        with checked_kernels(kernels, bench, name, THEORA_WRAPPERS) as n:
+            _, got = _launched_run(torch, cli, kernels,
+                                   theora_argv(name, d, out),
+                                   ("theora_recon",), name)
+        digest = sha256_file(out)
+        emit(phase="path_vs_cpu", path=name, identical=digest ==
+             THEORA_CPU_SHA256[name], sha256=digest,
+             pinned=THEORA_CPU_SHA256[name],
+             launches={k: got[k] for k in ("theora_recon",
+                                           "theora_loop_filter")},
+             checked_calls={k: v for k, v in n.items() if v})
+        check(digest == THEORA_CPU_SHA256[name],
+              f"{name}: the card's decode differs from the CPU's")
+    for name, out in (("ogv", "ogv_checked.ogv"),
+                      ("ogv_dec", "ogv_dec_checked.mpg")):
+        with checked_kernels(kernels, bench, f"{name} path",
+                             THEORA_WRAPPERS) as counts:
+            rc = cli.main([*theora_argv(name, d, d / out), "--max_frames",
+                           str(THEORA_CHECK_FRAMES), "--device", "cuda"])
+        check(rc == 0 and sum(counts.values()) > 0,
+              f"{name} with checked kernels: exit code {rc}")
+        emit(phase="path_checked", path=name, frames=THEORA_CHECK_FRAMES,
+             checked_calls={k: v for k, v in counts.items() if v})
+        (d / out).unlink()
+    return launches
+
+
+def _theora_goldens(cli, tmp) -> None:
+    """Phase 5 for Theora: every ``THEORA_GOLDEN`` case on the card in one
+    directory, in order, its exit code and outputs against the JAX CLI's
+    pinned digests."""
+    d = tmp / "theora_golden"
+    d.mkdir()
+    for case, (_, _, _, want_rc) in THEORA_GOLDEN.items():
+        rc = cli.main([*theora_golden_argv(case, d), "--device", "cuda"])
+        got = [sha256_file(f) if f.exists() else None
+               for f in theora_golden_outputs(case, d)]
+        pinned = THEORA_GOLDEN_SHA256[case]
+        emit(phase="golden", path=f"theora_{case}", rc=rc, sha256=got,
+             pinned=pinned)
+        check(rc == want_rc and got == pinned,
+              f"theora {case}: exit code {rc} or outputs differ from the "
+              "JAX-pinned digests")
+
+
+def _theora_rates(torch, cli, directory) -> None:
+    """Phase 6 for the Theora paths on phase 4's files: each CLI, wall
+    clock to the last byte, ``THEORA_RUNS`` runs (phase 4 ran each CLI
+    on the same files, so the kernels and tables are warm), with
+    host clocks around its stages (ms a 16-frame batch: ogv's encoder on
+    the main thread and, inside it, the host's DC residuals, token coder
+    and the reconstruction's queueing, the Vorbis encoder and the
+    multiplexor on the writer thread; ogv_dec's host parse and token
+    decode on the reader thread, the reconstruction and crop on the main
+    one, the MPEG-2 and MP2 encoders), then once under torch.profiler:
+    the device's busy time a batch and the named kernels'."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tcforge_tpu_torch.io import theoracodec
+    from tcforge_tpu_torch.modules.encoders import audio_enc, mpeg2, \
+        theora_enc, vorbis_enc
+    from tcforge_tpu_torch.modules.importers import ogg_import
+    from tcforge_tpu_torch.modules.muxers import ogg_mux, ps_mux
+    from tcforge_tpu_torch.pipeline import chain as chain_mod
+    d = Path(directory)
+    enc = theoracodec.TheoraDeviceEncoder
+    stages = {
+        "ogv": [(theora_enc.TheoraEncoder, "encode_video", "theora_encoder"),
+                (enc, "_finish", "host_tokens_and_recon_queue"),
+                (theoracodec, "write_tokens", "host_token_coder"),
+                (vorbis_enc.VorbisAudioEncoder, "encode_audio",
+                 "vorbis_encoder"),
+                (vorbis_enc.VorbisAudioEncoder, "flush", "vorbis_encoder"),
+                (ogg_mux.OggMuxer, "write_video", "mux"),
+                (ogg_mux.OggMuxer, "write_audio", "mux")],
+        "ogv_dec": [(ogg_import.OggImporter, "plan_batch", "host_parse"),
+                    (ogg_import.OggImporter, "execute", "recon_and_crop"),
+                    (mpeg2.Mpeg2VideoEncoder, "encode_video",
+                     "mpeg2_encoder"),
+                    (audio_enc.Mp2Encoder, "encode_audio", "mp2_encoder"),
+                    (ps_mux.MpegPsMuxer, "write_video", "mux")]}
+    names = {"ogv": ("theora_", "zoom_", "scan_"),
+             "ogv_dec": ("theora_", "scan_", "mpeg2_")}
+    batches = THEORA_FRAMES / MAIN_BATCH
+    for name, out in (("ogv", "ogv_rate.ogv"), ("ogv_dec", "ogv_dec_rate.mpg")):
+        argv = [*theora_argv(name, d, d / out), "--device", "cuda"]
+        clock = _StageClock()
+        for owner, attr, label in stages[name]:
+            clock.wrap(owner, attr, label)
+        clock.wrap(chain_mod.VideoChain, "__call__", "chain_call")
+        fps = []
+        try:
+            for _ in range(THEORA_RUNS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rc = cli.main(argv)
+                torch.cuda.synchronize()
+                check(rc == 0, f"{name} CLI: exit code {rc}")
+                fps.append(THEORA_FRAMES / (time.perf_counter() - t0))
+        finally:
+            clock.restore()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            rc = cli.main(argv)
+            torch.cuda.synchronize()
+        check(rc == 0, f"{name} under the profiler: exit code {rc}")
+        busy = _device_busy(prof, batches, names[name])
+        per_run = batches * THEORA_RUNS
+        emit(phase="cli", path=name, frames=THEORA_FRAMES, fps=fps,
              median_fps=float(np.median(fps)), min_fps=min(fps),
              max_fps=max(fps),
              host_wall_ms_per_batch={k: 1e3 * v / per_run

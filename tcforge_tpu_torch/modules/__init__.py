@@ -3,7 +3,7 @@ built-in filters, the WAV, MP3, AC-3, FLAC, AAC, AU, VAG, null, MPEG,
 AVI, MOV, Ogg, DV, NuppelVideo and framegen importers, the WAV, Y4M,
 AVI, raw, null, mpg, mov, ogg, dv and nuv multiplexors and the raw,
 null, copy, yuv4mpeg, mpeg2, lzo, xvid, movjpeg, lame, mp2enc, ac3enc,
-faac, flac, vorbis, dv and nuvrtj encoders, as importing
+faac, flac, vorbis, dv, nuvrtj and theora encoders, as importing
 ``tcforge_tpu.modules`` does."""
 
 from tcforge_tpu_torch.modules.encoders import audio_enc  # noqa: F401
@@ -13,6 +13,7 @@ from tcforge_tpu_torch.modules.encoders import image_enc  # noqa: F401
 from tcforge_tpu_torch.modules.encoders import lzo_enc  # noqa: F401
 from tcforge_tpu_torch.modules.encoders import movjpeg  # noqa: F401
 from tcforge_tpu_torch.modules.encoders import mpeg2  # noqa: F401
+from tcforge_tpu_torch.modules.encoders import theora_enc  # noqa: F401
 from tcforge_tpu_torch.modules.encoders import vorbis_enc  # noqa: F401
 from tcforge_tpu_torch.modules.encoders import xvid  # noqa: F401
 from tcforge_tpu_torch.modules.importers import audio_import  # noqa: F401

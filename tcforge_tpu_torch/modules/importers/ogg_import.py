@@ -7,9 +7,20 @@ YV12) as host planes, OGM PCM audio, and Vorbis audio, decoded whole at
 int16 as the JAX module rounds it.  Other OGM raw fourccs raise the JAX
 module's ``NotImplementedError``; an Ogg with no stream it reads raises
 its message too.  A DivX or Xvid OGM video stream is not decoded, as in
-the JAX module: such a file plays as its audio alone.  Theora video (the
-JAX module's ``io/theora.py``) is refused by name, except where the file
-serves as ``-p`` (``video_wanted`` False), which takes its audio alone.
+the JAX module: such a file plays as its audio alone.
+
+Theora video decodes as the JAX module's in-tree route does
+(``io/theora.py``, taken without its FFmpeg bridge or with
+``TCFORGE_NATIVE_THEORA=1``), through the plan/execute protocol: the
+reader thread parses each data packet and decodes its tokens on the host
+(``io/theoracodec.py``), the main thread reconstructs the frames in turn
+on the device (``theora_recon`` and ``theora_loop_filter``), crops each
+to the picture and then, as the JAX module does, to the stream's width
+and height with 4:2:0 chroma (``u[:h // 2, :w // 2]``, also for a 4:2:2
+or 4:4:4 stream, which keeps the top-left part of its chroma).  A
+zero-length packet repeats the frame shown before it, also one that went
+out in the batch before; a stray header packet shows nothing.  Where the
+file serves as ``-p`` (``video_wanted`` False) its video is not decoded.
 
 ``demux_audio`` False (set before ``open``) skips the audio of a file
 with video, as the MPEG and AVI importers skip theirs: the session takes
@@ -18,19 +29,35 @@ no audio from it, and the Vorbis decode costs seconds a second of audio.
 
 from __future__ import annotations
 
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from tcforge_tpu_torch.core.codecs import Codec, ContainerFormat
 from tcforge_tpu_torch.core.optstr import ModuleDesc
 from tcforge_tpu_torch.io.ogg import (identify_streams, iter_pages,
                                       ogm_parse_data_packet,
                                       pages_to_packets)
+from tcforge_tpu_torch.modules.importers import start_on_the_card
+from tcforge_tpu_torch.modules.importers.dv_import import pick_frames
 from tcforge_tpu_torch.modules.registry import (Importer, ModuleInfo,
                                                 ModuleKind, register)
 
 _RAW_FOURCC = {"I420", "YV12", "UYVY", "YUY2", "RGB ", "DIB "}
+
+
+@dataclass
+class TheoraPlan:
+    """A batch of the Theora decode: each decoded packet's records and
+    handle, the handles shown (a repeat shows its frame's again) and the
+    one kept for a repeat in a later batch."""
+
+    records: list
+    decoded: List[int]
+    frames: List[int] = field(default_factory=list)
+    live: List[int] = field(default_factory=list)
 
 
 @register
@@ -63,12 +90,11 @@ class OggImporter(Importer):
                 "decoder in this build; use tcdemux to extract "
                 "streams, or transcode the decoded output of an "
                 "external decoder")
-        if v_theora and self.video_wanted:
-            raise NotImplementedError(
-                "ogg: Theora video (the JAX package's io/theora.py "
-                "decoder) is not ported to the torch port yet")
         self._vpayloads: List[bytes] = []
+        self._theora = None
         self._apcm = b""
+        if v_theora and self.video_wanted:
+            self._open_theora(path, video)
         if v_ok:
             if video.codec not in ("I420", "YV12"):
                 raise NotImplementedError(
@@ -122,7 +148,87 @@ class OggImporter(Importer):
         self._apos = 0
         self.total_frames = len(self._vpayloads) or None
 
+    def _open_theora(self, path: str, video) -> None:
+        from tcforge_tpu_torch.io.theoracodec import TheoraDeviceDecoder
+        hdrs: List[bytes] = []
+        with open(path, "rb") as f:
+            for _, pkt in pages_to_packets(iter_pages(f),
+                                           serial=video.serial):
+                if len(hdrs) < 3:
+                    hdrs.append(pkt)
+                else:
+                    # zero-length packets repeat the frame before them
+                    self._vpayloads.append(pkt)
+        self._theora = True
+        self.planned = True
+        self._device: Optional[torch.device] = None
+        # the headers parsed (and their Huffman tables checked) at open
+        self._dec = TheoraDeviceDecoder(hdrs, "cpu")
+        self._handles = 0
+        self._shown: Optional[int] = None
+        self._kept: Dict[int, Dict[str, torch.Tensor]] = {}
+        self.width, self.height = video.width, video.height
+        self.fps = video.fps or 25.0
+
+    def start(self, device: torch.device, buffers: int = 1) -> None:
+        """Decode Theora onto ``device``."""
+        self._device = torch.device(device)
+        self._dec.device = self._device
+
+    def plan_batch(self, n: int, alive=None) -> Optional[TheoraPlan]:
+        """The next ``n`` packets parsed on the host; None when none is
+        left or none of them shows a frame (the JAX module's batch of no
+        frame ends the stream)."""
+        if self._device is None:
+            raise RuntimeError("OggImporter.start() was not called")
+        if self._vpos >= len(self._vpayloads):
+            return None
+        take = self._vpayloads[self._vpos:self._vpos + n]
+        self._vpos += len(take)
+        plan = TheoraPlan([], [])
+        for pkt in take:
+            if not pkt:
+                if self._shown is not None:
+                    plan.frames.append(self._shown)
+                continue
+            rec = self._dec.parse(pkt)
+            if rec is None:
+                continue
+            self._handles += 1
+            plan.records.append(rec)
+            plan.decoded.append(self._handles)
+            plan.frames.append(self._handles)
+            self._shown = self._handles
+        if not plan.frames:
+            return None
+        plan.live = [self._shown]
+        return plan
+
+    def execute(self, plan: TheoraPlan, copy_stream=None
+                ) -> Optional[Dict[str, torch.Tensor]]:
+        """The device half: the frames reconstructed in turn, cropped."""
+        w, h = self.width, self.height
+        got = []
+        for rec in plan.records:
+            self._dec.reconstruct(rec)
+            y, u, v = self._dec.crop()
+            got.append((y[:h, :w], u[:h // 2, :w // 2], v[:h // 2, :w // 2]))
+        made = {k: torch.stack([g[i] for g in got]) for i, k in
+                enumerate("yuv")} if got else {}
+        return pick_frames(plan.decoded, plan.frames, plan.live, made,
+                           self._kept)
+
+    def release(self, plan) -> None:
+        pass
+
+    def seek(self, frame: int) -> bool:
+        return False
+
     def read_video_batch(self, n: int) -> Optional[Dict[str, np.ndarray]]:
+        if self._theora:
+            start_on_the_card(self)
+            plan = self.plan_batch(n)
+            return None if plan is None else self.execute(plan)
         if self._vpos >= len(self._vpayloads):
             return None
         take = self._vpayloads[self._vpos:self._vpos + n]

@@ -12,11 +12,16 @@ sample count (``vorbis_total_samples``, set by the encoder's flush) as
 its granule.  The audio stream exists only where the session's audio
 comes here (no ``-m``), as in the JAX module.
 
+Where the ``theora`` encoder left its three header packets in
+``job.extradata["theora_headers"]``, the video stream is a native Theora
+logical stream instead: the identification packet on the BOS page, the
+comment and setup packets after every BOS page, then one packet a page
+with the granule ``(key frame number << kfgshift) | frames since it``
+(frame numbers from 1, Theora I A.1), the key frame told by the packet's
+first byte and ``kfgshift`` read from the identification packet.
+
 ``stream=`` (the JAX module's shout tee) sends every page over the
-network; the port refuses it by name.  The JAX module's native Theora
-logical stream reads ``theora_headers`` from ``job.extradata``, which
-only the ``theora`` encoder sets; the port has no such encoder, so that
-branch is not ported.
+network; the port refuses it by name.
 """
 
 from __future__ import annotations
@@ -63,6 +68,21 @@ class OggMuxer(Muxer):
         self._samples = 0
         w = job.ex_v_width or job.im_v_width
         h = job.ex_v_height or job.im_v_height
+        # the native Theora logical stream where the theora encoder left
+        # its header packets
+        self._theora = None
+        self._kfgshift = 6
+        self._vkey_base = 0            # frame number of the last key
+        if "theora_headers" in job.extradata:
+            pkts = unpack_header_packets(job.extradata["theora_headers"])
+            self._theora = pkts if len(pkts) == 3 else None
+        if self._theora:
+            ident = self._theora[0]
+            # KFGSHIFT: 5 bits of the QUAL/KFGSHIFT/PF word at bytes 40-41
+            # of the identification packet (Theora I 6.2)
+            if len(ident) >= 42:
+                word = (ident[40] << 8) | ident[41]
+                self._kfgshift = (word >> 5) & 0x1F
         if w and h:
             self._vw = OggPageWriter(self._f, self.V_SERIAL)
         # audio where the session carries a track
@@ -79,9 +99,12 @@ class OggMuxer(Muxer):
             self._aw = OggPageWriter(self._f, self.A_SERIAL)
         # every BOS page first, then each stream's other header pages
         if self._vw:
-            hdr = ogm_video_header(self.options["fourcc"], w, h,
-                                   job.fps or 25.0)
-            self._vw.write_packet(hdr, 0, flush=True)
+            if self._theora:
+                self._vw.write_packet(self._theora[0], 0, flush=True)
+            else:
+                hdr = ogm_video_header(self.options["fourcc"], w, h,
+                                       job.fps or 25.0)
+                self._vw.write_packet(hdr, 0, flush=True)
         if self._aw:
             if self._vorbis:
                 self._aw.write_packet(self._vorbis[0], 0, flush=True)
@@ -91,7 +114,10 @@ class OggMuxer(Muxer):
                 hdr = ogm_audio_header(rate, job.dm_chan, job.dm_bits,
                                        self._block)
                 self._aw.write_packet(hdr, 0, flush=True)
-        if self._vw:
+        if self._vw and self._theora:
+            self._vw.write_packet(self._theora[1], 0, flush=False)
+            self._vw.write_packet(self._theora[2], 0, flush=True)
+        elif self._vw:
             # an OGM stream carries two header packets (BOS and comment)
             self._vw.write_packet(ogm_comment_header(), 0, flush=True)
         if self._aw and self._vorbis:
@@ -101,6 +127,17 @@ class OggMuxer(Muxer):
             self._aw.write_packet(ogm_comment_header(), 0, flush=True)
 
     def write_video(self, payload: bytes, keyframe: bool = True) -> int:
+        if self._theora:
+            # an inter frame has bit 0x40 of its first byte set (Theora I
+            # 7.1); a zero-length packet repeats the frame before it
+            i = self._frames
+            if payload and not (payload[0] & 0x40):
+                self._vkey_base = i + 1
+            self._frames += 1
+            granule = (self._vkey_base << self._kfgshift) \
+                | (i + 1 - self._vkey_base)
+            self._vw.write_packet(payload, granule, flush=True)
+            return len(payload)
         self._frames += 1
         pkt = ogm_data_packet(payload, 1, keyframe)
         self._vw.write_packet(pkt, self._frames, flush=True)

@@ -130,6 +130,21 @@ wrapper                    CUDA source                 replaces (tcforge_tpu)
                                                        ``fdct_blocks`` and
                                                        ``quant_blocks``
                                                        (numpy)
+``theora_recon``           ``csrc/theora.cu``          io/theora.py
+                                                       ``_reconstruct``
+                                                       (numpy, no device
+                                                       form)
+``theora_loop_filter``     ``csrc/theora.cu``          io/theora.py
+                                                       ``_loop_filter``
+                                                       (numpy)
+``theora_fdct_quant``      ``csrc/theora.cu``          io/theoraenc.py
+                                                       ``_fdct_blocks`` and
+                                                       ``_quantize_blocks``
+                                                       (numpy)
+``theora_me``              ``csrc/theora.cu``          io/theoraenc.py
+                                                       ``_choose_modes``
+                                                       with ``_search_mv``
+                                                       (numpy loops)
 =========================  ==========================  =====================
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
@@ -186,7 +201,11 @@ launches: Dict[str, int] = {"hqdn3d_spatial_scan": 0,
                             "dv_idct": 0,
                             "dv_fdct_cost": 0,
                             "rtjpeg_idct": 0,
-                            "rtjpeg_fdct_quant": 0}
+                            "rtjpeg_fdct_quant": 0,
+                            "theora_recon": 0,
+                            "theora_loop_filter": 0,
+                            "theora_fdct_quant": 0,
+                            "theora_me": 0}
 
 
 def reset_launches() -> None:
@@ -271,6 +290,12 @@ _SIGNATURES = {
     "rtjpeg": {
         "tc_rtjpeg_idct": (_P, _P),
         "tc_rtjpeg_fdct_quant": (_P, _P),
+    },
+    "theora": {
+        "tc_theora_recon": (_P, _P),
+        "tc_theora_loop_filter": (_P, _P),
+        "tc_theora_fdct_quant": (_P, _P),
+        "tc_theora_me": (_P, _P),
     },
     "mpeg4_encode": {
         "tc_mpeg4_enc_me": (_P, _P, _P),
@@ -2271,3 +2296,214 @@ def rtjpeg_idct(coef: torch.Tensor, width: int, height: int):
     _call("rtjpeg", "tc_rtjpeg_idct", ptr, _stream(coef))
     launches["rtjpeg_idct"] += 1
     return y, u, v
+
+
+# --------------------------------------------------------------------- #
+# Kernel XI: Theora both ways (the ogg importer's Theora decode and the
+# theora encoder) on the card (not TPU kernels: the JAX package's Theora
+# is numpy); csrc/theora.cu, the plain versions in io/theoracodec.py
+
+
+def _theora_planes(planes, fmt: int, fw: int, fh: int, what: str) -> None:
+    from tcforge_tpu_torch.io import theoracodec
+    dims = theoracodec.plane_dims(fmt, fw, fh)
+    if len(planes) != 3:
+        raise ValueError(f"{what}: expected three planes")
+    for t, hw in zip(planes, dims):
+        _check(t, what, (torch.uint8,), 2)
+        if tuple(t.shape) != hw:
+            raise ValueError(f"{what}: plane {tuple(t.shape)}, expected {hw}")
+
+
+def _theora_blocks(fmt: int, fw: int, fh: int) -> int:
+    from tcforge_tpu_torch.io import theoracodec
+    if fw <= 0 or fh <= 0 or fw % 16 or fh % 16:
+        raise ValueError(f"theora: frame {fw}x{fh} is not whole macroblocks")
+    return sum((h // 8) * (w // 8)
+               for h, w in theoracodec.plane_dims(fmt, fw, fh))
+
+
+def theora_recon_ref(coefs, coded, qiidx, mbrec, qmats, last, golden,
+                     fmt: int, fw: int, fh: int):
+    """Plain version of ``theora_recon`` (io/theoracodec.py
+    ``recon_ref``)."""
+    from tcforge_tpu_torch.io import theoracodec
+    return theoracodec.recon_ref(coefs, coded, qiidx, mbrec, qmats, last,
+                                 golden, fmt, fw, fh)
+
+
+def theora_recon(coefs: torch.Tensor, coded: torch.Tensor,
+                 qiidx: torch.Tensor, mbrec: torch.Tensor,
+                 qmats: torch.Tensor, last, golden, fmt: int, fw: int,
+                 fh: int):
+    """A Theora frame's planes before the loop filter (``_reconstruct``):
+    int32 (n, 64) zigzag coefficients with predicted DCs, uint8 (n,)
+    coded flags and qi indexes (blocks by id: planes in turn, raster
+    order), int32 (mbs, 9) macroblock records (io/theoracodec.py), int32
+    (2, 3, 3, 64) raster quantizer matrices [qti][plane][qi index];
+    ``last`` and ``golden`` the three uint8 reference planes of an inter
+    frame, None for an intra frame.  Each coded block dequantized (its DC
+    at the first qi), the spec's integer IDCT with numpy's int32
+    wrapping, plus 128 (intra) or the half-pel prediction from ``last``
+    or ``golden``, clipped; an uncoded block copies ``last``.  Returns
+    three uint8 planes of format ``fmt`` (0 4:2:0, 2 4:2:2, 3 4:4:4) of a
+    ``fw`` x ``fh`` frame."""
+    nb = _theora_blocks(fmt, fw, fh)
+    _check(coefs, "coefs", (torch.int32,), 2)
+    _check(coded, "coded", (torch.uint8,), 1)
+    _check(qiidx, "qiidx", (torch.uint8,), 1)
+    _check(mbrec, "mbrec", (torch.int32,), 2)
+    _check(qmats, "qmats", (torch.int32,), 4)
+    if tuple(coefs.shape) != (nb, 64) or coded.shape[0] != nb \
+            or qiidx.shape[0] != nb:
+        raise ValueError(f"coefs {tuple(coefs.shape)}, coded "
+                         f"{tuple(coded.shape)}, qiidx {tuple(qiidx.shape)}:"
+                         f" expected {nb} blocks")
+    if tuple(mbrec.shape) != ((fw // 16) * (fh // 16), 9):
+        raise ValueError(f"mbrec: {tuple(mbrec.shape)}")
+    if tuple(qmats.shape) != (2, 3, 3, 64):
+        raise ValueError(f"qmats: {tuple(qmats.shape)}")
+    if (last is None) != (golden is None):
+        raise ValueError("last and golden: both or neither")
+    refs = ()
+    if last is not None:
+        _theora_planes(last, fmt, fw, fh, "last")
+        _theora_planes(golden, fmt, fw, fh, "golden")
+        refs = (*last, *golden)
+    if not _on_cuda(coefs, coded, qiidx, mbrec, qmats, *refs):
+        return theora_recon_ref(coefs, coded, qiidx, mbrec, qmats, last,
+                                golden, fmt, fw, fh)
+    from tcforge_tpu_torch.io import theoracodec
+    out = tuple(torch.empty(hw, dtype=torch.uint8, device=coefs.device)
+                for hw in theoracodec.plane_dims(fmt, fw, fh))
+    ref_ptrs = [t.data_ptr() for t in refs] if refs else [0] * 6
+    ptr, _keep = _meta([coefs.data_ptr(), coded.data_ptr(), qiidx.data_ptr(),
+                        mbrec.data_ptr(), qmats.data_ptr(), *ref_ptrs,
+                        *(t.data_ptr() for t in out), fmt, fw, fh])
+    _call("theora", "tc_theora_recon", ptr, _stream(coefs))
+    launches["theora_recon"] += 1
+    return out
+
+
+def theora_loop_filter_ref(planes, coded, lim: int, fmt: int, fw: int,
+                           fh: int):
+    """Plain version of ``theora_loop_filter`` (io/theoracodec.py
+    ``loop_filter_ref``)."""
+    from tcforge_tpu_torch.io import theoracodec
+    return theoracodec.loop_filter_ref(planes, coded, lim, fmt, fw, fh)
+
+
+def theora_loop_filter(planes, coded: torch.Tensor, lim: int, fmt: int,
+                       fw: int, fh: int):
+    """The spec's loop filter (``_loop_filter``) on the three uint8
+    planes of a ``fw`` x ``fh`` frame of format ``fmt`` with the uint8
+    (n,) coded flags and the limit ``lim`` (``lflims[qi0]``, > 0): in
+    raster block order, in place on a copy, each coded block's left and
+    top edges, then its right and bottom ones where that neighbour is
+    uncoded.  Returns the three filtered planes."""
+    nb = _theora_blocks(fmt, fw, fh)
+    _theora_planes(planes, fmt, fw, fh, "planes")
+    _check(coded, "coded", (torch.uint8,), 1)
+    if coded.shape[0] != nb:
+        raise ValueError(f"coded: {tuple(coded.shape)}, expected ({nb},)")
+    if not 0 < lim < 128:
+        raise ValueError(f"lim: {lim}, expected 1..127")
+    if not _on_cuda(*planes, coded):
+        return theora_loop_filter_ref(planes, coded, lim, fmt, fw, fh)
+    out = tuple(p.clone() for p in planes)
+    ptr, _keep = _meta([*(t.data_ptr() for t in out), coded.data_ptr(), lim,
+                        fmt, fw, fh])
+    _call("theora", "tc_theora_loop_filter", ptr, _stream(coded))
+    launches["theora_loop_filter"] += 1
+    return out
+
+
+def theora_fdct_quant_ref(resid, group, qmat):
+    """Plain version of ``theora_fdct_quant`` (io/theoracodec.py
+    ``fdct_quant_ref``)."""
+    from tcforge_tpu_torch.io import theoracodec
+    return theoracodec.fdct_quant_ref(resid, group, qmat)
+
+
+@lru_cache(maxsize=None)
+def _theora_basis(device: torch.device) -> torch.Tensor:
+    from tcforge_tpu_torch.io import theoracodec
+    return torch.from_numpy(theoracodec.basis()).to(device)
+
+
+def theora_fdct_quant(resid: torch.Tensor, group: torch.Tensor,
+                      qmat: torch.Tensor) -> torch.Tensor:
+    """The Theora encoder's quantized blocks (``_quantize_blocks``): int16
+    (n, 64) raster residual blocks, uint8 (n,) group ``qti * 3 + plane``,
+    int32 (2, 3, 64) raster quantizer matrices; the float64 forward DCT
+    in numpy's einsum order without fused multiply-adds, divided by the
+    group's matrix, rounded half to even (intra) or with the inter dead
+    zone, clipped to +-580.  Returns int32 (n, 64) in zigzag order."""
+    _check(resid, "resid", (torch.int16,), 2)
+    _check(group, "group", (torch.uint8,), 1)
+    _check(qmat, "qmat", (torch.int32,), 3)
+    if resid.shape[1] != 64 or group.shape[0] != resid.shape[0]:
+        raise ValueError(f"resid {tuple(resid.shape)}, group "
+                         f"{tuple(group.shape)}")
+    if tuple(qmat.shape) != (2, 3, 64):
+        raise ValueError(f"qmat: {tuple(qmat.shape)}, expected (2, 3, 64)")
+    if not _on_cuda(resid, group, qmat):
+        return theora_fdct_quant_ref(resid, group, qmat)
+    n = resid.shape[0]
+    out = torch.empty((n, 64), dtype=torch.int32, device=resid.device)
+    if n == 0:
+        return out
+    basis = _theora_basis(resid.device)
+    ptr, _keep = _meta([resid.data_ptr(), group.data_ptr(), qmat.data_ptr(),
+                        basis.data_ptr(), out.data_ptr(), n])
+    _call("theora", "tc_theora_fdct_quant", ptr, _stream(resid))
+    launches["theora_fdct_quant"] += 1
+    return out
+
+
+def theora_me_ref(src, ref, order, lam: float, sse_floor: float):
+    """Plain version of ``theora_me`` (io/theoracodec.py ``me_ref``)."""
+    from tcforge_tpu_torch.io import theoracodec
+    return theoracodec.me_ref(src, ref, order, lam, sse_floor)
+
+
+def _f64_bits(x: float) -> int:
+    import struct
+    return struct.unpack("<q", struct.pack("<d", float(x)))[0]
+
+
+def theora_me(src: torch.Tensor, ref: torch.Tensor, order: torch.Tensor,
+              lam: float, sse_floor: float) -> torch.Tensor:
+    """The Theora encoder's macroblock decisions (``_choose_modes`` with
+    ``_search_mv``) on a coded luma plane ``src`` against the
+    reconstructed ``ref`` (uint8 (H, W), multiples of 16), the
+    macroblocks walked in int32 ``order`` (raster indexes in coded order):
+    every macroblock's SAD at every half-pel vector and its statistics in
+    parallel, then the walk with its LAST/LAST2 chain, the three-step
+    search and the half-pel refine, the float64 costs with ``lam`` and
+    the skip floor ``sse_floor``.  Returns int32 (mbs, 7): mode (-1 where
+    no luma block is coded), mvx, mvy, the four luma coded flags."""
+    _check(src, "src", (torch.uint8,), 2)
+    _check(ref, "ref", (torch.uint8,), 2)
+    _check(order, "order", (torch.int32,), 1)
+    h, w = src.shape
+    if h % 16 or w % 16 or tuple(ref.shape) != (h, w):
+        raise ValueError(f"src {tuple(src.shape)}, ref {tuple(ref.shape)}")
+    nmb = (h // 16) * (w // 16)
+    if order.shape[0] != nmb:
+        raise ValueError(f"order: {tuple(order.shape)}, expected ({nmb},)")
+    if not _on_cuda(src, ref, order):
+        return theora_me_ref(src, ref, order, lam, sse_floor)
+    from tcforge_tpu_torch.io import theoracodec
+    dev = src.device
+    table = torch.empty((nmb, theoracodec.MV_SPAN ** 2), dtype=torch.int32,
+                        device=dev)
+    stats = torch.empty((nmb, 5), dtype=torch.int32, device=dev)
+    out = torch.empty((nmb, theoracodec.ME_COLS), dtype=torch.int32,
+                      device=dev)
+    ptr, _keep = _meta([src.data_ptr(), ref.data_ptr(), order.data_ptr(),
+                        table.data_ptr(), stats.data_ptr(), out.data_ptr(),
+                        h, w, _f64_bits(lam), _f64_bits(sse_floor)])
+    _call("theora", "tc_theora_me", ptr, _stream(src))
+    launches["theora_me"] += 1
+    return out

@@ -199,7 +199,7 @@ def test_the_new_modules_match_the_jax_registry(name):
                 for p in ref.desc.params])
 
 
-@pytest.mark.parametrize("name", ["theora", "x264", "lavc"])
+@pytest.mark.parametrize("name", ["x264", "lavc"])
 def test_the_encoders_the_port_lacks_are_refused_by_name(name, tmp_path,
                                                          capsys):
     src, wav = chip_smoke.write_author_inputs(tmp_path, 64, 48, 3)

@@ -145,7 +145,7 @@ def test_33_jax_registry_entries_have_no_port_entry():
     jax = {(k.value, n) for k, t in jreg._REGISTRIES.items() for n in t}
     port = {(k.value, n) for k, t in treg._REGISTRIES.items() for n in t}
     missing = jax - port
-    assert len(missing) == 33
+    assert len(missing) == 32
     assert not {("demultiplexor", "dv"), ("encoder", "dv"),
                 ("multiplexor", "dv"), ("demultiplexor", "nuv"),
                 ("multiplexor", "nuv"), ("encoder", "nuvrtj")} & missing

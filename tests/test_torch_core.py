@@ -115,7 +115,12 @@ RANGE_COPIES = {"io/mpeg4dec.py": ("io/mpeg4dec.py",
                 "io/mov.py": ("io/mov.py", ((1, 339), (344, 404), (423, 546))),
                 "io/dvdec.py": ("io/dvdec.py", ((41, 479), (575, 634))),
                 "io/dvenc.py": ("io/dvenc.py", ((27, 130), (240, 383),
-                                                (469, 480), (548, 597)))}
+                                                (469, 480), (548, 597))),
+                "io/theora.py": ("io/theora.py", ((27, 578), (584, 586),
+                                                  (642, 649), (680, 856))),
+                "io/theoraenc.py": ("io/theoraenc.py",
+                                    ((29, 281), (287, 289), (315, 410),
+                                     (950, 1034)))}
 
 
 def _rewrite(src: str) -> str:

@@ -246,7 +246,7 @@ def jax_choice(names: str):
     "mpeg2video", "mpeg2video,mp2", "mjpeg", "mpeg4video", "mpeg1video",
     "mpeg2", "mpeg2video,mp3", "mpeg2video,ac3", "mpeg2video,pcm",
     "yuv420p", "mpeg2video,vorbis", "mpeg2video,aac", "dvvideo",
-    "rtjpeg"])
+    "rtjpeg", "theora", "mpeg2video,theora"])
 def test_minus_n_selects_encoders_as_the_jax_cli(names):
     v, a = jax_choice(names)
     job = port_job(["-N", names])
@@ -256,8 +256,7 @@ def test_minus_n_selects_encoders_as_the_jax_cli(names):
 
 
 @pytest.mark.parametrize("names,module", [
-    ("h264", "x264"), ("theora", "theora"), ("mpeg2video,h264", "x264"),
-    ("mpeg2video,theora", "theora")])
+    ("h264", "x264"), ("mpeg2video,h264", "x264")])
 def test_minus_n_refuses_what_the_port_lacks_by_name(names, module):
     for name in names.split(","):
         if name != "mpeg2video":

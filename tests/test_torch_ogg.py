@@ -605,10 +605,28 @@ def test_what_the_ogg_importer_refuses_is_the_jax_modules(kind, match,
             imp.open(str(path))
 
 
-def test_theora_video_is_refused_by_name_and_its_audio_serves_p(tmp_path):
-    """The port has no Theora decoder: a Theora stream as -i is refused
-    by name; as -p (``video_wanted`` False) the file's audio serves."""
-    from tcforge_tpu.io.ogg import OggPageWriter
+def test_theora_video_is_refused_by_name_and_its_audio_serves_p(
+        tmp_path, monkeypatch):
+    """Theora video decodes now (the JAX module's in-tree route, its
+    Python token path): a fixture's batches equal the JAX importer's.  As
+    -p (``video_wanted`` False) a file's Theora stream is not decoded and
+    its audio serves, even beside a Theora stream with no setup header,
+    which as -i raises the JAX decoder's message."""
+    from tcforge_tpu.io.ogg import (OggPageWriter, ogm_audio_header,
+                                    ogm_data_packet)
+    monkeypatch.setenv("TCFORGE_NATIVE_THEORA", "1")
+    monkeypatch.setenv("TCFORGE_NATIVE_THEORA_TOKENS", "0")
+    fixture = Path(__file__).resolve().parent / "data" / "theora" / \
+        "yuv420.ogv"
+    imp = registry.new_module(K.DEMULTIPLEXOR, "ogg", Job())
+    imp.open(str(fixture))
+    imp.start(torch.device("cpu"))
+    ref = jregistry.new_module(JK.DEMULTIPLEXOR, "ogg", JJob())
+    ref.open(str(fixture))
+    for n in (3, 5):
+        got, want = imp.read_video_batch(n), ref.read_video_batch(n)
+        for k in "yuv":
+            np.testing.assert_array_equal(got[k].numpy(), want[k])
     path = tmp_path / "t.ogg"
     ident = bytearray(42)
     ident[0:7] = b"\x80theora"
@@ -616,11 +634,24 @@ def test_theora_video_is_refused_by_name_and_its_audio_serves_p(tmp_path):
     ident[10:14] = struct.pack(">HH", 2, 1)
     ident[14:20] = (32).to_bytes(3, "big") + (16).to_bytes(3, "big")
     ident[22:30] = struct.pack(">II", 25, 1)
+    pcm = (np.arange(800, dtype=np.int16) * 37).tobytes()
     with open(path, "wb") as f:
-        OggPageWriter(f, 7).write_packet(bytes(ident), 0, flush=True)
+        video, audio = OggPageWriter(f, 7), OggPageWriter(f, 8)
+        video.write_packet(bytes(ident), 0, flush=True)
+        audio.write_packet(ogm_audio_header(8000, 2, 16, 4), 0, flush=True)
+        audio.write_packet(ogm_data_packet(pcm, len(pcm) // 4, True),
+                           len(pcm) // 4, flush=True)
+        video.close()
+        audio.close()
     imp = registry.new_module(K.DEMULTIPLEXOR, "ogg", Job())
-    with pytest.raises(NotImplementedError, match="Theora video"):
+    with pytest.raises(ValueError, match="3 header packets"):
         imp.open(str(path))
+    imp = registry.new_module(K.DEMULTIPLEXOR, "ogg", Job())
+    imp.video_wanted = False
+    imp.open(str(path))
+    assert not imp.width and imp.audio_rate == 8000
+    np.testing.assert_array_equal(imp.read_audio_batch(400).reshape(-1),
+                                  np.frombuffer(pcm, np.int16))
 
 
 # ------------------------------------------------------------------ #
